@@ -1,0 +1,109 @@
+"""Runtime flag registry.
+
+The port's own copy of ``paddle_tpu.core.flags``: flags are declared
+with a type + default, overridable from the environment as
+``FLAGS_<name>`` and at runtime via :func:`set_flags`. It keeps the
+JAX package's flag names and defaults, so one environment configures
+both packages, and it defines only the flags this package reads. There
+is no native mirror of the registry.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
+
+__all__ = ["define_flag", "flag_value", "get_flags", "set_flags"]
+
+_BOOL_TRUE = {"1", "true", "yes", "on"}
+
+
+def _parse_bool(s: str) -> bool:
+    return s.strip().lower() in _BOOL_TRUE
+
+
+@dataclass
+class _FlagInfo:
+    name: str
+    default: Any
+    parser: Callable[[str], Any]
+    help: str
+    value: Any = None
+
+
+_registry: Dict[str, _FlagInfo] = {}
+
+
+def define_flag(name: str, default: Any, help: str = "") -> None:
+    if isinstance(default, bool):
+        parser: Callable[[str], Any] = _parse_bool
+    elif isinstance(default, int):
+        parser = int
+    elif isinstance(default, float):
+        parser = float
+    else:
+        parser = str
+    info = _FlagInfo(name, default, parser, help, default)
+    env = os.environ.get(f"FLAGS_{name}")
+    if env is not None:
+        info.value = parser(env)
+    _registry[name] = info
+
+
+def _key(flag: str) -> str:
+    key = flag[len("FLAGS_"):] if flag.startswith("FLAGS_") else flag
+    if key not in _registry:
+        raise ValueError(f"Unknown flag {flag}")
+    return key
+
+
+def get_flags(flags):
+    """get_flags('FLAGS_x') or get_flags(['FLAGS_x', ...]) -> dict"""
+    if isinstance(flags, str):
+        flags = [flags]
+    return {f: _registry[_key(f)].value for f in flags}
+
+
+def set_flags(flags: Dict[str, Any]) -> None:
+    for f, v in flags.items():
+        info = _registry[_key(f)]
+        info.value = info.parser(v) if isinstance(v, str) else v
+
+
+def flag_value(name: str):
+    return _registry[name].value
+
+
+define_flag("serving_block_size", 16,
+            "Tokens per KV block in the paged serving cache "
+            "(serving.PagedLlamaDecodeEngine): the block pool is "
+            "[num_blocks, block_size, KVH, D] per layer")
+define_flag("serving_num_blocks", 0,
+            "KV blocks in the paged serving pool, shared by all slots. "
+            "0 (default) = auto-size to dense capacity parity "
+            "(max_slots x ceil(max_seq/block_size))")
+define_flag("serving_prefill_chunk", 64,
+            "Max prompt tokens a single paged prefill call processes: "
+            "the GenerationServer loop interleaves one chunk with each "
+            "decode step")
+define_flag("serving_prefix_cache", True,
+            "Content-addressed prefix sharing in the paged KV cache "
+            "(radix tree over committed prompt blocks); 0 = private "
+            "blocks only")
+define_flag("serving_prefix_cache_blocks", 0,
+            "Upper bound on KV blocks the prefix radix tree may hold; "
+            "0 (default) = unbounded within the pool")
+define_flag("serving_shed_queue", 0,
+            "Load-shedding queue bound for the paged GenerationServer: "
+            "with no available KV blocks AND more than this many "
+            "requests deferred, submit() rejects (reason=shed). "
+            "0 (default) disables shedding")
+define_flag("serving_admission_policy", "static",
+            "Admission policy a GenerationServer builds when none is "
+            "passed. Only 'static' (the FLAGS_serving_shed_queue rule) "
+            "is ported")
+define_flag("paged_attention_kernel", True,
+            "Run the hand-written paged-attention kernel behind the "
+            "serving_cache.paged_attention seam for CUDA tensors. On a "
+            "CUDA engine 0 raises: the plain walk runs on the card only "
+            "when asked for by name (attention_impl='reference')")

@@ -1,0 +1,116 @@
+"""Tests of the port that need the card: the Hopper paged-attention
+kernel against its plain walk, and a tiny engine through the kernel
+against the same engine through the walk. Each skips (with its reason)
+where there is no CUDA device; the decision is made inside the
+fixture, never at import. This file imports no JAX, so on a machine
+without it run it as
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.ops.kernels import paged_attention as tpk
+from paddle_tpu_torch.serving import GenerationServer, PagedLlamaDecodeEngine
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, S, T, H, K, D, bs, MB, dtype, quant, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    NB = S * MB + 1
+    q = torch.randn((S, T, H, D), generator=g, device=dev).to(dtype)
+    kp = torch.randn((NB, bs, K, D), generator=g, device=dev)
+    vp = torch.randn((NB, bs, K, D), generator=g, device=dev)
+    tables = torch.randperm(NB, generator=g, device=dev)[:S * MB]
+    tables = tables.view(S, MB).to(torch.int32).contiguous()
+    tables[0, -1] = -1
+    last = torch.randint(T - 1, bs * (MB - 1), (S, 1), generator=g,
+                         device=dev)
+    pos = (last - T + 1 + torch.arange(T, device=dev)).to(torch.int32)
+    kw = dict(block_size=bs, n_rep=H // K)
+    if quant:
+        from paddle_tpu_torch.serving_cache import absmax_quantize
+        kq, ks = absmax_quantize(kp.view(-1, K, D))
+        vq, vs = absmax_quantize(vp.view(-1, K, D))
+        kp, vp = kq.view(NB, bs, K, D), vq.view(NB, bs, K, D)
+        kw.update(k_scale=ks.view(NB, bs, K), v_scale=vs.view(NB, bs, K))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    return (q, kp, vp, tables, pos), kw
+
+
+@pytest.mark.parametrize("dtype,quant,tol", [
+    (torch.float32, False, 1e-4), (torch.float32, True, 1e-4),
+    (torch.bfloat16, False, 2e-2), (torch.bfloat16, True, 2e-2)],
+    ids=["f32", "f32-int8", "bf16", "bf16-int8"])
+@pytest.mark.parametrize("geo", [(3, 1, 8, 2, 64, 16, 6),
+                                 (2, 7, 8, 8, 128, 8, 5),
+                                 (1, 40, 4, 1, 128, 32, 3)],
+                         ids=["decode-gqa", "verify-mha", "chunk-mqa"])
+def test_kernel_matches_the_walk(cuda, geo, dtype, quant, tol):
+    args, kw = _inputs(cuda, *geo, dtype=dtype, quant=quant, seed=1)
+    before = tpk.paged_attention_kernel.launches
+    got = tpk.paged_attention_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert tpk.paged_attention_kernel.launches == before + 1
+    want = tpk.paged_attention_reference(*args, **kw)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol + tol * want.float().abs()).all()), \
+        float(err.max())
+
+
+def test_kernel_raises_instead_of_falling_back(cuda):
+    """A CUDA call the kernel cannot take raises; nothing falls back to
+    the walk and nothing is counted."""
+    args, kw = _inputs(cuda, 2, 1, 4, 2, 64, 8, 2, torch.float32, False,
+                       seed=2)
+    before = tpk.paged_attention_kernel.launches
+    with pytest.raises(ValueError, match="q dtype"):
+        tpk.paged_attention_kernel(args[0].half(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpk.paged_attention_kernel(args[0], args[1], args[2],
+                                   args[3].t().contiguous().t(), args[4],
+                                   **kw)
+    assert tpk.paged_attention_kernel.launches == before
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_engine_through_the_kernel_matches_the_walk(cuda, kv_quant):
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                           num_key_value_heads=1,
+                           use_flash_attention=False)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    streams, logits = {}, {}
+    for impl in ("kernel", "reference"):
+        eng = PagedLlamaDecodeEngine(model, max_slots=2, max_seq=128,
+                                     block_size=16, prefill_chunk=16,
+                                     kv_quant=kv_quant,
+                                     attention_impl=impl)
+        before = tpk.paged_attention_kernel.launches
+        streams[impl] = eng.generate(list(range(1, 40)), 12)
+        launched = tpk.paged_attention_kernel.launches - before
+        # 3 prefill chunks + 11 decode steps, one launch per layer each
+        assert launched == (14 * cfg.num_hidden_layers
+                            if impl == "kernel" else 0)
+        eng.prefill(0, [5, 6, 7], budget=2)
+        logits[impl] = eng.last_logits.float()
+    assert streams["kernel"] == streams["reference"]
+    torch.testing.assert_close(logits["kernel"], logits["reference"],
+                               atol=1e-4, rtol=1e-4)
+    srv = GenerationServer(PagedLlamaDecodeEngine(
+        model, max_slots=2, max_seq=128, block_size=16, prefill_chunk=16,
+        kv_quant=kv_quant))
+    try:
+        assert srv.generate(list(range(1, 40)), 12, timeout=120) == \
+            streams["kernel"]
+    finally:
+        assert srv.shutdown(timeout=60)
