@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one card.
 
 Run from the root of a checkout on a machine with a Hopper card:
 
@@ -9,7 +9,8 @@ Phases, each printing one JSON line with its seconds:
 
 1. ``env``            card name and power limit, torch and CUDA versions;
 2. ``build``          compiles every kernel from ``paddle_tpu_torch``'s
-                      sources with nvcc (sm_90a), printing ptxas' report;
+                      sources with nvcc (sm_90a), one process per source,
+                      printing ptxas' report;
 3. ``kernel_parity``  the paged-attention kernel against its plain walk
                       on the card, over the serving geometries (decode,
                       GQA, prefill chunk, dense whole-prompt prefill,
@@ -20,7 +21,7 @@ Phases, each printing one JSON line with its seconds:
 4. ``kernel_time``    the kernel, the plain walk and PyTorch's
                       scaled_dot_product_attention (a yardstick only)
                       at the decode geometry, beside the memory bound;
-5. ``serve``          THE MAIN PATH: a Llama-2-7B-width bf16 model with
+5. ``serve``          THE SERVING PATH: a Llama-2-7B-width bf16 model with
                       random weights behind a PagedLlamaDecodeEngine and
                       a GenerationServer answers 12 requests; the kernel
                       launch count is reset just before and read just
@@ -30,7 +31,35 @@ Phases, each printing one JSON line with its seconds:
 6. ``serve_parity``   an engine built with attention_impl="reference"
                       over the same weights runs one prompt beside a
                       kernel engine: logits compared, greedy agreement
-                      printed.
+                      printed;
+7. ``flash_parity``   the flash-attention forward, dQ and dK/dV kernels
+                      against their plain versions on the card, bf16 and
+                      f32, at the training geometry (B 4, L 2048, H 32,
+                      D 128) causal and full, D 64 through the [BH, L, D]
+                      strides, a ragged L and L = 1: elementwise against
+                      the plain version in the working dtype (the same
+                      roundings), and in RMS against the plain version on
+                      f32 copies of the inputs; then the FlashAttention
+                      autograd function against autograd through the
+                      plain sdpa;
+8. ``flash_time``     the three kernels, the whole backward (with delta)
+                      and forward + backward at the training geometry
+                      and at D 64 in the [BH, L, D] layout (BERT-base
+                      heads), beside their plain versions, their bounds
+                      and PyTorch's scaled_dot_product_attention (a
+                      yardstick only);
+9. ``train``          THE TRAINING PATH: a Llama-2-7B-width bf16 model
+                      (4 layers, random weights) trains with AdamW
+                      through TrainStep on a batch of 4 x 2048 tokens:
+                      2 warm-up and 5 timed steps; the three flash
+                      launch counts are reset just before the timed steps
+                      and read just after, and must each equal layers x
+                      timed steps; losses finite and falling; then one
+                      step under torch.profiler;
+10. ``train_parity``  one step of the same widths at 2 layers through
+                      the kernels against the same step with
+                      use_flash_attention=False (autograd through the
+                      plain sdpa): loss and every gradient compared.
 
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -68,6 +97,28 @@ OUT_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 # compounds through the layers (|logits| reach ~2)
 LOGITS_ATOL = 0.1
 LOGITS_RTOL = 0.02
+# flash kernels vs their plain versions in the working dtype, which do
+# the same roundings (P and dS to the input dtype, f32 accumulation):
+# elementwise |err| <= tol * (1 + |ref|); in bf16 what is left is the
+# f32 summation order flipping a rounding by one bf16 ulp
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# ... and in RMS against the plain versions on f32 copies of the inputs
+# (no P/dS/output rounding): rms(err) <= r * rms(ref) + 1e-5; in bf16
+# the kernel's roundings of P (or dS) and of the output, each < 2^-9
+# relative, add up to about one rounding in RMS, and r = 2^-8 allows two
+FLASH_RMS = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+FLASH_RMS_ATOL = 1e-5
+# FlashAttention's autograd vs autograd through the plain sdpa, relative
+# RMS of out and each gradient: in bf16 the sdpa rounds the logits and
+# the PV product's output to bf16, where the kernels keep f32
+AUTOGRAD_RMS = {"float32": 1e-5, "bfloat16": 2e-2}
+# train_parity, bf16 at 2 layers: the loss and each parameter's gradient
+# (relative RMS) through the kernels vs through the plain sdpa; the
+# differences are the sdpa's bf16 roundings above, carried through the
+# layers into bf16 gradients
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_RMS = 5e-2
+TRAIN = dict(batch=4, seq=2048, layers=4, warmup=2, steps=5, lr=3e-4)
 
 
 def emit(obj) -> None:
@@ -532,6 +583,408 @@ def phase_serve_parity(state):
             "kernel_tokens": k_toks, "reference_tokens": r_toks}
 
 
+# ---------------------------------------------------------------------------
+# flash attention: parity and time
+# ---------------------------------------------------------------------------
+
+def flash_inputs(shape, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
+def flash_cases():
+    """(name, shape, causal): the training geometry causal and full, D 64
+    through the [BH, L, D] strides, a ragged L and L = 1."""
+    return [("train", (4, 2048, 32, 128), True),
+            ("train_full", (4, 2048, 32, 128), False),
+            ("bhld_d64", (48, 512, 64), False),
+            ("ragged_l1000", (2, 1000, 8, 128), True),
+            ("l1", (4, 1, 32, 128), True)]
+
+
+def plain_all(q, k, v, do, causal):
+    """out, lse, dq, dk, dv through the plain versions, the backward
+    parts on the forward's own lse and delta."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    out, lse = fa.flash_attention_fwd_reference(q, k, v, causal)
+    delta = fa.attention_delta(out, do)
+    return (out, lse,
+            fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                causal),
+            *fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                  causal))
+
+
+def phase_flash_parity(results):
+    import torch
+    from paddle_tpu_torch.nn.functional import sdpa_reference
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    names = ("out", "lse", "dq", "dk", "dv")
+    rows, failed = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        tol, rms_r = FLASH_TOL[dname], FLASH_RMS[dname]
+        for i, (case, shape, causal) in enumerate(flash_cases()):
+            q, k, v, do = flash_inputs(shape, dtype, seed=100 + i)
+            # the backward kernels run on the plain forward's lse and
+            # delta, so each kernel is held alone against its plain part
+            ref = plain_all(q, k, v, do, causal)
+            delta = fa.attention_delta(ref[0], do)
+            got = (*fa.flash_attention_fwd(q, k, v, causal),
+                   fa.flash_attention_bwd_dq(q, k, v, do, ref[1], delta,
+                                             causal),
+                   *fa.flash_attention_bwd_dkv(q, k, v, do, ref[1], delta,
+                                               causal))
+            torch.cuda.synchronize()
+            ref32 = plain_all(*(x.float() for x in (q, k, v, do)), causal)
+            row = {"case": case, "shape": list(shape), "causal": causal,
+                   "dtype": dname, "tol": tol, "rms_tol": rms_r}
+            ok = True
+            for n, g_, r, r32 in zip(names, got, ref, ref32):
+                g_, r = g_.float(), r.float()
+                err = (g_ - r).abs()
+                used = float((err / (tol * (1 + r.abs()))).max())
+                rms = float((g_ - r32).square().mean().sqrt())
+                rms_ref = float(r32.square().mean().sqrt())
+                used_rms = rms / (rms_r * rms_ref + FLASH_RMS_ATOL)
+                row[n] = {"max_abs_err": float(err.max()),
+                          "tol_used": used, "rms_err_f32": rms,
+                          "rms_ref": rms_ref, "rms_tol_used": used_rms}
+                ok &= used <= 1 and used_rms <= 1
+            row["ok"] = ok
+            rows.append(row)
+            if not ok:
+                failed.append(row)
+            if case == "train" and dtype == torch.bfloat16:
+                for kname, n in (("flash_attention_fwd", "out"),
+                                 ("flash_attention_bwd_dq", "dq"),
+                                 ("flash_attention_bwd_dkv", "dk")):
+                    errs = [row[m]["max_abs_err"] for m in
+                            (("out", "lse") if n == "out" else
+                             ("dq",) if n == "dq" else ("dk", "dv"))]
+                    results[kname]["max_abs_err"] = max(errs)
+            del q, k, v, do, ref, ref32, got
+            torch.cuda.empty_cache()
+    # the autograd function against autograd through the plain sdpa
+    auto = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        q, k, v, do = flash_inputs((2, 512, 8, 128), dtype, seed=7)
+        outs = []
+        for fn in (lambda a, b, c: fa.flash_attention(a, b, c, True),
+                   lambda a, b, c: sdpa_reference(a, b, c, causal=True)):
+            xs = [x.clone().requires_grad_() for x in (q, k, v)]
+            o = fn(*xs)
+            outs.append([o.detach().float()] + [
+                g_.float() for g_ in torch.autograd.grad(o, xs, do)])
+        row = {"dtype": dname, "shape": [2, 512, 8, 128],
+               "rms_tol": AUTOGRAD_RMS[dname]}
+        for n, a, b in zip(("out", "dq", "dk", "dv"), *outs):
+            rel = float((a - b).square().mean().sqrt()
+                        / b.square().mean().sqrt())
+            row[n] = rel
+            if rel > AUTOGRAD_RMS[dname]:
+                failed.append({"autograd": row})
+        auto.append(row)
+    for kname in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+        results[kname]["parity"] = "failed" if failed else "ok"
+    if failed:
+        emit({"phase": "flash_parity", "failed": failed})
+        raise AssertionError(f"{len(failed)} flash-attention checks "
+                             f"failed")
+    return {"cases": rows, "autograd": auto}
+
+
+def attention_work(B, L, H, D, causal, products, tensors, stats,
+                   elem_bytes):
+    """(flops, bytes) of ``products`` L x L x D matrix products over
+    the attended pairs (causal: L(L+1)/2 a head), reading or writing
+    ``tensors`` [B, L, H, D] tensors and ``stats`` f32 [B, H, L] arrays
+    (lse, delta) once each."""
+    pairs = L * (L + 1) // 2 if causal else L * L
+    flops = products * 2 * B * H * pairs * D
+    nbytes = (tensors * B * L * H * D * elem_bytes
+              + stats * B * H * L * 4)
+    return flops, nbytes
+
+
+def bound(flops, nbytes):
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def flash_timings(shape, causal):
+    """Kernel, plain and library times of the flash functions at one
+    geometry (bf16), beside their bounds. ``shape`` is [B, L, H, D] or
+    [BH, L, D]; the library (SDPA) gets the same values as [B, H, L, D]
+    (a [BH, L, D] input as [BH, 1, L, D])."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    q, k, v, do = flash_inputs(shape, torch.bfloat16, seed=1)
+    B, L, H, D = (shape[0], shape[1], 1, shape[2]) if len(shape) == 3 \
+        else shape
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    delta = fa.attention_delta(out, do)
+    lib_in = [(x[:, :, None] if x.dim() == 3 else x).transpose(1, 2)
+              .contiguous() for x in (q, k, v, do)]
+    qt, kt, vt, dot = lib_in
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        torch.autograd.grad(o, (qg, kg, vg), dot)
+
+    def fwd_bwd():
+        o, ls = fa.flash_attention_fwd(q, k, v, causal)
+        fa.flash_attention_bwd(q, k, v, o, ls, do, causal)
+
+    rows = {
+        # name: (kernel, plain, library, products, [B, L, H, D] tensors
+        # read or written, f32 [B, H, L] arrays read or written)
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, causal),
+            lambda: fa.flash_attention_fwd_reference(q, k, v, causal),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal),
+            2, 4, 1),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                              causal),
+            lambda: fa.flash_attention_bwd_dq_reference(q, k, v, do, lse,
+                                                        delta, causal),
+            None, 3, 5, 2),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               causal),
+            lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse,
+                                                         delta, causal),
+            None, 4, 6, 2),
+        "backward_with_delta": (
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal),
+            lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                     causal),
+            None, 5, 8, 1),
+        "forward_backward": (fwd_bwd, None, lib_fwd_bwd, 7, 8, 0),
+    }
+    table = {}
+    for name, (kern, plain, lib, products, tensors, stats) in rows.items():
+        flops, nbytes = attention_work(B, L, H, D, causal, products,
+                                       tensors, stats, 2)
+        b_ms, b_by = bound(flops, nbytes)
+        r = {"kernel_ms": time_ms(kern, samples=10, inner=5),
+             "plain_ms": time_ms(plain, samples=5, inner=1)
+             if plain else None,
+             "library_ms": time_ms(lib, samples=10, inner=5)
+             if lib else None,
+             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+             "bytes": nbytes}
+        r["share_of_bound"] = b_ms / r["kernel_ms"]
+        table[name] = r
+    return table
+
+
+def phase_flash_time(results):
+    train = flash_timings((4, 2048, 32, 128), True)
+    for name in results:
+        results[name].update({key: train[name][key] for key in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")})
+        results[name]["ms"] = train[name]["kernel_ms"]
+    return {"train": {"shape": [4, 2048, 32, 128], "layout": "B L H D",
+                      "causal": True, "dtype": "bfloat16", "times": train},
+            # the [BH, L, D] launchers' geometry (BERT-base heads: B 8 x
+            # H 12, L 512, D 64, bidirectional)
+            "bhld_d64": {"shape": [96, 512, 64], "layout": "BH L D",
+                         "causal": False, "dtype": "bfloat16",
+                         "times": flash_timings((96, 512, 64), False)},
+            "library": "torch.nn.functional.scaled_dot_product_attention "
+                       "on [B, H, L, D] inputs (forward; forward + "
+                       "backward through torch.autograd.grad)",
+            "bound_note": "products of the function: forward 2 (QK^T, PV), "
+                          "dQ 3, dK/dV 4, backward 5 (the two-kernel recipe "
+                          "does 7); causal pairs L(L+1)/2"}
+
+
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+def train_model(layers, flash=True):
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(num_hidden_layers=layers, dtype="bfloat16",
+                      max_position_embeddings=TRAIN["seq"],
+                      use_flash_attention=flash)
+    return LlamaForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+
+
+def train_ids(vocab):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(
+        0, vocab, (TRAIN["batch"], TRAIN["seq"]))).to("cuda")
+
+
+def profile_train_step(step, ids):
+    """Device time of one train step by kernel group (torch.profiler,
+    CUDA activity only) beside its wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(*ids)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
+    groups = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
+              "gemm": 0.0, "other": 0.0}
+    for key, us in by_kernel.items():
+        kl = key.lower()
+        if "flash_fwd" in kl:
+            groups["flash_fwd"] += us
+        elif "flash_bwd_dq" in kl:
+            groups["flash_dq"] += us
+        elif "flash_bwd_dkv" in kl:
+            groups["flash_dkv"] += us
+        elif any(tag in kl for tag in ("gemm", "cutlass", "nvjet", "sm90")):
+            groups["gemm"] += us
+        else:
+            groups["other"] += us
+    device_ms = sum(by_kernel.values()) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall_ms, "device_ms": device_ms or None,
+            "device_idle_share": (1 - device_ms / wall_ms)
+            if device_ms else None,
+            "groups_ms": {k: v / 1e3 for k, v in groups.items()},
+            "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
+
+
+def phase_train(results):
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    t0 = time.perf_counter()
+    model = train_model(TRAIN["layers"])
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=TRAIN["lr"],
+                parameters=model.named_parameters(), multi_precision=False)
+    step = TrainStep(model, LlamaPretrainingCriterion(), opt)
+    ids = train_ids(cfg.vocab_size)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(ids, ids) for _ in range(TRAIN["warmup"])]
+    torch.cuda.synchronize()
+    for kern in kernels:
+        kern.launches = 0                  # the counts start here
+    t0 = time.perf_counter()
+    for _ in range(TRAIN["steps"]):
+        losses.append(step(ids, ids))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [kern.launches for kern in kernels]   # ... and are read here
+    expected = TRAIN["layers"] * TRAIN["steps"]
+    if launches != [expected] * 3:
+        raise AssertionError(
+            f"flash launches (fwd, dq, dkv) {launches} != layers x timed "
+            f"steps = {TRAIN['layers']} x {TRAIN['steps']}")
+    for kern, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkv"), launches):
+        results[kern]["launches"] = n
+    loss_values = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in loss_values):
+        raise AssertionError(f"non-finite loss: {loss_values}")
+    if not loss_values[-1] < loss_values[0]:
+        raise AssertionError(f"the loss did not fall: {loss_values}")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    tok_s = tokens * TRAIN["steps"] / wall
+    heads, hd = cfg.num_attention_heads, cfg.hidden_size // \
+        cfg.num_attention_heads
+    # attention products per token, forward + backward: 3 x (QK^T + PV)
+    # over (L + 1) / 2 keys on average (causal), 2 flops a MAC
+    attn_per_token = 3 * 2 * 2 * heads * hd * (TRAIN["seq"] + 1) / 2 \
+        * TRAIN["layers"]
+    mfu = (6 * n_params + attn_per_token) * tok_s / BF16_FLOPS
+    prof = profile_train_step(step, (ids, ids))
+    out = {"card": nvidia_smi_line(), "model": "llama2-7b-width",
+           "layers": TRAIN["layers"], "hidden": cfg.hidden_size,
+           "intermediate": cfg.intermediate_size, "heads": heads,
+           "kv_heads": cfg.num_key_value_heads, "vocab": cfg.vocab_size,
+           "dtype": "bfloat16", "params": n_params,
+           "optimizer": f"AdamW(lr={TRAIN['lr']}, multi_precision=False)",
+           "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+           "reduced": ["depth 32 -> 4 layers",
+                       "random weights from a seed (no checkpoint in the "
+                       "repo)"],
+           "init_seconds": init_s, "losses": loss_values,
+           "warmup_steps": TRAIN["warmup"], "timed_steps": TRAIN["steps"],
+           "step_ms": wall / TRAIN["steps"] * 1e3, "tokens_per_s": tok_s,
+           "mfu": mfu, "mfu_flops_per_token": 6 * n_params + attn_per_token,
+           "flash_launches": dict(zip(("fwd", "dq", "dkv"), launches)),
+           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof}
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_parity():
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    model = train_model(2)
+    ids = train_ids(model.config.vocab_size)
+    crit = LlamaPretrainingCriterion()
+    runs = []
+    for flash in (True, False):
+        model.config.use_flash_attention = flash
+        loss = crit(model(ids), ids).float()
+        loss.backward()
+        runs.append((loss.item(), {n: p.grad for n, p in
+                                   model.named_parameters()}))
+        model.zero_grad(set_to_none=True)
+    (lk, gk), (lr_, gr) = runs
+    loss_rel = abs(lk - lr_) / abs(lr_)
+    worst, rows = 0.0, {}
+    for name, a in gk.items():
+        b = gr[name].float()
+        rel = float((a.float() - b).square().mean().sqrt()
+                    / b.square().mean().sqrt().clamp(min=1e-30))
+        rows[name] = rel
+        worst = max(worst, rel)
+    ok = loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RMS
+    out = {"layers": 2, "loss_kernels": lk, "loss_reference": lr_,
+           "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+           "grad_rel_rms_worst": worst, "grad_rel_rms_tol": TRAIN_GRAD_RMS,
+           "grad_rel_rms": rows, "ok": ok}
+    del model, gk, gr, runs
+    torch.cuda.empty_cache()
+    if not ok:
+        emit({"phase": "train_parity", "failed": out})
+        raise AssertionError("the step through the kernels disagrees with "
+                             "the step through the plain sdpa")
+    return out
+
+
 def phase_build():
     from paddle_tpu_torch.ops.kernels import build
     return {name: {"nvcc_seconds": b.seconds,
@@ -568,7 +1021,27 @@ def main() -> int:
               "launches": None, "parity": None, "max_abs_err": None,
               "ms": None, "kernel_ms": None, "plain_ms": None,
               "bound_ms": None, "bound_by": None, "library_ms": None}
+    flash = {
+        name: {"name": name, "route": "cuda",
+               "source": "paddle_tpu_torch/ops/kernels/csrc/"
+                         "flash_attention.cu",
+               "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+               "tpu_kernel": f"paddle_tpu/ops/pallas/flash_attention.py:"
+                             f"{body}",
+               "launches": None, "parity": None, "max_abs_err": None,
+               "ms": None, "kernel_ms": None, "plain_ms": None,
+               "bound_ms": None, "bound_by": None, "library_ms": None}
+        for name, line, body in (
+            ("flash_attention_fwd", 99, "_fwd_kernel"),
+            ("flash_attention_bwd_dq", 208, "_bwd_dq_kernel"),
+            ("flash_attention_bwd_dkv", 278, "_bwd_dkv_kernel"))}
     state: dict = {}
+
+    def free_serving():
+        state.clear()
+        torch.cuda.empty_cache()
+        return {}
+
     phases = [
         ("env", lambda: {"nvidia_smi": smi, "torch": torch.__version__,
                          "cuda": torch.version.cuda, "device": kind,
@@ -577,7 +1050,12 @@ def main() -> int:
         ("kernel_parity", lambda: phase_kernel_parity(result)),
         ("kernel_time", lambda: phase_kernel_time(result)),
         ("serve", lambda: phase_serve(state, result)),
-        ("serve_parity", lambda: phase_serve_parity(state)),
+        ("serve_parity", lambda: {**phase_serve_parity(state),
+                                  **free_serving()}),
+        ("flash_parity", lambda: phase_flash_parity(flash)),
+        ("flash_time", lambda: phase_flash_time(flash)),
+        ("train", lambda: phase_train(flash)),
+        ("train_parity", phase_train_parity),
     ]
     t_all = time.perf_counter()
     for name, fn in phases:
@@ -586,7 +1064,8 @@ def main() -> int:
         torch.cuda.synchronize()
         emit({"phase": name, "seconds": time.perf_counter() - t0, **info})
     print(smi, flush=True)
-    emit({"kernels": [result], "seconds": time.perf_counter() - t_all})
+    emit({"kernels": [result, *flash.values()],
+          "seconds": time.perf_counter() - t_all})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -2,18 +2,31 @@
 
 The port runs on an NVIDIA Hopper card (H100) and keeps the JAX
 package's module names, so each module here has a counterpart of the
-same name in ``paddle_tpu``. This slice carries the paged-KV Llama
-serving path:
+same name in ``paddle_tpu``. Two slices are ported.
+
+Serving (paged-KV Llama):
 
 - ``models.llama`` — ``LlamaConfig`` and the ``LlamaForCausalLM``
   module tree (same parameter names as the JAX model);
-- ``convert`` — carries JAX weights across as numpy;
+- ``convert`` — carries JAX weights (and optimizer state) across as
+  numpy;
 - ``serving_cache`` — the paged KV block pool, its radix prefix tree
   and the ``paged_attention`` seam;
 - ``serving`` — the dense and paged decode engines and the
   ``GenerationServer``;
-- ``ops.kernels`` — the hand-written Hopper paged-attention kernel,
-  its plain PyTorch walk and the ``nvcc`` build.
+- ``ops.kernels.paged_attention`` — the hand-written Hopper
+  paged-attention kernel and its plain PyTorch walk.
+
+Training (Llama with AdamW):
+
+- ``ops.kernels.flash_attention`` — the hand-written Hopper flash
+  attention forward, dQ and dK/dV kernels, their plain versions and
+  the ``FlashAttention`` autograd function;
+- ``nn.functional`` — the paddle attention entries;
+- ``ops.fused_ce`` — the chunked fused cross-entropy;
+- ``optimizer`` — ``Adam`` and ``AdamW``;
+- ``jit`` — ``TrainStep``;
+- ``ops.kernels.build`` — the ``nvcc`` build of every kernel source.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without CUDA and without that argument it raises.

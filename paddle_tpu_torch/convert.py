@@ -1,10 +1,15 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights and optimizer state from the JAX package into the port.
 
 The JAX model's ``named_parameters()`` and the port's ``state_dict()``
 share names; the one layout difference is the projections: the JAX
 ``Linear`` stores ``[in, out]`` and ``torch.nn.Linear`` ``[out, in]``.
 :func:`state_dict_from_jax` does that one transpose, so nothing
 downstream (the serving engines included) ever transposes again.
+:func:`optimizer_state_from_jax` carries the optimizer's per-parameter
+slots (Adam/AdamW moments and beta powers) by parameter name, the
+moments of Linear weights transposed like their weights, so a port run
+resumes from a JAX optimizer state. bf16 arrays (numpy's ``bfloat16``
+extension dtype) come across as ``torch.bfloat16``, exactly.
 """
 from __future__ import annotations
 
@@ -13,7 +18,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "load_from_jax", "LINEAR_WEIGHTS"]
+__all__ = ["state_dict_from_jax", "load_from_jax",
+           "optimizer_state_from_jax", "LINEAR_WEIGHTS"]
 
 # the Linear layers of the Llama module tree (their ``.weight`` leaves)
 LINEAR_WEIGHTS = ("q_proj", "k_proj", "v_proj", "o_proj",
@@ -26,21 +32,41 @@ def _is_linear_weight(name: str) -> bool:
             and parts[-2] in LINEAR_WEIGHTS)
 
 
+def _tensor(name: str, a, transpose: bool) -> torch.Tensor:
+    a = np.asarray(a)
+    if transpose:
+        if a.ndim != 2:
+            raise ValueError(f"{name}: Linear weight must be 2-D, got "
+                             f"shape {a.shape}")
+        a = a.T
+    bf16 = a.dtype.name == "bfloat16"
+    t = torch.from_numpy(np.array(a.astype(np.float32) if bf16 else a,
+                                  copy=True, order="C"))
+    return t.to(torch.bfloat16) if bf16 else t
+
+
 def state_dict_from_jax(arrays: Mapping[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:
     """``{name: numpy array}`` of the JAX model's parameters -> a torch
     state dict in the port's layout: Linear weights transposed to
     ``[out, in]``, everything else copied."""
-    out: Dict[str, torch.Tensor] = {}
-    for name, a in arrays.items():
-        a = np.asarray(a)
-        if _is_linear_weight(name):
-            if a.ndim != 2:
-                raise ValueError(f"{name}: Linear weight must be 2-D, "
-                                 f"got shape {a.shape}")
-            a = a.T
-        out[name] = torch.from_numpy(np.array(a, copy=True, order="C"))
-    return out
+    return {name: _tensor(name, a, _is_linear_weight(name))
+            for name, a in arrays.items()}
+
+
+def optimizer_state_from_jax(
+        states: Mapping[str, Mapping[str, np.ndarray]]
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{parameter name: {slot: numpy array}}`` — the JAX optimizer's
+    per-parameter slots (``moment1``, ``moment2``, ``beta1_pow``,
+    ``beta2_pow``) keyed by the JAX model's parameter names -> the same
+    in the port's layout, for ``Optimizer.set_named_states``: the
+    moments of Linear weights transposed like the weights, the 0-d beta
+    powers copied."""
+    return {name: {k: _tensor(f"{name}:{k}", a,
+                              _is_linear_weight(name) and np.ndim(a) == 2)
+                   for k, a in slots.items()}
+            for name, slots in states.items()}
 
 
 def load_from_jax(model: torch.nn.Module,

@@ -7,16 +7,18 @@ so ``convert.load_from_jax`` carries a JAX checkpoint across by name.
 Projections are ``torch.nn.Linear`` and keep its ``[out, in]`` weight
 layout (the JAX ``Linear`` is ``[in, out]``; ``convert`` transposes).
 
-The cache-free forward here is the model's own path (tests, scoring);
-serving rebuilds the same math from the state dict in
-``serving.LlamaDecodeEngine``. Its attention is the plain
-:func:`~paddle_tpu_torch.nn.functional.sdpa_reference` on the CPU; on
-the card ``use_flash_attention=True`` raises until the flash-attention
-kernel is ported with the training slice, rather than running the
-plain version in the kernel's place.
+The cache-free forward here is the model's own path (training, tests,
+scoring); serving rebuilds the same math from the state dict in
+``serving.LlamaDecodeEngine``. Attention without a mask goes through
+the flash-attention entry (``ops.kernels.flash_attention``) when
+``use_flash_attention`` is set: the Hopper kernels on the card, their
+plain versions on the CPU. A mask, or the flag off, takes the plain
+:func:`~paddle_tpu_torch.nn.functional.sdpa_reference`, as the JAX
+model routes them. :class:`LlamaPretrainingCriterion` is the causal-LM
+loss over the chunked fused cross-entropy (``ops.fused_ce``).
 
-Left for the training slice: sequence parallel, recompute, the ring
-attention context-parallel path and ``generate`` with per-layer caches.
+Not ported yet: sequence parallel, recompute, the ring-attention
+context-parallel path and ``generate`` with per-layer caches.
 """
 from __future__ import annotations
 
@@ -29,8 +31,11 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..nn.functional.attention import sdpa_reference
+from ..ops.fused_ce import fused_softmax_ce_mean
+from ..ops.kernels.flash_attention import flash_attention
 
-__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "RMSNorm"]
+__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
+           "LlamaPretrainingCriterion", "RMSNorm"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -109,7 +114,10 @@ class RMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    """GQA attention with RoPE over the plain sdpa."""
+    """GQA attention with RoPE: flash attention without a mask (when
+    the config asks for it), the plain sdpa otherwise. K/V heads are
+    repeated before the call, as in the JAX model, so the kernels see
+    as many K/V heads as query heads."""
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
@@ -138,13 +146,10 @@ class LlamaAttention(nn.Module):
         if rep > 1:
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        if (attention_mask is None and self.config.use_flash_attention
-                and h.is_cuda):
-            raise NotImplementedError(
-                "the flash-attention kernel is not ported yet (it comes "
-                "with the training slice); build the model with "
-                "use_flash_attention=False to run the plain sdpa")
-        out = sdpa_reference(q, k, v, causal=True, mask=attention_mask)
+        if attention_mask is None and self.config.use_flash_attention:
+            out = flash_attention(q, k, v, causal=True)
+        else:
+            out = sdpa_reference(q, k, v, causal=True, mask=attention_mask)
         return self.o_proj(out.reshape(b, l, self.hidden_size))
 
 
@@ -245,3 +250,18 @@ class LlamaForCausalLM(nn.Module):
         """input_ids [B, L] -> logits [B, L, V]."""
         return self._logits(self.llama(input_ids, attention_mask,
                                        position_offset))
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Causal-LM loss: next-token cross entropy. The labels (not the
+    logits) are shifted, with -100 in the last column, and the mean runs
+    over the positions whose label is not -100, as in the JAX model."""
+
+    def __init__(self, config: Optional[LlamaConfig] = None):
+        super().__init__()
+
+    def forward(self, logits, labels):
+        pad = torch.full((labels.shape[0], 1), -100, dtype=labels.dtype,
+                         device=labels.device)
+        shifted = torch.cat([labels[:, 1:], pad], dim=1)
+        return fused_softmax_ce_mean(logits, shifted, ignore_index=-100)

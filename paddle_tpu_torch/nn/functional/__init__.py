@@ -1,2 +1,3 @@
 """Functional ops of the port (attention so far)."""
-from .attention import sdpa_reference  # noqa: F401
+from .attention import (flash_attention,  # noqa: F401
+                        scaled_dot_product_attention, sdpa_reference)

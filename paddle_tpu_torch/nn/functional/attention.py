@@ -2,8 +2,13 @@
 
 :func:`sdpa_reference` is the PyTorch port of the JAX package's numeric
 oracle ``_sdpa_xla`` (``paddle_tpu/ops/pallas/flash_attention.py``),
-without dropout. The Llama model's cache-free forward uses it; the
-flash-attention kernels come with the training slice.
+without dropout; the Llama model's masked and cached paths use it.
+:func:`scaled_dot_product_attention` and :func:`flash_attention` are the
+paddle entries (``paddle_tpu/nn/functional/attention.py``): a call
+without a mask goes to the flash-attention kernels
+(``ops.kernels.flash_attention``, their plain versions on the CPU), a
+call with a mask to :func:`sdpa_reference`, as the JAX code routes
+them. Attention dropout is kernel K5 of the roadmap and raises.
 """
 from __future__ import annotations
 
@@ -12,7 +17,10 @@ from typing import Optional
 
 import torch
 
-__all__ = ["sdpa_reference"]
+from ...ops.kernels.flash_attention import flash_attention as _flash
+
+__all__ = ["sdpa_reference", "scaled_dot_product_attention",
+           "flash_attention"]
 
 _NEG_INF = -1e30
 
@@ -39,3 +47,29 @@ def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vt)
     return out.transpose(1, 2)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p: float = 0.0,
+                                 is_causal: bool = False,
+                                 training: bool = True, name=None):
+    """Layout ``[batch, seq, heads, head_dim]``, the paddle API. Dropout
+    applies only in training (``training=False`` turns it off)."""
+    drop = dropout_p if training else 0.0
+    if attn_mask is None:
+        return _flash(query, key, value, causal=is_causal, dropout_p=drop)
+    if drop > 0.0:
+        raise NotImplementedError(
+            "attention dropout (kernel K5 and the masked sdpa's dropout) "
+            "is not ported yet; call with dropout_p=0")
+    return sdpa_reference(query, key, value, causal=is_causal,
+                          mask=attn_mask.float())
+
+
+def flash_attention(query, key, value, dropout: float = 0.0,
+                    causal: bool = False, return_softmax: bool = False,
+                    training: bool = True, name=None):
+    """The paddle ``flash_attention``: ``(out, None)``."""
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training)
+    return out, None

@@ -1,6 +1,8 @@
 """Tests of the port that need the card: the Hopper paged-attention
-kernel against its plain walk, and a tiny engine through the kernel
-against the same engine through the walk. Each skips (with its reason)
+kernel against its plain walk, a tiny engine through the kernel against
+the same engine through the walk, the three flash-attention kernels
+against their plain versions, and a tiny Llama train step through them
+against the same step through the plain sdpa. Each skips (with its reason)
 where there is no CUDA device; the decision is made inside the
 fixture, never at import. This file imports no JAX, so on a machine
 without it run it as
@@ -10,8 +12,12 @@ without it run it as
 import pytest
 import torch
 
-from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                           LlamaPretrainingCriterion)
+from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import paged_attention as tpk
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import GenerationServer, PagedLlamaDecodeEngine
 
 
@@ -114,3 +120,90 @@ def test_engine_through_the_kernel_matches_the_walk(cuda, kv_quant):
             streams["kernel"]
     finally:
         assert srv.shutdown(timeout=60)
+
+
+def _flash_inputs(dev, shape, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,causal", [((2, 200, 3, 128), True),
+                                          ((2, 77, 2, 64), False),
+                                          ((6, 130, 64), True),
+                                          ((1, 1, 2, 128), True)],
+                         ids=["d128-causal", "d64-full", "bhld-d64",
+                              "L1"])
+def test_flash_kernels_match_their_plain_versions(cuda, shape, causal,
+                                                  dtype, tol):
+    q, k, v, do = _flash_inputs(cuda, shape, dtype, seed=len(shape))
+    counts = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    delta = tfa.attention_delta(out, do)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == tuple(
+                c + 1 for c in counts)
+    ref_out, ref_lse = tfa.flash_attention_fwd_reference(q, k, v, causal)
+    ref_dq = tfa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                  causal)
+    ref_dk, ref_dv = tfa.flash_attention_bwd_dkv_reference(
+        q, k, v, do, lse, delta, causal)
+    for got, ref in ((out, ref_out), (lse, ref_lse), (dq, ref_dq),
+                     (dk, ref_dk), (dv, ref_dv)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        # the plain versions do the kernels' roundings; near-zero
+        # gradients (L = 1: dP - delta cancels) need the absolute part
+        err = (got.float() - ref.float()).abs()
+        assert bool((err <= tol * (1 + ref.float().abs())).all()), \
+            float(err.max())
+
+
+def test_flash_kernels_raise_instead_of_falling_back(cuda):
+    q, k, v, _ = _flash_inputs(cuda, (1, 16, 2, 64), torch.float32, 3)
+    before = tfa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="dtype"):
+        tfa.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_fwd(q[..., :32], k[..., :32], v[..., :32])
+    strided = [torch.randn(1, 16, 2, 64, 2, device=cuda)[..., 0]
+               for _ in range(3)]                 # head-dim stride 2
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_fwd(*strided)
+    assert tfa.flash_attention_fwd.launches == before
+
+
+def test_train_step_through_the_kernels_matches_the_plain_sdpa(cuda):
+    """One AdamW TrainStep of a tiny f32 Llama with flash attention
+    against the same step with the plain sdpa: equal losses up to f32
+    summation order; parameters too, except where AdamW's first step
+    (about lr * sign(g)) meets a gradient near zero: all within 2 lr,
+    99.9 % within 1e-5."""
+    ids = torch.randint(0, 128, (2, 48), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    losses, params = [], []
+    for flash in (True, False):
+        cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                               num_key_value_heads=1,
+                               use_flash_attention=flash)
+        model = LlamaForCausalLM(cfg, device="cuda")
+        step = TrainStep(model, LlamaPretrainingCriterion(),
+                         AdamW(learning_rate=1e-3,
+                               parameters=model.named_parameters()))
+        before = tfa.flash_attention_fwd.launches
+        losses.append(step(ids, ids))
+        assert tfa.flash_attention_fwd.launches - before == (
+            cfg.num_hidden_layers if flash else 0)
+        params.append([p.detach().clone() for p in model.parameters()])
+    torch.testing.assert_close(losses[0], losses[1], atol=1e-5, rtol=1e-5)
+    err = torch.cat([(a - b).abs().flatten() for a, b in zip(*params)])
+    assert float(err.max()) <= 2e-3
+    assert float((err <= 1e-5).float().mean()) >= 0.999

@@ -39,19 +39,24 @@ def test_port_covers_the_slice_modules():
             "serving_supervisor.py", "nn/functional/attention.py",
             "models/llama.py", "convert.py", "ops/kernels/build.py",
             "ops/kernels/paged_attention.py", "serving_cache.py",
-            "serving.py"}
+            "serving.py", "ops/kernels/flash_attention.py",
+            "ops/fused_ce.py", "optimizer/optimizer.py", "jit/api.py"}
     have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert want <= have, sorted(want - have)
-    assert (PKG / "ops/kernels/csrc/paged_attention.cu").is_file()
+    for src in ("paged_attention.cu", "flash_attention.cu"):
+        assert (PKG / "ops/kernels/csrc" / src).is_file()
 
 
 def test_importing_the_port_loads_no_jax():
     """A fresh interpreter with only the repo on its path imports the
-    serving stack (and chip_smoke) without pulling in JAX or the JAX
-    package."""
+    serving and training stacks (and chip_smoke) without pulling in JAX
+    or the JAX package."""
     code = (
         "import sys, chip_smoke, paddle_tpu_torch.serving, "
-        "paddle_tpu_torch.convert\n"
+        "paddle_tpu_torch.convert, paddle_tpu_torch.models.llama, "
+        "paddle_tpu_torch.ops.kernels.flash_attention, "
+        "paddle_tpu_torch.ops.fused_ce, paddle_tpu_torch.optimizer, "
+        "paddle_tpu_torch.jit, paddle_tpu_torch.nn.functional\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -167,16 +172,18 @@ def test_kernel_build_is_lazy_and_names_sm90a(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert {"-O3", "-shared", "-Xcompiler", "-fPIC"} <= set(
         build.NVCC_FLAGS)
-    assert [p.name for p in build.sources()] == ["paged_attention.cu"]
+    assert [p.name for p in build.sources()] == ["flash_attention.cu",
+                                                 "paged_attention.cu"]
     monkeypatch.setenv(build.BUILD_DIR_ENV, str(tmp_path / "k"))
     assert build.build_dir() == tmp_path / "k"
-    lib = build._library(build.sources()[0])
+    lib = build._library(build.sources()[1])
     assert lib.parent == tmp_path / "k"
     assert lib.name.startswith("libpaged_attention_")
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("this machine has nvcc")
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.load("paged_attention")
+    for name in ("paged_attention", "flash_attention"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.load(name)
     assert not (tmp_path / "k").exists()

@@ -242,7 +242,9 @@ def test_server_deadlines_shutdown_and_stats(models):
     srv = GenerationServer(eng)
     try:
         ok = srv.submit(PROMPTS[0], 4)
-        late = srv.submit(PROMPTS[2], 40, deadline=1e-4)
+        # fits the pool, so only its deadline can fail it: expired while
+        # queued, or at a step boundary of its multi-chunk prefill
+        late = srv.submit(PROMPTS[2], 10, deadline=1e-4)
         assert ok["done"].wait(60) and ok["error"] is None
         assert late["done"].wait(60)
         assert isinstance(late["error"], TimeoutError)
