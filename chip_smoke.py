@@ -59,10 +59,46 @@ Phases, each printing one JSON line with its seconds:
 10. ``train_parity``  one step of the same widths at 2 layers through
                       the kernels against the same step with
                       use_flash_attention=False (autograd through the
-                      plain sdpa): loss and every gradient compared.
+                      plain sdpa): loss and every gradient compared;
+11. ``flash_dropout_parity``  attention dropout inside the three flash
+                      kernels (K5) at the BERT-base geometry (B 24, L 512,
+                      H 12, D 64, bf16) and a small f32 case, p = 0.1,
+                      causal and full: each kernel against its plain
+                      version with the same seed (working dtype and f32
+                      copies), the keep rate of the mask, p = 0 equal to
+                      the launch without dropout, two seeds differing, and
+                      the FlashAttention autograd function against
+                      autograd through the plain sdpa with the same mask;
+12. ``flash_varlen_parity``  the segment-masked kernels (K4) on 12,288
+                      packed tokens (sequences of 32-512 from a numpy
+                      seed, H 12, D 64), bf16 and f32, causal and full:
+                      against their plain versions and against the plain
+                      sdpa with the block-diagonal mask; then the packed
+                      entry flash_attn_varlen_qkvpacked, forward and
+                      backward, with the segmented launch counts reset
+                      just before and read just after;
+13. ``flash_time_bert``  the kernels with and without dropout at the BERT
+                      geometry and the segmented kernels at the packed
+                      geometry, beside their plain versions, their
+                      bounds (the pairs the function needs) and
+                      PyTorch's SDPA (a yardstick);
+14. ``bert_train``    THE BERT PATH: BERT-base MLM (12 layers, hidden 768,
+                      vocab 30522, bf16, dropout 0.1) trains with AdamW
+                      through TrainStep on 24 x 512 tokens: 2 warm-up and
+                      5 timed steps; the flash launch counts (and their
+                      dropout launches) are reset just before the timed
+                      steps and read just after, and must each equal
+                      layers x timed steps; losses finite and falling;
+                      then one step under torch.profiler;
+15. ``bert_train_parity``  one step of BERT-base widths at 2 layers
+                      through the kernels against the same step through
+                      the plain sdpa (an all-zero additive mask routes it
+                      there) with the same seeds drawn in the same order:
+                      loss and every gradient compared.
 
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
-and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+(K3, K1 and K2 at the Llama training geometry, K5 in K1/K2 at the BERT
+geometry, K4 at the packed geometry) and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line. Without CUDA, or when run outside a checkout, it
 exits non-zero and prints no result. Imports nothing of JAX.
 """
@@ -119,6 +155,17 @@ AUTOGRAD_RMS = {"float32": 1e-5, "bfloat16": 2e-2}
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_RMS = 5e-2
 TRAIN = dict(batch=4, seq=2048, layers=4, warmup=2, steps=5, lr=3e-4)
+# BERT-base MLM, the JAX bench's configuration (bench.py:803-840)
+BERT = dict(batch=24, seq=512, layers=12, warmup=2, steps=5, lr=1e-4,
+            dropout=0.1)
+BERT_SHAPE = (24, 512, 12, 64)       # [B, L, H, D] of its attention
+VARLEN = dict(total=12288, heads=12, head_dim=64, min_len=32, max_len=512)
+# bert_train_parity, bf16 at 2 layers with dropout 0.1: the kernels vs
+# the plain sdpa with the same keep masks; besides train_parity's
+# roundings, the plain sdpa divides the bf16 probabilities by bf16(0.9)
+# where the kernels scale the f32 accumulator by 1/0.9
+BERT_LOSS_RTOL = 1e-2
+BERT_GRAD_RMS = 5e-2
 
 
 def emit(obj) -> None:
@@ -604,67 +651,98 @@ def flash_cases():
             ("l1", (4, 1, 32, 128), True)]
 
 
-def plain_all(q, k, v, do, causal):
+def plain_all(q, k, v, do, causal, **kw):
     """out, lse, dq, dk, dv through the plain versions, the backward
-    parts on the forward's own lse and delta."""
+    parts on the forward's own lse and delta (``kw``: dropout_p, seed,
+    seg)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    out, lse = fa.flash_attention_fwd_reference(q, k, v, causal)
+    out, lse = fa.flash_attention_fwd_reference(q, k, v, causal, None, **kw)
     delta = fa.attention_delta(out, do)
     return (out, lse,
             fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
-                                                causal),
+                                                causal, None, **kw),
             *fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                  causal))
+                                                  causal, None, **kw))
+
+
+def kernels_all(q, k, v, do, causal, lse, delta, **kw):
+    """out, lse, dq, dk, dv through the kernels, the backward kernels on
+    the given (the plain forward's) lse and delta, so that each kernel is
+    held alone against its plain part."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    return (*fa.flash_attention_fwd(q, k, v, causal, None, **kw),
+            fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, None,
+                                      **kw),
+            *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                        None, **kw))
+
+
+def parity_row(row, got, ref, ref32, dname):
+    """Each of out, lse, dq, dk, dv: elementwise against the plain
+    version in the working dtype, RMS against the plain version on f32
+    copies (FLASH_TOL, FLASH_RMS). Fills ``row``; returns whether all
+    passed."""
+    tol, rms_r = FLASH_TOL[dname], FLASH_RMS[dname]
+    row.update(tol=tol, rms_tol=rms_r)
+    ok = True
+    for n, g_, r, r32 in zip(("out", "lse", "dq", "dk", "dv"), got, ref,
+                             ref32):
+        g_, r, r32 = g_.float(), r.float(), r32.float()
+        err = (g_ - r).abs()
+        used = float((err / (tol * (1 + r.abs()))).max())
+        rms = float((g_ - r32).square().mean().sqrt())
+        rms_ref = float(r32.square().mean().sqrt())
+        used_rms = rms / (rms_r * rms_ref + FLASH_RMS_ATOL)
+        row[n] = {"max_abs_err": float(err.max()), "tol_used": used,
+                  "rms_err_f32": rms, "rms_ref": rms_ref,
+                  "rms_tol_used": used_rms}
+        ok &= used <= 1 and used_rms <= 1
+    row["ok"] = ok
+    return ok
+
+
+def autograd_row(q, k, v, do, flash_fn, plain_fn, dname):
+    """Relative RMS of out, dq, dk, dv: the FlashAttention autograd
+    function against autograd through the plain sdpa."""
+    import torch
+    outs = []
+    for fn in (flash_fn, plain_fn):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*xs)
+        outs.append([o.detach().float()] + [
+            g_.float() for g_ in torch.autograd.grad(o, xs, do)])
+        del xs, o
+    row = {"dtype": dname, "shape": list(q.shape),
+           "rms_tol": AUTOGRAD_RMS[dname]}
+    for n, a, b in zip(("out", "dq", "dk", "dv"), *outs):
+        row[n] = float((a - b).square().mean().sqrt()
+                       / b.square().mean().sqrt())
+    row["ok"] = all(row[n] <= AUTOGRAD_RMS[dname]
+                    for n in ("out", "dq", "dk", "dv"))
+    return row
 
 
 def phase_flash_parity(results):
     import torch
     from paddle_tpu_torch.nn.functional import sdpa_reference
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    names = ("out", "lse", "dq", "dk", "dv")
     rows, failed = [], []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        tol, rms_r = FLASH_TOL[dname], FLASH_RMS[dname]
         for i, (case, shape, causal) in enumerate(flash_cases()):
             q, k, v, do = flash_inputs(shape, dtype, seed=100 + i)
-            # the backward kernels run on the plain forward's lse and
-            # delta, so each kernel is held alone against its plain part
             ref = plain_all(q, k, v, do, causal)
             delta = fa.attention_delta(ref[0], do)
-            got = (*fa.flash_attention_fwd(q, k, v, causal),
-                   fa.flash_attention_bwd_dq(q, k, v, do, ref[1], delta,
-                                             causal),
-                   *fa.flash_attention_bwd_dkv(q, k, v, do, ref[1], delta,
-                                               causal))
+            got = kernels_all(q, k, v, do, causal, ref[1], delta)
             torch.cuda.synchronize()
             ref32 = plain_all(*(x.float() for x in (q, k, v, do)), causal)
             row = {"case": case, "shape": list(shape), "causal": causal,
-                   "dtype": dname, "tol": tol, "rms_tol": rms_r}
-            ok = True
-            for n, g_, r, r32 in zip(names, got, ref, ref32):
-                g_, r = g_.float(), r.float()
-                err = (g_ - r).abs()
-                used = float((err / (tol * (1 + r.abs()))).max())
-                rms = float((g_ - r32).square().mean().sqrt())
-                rms_ref = float(r32.square().mean().sqrt())
-                used_rms = rms / (rms_r * rms_ref + FLASH_RMS_ATOL)
-                row[n] = {"max_abs_err": float(err.max()),
-                          "tol_used": used, "rms_err_f32": rms,
-                          "rms_ref": rms_ref, "rms_tol_used": used_rms}
-                ok &= used <= 1 and used_rms <= 1
-            row["ok"] = ok
+                   "dtype": dname}
             rows.append(row)
-            if not ok:
+            if not parity_row(row, got, ref, ref32, dname):
                 failed.append(row)
             if case == "train" and dtype == torch.bfloat16:
-                for kname, n in (("flash_attention_fwd", "out"),
-                                 ("flash_attention_bwd_dq", "dq"),
-                                 ("flash_attention_bwd_dkv", "dk")):
-                    errs = [row[m]["max_abs_err"] for m in
-                            (("out", "lse") if n == "out" else
-                             ("dq",) if n == "dq" else ("dk", "dv"))]
-                    results[kname]["max_abs_err"] = max(errs)
+                record_errors(results, "", row)
             del q, k, v, do, ref, ref32, got
             torch.cuda.empty_cache()
     # the autograd function against autograd through the plain sdpa
@@ -672,39 +750,43 @@ def phase_flash_parity(results):
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         q, k, v, do = flash_inputs((2, 512, 8, 128), dtype, seed=7)
-        outs = []
-        for fn in (lambda a, b, c: fa.flash_attention(a, b, c, True),
-                   lambda a, b, c: sdpa_reference(a, b, c, causal=True)):
-            xs = [x.clone().requires_grad_() for x in (q, k, v)]
-            o = fn(*xs)
-            outs.append([o.detach().float()] + [
-                g_.float() for g_ in torch.autograd.grad(o, xs, do)])
-        row = {"dtype": dname, "shape": [2, 512, 8, 128],
-               "rms_tol": AUTOGRAD_RMS[dname]}
-        for n, a, b in zip(("out", "dq", "dk", "dv"), *outs):
-            rel = float((a - b).square().mean().sqrt()
-                        / b.square().mean().sqrt())
-            row[n] = rel
-            if rel > AUTOGRAD_RMS[dname]:
-                failed.append({"autograd": row})
-        auto.append(row)
-    for kname in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                  "flash_attention_bwd_dkv"):
-        results[kname]["parity"] = "failed" if failed else "ok"
-    if failed:
-        emit({"phase": "flash_parity", "failed": failed})
-        raise AssertionError(f"{len(failed)} flash-attention checks "
-                             f"failed")
+        auto.append(autograd_row(
+            q, k, v, do, lambda a, b, c: fa.flash_attention(a, b, c, True),
+            lambda a, b, c: sdpa_reference(a, b, c, causal=True), dname))
+        if not auto[-1]["ok"]:
+            failed.append({"autograd": auto[-1]})
+    finish_parity("flash_parity", results, "", failed)
     return {"cases": rows, "autograd": auto}
 
 
+def record_errors(results, suffix, row):
+    """The worst max abs error of each kernel's outputs into its entry
+    of the kernels line."""
+    for kname, outs in (("flash_attention_fwd", ("out", "lse")),
+                        ("flash_attention_bwd_dq", ("dq",)),
+                        ("flash_attention_bwd_dkv", ("dk", "dv"))):
+        results[kname + suffix]["max_abs_err"] = max(
+            row[m]["max_abs_err"] for m in outs)
+
+
+def finish_parity(phase, results, suffix, failed):
+    for kname in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+        results[kname + suffix]["parity"] = "failed" if failed else "ok"
+    if failed:
+        emit({"phase": phase, "failed": failed})
+        raise AssertionError(f"{len(failed)} {phase} checks failed")
+
+
 def attention_work(B, L, H, D, causal, products, tensors, stats,
-                   elem_bytes):
+                   elem_bytes, pairs=None):
     """(flops, bytes) of ``products`` L x L x D matrix products over
-    the attended pairs (causal: L(L+1)/2 a head), reading or writing
+    the attended pairs (causal: L(L+1)/2 a head; ``pairs`` when the
+    function needs fewer, as segments do), reading or writing
     ``tensors`` [B, L, H, D] tensors and ``stats`` f32 [B, H, L] arrays
     (lse, delta) once each."""
-    pairs = L * (L + 1) // 2 if causal else L * L
+    if pairs is None:
+        pairs = L * (L + 1) // 2 if causal else L * L
     flops = products * 2 * B * H * pairs * D
     nbytes = (tensors * B * L * H * D * elem_bytes
               + stats * B * H * L * 4)
@@ -718,18 +800,23 @@ def bound(flops, nbytes):
                                  else "bytes")
 
 
-def flash_timings(shape, causal):
+def flash_timings(shape, causal, kw=None, pairs=None, lib_kw=None,
+                  extra_bytes=0):
     """Kernel, plain and library times of the flash functions at one
     geometry (bf16), beside their bounds. ``shape`` is [B, L, H, D] or
     [BH, L, D]; the library (SDPA) gets the same values as [B, H, L, D]
-    (a [BH, L, D] input as [BH, 1, L, D])."""
+    (a [BH, L, D] input as [BH, 1, L, D]) and ``lib_kw`` (its dropout or
+    mask). ``kw`` goes to every kernel and plain call (dropout_p, seed,
+    seg); ``pairs`` is the pairs a head needs, ``extra_bytes`` what the
+    call reads besides (the segment ids)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    kw, lib_kw = kw or {}, lib_kw or {"is_causal": causal}
     q, k, v, do = flash_inputs(shape, torch.bfloat16, seed=1)
     B, L, H, D = (shape[0], shape[1], 1, shape[2]) if len(shape) == 3 \
         else shape
-    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, None, **kw)
     delta = fa.attention_delta(out, do)
     lib_in = [(x[:, :, None] if x.dim() == 3 else x).transpose(1, 2)
               .contiguous() for x in (q, k, v, do)]
@@ -737,45 +824,47 @@ def flash_timings(shape, causal):
     qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
 
     def lib_fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        o = F.scaled_dot_product_attention(qg, kg, vg, **lib_kw)
         torch.autograd.grad(o, (qg, kg, vg), dot)
 
     def fwd_bwd():
-        o, ls = fa.flash_attention_fwd(q, k, v, causal)
-        fa.flash_attention_bwd(q, k, v, o, ls, do, causal)
+        o, ls = fa.flash_attention_fwd(q, k, v, causal, None, **kw)
+        fa.flash_attention_bwd(q, k, v, o, ls, do, causal, None, **kw)
 
     rows = {
         # name: (kernel, plain, library, products, [B, L, H, D] tensors
         # read or written, f32 [B, H, L] arrays read or written)
         "flash_attention_fwd": (
-            lambda: fa.flash_attention_fwd(q, k, v, causal),
-            lambda: fa.flash_attention_fwd_reference(q, k, v, causal),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=causal),
+            lambda: fa.flash_attention_fwd(q, k, v, causal, None, **kw),
+            lambda: fa.flash_attention_fwd_reference(q, k, v, causal, None,
+                                                     **kw),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw),
             2, 4, 1),
         "flash_attention_bwd_dq": (
             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                              causal),
-            lambda: fa.flash_attention_bwd_dq_reference(q, k, v, do, lse,
-                                                        delta, causal),
+                                              causal, None, **kw),
+            lambda: fa.flash_attention_bwd_dq_reference(
+                q, k, v, do, lse, delta, causal, None, **kw),
             None, 3, 5, 2),
         "flash_attention_bwd_dkv": (
             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                               causal),
-            lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse,
-                                                         delta, causal),
+                                               causal, None, **kw),
+            lambda: fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, causal, None, **kw),
             None, 4, 6, 2),
         "backward_with_delta": (
-            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal),
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                           None, **kw),
             lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
-                                                     causal),
+                                                     causal, None, **kw),
             None, 5, 8, 1),
         "forward_backward": (fwd_bwd, None, lib_fwd_bwd, 7, 8, 0),
     }
     table = {}
     for name, (kern, plain, lib, products, tensors, stats) in rows.items():
         flops, nbytes = attention_work(B, L, H, D, causal, products,
-                                       tensors, stats, 2)
+                                       tensors, stats, 2, pairs)
+        nbytes += extra_bytes
         b_ms, b_by = bound(flops, nbytes)
         r = {"kernel_ms": time_ms(kern, samples=10, inner=5),
              "plain_ms": time_ms(plain, samples=5, inner=1)
@@ -791,7 +880,8 @@ def flash_timings(shape, causal):
 
 def phase_flash_time(results):
     train = flash_timings((4, 2048, 32, 128), True)
-    for name in results:
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
         results[name].update({key: train[name][key] for key in (
             "kernel_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")})
@@ -985,6 +1075,393 @@ def phase_train_parity():
     return out
 
 
+# ---------------------------------------------------------------------------
+# dropout (K5) and segments (K4) inside the flash kernels
+# ---------------------------------------------------------------------------
+
+DROP_SEED = 0x5EED0123456789AB     # the kernels' Philox key in the checks
+
+
+def phase_flash_dropout_parity(results):
+    import torch
+    from paddle_tpu_torch.nn.functional import sdpa_reference
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    p = BERT["dropout"]
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("bert", BERT_SHAPE, False, bf),
+             ("bert_causal", BERT_SHAPE, True, bf),
+             ("small_f32", (2, 300, 4, 64), False, f32),
+             ("small_f32_causal", (2, 300, 4, 64), True, f32)]
+    rows, failed = [], []
+    kw = dict(dropout_p=p, seed=DROP_SEED)
+    for i, (case, shape, causal, dtype) in enumerate(cases):
+        dname = str(dtype).replace("torch.", "")
+        q, k, v, do = flash_inputs(shape, dtype, seed=200 + i)
+        ref = plain_all(q, k, v, do, causal, **kw)
+        delta = fa.attention_delta(ref[0], do)
+        got = kernels_all(q, k, v, do, causal, ref[1], delta, **kw)
+        torch.cuda.synchronize()
+        ref32 = plain_all(*(x.float() for x in (q, k, v, do)), causal, **kw)
+        row = {"case": case, "shape": list(shape), "causal": causal,
+               "dtype": dname, "dropout_p": p}
+        ok = parity_row(row, got, ref, ref32, dname)
+        # p = 0 is the launch without dropout, bit for bit; another seed
+        # drops other pairs
+        plain_launch = kernels_all(q, k, v, do, causal, ref[1], delta)
+        zero = kernels_all(q, k, v, do, causal, ref[1], delta,
+                           dropout_p=0.0, seed=DROP_SEED)
+        other = kernels_all(q, k, v, do, causal, ref[1], delta,
+                            dropout_p=p, seed=DROP_SEED + 1)
+        row["p0_bit_equal"] = all(torch.equal(a, b)
+                                  for a, b in zip(plain_launch, zero))
+        row["seeds_differ"] = not any(torch.equal(a, b) for a, b in
+                                      zip(got[2:], other[2:])) and \
+            not torch.equal(got[0], other[0])
+        row["ok"] = ok = ok and row["p0_bit_equal"] and row["seeds_differ"]
+        rows.append(row)
+        if not ok:
+            failed.append(row)
+        if case == "bert":
+            record_errors(results, "_dropout", row)
+        del q, k, v, do, ref, ref32, got, plain_launch, zero, other
+        torch.cuda.empty_cache()
+    B, L, H, _ = BERT_SHAPE
+    keep = fa.flash_dropout_keep_mask(DROP_SEED, B, H, L, p, "cuda")
+    rate = float(keep.float().mean())
+    sigma = math.sqrt(p * (1 - p) / keep.numel())
+    keep_row = {"shape": [B, H, L, L], "keep_rate": rate,
+                "expected": 1 - p, "sigma": sigma,
+                "ok": abs(rate - (1 - p)) <= 4 * sigma}
+    del keep
+    if not keep_row["ok"]:
+        failed.append({"keep_rate": keep_row})
+    auto = []
+    for dtype in (bf, f32):
+        dname = str(dtype).replace("torch.", "")
+        q, k, v, do = flash_inputs((2, 512, 12, 64), dtype, seed=8)
+        auto.append(autograd_row(
+            q, k, v, do,
+            lambda a, b, c: fa.flash_attention(a, b, c, False, None, p,
+                                               DROP_SEED),
+            lambda a, b, c: sdpa_reference(a, b, c, dropout_p=p,
+                                           seed=DROP_SEED), dname))
+        if not auto[-1]["ok"]:
+            failed.append({"autograd": auto[-1]})
+    finish_parity("flash_dropout_parity", results, "_dropout", failed)
+    return {"cases": rows, "keep_rate": keep_row, "autograd": auto}
+
+
+def varlen_lengths():
+    """Sequence lengths in [min_len, max_len] from a numpy seed, packed
+    to exactly ``total`` tokens (the last one cut to fit, merged into its
+    neighbour if that leaves it short)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    lens = []
+    while sum(lens) < VARLEN["total"]:
+        lens.append(int(rng.integers(VARLEN["min_len"],
+                                     VARLEN["max_len"] + 1)))
+    lens[-1] -= sum(lens) - VARLEN["total"]
+    if lens[-1] < VARLEN["min_len"]:
+        last = lens.pop()
+        lens[-1] += last
+    return lens
+
+
+def varlen_seg(lens):
+    import torch
+    return torch.repeat_interleave(
+        torch.arange(len(lens), dtype=torch.int32),
+        torch.tensor(lens))[None].to("cuda")
+
+
+def phase_flash_varlen_parity(results):
+    import torch
+    from paddle_tpu_torch.nn.functional import (flash_attn_varlen_qkvpacked,
+                                                sdpa_reference)
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    lens = varlen_lengths()
+    seg = varlen_seg(lens)
+    T, H, D = VARLEN["total"], VARLEN["heads"], VARLEN["head_dim"]
+    shape = (1, T, H, D)
+    rows, auto, failed = [], [], []
+    same = seg[0][:, None] == seg[0][None, :]
+    block_mask = torch.where(same, 0.0, -1e30)[None, None]  # [1,1,T,T]
+    del same
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        dname = str(dtype).replace("torch.", "")
+        for causal in (False, True):
+            q, k, v, do = flash_inputs(shape, dtype, seed=300 + 2 * i +
+                                       causal)
+            ref = plain_all(q, k, v, do, causal, seg=seg)
+            delta = fa.attention_delta(ref[0], do)
+            got = kernels_all(q, k, v, do, causal, ref[1], delta, seg=seg)
+            torch.cuda.synchronize()
+            ref32 = plain_all(*(x.float() for x in (q, k, v, do)), causal,
+                              seg=seg)
+            row = {"shape": list(shape), "sequences": len(lens),
+                   "causal": causal, "dtype": dname}
+            rows.append(row)
+            if not parity_row(row, got, ref, ref32, dname):
+                failed.append(row)
+            if dtype == torch.bfloat16 and not causal:
+                record_errors(results, "_segmented", row)
+            del ref, ref32, got
+            torch.cuda.empty_cache()
+            auto.append(autograd_row(
+                q, k, v, do,
+                lambda a, b, c: fa.flash_attention_segmented(a, b, c, seg,
+                                                             causal),
+                lambda a, b, c: sdpa_reference(a, b, c, causal=causal,
+                                               mask=block_mask), dname))
+            auto[-1]["causal"] = causal
+            if not auto[-1]["ok"]:
+                failed.append({"autograd": auto[-1]})
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    del block_mask
+    finish_parity("flash_varlen_parity", results, "_segmented", failed)
+    # the packed entry as a user calls it: forward and backward of one
+    # [total, 3, H, D] batch; the counts start here ...
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn((T, 3, H, D), generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    dout = torch.randn((T, H, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    cu = torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    for w in wrappers:
+        w.launches = w.dropout_launches = w.segmented_launches = 0
+    out, _ = flash_attn_varlen_qkvpacked(qkv, cu, cu, max(lens), max(lens),
+                                         None, causal=False)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    launches = [w.segmented_launches for w in wrappers]   # ... read here
+    finite = bool(torch.isfinite(out).all() and
+                  torch.isfinite(qkv.grad).all())
+    if launches != [1, 1, 1] or not finite:
+        raise AssertionError(f"varlen entry: segmented launches {launches} "
+                             f"(want 1 each), finite {finite}")
+    for name, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkv"), launches):
+        results[name + "_segmented"]["launches"] = n
+    return {"sequences": len(lens), "lengths": lens, "cases": rows,
+            "autograd_vs_block_diagonal_sdpa": auto,
+            "entry": {"qkv": [T, 3, H, D], "segmented_launches": launches,
+                      "finite": finite}}
+
+
+def phase_flash_time_bert(results):
+    import torch
+    B, L, H, D = BERT_SHAPE
+    p = BERT["dropout"]
+    # the same kernels without dropout at the same geometry: what the
+    # keep mask costs
+    no_drop = flash_timings(BERT_SHAPE, False)
+    drop = flash_timings(BERT_SHAPE, False,
+                         kw=dict(dropout_p=p, seed=DROP_SEED),
+                         lib_kw={"dropout_p": p})
+    lens = varlen_lengths()
+    seg = varlen_seg(lens)
+    T = VARLEN["total"]
+    same = seg[0][:, None] == seg[0][None, :]
+    seg_t = flash_timings((1, T, VARLEN["heads"], VARLEN["head_dim"]),
+                          False, kw=dict(seg=seg),
+                          pairs=sum(n * n for n in lens),
+                          lib_kw={"attn_mask": same[None, None]},
+                          extra_bytes=seg.numel() * 4)
+    del same
+    torch.cuda.empty_cache()
+    for suffix, table in (("_dropout", drop), ("_segmented", seg_t)):
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            row = table[name]
+            results[name + suffix].update(
+                {key: row[key] for key in ("kernel_ms", "plain_ms",
+                                           "library_ms", "bound_ms",
+                                           "bound_by")})
+            results[name + suffix]["ms"] = row["kernel_ms"]
+    return {"no_dropout": {"shape": list(BERT_SHAPE), "layout": "B L H D",
+                           "causal": False, "dtype": "bfloat16",
+                           "times": no_drop},
+            "dropout": {"shape": list(BERT_SHAPE), "layout": "B L H D",
+                        "causal": False, "dtype": "bfloat16",
+                        "dropout_p": p, "times": drop},
+            "segmented": {"shape": [1, T, VARLEN["heads"],
+                                    VARLEN["head_dim"]],
+                          "sequences": len(lens), "causal": False,
+                          "dtype": "bfloat16",
+                          "pairs": sum(n * n for n in lens),
+                          "dense_pairs": T * T, "times": seg_t},
+            "library": "torch.nn.functional.scaled_dot_product_attention: "
+                       "with dropout_p (its own random bits) for the "
+                       "dropout rows, with the block-diagonal bool mask "
+                       "for the segmented rows",
+            "bound_note": "the pairs each function needs: L^2 a head at "
+                          "the BERT geometry, sum of n_i^2 for the packed "
+                          "sequences; dropout adds no products"}
+
+
+def bert_model(layers):
+    import torch
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    cfg = BertConfig(num_hidden_layers=layers, dropout=BERT["dropout"])
+    return BertForMaskedLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+
+
+def bert_ids(vocab):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(
+        0, vocab, (BERT["batch"], BERT["seq"]))).to("cuda")
+
+
+def phase_bert_train(results):
+    import torch
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    t0 = time.perf_counter()
+    model = bert_model(BERT["layers"])
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=BERT["lr"],
+                parameters=model.named_parameters(), multi_precision=False)
+    step = TrainStep(model, CrossEntropyLoss(), opt)
+    ids = bert_ids(cfg.vocab_size)
+    trandom.seed(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(ids, ids) for _ in range(BERT["warmup"])]
+    torch.cuda.synchronize()
+    for w in wrappers:                     # the counts start here
+        w.launches = w.dropout_launches = w.segmented_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(BERT["steps"]):
+        losses.append(step(ids, ids))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [w.launches for w in wrappers]        # ... and are read here
+    dropped = [w.dropout_launches for w in wrappers]
+    expected = BERT["layers"] * BERT["steps"]
+    if launches != [expected] * 3 or dropped != [expected] * 3:
+        raise AssertionError(
+            f"flash launches (fwd, dq, dkv) {launches}, with dropout "
+            f"{dropped} != layers x timed steps = {BERT['layers']} x "
+            f"{BERT['steps']}")
+    for name, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkv"), dropped):
+        results[name + "_dropout"]["launches"] = n
+    loss_values = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in loss_values):
+        raise AssertionError(f"non-finite loss: {loss_values}")
+    if not loss_values[-1] < loss_values[0]:
+        raise AssertionError(f"the loss did not fall: {loss_values}")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = BERT["batch"] * BERT["seq"]
+    tok_s = tokens * BERT["steps"] / wall
+    mfu = 6 * n_params * tok_s / BF16_FLOPS      # as bench.py:848 counts
+    prof = profile_train_step(step, (ids, ids))
+    out = {"card": nvidia_smi_line(), "model": "bert-base-mlm",
+           "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+           "intermediate": cfg.intermediate_size,
+           "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size,
+           "dropout": cfg.dropout, "dtype": "bfloat16", "params": n_params,
+           "optimizer": f"AdamW(lr={BERT['lr']}, multi_precision=False)",
+           "loss": "CrossEntropyLoss on [B, L, V] logits (fused CE)",
+           "batch": BERT["batch"], "seq": BERT["seq"],
+           "reduced": ["random weights from a seed (no checkpoint in the "
+                       "repo)"],
+           "init_seconds": init_s, "losses": loss_values,
+           "ln_vocab": math.log(cfg.vocab_size),
+           "warmup_steps": BERT["warmup"], "timed_steps": BERT["steps"],
+           "step_ms": wall / BERT["steps"] * 1e3, "tokens_per_s": tok_s,
+           "mfu": mfu, "mfu_flops_per_token": 6 * n_params,
+           "flash_launches": dict(zip(("fwd", "dq", "dkv"), launches)),
+           "flash_dropout_launches": dict(zip(("fwd", "dq", "dkv"),
+                                              dropped)),
+           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof}
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bert_train_parity():
+    import torch
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    model = bert_model(2)
+    model.train()
+    ids = bert_ids(model.config.vocab_size)
+    crit = CrossEntropyLoss()
+    # an all-zero additive mask changes no logit and routes attention to
+    # the plain sdpa, which draws the same kernel seed at the same point
+    zero_mask = torch.zeros((BERT["batch"], 1, 1, BERT["seq"]),
+                            device="cuda")
+    trandom.seed(SEED + 1)
+    state = trandom.get_rng_state()
+    runs = []
+    for mask in (None, zero_mask):
+        trandom.set_rng_state(state)
+        before = fa.flash_attention_fwd.dropout_launches
+        loss = crit(model(ids, attention_mask=mask), ids).float()
+        loss.backward()
+        launched = fa.flash_attention_fwd.dropout_launches - before
+        runs.append((loss.item(), launched,
+                     {n: p.grad for n, p in model.named_parameters()}))
+        model.zero_grad(set_to_none=True)
+    (lk, nk, gk), (lr_, nr, gr) = runs
+    if (nk, nr) != (2, 0):
+        raise AssertionError(f"dropout launches kernels/plain {nk}/{nr}, "
+                             "want 2/0")
+    loss_rel = abs(lk - lr_) / abs(lr_)
+
+    def rms(x):
+        return float(x.float().square().mean().sqrt())
+
+    worst, rows, key_bias = 0.0, {}, {}
+    for name, a in gk.items():
+        b = gr[name]
+        if a is None or b is None:      # token types and the pooler
+            if (a is None) != (b is None):
+                raise AssertionError(f"{name}: a gradient on one side only")
+            continue
+        if name.endswith("self_attn.k_proj.bias"):
+            # zero in exact arithmetic (the softmax of a row is invariant
+            # to adding q.b_k to all its logits): both sides are
+            # round-off, held small against the query bias's gradient
+            scale = rms(gr[name.replace("k_proj", "q_proj")])
+            key_bias[name] = max(rms(a), rms(b)) / scale
+            worst = max(worst, key_bias[name])
+            continue
+        rel = rms(a.float() - b.float()) / max(rms(b), 1e-30)
+        rows[name] = rel
+        worst = max(worst, rel)
+    ok = loss_rel <= BERT_LOSS_RTOL and worst <= BERT_GRAD_RMS
+    out = {"layers": 2, "dropout": BERT["dropout"], "loss_kernels": lk,
+           "loss_reference": lr_, "loss_rel_err": loss_rel,
+           "loss_rtol": BERT_LOSS_RTOL, "grad_rel_rms_worst": worst,
+           "grad_rel_rms_tol": BERT_GRAD_RMS, "grad_rel_rms": rows,
+           "key_bias_grad_vs_query_bias_grad": key_bias, "ok": ok}
+    del model, gk, gr, runs
+    torch.cuda.empty_cache()
+    if not ok:
+        emit({"phase": "bert_train_parity", "failed": out})
+        raise AssertionError("the BERT step through the kernels disagrees "
+                             "with the step through the plain sdpa")
+    return out
+
+
 def phase_build():
     from paddle_tpu_torch.ops.kernels import build
     return {name: {"nvcc_seconds": b.seconds,
@@ -1021,10 +1498,12 @@ def main() -> int:
               "launches": None, "parity": None, "max_abs_err": None,
               "ms": None, "kernel_ms": None, "plain_ms": None,
               "bound_ms": None, "bound_by": None, "library_ms": None}
+    # K1/K2 at the Llama training geometry; K5 (dropout) in K1a/K2a at
+    # the BERT geometry; K4 (segments) at the packed geometry
     flash = {
         name: {"name": name, "route": "cuda",
                "source": "paddle_tpu_torch/ops/kernels/csrc/"
-                         "flash_attention.cu",
+                         "flash_attention.cuh",
                "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
                "tpu_kernel": f"paddle_tpu/ops/pallas/flash_attention.py:"
                              f"{body}",
@@ -1034,7 +1513,19 @@ def main() -> int:
         for name, line, body in (
             ("flash_attention_fwd", 99, "_fwd_kernel"),
             ("flash_attention_bwd_dq", 208, "_bwd_dq_kernel"),
-            ("flash_attention_bwd_dkv", 278, "_bwd_dkv_kernel"))}
+            ("flash_attention_bwd_dkv", 278, "_bwd_dkv_kernel"),
+            ("flash_attention_fwd_dropout", 76,
+             "_keep_mask in _fwd_kernel (dropout_p > 0)"),
+            ("flash_attention_bwd_dq_dropout", 76,
+             "_keep_mask in _bwd_dq_kernel (dropout_p > 0)"),
+            ("flash_attention_bwd_dkv_dropout", 76,
+             "_keep_mask in _bwd_dkv_kernel (dropout_p > 0)"),
+            ("flash_attention_fwd_segmented", 738,
+             "_flash_fwd_pallas_seg (_fwd_kernel, segmented=True)"),
+            ("flash_attention_bwd_dq_segmented", 768,
+             "_flash_bwd_pallas_seg (_bwd_dq_kernel, segmented=True)"),
+            ("flash_attention_bwd_dkv_segmented", 768,
+             "_flash_bwd_pallas_seg (_bwd_dkv_kernel, segmented=True)"))}
     state: dict = {}
 
     def free_serving():
@@ -1056,6 +1547,11 @@ def main() -> int:
         ("flash_time", lambda: phase_flash_time(flash)),
         ("train", lambda: phase_train(flash)),
         ("train_parity", phase_train_parity),
+        ("flash_dropout_parity", lambda: phase_flash_dropout_parity(flash)),
+        ("flash_varlen_parity", lambda: phase_flash_varlen_parity(flash)),
+        ("flash_time_bert", lambda: phase_flash_time_bert(flash)),
+        ("bert_train", lambda: phase_bert_train(flash)),
+        ("bert_train_parity", phase_bert_train_parity),
     ]
     t_all = time.perf_counter()
     for name, fn in phases:

@@ -2,7 +2,7 @@
 
 The port runs on an NVIDIA Hopper card (H100) and keeps the JAX
 package's module names, so each module here has a counterpart of the
-same name in ``paddle_tpu``. Two slices are ported.
+same name in ``paddle_tpu``. Three slices are ported.
 
 Serving (paged-KV Llama):
 
@@ -27,6 +27,21 @@ Training (Llama with AdamW):
 - ``optimizer`` — ``Adam`` and ``AdamW``;
 - ``jit`` — ``TrainStep``;
 - ``ops.kernels.build`` — the ``nvcc`` build of every kernel source.
+
+BERT-base MLM training (dropout inside and around attention):
+
+- ``models.bert`` — ``BertConfig`` and ``BertForMaskedLM`` (same
+  parameter names as the JAX model);
+- ``nn`` — ``TransformerEncoder``/``TransformerEncoderLayer``/
+  ``MultiHeadAttention``, ``LayerNorm``, ``Dropout``,
+  ``CrossEntropyLoss``; ``nn.functional`` — ``dropout`` (the JAX hash
+  mask), ``gelu``, ``tanh``, ``layer_norm``, ``cross_entropy`` and the
+  packed-varlen entry ``flash_attn_varlen_qkvpacked``;
+- ``core.random`` — the port's generator and the seeds it draws for
+  the kernels' Philox dropout and the hash dropout;
+- ``ops.kernels.flash_attention`` again — attention dropout (the
+  Philox keep mask) and segment (varlen) masking inside the same
+  kernels.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without CUDA and without that argument it raises.

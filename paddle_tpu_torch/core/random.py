@@ -1,0 +1,69 @@
+"""The port's random state.
+
+The counterpart of ``paddle_tpu.core.random``: where the JAX package
+keeps a root PRNG key and folds a counter into it for every draw, the
+port keeps one explicit ``torch.Generator`` on the CPU, seeded 0 at
+import like the JAX default generator. Random ops on the card take
+their seeds from it, drawn on the host, so a draw never waits for the
+device:
+
+- :func:`kernel_seed` — a 64-bit seed for the flash-attention kernels'
+  Philox keep mask (``ops.kernels.flash_attention``);
+- :func:`hash_seed` — a uint32 seed for the hash dropout of
+  ``nn.functional.dropout`` (the JAX package's ``derive_seed`` of a
+  fresh key, as ``jnp.uint32``);
+- :func:`device_generator` — a generator on a device, seeded from this
+  one, for Bernoulli draws made there.
+
+The JAX and the port's streams differ (a JAX key is not a torch
+generator state); tests that need the same random numbers on both
+sides pass them explicitly.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["seed", "get_rng_state", "set_rng_state", "default_generator",
+           "kernel_seed", "hash_seed", "device_generator"]
+
+_generator = torch.Generator(device="cpu")
+_generator.manual_seed(0)
+
+
+def seed(value: int) -> torch.Generator:
+    """Reseed the port's generator (paddle's ``paddle.seed``)."""
+    return _generator.manual_seed(int(value))
+
+
+def default_generator() -> torch.Generator:
+    return _generator
+
+
+def get_rng_state() -> torch.Tensor:
+    return _generator.get_state()
+
+
+def set_rng_state(state: torch.Tensor) -> None:
+    _generator.set_state(state)
+
+
+def _words(n: int):
+    return torch.randint(0, 2 ** 32, (n,), dtype=torch.int64,
+                         generator=_generator).tolist()
+
+
+def kernel_seed() -> int:
+    """A fresh 64-bit seed (Python int) for the flash kernels' Philox."""
+    lo, hi = _words(2)
+    return lo | hi << 32
+
+
+def hash_seed() -> int:
+    """A fresh uint32 seed (Python int) for the hash dropout."""
+    return _words(1)[0]
+
+
+def device_generator(device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from the port's
+    generator: Bernoulli masks are drawn where they are used."""
+    return torch.Generator(device=device).manual_seed(hash_seed())

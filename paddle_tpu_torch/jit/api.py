@@ -11,7 +11,11 @@ Usage::
     loss = step(ids, labels)     # 0-dim f32 tensor on the model's device
 
 ``loss_fn(outputs, *labels)`` returns a scalar. With more than one
-argument the last is the labels, as in the JAX ``TrainStep``.
+argument the last is the labels, as in the JAX ``TrainStep``. The step
+runs the model in training mode (dropout on), as the JAX step traces
+it, and, as the JAX step differentiates the whole trainable tree, a
+parameter the loss does not reach gets a zero gradient (AdamW still
+decays it).
 """
 from __future__ import annotations
 
@@ -37,8 +41,13 @@ class TrainStep:
         ``cast_loss_f32``), its backward, the optimizer update and the
         gradients cleared. Returns the loss without a host sync."""
         ins, lbls = self._split(batch)
+        if not self.model.training:
+            self.model.train()
         loss = self.loss_fn(self.model(*ins), *lbls).float()
         loss.backward()
+        for p in self.optimizer._parameter_list:
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         self.optimizer.step()
         self.optimizer.clear_grad()
         return loss.detach()

@@ -1,1 +1,1 @@
-"""Models of the port (Llama so far)."""
+"""Models of the port (Llama and BERT)."""

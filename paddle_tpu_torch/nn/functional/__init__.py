@@ -1,3 +1,8 @@
-"""Functional ops of the port (attention so far)."""
+"""Functional ops of the port (the paddle ``nn.functional`` names)."""
+from .activation import gelu, tanh  # noqa: F401
 from .attention import (flash_attention,  # noqa: F401
+                        flash_attn_varlen_qkvpacked,
                         scaled_dot_product_attention, sdpa_reference)
+from .common import dropout, linear  # noqa: F401
+from .loss import cross_entropy  # noqa: F401
+from .norm import layer_norm  # noqa: F401

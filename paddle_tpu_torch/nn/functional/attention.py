@@ -1,14 +1,17 @@
 """Attention functions of the port.
 
 :func:`sdpa_reference` is the PyTorch port of the JAX package's numeric
-oracle ``_sdpa_xla`` (``paddle_tpu/ops/pallas/flash_attention.py``),
-without dropout; the Llama model's masked and cached paths use it.
-:func:`scaled_dot_product_attention` and :func:`flash_attention` are the
-paddle entries (``paddle_tpu/nn/functional/attention.py``): a call
-without a mask goes to the flash-attention kernels
-(``ops.kernels.flash_attention``, their plain versions on the CPU), a
-call with a mask to :func:`sdpa_reference`, as the JAX code routes
-them. Attention dropout is kernel K5 of the roadmap and raises.
+oracle ``_sdpa_xla`` (``paddle_tpu/ops/pallas/flash_attention.py``);
+its dropout draws the flash kernels' Philox keep mask from the same
+seed, so a masked call and a kernel call with one seed drop the same
+pairs. :func:`scaled_dot_product_attention`, :func:`flash_attention`
+and :func:`flash_attn_varlen_qkvpacked` are the paddle entries
+(``paddle_tpu/nn/functional/attention.py``): a call without a mask goes
+to the flash-attention kernels (``ops.kernels.flash_attention``, their
+plain versions on the CPU) with a seed drawn from the port's generator
+(``core.random.kernel_seed``) when it drops; a call with a mask goes to
+:func:`sdpa_reference`, as the JAX code routes them; packed varlen
+sequences go to the segment-masked kernels.
 """
 from __future__ import annotations
 
@@ -17,24 +20,34 @@ from typing import Optional
 
 import torch
 
+from ...core import random as _random
 from ...ops.kernels.flash_attention import flash_attention as _flash
+from ...ops.kernels.flash_attention import (flash_attention_segmented,
+                                            flash_dropout_keep_mask)
 
 __all__ = ["sdpa_reference", "scaled_dot_product_attention",
-           "flash_attention"]
+           "flash_attention", "flash_attn_varlen_qkvpacked"]
 
 _NEG_INF = -1e30
 
 
 def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = False, scale: Optional[float] = None,
-                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   mask: Optional[torch.Tensor] = None,
+                   dropout_p: float = 0.0,
+                   seed: Optional[int] = None) -> torch.Tensor:
     """Plain attention in the ``[B, L, H, D]`` layout. ``mask`` is
     additive, broadcast against ``[B, H, Lq, Lk]`` logits. ``Lq < Lk``
     (KV-cache decode) offsets the causal diagonal. Logits and softmax
     run in f32; the probabilities are cast back to q's dtype before the
-    PV product, as in the JAX oracle."""
+    PV product, as in the JAX oracle. ``dropout_p > 0`` keeps the pairs
+    of :func:`flash_dropout_keep_mask` for ``seed`` and divides them by
+    ``1 - p`` in q's dtype; ``dropout_p >= 1`` returns zeros."""
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(d)
+    if dropout_p >= 1.0:
+        # everything dropped: zeros with zero (not NaN) gradients
+        return torch.where(torch.zeros_like(q, dtype=torch.bool), q, 0.0)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     logits = torch.einsum("bhqd,bhkd->bhqk", qt, kt).float() * s
     if causal:
@@ -45,6 +58,14 @@ def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         logits = logits + mask
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_p > 0.0:
+        if seed is None:
+            raise ValueError("sdpa_reference dropout needs a seed")
+        B, H, Lq, Lk = probs.shape
+        keep = flash_dropout_keep_mask(seed, B, H, Lq, dropout_p, q.device,
+                                       Lk)
+        inv = torch.tensor(1.0 - dropout_p, dtype=q.dtype).item()
+        probs = torch.where(keep, probs / inv, 0.0).to(q.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vt)
     return out.transpose(1, 2)
 
@@ -56,14 +77,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Layout ``[batch, seq, heads, head_dim]``, the paddle API. Dropout
     applies only in training (``training=False`` turns it off)."""
     drop = dropout_p if training else 0.0
-    if attn_mask is None:
-        return _flash(query, key, value, causal=is_causal, dropout_p=drop)
-    if drop > 0.0:
-        raise NotImplementedError(
-            "attention dropout (kernel K5 and the masked sdpa's dropout) "
-            "is not ported yet; call with dropout_p=0")
-    return sdpa_reference(query, key, value, causal=is_causal,
-                          mask=attn_mask.float())
+    seed = _random.kernel_seed() if 0.0 < drop < 1.0 else None
+    if attn_mask is None and drop < 1.0:
+        return _flash(query, key, value, causal=is_causal, dropout_p=drop,
+                      seed=seed)
+    mask = attn_mask.float() if attn_mask is not None else None
+    return sdpa_reference(query, key, value, causal=is_causal, mask=mask,
+                          dropout_p=drop, seed=seed)
 
 
 def flash_attention(query, key, value, dropout: float = 0.0,
@@ -73,3 +93,41 @@ def flash_attention(query, key, value, dropout: float = 0.0,
     out = scaled_dot_product_attention(query, key, value, None, dropout,
                                        causal, training)
     return out, None
+
+
+def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
+                                max_seqlen_q=None, max_seqlen_k=None,
+                                scale=None, dropout: float = 0.0,
+                                causal: bool = False,
+                                return_softmax: bool = False,
+                                fixed_seed_offset=None, rng_name: str = "",
+                                varlen_padded: bool = True,
+                                training: bool = True, name=None):
+    """Varlen packed attention: ``qkv [total, 3, H, D]``, sequences packed
+    along dim 0 and delimited by ``cu_seqlens`` (``[n + 1]``, from 0 to
+    total); attention never crosses a sequence boundary. Returns
+    ``([total, H, D], None)``.
+
+    ``cu_seqlens`` become per-token segment ids (the number of
+    boundaries at or before each token) for the segment-masked flash
+    kernels; q, k and v are strided views of ``qkv``, read in place.
+    ``max_seqlen_*`` and ``varlen_padded`` are accepted for signature
+    parity and unused. ``dropout`` is accepted and unused, as the JAX
+    entry does. A ``cu_seqlens_k`` that differs from ``cu_seqlens_q``
+    raises: packed qkv has one set of boundaries."""
+    if cu_seqlens_k is not None and cu_seqlens_k is not cu_seqlens_q:
+        cq, ck = torch.as_tensor(cu_seqlens_q), torch.as_tensor(cu_seqlens_k)
+        if cq.shape != ck.shape or not torch.equal(cq.to(ck.device), ck):
+            raise ValueError(
+                "flash_attn_varlen_qkvpacked: cu_seqlens_k differs from "
+                "cu_seqlens_q, but packed qkv shares one set of sequence "
+                "boundaries — masking would be wrong. Use the unpacked "
+                "varlen API for cross-attention layouts.")
+    total = qkv.shape[0]
+    cu = torch.as_tensor(cu_seqlens_q, device=qkv.device).long()
+    seg = torch.searchsorted(
+        cu[1:], torch.arange(total, device=qkv.device), right=True)
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]           # [total, H, D]
+    out = flash_attention_segmented(q[None], k[None], v[None],
+                                    seg[None].to(torch.int32), causal, scale)
+    return out[0], None

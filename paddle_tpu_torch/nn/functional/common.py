@@ -1,0 +1,93 @@
+"""Common functionals of the port: ``linear`` and ``dropout``.
+
+The port of ``paddle_tpu/nn/functional/common.py`` (``linear``,
+``dropout``). Plain PyTorch elementwise code: the JAX package has no
+Pallas kernel for either.
+
+``dropout`` in its main mode (``upscale_in_train`` over the whole
+tensor) draws the JAX package's hash mask: a murmur3 finalizer over
+``index * 0x9E3779B1 + seed`` in uint32 arithmetic, kept iff the hash is
+at least ``min(floor(p·2³²), 2³²−1)`` — from the same uint32 seed it is
+the JAX mask bit for bit. The seed comes from the port's generator
+(``core.random.hash_seed``). The ``axis`` and ``downscale_in_infer``
+modes draw a Bernoulli mask on the tensor's device from a generator
+seeded by the port's generator.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...core import random as _random
+
+__all__ = ["linear", "dropout", "hash_keep_mask"]
+
+_M32 = 0xFFFFFFFF
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias=None, name=None):
+    """``y = x W + b`` with paddle's ``[in, out]`` weight layout (the
+    port's layers are ``torch.nn.Linear``, ``[out, in]``)."""
+    y = torch.matmul(x, weight)
+    return y if bias is None else y + bias
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``a * c mod 2³²`` for int64 ``a`` in [0, 2³²): the int64 product
+    wraps, its low 32 bits are exact."""
+    return (a * c) & _M32
+
+
+def hash_keep_mask(shape, p: float, seed: int, device=None) -> torch.Tensor:
+    """The JAX package's hash dropout mask (``common.py:66-79``) as a
+    bool tensor of ``shape``: element ``i`` (row-major) is kept iff
+    ``murmur3_fmix32(i * 0x9E3779B1 + seed) >= thresh``."""
+    n = math.prod(shape)
+    h = torch.arange(n, dtype=torch.int64, device=device)
+    h = (_mul32(h, 0x9E3779B1) + (int(seed) & _M32)) & _M32
+    h = _mul32(h ^ (h >> 16), 0x85EBCA6B)
+    h = _mul32(h ^ (h >> 13), 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    thresh = min(int(p * (2 ** 32)), 2 ** 32 - 1)
+    return (h >= thresh).view(tuple(shape))
+
+
+def _scale_value(p: float, dtype: torch.dtype) -> float:
+    """``1 - p`` as the JAX package divides by it: a weak Python scalar
+    takes the tensor's dtype, so in bf16 it is rounded to bf16 first."""
+    return torch.tensor(1.0 - p, dtype=dtype).item()
+
+
+def dropout(x: torch.Tensor, p: float = 0.5, axis=None,
+            training: bool = True, mode: str = "upscale_in_train",
+            name=None) -> torch.Tensor:
+    """Paddle's dropout. ``upscale_in_train``: kept elements are divided
+    by ``1 - p`` in training, eval passes ``x`` through;
+    ``downscale_in_infer``: training applies the raw mask, eval scales
+    by ``1 - p``. ``axis`` shares one mask along the other axes."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"mode must be 'upscale_in_train' or "
+                         f"'downscale_in_infer', got {mode!r}")
+    if not training or p == 0.0:
+        if training or mode == "upscale_in_train" or p == 0.0:
+            return x
+        return (x * (1.0 - p)).to(x.dtype)
+    if p == 1.0:
+        # zeros with zero (not NaN) gradients
+        return torch.where(torch.zeros_like(x, dtype=torch.bool), x, 0.0)
+    if axis is None and mode == "upscale_in_train" and x.numel() > 1:
+        keep = hash_keep_mask(x.shape, p, _random.hash_seed(), x.device)
+        return torch.where(keep, x / _scale_value(p, x.dtype),
+                           0.0).to(x.dtype)
+    shape = list(x.shape)
+    if axis is not None:
+        axes = axis if isinstance(axis, (list, tuple)) else [axis]
+        axes = [a % x.dim() for a in axes]
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    g = _random.device_generator(x.device)
+    keep = torch.rand(shape, generator=g, device=x.device) < 1.0 - p
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / _scale_value(p, x.dtype),
+                           0.0).to(x.dtype)
+    return torch.where(keep, x, 0.0).to(x.dtype)

@@ -1,27 +1,62 @@
-// Flash attention for Hopper (sm_90a): the forward, dQ and dK/dV kernels.
+// Flash attention for Hopper (sm_90a): the forward, dQ and dK/dV kernels,
+// with in-kernel attention dropout and segment (varlen) masking.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
-// _fwd_kernel (launched by _flash_fwd_pallas and _flash_fwd_pallas_blhd)
-// and the two-kernel backward _bwd_dq_kernel / _bwd_dkv_kernel (launched
-// by _flash_bwd_pallas and _flash_bwd_pallas_blhd). One kernel serves both
-// TPU layouts: every tensor comes with its own (batch, seq, head) element
-// strides and a contiguous head dim, so [B, L, H, D] and [B*H, L, D]
-// (viewed as [B*H, L, 1, D]) are the same call. The plain PyTorch
-// versions beside the wrappers (ops/kernels/flash_attention.py,
+// _fwd_kernel (launched by _flash_fwd_pallas, _flash_fwd_pallas_blhd and,
+// segmented, _flash_fwd_pallas_seg) and the two-kernel backward
+// _bwd_dq_kernel / _bwd_dkv_kernel (launched by _flash_bwd_pallas,
+// _flash_bwd_pallas_blhd and _flash_bwd_pallas_seg), including the
+// dropout keep mask that _keep_mask regenerates inside all three. One
+// kernel serves both TPU layouts: every tensor comes with its own (batch,
+// seq, head) element strides and a contiguous head dim, so [B, L, H, D]
+// and [B*H, L, D] (viewed as [B*H, L, 1, D]) are the same call. The plain
+// PyTorch versions beside the wrappers (ops/kernels/flash_attention.py,
 // flash_attention_fwd_reference and the two backward parts) are the
-// oracles; they follow the same roundings.
+// oracles; they follow the same roundings and draw the same keep mask.
 //
-//   forward  S = scale * Q K^T (masked: causal and the ragged tail ->
-//            -1e30), online softmax over KV tiles in f32, O = P V with P
-//            rounded to V's dtype; out = acc / max(l, 1e-30) in q's dtype
-//            and lse = m + log(max(l, 1e-30)) in f32 [B, H, L].
+// This header is compiled once per (dtype, head dim) by the four
+// flash_attention_<dtype>_d<D>.cu files, so the four builds run in
+// parallel; each library exports the same three C entry points and takes
+// only its own dtype and head dim.
+//
+//   forward  S = scale * Q K^T (masked: causal, other segments and the
+//            ragged tail -> -1e30), online softmax over KV tiles in f32
+//            on the undropped P, O = (keep o P) V with P rounded to V's
+//            dtype; out = acc / (1 - p) / max(l, 1e-30) in q's dtype and
+//            lse = m + log(max(l, 1e-30)) in f32 [B, H, L].
 //   dQ       P = exp(scale * Q K^T - lse) (re-masked), dP = dO V^T,
-//            dS = P * (dP - delta) * scale, dQ = dS K with dS rounded to
-//            K's dtype. delta = rowsum(dO * O) comes in from outside (f32).
+//            dP <- keep o dP / (1 - p), dS = P * (dP - delta) * scale,
+//            dQ = dS K with dS rounded to K's dtype. delta = rowsum(dO * O)
+//            of the dropped output comes in from outside (f32).
 //   dK/dV    per KV tile, looping over the query tiles at or after it:
-//            dV = P^T dO, dK = dS^T Q (P, dS rounded to the input dtype),
+//            dV = (keep o P / (1 - p))^T dO, dK = dS^T Q (dS as in dQ, on
+//            the undropped P; both rounded to the input dtype),
 //            accumulated in registers and written once: no atomics, so
 //            the result is deterministic, as in the TPU recipe.
+//
+// Dropout (K5). The keep mask is a pure function of (seed, b, h, row,
+// col), so the forward's 64-row query tiles and dK/dV's 32-row ones draw
+// the same bits: Philox4x32-10 with key (seed_lo, seed_hi) and counter
+// (col >> 2, row, b * H + h, 0) gives four words for four neighbouring
+// columns; the pair (row, col) is kept iff word[col & 3] >= thresh, with
+// thresh = min(floor(p * 2^32), 2^32 - 1). thresh = 0 turns dropout off
+// and leaves the arithmetic bit for bit what it is without it. In the
+// m16n8k16 accumulator a lane holds columns 2t, 2t+1 of rows g and g+8:
+// in the forward and dQ the two lanes t, t^1 share both counters, each
+// computes one row's and they swap halves; in dK/dV (rows are keys, the
+// columns queries) the four lanes of a key group each compute one of the
+// four counters and exchange words in three shuffles. So every Philox
+// word is used once: a quarter of a call per (row, col) pair.
+//
+// Segments (K4). seg [B, L] int32 (its own batch stride): a pair (i, j)
+// is allowed iff seg[i] == seg[j] (and j <= i when causal); masked logits
+// are -1e30 and masked probabilities are re-masked to exactly 0 (a row
+// whose columns are all masked so far has m == -1e30 and exp(0) == 1). A
+// KV (query) tile whose [min, max] segment range is disjoint from this
+// CTA's is skipped: seg_rng [B, ceil(L/32), 2] holds the range of every
+// 32-row chunk, computed by the wrapper. That is valid for any ids,
+// sorted or not, and is the analogue of the causal skip: a packed batch
+// of short sequences does only the pairs near the diagonal.
 //
 // Design. A CTA of four warps owns 64 rows (query rows for the forward
 // and dQ, key rows for dK/dV); each warp owns 16 of them. The TPU grid's
@@ -39,7 +74,10 @@
 // longest-first so the tail of the grid is short. f32 inputs take the
 // same code with the product emulated on the CUDA cores (f32 FMAs over
 // the same fragments, fetched with shuffles), so both dtypes share every
-// index and mask.
+// index and mask. Dropout and segments are flags uniform across the grid:
+// bf16 compiles one instance per (dropout, segments) pair, so the plain
+// kernel carries neither; f32 keeps them as runtime flags in one
+// instance (see launch_flags).
 //
 // What bounds it. At the Llama training geometry (B 4, L 2048, H 32,
 // D 128, causal) the work is ~1.4e11 flops forward and ~3.4e11 needed
@@ -47,13 +85,21 @@
 // inputs and outputs each way: the kernels are bound by tensor-core
 // operations. This first design feeds the tensor cores from shared memory
 // with synchronous loads and one tile in flight, so it stalls on every
-// tile load and re-reads the B operands once per warp. Left for later:
-// cp.async/TMA double buffering, ldmatrix, wgmma with warp-specialised
-// producers, and a larger query block per CTA.
+// tile load and re-reads the B operands once per warp. Dropout adds
+// integer work (ten rounds of two 32-bit multiplies a Philox call), no
+// products. Left for later: cp.async/TMA double buffering, ldmatrix,
+// wgmma with warp-specialised producers, and a larger query block per
+// CTA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#if !defined(FLASH_DTYPE) || !defined(FLASH_HEAD_DIM)
+#error "compile through flash_attention_<dtype>_d<D>.cu"
+#endif
 
 namespace {
 
@@ -62,7 +108,9 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kBM = 16 * kWarps;  // rows a CTA owns (query or key rows)
 constexpr int kBN = 64;           // key rows a tile of the fwd / dQ loop
 constexpr int kBQ = 32;           // query rows a tile of the dK/dV loop
+constexpr int kChunk = 32;        // rows of one seg_rng entry
 constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -72,9 +120,109 @@ struct View {
   long long sb, sl, sh;
 };
 
+// The dropout and segment flags of a launch (uniform across the grid).
+struct Mask {
+  const int* seg;      // [B, L] segment ids, or nullptr: no segments
+  long long seg_sb;    // seg's batch stride (elements)
+  const int* seg_rng;  // [B, ceil(L / 32), 2]: min, max id of each chunk
+  uint32_t seed_lo, seed_hi;
+  uint32_t thresh;     // keep iff word >= thresh; 0: no dropout
+  float inv_keep;      // 1 / (1 - p)
+};
+
 template <typename T>
 __device__ __forceinline__ T* base(const View& x, int b, int h) {
   return static_cast<T*>(x.ptr) + b * x.sb + h * x.sh;
+}
+
+// -- Philox4x32-10 (Salmon et al., SC'11; the Random123 constants) --------
+__device__ __forceinline__ uint4 philox(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+// The keep bits of a lane's accumulator elements over a tile whose rows
+// are queries: bit 4n + e for n-tile n (columns c0 + 8n + 2t + (e & 1)) and
+// row row[e >> 1]. c0 is a multiple of 8.
+template <int NT>
+__device__ __forceinline__ uint32_t keep_bits_qrows(const Mask& mk, int bh,
+                                                    const int (&row)[2],
+                                                    int c0) {
+  const int lane = threadIdx.x & 31, t = lane & 3, u = t & 1;
+  const int my_row = u ? row[1] : row[0];
+  uint32_t bits = 0;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    // lanes t and t^1 share this counter for both rows: lane u computes
+    // row[u] and hands the partner the two words it needs
+    const uint4 r = philox(
+        make_uint4(static_cast<uint32_t>((c0 >> 2) + 2 * n + (t >> 1)),
+                   static_cast<uint32_t>(my_row),
+                   static_cast<uint32_t>(bh), 0u),
+        mk.seed_lo, mk.seed_hi);
+    const uint32_t ra = __shfl_xor_sync(kFull, u ? r.x : r.z, 1);
+    const uint32_t rb = __shfl_xor_sync(kFull, u ? r.y : r.w, 1);
+    const uint32_t w0 = u ? ra : r.x, w1 = u ? rb : r.y;  // row[0]
+    const uint32_t w2 = u ? r.z : ra, w3 = u ? r.w : rb;  // row[1]
+    bits |= (static_cast<uint32_t>(w0 >= mk.thresh) |
+             static_cast<uint32_t>(w1 >= mk.thresh) << 1 |
+             static_cast<uint32_t>(w2 >= mk.thresh) << 2 |
+             static_cast<uint32_t>(w3 >= mk.thresh) << 3)
+            << (4 * n);
+  }
+  return bits;
+}
+
+// The same over a tile whose rows are keys (dK/dV computes S^T): bit
+// 4n + e for key row key0 + g + 8 (e >> 1) and query q0 + 8n + 2t + (e & 1),
+// where key0 = this warp's first key (a multiple of 16).
+template <int NT>
+__device__ __forceinline__ uint32_t keep_bits_krows(const Mask& mk, int bh,
+                                                    int key0, int q0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w = g & 3, a = g >> 2;  // key & 3 and the key group
+  uint32_t bits = 0;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    // the four lanes (w = 0..3) of a key group need word w of the same
+    // four counters, one per element e: lane w computes e = w's
+    const uint4 r = philox(
+        make_uint4(static_cast<uint32_t>((key0 >> 2) + a + 2 * (w >> 1)),
+                   static_cast<uint32_t>(q0 + 8 * n + 2 * t + (w & 1)),
+                   static_cast<uint32_t>(bh), 0u),
+        mk.seed_lo, mk.seed_hi);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // round j: receive word w of element w ^ j's counter from the lane
+      // that computed it, sending it word (w ^ j) of ours
+      uint32_t x = word(r, w ^ j);
+      if (j) x = __shfl_xor_sync(kFull, x, 4 * j);
+      bits |= static_cast<uint32_t>(x >= mk.thresh) << (4 * n + (w ^ j));
+    }
+  }
+  return bits;
+}
+
+// the segment-id range of rows [r0, r0 + 64): two chunks of 32
+__device__ __forceinline__ void chunk_range(const int* rng, int c, int n32,
+                                            int& lo, int& hi) {
+  lo = rng[2 * c];
+  hi = rng[2 * c + 1];
+  if (c + 1 < n32) {
+    lo = min(lo, rng[2 * c + 2]);
+    hi = max(hi, rng[2 * c + 3]);
+  }
 }
 
 // -- fragments -----------------------------------------------------------
@@ -156,13 +304,12 @@ __device__ __forceinline__ void mma(float (&d)[4], const float2 (&a)[4],
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
     const int hi = k >> 3, src = (k & 7) >> 1, e = k & 1;
-    const float a_g = __shfl_sync(0xffffffffu, pick(a[hi ? 2 : 0], e),
+    const float a_g = __shfl_sync(kFull, pick(a[hi ? 2 : 0], e),
                                   g * 4 + src);
-    const float a_g8 = __shfl_sync(0xffffffffu, pick(a[hi ? 3 : 1], e),
+    const float a_g8 = __shfl_sync(kFull, pick(a[hi ? 3 : 1], e),
                                    g * 4 + src);
-    const float b_n0 = __shfl_sync(0xffffffffu, pick(b[hi], e),
-                                   (2 * t) * 4 + src);
-    const float b_n1 = __shfl_sync(0xffffffffu, pick(b[hi], e),
+    const float b_n0 = __shfl_sync(kFull, pick(b[hi], e), (2 * t) * 4 + src);
+    const float b_n1 = __shfl_sync(kFull, pick(b[hi], e),
                                    (2 * t + 1) * 4 + src);
     d[0] = fmaf(a_g, b_n0, d[0]);
     d[1] = fmaf(a_g, b_n1, d[1]);
@@ -205,12 +352,12 @@ __device__ __forceinline__ void load_b_krows(pair_t<T> (&b)[2], const T* X,
 
 // the four-lane (same g) reductions of a row's statistics
 __device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
 }
 __device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
 }
 
 // rows row0 .. row0 + ROWS - 1 of one (b, h) into a [ROWS][LD] shared
@@ -230,30 +377,51 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
   }
 }
 
+// the segment ids of rows row0 .. row0 + ROWS - 1 into shared memory
+template <int ROWS>
+__device__ __forceinline__ void load_seg(int* dst, const int* segb, int row0,
+                                         int L) {
+  for (int i = threadIdx.x; i < ROWS; i += kThreads)
+    dst[i] = row0 + i < L ? segb[row0 + i] : 0;
+}
+
 template <typename T, int D>
 struct Geo {
   static constexpr int LD = D + 16 / sizeof(T);  // padded row: no conflicts
 };
 
 // -- forward ---------------------------------------------------------------
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, bool kDrop, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(View q, View k, View v, View o, float* __restrict__ lse,
-                     int L, int H, float scale) {
+                     int L, int H, float scale, Mask mk) {
   constexpr int LD = Geo<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = sQ + kBM * LD;
   T* sV = sK + kBN * LD;
+  int* sSeg = reinterpret_cast<int*>(sV + kBN * LD);  // the tile's key ids
   const int n_blk = (L + kBM - 1) / kBM;
   const int q0 = (kCausal ? n_blk - 1 - blockIdx.x : blockIdx.x) * kBM;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const T* kp = base<const T>(k, b, h);
   const T* vp = base<const T>(v, b, h);
   load_tile<T, kBM, D, LD>(sQ, base<const T>(q, b, h), q.sl, q0, L);
+
+  const bool seg_on = kSeg && mk.seg != nullptr;
+  const bool drop_on = kDrop && mk.thresh != 0u;
+  const int n32 = (L + kChunk - 1) / kChunk;
+  const int* segb = seg_on ? mk.seg + b * mk.seg_sb : nullptr;
+  const int* rng = seg_on ? mk.seg_rng + 2LL * b * n32 : nullptr;
+  int seg_row[2] = {0, 0}, q_lo = 0, q_hi = 0;
+  if (seg_on) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) seg_row[i] = row[i] < L ? segb[row[i]] : 0;
+    chunk_range(rng, q0 / kChunk, n32, q_lo, q_hi);
+  }
 
   float acc[D / 8][4];
 #pragma unroll
@@ -266,10 +434,18 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (kv_end + kBN - 1) / kBN;
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBN;
+    if (seg_on) {  // uniform: every thread reads the same ranges
+      int lo, hi;
+      chunk_range(rng, k0 / kChunk, n32, lo, hi);
+      if (hi < q_lo || lo > q_hi) continue;
+    }
     __syncthreads();  // the previous tile is consumed
     load_tile<T, kBN, D, LD>(sK, kp, k.sl, k0, L);
     load_tile<T, kBN, D, LD>(sV, vp, v.sl, k0, L);
+    if (seg_on) load_seg<kBN>(sSeg, segb, k0, L);
     __syncthreads();
+    const uint32_t keep =
+        drop_on ? keep_bits_qrows<kBN / 8>(mk, bh, row, k0) : kFull;
 
     float s[kBN / 8][4];
 #pragma unroll
@@ -293,8 +469,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int n = 0; n < kBN / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const bool ok = col < L && (!kCausal || col <= row[e >> 1]);
+        const int c = n * 8 + 2 * t + (e & 1), col = k0 + c;
+        const bool ok = col < L && (!kCausal || col <= row[e >> 1]) &&
+                        (!seg_on || sSeg[c] == seg_row[e >> 1]);
         s[n][e] = ok ? s[n][e] * scale : kNegInf;
         m_new[e >> 1] = fmaxf(m_new[e >> 1], s[n][e]);
       }
@@ -308,13 +485,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int n = 0; n < kBN / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const bool ok = col < L && (!kCausal || col <= row[e >> 1]);
+        const int c = n * 8 + 2 * t + (e & 1), col = k0 + c;
+        const bool ok = col < L && (!kCausal || col <= row[e >> 1]) &&
+                        (!seg_on || sSeg[c] == seg_row[e >> 1]);
         // re-masked: a row whose columns are all masked so far has
         // s == m_new == -1e30 and exp() == 1
         const float p = ok ? expf(s[n][e] - m_new[e >> 1]) : 0.f;
-        s[n][e] = p;
-        rs[e >> 1] += p;
+        rs[e >> 1] += p;  // l is the undropped row sum
+        s[n][e] = (keep >> (4 * n + e)) & 1u ? p : 0.f;
       }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -330,7 +508,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
-      pair_t<T> a[4];  // P, rounded to V's dtype
+      pair_t<T> a[4];  // keep o P, rounded to V's dtype
       a[0] = round_pair<T>(s[2 * kk][0], s[2 * kk][1]);
       a[1] = round_pair<T>(s[2 * kk][2], s[2 * kk][3]);
       a[2] = round_pair<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
@@ -344,8 +522,10 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  // x * 1.0f == x: without dropout the output is what it always was
+  const float sc = drop_on ? mk.inv_keep : 1.f;
   T* op = base<T>(o, b, h);
-  float* lp = lse + (static_cast<long long>(b) * H + h) * L;
+  float* lp = lse + static_cast<long long>(bh) * L;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= L) continue;
@@ -353,27 +533,29 @@ __global__ void __launch_bounds__(kThreads)
     T* dst = op + row[i] * o.sl + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      store_pair(dst + n * 8, acc[n][2 * i] / lm, acc[n][2 * i + 1] / lm);
+      store_pair(dst + n * 8, acc[n][2 * i] * sc / lm,
+                 acc[n][2 * i + 1] * sc / lm);
     if (t == 0) lp[row[i]] = m[i] + logf(lm);
   }
 }
 
 // -- dQ --------------------------------------------------------------------
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, bool kDrop, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(View q, View k, View v, View dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, View dq, int L,
-                        int H, float scale) {
+                        int H, float scale, Mask mk) {
   constexpr int LD = Geo<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sO = sQ + kBM * LD;  // dO
   T* sK = sO + kBM * LD;
   T* sV = sK + kBN * LD;
+  int* sSeg = reinterpret_cast<int*>(sV + kBN * LD);
   const int n_blk = (L + kBM - 1) / kBM;
   const int q0 = (kCausal ? n_blk - 1 - blockIdx.x : blockIdx.x) * kBM;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
@@ -381,12 +563,24 @@ __global__ void __launch_bounds__(kThreads)
   const T* vp = base<const T>(v, b, h);
   load_tile<T, kBM, D, LD>(sQ, base<const T>(q, b, h), q.sl, q0, L);
   load_tile<T, kBM, D, LD>(sO, base<const T>(dout, b, h), dout.sl, q0, L);
-  const long long rbase = (static_cast<long long>(b) * H + h) * L;
+  const long long rbase = static_cast<long long>(bh) * L;
   float lse_r[2], dl_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     lse_r[i] = row[i] < L ? lse[rbase + row[i]] : 0.f;
     dl_r[i] = row[i] < L ? delta[rbase + row[i]] : 0.f;
+  }
+
+  const bool seg_on = kSeg && mk.seg != nullptr;
+  const bool drop_on = kDrop && mk.thresh != 0u;
+  const int n32 = (L + kChunk - 1) / kChunk;
+  const int* segb = seg_on ? mk.seg + b * mk.seg_sb : nullptr;
+  const int* rng = seg_on ? mk.seg_rng + 2LL * b * n32 : nullptr;
+  int seg_row[2] = {0, 0}, q_lo = 0, q_hi = 0;
+  if (seg_on) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) seg_row[i] = row[i] < L ? segb[row[i]] : 0;
+    chunk_range(rng, q0 / kChunk, n32, q_lo, q_hi);
   }
 
   float acc[D / 8][4];
@@ -399,10 +593,18 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (kv_end + kBN - 1) / kBN;
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBN;
+    if (seg_on) {
+      int lo, hi;
+      chunk_range(rng, k0 / kChunk, n32, lo, hi);
+      if (hi < q_lo || lo > q_hi) continue;
+    }
     __syncthreads();
     load_tile<T, kBN, D, LD>(sK, kp, k.sl, k0, L);
     load_tile<T, kBN, D, LD>(sV, vp, v.sl, k0, L);
+    if (seg_on) load_seg<kBN>(sSeg, segb, k0, L);
     __syncthreads();
+    const uint32_t keep =
+        drop_on ? keep_bits_qrows<kBN / 8>(mk, bh, row, k0) : kFull;
 
     float s[kBN / 8][4], dp[kBN / 8][4];
 #pragma unroll
@@ -427,10 +629,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int n = 0; n < kBN / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const bool ok = col < L && (!kCausal || col <= row[e >> 1]);
+        const int c = n * 8 + 2 * t + (e & 1), col = k0 + c;
+        const bool ok = col < L && (!kCausal || col <= row[e >> 1]) &&
+                        (!seg_on || sSeg[c] == seg_row[e >> 1]);
         const float p = ok ? expf(scale * s[n][e] - lse_r[e >> 1]) : 0.f;
-        s[n][e] = p * (dp[n][e] - dl_r[e >> 1]) * scale;  // dS
+        float d = dp[n][e];
+        if (drop_on) d = (keep >> (4 * n + e)) & 1u ? d * mk.inv_keep : 0.f;
+        s[n][e] = p * (d - dl_r[e >> 1]) * scale;  // dS
       }
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
@@ -460,12 +665,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // -- dK / dV -----------------------------------------------------------------
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, bool kDrop, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(View q, View k, View v, View dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, View dk, View dv,
-                         int L, int H, float scale) {
+                         int L, int H, float scale, Mask mk) {
   constexpr int LD = Geo<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);
@@ -474,16 +679,29 @@ __global__ void __launch_bounds__(kThreads)
   T* sO = sQ + kBQ * LD;  // dO
   float* sL = reinterpret_cast<float*>(sO + kBQ * LD);
   float* sD = sL + kBQ;
+  int* sSeg = reinterpret_cast<int*>(sD + kBQ);  // the tile's query ids
   const int k0 = blockIdx.x * kBM;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
   const T* qp = base<const T>(q, b, h);
   const T* op = base<const T>(dout, b, h);
-  const long long rbase = (static_cast<long long>(b) * H + h) * L;
+  const long long rbase = static_cast<long long>(bh) * L;
   load_tile<T, kBM, D, LD>(sK, base<const T>(k, b, h), k.sl, k0, L);
   load_tile<T, kBM, D, LD>(sV, base<const T>(v, b, h), v.sl, k0, L);
+
+  const bool seg_on = kSeg && mk.seg != nullptr;
+  const bool drop_on = kDrop && mk.thresh != 0u;
+  const int n32 = (L + kChunk - 1) / kChunk;
+  const int* segb = seg_on ? mk.seg + b * mk.seg_sb : nullptr;
+  const int* rng = seg_on ? mk.seg_rng + 2LL * b * n32 : nullptr;
+  int seg_row[2] = {0, 0}, k_lo = 0, k_hi = 0;
+  if (seg_on) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) seg_row[i] = row[i] < L ? segb[row[i]] : 0;
+    chunk_range(rng, k0 / kChunk, n32, k_lo, k_hi);
+  }
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
@@ -496,6 +714,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n_q = (L + kBQ - 1) / kBQ;
   for (int i = i0; i < n_q; ++i) {
     const int q0 = i * kBQ;
+    if (seg_on && (rng[2 * i + 1] < k_lo || rng[2 * i] > k_hi)) continue;
     __syncthreads();
     load_tile<T, kBQ, D, LD>(sQ, qp, q.sl, q0, L);
     load_tile<T, kBQ, D, LD>(sO, op, dout.sl, q0, L);
@@ -504,7 +723,11 @@ __global__ void __launch_bounds__(kThreads)
       sL[r] = in ? lse[rbase + q0 + r] : 0.f;
       sD[r] = in ? delta[rbase + q0 + r] : 0.f;
     }
+    if (seg_on) load_seg<kBQ>(sSeg, segb, q0, L);
     __syncthreads();
+    const uint32_t keep =
+        drop_on ? keep_bits_krows<kBQ / 8>(mk, bh, k0 + warp * 16, q0)
+                : kFull;
 
     // S^T = K Q^T and dP^T = V dO^T: rows are this warp's keys
     float s[kBQ / 8][4], dp[kBQ / 8][4];
@@ -531,10 +754,18 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * t + (e & 1);  // query column in the tile
-        const bool ok = q0 + c < L && (!kCausal || q0 + c >= row[e >> 1]);
+        const bool ok = q0 + c < L &&
+                        (!kCausal || q0 + c >= row[e >> 1]) &&
+                        (!seg_on || sSeg[c] == seg_row[e >> 1]);
         const float p = ok ? expf(scale * s[n][e] - sL[c]) : 0.f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - sD[c]) * scale;  // dS^T
+        float pd = p, d = dp[n][e];
+        if (drop_on) {
+          const bool kept = (keep >> (4 * n + e)) & 1u;
+          pd = kept ? p * mk.inv_keep : 0.f;
+          d = kept ? d * mk.inv_keep : 0.f;
+        }
+        s[n][e] = pd;                          // dropped P^T, for dV
+        dp[n][e] = p * (d - sD[c]) * scale;    // dS^T
       }
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk) {
@@ -581,6 +812,7 @@ struct Args {
   float* lse_out;
   int B, L, H;
   float scale;
+  Mask mask;
   cudaStream_t stream;
 };
 
@@ -591,90 +823,118 @@ int prepare(K kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <typename T, int D, bool C>
+template <typename T, int D, bool C, bool kDrop, bool kSeg>
 int launch_fwd(const Args& a) {
   constexpr int LD = Geo<T, D>::LD;
-  const size_t smem = static_cast<size_t>(kBM + 2 * kBN) * LD * sizeof(T);
-  auto kern = flash_fwd_kernel<T, D, C>;
+  const size_t smem = static_cast<size_t>(kBM + 2 * kBN) * LD * sizeof(T) +
+                      kBN * sizeof(int);
+  auto kern = flash_fwd_kernel<T, D, C, kDrop, kSeg>;
   if (int rc = prepare(kern, smem)) return rc;
   const dim3 grid((a.L + kBM - 1) / kBM, a.H, a.B);
   kern<<<grid, kThreads, smem, a.stream>>>(a.views[0], a.views[1],
                                            a.views[2], a.views[3],
-                                           a.lse_out, a.L, a.H, a.scale);
+                                           a.lse_out, a.L, a.H, a.scale,
+                                           a.mask);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool C>
+template <typename T, int D, bool C, bool kDrop, bool kSeg>
 int launch_dq(const Args& a) {
   constexpr int LD = Geo<T, D>::LD;
-  const size_t smem = static_cast<size_t>(2 * kBM + 2 * kBN) * LD * sizeof(T);
-  auto kern = flash_bwd_dq_kernel<T, D, C>;
+  const size_t smem =
+      static_cast<size_t>(2 * kBM + 2 * kBN) * LD * sizeof(T) +
+      kBN * sizeof(int);
+  auto kern = flash_bwd_dq_kernel<T, D, C, kDrop, kSeg>;
   if (int rc = prepare(kern, smem)) return rc;
   const dim3 grid((a.L + kBM - 1) / kBM, a.H, a.B);
   kern<<<grid, kThreads, smem, a.stream>>>(
       a.views[0], a.views[1], a.views[2], a.views[3], a.lse_in, a.delta,
-      a.views[4], a.L, a.H, a.scale);
+      a.views[4], a.L, a.H, a.scale, a.mask);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool C>
+template <typename T, int D, bool C, bool kDrop, bool kSeg>
 int launch_dkv(const Args& a) {
   constexpr int LD = Geo<T, D>::LD;
   const size_t smem = static_cast<size_t>(2 * kBM + 2 * kBQ) * LD * sizeof(T) +
-                      2 * kBQ * sizeof(float);
-  auto kern = flash_bwd_dkv_kernel<T, D, C>;
+                      2 * kBQ * sizeof(float) + kBQ * sizeof(int);
+  auto kern = flash_bwd_dkv_kernel<T, D, C, kDrop, kSeg>;
   if (int rc = prepare(kern, smem)) return rc;
   const dim3 grid((a.L + kBM - 1) / kBM, a.H, a.B);
   kern<<<grid, kThreads, smem, a.stream>>>(
       a.views[0], a.views[1], a.views[2], a.views[3], a.lse_in, a.delta,
-      a.views[4], a.views[5], a.L, a.H, a.scale);
+      a.views[4], a.views[5], a.L, a.H, a.scale, a.mask);
   return static_cast<int>(cudaGetLastError());
 }
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename T, int D, bool C>
+template <typename T, int D, bool C, bool kDrop, bool kSeg>
 int launch(int which, const Args& a) {
   switch (which) {
     case kFwd:
-      return launch_fwd<T, D, C>(a);
+      return launch_fwd<T, D, C, kDrop, kSeg>(a);
     case kDq:
-      return launch_dq<T, D, C>(a);
+      return launch_dq<T, D, C, kDrop, kSeg>(a);
     default:
-      return launch_dkv<T, D, C>(a);
+      return launch_dkv<T, D, C, kDrop, kSeg>(a);
   }
 }
 
-template <typename T>
-int dispatch_t(int which, int D, int causal, const Args& a) {
-  if (D == 64)
-    return causal ? launch<T, 64, true>(which, a)
-                  : launch<T, 64, false>(which, a);
-  if (D == 128)
-    return causal ? launch<T, 128, true>(which, a)
-                  : launch<T, 128, false>(which, a);
+// The instance for the launch's flags. A runtime check of a flag that is
+// off still slows the bf16 hot loop, so bf16 has one instance per
+// (dropout, segments) pair and the plain one is the kernel without
+// either; the f32 kernels, the CUDA-core check of the same indices and
+// masks, keep one instance with runtime flags (their builds are the slow
+// ones).
+template <typename T, int D, bool C>
+int launch_flags(int which, const Args& a) {
+  const bool drop = a.mask.thresh != 0u, segm = a.mask.seg != nullptr;
+  if (std::is_same<T, float>::value || (drop && segm))
+    return launch<T, D, C, true, true>(which, a);
+  if constexpr (!std::is_same<T, float>::value) {
+    if (drop) return launch<T, D, C, true, false>(which, a);
+    if (segm) return launch<T, D, C, false, true>(which, a);
+    return launch<T, D, C, false, false>(which, a);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+constexpr int dtype_code();
+template <>
+constexpr int dtype_code<float>() {
+  return kF32;
+}
+template <>
+constexpr int dtype_code<__nv_bfloat16>() {
+  return kBF16;
 }
 
 int dispatch(int which, void* const* ptrs, int n_views,
              const long long* strides, const float* lse_in,
              const float* delta, float* lse_out, int B, int L, int H, int D,
-             int causal, float scale, int dtype, void* stream) {
+             int causal, float scale, int dtype, const int* seg,
+             long long seg_sb, const int* seg_rng, uint32_t seed_lo,
+             uint32_t seed_hi, uint32_t thresh, float inv_keep,
+             void* stream) {
+  using T = FLASH_DTYPE;
+  constexpr int kD = FLASH_HEAD_DIM;
+  // this library holds one (dtype, head dim): anything else is refused
+  if (dtype != dtype_code<T>() || D != kD)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || L <= 0 || H <= 0) return 0;
+  if ((seg == nullptr) != (seg_rng == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   View views[6];
   for (int i = 0; i < n_views; ++i)
     views[i] = View{ptrs[i], strides[3 * i], strides[3 * i + 1],
                     strides[3 * i + 2]};
-  const Args a{views, lse_in, delta, lse_out, B, L, H, scale,
+  const Mask mask{seg, seg_sb, seg_rng, seed_lo, seed_hi, thresh, inv_keep};
+  const Args a{views, lse_in, delta, lse_out, B, L, H, scale, mask,
                static_cast<cudaStream_t>(stream)};
-  switch (dtype) {
-    case kF32:
-      return dispatch_t<float>(which, D, causal, a);
-    case kBF16:
-      return dispatch_t<__nv_bfloat16>(which, D, causal, a);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return causal ? launch_flags<T, kD, true>(which, a)
+                : launch_flags<T, kD, false>(which, a);
 }
 
 }  // namespace
@@ -683,32 +943,44 @@ int dispatch(int which, void* const* ptrs, int n_views,
 // with a contiguous head dim, 16-byte-aligned rows and their own element
 // strides (batch, seq, head) in `strides`, three per view in argument
 // order; lse and delta are contiguous f32 [B, H, L]. The caller allocates
-// the outputs. Each returns 0 or the cudaError_t of the launch
-// (cudaErrorInvalidValue for an unsupported dtype or head dim).
-extern "C" int flash_attention_forward(void* q, void* k, void* v, void* out,
-                                       float* lse, const long long* strides,
-                                       int B, int L, int H, int D,
-                                       int causal, float scale, int dtype,
-                                       void* stream) {
+// the outputs. `seg` ([B, L] int32, batch stride seg_sb) and `seg_rng`
+// ([B, ceil(L / 32), 2] int32) are both null without segments; `thresh`
+// is 0 without dropout, else the keep threshold with the Philox key
+// (seed_lo, seed_hi) and inv_keep = 1 / (1 - p). Each returns 0 or the
+// cudaError_t of the launch (cudaErrorInvalidValue for a dtype or head
+// dim this library does not hold).
+extern "C" int flash_attention_forward(
+    void* q, void* k, void* v, void* out, float* lse,
+    const long long* strides, int B, int L, int H, int D, int causal,
+    float scale, int dtype, const int* seg, long long seg_sb,
+    const int* seg_rng, uint32_t seed_lo, uint32_t seed_hi, uint32_t thresh,
+    float inv_keep, void* stream) {
   void* ptrs[4] = {q, k, v, out};
   return dispatch(kFwd, ptrs, 4, strides, nullptr, nullptr, lse, B, L, H, D,
-                  causal, scale, dtype, stream);
+                  causal, scale, dtype, seg, seg_sb, seg_rng, seed_lo,
+                  seed_hi, thresh, inv_keep, stream);
 }
 
 extern "C" int flash_attention_backward_dq(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dq, const long long* strides, int B, int L,
-    int H, int D, int causal, float scale, int dtype, void* stream) {
+    int H, int D, int causal, float scale, int dtype, const int* seg,
+    long long seg_sb, const int* seg_rng, uint32_t seed_lo, uint32_t seed_hi,
+    uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[5] = {q, k, v, dout, dq};
   return dispatch(kDq, ptrs, 5, strides, lse, delta, nullptr, B, L, H, D,
-                  causal, scale, dtype, stream);
+                  causal, scale, dtype, seg, seg_sb, seg_rng, seed_lo,
+                  seed_hi, thresh, inv_keep, stream);
 }
 
 extern "C" int flash_attention_backward_dkv(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dk, void* dv, const long long* strides, int B,
-    int L, int H, int D, int causal, float scale, int dtype, void* stream) {
+    int L, int H, int D, int causal, float scale, int dtype, const int* seg,
+    long long seg_sb, const int* seg_rng, uint32_t seed_lo, uint32_t seed_hi,
+    uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[6] = {q, k, v, dout, dk, dv};
   return dispatch(kDkv, ptrs, 6, strides, lse, delta, nullptr, B, L, H, D,
-                  causal, scale, dtype, stream);
+                  causal, scale, dtype, seg, seg_sb, seg_rng, seed_lo,
+                  seed_hi, thresh, inv_keep, stream);
 }

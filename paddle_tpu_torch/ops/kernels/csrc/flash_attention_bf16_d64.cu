@@ -1,0 +1,5 @@
+// Flash attention kernels for __nv_bfloat16 inputs with head dim 64: one of the
+// four builds of flash_attention.cuh (see there), compiled in parallel.
+#define FLASH_DTYPE __nv_bfloat16
+#define FLASH_HEAD_DIM 64
+#include "flash_attention.cuh"

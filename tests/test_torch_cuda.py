@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the Hopper paged-attention
 kernel against its plain walk, a tiny engine through the kernel against
 the same engine through the walk, the three flash-attention kernels
-against their plain versions, and a tiny Llama train step through them
-against the same step through the plain sdpa. Each skips (with its reason)
+against their plain versions (plain, with dropout and with segments),
+and a tiny Llama train step through them against the same step through
+the plain sdpa. Each skips (with its reason)
 where there is no CUDA device; the decision is made inside the
 fixture, never at import. This file imports no JAX, so on a machine
 without it run it as
@@ -165,6 +166,110 @@ def test_flash_kernels_match_their_plain_versions(cuda, shape, causal,
         err = (got.float() - ref.float()).abs()
         assert bool((err <= tol * (1 + ref.float().abs())).all()), \
             float(err.max())
+
+
+def _check_all(got, ref, tol):
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        err = (g.float() - r.float()).abs()
+        assert bool((err <= tol * (1 + r.float().abs())).all()), \
+            float(err.max())
+
+
+def _three(q, k, v, do, causal, **kw):
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, None, **kw)
+    delta = tfa.attention_delta(out, do)
+    return (out, lse,
+            tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
+                                       None, **kw),
+            *tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                         None, **kw)), (lse, delta)
+
+
+def _three_plain(q, k, v, do, causal, lse, delta, **kw):
+    out, lse_r = tfa.flash_attention_fwd_reference(q, k, v, causal, None,
+                                                   **kw)
+    return (out, lse_r,
+            tfa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                 causal, None, **kw),
+            *tfa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   causal, None, **kw))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,causal", [((2, 200, 3, 128), True),
+                                          ((2, 77, 2, 64), False),
+                                          ((6, 130, 64), True)],
+                         ids=["d128-causal", "d64-full", "bhld-d64"])
+def test_flash_dropout_kernels_match_their_plain_versions(cuda, shape,
+                                                          causal, dtype,
+                                                          tol):
+    """K5: the same seed gives the kernels and the plain versions the
+    same keep mask; each launch counts as a dropout launch."""
+    q, k, v, do = _flash_inputs(cuda, shape, dtype, seed=11)
+    kw = dict(dropout_p=0.1, seed=0xDEADBEEF12345)
+    before = [w.dropout_launches for w in (tfa.flash_attention_fwd,
+                                           tfa.flash_attention_bwd_dq,
+                                           tfa.flash_attention_bwd_dkv)]
+    got, (lse, delta) = _three(q, k, v, do, causal, **kw)
+    torch.cuda.synchronize()
+    assert [w.dropout_launches for w in (tfa.flash_attention_fwd,
+                                         tfa.flash_attention_bwd_dq,
+                                         tfa.flash_attention_bwd_dkv)] == [
+        b + 1 for b in before]
+    _check_all(got, _three_plain(q, k, v, do, causal, lse, delta, **kw),
+               tol)
+    zero, _ = _three(q, k, v, do, causal)
+    assert not torch.equal(zero[0], got[0])
+    same, _ = _three(q, k, v, do, causal, dropout_p=0.0, seed=3)
+    for a, b in zip(zero, same):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_segmented_kernels_match_their_plain_versions(cuda, causal,
+                                                            dtype, tol):
+    """K4: packed sequences of 1 to 300 tokens (tiles that start inside
+    another segment, tiles skipped), and unsorted ids."""
+    lengths = [1, 300, 37, 64, 5, 150, 99]
+    seg = torch.repeat_interleave(
+        torch.arange(len(lengths), dtype=torch.int32),
+        torch.tensor(lengths))[None].to(cuda)
+    shuffled = torch.randint(0, 3, seg.shape, device=cuda,
+                             generator=torch.Generator(device=cuda)
+                             .manual_seed(1), dtype=torch.int32)
+    for s in (seg, shuffled):
+        q, k, v, do = _flash_inputs(cuda, (1, seg.shape[1], 4, 64), dtype,
+                                    seed=12)
+        before = tfa.flash_attention_bwd_dkv.segmented_launches
+        got, (lse, delta) = _three(q, k, v, do, causal, seg=s)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention_bwd_dkv.segmented_launches == before + 1
+        _check_all(got, _three_plain(q, k, v, do, causal, lse, delta, seg=s),
+                   tol)
+
+
+def test_flash_dropout_and_segment_arguments_raise(cuda):
+    q, k, v, _ = _flash_inputs(cuda, (1, 16, 2, 64), torch.bfloat16, 3)
+    before = tfa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="needs a seed"):
+        tfa.flash_attention_fwd(q, k, v, dropout_p=0.1)
+    with pytest.raises(ValueError, match="< 1"):
+        tfa.flash_attention_fwd(q, k, v, dropout_p=1.0, seed=1)
+    with pytest.raises(TypeError, match="seed"):
+        tfa.flash_attention_fwd(q, k, v, dropout_p=0.1, seed=1.5)
+    with pytest.raises(ValueError, match="seg"):
+        tfa.flash_attention_fwd(q, k, v, seg=torch.zeros(
+            1, 16, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="seg"):
+        tfa.flash_attention_fwd(q, k, v, seg=torch.zeros(
+            1, 15, dtype=torch.int32, device=cuda))
+    assert tfa.flash_attention_fwd.launches == before
 
 
 def test_flash_kernels_raise_instead_of_falling_back(cuda):

@@ -40,23 +40,33 @@ def test_port_covers_the_slice_modules():
             "models/llama.py", "convert.py", "ops/kernels/build.py",
             "ops/kernels/paged_attention.py", "serving_cache.py",
             "serving.py", "ops/kernels/flash_attention.py",
-            "ops/fused_ce.py", "optimizer/optimizer.py", "jit/api.py"}
+            "ops/fused_ce.py", "optimizer/optimizer.py", "jit/api.py",
+            # the BERT MLM slice
+            "core/random.py", "nn/functional/common.py",
+            "nn/functional/activation.py", "nn/functional/norm.py",
+            "nn/functional/loss.py", "nn/layers_common.py",
+            "nn/layers_conv_norm.py", "nn/layers_loss.py",
+            "nn/transformer.py", "models/bert.py"}
     have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert want <= have, sorted(want - have)
-    for src in ("paged_attention.cu", "flash_attention.cu"):
+    for src in ("paged_attention.cu", "flash_attention.cuh",
+                "flash_attention_bf16_d64.cu", "flash_attention_bf16_d128.cu",
+                "flash_attention_f32_d64.cu", "flash_attention_f32_d128.cu"):
         assert (PKG / "ops/kernels/csrc" / src).is_file()
 
 
 def test_importing_the_port_loads_no_jax():
     """A fresh interpreter with only the repo on its path imports the
-    serving and training stacks (and chip_smoke) without pulling in JAX
-    or the JAX package."""
+    serving, Llama training and BERT training stacks (and chip_smoke)
+    without pulling in JAX or the JAX package."""
     code = (
         "import sys, chip_smoke, paddle_tpu_torch.serving, "
         "paddle_tpu_torch.convert, paddle_tpu_torch.models.llama, "
         "paddle_tpu_torch.ops.kernels.flash_attention, "
         "paddle_tpu_torch.ops.fused_ce, paddle_tpu_torch.optimizer, "
-        "paddle_tpu_torch.jit, paddle_tpu_torch.nn.functional\n"
+        "paddle_tpu_torch.jit, paddle_tpu_torch.nn.functional, "
+        "paddle_tpu_torch.nn, paddle_tpu_torch.models.bert, "
+        "paddle_tpu_torch.core.random\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -90,9 +100,12 @@ def test_entry_points_default_to_cuda(no_cuda):
     from paddle_tpu_torch.serving import (GenerationServer,
                                           LlamaDecodeEngine,
                                           PagedLlamaDecodeEngine)
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
     cfg = LlamaConfig.tiny(use_flash_attention=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LlamaForCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BertForMaskedLM(BertConfig.tiny())
     model = LlamaForCausalLM(cfg, device="cpu")
     assert next(model.parameters()).device == torch.device("cpu")
     for cls in (LlamaDecodeEngine, PagedLlamaDecodeEngine):
@@ -172,18 +185,22 @@ def test_kernel_build_is_lazy_and_names_sm90a(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert {"-O3", "-shared", "-Xcompiler", "-fPIC"} <= set(
         build.NVCC_FLAGS)
-    assert [p.name for p in build.sources()] == ["flash_attention.cu",
-                                                 "paged_attention.cu"]
+    # the flash kernels build as four libraries, one per (dtype, head
+    # dim), so that nvcc compiles them in parallel
+    assert [p.name for p in build.sources()] == [
+        "flash_attention_bf16_d128.cu", "flash_attention_bf16_d64.cu",
+        "flash_attention_f32_d128.cu", "flash_attention_f32_d64.cu",
+        "paged_attention.cu"]
     monkeypatch.setenv(build.BUILD_DIR_ENV, str(tmp_path / "k"))
     assert build.build_dir() == tmp_path / "k"
-    lib = build._library(build.sources()[1])
+    lib = build._library(build.sources()[-1])
     assert lib.parent == tmp_path / "k"
     assert lib.name.startswith("libpaged_attention_")
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("this machine has nvcc")
-    for name in ("paged_attention", "flash_attention"):
+    for name in ("paged_attention", "flash_attention_bf16_d64"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.load(name)
     assert not (tmp_path / "k").exists()
