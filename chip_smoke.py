@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one card.
+"""Drive the PyTorch/CUDA port's serving, training and MoE paths on one card.
 
 Run from the root of a checkout on a machine with a Hopper card:
 
@@ -94,11 +94,44 @@ Phases, each printing one JSON line with its seconds:
                       through the kernels against the same step through
                       the plain sdpa (an all-zero additive mask routes it
                       there) with the same seeds drawn in the same order:
-                      loss and every gradient compared.
+                      loss and every gradient compared;
+16. ``gmm_parity``    the grouped-matmul kernels (K6 forward, K6 as dlhs on
+                      the transposed weights, K7 drhs) against their plain
+                      versions, bf16 and f32, on the op bench's geometry,
+                      ERNIE-MoE's expert FFN (w_in and w_out at 8 x 5120
+                      rows), a ragged layout with an empty expert and
+                      padding rows, an unaligned one (K 200, N 72) and a
+                      given tile map: elementwise in the working dtype and
+                      in RMS against the plain versions on f32 copies;
+                      then GroupedMatmul's autograd against autograd
+                      through the dense oracle;
+17. ``gmm_op``        THE OP PATH: one forward + backward through the
+                      grouped_matmul entry at the op bench's geometry
+                      (bf16); the three counts are reset just before and
+                      read just after: K6 twice (forward, dlhs), K7 once;
+18. ``gmm_time``      the three kernels at the op bench's geometry and at
+                      ERNIE-MoE's w_in and w_out products, beside their
+                      plain versions, their bounds, torch.bmm over the
+                      equal groups and torch._grouped_mm (yardsticks);
+19. ``moe_train``     THE ERNIE-MOE PATH: ERNIE-MoE at ErnieMoEConfig()
+                      (12 layers, 6 of them MoE with 8 experts, top-2,
+                      hidden 768, vocab 30522, bf16) trains with AdamW
+                      through TrainStep on 8 x 2048 tokens with the LM loss
+                      plus the aux loss: 2 warm-up and 5 timed steps; the
+                      flash launch counts (causal, D 64) are reset just
+                      before the timed steps and read just after, and must
+                      each equal layers x timed steps; losses finite and
+                      falling; the share of token choices capacity drops
+                      per MoE layer; then one step under torch.profiler;
+20. ``moe_train_parity``  one step of a 2-layer ERNIE-MoE (one dense, one
+                      MoE layer) through the kernels against the same step
+                      through the plain sdpa: loss, every gradient and the
+                      share of tokens whose top-2 experts differ.
 
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
 (K3, K1 and K2 at the Llama training geometry, K5 in K1/K2 at the BERT
-geometry, K4 at the packed geometry) and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+geometry, K4 at the packed geometry, K6 and K7 at the op bench's
+geometry) and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line. Without CUDA, or when run outside a checkout, it
 exits non-zero and prints no result. Imports nothing of JAX.
 """
@@ -1462,6 +1495,469 @@ def phase_bert_train_parity():
     return out
 
 
+# ---------------------------------------------------------------------------
+# grouped matmul (K6, K7) and the ERNIE-MoE training path
+# ---------------------------------------------------------------------------
+
+# the op bench's geometry (bench_ops.py:176-206): the MoE expert FFN of
+# BASELINE workload 5 at E 16, block_t 512
+GMM_BENCH = dict(T=16384, K=1024, N=4096, E=16, block_t=512)
+# ERNIE-MoE's expert FFN as a grouped matmul: 8 experts x capacity 5120
+# (16,384 tokens, top-2, capacity factor 1.25), w_in and w_out
+GMM_MOE = dict(T=40960, E=8, H=768, F=3072)
+# kernel vs plain version in the working dtype, the plain versions doing
+# the kernels' arithmetic (f32 accumulation, one rounding of the output)
+# in another summation order: |err| <= tol (rms(ref) + |ref|), i.e.
+# tol (1 + |ref|) on outputs scaled to unit RMS (a sum of thousands of
+# products that cancels keeps the f32 rounding of its terms, ~1e-3 at
+# an RMS of 64); and in RMS against the plain versions on f32 copies:
+# rms(err) <= r rms(ref) + 1e-5, r one bf16 rounding of the output
+# (2^-8), 1e-5 in f32
+GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+GMM_RMS = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+# GroupedMatmul's autograd vs autograd through the dense oracle, relative
+# RMS: in bf16 the oracle's einsum rounds its one-hot products and its
+# backward's intermediates to bf16
+GMM_AUTOGRAD_RMS = {"float32": 1e-5, "bfloat16": 1e-2}
+# ERNIE-MoE at ErnieMoEConfig() defaults, batch 8 x seq 2048
+MOE = dict(batch=8, seq=2048, warmup=2, steps=5, lr=3e-4)
+# moe_train_parity, bf16 at 2 layers (one dense, one MoE): as
+# train_parity, and at most 1 % of tokens routed to another top-2 pair
+MOE_LOSS_RTOL = 1e-2
+MOE_GRAD_RMS = 5e-2
+MOE_ROUTE_FLIP_SHARE = 0.01
+
+
+def gmm_layouts():
+    """(name, T, K, N, E, group sizes or None, tile ids or None,
+    block_t): the op bench's geometry, ERNIE-MoE's w_in and w_out
+    products, a ragged tile-aligned layout with an empty expert and
+    padding rows, an unaligned one (K 200, N 72), a given tile map."""
+    b, m = GMM_BENCH, GMM_MOE
+    c = m["T"] // m["E"]
+    return [
+        ("op_bench", b["T"], b["K"], b["N"], b["E"],
+         [b["T"] // b["E"]] * b["E"], None, b["block_t"]),
+        ("moe_w_in", m["T"], m["H"], m["F"], m["E"], [c] * m["E"], None,
+         128),
+        ("moe_w_out", m["T"], m["F"], m["H"], m["E"], [c] * m["E"], None,
+         128),
+        ("ragged_empty_padding", 4096, 512, 1024, 8,
+         [512, 0, 1024, 256, 768, 0, 512, 256], None, 128),
+        ("unaligned", 3000, 200, 72, 6, [37, 0, 1001, 299, 1100, 500], None,
+         128),
+        ("tile_ids", 4096, 512, 512, 8, None, [0, 0, 1, 3, 3, 4, 6, 7], 512),
+    ]
+
+
+def gmm_inputs(t, k, n, e, sizes, ids, block_t, dtype, seed):
+    import torch
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as gmm
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lhs, dy = (torch.randn(s, generator=g, device="cuda").to(dtype)
+               for s in ((t, k), (t, n)))
+    rhs = torch.randn((e, k, n), generator=g, device="cuda").to(dtype)
+    if ids is None:
+        off = gmm.offsets_from_group_sizes(sizes, e, t, "cuda")
+    else:
+        off = gmm.offsets_from_tile_ids(ids, e, block_t, t, "cuda")
+    return lhs, rhs, dy, off
+
+
+def gmm_three(lhs, rhs, dy, off, plain):
+    """K6 forward, K6 as dlhs and K7, or their plain versions."""
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as gmm
+    e = rhs.shape[0]
+    if plain:
+        return (gmm.grouped_matmul_fwd_reference(lhs, rhs, off),
+                gmm.grouped_matmul_fwd_reference(dy, rhs.transpose(1, 2),
+                                                 off),
+                gmm.grouped_matmul_drhs_reference(lhs, dy, off, e))
+    return (gmm.grouped_matmul_fwd(lhs, rhs, off),
+            gmm.grouped_matmul_dlhs(dy, rhs, off),
+            gmm.grouped_matmul_drhs(lhs, dy, off, e))
+
+
+GMM_KERNELS = ("grouped_matmul_fwd", "grouped_matmul_dlhs",
+               "grouped_matmul_drhs")
+
+
+def phase_gmm_parity(results):
+    import torch
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as gmm
+    rows, failed = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        tol, rms_r = GMM_TOL[dname], GMM_RMS[dname]
+        for i, (case, t, k, n, e, sizes, ids, bt) in enumerate(
+                gmm_layouts()):
+            lhs, rhs, dy, off = gmm_inputs(t, k, n, e, sizes, ids, bt,
+                                           dtype, seed=400 + i)
+            got = gmm_three(lhs, rhs, dy, off, plain=False)
+            torch.cuda.synchronize()
+            ref = gmm_three(lhs, rhs, dy, off, plain=True)
+            ref32 = gmm_three(lhs.float(), rhs.float(), dy.float(), off,
+                              plain=True)
+            row = {"case": case, "T": t, "K": k, "N": n, "E": e,
+                   "group_sizes": sizes, "tile_ids": ids, "dtype": dname,
+                   "tol": tol, "rms_tol": rms_r}
+            ok = True
+            for kname, g_, r, r32 in zip(GMM_KERNELS, got, ref, ref32):
+                g_, r, r32 = g_.float(), r.float(), r32.float()
+                err = (g_ - r).abs()
+                scale = float(r.square().mean().sqrt())
+                used = float((err / (tol * (scale + r.abs()))).max())
+                rms = float((g_ - r32).square().mean().sqrt())
+                rms_ref = float(r32.square().mean().sqrt())
+                used_rms = rms / (rms_r * rms_ref + 1e-5)
+                row[kname] = {"max_abs_err": float(err.max()),
+                              "tol_used": used, "rms_err_f32": rms,
+                              "rms_ref": rms_ref, "rms_tol_used": used_rms}
+                ok &= used <= 1 and used_rms <= 1
+            # an expert without rows: exact zeros from K7
+            empty = [j for j in range(e) if ids is None and sizes[j] == 0]
+            row["empty_experts_zero"] = all(not bool(got[2][j].any())
+                                            for j in empty)
+            row["ok"] = ok = ok and row["empty_experts_zero"]
+            rows.append(row)
+            if not ok:
+                failed.append(row)
+            if case == "op_bench" and dtype == torch.bfloat16:
+                for kname in GMM_KERNELS:
+                    results[kname]["max_abs_err"] = row[kname]["max_abs_err"]
+            del lhs, rhs, dy, got, ref, ref32
+            torch.cuda.empty_cache()
+    # the autograd function against autograd through the dense oracle
+    auto = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for case, t, k, n, e, sizes, _, bt in gmm_layouts()[3:5]:
+            lhs, rhs, dy, _ = gmm_inputs(t, k, n, e, sizes, None, bt, dtype,
+                                         seed=7)
+            outs = []
+            for fn in (gmm.grouped_matmul, gmm.grouped_matmul_reference):
+                xs = [x.clone().requires_grad_() for x in (lhs, rhs)]
+                y = fn(*xs, torch.tensor(sizes, device="cuda"))
+                outs.append([y.detach().float()] + [
+                    x.float() for x in torch.autograd.grad(y, xs, dy)])
+            row = {"case": case, "dtype": dname,
+                   "rms_tol": GMM_AUTOGRAD_RMS[dname]}
+            for nm, a, b_ in zip(("out", "dlhs", "drhs"), *outs):
+                row[nm] = float((a - b_).square().mean().sqrt()
+                                / b_.square().mean().sqrt())
+            row["ok"] = all(row[nm] <= GMM_AUTOGRAD_RMS[dname]
+                            for nm in ("out", "dlhs", "drhs"))
+            auto.append(row)
+            if not row["ok"]:
+                failed.append({"autograd": row})
+    for kname in GMM_KERNELS:
+        results[kname]["parity"] = "failed" if failed else "ok"
+    if failed:
+        emit({"phase": "gmm_parity", "failed": failed})
+        raise AssertionError(f"{len(failed)} gmm_parity checks failed")
+    return {"cases": rows, "autograd_vs_dense_oracle": auto}
+
+
+def phase_gmm_op(results):
+    """THE OP PATH: one forward + backward through the grouped_matmul
+    entry at the op bench's geometry (bf16, block_t 512), as bench_ops.py
+    drives it; the counts are reset just before and read just after, and
+    must be K6 twice (forward, dlhs) and K7 once."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as gmm
+    b = GMM_BENCH
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    lhs = torch.randn((b["T"], b["K"]), generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    rhs = (torch.randn((b["E"], b["K"], b["N"]), generator=g, device="cuda")
+           * 0.03).to(torch.bfloat16).requires_grad_()
+    dy = torch.randn((b["T"], b["N"]), generator=g, device="cuda").to(
+        torch.bfloat16)
+    sizes = torch.full((b["E"],), b["T"] // b["E"], dtype=torch.int32,
+                       device="cuda")
+    wrappers = [getattr(gmm, k) for k in GMM_KERNELS]
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0                         # the counts start here
+    y = gmm.grouped_matmul(lhs, rhs, sizes, b["block_t"])
+    y.backward(dy)
+    torch.cuda.synchronize()
+    launches = [w.launches for w in wrappers]  # ... and are read here
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(lhs.grad).all()
+                  and torch.isfinite(rhs.grad).all())
+    if launches != [1, 1, 1] or not finite:
+        raise AssertionError(f"grouped_matmul entry: launches (fwd, dlhs, "
+                             f"drhs) {launches}, want [1, 1, 1]; finite "
+                             f"{finite}")
+    for kname, n in zip(GMM_KERNELS, launches):
+        results[kname]["launches"] = n
+    return {"geometry": b, "dtype": "bfloat16", "launches": dict(zip(
+        ("fwd_k6", "dlhs_k6", "drhs_k7"), launches)), "finite": finite,
+        "out_rms": float(y.detach().float().square().mean().sqrt())}
+
+
+def gmm_timings(t, k, n, e, block_t):
+    """Kernel, plain and library times of K6 forward, K6 as dlhs and K7
+    at one equal-group geometry (bf16), beside their bounds: 2 T K N
+    flops each; each input read once and each output written once."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as gmm
+    lhs, rhs, dy, off = gmm_inputs(t, k, n, e, [t // e] * e, None, block_t,
+                                   torch.bfloat16, seed=1)
+    c = t // e
+    rhs_t = rhs.transpose(1, 2)
+    ends = off[1:].contiguous()
+    lib = {  # the batched product the JAX MoE layer uses instead
+        "grouped_matmul_fwd": lambda: torch.bmm(lhs.view(e, c, k), rhs),
+        "grouped_matmul_dlhs": lambda: torch.bmm(dy.view(e, c, n), rhs_t),
+        "grouped_matmul_drhs": lambda: torch.bmm(
+            lhs.view(e, c, k).transpose(1, 2), dy.view(e, c, n)),
+    }
+    grouped = {
+        "grouped_matmul_fwd": lambda: torch._grouped_mm(lhs, rhs, offs=ends),
+        "grouped_matmul_dlhs": lambda: torch._grouped_mm(dy, rhs_t,
+                                                         offs=ends),
+        "grouped_matmul_drhs": lambda: torch._grouped_mm(lhs.t(), dy,
+                                                         offs=ends),
+    }
+    kern = dict(zip(GMM_KERNELS, (
+        lambda: gmm.grouped_matmul_fwd(lhs, rhs, off),
+        lambda: gmm.grouped_matmul_dlhs(dy, rhs, off),
+        lambda: gmm.grouped_matmul_drhs(lhs, dy, off, e))))
+    plain = dict(zip(GMM_KERNELS, (
+        lambda: gmm.grouped_matmul_fwd_reference(lhs, rhs, off),
+        lambda: gmm.grouped_matmul_fwd_reference(dy, rhs_t, off),
+        lambda: gmm.grouped_matmul_drhs_reference(lhs, dy, off, e))))
+    nbytes = {  # inputs once, outputs once (drhs writes f32)
+        "grouped_matmul_fwd": 2 * (t * k + e * k * n + t * n),
+        "grouped_matmul_dlhs": 2 * (t * n + e * k * n + t * k),
+        "grouped_matmul_drhs": 2 * (t * k + t * n) + 4 * e * k * n,
+    }
+    flops = 2 * t * k * n
+    table = {}
+    for name in GMM_KERNELS:
+        b_ms, b_by = bound(flops, nbytes[name] + 4 * (e + 1))
+        r = {"kernel_ms": time_ms(kern[name], samples=10, inner=5),
+             "plain_ms": time_ms(plain[name], samples=5, inner=1),
+             "library_ms": time_ms(lib[name], samples=10, inner=5),
+             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+             "bytes": nbytes[name]}
+        r["share_of_bound"] = b_ms / r["kernel_ms"]
+        if hasattr(torch, "_grouped_mm"):
+            try:
+                r["grouped_mm_ms"] = time_ms(grouped[name], samples=10,
+                                             inner=5)
+            except RuntimeError as exc:   # a yardstick off the path
+                r["grouped_mm_ms"] = None
+                r["grouped_mm_error"] = str(exc)[:200]
+        table[name] = r
+    return table
+
+
+def phase_gmm_time(results):
+    b, m = GMM_BENCH, GMM_MOE
+    bench = gmm_timings(b["T"], b["K"], b["N"], b["E"], b["block_t"])
+    for name in GMM_KERNELS:
+        results[name].update({key: bench[name][key] for key in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        results[name]["ms"] = bench[name]["kernel_ms"]
+    return {"op_bench": {"geometry": b, "dtype": "bfloat16",
+                         "times": bench},
+            "moe_w_in": {"T": m["T"], "K": m["H"], "N": m["F"],
+                         "E": m["E"], "dtype": "bfloat16",
+                         "times": gmm_timings(m["T"], m["H"], m["F"],
+                                              m["E"], 128)},
+            "moe_w_out": {"T": m["T"], "K": m["F"], "N": m["H"],
+                          "E": m["E"], "dtype": "bfloat16",
+                          "times": gmm_timings(m["T"], m["F"], m["H"],
+                                               m["E"], 128)},
+            "library": "torch.bmm over the equal groups as [E, C, K] "
+                       "(the batched product the JAX MoE layer runs); "
+                       "grouped_mm_ms: torch._grouped_mm with the same "
+                       "offsets, a second yardstick off the path",
+            "bound_note": "2 T K N flops at 989 TFLOP/s vs inputs and "
+                          "outputs once at 3.35 TB/s (drhs writes f32)"}
+
+
+def moe_model(layers=None):
+    import torch
+    from paddle_tpu_torch.models.ernie_moe import (ErnieMoEConfig,
+                                                   ErnieMoEForCausalLM)
+    cfg = ErnieMoEConfig()
+    if layers is not None:
+        cfg.num_hidden_layers = layers
+    return ErnieMoEForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+
+
+def moe_ids(vocab):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(
+        0, vocab, (MOE["batch"], MOE["seq"]))).to("cuda")
+
+
+def moe_loss(model):
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    crit = LlamaPretrainingCriterion()
+
+    def loss_fn(logits, labels):        # tests/test_moe.py:110-116
+        aux = model.total_aux_loss()
+        loss = crit(logits, labels)
+        return loss if aux is None else loss + aux
+    return loss_fn
+
+
+def moe_param_counts(model):
+    """(all parameters, parameters a token is computed with): of each MoE
+    layer's expert stacks only top_k of E experts act on a token."""
+    cfg = model.config
+    total = sum(p.numel() for p in model.parameters())
+    experts = sum(m.w_in.numel() + m.w_out.numel()
+                  for m in model.moe_layers())
+    return total, total - experts + experts * cfg.top_k // cfg.num_experts
+
+
+def phase_moe_train(results):
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    t0 = time.perf_counter()
+    model = moe_model()
+    cfg = model.config
+    n_params, n_active = moe_param_counts(model)
+    opt = AdamW(learning_rate=MOE["lr"],
+                parameters=model.named_parameters(), multi_precision=False)
+    step = TrainStep(model, moe_loss(model), opt)
+    ids = moe_ids(cfg.vocab_size)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(ids, ids) for _ in range(MOE["warmup"])]
+    torch.cuda.synchronize()
+    for kern in kernels:
+        kern.launches = 0                  # the counts start here
+    t0 = time.perf_counter()
+    drops = []
+    for _ in range(MOE["steps"]):
+        losses.append(step(ids, ids))
+        drops.append([m.drop_share for m in model.moe_layers()])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [kern.launches for kern in kernels]   # ... and are read here
+    expected = cfg.num_hidden_layers * MOE["steps"]
+    if launches != [expected] * 3:
+        raise AssertionError(
+            f"flash launches (fwd, dq, dkv) {launches} != layers x timed "
+            f"steps = {cfg.num_hidden_layers} x {MOE['steps']}")
+    loss_values = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in loss_values):
+        raise AssertionError(f"non-finite loss: {loss_values}")
+    if not loss_values[-1] < loss_values[0]:
+        raise AssertionError(f"the loss did not fall: {loss_values}")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = MOE["batch"] * MOE["seq"]
+    tok_s = tokens * MOE["steps"] / wall
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    # attention products per token, forward + backward: 3 x (QK^T + PV)
+    # over (L + 1) / 2 keys on average (causal), 2 flops a MAC
+    attn_per_token = 3 * 2 * 2 * cfg.num_attention_heads * hd * \
+        (MOE["seq"] + 1) / 2 * cfg.num_hidden_layers
+    mfu = (6 * n_active + attn_per_token) * tok_s / BF16_FLOPS
+    prof = profile_train_step(step, (ids, ids))
+    capacity = max(1, int(cfg.capacity_factor * tokens * cfg.top_k
+                          / cfg.num_experts))
+    out = {"card": nvidia_smi_line(), "model": "ernie-moe",
+           "config": "ErnieMoEConfig() defaults", "layers":
+               cfg.num_hidden_layers, "moe_layers": len(model.moe_layers()),
+           "hidden": cfg.hidden_size,
+           "intermediate": cfg.intermediate_size,
+           "heads": cfg.num_attention_heads, "head_dim": hd,
+           "vocab": cfg.vocab_size, "experts": cfg.num_experts,
+           "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor,
+           "capacity": capacity, "dtype": "bfloat16", "params": n_params,
+           "active_params": n_active,
+           "optimizer": f"AdamW(lr={MOE['lr']}, multi_precision=False)",
+           "loss": "LlamaPretrainingCriterion + total_aux_loss()",
+           "batch": MOE["batch"], "seq": MOE["seq"],
+           "reduced": ["random weights from a seed (no checkpoint in the "
+                       "repo)"],
+           "init_seconds": init_s, "losses": loss_values,
+           "warmup_steps": MOE["warmup"], "timed_steps": MOE["steps"],
+           "step_ms": wall / MOE["steps"] * 1e3, "tokens_per_s": tok_s,
+           "mfu": mfu, "mfu_flops_per_token": 6 * n_active + attn_per_token,
+           "mfu_note": "6 x active parameters (top_k of E experts) + "
+                       "causal attention, per token, over 989e12",
+           "drop_share_per_moe_layer": [
+               [float(x) for x in row] for row in drops],
+           "flash_launches": dict(zip(("fwd", "dq", "dkv"), launches)),
+           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof,
+           # the profiled step's own wall carries the profiler's cost:
+           # the idle share against the timed steps' mean
+           "device_idle_share_of_timed_step":
+               1 - prof["device_ms"] / (wall / MOE["steps"] * 1e3)
+               if prof["device_ms"] else None}
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_train_parity():
+    import torch
+    model = moe_model(layers=2)
+    ids = moe_ids(model.config.vocab_size)
+    loss_fn = moe_loss(model)
+    moe = model.moe_layers()[0]
+    runs = []
+    for flash in (True, False):
+        for blk in model.blocks:
+            blk.attn.use_flash = flash
+        seen = {}
+        hook = moe.register_forward_pre_hook(
+            lambda mod, args: seen.update(x=args[0].detach()))
+        loss = loss_fn(model(ids), ids).float()
+        loss.backward()
+        hook.remove()
+        x = seen["x"].reshape(-1, seen["x"].shape[-1])
+        top2 = (x.float() @ moe.gate.weight.float()).topk(2, dim=-1)
+        runs.append((loss.item(), top2.indices.sort(dim=-1).values,
+                     {n: p.grad for n, p in model.named_parameters()}))
+        model.zero_grad(set_to_none=True)
+    (lk, rk, gk), (lr_, rr, gr) = runs
+    flipped = int((rk != rr).any(dim=-1).sum())
+    flip_share = flipped / rk.shape[0]
+    loss_rel = abs(lk - lr_) / abs(lr_)
+    worst, rows = 0.0, {}
+    for name, a in gk.items():
+        b = gr[name].float()
+        rel = float((a.float() - b).square().mean().sqrt()
+                    / b.square().mean().sqrt().clamp(min=1e-30))
+        rows[name] = rel
+        worst = max(worst, rel)
+    ok = loss_rel <= MOE_LOSS_RTOL and worst <= MOE_GRAD_RMS and \
+        flip_share <= MOE_ROUTE_FLIP_SHARE
+    out = {"layers": 2, "moe_layers": 1, "loss_kernels": lk,
+           "loss_reference": lr_, "loss_rel_err": loss_rel,
+           "loss_rtol": MOE_LOSS_RTOL, "grad_rel_rms_worst": worst,
+           "grad_rel_rms_tol": MOE_GRAD_RMS, "grad_rel_rms": rows,
+           "tokens": rk.shape[0], "tokens_top2_differ": flipped,
+           "top2_differ_share": flip_share,
+           "top2_differ_tol": MOE_ROUTE_FLIP_SHARE, "ok": ok}
+    del model, gk, gr, runs
+    torch.cuda.empty_cache()
+    if not ok:
+        emit({"phase": "moe_train_parity", "failed": out})
+        raise AssertionError("the ERNIE-MoE step through the kernels "
+                             "disagrees with the step through the plain "
+                             "sdpa")
+    return out
+
+
 def phase_build():
     from paddle_tpu_torch.ops.kernels import build
     return {name: {"nvcc_seconds": b.seconds,
@@ -1526,6 +2022,21 @@ def main() -> int:
              "_flash_bwd_pallas_seg (_bwd_dq_kernel, segmented=True)"),
             ("flash_attention_bwd_dkv_segmented", 768,
              "_flash_bwd_pallas_seg (_bwd_dkv_kernel, segmented=True)"))}
+    # K6 (forward, and dlhs on the transposed weights) and K7
+    for name, line, body in (
+            ("grouped_matmul_fwd", 180, "_gmm_kernel via _gmm_fwd_impl"),
+            ("grouped_matmul_dlhs", 180,
+             "_gmm_kernel via _gmm_fwd_impl on swapaxes(rhs) (:222)"),
+            ("grouped_matmul_drhs", 206,
+             "_gmm_drhs_kernel via _gmm_drhs_impl")):
+        flash[name] = {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/kernels/csrc/grouped_matmul.cu",
+            "replaces": f"paddle_tpu/ops/pallas/grouped_matmul.py:{line}",
+            "tpu_kernel": f"paddle_tpu/ops/pallas/grouped_matmul.py:{body}",
+            "launches": None, "parity": None, "max_abs_err": None,
+            "ms": None, "kernel_ms": None, "plain_ms": None,
+            "bound_ms": None, "bound_by": None, "library_ms": None}
     state: dict = {}
 
     def free_serving():
@@ -1552,6 +2063,11 @@ def main() -> int:
         ("flash_time_bert", lambda: phase_flash_time_bert(flash)),
         ("bert_train", lambda: phase_bert_train(flash)),
         ("bert_train_parity", phase_bert_train_parity),
+        ("gmm_parity", lambda: phase_gmm_parity(flash)),
+        ("gmm_op", lambda: phase_gmm_op(flash)),
+        ("gmm_time", lambda: phase_gmm_time(flash)),
+        ("moe_train", lambda: phase_moe_train(flash)),
+        ("moe_train_parity", phase_moe_train_parity),
     ]
     t_all = time.perf_counter()
     for name, fn in phases:

@@ -2,7 +2,7 @@
 
 The port runs on an NVIDIA Hopper card (H100) and keeps the JAX
 package's module names, so each module here has a counterpart of the
-same name in ``paddle_tpu``. Three slices are ported.
+same name in ``paddle_tpu``. Four slices are ported.
 
 Serving (paged-KV Llama):
 
@@ -42,6 +42,20 @@ BERT-base MLM training (dropout inside and around attention):
 - ``ops.kernels.flash_attention`` again — attention dropout (the
   Philox keep mask) and segment (varlen) masking inside the same
   kernels.
+
+ERNIE-MoE training and the grouped-matmul op:
+
+- ``models.ernie_moe`` — ``ErnieMoEConfig`` and ``ErnieMoEForCausalLM``
+  (same parameter names as the JAX model); ``models.gpt`` —
+  ``GPTConfig`` and ``GPTAttention`` (causal flash attention);
+- ``incubate.moe`` — ``MoELayer`` and its naive, Switch and GShard
+  gates; ``incubate.moe_dispatch`` — the capacity dispatch tables and
+  the index forward;
+- ``ops.kernels.grouped_matmul`` — the ``grouped_matmul`` op, the
+  hand-written Hopper grouped-matmul kernels (forward and dlhs; drhs),
+  their plain versions and the ``GroupedMatmul`` autograd function;
+- ``convert`` again — the expert stacks and gate weights copied as
+  they are.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without CUDA and without that argument it raises.

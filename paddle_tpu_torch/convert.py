@@ -7,8 +7,11 @@ share names; the one layout difference is the projections: the JAX
 downstream (the serving engines included) ever transposes again. Which
 leaves are Linear weights is read off the port model's own
 ``torch.nn.Linear`` modules when the caller passes the model (Llama,
-BERT, any tree); without one, the Llama projection names
-(:data:`LINEAR_WEIGHTS`) decide.
+BERT, ERNIE-MoE, any tree); without one, the Llama projection names
+(:data:`LINEAR_WEIGHTS`) decide. Raw parameters that are not a
+Linear's weight — ERNIE-MoE's expert stacks ``w_in [E, H, F]`` and
+``w_out [E, F, H]`` and its gate weight ``[H, E]`` — keep the JAX
+layout and are copied as they are, their optimizer moments too.
 :func:`optimizer_state_from_jax` carries the optimizer's per-parameter
 slots (Adam/AdamW moments and beta powers) by parameter name, the
 moments of Linear weights transposed like their weights, so a port run

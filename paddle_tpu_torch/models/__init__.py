@@ -1,1 +1,2 @@
-"""Models of the port (Llama and BERT)."""
+"""Models of the port (Llama, BERT, ERNIE-MoE and the GPT attention it
+uses)."""

@@ -2,8 +2,10 @@
 kernel against its plain walk, a tiny engine through the kernel against
 the same engine through the walk, the three flash-attention kernels
 against their plain versions (plain, with dropout and with segments),
-and a tiny Llama train step through them against the same step through
-the plain sdpa. Each skips (with its reason)
+a tiny Llama train step through them against the same step through
+the plain sdpa, the grouped-matmul kernels (K6 forward and dlhs, K7
+drhs) against their plain versions and the op's autograd against the
+dense oracle's, and a tiny ERNIE-MoE step. Each skips (with its reason)
 where there is no CUDA device; the decision is made inside the
 fixture, never at import. This file imports no JAX, so on a machine
 without it run it as
@@ -14,9 +16,12 @@ import pytest
 import torch
 
 from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models.ernie_moe import (ErnieMoEConfig,
+                                               ErnieMoEForCausalLM)
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            LlamaPretrainingCriterion)
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+from paddle_tpu_torch.ops.kernels import grouped_matmul as tgmm
 from paddle_tpu_torch.ops.kernels import paged_attention as tpk
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import GenerationServer, PagedLlamaDecodeEngine
@@ -312,3 +317,125 @@ def test_train_step_through_the_kernels_matches_the_plain_sdpa(cuda):
     err = torch.cat([(a - b).abs().flatten() for a, b in zip(*params)])
     assert float(err.max()) <= 2e-3
     assert float((err <= 1e-5).float().mean()) >= 0.999
+
+
+# -- grouped matmul (K6, K7) -------------------------------------------------
+
+GMM_LAYOUTS = {
+    # name: (T, K, N, group sizes or None, tile ids or None, block_t)
+    "aligned": (512, 256, 384, [128, 128, 128, 128], None, 128),
+    "ragged_empty_padding": (640, 128, 256, [128, 0, 256, 128], None, 128),
+    "unaligned": (300, 200, 72, [37, 0, 101, 150], None, 128),
+    "tile_ids": (512, 128, 128, None, [0, 0, 2, 3], 128),
+    "odd_k_n": (100, 37, 45, [10, 60, 0, 20], None, 128),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(GMM_LAYOUTS))
+def test_grouped_matmul_kernels_match_their_plain_versions(cuda, name,
+                                                           dtype, tol):
+    t, k, n, sizes, ids, bt = GMM_LAYOUTS[name]
+    g_ = torch.Generator(device=cuda).manual_seed(len(name))
+    lhs, g = (torch.randn(s, generator=g_, device=cuda).to(dtype)
+              for s in ((t, k), (t, n)))
+    rhs = torch.randn((4, k, n), generator=g_, device=cuda).to(dtype)
+    if ids is None:
+        off = tgmm.offsets_from_group_sizes(sizes, 4, t, cuda)
+    else:
+        off = tgmm.offsets_from_tile_ids(ids, 4, bt, t, cuda)
+    ws = (tgmm.grouped_matmul_fwd, tgmm.grouped_matmul_dlhs,
+          tgmm.grouped_matmul_drhs)
+    before = [w.launches for w in ws]
+    got = (tgmm.grouped_matmul_fwd(lhs, rhs, off),
+           tgmm.grouped_matmul_dlhs(g, rhs, off),
+           tgmm.grouped_matmul_drhs(lhs, g, off, 4))
+    torch.cuda.synchronize()
+    assert [w.launches for w in ws] == [b + 1 for b in before]
+    want = (tgmm.grouped_matmul_fwd_reference(lhs, rhs, off),
+            tgmm.grouped_matmul_fwd_reference(g, rhs.transpose(1, 2), off),
+            tgmm.grouped_matmul_drhs_reference(lhs, g, off, 4))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        err = (a.float() - b.float()).abs()
+        assert bool((err <= tol * (1 + b.float().abs())).all()), \
+            float(err.max())
+    if sizes is not None and 0 in sizes:
+        assert not got[2][sizes.index(0)].any()      # exact zeros
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_grouped_matmul_autograd_matches_the_dense_oracle(cuda, dtype, tol):
+    """One forward + backward through the entry launches K6 twice and K7
+    once and agrees (relative RMS) with autograd through the oracle."""
+    t, k, n, sizes = 300, 200, 72, [37, 0, 101, 150]
+    g_ = torch.Generator(device=cuda).manual_seed(5)
+    lhs = torch.randn((t, k), generator=g_, device=cuda).to(dtype)
+    rhs = torch.randn((4, k, n), generator=g_, device=cuda).to(dtype)
+    dy = torch.randn((t, n), generator=g_, device=cuda).to(dtype)
+    outs = []
+    for fn in (tgmm.grouped_matmul, tgmm.grouped_matmul_reference):
+        xs = [x.clone().requires_grad_() for x in (lhs, rhs)]
+        before = (tgmm.grouped_matmul_fwd.launches
+                  + tgmm.grouped_matmul_dlhs.launches,
+                  tgmm.grouped_matmul_drhs.launches)
+        y = fn(*xs, torch.tensor(sizes, device=cuda))
+        outs.append([y.detach()] + list(torch.autograd.grad(y, xs, dy)))
+        after = (tgmm.grouped_matmul_fwd.launches
+                 + tgmm.grouped_matmul_dlhs.launches,
+                 tgmm.grouped_matmul_drhs.launches)
+        assert [a - b for a, b in zip(after, before)] == (
+            [2, 1] if fn is tgmm.grouped_matmul else [0, 0])
+    for a, b in zip(*outs):
+        rel = (a.float() - b.float()).square().mean().sqrt() / \
+            b.float().square().mean().sqrt()
+        assert float(rel) <= tol
+
+
+def test_grouped_matmul_kernels_raise_instead_of_falling_back(cuda):
+    lhs = torch.randn(64, 32, device=cuda)
+    rhs = torch.randn(2, 32, 16, device=cuda)
+    off = tgmm.offsets_from_group_sizes([32, 32], 2, 64, cuda)
+    before = tgmm.grouped_matmul_fwd.launches
+    with pytest.raises(ValueError, match="dtype"):
+        tgmm.grouped_matmul_fwd(lhs.half(), rhs.half(), off)
+    with pytest.raises(ValueError, match="offsets"):
+        tgmm.grouped_matmul_fwd(lhs, rhs, off.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        tgmm.grouped_matmul_fwd(lhs.t().contiguous().t(), rhs, off)
+    with pytest.raises(ValueError, match="strides"):
+        tgmm.grouped_matmul_fwd(
+            lhs, torch.randn(2, 32, 16, 2, device=cuda)[..., 0], off)
+    assert tgmm.grouped_matmul_fwd.launches == before
+
+
+def test_ernie_moe_step_through_the_kernels_matches_the_plain_sdpa(cuda):
+    """One forward + backward of a small f32 ERNIE-MoE (head dim 64)
+    through the flash kernels against the same with the plain sdpa:
+    equal routing, losses and gradients (relative RMS) up to f32
+    summation order."""
+    ids = torch.randint(0, 128, (2, 64), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    runs = []
+    for flash in (True, False):
+        cfg = ErnieMoEConfig.tiny(hidden_size=256, intermediate_size=512,
+                                  use_flash_attention=flash)
+        model = ErnieMoEForCausalLM(cfg, device="cuda")
+        before = tfa.flash_attention_fwd.launches
+        loss = LlamaPretrainingCriterion()(model(ids), ids) + \
+            model.total_aux_loss()
+        loss.backward()
+        assert tfa.flash_attention_fwd.launches - before == (
+            cfg.num_hidden_layers if flash else 0)
+        runs.append((loss.detach(), [p.grad for p in model.parameters()],
+                     model.moe_layers()[0].drop_share))
+    torch.testing.assert_close(runs[0][0], runs[1][0], atol=1e-5, rtol=1e-5)
+    assert torch.equal(runs[0][2], runs[1][2])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        rel = (a - b).square().mean().sqrt() / \
+            b.square().mean().sqrt().clamp(min=1e-30)
+        assert float(rel) <= 1e-4

@@ -46,18 +46,23 @@ def test_port_covers_the_slice_modules():
             "nn/functional/activation.py", "nn/functional/norm.py",
             "nn/functional/loss.py", "nn/layers_common.py",
             "nn/layers_conv_norm.py", "nn/layers_loss.py",
-            "nn/transformer.py", "models/bert.py"}
+            "nn/transformer.py", "models/bert.py",
+            # the ERNIE-MoE slice and the grouped-matmul op
+            "ops/kernels/grouped_matmul.py", "incubate/moe_dispatch.py",
+            "incubate/moe.py", "models/gpt.py", "models/ernie_moe.py"}
     have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert want <= have, sorted(want - have)
     for src in ("paged_attention.cu", "flash_attention.cuh",
                 "flash_attention_bf16_d64.cu", "flash_attention_bf16_d128.cu",
-                "flash_attention_f32_d64.cu", "flash_attention_f32_d128.cu"):
+                "flash_attention_f32_d64.cu", "flash_attention_f32_d128.cu",
+                "grouped_matmul.cu"):
         assert (PKG / "ops/kernels/csrc" / src).is_file()
 
 
 def test_importing_the_port_loads_no_jax():
     """A fresh interpreter with only the repo on its path imports the
-    serving, Llama training and BERT training stacks (and chip_smoke)
+    serving, Llama, BERT and ERNIE-MoE training stacks and the grouped
+    matmul op (and chip_smoke)
     without pulling in JAX or the JAX package."""
     code = (
         "import sys, chip_smoke, paddle_tpu_torch.serving, "
@@ -66,7 +71,8 @@ def test_importing_the_port_loads_no_jax():
         "paddle_tpu_torch.ops.fused_ce, paddle_tpu_torch.optimizer, "
         "paddle_tpu_torch.jit, paddle_tpu_torch.nn.functional, "
         "paddle_tpu_torch.nn, paddle_tpu_torch.models.bert, "
-        "paddle_tpu_torch.core.random\n"
+        "paddle_tpu_torch.core.random, paddle_tpu_torch.models.ernie_moe, "
+        "paddle_tpu_torch.ops.kernels.grouped_matmul\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -101,11 +107,15 @@ def test_entry_points_default_to_cuda(no_cuda):
                                           LlamaDecodeEngine,
                                           PagedLlamaDecodeEngine)
     from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from paddle_tpu_torch.models.ernie_moe import (ErnieMoEConfig,
+                                                   ErnieMoEForCausalLM)
     cfg = LlamaConfig.tiny(use_flash_attention=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LlamaForCausalLM(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BertForMaskedLM(BertConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ErnieMoEForCausalLM(ErnieMoEConfig.tiny())
     model = LlamaForCausalLM(cfg, device="cpu")
     assert next(model.parameters()).device == torch.device("cpu")
     for cls in (LlamaDecodeEngine, PagedLlamaDecodeEngine):
@@ -190,7 +200,7 @@ def test_kernel_build_is_lazy_and_names_sm90a(monkeypatch, tmp_path):
     assert [p.name for p in build.sources()] == [
         "flash_attention_bf16_d128.cu", "flash_attention_bf16_d64.cu",
         "flash_attention_f32_d128.cu", "flash_attention_f32_d64.cu",
-        "paged_attention.cu"]
+        "grouped_matmul.cu", "paged_attention.cu"]
     monkeypatch.setenv(build.BUILD_DIR_ENV, str(tmp_path / "k"))
     assert build.build_dir() == tmp_path / "k"
     lib = build._library(build.sources()[-1])
@@ -200,7 +210,8 @@ def test_kernel_build_is_lazy_and_names_sm90a(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("this machine has nvcc")
-    for name in ("paged_attention", "flash_attention_bf16_d64"):
+    for name in ("paged_attention", "flash_attention_bf16_d64",
+                 "grouped_matmul"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.load(name)
     assert not (tmp_path / "k").exists()
