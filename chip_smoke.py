@@ -100,19 +100,28 @@ Phases, each printing one JSON line with its seconds:
                       versions, bf16 and f32, on the op bench's geometry,
                       ERNIE-MoE's expert FFN (w_in and w_out at 8 x 5120
                       rows), a ragged layout with an empty expert and
-                      padding rows, an unaligned one (K 200, N 72) and a
-                      given tile map: elementwise in the working dtype and
+                      padding rows, an unaligned one (K 200, N 72), a
+                      given tile map, 64 groups of 0-200 rows (numpy
+                      seed), row ranges ending inside K7's 64-row boxes
+                      and K 37, N 45: elementwise in the working dtype and
                       in RMS against the plain versions on f32 copies;
+                      each call's per-design counts must show the TMA /
+                      wgmma kernels for bf16 with 16-byte rows and the
+                      general mma.sync kernels for f32 and K 37, N 45;
                       then GroupedMatmul's autograd against autograd
                       through the dense oracle;
 17. ``gmm_op``        THE OP PATH: one forward + backward through the
                       grouped_matmul entry at the op bench's geometry
-                      (bf16); the three counts are reset just before and
-                      read just after: K6 twice (forward, dlhs), K7 once;
+                      (bf16); the three counts and their TMA counts are
+                      reset just before and read just after: K6 twice
+                      (forward, dlhs), K7 once, all through the TMA
+                      kernels;
 18. ``gmm_time``      the three kernels at the op bench's geometry and at
-                      ERNIE-MoE's w_in and w_out products, beside their
-                      plain versions, their bounds, torch.bmm over the
-                      equal groups and torch._grouped_mm (yardsticks);
+                      ERNIE-MoE's w_in and w_out products (the TMA
+                      kernels), beside the first design's general kernels
+                      on the same inputs, their plain versions, their
+                      bounds, torch.bmm over the equal groups and
+                      torch._grouped_mm (yardsticks);
 19. ``moe_train``     THE ERNIE-MOE PATH: ERNIE-MoE at ErnieMoEConfig()
                       (12 layers, 6 of them MoE with 8 experts, top-2,
                       hidden 768, vocab 30522, bf16) trains with AdamW
@@ -131,8 +140,9 @@ Phases, each printing one JSON line with its seconds:
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
 (K3, K1 and K2 at the Llama training geometry, K5 in K1/K2 at the BERT
 geometry, K4 at the packed geometry, K6 and K7 at the op bench's
-geometry) and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before the last line. Without CUDA, or when run outside a checkout, it
+geometry, each K6/K7 row naming the design it timed) and, last,
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
+last line. Without CUDA, or when run outside a checkout, it
 exits non-zero and prints no result. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -1528,13 +1538,24 @@ MOE_GRAD_RMS = 5e-2
 MOE_ROUTE_FLIP_SHARE = 0.01
 
 
+def gmm_many_small_sizes():
+    """64 group sizes in [0, 200] from a numpy seed: most groups smaller
+    than a 128-row tile, so tiles straddle several group boundaries."""
+    import numpy as np
+    return [int(x) for x in np.random.default_rng(SEED).integers(0, 201, 64)]
+
+
 def gmm_layouts():
     """(name, T, K, N, E, group sizes or None, tile ids or None,
     block_t): the op bench's geometry, ERNIE-MoE's w_in and w_out
     products, a ragged tile-aligned layout with an empty expert and
-    padding rows, an unaligned one (K 200, N 72), a given tile map."""
+    padding rows, an unaligned one (K 200, N 72), a given tile map, 64
+    groups smaller than a tile (with padding rows), row ranges that end
+    inside K7's 64-row boxes, and K 37, N 45 (no 16-byte rows: the
+    general kernels even in bf16)."""
     b, m = GMM_BENCH, GMM_MOE
     c = m["T"] // m["E"]
+    small = gmm_many_small_sizes()
     return [
         ("op_bench", b["T"], b["K"], b["N"], b["E"],
          [b["T"] // b["E"]] * b["E"], None, b["block_t"]),
@@ -1547,7 +1568,19 @@ def gmm_layouts():
         ("unaligned", 3000, 200, 72, 6, [37, 0, 1001, 299, 1100, 500], None,
          128),
         ("tile_ids", 4096, 512, 512, 8, None, [0, 0, 1, 3, 3, 4, 6, 7], 512),
+        ("many_small_groups", sum(small) + 40, 512, 768, 64, small, None,
+         128),
+        ("mid_box_ranges", 4096, 256, 512, 8,
+         [70, 130, 1, 63, 65, 0, 1500, 2000], None, 128),
+        ("odd_k_n", 1000, 37, 45, 4, [100, 600, 0, 250], None, 128),
     ]
+
+
+def gmm_tma_expected(dtype, k, n):
+    """Whether the TMA / wgmma kernels should take a gmm_parity call:
+    bf16 with 16-byte rows (the inputs are fresh, aligned tensors)."""
+    import torch
+    return dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
 
 
 def gmm_inputs(t, k, n, e, sizes, ids, block_t, dtype, seed):
@@ -1593,15 +1626,23 @@ def phase_gmm_parity(results):
                 gmm_layouts()):
             lhs, rhs, dy, off = gmm_inputs(t, k, n, e, sizes, ids, bt,
                                            dtype, seed=400 + i)
+            ws = [getattr(gmm, kname) for kname in GMM_KERNELS]
+            before = [(w.launches, w.tma_launches) for w in ws]
             got = gmm_three(lhs, rhs, dy, off, plain=False)
             torch.cuda.synchronize()
+            tma = gmm_tma_expected(dtype, k, n)
+            paths = [(w.launches - a, w.tma_launches - b)
+                     for w, (a, b) in zip(ws, before)]
             ref = gmm_three(lhs, rhs, dy, off, plain=True)
             ref32 = gmm_three(lhs.float(), rhs.float(), dy.float(), off,
                               plain=True)
             row = {"case": case, "T": t, "K": k, "N": n, "E": e,
                    "group_sizes": sizes, "tile_ids": ids, "dtype": dname,
-                   "tol": tol, "rms_tol": rms_r}
-            ok = True
+                   "tol": tol, "rms_tol": rms_r,
+                   "design": "tma_wgmma" if tma else "general_mma_sync",
+                   "launches_and_tma_launches": paths}
+            # each kernel launched once, through the design expected
+            ok = paths == [(1, int(tma))] * 3
             for kname, g_, r, r32 in zip(GMM_KERNELS, got, ref, ref32):
                 g_, r, r32 = g_.float(), r.float(), r32.float()
                 err = (g_ - r).abs()
@@ -1678,32 +1719,73 @@ def phase_gmm_op(results):
     wrappers = [getattr(gmm, k) for k in GMM_KERNELS]
     torch.cuda.synchronize()
     for w in wrappers:
-        w.launches = 0                         # the counts start here
+        w.launches = w.tma_launches = 0        # the counts start here
     y = gmm.grouped_matmul(lhs, rhs, sizes, b["block_t"])
     y.backward(dy)
     torch.cuda.synchronize()
     launches = [w.launches for w in wrappers]  # ... and are read here
+    tma = [w.tma_launches for w in wrappers]
     finite = bool(torch.isfinite(y).all() and torch.isfinite(lhs.grad).all()
                   and torch.isfinite(rhs.grad).all())
-    if launches != [1, 1, 1] or not finite:
+    if launches != [1, 1, 1] or tma != [1, 1, 1] or not finite:
         raise AssertionError(f"grouped_matmul entry: launches (fwd, dlhs, "
-                             f"drhs) {launches}, want [1, 1, 1]; finite "
+                             f"drhs) {launches}, of them through the TMA "
+                             f"kernels {tma}, want [1, 1, 1] each; finite "
                              f"{finite}")
-    for kname, n in zip(GMM_KERNELS, launches):
+    for kname, n, nt in zip(GMM_KERNELS, launches, tma):
         results[kname]["launches"] = n
-    return {"geometry": b, "dtype": "bfloat16", "launches": dict(zip(
-        ("fwd_k6", "dlhs_k6", "drhs_k7"), launches)), "finite": finite,
-        "out_rms": float(y.detach().float().square().mean().sqrt())}
+        results[kname]["tma_launches"] = nt
+    names = ("fwd_k6", "dlhs_k6", "drhs_k7")
+    return {"geometry": b, "dtype": "bfloat16",
+            "launches": dict(zip(names, launches)),
+            "tma_launches": dict(zip(names, tma)), "finite": finite,
+            "out_rms": float(y.detach().float().square().mean().sqrt())}
+
+
+def gmm_general(lhs, rhs, dy, off):
+    """The general (mma.sync) kernels, the first design, on bf16 inputs
+    that the wrappers send to the TMA kernels: called through the
+    library's C entries, so one run times both designs on one card."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as gmm
+    lib = gmm._kernel_lib()
+    t, k = lhs.shape
+    e, n = rhs.shape[0], rhs.shape[2]
+
+    def k6(a, b):
+        out = torch.empty((t, b.shape[2]), dtype=a.dtype, device=a.device)
+        rc = lib.grouped_matmul_forward(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), off.data_ptr(), t,
+            a.shape[1], b.shape[2], e, *b.stride(), 1,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"general K6 launch failed: cudaError {rc}")
+        return out
+
+    def k7():
+        out = torch.empty((e, k, n), dtype=torch.float32, device=lhs.device)
+        rc = lib.grouped_matmul_drhs(
+            lhs.data_ptr(), dy.data_ptr(), out.data_ptr(), off.data_ptr(), t,
+            k, n, e, 1, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"general K7 launch failed: cudaError {rc}")
+        return out
+
+    return dict(zip(GMM_KERNELS, (lambda: k6(lhs, rhs),
+                                  lambda: k6(dy, rhs.transpose(1, 2)), k7)))
 
 
 def gmm_timings(t, k, n, e, block_t):
     """Kernel, plain and library times of K6 forward, K6 as dlhs and K7
     at one equal-group geometry (bf16), beside their bounds: 2 T K N
-    flops each; each input read once and each output written once."""
+    flops each; each input read once and each output written once. The
+    wrappers take the TMA kernels here; general_ms times the first
+    design on the same inputs."""
     import torch
     from paddle_tpu_torch.ops.kernels import grouped_matmul as gmm
     lhs, rhs, dy, off = gmm_inputs(t, k, n, e, [t // e] * e, None, block_t,
                                    torch.bfloat16, seed=1)
+    general = gmm_general(lhs, rhs, dy, off)
     c = t // e
     rhs_t = rhs.transpose(1, 2)
     ends = off[1:].contiguous()
@@ -1735,9 +1817,19 @@ def gmm_timings(t, k, n, e, block_t):
     }
     flops = 2 * t * k * n
     table = {}
+    ws = [getattr(gmm, name) for name in GMM_KERNELS]
+    tma_before = [w.tma_launches for w in ws]
+    for name in GMM_KERNELS:
+        kern[name]()
+    torch.cuda.synchronize()
+    if [w.tma_launches - b for w, b in zip(ws, tma_before)] != [1, 1, 1]:
+        raise AssertionError("gmm_time: the wrappers did not take the TMA "
+                             f"kernels at T {t} K {k} N {n} E {e}")
     for name in GMM_KERNELS:
         b_ms, b_by = bound(flops, nbytes[name] + 4 * (e + 1))
-        r = {"kernel_ms": time_ms(kern[name], samples=10, inner=5),
+        r = {"design": "tma_wgmma",
+             "kernel_ms": time_ms(kern[name], samples=10, inner=5),
+             "general_ms": time_ms(general[name], samples=10, inner=5),
              "plain_ms": time_ms(plain[name], samples=5, inner=1),
              "library_ms": time_ms(lib[name], samples=10, inner=5),
              "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
@@ -1759,7 +1851,8 @@ def phase_gmm_time(results):
     bench = gmm_timings(b["T"], b["K"], b["N"], b["E"], b["block_t"])
     for name in GMM_KERNELS:
         results[name].update({key: bench[name][key] for key in (
-            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+            "design", "kernel_ms", "general_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")})
         results[name]["ms"] = bench[name]["kernel_ms"]
     return {"op_bench": {"geometry": b, "dtype": "bfloat16",
                          "times": bench},
@@ -1771,6 +1864,8 @@ def phase_gmm_time(results):
                           "E": m["E"], "dtype": "bfloat16",
                           "times": gmm_timings(m["T"], m["F"], m["H"],
                                                m["E"], 128)},
+            "general_ms": "the general mma.sync kernels (the first "
+                          "design) on the same inputs",
             "library": "torch.bmm over the equal groups as [E, C, K] "
                        "(the batched product the JAX MoE layer runs); "
                        "grouped_mm_ms: torch._grouped_mm with the same "
@@ -2034,9 +2129,13 @@ def main() -> int:
             "source": "paddle_tpu_torch/ops/kernels/csrc/grouped_matmul.cu",
             "replaces": f"paddle_tpu/ops/pallas/grouped_matmul.py:{line}",
             "tpu_kernel": f"paddle_tpu/ops/pallas/grouped_matmul.py:{body}",
-            "launches": None, "parity": None, "max_abs_err": None,
-            "ms": None, "kernel_ms": None, "plain_ms": None,
-            "bound_ms": None, "bound_by": None, "library_ms": None}
+            # the design timed: gmm_fwd_tma_kernel / gmm_drhs_tma_kernel;
+            # general_ms times the first design (mma.sync) alongside
+            "design": None, "launches": None, "tma_launches": None,
+            "parity": None, "max_abs_err": None,
+            "ms": None, "kernel_ms": None, "general_ms": None,
+            "plain_ms": None, "bound_ms": None, "bound_by": None,
+            "library_ms": None}
     state: dict = {}
 
     def free_serving():

@@ -21,7 +21,12 @@ tile is computed against its id and nothing is zeroed.
 Three wrappers launch the CUDA kernels of ``csrc/grouped_matmul.cu`` on
 CUDA tensors and count each launch; a CPU tensor takes the plain version
 of the same function (and counts nothing); there is no fallback — a
-CUDA call the kernel cannot take raises:
+CUDA call the kernels cannot take raises. Each wrapper has two kernels:
+:func:`takes_tma` chooses, before the launch, from dtype, alignment and
+strides alone. bf16 operands that a TMA tensor map can describe take
+the TMA / ``wgmma`` kernels (counted in ``.tma_launches`` as well as
+``.launches``); f32 and the other bf16 layouts take the general
+``mma.sync`` kernels:
 
 - :func:`grouped_matmul_fwd` (K6) ``out = lhs · rhs[e]`` by rows; plain
   version :func:`grouped_matmul_fwd_reference`;
@@ -56,7 +61,7 @@ from . import build as _build
 __all__ = ["GroupedMatmul", "grouped_matmul", "grouped_matmul_reference",
            "grouped_matmul_fwd", "grouped_matmul_dlhs",
            "grouped_matmul_drhs", "grouped_matmul_fwd_reference",
-           "grouped_matmul_drhs_reference", "tile_expert_ids",
+           "grouped_matmul_drhs_reference", "takes_tma", "tile_expert_ids",
            "offsets_from_group_sizes", "offsets_from_tile_ids"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -156,8 +161,13 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.grouped_matmul_forward.argtypes = [p, p, p, p, i, i, i, i,
                                                ll, ll, ll, i, p]
         lib.grouped_matmul_drhs.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.grouped_matmul_forward.restype = ctypes.c_int
-        lib.grouped_matmul_drhs.restype = ctypes.c_int
+        lib.grouped_matmul_forward_tma.argtypes = [p, p, p, p, i, i, i, i,
+                                                   ll, ll, ll, p]
+        lib.grouped_matmul_drhs_tma.argtypes = [p, p, p, p, i, i, i, i, p]
+        for fn in (lib.grouped_matmul_forward, lib.grouped_matmul_drhs,
+                   lib.grouped_matmul_forward_tma,
+                   lib.grouped_matmul_drhs_tma):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -169,6 +179,41 @@ def _on(x: torch.Tensor, name: str) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"{name} runs on cuda or cpu tensors, got {x.device}")
+
+
+def takes_tma(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the TMA / ``wgmma`` kernels take a call, from the operands'
+    dtype, sizes, alignment and strides alone (nothing is launched).
+
+    ``a`` is lhs or g ``[T, R]`` (contiguous). ``b`` is K6's weights view
+    ``[E, R, N]`` (contiguous along N as stored, or along R transposed for
+    dlhs) or K7's ``g [T, N]``. They take bf16 with every size positive,
+    both bases 16-byte aligned and every row stride a multiple of 16
+    bytes (R and N multiples of 8; for the weights, their strided
+    dimension and the expert stride too, nested as a tensor map
+    describes them: the strided dimension's stride at least the
+    contiguous one's extent, the expert stride at least a whole
+    matrix)."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        return False
+    if a.dim() != 2 or b.dim() not in (2, 3) or a.numel() == 0 \
+            or b.numel() == 0:
+        return False
+    if a.data_ptr() % 16 or b.data_ptr() % 16 or a.shape[1] % 8 \
+            or b.shape[-1] % 8:
+        return False
+    if b.dim() == 2:                      # K7: g [T, N], contiguous
+        return True
+    e, r, n = b.shape
+    se, sr, sn = b.stride()
+    if sn == 1:                           # the weights as stored
+        inner, outer, so = n, r, sr
+    elif sr == 1:                         # transposed (dlhs)
+        inner, outer, so = r, n, sn
+    else:
+        return False
+    return so % 8 == 0 and so >= inner and (
+        e == 1 or (se % 8 == 0 and se >= so * outer))
 
 
 def _check(name: str, a: torch.Tensor, b: torch.Tensor,
@@ -210,14 +255,27 @@ def _launch_k6(wrapper, name: str, a: torch.Tensor, b: torch.Tensor,
                          f"got strides {b.stride()}")
     out = torch.empty((t, n), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = _kernel_lib().grouped_matmul_forward(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), offsets.data_ptr(), t,
-        k, n, e, se, sk, sn, _DTYPE_CODES[a.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed with cudaError "
-                           f"{rc} (T={t} K={k} N={n} E={e} {a.dtype})")
+    tma = takes_tma(a, b)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), offsets.data_ptr(),
+            t, k, n, e, se, sk, sn)
+    lib = _kernel_lib()
+    if tma:
+        rc = lib.grouped_matmul_forward_tma(*args, stream)
+    else:
+        rc = lib.grouped_matmul_forward(*args, _DTYPE_CODES[a.dtype], stream)
+    _raise_on(rc, name, tma, t, k, n, e, a.dtype)
     wrapper.launches += 1
+    wrapper.tma_launches += tma
     return out
+
+
+def _raise_on(rc: int, name: str, tma: bool, t, k, n, e, dtype) -> None:
+    if rc == 0:
+        return
+    what = "cuTensorMapEncodeTiled refused the TMA kernel's tensor maps" \
+        if rc == -1 else f"kernel launch failed with cudaError {rc}"
+    raise RuntimeError(f"{name}: {'TMA' if tma else 'general'} {what} "
+                       f"(T={t} K={k} N={n} E={e} {dtype})")
 
 
 def grouped_matmul_fwd(lhs: torch.Tensor, rhs: torch.Tensor,
@@ -260,19 +318,23 @@ def grouped_matmul_drhs(lhs: torch.Tensor, g: torch.Tensor,
     out = torch.empty((num_experts, k, n), dtype=torch.float32,
                       device=lhs.device)
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
-    rc = _kernel_lib().grouped_matmul_drhs(
-        lhs.data_ptr(), g.data_ptr(), out.data_ptr(), offsets.data_ptr(), t,
-        k, n, num_experts, _DTYPE_CODES[lhs.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed with cudaError "
-                           f"{rc} (T={t} K={k} N={n} E={num_experts} "
-                           f"{lhs.dtype})")
+    tma = takes_tma(lhs, g)
+    args = (lhs.data_ptr(), g.data_ptr(), out.data_ptr(), offsets.data_ptr(),
+            t, k, n, num_experts)
+    lib = _kernel_lib()
+    if tma:
+        rc = lib.grouped_matmul_drhs_tma(*args, stream)
+    else:
+        rc = lib.grouped_matmul_drhs(*args, _DTYPE_CODES[lhs.dtype], stream)
+    _raise_on(rc, name, tma, t, k, n, num_experts, lhs.dtype)
     grouped_matmul_drhs.launches += 1
+    grouped_matmul_drhs.tma_launches += tma
     return out
 
 
 for _w in (grouped_matmul_fwd, grouped_matmul_dlhs, grouped_matmul_drhs):
-    _w.launches = 0
+    _w.launches = 0        # every launch
+    _w.tma_launches = 0    # those of the TMA / wgmma kernel
 
 
 class GroupedMatmul(torch.autograd.Function):

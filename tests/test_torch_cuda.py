@@ -4,14 +4,16 @@ the same engine through the walk, the three flash-attention kernels
 against their plain versions (plain, with dropout and with segments),
 a tiny Llama train step through them against the same step through
 the plain sdpa, the grouped-matmul kernels (K6 forward and dlhs, K7
-drhs) against their plain versions and the op's autograd against the
-dense oracle's, and a tiny ERNIE-MoE step. Each skips (with its reason)
+drhs; TMA / wgmma for bf16 with 16-byte rows, the general kernels
+otherwise, by their counts) against their plain versions and the op's
+autograd against the dense oracle's, and a tiny ERNIE-MoE step. Each skips (with its reason)
 where there is no CUDA device; the decision is made inside the
 fixture, never at import. This file imports no JAX, so on a machine
 without it run it as
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -321,13 +323,18 @@ def test_train_step_through_the_kernels_matches_the_plain_sdpa(cuda):
 
 # -- grouped matmul (K6, K7) -------------------------------------------------
 
+# 16 groups of 0-60 rows from a numpy seed: tiles straddle several
+_SMALL = [int(x) for x in np.random.default_rng(3).integers(0, 61, 16)]
 GMM_LAYOUTS = {
-    # name: (T, K, N, group sizes or None, tile ids or None, block_t)
+    # name: (T, K, N, group sizes or None, tile ids or None, block_t);
+    # E is the number of sizes, else 4
     "aligned": (512, 256, 384, [128, 128, 128, 128], None, 128),
     "ragged_empty_padding": (640, 128, 256, [128, 0, 256, 128], None, 128),
     "unaligned": (300, 200, 72, [37, 0, 101, 150], None, 128),
     "tile_ids": (512, 128, 128, None, [0, 0, 2, 3], 128),
     "odd_k_n": (100, 37, 45, [10, 60, 0, 20], None, 128),
+    "many_small_groups": (sum(_SMALL) + 24, 64, 136, _SMALL, None, 128),
+    "mid_box_ranges": (400, 64, 128, [70, 130, 1, 63, 65, 0], None, 128),
 }
 
 
@@ -338,25 +345,30 @@ GMM_LAYOUTS = {
 def test_grouped_matmul_kernels_match_their_plain_versions(cuda, name,
                                                            dtype, tol):
     t, k, n, sizes, ids, bt = GMM_LAYOUTS[name]
+    e = 4 if sizes is None else len(sizes)
     g_ = torch.Generator(device=cuda).manual_seed(len(name))
     lhs, g = (torch.randn(s, generator=g_, device=cuda).to(dtype)
               for s in ((t, k), (t, n)))
-    rhs = torch.randn((4, k, n), generator=g_, device=cuda).to(dtype)
+    rhs = torch.randn((e, k, n), generator=g_, device=cuda).to(dtype)
     if ids is None:
-        off = tgmm.offsets_from_group_sizes(sizes, 4, t, cuda)
+        off = tgmm.offsets_from_group_sizes(sizes, e, t, cuda)
     else:
-        off = tgmm.offsets_from_tile_ids(ids, 4, bt, t, cuda)
+        off = tgmm.offsets_from_tile_ids(ids, e, bt, t, cuda)
     ws = (tgmm.grouped_matmul_fwd, tgmm.grouped_matmul_dlhs,
           tgmm.grouped_matmul_drhs)
-    before = [w.launches for w in ws]
+    before = [(w.launches, w.tma_launches) for w in ws]
     got = (tgmm.grouped_matmul_fwd(lhs, rhs, off),
            tgmm.grouped_matmul_dlhs(g, rhs, off),
-           tgmm.grouped_matmul_drhs(lhs, g, off, 4))
+           tgmm.grouped_matmul_drhs(lhs, g, off, e))
     torch.cuda.synchronize()
-    assert [w.launches for w in ws] == [b + 1 for b in before]
+    # bf16 with 16-byte rows takes the TMA / wgmma kernels, the rest the
+    # general ones
+    tma = int(dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0)
+    assert [(w.launches, w.tma_launches) for w in ws] == [
+        (a + 1, b + tma) for a, b in before]
     want = (tgmm.grouped_matmul_fwd_reference(lhs, rhs, off),
             tgmm.grouped_matmul_fwd_reference(g, rhs.transpose(1, 2), off),
-            tgmm.grouped_matmul_drhs_reference(lhs, g, off, 4))
+            tgmm.grouped_matmul_drhs_reference(lhs, g, off, e))
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == b.dtype
         err = (a.float() - b.float()).abs()
@@ -382,14 +394,22 @@ def test_grouped_matmul_autograd_matches_the_dense_oracle(cuda, dtype, tol):
         xs = [x.clone().requires_grad_() for x in (lhs, rhs)]
         before = (tgmm.grouped_matmul_fwd.launches
                   + tgmm.grouped_matmul_dlhs.launches,
-                  tgmm.grouped_matmul_drhs.launches)
+                  tgmm.grouped_matmul_drhs.launches,
+                  tgmm.grouped_matmul_fwd.tma_launches
+                  + tgmm.grouped_matmul_dlhs.tma_launches
+                  + tgmm.grouped_matmul_drhs.tma_launches)
         y = fn(*xs, torch.tensor(sizes, device=cuda))
         outs.append([y.detach()] + list(torch.autograd.grad(y, xs, dy)))
         after = (tgmm.grouped_matmul_fwd.launches
                  + tgmm.grouped_matmul_dlhs.launches,
-                 tgmm.grouped_matmul_drhs.launches)
+                 tgmm.grouped_matmul_drhs.launches,
+                 tgmm.grouped_matmul_fwd.tma_launches
+                 + tgmm.grouped_matmul_dlhs.tma_launches
+                 + tgmm.grouped_matmul_drhs.tma_launches)
+        # K 200, N 72: bf16 through the TMA kernels, f32 the general ones
+        tma = 3 if dtype == torch.bfloat16 else 0
         assert [a - b for a, b in zip(after, before)] == (
-            [2, 1] if fn is tgmm.grouped_matmul else [0, 0])
+            [2, 1, tma] if fn is tgmm.grouped_matmul else [0, 0, 0])
     for a, b in zip(*outs):
         rel = (a.float() - b.float()).square().mean().sqrt() / \
             b.float().square().mean().sqrt()

@@ -12,6 +12,7 @@ its larger terms), the two sides summing in other orders; bf16 one bf16
 rounding of the output (2^-8 relative) apart.
 """
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -222,3 +223,100 @@ def test_entry_raises_where_the_jax_entry_does():
                             tile_ids=torch.tensor([0, 1, 2, 4]))
     with pytest.raises(ValueError, match="E = 4"):
         tgmm.grouped_matmul(lhs, rhs, [64, 64])
+
+
+# -- which kernel takes a CUDA call ------------------------------------------
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _offset_by_one(*shape):
+    """A contiguous bf16 tensor whose base lies 2 bytes past an aligned
+    allocation."""
+    return _bf16(math.prod(shape) + 1)[1:].view(*shape)
+
+
+# name: (make (a, b), whether the TMA kernels take it). ``b`` is K6's
+# weights view [E, R, N] or K7's g [T, N].
+TMA_CASES = {
+    "fwd_weights_as_stored": (lambda: (_bf16(256, 64), _bf16(4, 64, 128)),
+                              True),
+    "dlhs_transposed_weights": (
+        lambda: (_bf16(256, 128), _bf16(4, 64, 128).transpose(1, 2)), True),
+    "drhs": (lambda: (_bf16(256, 64), _bf16(256, 128)), True),
+    "unaligned_layout_k200_n72": (
+        lambda: (_bf16(300, 200), _bf16(6, 200, 72)), True),
+    "dlhs_k200_n72": (
+        lambda: (_bf16(300, 72), _bf16(6, 200, 72).transpose(1, 2)), True),
+    "one_expert": (lambda: (_bf16(64, 64), _bf16(1, 64, 64)), True),
+    "padded_weights_view": (
+        lambda: (_bf16(64, 64), _bf16(4, 64, 136)[:, :, :128]), True),
+    "float32": (lambda: (_bf16(256, 64).float(), _bf16(4, 64, 128).float()),
+                False),
+    "float16": (lambda: (_bf16(256, 64).half(), _bf16(4, 64, 128).half()),
+                False),
+    "drhs_float32": (lambda: (_bf16(256, 64).float(), _bf16(256, 128).float()),
+                     False),
+    "odd_k_n": (lambda: (_bf16(100, 37), _bf16(4, 37, 45)), False),
+    "dlhs_odd_k_n": (
+        lambda: (_bf16(100, 45), _bf16(4, 37, 45).transpose(1, 2)), False),
+    "lhs_base_unaligned": (
+        lambda: (_offset_by_one(256, 64), _bf16(4, 64, 128)), False),
+    "weights_base_unaligned": (
+        lambda: (_bf16(256, 64), _offset_by_one(4, 64, 128)), False),
+    "drhs_g_base_unaligned": (
+        lambda: (_bf16(256, 64), _offset_by_one(256, 128)), False),
+    "weights_row_stride_not_16_bytes": (
+        lambda: (_bf16(64, 64), _bf16(4, 64, 130)[:, :, :128]), False),
+    "weights_strides_not_nested": (
+        lambda: (_bf16(64, 64), _bf16(64, 4, 128).permute(1, 0, 2)), False),
+    "weights_contiguous_along_neither": (
+        lambda: (_bf16(64, 64), _bf16(4, 64, 128, 2)[..., 0]), False),
+    "no_rows": (lambda: (_bf16(0, 64), _bf16(4, 64, 128)), False),
+    "drhs_no_rows": (lambda: (_bf16(0, 64), _bf16(0, 128)), False),
+}
+# every residue of K (lhs's row) and of N (the output's row) mod 8
+TMA_CASES.update({
+    f"fwd_k_mod8_{r}": (lambda r=r: (_bf16(64, 64 + r), _bf16(2, 64 + r, 64)),
+                        False) for r in range(1, 8)})
+TMA_CASES.update({
+    f"fwd_n_mod8_{r}": (lambda r=r: (_bf16(64, 64), _bf16(2, 64, 64 + r)),
+                        False) for r in range(1, 8)})
+TMA_CASES.update({
+    f"drhs_n_mod8_{r}": (lambda r=r: (_bf16(64, 64), _bf16(64, 64 + r)),
+                         False) for r in (2, 4, 6)})
+
+
+@pytest.mark.parametrize("name", sorted(TMA_CASES))
+def test_tma_path_predicate(name):
+    """``takes_tma`` sends bf16 operands a TMA tensor map can describe
+    (aligned bases, 16-byte row strides, nested weight strides) to the
+    TMA / wgmma kernels and everything else to the general ones."""
+    make, want = TMA_CASES[name]
+    a, b = make()
+    assert tgmm.takes_tma(a, b) is want
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
+    """bf16 CPU tensors that the TMA kernels would take on the card run
+    the plain versions here, and neither count moves."""
+    t, k, n = 96, 64, 72
+    lhs, rhs, g = (torch.from_numpy(a).bfloat16()
+                   for a in _inputs(t, k, n, seed=11))
+    offsets = torch.tensor([0, 30, 30, 64, 90], dtype=torch.int32)
+    assert tgmm.takes_tma(lhs, rhs) and tgmm.takes_tma(g, rhs.transpose(1, 2))
+    assert tgmm.takes_tma(lhs, g)
+    ws = (tgmm.grouped_matmul_fwd, tgmm.grouped_matmul_dlhs,
+          tgmm.grouped_matmul_drhs)
+    before = [(w.launches, w.tma_launches) for w in ws]
+    got = (tgmm.grouped_matmul_fwd(lhs, rhs, offsets),
+           tgmm.grouped_matmul_dlhs(g, rhs, offsets),
+           tgmm.grouped_matmul_drhs(lhs, g, offsets, E))
+    want = (tgmm.grouped_matmul_fwd_reference(lhs, rhs, offsets),
+            tgmm.grouped_matmul_fwd_reference(g, rhs.transpose(1, 2),
+                                              offsets),
+            tgmm.grouped_matmul_drhs_reference(lhs, g, offsets, E))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert [(w.launches, w.tma_launches) for w in ws] == before
