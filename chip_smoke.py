@@ -10,7 +10,8 @@ Phases, each printing one JSON line with its seconds:
 1. ``env``            card name and power limit, torch and CUDA versions;
 2. ``build``          compiles every kernel from ``paddle_tpu_torch``'s
                       sources with nvcc (sm_90a), one process per source,
-                      printing ptxas' report;
+                      printing ptxas' report; fails if the TMA flash
+                      kernels spill;
 3. ``kernel_parity``  the paged-attention kernel against its plain walk
                       on the card, over the serving geometries (decode,
                       GQA, prefill chunk, dense whole-prompt prefill,
@@ -36,26 +37,32 @@ Phases, each printing one JSON line with its seconds:
                       against their plain versions on the card, bf16 and
                       f32, at the training geometry (B 4, L 2048, H 32,
                       D 128) causal and full, D 64 through the [BH, L, D]
-                      strides, a ragged L and L = 1: elementwise against
-                      the plain version in the working dtype (the same
+                      strides, a ragged L, L = 1 and q, k, v as strided
+                      views of one [B, L, 3, H, D] projection: each call's
+                      counts must show the design takes_tma names (the
+                      TMA / wgmma kernels for bf16 at D 128, the first
+                      design for f32 and D 64); elementwise against the
+                      plain version in the working dtype (the same
                       roundings), and in RMS against the plain version on
                       f32 copies of the inputs; then the FlashAttention
                       autograd function against autograd through the
                       plain sdpa;
 8. ``flash_time``     the three kernels, the whole backward (with delta)
                       and forward + backward at the training geometry
-                      and at D 64 in the [BH, L, D] layout (BERT-base
-                      heads), beside their plain versions, their bounds
-                      and PyTorch's scaled_dot_product_attention (a
+                      (the TMA design, and the first design on the same
+                      inputs through its C entries: general_ms) and at D
+                      64 in the [BH, L, D] layout (BERT-base heads),
+                      beside their plain versions, their bounds and
+                      PyTorch's scaled_dot_product_attention (a
                       yardstick only);
 9. ``train``          THE TRAINING PATH: a Llama-2-7B-width bf16 model
                       (4 layers, random weights) trains with AdamW
                       through TrainStep on a batch of 4 x 2048 tokens:
                       2 warm-up and 5 timed steps; the three flash
-                      launch counts are reset just before the timed steps
-                      and read just after, and must each equal layers x
-                      timed steps; losses finite and falling; then one
-                      step under torch.profiler;
+                      launch counts and their TMA counts are reset just
+                      before the timed steps and read just after, and
+                      must each equal layers x timed steps; losses finite
+                      and falling; then one step under torch.profiler;
 10. ``train_parity``  one step of the same widths at 2 layers through
                       the kernels against the same step with
                       use_flash_attention=False (autograd through the
@@ -138,9 +145,11 @@ Phases, each printing one JSON line with its seconds:
                       share of tokens whose top-2 experts differ.
 
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
-(K3, K1 and K2 at the Llama training geometry, K5 in K1/K2 at the BERT
-geometry, K4 at the packed geometry, K6 and K7 at the op bench's
-geometry, each K6/K7 row naming the design it timed) and, last,
+(K3, K1b and K2b at the Llama training geometry, K5 in K1a/K2a at the
+BERT geometry, K4 at the packed geometry, K6 and K7 at the op bench's
+geometry, each flash and K6/K7 row naming the design it timed, its TMA
+launches and the first design's time where the TMA design took it)
+and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Without CUDA, or when run outside a checkout, it
 exits non-zero and prints no result. Imports nothing of JAX.
@@ -149,6 +158,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -686,12 +696,51 @@ def flash_inputs(shape, dtype, seed):
 
 def flash_cases():
     """(name, shape, causal): the training geometry causal and full, D 64
-    through the [BH, L, D] strides, a ragged L and L = 1."""
+    through the [BH, L, D] strides, a ragged L, L = 1, and q, k, v as
+    strided views of one [B, L, 3, H, D] projection."""
     return [("train", (4, 2048, 32, 128), True),
             ("train_full", (4, 2048, 32, 128), False),
             ("bhld_d64", (48, 512, 64), False),
             ("ragged_l1000", (2, 1000, 8, 128), True),
-            ("l1", (4, 1, 32, 128), True)]
+            ("l1", (4, 1, 32, 128), True),
+            ("strided_qkv", (2, 1024, 16, 128), True)]
+
+
+def flash_case_inputs(case, shape, dtype, seed):
+    """q, k, v, do of one flash_parity case; ``strided_qkv`` takes q, k, v
+    as the views of one [B, L, 3, H, D] projection."""
+    if case != "strided_qkv":
+        return flash_inputs(shape, dtype, seed)
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, L, H, D = shape
+    qkv = torch.randn((B, L, 3, H, D), generator=g, device="cuda").to(dtype)
+    do = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    return [*qkv.unbind(2), do]
+
+
+def flash_tma_expected(dtype, shape):
+    """Whether the TMA / wgmma design should take a flash_parity call
+    (no dropout, no segments): bf16 at head dim 128 (the inputs are
+    fresh tensors or views with 16-byte rows)."""
+    import torch
+    return dtype == torch.bfloat16 and shape[-1] == 128
+
+
+def flash_wrappers():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    return (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+            fa.flash_attention_bwd_dkv)
+
+
+def flash_counts():
+    return [(w.launches, w.tma_launches) for w in flash_wrappers()]
+
+
+def flash_paths(before):
+    """(launches, TMA launches) of each wrapper since ``before``."""
+    return [(a - c, b - d) for (a, b), (c, d) in zip(flash_counts(),
+                                                      before)]
 
 
 def plain_all(q, k, v, do, causal, **kw):
@@ -773,16 +822,24 @@ def phase_flash_parity(results):
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         for i, (case, shape, causal) in enumerate(flash_cases()):
-            q, k, v, do = flash_inputs(shape, dtype, seed=100 + i)
+            q, k, v, do = flash_case_inputs(case, shape, dtype, seed=100 + i)
             ref = plain_all(q, k, v, do, causal)
             delta = fa.attention_delta(ref[0], do)
+            before = flash_counts()
             got = kernels_all(q, k, v, do, causal, ref[1], delta)
             torch.cuda.synchronize()
+            paths = flash_paths(before)
             ref32 = plain_all(*(x.float() for x in (q, k, v, do)), causal)
+            tma = flash_tma_expected(dtype, shape)
             row = {"case": case, "shape": list(shape), "causal": causal,
-                   "dtype": dname}
+                   "dtype": dname,
+                   "design": "tma_wgmma" if tma else "general_mma_sync",
+                   "launches_and_tma_launches": paths}
             rows.append(row)
-            if not parity_row(row, got, ref, ref32, dname):
+            # each kernel launched once, through the design expected
+            ok = parity_row(row, got, ref, ref32, dname)
+            row["ok"] = ok = ok and paths == [(1, int(tma))] * 3
+            if not ok:
                 failed.append(row)
             if case == "train" and dtype == torch.bfloat16:
                 record_errors(results, "", row)
@@ -793,9 +850,14 @@ def phase_flash_parity(results):
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         q, k, v, do = flash_inputs((2, 512, 8, 128), dtype, seed=7)
+        before = flash_counts()
         auto.append(autograd_row(
             q, k, v, do, lambda a, b, c: fa.flash_attention(a, b, c, True),
             lambda a, b, c: sdpa_reference(a, b, c, causal=True), dname))
+        paths = flash_paths(before)
+        tma = flash_tma_expected(dtype, q.shape)
+        auto[-1]["launches_and_tma_launches"] = paths
+        auto[-1]["ok"] &= paths == [(1, int(tma))] * 3
         if not auto[-1]["ok"]:
             failed.append({"autograd": auto[-1]})
     finish_parity("flash_parity", results, "", failed)
@@ -843,6 +905,50 @@ def bound(flops, nbytes):
                                  else "bytes")
 
 
+def flash_general(q, k, v, do, lse, delta, causal):
+    """The first design's kernels (mma.sync, flash_attention.cuh) on bf16
+    inputs that the wrappers send to the TMA design: called through the
+    first design's C entries, so one run times both designs on one
+    card."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    B, L, H, D = fa._as4(q).shape
+    lib = fa._kernel_lib(q.dtype, D)
+
+    def tail():  # sizes, causal, scale, bf16; no segments, no dropout
+        return (B, L, H, D, int(causal), 1.0 / math.sqrt(D), 1, None, 0,
+                None, 0, 0, 0, 1.0, torch.cuda.current_stream().cuda_stream)
+
+    def check(rc, what):
+        if rc:
+            raise RuntimeError(f"first-design {what} launch failed: "
+                               f"cudaError {rc}")
+
+    def fwd():
+        out = torch.empty_like(q)
+        ls = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+        check(lib.flash_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ls.data_ptr(), fa._strides(q, k, v, out), *tail()), "forward")
+
+    def dq():
+        g = torch.empty_like(q)
+        check(lib.flash_attention_backward_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), g.data_ptr(),
+            fa._strides(q, k, v, do, g), *tail()), "dQ")
+
+    def dkv():
+        gk, gv = torch.empty_like(k), torch.empty_like(v)
+        check(lib.flash_attention_backward_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), gk.data_ptr(), gv.data_ptr(),
+            fa._strides(q, k, v, do, gk, gv), *tail()), "dK/dV")
+
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd_dq": dq,
+            "flash_attention_bwd_dkv": dkv}
+
+
 def flash_timings(shape, causal, kw=None, pairs=None, lib_kw=None,
                   extra_bytes=0):
     """Kernel, plain and library times of the flash functions at one
@@ -851,7 +957,9 @@ def flash_timings(shape, causal, kw=None, pairs=None, lib_kw=None,
     (a [BH, L, D] input as [BH, 1, L, D]) and ``lib_kw`` (its dropout or
     mask). ``kw`` goes to every kernel and plain call (dropout_p, seed,
     seg); ``pairs`` is the pairs a head needs, ``extra_bytes`` what the
-    call reads besides (the segment ids)."""
+    call reads besides (the segment ids). Where the wrappers take the TMA
+    design (checked by their counts), general_ms times the first design
+    on the same inputs."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -861,6 +969,15 @@ def flash_timings(shape, causal, kw=None, pairs=None, lib_kw=None,
         else shape
     out, lse = fa.flash_attention_fwd(q, k, v, causal, None, **kw)
     delta = fa.attention_delta(out, do)
+    tma = fa.takes_tma(q, k, v, do, dropout_p=kw.get("dropout_p", 0.0),
+                       seg=kw.get("seg"))
+    before = flash_counts()
+    kernels_all(q, k, v, do, causal, lse, delta, **kw)
+    torch.cuda.synchronize()
+    if flash_paths(before) != [(1, int(tma))] * 3:
+        raise AssertionError(f"flash_time: the wrappers took another design "
+                             f"than takes_tma ({tma}) at {list(shape)}")
+    first = flash_general(q, k, v, do, lse, delta, causal) if tma else {}
     lib_in = [(x[:, :, None] if x.dim() == 3 else x).transpose(1, 2)
               .contiguous() for x in (q, k, v, do)]
     qt, kt, vt, dot = lib_in
@@ -909,7 +1026,10 @@ def flash_timings(shape, causal, kw=None, pairs=None, lib_kw=None,
                                        tensors, stats, 2, pairs)
         nbytes += extra_bytes
         b_ms, b_by = bound(flops, nbytes)
-        r = {"kernel_ms": time_ms(kern, samples=10, inner=5),
+        r = {"design": "tma_wgmma" if tma else "general_mma_sync",
+             "kernel_ms": time_ms(kern, samples=10, inner=5),
+             "general_ms": time_ms(first[name], samples=10, inner=5)
+             if name in first else None,
              "plain_ms": time_ms(plain, samples=5, inner=1)
              if plain else None,
              "library_ms": time_ms(lib, samples=10, inner=5)
@@ -926,8 +1046,8 @@ def phase_flash_time(results):
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         results[name].update({key: train[name][key] for key in (
-            "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")})
+            "design", "kernel_ms", "general_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")})
         results[name]["ms"] = train[name]["kernel_ms"]
     return {"train": {"shape": [4, 2048, 32, 128], "layout": "B L H D",
                       "causal": True, "dtype": "bfloat16", "times": train},
@@ -939,6 +1059,9 @@ def phase_flash_time(results):
             "library": "torch.nn.functional.scaled_dot_product_attention "
                        "on [B, H, L, D] inputs (forward; forward + "
                        "backward through torch.autograd.grad)",
+            "general_ms": "the first design's mma.sync kernels "
+                          "(flash_attention.cuh) on the same inputs, where "
+                          "the wrappers take the TMA design",
             "bound_note": "products of the function: forward 2 (QK^T, PV), "
                           "dQ 3, dK/dV 4, backward 5 (the two-kernel recipe "
                           "does 7); causal pairs L(L+1)/2"}
@@ -1029,21 +1152,24 @@ def phase_train(results):
     losses = [step(ids, ids) for _ in range(TRAIN["warmup"])]
     torch.cuda.synchronize()
     for kern in kernels:
-        kern.launches = 0                  # the counts start here
+        kern.launches = kern.tma_launches = 0    # the counts start here
     t0 = time.perf_counter()
     for _ in range(TRAIN["steps"]):
         losses.append(step(ids, ids))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = [kern.launches for kern in kernels]   # ... and are read here
+    tma = [kern.tma_launches for kern in kernels]
     expected = TRAIN["layers"] * TRAIN["steps"]
-    if launches != [expected] * 3:
+    if launches != [expected] * 3 or tma != [expected] * 3:
         raise AssertionError(
-            f"flash launches (fwd, dq, dkv) {launches} != layers x timed "
-            f"steps = {TRAIN['layers']} x {TRAIN['steps']}")
-    for kern, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
-                        "flash_attention_bwd_dkv"), launches):
+            f"flash launches (fwd, dq, dkv) {launches}, of them through the "
+            f"TMA design {tma}, != layers x timed steps = "
+            f"{TRAIN['layers']} x {TRAIN['steps']} each")
+    for kern, n, nt in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                            "flash_attention_bwd_dkv"), launches, tma):
         results[kern]["launches"] = n
+        results[kern]["tma_launches"] = nt
     loss_values = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in loss_values):
         raise AssertionError(f"non-finite loss: {loss_values}")
@@ -1075,6 +1201,7 @@ def phase_train(results):
            "step_ms": wall / TRAIN["steps"] * 1e3, "tokens_per_s": tok_s,
            "mfu": mfu, "mfu_flops_per_token": 6 * n_params + attn_per_token,
            "flash_launches": dict(zip(("fwd", "dq", "dkv"), launches)),
+           "flash_tma_launches": dict(zip(("fwd", "dq", "dkv"), tma)),
            "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof}
     del step, opt, model
     torch.cuda.empty_cache()
@@ -1142,12 +1269,17 @@ def phase_flash_dropout_parity(results):
         q, k, v, do = flash_inputs(shape, dtype, seed=200 + i)
         ref = plain_all(q, k, v, do, causal, **kw)
         delta = fa.attention_delta(ref[0], do)
+        before = flash_counts()
         got = kernels_all(q, k, v, do, causal, ref[1], delta, **kw)
         torch.cuda.synchronize()
+        paths = flash_paths(before)
         ref32 = plain_all(*(x.float() for x in (q, k, v, do)), causal, **kw)
         row = {"case": case, "shape": list(shape), "causal": causal,
-               "dtype": dname, "dropout_p": p}
-        ok = parity_row(row, got, ref, ref32, dname)
+               "dtype": dname, "dropout_p": p, "design": "general_mma_sync",
+               "launches_and_tma_launches": paths}
+        # dropout takes the first design, one launch each
+        ok = parity_row(row, got, ref, ref32, dname) and \
+            paths == [(1, 0)] * 3
         # p = 0 is the launch without dropout, bit for bit; another seed
         # drops other pairs
         plain_launch = kernels_all(q, k, v, do, causal, ref[1], delta)
@@ -1238,14 +1370,21 @@ def phase_flash_varlen_parity(results):
                                        causal)
             ref = plain_all(q, k, v, do, causal, seg=seg)
             delta = fa.attention_delta(ref[0], do)
+            before = flash_counts()
             got = kernels_all(q, k, v, do, causal, ref[1], delta, seg=seg)
             torch.cuda.synchronize()
+            paths = flash_paths(before)
             ref32 = plain_all(*(x.float() for x in (q, k, v, do)), causal,
                               seg=seg)
             row = {"shape": list(shape), "sequences": len(lens),
-                   "causal": causal, "dtype": dname}
+                   "causal": causal, "dtype": dname,
+                   "design": "general_mma_sync",
+                   "launches_and_tma_launches": paths}
             rows.append(row)
-            if not parity_row(row, got, ref, ref32, dname):
+            # segments take the first design, one launch each
+            ok = parity_row(row, got, ref, ref32, dname)
+            row["ok"] = ok = ok and paths == [(1, 0)] * 3
+            if not ok:
                 failed.append(row)
             if dtype == torch.bfloat16 and not causal:
                 record_errors(results, "_segmented", row)
@@ -1276,19 +1415,24 @@ def phase_flash_varlen_parity(results):
                 fa.flash_attention_bwd_dkv)
     for w in wrappers:
         w.launches = w.dropout_launches = w.segmented_launches = 0
+        w.tma_launches = 0
     out, _ = flash_attn_varlen_qkvpacked(qkv, cu, cu, max(lens), max(lens),
                                          None, causal=False)
     out.backward(dout)
     torch.cuda.synchronize()
     launches = [w.segmented_launches for w in wrappers]   # ... read here
+    tma = [w.tma_launches for w in wrappers]
     finite = bool(torch.isfinite(out).all() and
                   torch.isfinite(qkv.grad).all())
-    if launches != [1, 1, 1] or not finite:
+    if launches != [1, 1, 1] or tma != [0, 0, 0] or not finite:
         raise AssertionError(f"varlen entry: segmented launches {launches} "
-                             f"(want 1 each), finite {finite}")
+                             f"(want 1 each), TMA launches {tma} (want "
+                             f"none: segments take the first design), "
+                             f"finite {finite}")
     for name, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
                         "flash_attention_bwd_dkv"), launches):
         results[name + "_segmented"]["launches"] = n
+        results[name + "_segmented"]["tma_launches"] = 0
     return {"sequences": len(lens), "lengths": lens, "cases": rows,
             "autograd_vs_block_diagonal_sdpa": auto,
             "entry": {"qkv": [T, 3, H, D], "segmented_launches": launches,
@@ -1321,7 +1465,8 @@ def phase_flash_time_bert(results):
                      "flash_attention_bwd_dkv"):
             row = table[name]
             results[name + suffix].update(
-                {key: row[key] for key in ("kernel_ms", "plain_ms",
+                {key: row[key] for key in ("design", "kernel_ms",
+                                           "general_ms", "plain_ms",
                                            "library_ms", "bound_ms",
                                            "bound_by")})
             results[name + suffix]["ms"] = row["kernel_ms"]
@@ -1388,6 +1533,7 @@ def phase_bert_train(results):
     torch.cuda.synchronize()
     for w in wrappers:                     # the counts start here
         w.launches = w.dropout_launches = w.segmented_launches = 0
+        w.tma_launches = 0
     t0 = time.perf_counter()
     for _ in range(BERT["steps"]):
         losses.append(step(ids, ids))
@@ -1395,15 +1541,19 @@ def phase_bert_train(results):
     wall = time.perf_counter() - t0
     launches = [w.launches for w in wrappers]        # ... and are read here
     dropped = [w.dropout_launches for w in wrappers]
+    tma = [w.tma_launches for w in wrappers]
     expected = BERT["layers"] * BERT["steps"]
-    if launches != [expected] * 3 or dropped != [expected] * 3:
+    if launches != [expected] * 3 or dropped != [expected] * 3 \
+            or tma != [0, 0, 0]:
         raise AssertionError(
             f"flash launches (fwd, dq, dkv) {launches}, with dropout "
             f"{dropped} != layers x timed steps = {BERT['layers']} x "
-            f"{BERT['steps']}")
+            f"{BERT['steps']}, or TMA launches {tma} (dropout at D 64 takes "
+            f"the first design)")
     for name, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
                         "flash_attention_bwd_dkv"), dropped):
         results[name + "_dropout"]["launches"] = n
+        results[name + "_dropout"]["tma_launches"] = 0
     loss_values = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in loss_values):
         raise AssertionError(f"non-finite loss: {loss_values}")
@@ -1936,7 +2086,7 @@ def phase_moe_train(results):
     losses = [step(ids, ids) for _ in range(MOE["warmup"])]
     torch.cuda.synchronize()
     for kern in kernels:
-        kern.launches = 0                  # the counts start here
+        kern.launches = kern.tma_launches = 0    # the counts start here
     t0 = time.perf_counter()
     drops = []
     for _ in range(MOE["steps"]):
@@ -1945,11 +2095,13 @@ def phase_moe_train(results):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = [kern.launches for kern in kernels]   # ... and are read here
+    tma = [kern.tma_launches for kern in kernels]
     expected = cfg.num_hidden_layers * MOE["steps"]
-    if launches != [expected] * 3:
+    if launches != [expected] * 3 or tma != [0, 0, 0]:
         raise AssertionError(
             f"flash launches (fwd, dq, dkv) {launches} != layers x timed "
-            f"steps = {cfg.num_hidden_layers} x {MOE['steps']}")
+            f"steps = {cfg.num_hidden_layers} x {MOE['steps']}, or TMA "
+            f"launches {tma} (D 64 takes the first design)")
     loss_values = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in loss_values):
         raise AssertionError(f"non-finite loss: {loss_values}")
@@ -2055,11 +2207,19 @@ def phase_moe_train_parity():
 
 def phase_build():
     from paddle_tpu_torch.ops.kernels import build
-    return {name: {"nvcc_seconds": b.seconds,
-                   "ptxas": [ln.strip() for ln in b.log.splitlines()
-                             if "registers" in ln
-                             or "Compiling entry" in ln]}
-            for name, b in build.build_all(verbose=True).items()}
+    out = {name: {"nvcc_seconds": b.seconds,
+                  "ptxas": [ln.strip() for ln in b.log.splitlines()
+                            if "registers" in ln or "spill" in ln
+                            or "Compiling entry" in ln]}
+           for name, b in build.build_all(verbose=True).items()}
+    # the TMA flash kernels are sized to the registers a thread has (168):
+    # a spill is a fault of the design
+    spills = [ln for ln in out["flash_attention_tma"]["ptxas"]
+              if re.search(r"[1-9]\d* bytes spill", ln)]
+    if spills:
+        emit({"phase": "build", "failed": spills})
+        raise AssertionError("the TMA flash kernels spill registers")
+    return out
 
 
 def main() -> int:
@@ -2089,34 +2249,49 @@ def main() -> int:
               "launches": None, "parity": None, "max_abs_err": None,
               "ms": None, "kernel_ms": None, "plain_ms": None,
               "bound_ms": None, "bound_by": None, "library_ms": None}
-    # K1/K2 at the Llama training geometry; K5 (dropout) in K1a/K2a at
-    # the BERT geometry; K4 (segments) at the packed geometry
+    # K1b/K2b at the Llama training geometry (the TMA / wgmma design;
+    # general_ms times the first design alongside); K5 (dropout) in
+    # K1a/K2a at the BERT geometry and K4 (segments) at the packed
+    # geometry, both on the first design
     flash = {
         name: {"name": name, "route": "cuda",
-               "source": "paddle_tpu_torch/ops/kernels/csrc/"
-                         "flash_attention.cuh",
+               "source": "paddle_tpu_torch/ops/kernels/csrc/" + src,
                "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
                "tpu_kernel": f"paddle_tpu/ops/pallas/flash_attention.py:"
                              f"{body}",
-               "launches": None, "parity": None, "max_abs_err": None,
-               "ms": None, "kernel_ms": None, "plain_ms": None,
-               "bound_ms": None, "bound_by": None, "library_ms": None}
-        for name, line, body in (
-            ("flash_attention_fwd", 99, "_fwd_kernel"),
-            ("flash_attention_bwd_dq", 208, "_bwd_dq_kernel"),
-            ("flash_attention_bwd_dkv", 278, "_bwd_dkv_kernel"),
+               "design": None, "launches": None, "tma_launches": None,
+               "parity": None, "max_abs_err": None,
+               "ms": None, "kernel_ms": None, "general_ms": None,
+               "plain_ms": None, "bound_ms": None, "bound_by": None,
+               "library_ms": None}
+        for name, line, body, src in (
+            ("flash_attention_fwd", 476,
+             "_flash_fwd_pallas_blhd (_fwd_kernel :99)",
+             "flash_attention_tma.cu"),
+            ("flash_attention_bwd_dq", 527,
+             "_flash_bwd_pallas_blhd (_bwd_dq_kernel :208)",
+             "flash_attention_tma.cu"),
+            ("flash_attention_bwd_dkv", 540,
+             "_flash_bwd_pallas_blhd (_bwd_dkv_kernel :278)",
+             "flash_attention_tma.cu"),
             ("flash_attention_fwd_dropout", 76,
-             "_keep_mask in _fwd_kernel (dropout_p > 0)"),
+             "_keep_mask in _fwd_kernel (dropout_p > 0)",
+             "flash_attention.cuh"),
             ("flash_attention_bwd_dq_dropout", 76,
-             "_keep_mask in _bwd_dq_kernel (dropout_p > 0)"),
+             "_keep_mask in _bwd_dq_kernel (dropout_p > 0)",
+             "flash_attention.cuh"),
             ("flash_attention_bwd_dkv_dropout", 76,
-             "_keep_mask in _bwd_dkv_kernel (dropout_p > 0)"),
+             "_keep_mask in _bwd_dkv_kernel (dropout_p > 0)",
+             "flash_attention.cuh"),
             ("flash_attention_fwd_segmented", 738,
-             "_flash_fwd_pallas_seg (_fwd_kernel, segmented=True)"),
+             "_flash_fwd_pallas_seg (_fwd_kernel, segmented=True)",
+             "flash_attention.cuh"),
             ("flash_attention_bwd_dq_segmented", 768,
-             "_flash_bwd_pallas_seg (_bwd_dq_kernel, segmented=True)"),
+             "_flash_bwd_pallas_seg (_bwd_dq_kernel, segmented=True)",
+             "flash_attention.cuh"),
             ("flash_attention_bwd_dkv_segmented", 768,
-             "_flash_bwd_pallas_seg (_bwd_dkv_kernel, segmented=True)"))}
+             "_flash_bwd_pallas_seg (_bwd_dkv_kernel, segmented=True)",
+             "flash_attention.cuh"))}
     # K6 (forward, and dlhs on the transposed weights) and K7
     for name, line, body in (
             ("grouped_matmul_fwd", 180, "_gmm_kernel via _gmm_fwd_impl"),

@@ -83,6 +83,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kWarpsM = 2, kWarpsN = 4;
@@ -410,10 +412,6 @@ __global__ void __launch_bounds__(kThreads)
              acc, wm, wn);
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 template <typename T>
 int launch_fwd(const void* lhs, const void* rhs, void* out,
                const int* offsets, int Tn, int K, int N, int E, long long se,
@@ -464,6 +462,7 @@ constexpr int kTM = 128;                      // output rows a CTA owns
 constexpr int kTN = 128;                      // output columns
 constexpr int kTK = 64;                       // reduction step: 128-byte rows
 constexpr int kStages = 3;                    // depth of the ring
+using Pipe = RingPos<kStages>;                // a position in it
 constexpr int kConsumers = 256;               // two warpgroups run wgmma
 constexpr int kTmaThreads = kConsumers + 32;  // and one producer warp
 constexpr int kAcc = kTN / 2;                 // f32 accumulators a thread
@@ -481,149 +480,6 @@ static_assert(kATile == 2 * kPanel && kTN % 64 == 0,
               "a stage is whole 64-row panels, two of them A's");
 
 extern __shared__ __align__(1024) unsigned char gmm_smem[];
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint64_t globaltimer() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Waits until the barrier's phase of this parity has completed. A wait
-// past 10 s traps: a broken ring fails the launch instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = globaltimer();
-  while (!mbar_try_wait(bar, parity))
-    if (globaltimer() - t0 > 10000000000ull) __trap();
-}
-
-// one box of a 2-D / 3-D tensor map into shared memory, completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor with 128-byte swizzle: start address,
-// leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-// The descriptor of reduction slice kk (16 deep) of an operand tile.
-// K-major (kMN false): 128-byte rows along the reduction, eight-row groups
-// 1024 bytes apart; the slice starts 32 bytes further along the row.
-// MN-major: 128-byte rows along M or N, one a reduction index, 64-wide
-// panels kPanel apart (the leading offset); the slice starts 16 rows down.
-template <bool kMN>
-__device__ __forceinline__ uint64_t operand_desc(uint32_t tile, int kk) {
-  return kMN ? gmma_desc(tile + kk * 16 * 128, kPanel, 1024)
-             : gmma_desc(tile + kk * 32, 16, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d (64 x 128 of the warpgroup, f32) += A (64 x 16) B (16 x 128), both from
-// shared memory; kTA / kTB: the operand is MN-major (transposed). Thread
-// 32 q + 4 g + t holds rows 16 q + g (+ 8) and columns 8 j + 2 t (+ 1):
-// d[4 j] = (16 q + g, 8 j + 2 t), d[4 j + 1] its right neighbour,
-// d[4 j + 2], d[4 j + 3] the same eight rows down.
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma(float (&d)[kAcc], uint64_t da,
-                                      uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
-}
 
 // The 1024-aligned shared memory of a CTA: the ring's stages, the
 // consumer warps' epilogue buffers, then full[s] and empty[s].
@@ -659,18 +515,6 @@ __device__ __forceinline__ Ring make_ring() {
   __syncthreads();
   return ring;
 }
-
-// a position in the ring: the stage and the parity of its current round
-struct Pipe {
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ void next() {
-    if (++stage == kStages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
 
 // The producer's side of one stage: wait until the consumers released it,
 // then announce its bytes; the caller issues the copies onto full.
@@ -711,7 +555,8 @@ __device__ __forceinline__ void mainloop(float (&acc)[kAcc], const Ring& ring,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTK / 16; ++kk)
-      wgmma<kAT, kBT>(acc, operand_desc<kAT>(a, kk), operand_desc<kBT>(b, kk));
+      wgmma<kAT, kBT>(acc, operand_desc<kAT>(a, kk, kPanel),
+                       operand_desc<kBT>(b, kk, kPanel));
     wgmma_commit();
     wgmma_wait<1>();
     if (prev >= 0) mbar_arrive(ring.empty(prev));
@@ -893,56 +738,15 @@ __global__ void __launch_bounds__(kTmaThreads, kTmaCtas)
             k0 + wg * 64 + (warp & 3) * 16, n0, 0, K, N);
 }
 
-// cuTensorMapEncodeTiled through the runtime, so the library needs no
-// link against libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A bf16 tensor map with 128-byte swizzle, zeros out of bounds: dims
 // innermost first, strides (in elements) of dims 1 .. rank - 1.
 bool tensor_map(CUtensorMap* map, const void* base, int rank,
                 const long long* dims, const long long* strides,
                 const int* box) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  cuuint64_t d[3], s[2];
-  cuuint32_t b[3], one[3] = {1, 1, 1};
-  for (int i = 0; i < rank; ++i) {
-    d[i] = static_cast<cuuint64_t>(dims[i]);
-    b[i] = static_cast<cuuint32_t>(box[i]);
-  }
-  for (int i = 0; i + 1 < rank; ++i)
-    s[i] = static_cast<cuuint64_t>(strides[i]) * 2;
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-             const_cast<void*>(base), d, s, b, one,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  long long bytes[2];
+  for (int i = 0; i + 1 < rank; ++i) bytes[i] = strides[i] * 2;
+  return encode_tiled(map, rank, base, dims, bytes, box);
 }
-
-constexpr int kEncodeFailed = -1;
 
 template <typename Kernel, typename... Args>
 int launch_tma(Kernel kernel, dim3 grid, cudaStream_t stream, Args... args) {

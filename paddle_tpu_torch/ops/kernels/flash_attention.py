@@ -8,11 +8,17 @@ flash-attention layout) or ``[BH, L, D]`` (the TPU's transposed layout,
 taken as ``H = 1``); ``lse`` and ``delta`` are f32 ``[B, H, L]``
 (``[BH, L]`` for 3-D inputs); ``seg`` is int32 ``[B, L]`` (``[BH, L]``).
 
-Three wrappers launch the CUDA kernels of ``csrc/flash_attention.cuh``
-on CUDA tensors and count each launch (and, apart, each launch with
-dropout and each with segments); a CPU tensor takes the plain version of
-the same function (and counts nothing); there is no fallback — a CUDA
-call the kernel cannot take raises:
+Three wrappers launch the CUDA kernels on CUDA tensors; a CPU tensor
+takes the plain version of the same function (and counts nothing).
+Two designs share each wrapper, and :func:`takes_tma` picks one before
+the launch from the operands alone: bf16 at head dim 128 without
+dropout or segments, with bases and strides a TMA tensor map can
+describe, goes to the TMA / ``wgmma`` kernels of
+``csrc/flash_attention_tma.cu``; everything else to the first design,
+``csrc/flash_attention.cuh``. Each wrapper counts every launch
+(``.launches``), those of the TMA design (``.tma_launches``) and, apart,
+each launch with dropout and each with segments. There is no fallback:
+a CUDA call the chosen kernel refuses raises:
 
 - :func:`flash_attention_fwd` -> ``(out, lse)``; plain version
   :func:`flash_attention_fwd_reference`, a tiled online-softmax walk;
@@ -61,7 +67,7 @@ import torch
 from . import build as _build
 
 __all__ = ["FlashAttention", "flash_attention", "flash_attention_segmented",
-           "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_fwd", "flash_attention_bwd", "takes_tma",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_fwd_reference", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq_reference",
@@ -76,6 +82,9 @@ _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HEAD_DIMS = (64, 128)
 _M32 = 0xFFFFFFFF
 _libs: Dict[Tuple[torch.dtype, int], ctypes.CDLL] = {}
+_tma_lib: Optional[ctypes.CDLL] = None
+_TMA_HEAD_DIM = 128                # the head dim the TMA design is built for
+_INT32_MAX = 2 ** 31 - 1
 
 
 def _scale(d: int, scale: Optional[float]) -> float:
@@ -388,6 +397,53 @@ def _kernel_lib(dtype: torch.dtype, d: int) -> ctypes.CDLL:
     return lib
 
 
+def _kernel_lib_tma() -> ctypes.CDLL:
+    """The TMA / ``wgmma`` design's library, ``csrc/flash_attention_tma.cu``
+    (bf16, head dim 128)."""
+    global _tma_lib
+    if _tma_lib is None:
+        lib = _build.load("flash_attention_tma")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        tail = [p, i, i, i, i, i, ctypes.c_float, p]
+        lib.flash_attention_tma_forward.argtypes = [p] * 5 + tail
+        lib.flash_attention_tma_backward_dq.argtypes = [p] * 7 + tail
+        lib.flash_attention_tma_backward_dkv.argtypes = [p] * 8 + tail
+        for fn in (lib.flash_attention_tma_forward,
+                   lib.flash_attention_tma_backward_dq,
+                   lib.flash_attention_tma_backward_dkv):
+            fn.restype = ctypes.c_int
+        _tma_lib = lib
+    return _tma_lib
+
+
+def takes_tma(q, k, v, do=None, *, dropout_p: float = 0.0,
+              seg=None) -> bool:
+    """Whether the TMA / ``wgmma`` kernels take a call, from the operands'
+    dtype, shapes, alignment and strides alone (nothing is launched).
+
+    They take ``q``, ``k``, ``v`` (and the backward's ``do``) in bf16 of
+    one shape, ``[B, L, H, D]`` or ``[BH, L, D]``, with head dim 128
+    contiguous, no dropout and no segments; every base 16-byte aligned
+    and every (batch, seq, head) stride a multiple of 8 elements (16
+    bytes), so that a TMA tensor map describes each tensor in place (q,
+    k, v may be strided views of one projection); and sizes inside the
+    grid's and the kernels' 32-bit ranges."""
+    if dropout_p > 0.0 or seg is not None:
+        return False
+    ts = [t for t in (q, k, v, do) if t is not None]
+    if any(t.dtype != torch.bfloat16 or t.shape != q.shape for t in ts):
+        return False
+    if q.dim() not in (3, 4) or q.shape[-1] != _TMA_HEAD_DIM \
+            or q.numel() == 0:
+        return False
+    B, L, H, _ = _as4(q).shape
+    if B > 65535 or H > 65535 or B * H * L > _INT32_MAX:
+        return False
+    return all(_as4(t).stride(3) == 1 and t.data_ptr() % 16 == 0
+               and all(x % 8 == 0 for x in _as4(t).stride()[:3])
+               for t in ts)
+
+
 def _check(name: str, q, tensors, f32s=(), seg=None
            ) -> Tuple[int, int, int, int]:
     """Device, dtype, shape, stride and alignment checks of a launch;
@@ -466,6 +522,21 @@ def _launch(wrapper, fn, name, args, shape, causal, scale, dtype, device,
     wrapper.segmented_launches += seg is not None
 
 
+def _launch_tma(wrapper, fn, name, args, shape, causal, scale, device):
+    """A launch of the TMA design (``takes_tma`` accepted the call): the
+    C entry re-checks and returns an error, which raises here."""
+    B, L, H, D = shape
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(*args, B, L, H, D, int(bool(causal)), scale, stream)
+    if rc != 0:
+        what = "cuTensorMapEncodeTiled refused a tensor map" if rc == -1 \
+            else f"kernel launch failed with cudaError {rc}"
+        raise RuntimeError(f"{name}: TMA {what} (B={B} L={L} H={H} D={D} "
+                           f"causal={bool(causal)})")
+    wrapper.launches += 1
+    wrapper.tma_launches += 1
+
+
 def _on(x: torch.Tensor, name: str) -> bool:
     """True for a CUDA tensor (launch), False for a CPU tensor (plain)."""
     if x.device.type == "cuda":
@@ -491,11 +562,17 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     out = torch.empty_like(q)
     lse = torch.empty((shape[0], shape[2], shape[1]), dtype=torch.float32,
                       device=q.device)
-    lib = _kernel_lib(q.dtype, shape[3])
-    _launch(flash_attention_fwd, lib.flash_attention_forward, name,
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), _strides(q, k, v, out)),
-            shape, causal, s, q.dtype, q.device, dropout_p, seed, seg)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _strides(q, k, v, out))
+    if takes_tma(q, k, v, dropout_p=dropout_p, seg=seg):
+        _launch_tma(flash_attention_fwd,
+                    _kernel_lib_tma().flash_attention_tma_forward, name,
+                    args, shape, causal, s, q.device)
+    else:
+        _launch(flash_attention_fwd,
+                _kernel_lib(q.dtype, shape[3]).flash_attention_forward, name,
+                args, shape, causal, s, q.dtype, q.device, dropout_p, seed,
+                seg)
     return out, _lse_shape(q, lse)
 
 
@@ -515,12 +592,18 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     shape = _check(name, q, (q, k, v, do), (lse, delta), seg=seg)
     s = _scale(shape[3], scale)
     dq = torch.empty_like(q)
-    lib = _kernel_lib(q.dtype, shape[3])
-    _launch(flash_attention_bwd_dq, lib.flash_attention_backward_dq, name,
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             _strides(q, k, v, do, dq)),
-            shape, causal, s, q.dtype, q.device, dropout_p, seed, seg)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _strides(q, k, v, do, dq))
+    if takes_tma(q, k, v, do, dropout_p=dropout_p, seg=seg):
+        _launch_tma(flash_attention_bwd_dq,
+                    _kernel_lib_tma().flash_attention_tma_backward_dq, name,
+                    args, shape, causal, s, q.device)
+    else:
+        _launch(flash_attention_bwd_dq,
+                _kernel_lib(q.dtype, shape[3]).flash_attention_backward_dq,
+                name, args, shape, causal, s, q.dtype, q.device, dropout_p,
+                seed, seg)
     return dq
 
 
@@ -540,18 +623,26 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     shape = _check(name, q, (q, k, v, do), (lse, delta), seg=seg)
     s = _scale(shape[3], scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _kernel_lib(q.dtype, shape[3])
-    _launch(flash_attention_bwd_dkv, lib.flash_attention_backward_dkv, name,
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             _strides(q, k, v, do, dk, dv)),
-            shape, causal, s, q.dtype, q.device, dropout_p, seed, seg)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _strides(q, k, v, do, dk, dv))
+    if takes_tma(q, k, v, do, dropout_p=dropout_p, seg=seg):
+        _launch_tma(flash_attention_bwd_dkv,
+                    _kernel_lib_tma().flash_attention_tma_backward_dkv, name,
+                    args, shape, causal, s, q.device)
+    else:
+        _launch(flash_attention_bwd_dkv,
+                _kernel_lib(q.dtype, shape[3]).flash_attention_backward_dkv,
+                name, args, shape, causal, s, q.dtype, q.device, dropout_p,
+                seed, seg)
     return dk, dv
 
 
 for _w in (flash_attention_fwd, flash_attention_bwd_dq,
            flash_attention_bwd_dkv):
-    _w.launches = _w.dropout_launches = _w.segmented_launches = 0
+    _w.launches = 0             # every launch
+    _w.tma_launches = 0         # those of the TMA / wgmma design
+    _w.dropout_launches = _w.segmented_launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,

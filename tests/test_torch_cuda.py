@@ -1,7 +1,9 @@
 """Tests of the port that need the card: the Hopper paged-attention
 kernel against its plain walk, a tiny engine through the kernel against
 the same engine through the walk, the three flash-attention kernels
-against their plain versions (plain, with dropout and with segments),
+against their plain versions (plain, with dropout and with segments;
+bf16 at head dim 128 on the TMA / wgmma kernels, everything else on the
+first design, by their counts),
 a tiny Llama train step through them against the same step through
 the plain sdpa, the grouped-matmul kernels (K6 forward and dlhs, K7
 drhs; TMA / wgmma for bf16 with 16-byte rows, the general kernels
@@ -291,6 +293,115 @@ def test_flash_kernels_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_fwd(*strided)
     assert tfa.flash_attention_fwd.launches == before
+
+
+def _flash_layout(dev, layout, dtype):
+    """q, k, v, do of one layout: fresh [B, L, H, D] (causal and full, a
+    ragged L, L = 1), [BH, L, D], q/k/v as views of one [B, L, 3, H, D]
+    projection, heads outside the sequence ([B, H, L, D] transposed), and
+    D 64 (which only the first design takes)."""
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    if layout == "strided_qkv":
+        q, k, v = rnd(2, 300, 3, 4, 128).unbind(2)
+        return q, k, v, rnd(2, 300, 4, 128)
+    if layout == "heads_outer":
+        q, k, v = (rnd(2, 4, 260, 128).transpose(1, 2) for _ in range(3))
+        return q, k, v, rnd(2, 260, 4, 128)
+    shape = {"blhd_causal": (2, 384, 3, 128), "blhd_full": (2, 384, 3, 128),
+             "ragged": (2, 200, 3, 128), "l1": (2, 1, 3, 128),
+             "bhld": (6, 130, 128), "d64": (2, 130, 3, 64)}[layout]
+    return tuple(rnd(*shape) for _ in range(4))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["blhd_causal", "blhd_full", "ragged",
+                                    "l1", "bhld", "strided_qkv",
+                                    "heads_outer", "d64"])
+def test_flash_wrappers_take_the_design_takes_tma_picks(cuda, layout, dtype,
+                                                        tol):
+    """Each launch goes to the design takes_tma names (bf16 at D 128: the
+    TMA / wgmma kernels; f32 and D 64: the first design), as the counts
+    show, and agrees with the plain versions."""
+    q, k, v, do = _flash_layout(cuda, layout, dtype)
+    causal = layout != "blhd_full"
+    tma = dtype == torch.bfloat16 and q.shape[-1] == 128
+    assert tfa.takes_tma(q, k, v, do) is tma
+    ws = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+          tfa.flash_attention_bwd_dkv)
+    before = [(w.launches, w.tma_launches) for w in ws]
+    got, (lse, delta) = _three(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.tma_launches) for w in ws] == [
+        (a + 1, b + tma) for a, b in before]
+    _check_all(got, _three_plain(q, k, v, do, causal, lse, delta), tol)
+
+
+def test_flash_autograd_on_the_tma_kernels_matches_autograd_through_sdpa(
+        cuda):
+    """FlashAttention at (2, 512, 8, 128) causal, bf16, through the TMA
+    kernels, against autograd through sdpa_reference: out and each
+    gradient within 2e-2 relative RMS (the sdpa rounds its logits and
+    its PV product to bf16)."""
+    from paddle_tpu_torch.nn.functional import sdpa_reference
+    q, k, v, do = _flash_inputs(cuda, (2, 512, 8, 128), torch.bfloat16, 7)
+    ws = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+          tfa.flash_attention_bwd_dkv)
+    before = [w.tma_launches for w in ws]
+    outs = []
+    for fn in (lambda a, b, c: tfa.flash_attention(a, b, c, True),
+               lambda a, b, c: sdpa_reference(a, b, c, causal=True)):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*xs)
+        outs.append([o.detach().float()] + [
+            x.float() for x in torch.autograd.grad(o, xs, do)])
+    assert [w.tma_launches for w in ws] == [b + 1 for b in before]
+    for a, b in zip(*outs):
+        rel = float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+        assert rel <= 2e-2, rel
+
+
+def test_flash_tma_entries_refuse_and_the_wrappers_raise(cuda, monkeypatch):
+    """The TMA entries re-check what takes_tma decided and return an
+    error; a wrapper whose TMA launch is refused raises, counts nothing
+    and does not fall back to the first design."""
+    q, k, v, do = _flash_inputs(cuda, (1, 64, 2, 128), torch.bfloat16, 5)
+    lib = tfa._kernel_lib_tma()
+    out = torch.empty_like(q)
+    lse = torch.empty(1, 2, 64, dtype=torch.float32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for D in (64, 130):     # head dims these kernels do not take
+        assert lib.flash_attention_tma_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 2, D, 1,
+            0.1, stream) != 0
+    misaligned = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)[1:]
+    assert lib.flash_attention_tma_forward(
+        misaligned.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 2, 128, 1, 0.1,
+        stream) != 0
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1          # cudaErrorInvalidValue
+
+    monkeypatch.setattr(tfa, "_kernel_lib_tma", lambda: Refusing())
+    ws = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+          tfa.flash_attention_bwd_dkv)
+    before = [(w.launches, w.tma_launches) for w in ws]
+    with pytest.raises(RuntimeError, match="TMA"):
+        tfa.flash_attention_fwd(q, k, v, True)
+    delta = torch.zeros(1, 2, 64, dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="TMA"):
+        tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True)
+    with pytest.raises(RuntimeError, match="TMA"):
+        tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+    assert [(w.launches, w.tma_launches) for w in ws] == before
 
 
 def test_train_step_through_the_kernels_matches_the_plain_sdpa(cuda):

@@ -195,12 +195,13 @@ def test_kernel_build_is_lazy_and_names_sm90a(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert {"-O3", "-shared", "-Xcompiler", "-fPIC"} <= set(
         build.NVCC_FLAGS)
-    # the flash kernels build as four libraries, one per (dtype, head
-    # dim), so that nvcc compiles them in parallel
+    # the first flash design builds as four libraries, one per (dtype,
+    # head dim), and the TMA design as a fifth, so that nvcc compiles
+    # them in parallel
     assert [p.name for p in build.sources()] == [
         "flash_attention_bf16_d128.cu", "flash_attention_bf16_d64.cu",
         "flash_attention_f32_d128.cu", "flash_attention_f32_d64.cu",
-        "grouped_matmul.cu", "paged_attention.cu"]
+        "flash_attention_tma.cu", "grouped_matmul.cu", "paged_attention.cu"]
     monkeypatch.setenv(build.BUILD_DIR_ENV, str(tmp_path / "k"))
     assert build.build_dir() == tmp_path / "k"
     lib = build._library(build.sources()[-1])
@@ -211,7 +212,7 @@ def test_kernel_build_is_lazy_and_names_sm90a(monkeypatch, tmp_path):
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("this machine has nvcc")
     for name in ("paged_attention", "flash_attention_bf16_d64",
-                 "grouped_matmul"):
+                 "flash_attention_tma", "grouped_matmul"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.load(name)
     assert not (tmp_path / "k").exists()
