@@ -17,7 +17,11 @@
 // This header is compiled once per (dtype, head dim) by the four
 // flash_attention_<dtype>_d<D>.cu files, so the four builds run in
 // parallel; each library exports the same three C entry points and takes
-// only its own dtype and head dim.
+// only its own dtype and head dim. bf16 calls that a TMA tensor map
+// describes, without segments (and at D 128 without dropout), take the
+// TMA / wgmma kernels of flash_attention_tma.cu instead (takes_tma in
+// ops/kernels/flash_attention.py); this design keeps f32, segments,
+// dropout at D 128 and the layouts TMA cannot describe.
 //
 //   forward  S = scale * Q K^T (masked: causal, other segments and the
 //            ragged tail -> -1e30), online softmax over KV tiles in f32
@@ -46,7 +50,9 @@
 // computes one row's and they swap halves; in dK/dV (rows are keys, the
 // columns queries) the four lanes of a key group each compute one of the
 // four counters and exchange words in three shuffles. So every Philox
-// word is used once: a quarter of a call per (row, col) pair.
+// word is used once: a quarter of a call per (row, col) pair. The
+// generator and both helpers live in philox.cuh, which the TMA design
+// includes too.
 //
 // Segments (K4). seg [B, L] int32 (its own batch stride): a pair (i, j)
 // is allowed iff seg[i] == seg[j] (and j <= i when causal); masked logits
@@ -97,6 +103,8 @@
 
 #include <type_traits>
 
+#include "philox.cuh"
+
 #if !defined(FLASH_DTYPE) || !defined(FLASH_HEAD_DIM)
 #error "compile through flash_attention_<dtype>_d<D>.cu"
 #endif
@@ -133,85 +141,6 @@ struct Mask {
 template <typename T>
 __device__ __forceinline__ T* base(const View& x, int b, int h) {
   return static_cast<T*>(x.ptr) + b * x.sb + h * x.sh;
-}
-
-// -- Philox4x32-10 (Salmon et al., SC'11; the Random123 constants) --------
-__device__ __forceinline__ uint4 philox(uint4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c;
-}
-
-__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
-  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
-}
-
-// The keep bits of a lane's accumulator elements over a tile whose rows
-// are queries: bit 4n + e for n-tile n (columns c0 + 8n + 2t + (e & 1)) and
-// row row[e >> 1]. c0 is a multiple of 8.
-template <int NT>
-__device__ __forceinline__ uint32_t keep_bits_qrows(const Mask& mk, int bh,
-                                                    const int (&row)[2],
-                                                    int c0) {
-  const int lane = threadIdx.x & 31, t = lane & 3, u = t & 1;
-  const int my_row = u ? row[1] : row[0];
-  uint32_t bits = 0;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    // lanes t and t^1 share this counter for both rows: lane u computes
-    // row[u] and hands the partner the two words it needs
-    const uint4 r = philox(
-        make_uint4(static_cast<uint32_t>((c0 >> 2) + 2 * n + (t >> 1)),
-                   static_cast<uint32_t>(my_row),
-                   static_cast<uint32_t>(bh), 0u),
-        mk.seed_lo, mk.seed_hi);
-    const uint32_t ra = __shfl_xor_sync(kFull, u ? r.x : r.z, 1);
-    const uint32_t rb = __shfl_xor_sync(kFull, u ? r.y : r.w, 1);
-    const uint32_t w0 = u ? ra : r.x, w1 = u ? rb : r.y;  // row[0]
-    const uint32_t w2 = u ? r.z : ra, w3 = u ? r.w : rb;  // row[1]
-    bits |= (static_cast<uint32_t>(w0 >= mk.thresh) |
-             static_cast<uint32_t>(w1 >= mk.thresh) << 1 |
-             static_cast<uint32_t>(w2 >= mk.thresh) << 2 |
-             static_cast<uint32_t>(w3 >= mk.thresh) << 3)
-            << (4 * n);
-  }
-  return bits;
-}
-
-// The same over a tile whose rows are keys (dK/dV computes S^T): bit
-// 4n + e for key row key0 + g + 8 (e >> 1) and query q0 + 8n + 2t + (e & 1),
-// where key0 = this warp's first key (a multiple of 16).
-template <int NT>
-__device__ __forceinline__ uint32_t keep_bits_krows(const Mask& mk, int bh,
-                                                    int key0, int q0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int w = g & 3, a = g >> 2;  // key & 3 and the key group
-  uint32_t bits = 0;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    // the four lanes (w = 0..3) of a key group need word w of the same
-    // four counters, one per element e: lane w computes e = w's
-    const uint4 r = philox(
-        make_uint4(static_cast<uint32_t>((key0 >> 2) + a + 2 * (w >> 1)),
-                   static_cast<uint32_t>(q0 + 8 * n + 2 * t + (w & 1)),
-                   static_cast<uint32_t>(bh), 0u),
-        mk.seed_lo, mk.seed_hi);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      // round j: receive word w of element w ^ j's counter from the lane
-      // that computed it, sending it word (w ^ j) of ours
-      uint32_t x = word(r, w ^ j);
-      if (j) x = __shfl_xor_sync(kFull, x, 4 * j);
-      bits |= static_cast<uint32_t>(x >= mk.thresh) << (4 * n + (w ^ j));
-    }
-  }
-  return bits;
 }
 
 // the segment-id range of rows [r0, r0 + 64): two chunks of 32

@@ -1,65 +1,92 @@
 // Flash attention for Hopper (sm_90a), the TMA / wgmma design: the forward,
-// dQ and dK/dV kernels for bf16 at head dim 128, causal or not, without
-// dropout or segments (the Llama training attention).
+// dQ and dK/dV kernels for bf16 at head dim 64 or 128, causal or not,
+// without segments; at head dim 64 also with attention dropout (the Llama
+// training attention at D 128; BERT's and ERNIE-MoE's at D 64).
 //
-// Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py that
-// _flash_fwd_pallas_blhd (_fwd_kernel) and _flash_bwd_pallas_blhd
-// (_bwd_dq_kernel, _bwd_dkv_kernel) launch over [B, L, H, D]. The plain
-// PyTorch versions beside the wrappers (ops/kernels/flash_attention.py) are
-// the oracles; ops/kernels/flash_attention.py's takes_tma picks this design
-// before a launch, and every other call (f32, D 64, dropout, segments, rows
-// a tensor map cannot describe) takes the first design in
+// Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
+// that _flash_fwd_pallas_blhd / _flash_fwd_pallas (_fwd_kernel) and
+// _flash_bwd_pallas_blhd / _flash_bwd_pallas (_bwd_dq_kernel,
+// _bwd_dkv_kernel) launch, with the dropout keep mask _keep_mask
+// regenerates inside them (K5). The plain PyTorch versions beside the
+// wrappers (ops/kernels/flash_attention.py) are the oracles;
+// ops/kernels/flash_attention.py's takes_tma picks this design before a
+// launch, and every other call (f32, segments, dropout at D 128, rows a
+// tensor map cannot describe) takes the first design in
 // flash_attention.cuh. The numerics are that design's:
 //
 //   forward  S = scale * Q K^T (masked: causal and the ragged tail ->
-//            -1e30), online softmax over KV tiles in f32, O += P V with P
-//            rounded to bf16; out = acc / max(l, 1e-30) in bf16 and
+//            -1e30), online softmax over KV tiles in f32 on the undropped
+//            P, O += (keep o P) V with keep o P rounded to bf16;
+//            out = acc / (1 - p) / max(l, 1e-30) in bf16 and
 //            lse = m + log(max(l, 1e-30)) in f32 [B, H, L].
 //   dQ       P = exp(scale * Q K^T - lse) (re-masked), dP = dO V^T,
-//            dS = P * (dP - delta) * scale, dQ = dS K with dS rounded to
-//            bf16; delta = rowsum(dO * O) comes in from outside (f32).
+//            dP <- keep o dP / (1 - p), dS = P * (dP - delta) * scale,
+//            dQ = dS K with dS rounded to bf16; delta = rowsum(dO * O)
+//            comes in from outside (f32).
 //   dK/dV    per KV block, over the query tiles at or after it:
-//            dV = P^T dO, dK = dS^T Q (P, dS rounded to bf16), accumulated
-//            in registers and written once: no atomics, so the result is
-//            deterministic, as in the TPU recipe.
+//            dV = (keep o P / (1 - p))^T dO, dK = dS^T Q (both rounded to
+//            bf16), accumulated in registers and written once: no atomics,
+//            so the result is deterministic, as in the TPU recipe.
+//
+// Without dropout keep is all ones and the division by 1 - p is skipped
+// (its own instance). The keep mask is philox.cuh's, the first design's
+// bits: Philox4x32-10 on (col >> 2, row, b * H + h, 0) over absolute rows
+// and columns, whatever the tiles.
 //
 // What bounds them. At the Llama training geometry (B 4, L 2048, H 32,
 // D 128, causal) the work is ~1.4e11 flops forward and ~3.4e11 needed
 // backward against ~0.3 GB of inputs and outputs each way: tensor-core
-// operations. The first design fed mma.sync from synchronous loads with
-// one tile in flight and re-read every B operand once per warp. Here:
+// operations. At BERT's (B 24, L 512, H 12, D 64) the forward's 1.9e10
+// flops take less time at the peak than its 76 MB of bytes, and with
+// dropout a Philox call (ten rounds of two 32-bit multiply-wides) for
+// every four pairs, 1.9e7 calls a kernel, is integer work of the same
+// order as the products. The first design fed mma.sync from synchronous
+// loads with one tile in flight and re-read every B operand once per
+// warp. Here:
 //
 // - Every operand tile comes by TMA: a 4-D tensor map over the [B, L, H, D]
 //   view with its own strides (dims D, H, L, B), 64-element boxes with
-//   128-byte swizzle, two panels across D 128. Rows past L (a ragged L, or
-//   L = 1) arrive as zeros and their columns are masked.
-// - A CTA is one producer warp and two consumer warpgroups (288 threads).
-//   One thread of the producer issues the copies: the tiles its CTA reads
-//   once, then a ring of kStages stages guarded by full / empty mbarriers,
-//   so the next tile is in flight while the current one is consumed. With
-//   a ninth warp, three warps share an SM sub-partition's 16,384
-//   registers, so a thread has 168; the tiles are sized to fit them
+//   128-byte swizzle, D / 64 panels across the head dim. Rows past L (a
+//   ragged L, or L = 1) arrive as zeros and their columns are masked.
+// - At D 128 a CTA is one producer warp and two consumer warpgroups (288
+//   threads). One thread of the producer issues the copies: the tiles its
+//   CTA reads once, then a ring of kStages stages guarded by full / empty
+//   mbarriers, so the next tile is in flight while the current one is
+//   consumed. With a ninth warp, three warps share an SM sub-partition's
+//   16,384 registers, so a thread has 168; the tiles are sized to fit them
 //   without spilling (setmaxnreg would not raise that bound: ptxas
 //   allocates every thread under it whatever setmaxnreg asks).
+// - At D 64 a CTA is the two consumer warpgroups alone (256 threads): the
+//   warp that releases a stage last refills it, and a thread may hold 128
+//   registers with two CTAs an SM, which all three kernels fit (the D-64
+//   section below says why).
 // - Each consumer warpgroup runs wgmma with f32 accumulators in
 //   registers. A score tile's accumulator layout is, pair by pair, the
 //   register A operand of the next product, so P and dS go from the
 //   softmax into the PV (dS K, P^T dO, dS^T Q) product after one rounding
 //   to bf16. In the forward and dQ each warpgroup owns 64 of the CTA's 128
-//   query rows; in dK/dV one accumulates dV and the other dK for the same
-//   64 keys (below).
+//   query rows. In dK/dV at D 128 one warpgroup accumulates dV and the
+//   other dK for the same 64 keys; at D 64 both accumulators fit one
+//   warpgroup, which owns 64 of the CTA's 128 keys (below).
+// - The keep bits of a tile depend on the pair alone, not on S, so each
+//   warpgroup draws them where they cost least: in the forward before the
+//   score product (the score tile is not yet live, so both fit 128
+//   registers), in dQ between issuing the score products and waiting for
+//   them, in dK/dV under the previous tile's dV and dK products. They are
+//   used where P (or dP) leaves the accumulator.
 // - Under causal, tiles past the diagonal are not loaded, a warpgroup skips
 //   a tile none of whose pairs it needs, only tiles on the diagonal or the
 //   ragged edge are masked element by element, and the longest blocks are
-//   issued first within each head (the block index is the grid's fastest
-//   dimension, so that a head's blocks run together and share its K and
-//   V, or Q and dO, through L2).
+//   issued first: at D 128 within each head (the block index is the
+//   grid's fastest dimension, so that a head's blocks run together and
+//   share its K and V, or Q and dO, through L2), at D 64 across the whole
+//   grid (block_of).
 // - Every wait on an mbarrier traps after 10 s: a broken protocol fails
 //   the launch instead of hanging.
 //
-// Each kernel is templated on the head dim; D 64 would add the m64n64k16
-// register-A wgmma to hopper.cuh. The softmax runs in base 2 with the
-// scale folded into the exponent (exp2f), which the numerics above allow.
+// The softmax runs in base 2 with the scale folded into the exponent
+// (exp2f; at D 64 the MUFU's ex2.approx with the scale in one FMA), which
+// the numerics above allow.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -67,6 +94,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -79,7 +107,6 @@ constexpr int kFwdKV = 128;                  // keys a forward stage
 constexpr int kFwdHalf = 64;                 // ... taken in two halves
 constexpr int kDqKV = 64;                    // keys a dQ tile
 constexpr int kDkvQ = 64;                    // queries a dK/dV tile
-constexpr int kHeadDim = 128;                // the head dim built here
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
 constexpr float kLn2 = 0.6931471805599453f;
@@ -91,6 +118,14 @@ extern __shared__ __align__(1024) unsigned char fa_smem[];
 struct View {
   void* ptr;
   long long sb, sl, sh;
+};
+
+// The dropout of a launch: the Philox key, the keep threshold (a pair is
+// kept iff its word >= thresh) and 1 / (1 - p). The instances without
+// dropout never read it.
+struct Drop {
+  uint32_t seed_lo, seed_hi, thresh;
+  float inv_keep;
 };
 
 // bytes of a tile of R rows of head dim D: D / 64 panels of R 128-byte rows
@@ -231,7 +266,7 @@ __device__ __forceinline__ void store_rows(const View& o, int b, int h,
   }
 }
 
-// -- forward -----------------------------------------------------------------
+// -- head dim 128: forward ----------------------------------------------------
 // A CTA owns 128 query rows: Q loaded once, K and V in stages of 128 keys,
 // each taken in two halves of 64 (so that a score tile is 32 registers).
 // Per half a warpgroup runs S = Q K^T (A = Q, B = K, both K-major), the
@@ -376,7 +411,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// -- dQ ---------------------------------------------------------------------
+// -- head dim 128: dQ ---------------------------------------------------------
 // A CTA owns 128 query rows: Q, dO (and each row's lse and delta) loaded
 // once, K and V in tiles of 64 keys. Per tile a warpgroup runs S = Q K^T
 // and dP = dO V^T (K and V K-major), dS in registers, then dQ += dS K
@@ -493,7 +528,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// -- dK / dV ----------------------------------------------------------------
+// -- head dim 128: dK / dV ----------------------------------------------------
 // A CTA owns 64 key rows: K and V loaded once, Q and dO (with their rows'
 // lse and delta) in tiles of 64 queries. The warpgroups split the work by
 // output, so that each holds one 64 x 128 accumulator (a thread has 168
@@ -666,13 +701,647 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// -- head dim 64 --------------------------------------------------------------
+// At D 64 a tile is one 64-wide panel and every accumulator half the size
+// of D 128's, and per pair the exponential (MUFU), the softmax's float
+// work and, with dropout, the Philox draw cost about as much as the
+// products. What bounds these kernels is the chain of dependent work a
+// warpgroup does per tile (wait for the scores, the softmax, the keep
+// bits, the next product), which only more warps in flight hide: one
+// 288-thread CTA an SM leaves eight. So the D-64 kernels have no producer
+// warp. A CTA is the two consumer warpgroups alone (256 threads); thread 0
+// (warp 0 in dK/dV) issues the first copies, and the warp that releases a
+// stage last (a count per stage in shared memory) refills it, so no warp
+// waits on another. The forward and dQ take 64-key stages, dK/dV 32-query
+// ones; all three fit 128 registers a thread, dropout included, and run
+// two CTAs an SM (four warpgroups). The ring is four stages deep; dK/dV's
+// lse and delta come by cp.async beside the TMA copies, so a refill never
+// stalls its warp. Tiles on the
+// diagonal or the ragged edge mask element by element in loops of their
+// own that the other tiles branch around (with a per-element test in
+// every tile the causal forward ran slower than the full one, which has
+// twice its pairs). The exponentials run on the
+// MUFU alone (ex2.approx.ftz: results below 2^-126 flush to zero, far
+// below a bf16 P's resolution), with the scale folded into one FMA.
+
+constexpr int k64Warps = 8;                // two consumer warpgroups
+constexpr int k64Threads = 32 * k64Warps;  // and no producer warp
+constexpr int k64Stages = 4;               // depth of the ring
+using Pipe64 = RingPos<k64Stages>;
+constexpr int k64Keys = 64;                // keys a forward or dQ stage
+constexpr int kDkv64Keys = 128;            // keys a dK/dV CTA owns
+constexpr int kDkv64Q = 32;                // queries a dK/dV stage
+
+// a D-64 dK/dV stage: Q, dO, lse and delta, rounded up to 1024 bytes
+constexpr int kDkv64Stage =
+    (2 * tile_bytes<64>(kDkv64Q) + 2 * kDkv64Q * 4 + 1023) / 1024 * 1024;
+
+// The 1024-aligned shared memory of a D-64 CTA: the tiles read once (kOnce
+// bytes), the ring's stages (kStage bytes each), then the barriers once and
+// full[s] and a release count per stage.
+template <int kOnce, int kStage>
+struct Smem64 {
+  unsigned char* p;  // generic address
+  uint32_t s;        // the same in the shared window
+  static constexpr int kBars = kOnce + k64Stages * kStage;
+  static constexpr int kBytes =
+      kBars + 8 * (1 + k64Stages) + 4 * k64Stages + 1024;
+  __device__ uint32_t once() const { return s; }
+  __device__ uint32_t stage(int st) const { return s + kOnce + st * kStage; }
+  __device__ unsigned char* stage_ptr(int st) const {
+    return p + kOnce + st * kStage;
+  }
+  __device__ uint32_t once_bar() const { return s + kBars; }
+  __device__ uint32_t full(int st) const { return s + kBars + 8 + 8 * st; }
+  __device__ int* count(int st) const {
+    return reinterpret_cast<int*>(p + kBars + 8 * (1 + k64Stages)) + st;
+  }
+};
+
+using Fwd64Smem = Smem64<tile_bytes<64>(kRows), 2 * tile_bytes<64>(k64Keys)>;
+using Dq64Smem =
+    Smem64<2 * tile_bytes<64>(kRows), 2 * tile_bytes<64>(k64Keys)>;
+using Dkv64Smem = Smem64<2 * tile_bytes<64>(kDkv64Keys), kDkv64Stage>;
+
+// This CTA's shared memory, its barriers initialised and its counts
+// zeroed: once completes with one arrival and its bytes, full[s] with
+// full_arrivals arrivals and the stage's bytes.
+template <typename S>
+__device__ __forceinline__ S make_smem64(int full_arrivals) {
+  const uint32_t raw = smem_u32(fa_smem);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const S sm{fa_smem + pad, raw + pad};
+  if (threadIdx.x == 0) {
+    mbar_init(sm.once_bar(), 1);
+    for (int st = 0; st < k64Stages; ++st) {
+      mbar_init(sm.full(st), full_arrivals);
+      *sm.count(st) = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return sm;
+}
+
+// This warp's release of stage st, once its lanes are done with it (its
+// products waited for). True, on every lane, in the warp that releases it
+// last of the CTA's k64Warps, which then refills it: a count that only
+// grows, k64Warps a round.
+template <typename S>
+__device__ __forceinline__ bool release_last(const S& sm, int st) {
+  __syncwarp();
+  int last = 0;
+  if ((threadIdx.x & 31) == 0) {
+    __threadfence_block();
+    last = atomicAdd(sm.count(st), 1) % k64Warps == k64Warps - 1;
+    __threadfence_block();
+  }
+  return __shfl_sync(kFull, last, 0) != 0;
+}
+
+// 2^x on the MUFU alone
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// This CTA's (rank, h, b) in a grid of (blocks, H, B): rank 0 is a
+// head's longest block. Causal blocks differ in length, so their ranks
+// run across the whole grid, every head's longest first, and no long
+// block starts last (11-13 % off ERNIE-MoE's causal kernels); otherwise a
+// head's blocks run together and share its K and V (Q and dO) through L2.
+template <bool kCausal>
+__device__ __forceinline__ int3 block_of() {
+  if (!kCausal) return make_int3(blockIdx.x, blockIdx.y, blockIdx.z);
+  const int n_heads = gridDim.y * gridDim.z;
+  const int idx = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
+                                                            blockIdx.z);
+  const int hb = idx % n_heads;
+  return make_int3(idx / n_heads, hb % gridDim.y, hb / gridDim.y);
+}
+
+// The allowed pairs of a 64-column tile from column k0 whose rows are
+// queries: bit i for accumulator element i (column k0 + 8 (i >> 2) + 2 t +
+// (i & 1), row row[(i >> 1) & 1]) iff the column is inside L and, causal,
+// at or before the row.
+template <bool kCausal>
+__device__ __forceinline__ uint32_t mask_bits(int k0, const int (&row)[2],
+                                              int L) {
+  const int t = threadIdx.x & 3;
+  uint32_t ok = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+    ok |= static_cast<uint32_t>(col < L &&
+                                (!kCausal || col <= row[(i >> 1) & 1]))
+          << i;
+  }
+  return ok;
+}
+
+// The same for a tile of N queries from q0 whose rows are keys (dK/dV's
+// transposed scores; N / 2 elements a thread): column q0 + 8 (i >> 2) +
+// 2 t + (i & 1), row key[(i >> 1) & 1], allowed iff the query is inside L
+// and, causal, at or after the key.
+template <bool kCausal, int N>
+__device__ __forceinline__ uint32_t mask_bits_keys(int q0,
+                                                   const int (&key)[2],
+                                                   int L) {
+  const int t = threadIdx.x & 3;
+  uint32_t ok = 0;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int cq = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
+    ok |= static_cast<uint32_t>(cq < L &&
+                                (!kCausal || cq >= key[(i >> 1) & 1]))
+          << i;
+  }
+  return ok;
+}
+
+// Tile j's K and V rows (64 keys) into stage st, completing on full[st]
+// (one lane)
+template <typename S>
+__device__ __forceinline__ void fill_kv64(const S& sm, int st,
+                                          const CUtensorMap* map_k,
+                                          const CUtensorMap* map_v, int j,
+                                          int h, int b) {
+  const uint32_t full = sm.full(st), kt = sm.stage(st);
+  mbar_expect_tx(full, 2 * tile_bytes<64>(k64Keys));
+  load_rows<64, k64Keys>(kt, map_k, full, j * k64Keys, h, b);
+  load_rows<64, k64Keys>(kt + tile_bytes<64>(k64Keys), map_v, full,
+                         j * k64Keys, h, b);
+}
+
+// Forward: a CTA owns 128 query rows (64 a warpgroup), Q loaded once, K and
+// V in stages of 64 keys. Per tile a warpgroup runs S = Q K^T, draws the
+// tile's keep bits under it (dropout), takes the row maxima of the raw
+// scores (the scale is positive), P = 2^(S scale log2 e - m) and the
+// online softmax in registers, then O += (keep o P) V (A = P from
+// registers, B = V MN-major).
+template <bool kCausal, bool kDrop>
+__global__ void __launch_bounds__(k64Threads, 2)
+    flash_fwd64_tma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v, View o,
+                           float* __restrict__ lse, int L, int H,
+                           float scale, Drop dr) {
+  constexpr int D = 64;
+  const Fwd64Smem sm = make_smem64<Fwd64Smem>(1);
+  const int3 at = block_of<kCausal>();
+  const int h = at.y, b = at.z;
+  const int blk = kCausal ? static_cast<int>(gridDim.x) - 1 - at.x : at.x;
+  const int q0 = blk * kRows;
+  const int kv_end = kCausal ? min(L, q0 + kRows) : L;
+  const int n_tiles = (kv_end + k64Keys - 1) / k64Keys;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(sm.once_bar(), tile_bytes<D>(kRows));
+    load_rows<D, kRows>(sm.once(), &map_q, sm.once_bar(), q0, h, b);
+    for (int j = 0; j < min(n_tiles, k64Stages); ++j)
+      fill_kv64(sm, j, &map_k, &map_v, j, h, b);
+  }
+  const int wg = threadIdx.x / 128;  // uniform across each warp
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;  // this warpgroup's first row
+  const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  const int bh = b * H + h;
+  const uint32_t qa = sm.once() + wg * 64 * 128;  // its rows of Q
+  constexpr uint32_t kQPanel = kRows * 128, kKVPanel = k64Keys * 128;
+  const float sl2 = scale * kLog2e;  // logits in base-2 units
+
+  // m is the running row maximum in base-2 units, l the row sum
+  float acc[D / 2], s[k64Keys / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(sm.once_bar(), 0);
+  Pipe64 p;
+  for (int j = 0; j < n_tiles; ++j, p.next()) {
+    const int k0 = j * k64Keys;
+    mbar_wait(sm.full(p.stage), p.phase);
+    // causal: skip a tile every key of which is after all of this
+    // warpgroup's rows
+    if (!(kCausal && k0 > r0 + 63)) {
+      // a tile on the diagonal or the ragged edge is masked
+      const bool edge = (kCausal && k0 + k64Keys - 1 > r0) ||
+                        k0 + k64Keys > L;
+      const uint32_t kt = sm.stage(p.stage);
+      const uint32_t vt = kt + tile_bytes<D>(k64Keys);
+      // the keep bits of s[i] (bit i), drawn while the scores are dead
+      // (wgmma_first writes them afresh), so that the Philox state and
+      // the score tile do not hold registers at once: the two fit 128
+      // registers a thread, two CTAs an SM
+      uint32_t keep = 0;
+      if constexpr (kDrop) keep = keep_bits_qrows<8>(dr, bh, row, k0);
+      wgmma_fence();
+      wgmma_first<0, 0>(s, kmajor(qa, 0, kQPanel), kmajor(kt, 0, kKVPanel));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma<0, 0>(s, kmajor(qa, kk, kQPanel), kmajor(kt, kk, kKVPanel));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(s);
+      // the tile's allowed pairs (bit i for s[i]), on the diagonal or the
+      // ragged edge only: the loops below branch around the masking
+      uint32_t ok = kFull;
+      if (edge) {
+        ok = mask_bits<kCausal>(k0, row, L);
+#pragma unroll
+        for (int i = 0; i < k64Keys / 2; ++i)
+          s[i] = (ok >> i) & 1u ? s[i] : kNegInf;
+      }
+      float rm[2] = {kNegInf, kNegInf};  // raw row maxima
+#pragma unroll
+      for (int i = 0; i < k64Keys / 2; ++i)
+        rm[(i >> 1) & 1] = fmaxf(rm[(i >> 1) & 1], s[i]);
+      float mx[2], nm[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(m[r], quad_max(rm[r]) * sl2);
+        nm[r] = -mx[r];
+        alpha[r] = fast_exp2(m[r] - mx[r]);
+      }
+#pragma unroll
+      for (int i = 0; i < k64Keys / 2; ++i)
+        s[i] = fast_exp2(fmaf(s[i], sl2, nm[(i >> 1) & 1]));
+      if (edge) {
+        // re-masked: a row whose columns are all masked so far has
+        // s sl2 == m and 2^0 == 1
+#pragma unroll
+        for (int i = 0; i < k64Keys / 2; ++i)
+          s[i] = (ok >> i) & 1u ? s[i] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < k64Keys / 2; ++i) {
+        rs[(i >> 1) & 1] += s[i];  // l is the undropped row sum
+        if constexpr (kDrop) s[i] = (keep >> i) & 1u ? s[i] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = alpha[r] * l[r] + quad_sum(rs[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      uint32_t pa[k64Keys / 16][4];  // keep o P, rounded to bf16
+      to_a(pa, s);
+      fence_operand(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < k64Keys / 16; ++kk)
+        wgmma<1>(acc, pa[kk], operand_desc<true>(vt, kk, kKVPanel));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(acc);
+    }
+    if (release_last(sm, p.stage) && j + k64Stages < n_tiles && lane == 0)
+      fill_kv64(sm, p.stage, &map_k, &map_v, j + k64Stages, h, b);
+  }
+
+  // out = acc / (1 - p) / max(l, 1e-30): one division a row
+  float lm[2], mul[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lm[r] = fmaxf(l[r], 1e-30f);
+    mul[r] = (kDrop ? dr.inv_keep : 1.f) / lm[r];
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= mul[(i >> 1) & 1];
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(o, b, h, row, L, acc, one);
+  if (t == 0) {
+    float* lp = lse + static_cast<long long>(bh) * L;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row[r] < L) lp[row[r]] = m[r] * kLn2 + logf(lm[r]);
+  }
+}
+
+// dQ: a CTA owns 128 query rows, Q and dO (and each row's lse and delta)
+// loaded once, K and V in stages of 64 keys. Per tile a warpgroup runs
+// S = Q K^T and dP = dO V^T, draws the keep bits under them (dropout),
+// computes dS in registers, then dQ += dS K (A = dS from registers, B = K
+// MN-major).
+template <bool kCausal, bool kDrop>
+__global__ void __launch_bounds__(k64Threads, 2)
+    flash_bwd_dq64_tma_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta, View dq,
+                              int L, int H, float scale, Drop dr) {
+  constexpr int D = 64;
+  const Dq64Smem sm = make_smem64<Dq64Smem>(1);
+  const int3 at = block_of<kCausal>();
+  const int h = at.y, b = at.z;
+  const int blk = kCausal ? static_cast<int>(gridDim.x) - 1 - at.x : at.x;
+  const int q0 = blk * kRows;
+  const int kv_end = kCausal ? min(L, q0 + kRows) : L;
+  const int n_tiles = (kv_end + k64Keys - 1) / k64Keys;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(sm.once_bar(), 2 * tile_bytes<D>(kRows));
+    load_rows<D, kRows>(sm.once(), &map_q, sm.once_bar(), q0, h, b);
+    load_rows<D, kRows>(sm.once() + tile_bytes<D>(kRows), &map_do,
+                        sm.once_bar(), q0, h, b);
+    for (int j = 0; j < min(n_tiles, k64Stages); ++j)
+      fill_kv64(sm, j, &map_k, &map_v, j, h, b);
+  }
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const int r0 = q0 + 64 * wg;
+  const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  const int bh = b * H + h;
+  const long long rbase = static_cast<long long>(bh) * L;
+  const float sl2 = scale * kLog2e;  // exp(x) = exp2(x log2 e)
+  float nlse2[2], dl_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    nlse2[r] = row[r] < L ? -lse[rbase + row[r]] * kLog2e : 0.f;
+    dl_r[r] = row[r] < L ? delta[rbase + row[r]] : 0.f;
+  }
+  const uint32_t qa = sm.once() + wg * 64 * 128;
+  const uint32_t oa = qa + tile_bytes<D>(kRows);  // its rows of dO
+  constexpr uint32_t kQPanel = kRows * 128, kKVPanel = k64Keys * 128;
+
+  float acc[D / 2], s[k64Keys / 2], dp[k64Keys / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < k64Keys / 2; ++i) s[i] = dp[i] = 0.f;
+
+  mbar_wait(sm.once_bar(), 0);
+  Pipe64 p;
+  for (int j = 0; j < n_tiles; ++j, p.next()) {
+    const int k0 = j * k64Keys;
+    mbar_wait(sm.full(p.stage), p.phase);
+    // causal: no key of the tile is at or before any of this
+    // warpgroup's rows
+    if (!(kCausal && k0 > r0 + 63)) {
+      const uint32_t kt = sm.stage(p.stage);
+      const uint32_t vt = kt + tile_bytes<D>(k64Keys);
+      fence_operand(s);
+      fence_operand(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma<0, 0>(s, kmajor(qa, kk, kQPanel), kmajor(kt, kk, kKVPanel),
+                    kk > 0);
+        wgmma<0, 0>(dp, kmajor(oa, kk, kQPanel), kmajor(vt, kk, kKVPanel),
+                    kk > 0);
+      }
+      wgmma_commit();
+      // the keep bits of dp[i] (bit i), drawn while the tensor cores run
+      uint32_t keep = 0;
+      if constexpr (kDrop) keep = keep_bits_qrows<8>(dr, bh, row, k0);
+      wgmma_wait<0>();
+      fence_operand(s);
+      fence_operand(dp);
+#pragma unroll
+      for (int i = 0; i < k64Keys / 2; ++i)
+        s[i] = fast_exp2(fmaf(s[i], sl2, nlse2[(i >> 1) & 1]));  // P
+      // on the diagonal or the ragged edge: re-masked
+      if ((kCausal && k0 + k64Keys - 1 > r0) || k0 + k64Keys > L) {
+        const uint32_t ok = mask_bits<kCausal>(k0, row, L);
+#pragma unroll
+        for (int i = 0; i < k64Keys / 2; ++i)
+          s[i] = (ok >> i) & 1u ? s[i] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < k64Keys / 2; ++i) {
+        float d = dp[i];
+        if constexpr (kDrop) d = (keep >> i) & 1u ? d * dr.inv_keep : 0.f;
+        s[i] = s[i] * (d - dl_r[(i >> 1) & 1]) * scale;  // dS
+      }
+      uint32_t da[k64Keys / 16][4];  // dS, rounded to bf16
+      to_a(da, s);
+      fence_operand(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < k64Keys / 16; ++kk)
+        wgmma<1>(acc, da[kk], operand_desc<true>(kt, kk, kKVPanel));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(acc);
+    }
+    if (release_last(sm, p.stage) && j + k64Stages < n_tiles && lane == 0)
+      fill_kv64(sm, p.stage, &map_k, &map_v, j + k64Stages, h, b);
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dq, b, h, row, L, acc, one);
+}
+
+// 4 bytes from global to shared memory by cp.async, zeros when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Query tile i's Q and dO rows into stage st by TMA (lane 0) and its lse
+// and delta by cp.async (every lane, a row each), each lane's copies
+// arriving on full[st] once complete: a whole warp, none of which waits.
+// Rows past L read as zeros (their columns are masked).
+template <typename S>
+__device__ __forceinline__ void fill_qdo64(
+    const S& sm, int st, const CUtensorMap* map_q, const CUtensorMap* map_do,
+    const float* __restrict__ lse, const float* __restrict__ delta, int i,
+    int h, int b, int L, long long rbase) {
+  constexpr int kStats = 2 * tile_bytes<64>(kDkv64Q);  // lse, then delta
+  const int lane = threadIdx.x & 31;
+  const uint32_t full = sm.full(st), qt = sm.stage(st);
+  if (lane == 0) {
+    mbar_expect_tx(full, 2 * tile_bytes<64>(kDkv64Q));
+    load_rows<64, kDkv64Q>(qt, map_q, full, i * kDkv64Q, h, b);
+    load_rows<64, kDkv64Q>(qt + tile_bytes<64>(kDkv64Q), map_do, full,
+                         i * kDkv64Q, h, b);
+  }
+  const uint32_t stats = qt + kStats;
+#pragma unroll
+  for (int r = lane; r < kDkv64Q; r += 32) {
+    const int row = i * kDkv64Q + r;
+    const long long at = rbase + min(row, L - 1);
+    cp_async4(stats + 4 * r, lse + at, row < L);
+    cp_async4(stats + 4 * (kDkv64Q + r), delta + at, row < L);
+  }
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(full)
+               : "memory");
+}
+
+// dK / dV: the dK and dV accumulators are 32 registers each, so one
+// warpgroup holds both for its keys. A CTA owns 128 key rows, 64 a
+// warpgroup, with K and V loaded once and Q and dO (with their rows' lse
+// and delta) in stages of 32 queries, each serving all 128 keys: the
+// score tiles are then 16 registers, and a thread fits 128, two CTAs an
+// SM (64-query tiles took 155-227 registers and one CTA). Per tile
+// a warpgroup computes S^T = K Q^T and dP^T = V dO^T, draws the tile's
+// keep bits under them (dropout; the rows are keys, so keep_bits_krows),
+// then P^T, the dropped P_d^T = keep o P^T / (1 - p) and dS^T = P^T (keep o
+// dP^T / (1 - p) - delta) scale in registers, and dV += P_d^T dO,
+// dK += dS^T Q (A from registers, B MN-major). Computing the transposes
+// puts P^T and dS^T in registers as A operands (Q and dO are K-major for
+// the scores and MN-major for the accumulations). Nothing passes between
+// the warpgroups: the D-128 kernel's P^T ring is not needed.
+template <bool kCausal, bool kDrop>
+__global__ void __launch_bounds__(k64Threads, 2)
+    flash_bwd_dkv64_tma_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta, View dk,
+                               View dv, int L, int H, float scale, Drop dr) {
+  constexpr int D = 64;
+  constexpr int kStats = 2 * tile_bytes<D>(kDkv64Q);  // lse, then delta
+  // full[s]: the copies' arrival and every lane's of the filling warp
+  const Dkv64Smem sm = make_smem64<Dkv64Smem>(1 + 32);
+  // causal: the first key blocks see the most queries and go first
+  const int3 at = block_of<kCausal>();
+  const int h = at.y, b = at.z;
+  const int k0 = at.x * kDkv64Keys;
+  const int i0 = kCausal ? k0 / kDkv64Q : 0;
+  const int n_q = (L + kDkv64Q - 1) / kDkv64Q;
+  const int bh = b * H + h;
+  const long long rbase = static_cast<long long>(bh) * L;
+  if (threadIdx.x < 32) {  // warp 0: the first copies
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(sm.once_bar(), 2 * tile_bytes<D>(kDkv64Keys));
+      load_rows<D, kDkv64Keys>(sm.once(), &map_k, sm.once_bar(), k0, h, b);
+      load_rows<D, kDkv64Keys>(sm.once() + tile_bytes<D>(kDkv64Keys),
+                               &map_v, sm.once_bar(), k0, h, b);
+    }
+    for (int i = i0; i < min(n_q, i0 + k64Stages); ++i)
+      fill_qdo64(sm, i - i0, &map_q, &map_do, lse, delta, i, h, b, L,
+                 rbase);
+  }
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int kw = k0 + 64 * wg;  // this warpgroup's first key
+  const int key[2] = {kw + 16 * warp + g, kw + 16 * warp + g + 8};
+  const uint32_t ka = sm.once() + wg * 64 * 128;  // its rows of K
+  const uint32_t va = ka + tile_bytes<D>(kDkv64Keys);  // ... and of V
+  constexpr uint32_t kKPanel = kDkv64Keys * 128, kQPanel = kDkv64Q * 128;
+  const float sl2 = scale * kLog2e;
+
+  // x: S^T, then the dropped P^T; y: dP^T, then dS^T
+  float dk_acc[D / 2], dv_acc[D / 2], x[kDkv64Q / 2], y[kDkv64Q / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  // the keep bits of a tile's x[i], y[i] (bit i): each tile's are drawn
+  // while the tensor cores run the previous tile's dV and dK products
+  // (issued and waited for in one branch: ptxas serialises wgmmas whose
+  // wait a divergent path separates from their issue)
+  const auto next_keep = [&](int qt0) {
+    return keep_bits_krows<kDkv64Q / 8>(dr, bh, kw + 16 * warp, qt0);
+  };
+  uint32_t keep_next = 0;
+  if constexpr (kDrop) keep_next = next_keep(i0 * kDkv64Q);
+  mbar_wait(sm.once_bar(), 0);
+  Pipe64 p;
+  for (int i = i0; i < n_q; ++i, p.next()) {
+    const int q0 = i * kDkv64Q;
+    const uint32_t keep = keep_next;
+    mbar_wait(sm.full(p.stage), p.phase);
+    // causal: every query of the tile is before all of this warpgroup's
+    // keys (the first tile for warpgroup 1)
+    const bool skip = kCausal && q0 + kDkv64Q - 1 < kw;
+    const uint32_t qt = sm.stage(p.stage);
+    const uint32_t ot = qt + tile_bytes<D>(kDkv64Q);  // dO
+    if (!skip) {
+      wgmma_fence();
+      wgmma_first<0, 0>(x, kmajor(ka, 0, kKPanel), kmajor(qt, 0, kQPanel));
+      wgmma_first<0, 0>(y, kmajor(va, 0, kKPanel), kmajor(ot, 0, kQPanel));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        wgmma<0, 0>(x, kmajor(ka, kk, kKPanel), kmajor(qt, kk, kQPanel));
+        wgmma<0, 0>(y, kmajor(va, kk, kKPanel), kmajor(ot, kk, kQPanel));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(x);
+      fence_operand(y);
+      const float* stats = reinterpret_cast<const float*>(
+          sm.stage_ptr(p.stage) + kStats);
+#pragma unroll
+      for (int jn = 0; jn < kDkv64Q / 8; ++jn) {
+        // this thread's query columns 8 jn + 2 t, + 1
+        const float2 lq =
+            *reinterpret_cast<const float2*>(stats + 8 * jn + 2 * t);
+        const float nl[2] = {-lq.x * kLog2e, -lq.y * kLog2e};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // P^T
+          x[4 * jn + e] = fast_exp2(fmaf(x[4 * jn + e], sl2, nl[e & 1]));
+      }
+      // on the diagonal or the ragged edge: re-masked
+      if ((kCausal && q0 < kw + 63) || q0 + kDkv64Q > L) {
+        const uint32_t ok = mask_bits_keys<kCausal, kDkv64Q>(q0, key, L);
+#pragma unroll
+        for (int i = 0; i < kDkv64Q / 2; ++i)
+          x[i] = (ok >> i) & 1u ? x[i] : 0.f;
+      }
+#pragma unroll
+      for (int jn = 0; jn < kDkv64Q / 8; ++jn) {
+        const float2 dl = *reinterpret_cast<const float2*>(
+            stats + kDkv64Q + 8 * jn + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i4 = 4 * jn + e;
+          const float pv = x[i4];
+          float pd = pv, d = y[i4];
+          if constexpr (kDrop) {
+            const bool kept = (keep >> i4) & 1u;
+            pd = kept ? pv * dr.inv_keep : 0.f;
+            d = kept ? d * dr.inv_keep : 0.f;
+          }
+          x[i4] = pd;                                          // P_d^T
+          y[i4] = pv * (d - ((e & 1) ? dl.y : dl.x)) * scale;  // dS^T
+        }
+      }
+      uint32_t ap[kDkv64Q / 16][4], as[kDkv64Q / 16][4];  // in bf16
+      to_a(ap, x);
+      to_a(as, y);
+      // dV += P_d^T dO, dK += dS^T Q: B MN-major
+      fence_operand(dv_acc);
+      fence_operand(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDkv64Q / 16; ++kk) {
+        wgmma<1>(dv_acc, ap[kk], operand_desc<true>(ot, kk, kQPanel));
+        wgmma<1>(dk_acc, as[kk], operand_desc<true>(qt, kk, kQPanel));
+      }
+      wgmma_commit();
+      if constexpr (kDrop)
+        if (i + 1 < n_q) keep_next = next_keep(q0 + kDkv64Q);
+      wgmma_wait<0>();
+      fence_operand(dv_acc);
+      fence_operand(dk_acc);
+    } else if constexpr (kDrop) {
+      if (i + 1 < n_q) keep_next = next_keep(q0 + kDkv64Q);
+    }
+    if (release_last(sm, p.stage) && i + k64Stages < n_q)
+      fill_qdo64(sm, p.stage, &map_q, &map_do, lse, delta, i + k64Stages, h,
+                 b, L, rbase);
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dk, b, h, key, L, dk_acc, one);
+  store_rows<D>(dv, b, h, key, L, dv_acc, one);
+}
+
 // -- launch ------------------------------------------------------------------
 
 // The tensor map of a bf16 [B, L, H, D] view (element strides sb, sl, sh;
 // D contiguous): dims D, H, L, B innermost first, boxes of 64 x 1 x rows x 1.
 bool bhld_map(CUtensorMap* map, const void* base, const long long* st, int B,
-              int L, int H, int rows) {
-  const long long dims[4] = {kHeadDim, H, L, B};
+              int L, int H, int D, int rows) {
+  const long long dims[4] = {D, H, L, B};
   const long long bytes[3] = {st[2] * 2, st[1] * 2, st[0] * 2};
   const int box[4] = {64, 1, rows, 1};
   return encode_tiled(map, 4, base, dims, bytes, box);
@@ -680,14 +1349,16 @@ bool bhld_map(CUtensorMap* map, const void* base, const long long* st, int B,
 
 View view(void* p, const long long* st) { return View{p, st[0], st[1], st[2]}; }
 
-// What these kernels take, as takes_tma decides it: head dim 128, every
-// size positive and inside the grid's and the tensor maps' int32 ranges,
-// 16-byte aligned bases and (batch, seq, head) strides multiples of 8
-// elements. n views, three strides each.
+// What these kernels take, as takes_tma decides it: head dim 64 or 128
+// (dropout, thresh != 0, at 64 only), every size positive and inside the
+// grid's and the tensor maps' int32 ranges, 16-byte aligned bases and
+// (batch, seq, head) strides multiples of 8 elements. n views, three
+// strides each.
 bool takes(void* const* ptrs, int n, const long long* strides, int B, int L,
-           int H, int D) {
-  if (D != kHeadDim || B <= 0 || L <= 0 || H <= 0 || B > 65535 ||
-      H > 65535 || static_cast<long long>(B) * H * L > 0x7fffffffLL)
+           int H, int D, uint32_t thresh) {
+  if ((D != 64 && D != 128) || (thresh != 0u && D != 64) || B <= 0 ||
+      L <= 0 || H <= 0 || B > 65535 || H > 65535 ||
+      static_cast<long long>(B) * H * L > 0x7fffffffLL)
     return false;
   for (int i = 0; i < n; ++i) {
     if (!aligned16(ptrs[i])) return false;
@@ -697,95 +1368,191 @@ bool takes(void* const* ptrs, int n, const long long* strides, int B, int L,
   return true;
 }
 
-// grid (row blocks of `rows`, H, B): the blocks of one head run together
-// and share its K and V (Q and dO) through L2
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int smem, int rows, int L, int H, int B,
-           cudaStream_t stream, Args... args) {
+// The tensor maps and output views of one call
+struct Call {
+  CUtensorMap maps[4];
+  View views[2];
+};
+
+// Encodes the tensor maps of the first n_maps views (box heights rows[i])
+// and wraps the next n_views as output views; false when the encoder
+// refuses a map.
+bool prepare(Call* c, void* const* ptrs, int n_maps, int n_views,
+             const long long* strides, int B, int L, int H, int D,
+             const int* rows) {
+  for (int i = 0; i < n_maps; ++i)
+    if (!bhld_map(&c->maps[i], ptrs[i], strides + 3 * i, B, L, H, D,
+                  rows[i]))
+      return false;
+  for (int i = 0; i < n_views; ++i)
+    c->views[i] = view(ptrs[n_maps + i], strides + 3 * (n_maps + i));
+  return true;
+}
+
+// Each kernel of the library by its flags, with its threads and dynamic
+// shared memory.
+struct Kernel {
+  const void* fn;
+  int threads, smem;
+};
+
+Kernel fwd_kernel(int D, bool causal, bool drop) {
+  using S128 = Smem<tile_bytes<128>(kRows), 2 * tile_bytes<128>(kFwdKV)>;
+  if (D == 128)
+    return {causal ? (const void*)flash_fwd_tma_kernel<128, true>
+                   : (const void*)flash_fwd_tma_kernel<128, false>,
+            kThreads, S128::kBytes};
+  const void* fn =
+      causal ? (drop ? (const void*)flash_fwd64_tma_kernel<true, true>
+                     : (const void*)flash_fwd64_tma_kernel<true, false>)
+             : (drop ? (const void*)flash_fwd64_tma_kernel<false, true>
+                     : (const void*)flash_fwd64_tma_kernel<false, false>);
+  return {fn, k64Threads, Fwd64Smem::kBytes};
+}
+
+Kernel dq_kernel(int D, bool causal, bool drop) {
+  using S128 = Smem<2 * tile_bytes<128>(kRows), 2 * tile_bytes<128>(kDqKV)>;
+  if (D == 128)
+    return {causal ? (const void*)flash_bwd_dq_tma_kernel<128, true>
+                   : (const void*)flash_bwd_dq_tma_kernel<128, false>,
+            kThreads, S128::kBytes};
+  const void* fn =
+      causal ? (drop ? (const void*)flash_bwd_dq64_tma_kernel<true, true>
+                     : (const void*)flash_bwd_dq64_tma_kernel<true, false>)
+             : (drop ? (const void*)flash_bwd_dq64_tma_kernel<false, true>
+                     : (const void*)flash_bwd_dq64_tma_kernel<false, false>);
+  return {fn, k64Threads, Dq64Smem::kBytes};
+}
+
+Kernel dkv_kernel(int D, bool causal, bool drop) {
+  using S128 = Smem<2 * tile_bytes<128>(kDkvKeys), dkv_stage_bytes<128>(),
+                    2 * kPBuf>;
+  if (D == 128)
+    return {causal ? (const void*)flash_bwd_dkv_tma_kernel<128, true>
+                   : (const void*)flash_bwd_dkv_tma_kernel<128, false>,
+            kThreads, S128::kBytes};
+  const void* fn =
+      causal ? (drop ? (const void*)flash_bwd_dkv64_tma_kernel<true, true>
+                     : (const void*)flash_bwd_dkv64_tma_kernel<true, false>)
+             : (drop ? (const void*)flash_bwd_dkv64_tma_kernel<false, true>
+                     : (const void*)flash_bwd_dkv64_tma_kernel<false, false>);
+  return {fn, k64Threads, Dkv64Smem::kBytes};
+}
+
+// Launches kernel k on a grid (blocks of `rows` rows, H, B), so that the
+// blocks of one head run together and share its K and V (Q and dO)
+// through L2. args points to each argument in order; a kernel without
+// dropout ignores the last (the Drop).
+int launch_kernel(const Kernel& k, int rows, int L, int H, int B,
+                  cudaStream_t stream, void** args) {
   const cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k.smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid((L + rows - 1) / rows, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t rl =
+      cudaLaunchKernel(k.fn, grid, dim3(k.threads), args, k.smem, stream);
+  return static_cast<int>(rl != cudaSuccess ? rl : cudaGetLastError());
+}
+
+Kernel kernel_of(int which, int D, bool causal, bool drop) {
+  return which == 0   ? fwd_kernel(D, causal, drop)
+         : which == 1 ? dq_kernel(D, causal, drop)
+                      : dkv_kernel(D, causal, drop);
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes; the arguments of the first
-// design's entries (flash_attention.cuh) without dtype, segments and
-// dropout. Tensors are bf16 [B, L, H, D] views with D = 128 contiguous
-// and their own element strides (batch, seq, head) in `strides`, three per
+// design's entries (flash_attention.cuh) without dtype and segments.
+// Tensors are bf16 [B, L, H, D] views with D = 64 or 128 contiguous and
+// their own element strides (batch, seq, head) in `strides`, three per
 // view in argument order; lse and delta are contiguous f32 [B, H, L]. The
-// caller allocates the outputs. Each returns 0, the cudaError_t of the
-// launch, cudaErrorInvalidValue for a call takes_tma would refuse, or -1
-// when cuTensorMapEncodeTiled refuses a map.
-extern "C" int flash_attention_tma_forward(void* q, void* k, void* v,
-                                           void* out, float* lse,
-                                           const long long* strides, int B,
-                                           int L, int H, int D, int causal,
-                                           float scale, void* stream) {
+// caller allocates the outputs. `thresh` is 0 without dropout, else the
+// keep threshold with the Philox key (seed_lo, seed_hi) and inv_keep =
+// 1 / (1 - p) (D 64 only). Each returns 0, the cudaError_t of the launch,
+// cudaErrorInvalidValue for a call takes_tma would refuse, or -1 when
+// cuTensorMapEncodeTiled refuses a map.
+extern "C" int flash_attention_tma_forward(
+    void* q, void* k, void* v, void* out, float* lse,
+    const long long* strides, int B, int L, int H, int D, int causal,
+    float scale, uint32_t seed_lo, uint32_t seed_hi, uint32_t thresh,
+    float inv_keep, void* stream) {
   void* ptrs[4] = {q, k, v, out};
-  if (!takes(ptrs, 4, strides, B, L, H, D))
+  if (!takes(ptrs, 4, strides, B, L, H, D, thresh))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mq, mk, mv;
-  if (!bhld_map(&mq, q, strides, B, L, H, kRows) ||
-      !bhld_map(&mk, k, strides + 3, B, L, H, kFwdKV) ||
-      !bhld_map(&mv, v, strides + 6, B, L, H, kFwdKV))
+  const int kv = D == 128 ? kFwdKV : k64Keys;
+  const int rows[3] = {kRows, kv, kv};
+  Call c;
+  if (!prepare(&c, ptrs, 3, 1, strides, B, L, H, D, rows))
     return kEncodeFailed;
-  const View o = view(out, strides + 9);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int kD = kHeadDim;
-  using S = Smem<tile_bytes<kD>(kRows), 2 * tile_bytes<kD>(kFwdKV)>;
-  auto kernel = causal ? flash_fwd_tma_kernel<kD, true>
-                       : flash_fwd_tma_kernel<kD, false>;
-  return launch(kernel, S::kBytes, kRows, L, H, B, s, mq, mk, mv, o, lse, L,
-                H, scale);
+  Drop dr{seed_lo, seed_hi, thresh, inv_keep};
+  void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2], &c.views[0],
+                  &lse,       &L,         &H,         &scale,
+                  &dr};
+  return launch_kernel(fwd_kernel(D, causal, thresh != 0u), kRows, L, H, B,
+                       static_cast<cudaStream_t>(stream), args);
 }
 
 extern "C" int flash_attention_tma_backward_dq(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dq, const long long* strides, int B, int L,
-    int H, int D, int causal, float scale, void* stream) {
+    int H, int D, int causal, float scale, uint32_t seed_lo,
+    uint32_t seed_hi, uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[5] = {q, k, v, dout, dq};
-  if (!takes(ptrs, 5, strides, B, L, H, D))
+  if (!takes(ptrs, 5, strides, B, L, H, D, thresh))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mq, mk, mv, mo;
-  if (!bhld_map(&mq, q, strides, B, L, H, kRows) ||
-      !bhld_map(&mk, k, strides + 3, B, L, H, kDqKV) ||
-      !bhld_map(&mv, v, strides + 6, B, L, H, kDqKV) ||
-      !bhld_map(&mo, dout, strides + 9, B, L, H, kRows))
+  const int kv = D == 128 ? kDqKV : k64Keys;
+  const int rows[4] = {kRows, kv, kv, kRows};
+  Call c;
+  if (!prepare(&c, ptrs, 4, 1, strides, B, L, H, D, rows))
     return kEncodeFailed;
-  const View o = view(dq, strides + 12);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int kD = kHeadDim;
-  using S = Smem<2 * tile_bytes<kD>(kRows), 2 * tile_bytes<kD>(kDqKV)>;
-  auto kernel = causal ? flash_bwd_dq_tma_kernel<kD, true>
-                       : flash_bwd_dq_tma_kernel<kD, false>;
-  return launch(kernel, S::kBytes, kRows, L, H, B, s, mq, mk, mv, mo, lse,
-                delta, o, L, H, scale);
+  Drop dr{seed_lo, seed_hi, thresh, inv_keep};
+  void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2], &c.maps[3],
+                  &lse,       &delta,     &c.views[0], &L,
+                  &H,         &scale,     &dr};
+  return launch_kernel(dq_kernel(D, causal, thresh != 0u), kRows, L, H, B,
+                       static_cast<cudaStream_t>(stream), args);
 }
 
 extern "C" int flash_attention_tma_backward_dkv(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dk, void* dv, const long long* strides, int B,
-    int L, int H, int D, int causal, float scale, void* stream) {
+    int L, int H, int D, int causal, float scale, uint32_t seed_lo,
+    uint32_t seed_hi, uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[6] = {q, k, v, dout, dk, dv};
-  if (!takes(ptrs, 6, strides, B, L, H, D))
+  if (!takes(ptrs, 6, strides, B, L, H, D, thresh))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mq, mk, mv, mo;
-  if (!bhld_map(&mq, q, strides, B, L, H, kDkvQ) ||
-      !bhld_map(&mk, k, strides + 3, B, L, H, kDkvKeys) ||
-      !bhld_map(&mv, v, strides + 6, B, L, H, kDkvKeys) ||
-      !bhld_map(&mo, dout, strides + 9, B, L, H, kDkvQ))
+  const int keys = D == 128 ? kDkvKeys : kDkv64Keys;
+  const int queries = D == 128 ? kDkvQ : kDkv64Q;
+  const int rows[4] = {queries, keys, keys, queries};
+  Call c;
+  if (!prepare(&c, ptrs, 4, 2, strides, B, L, H, D, rows))
     return kEncodeFailed;
-  const View vk = view(dk, strides + 12), vv = view(dv, strides + 15);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int kD = kHeadDim;
-  using S = Smem<2 * tile_bytes<kD>(kDkvKeys), dkv_stage_bytes<kD>(),
-                 2 * kPBuf>;
-  auto kernel = causal ? flash_bwd_dkv_tma_kernel<kD, true>
-                       : flash_bwd_dkv_tma_kernel<kD, false>;
-  return launch(kernel, S::kBytes, kDkvKeys, L, H, B, s, mq, mk, mv, mo, lse,
-                delta, vk, vv, L, H, scale);
+  Drop dr{seed_lo, seed_hi, thresh, inv_keep};
+  void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2],  &c.maps[3],
+                  &lse,       &delta,     &c.views[0], &c.views[1],
+                  &L,         &H,         &scale,      &dr};
+  return launch_kernel(dkv_kernel(D, causal, thresh != 0u), keys, L, H, B,
+                       static_cast<cudaStream_t>(stream), args);
+}
+
+// Per kernel of this library (which: 0 forward, 1 dQ, 2 dK/dV; D and the
+// flags of the instance): the CTAs an SM holds, by the runtime's
+// occupancy calculator (registers, threads, shared memory), with its
+// dynamic shared memory in *smem; -1 for an instance the library does not
+// hold or a refused query.
+extern "C" int flash_attention_tma_occupancy(int which, int D, int causal,
+                                             int dropout, int* smem) {
+  if ((D != 64 && D != 128) || (dropout && D != 64) || which < 0 ||
+      which > 2)
+    return -1;
+  const Kernel k = kernel_of(which, D, causal != 0, dropout != 0);
+  *smem = k.smem;
+  int n = 0;
+  if (cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           k.smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k.fn, k.threads,
+                                                    k.smem) != cudaSuccess)
+    return -1;
+  return n;
 }

@@ -152,10 +152,16 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
   HOPPER_D4(i), HOPPER_D4(i + 4), HOPPER_D4(i + 8), HOPPER_D4(i + 12)
 #define HOPPER_D32 HOPPER_D16(0), HOPPER_D16(16)
 #define HOPPER_D64 HOPPER_D32, HOPPER_D16(32), HOPPER_D16(48)
+#define HOPPER_O4(i) "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3])
+#define HOPPER_O16(i) \
+  HOPPER_O4(i), HOPPER_O4(i + 4), HOPPER_O4(i + 8), HOPPER_O4(i + 12)
+#define HOPPER_O32 HOPPER_O16(0), HOPPER_O16(16)
+#define HOPPER_R16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define HOPPER_R32                                                         \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
+  HOPPER_R16                                                               \
+  ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "    \
+  "%29, %30, %31"
 #define HOPPER_R64                                                         \
   HOPPER_R32                                                               \
   ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "    \
@@ -199,6 +205,53 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 
+// d (64 x 32) += A (64 x 16) B (16 x 32), both from shared memory.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma(float (&d)[16], uint64_t da,
+                                      uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" HOPPER_R16
+      "}, %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : HOPPER_D16(0)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
+// d (64 x 64) = A (64 x 16) B (16 x 64), both from shared memory, d
+// overwritten (scale_d 0): the compiler takes d as written here and not
+// read, so it need not keep d's earlier values alive up to the issue.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_first(float (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HOPPER_R32
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : HOPPER_O32
+      : "l"(da), "l"(db), "r"(0), "n"(kTA), "n"(kTB));
+}
+
+// The same for a 64 x 32 tile.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_first(float (&d)[16], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" HOPPER_R16
+      "}, %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : HOPPER_O16(0)
+      : "l"(da), "l"(db), "r"(0), "n"(kTA), "n"(kTB));
+}
+
 // d (64 x 128) += A (64 x 16) B (16 x 128), A from registers in the
 // m16n8k16 fragment layout of each warp's 16 rows (lane 4 g + t: a[0] =
 // A[g][2t..2t+1], a[1] = A[g+8][2t..], a[2] = A[g][2t+8..], a[3] =
@@ -220,12 +273,33 @@ __device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4],
         "n"(kTB));
 }
 
+// d (64 x 64) += A (64 x 16) B (16 x 64), A from registers in the same
+// fragment layout, B from shared memory, MN-major iff kTB.
+template <int kTB>
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4],
+                                      uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HOPPER_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : HOPPER_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(kTB));
+}
+
 #undef HOPPER_R64
 #undef HOPPER_R32
+#undef HOPPER_R16
 #undef HOPPER_D64
 #undef HOPPER_D32
 #undef HOPPER_D16
 #undef HOPPER_D4
+#undef HOPPER_O32
+#undef HOPPER_O16
+#undef HOPPER_O4
 
 // a position in a ring of N stages: the stage and the parity of its
 // current round

@@ -11,11 +11,12 @@ taken as ``H = 1``); ``lse`` and ``delta`` are f32 ``[B, H, L]``
 Three wrappers launch the CUDA kernels on CUDA tensors; a CPU tensor
 takes the plain version of the same function (and counts nothing).
 Two designs share each wrapper, and :func:`takes_tma` picks one before
-the launch from the operands alone: bf16 at head dim 128 without
-dropout or segments, with bases and strides a TMA tensor map can
-describe, goes to the TMA / ``wgmma`` kernels of
+the launch from the operands alone: bf16 at head dim 64 or 128 without
+segments (and at 128 without dropout), with bases and strides a TMA
+tensor map can describe, goes to the TMA / ``wgmma`` kernels of
 ``csrc/flash_attention_tma.cu``; everything else to the first design,
-``csrc/flash_attention.cuh``. Each wrapper counts every launch
+``csrc/flash_attention.cuh``. Both draw the keep mask of
+``csrc/philox.cuh``. Each wrapper counts every launch
 (``.launches``), those of the TMA design (``.tma_launches``) and, apart,
 each launch with dropout and each with segments. There is no fallback:
 a CUDA call the chosen kernel refuses raises:
@@ -83,7 +84,8 @@ _HEAD_DIMS = (64, 128)
 _M32 = 0xFFFFFFFF
 _libs: Dict[Tuple[torch.dtype, int], ctypes.CDLL] = {}
 _tma_lib: Optional[ctypes.CDLL] = None
-_TMA_HEAD_DIM = 128                # the head dim the TMA design is built for
+_TMA_HEAD_DIMS = (64, 128)         # the head dims the TMA design is built for
+_TMA_DROPOUT_HEAD_DIM = 64         # ... and the one it takes dropout at
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -399,12 +401,12 @@ def _kernel_lib(dtype: torch.dtype, d: int) -> ctypes.CDLL:
 
 def _kernel_lib_tma() -> ctypes.CDLL:
     """The TMA / ``wgmma`` design's library, ``csrc/flash_attention_tma.cu``
-    (bf16, head dim 128)."""
+    (bf16, head dim 64 or 128)."""
     global _tma_lib
     if _tma_lib is None:
         lib = _build.load("flash_attention_tma")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        tail = [p, i, i, i, i, i, ctypes.c_float, p]
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        tail = [p, i, i, i, i, i, ctypes.c_float, u, u, u, ctypes.c_float, p]
         lib.flash_attention_tma_forward.argtypes = [p] * 5 + tail
         lib.flash_attention_tma_backward_dq.argtypes = [p] * 7 + tail
         lib.flash_attention_tma_backward_dkv.argtypes = [p] * 8 + tail
@@ -422,19 +424,21 @@ def takes_tma(q, k, v, do=None, *, dropout_p: float = 0.0,
     dtype, shapes, alignment and strides alone (nothing is launched).
 
     They take ``q``, ``k``, ``v`` (and the backward's ``do``) in bf16 of
-    one shape, ``[B, L, H, D]`` or ``[BH, L, D]``, with head dim 128
-    contiguous, no dropout and no segments; every base 16-byte aligned
-    and every (batch, seq, head) stride a multiple of 8 elements (16
-    bytes), so that a TMA tensor map describes each tensor in place (q,
-    k, v may be strided views of one projection); and sizes inside the
-    grid's and the kernels' 32-bit ranges."""
-    if dropout_p > 0.0 or seg is not None:
+    one shape, ``[B, L, H, D]`` or ``[BH, L, D]``, with head dim 64 or 128
+    contiguous and no segments, with dropout at head dim 64 only; every
+    base 16-byte aligned and every (batch, seq, head) stride a multiple
+    of 8 elements (16 bytes), so that a TMA tensor map describes each
+    tensor in place (q, k, v may be strided views of one projection);
+    and sizes inside the grid's and the kernels' 32-bit ranges."""
+    if seg is not None:
         return False
     ts = [t for t in (q, k, v, do) if t is not None]
     if any(t.dtype != torch.bfloat16 or t.shape != q.shape for t in ts):
         return False
-    if q.dim() not in (3, 4) or q.shape[-1] != _TMA_HEAD_DIM \
+    if q.dim() not in (3, 4) or q.shape[-1] not in _TMA_HEAD_DIMS \
             or q.numel() == 0:
+        return False
+    if dropout_p > 0.0 and q.shape[-1] != _TMA_DROPOUT_HEAD_DIM:
         return False
     B, L, H, _ = _as4(q).shape
     if B > 65535 or H > 65535 or B * H * L > _INT32_MAX:
@@ -522,19 +526,25 @@ def _launch(wrapper, fn, name, args, shape, causal, scale, dtype, device,
     wrapper.segmented_launches += seg is not None
 
 
-def _launch_tma(wrapper, fn, name, args, shape, causal, scale, device):
+def _launch_tma(wrapper, fn, name, args, shape, causal, scale, device,
+                dropout_p, seed):
     """A launch of the TMA design (``takes_tma`` accepted the call): the
-    C entry re-checks and returns an error, which raises here."""
+    C entry re-checks and returns an error, which raises here. p = 0
+    takes the instance without dropout."""
     B, L, H, D = shape
+    thresh, inv = _dropout_args(dropout_p, seed)
+    lo, hi = _seed_words(seed) if thresh else (0, 0)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, B, L, H, D, int(bool(causal)), scale, stream)
+    rc = fn(*args, B, L, H, D, int(bool(causal)), scale, lo, hi, thresh, inv,
+            stream)
     if rc != 0:
         what = "cuTensorMapEncodeTiled refused a tensor map" if rc == -1 \
             else f"kernel launch failed with cudaError {rc}"
         raise RuntimeError(f"{name}: TMA {what} (B={B} L={L} H={H} D={D} "
-                           f"causal={bool(causal)})")
+                           f"causal={bool(causal)} dropout_p={dropout_p})")
     wrapper.launches += 1
     wrapper.tma_launches += 1
+    wrapper.dropout_launches += bool(thresh)
 
 
 def _on(x: torch.Tensor, name: str) -> bool:
@@ -567,7 +577,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     if takes_tma(q, k, v, dropout_p=dropout_p, seg=seg):
         _launch_tma(flash_attention_fwd,
                     _kernel_lib_tma().flash_attention_tma_forward, name,
-                    args, shape, causal, s, q.device)
+                    args, shape, causal, s, q.device, dropout_p, seed)
     else:
         _launch(flash_attention_fwd,
                 _kernel_lib(q.dtype, shape[3]).flash_attention_forward, name,
@@ -598,7 +608,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     if takes_tma(q, k, v, do, dropout_p=dropout_p, seg=seg):
         _launch_tma(flash_attention_bwd_dq,
                     _kernel_lib_tma().flash_attention_tma_backward_dq, name,
-                    args, shape, causal, s, q.device)
+                    args, shape, causal, s, q.device, dropout_p, seed)
     else:
         _launch(flash_attention_bwd_dq,
                 _kernel_lib(q.dtype, shape[3]).flash_attention_backward_dq,
@@ -629,7 +639,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     if takes_tma(q, k, v, do, dropout_p=dropout_p, seg=seg):
         _launch_tma(flash_attention_bwd_dkv,
                     _kernel_lib_tma().flash_attention_tma_backward_dkv, name,
-                    args, shape, causal, s, q.device)
+                    args, shape, causal, s, q.device, dropout_p, seed)
     else:
         _launch(flash_attention_bwd_dkv,
                 _kernel_lib(q.dtype, shape[3]).flash_attention_backward_dkv,

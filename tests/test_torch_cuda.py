@@ -2,8 +2,9 @@
 kernel against its plain walk, a tiny engine through the kernel against
 the same engine through the walk, the three flash-attention kernels
 against their plain versions (plain, with dropout and with segments;
-bf16 at head dim 128 on the TMA / wgmma kernels, everything else on the
-first design, by their counts),
+bf16 at head dim 64 or 128 without segments on the TMA / wgmma kernels,
+with dropout at head dim 64, everything else on the first design, by
+their counts; the D-64 keep mask bit for bit),
 a tiny Llama train step through them against the same step through
 the plain sdpa, the grouped-matmul kernels (K6 forward and dlhs, K7
 drhs; TMA / wgmma for bf16 with 16-byte rows, the general kernels
@@ -299,7 +300,7 @@ def _flash_layout(dev, layout, dtype):
     """q, k, v, do of one layout: fresh [B, L, H, D] (causal and full, a
     ragged L, L = 1), [BH, L, D], q/k/v as views of one [B, L, 3, H, D]
     projection, heads outside the sequence ([B, H, L, D] transposed), and
-    D 64 (which only the first design takes)."""
+    D 64."""
     g = torch.Generator(device=dev).manual_seed(21)
 
     def rnd(*shape):
@@ -325,12 +326,12 @@ def _flash_layout(dev, layout, dtype):
                                     "heads_outer", "d64"])
 def test_flash_wrappers_take_the_design_takes_tma_picks(cuda, layout, dtype,
                                                         tol):
-    """Each launch goes to the design takes_tma names (bf16 at D 128: the
-    TMA / wgmma kernels; f32 and D 64: the first design), as the counts
+    """Each launch goes to the design takes_tma names (bf16 at D 64 and
+    128: the TMA / wgmma kernels; f32: the first design), as the counts
     show, and agrees with the plain versions."""
     q, k, v, do = _flash_layout(cuda, layout, dtype)
     causal = layout != "blhd_full"
-    tma = dtype == torch.bfloat16 and q.shape[-1] == 128
+    tma = dtype == torch.bfloat16 and q.shape[-1] in (64, 128)
     assert tfa.takes_tma(q, k, v, do) is tma
     ws = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
           tfa.flash_attention_bwd_dkv)
@@ -375,16 +376,22 @@ def test_flash_tma_entries_refuse_and_the_wrappers_raise(cuda, monkeypatch):
     out = torch.empty_like(q)
     lse = torch.empty(1, 2, 64, dtype=torch.float32, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
-    for D in (64, 130):     # head dims these kernels do not take
+    no_drop = (0, 0, 0, 1.0)
+    for D in (32, 96, 130):     # head dims these kernels do not take
         assert lib.flash_attention_tma_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 2, D, 1,
-            0.1, stream) != 0
+            0.1, *no_drop, stream) != 0
+    # dropout (thresh != 0) at D 128
+    assert lib.flash_attention_tma_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 2, 128, 1, 0.1,
+        1, 2, tfa.dropout_threshold(0.1), 1 / 0.9, stream) != 0
     misaligned = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)[1:]
     assert lib.flash_attention_tma_forward(
         misaligned.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 2, 128, 1, 0.1,
-        stream) != 0
+        *no_drop, stream) != 0
 
     class Refusing:
         def __getattr__(self, name):
@@ -402,6 +409,80 @@ def test_flash_tma_entries_refuse_and_the_wrappers_raise(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="TMA"):
         tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
     assert [(w.launches, w.tma_launches) for w in ws] == before
+
+
+def _d64_layout(dev, layout, dtype=torch.bfloat16):
+    """q, k, v, do at head dim 64: [B, L, H, D], [BH, L, D], a ragged
+    L 1000, L = 1, BERT's q, k, v (three projections viewed as
+    [B, L, 12, 64]) and ERNIE-MoE's (one [B, L, 3 x 768] projection split
+    into views of row stride 2304)."""
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    if layout == "bert_views":
+        q, k, v = (rnd(2, 200, 768).view(2, 200, 12, 64) for _ in range(3))
+        return q, k, v, rnd(2, 200, 12, 64)
+    if layout == "gpt_views":
+        q, k, v = (x.view(2, 300, 12, 64)
+                   for x in rnd(2, 300, 3 * 768).split(768, dim=-1))
+        return q, k, v, rnd(2, 300, 12, 64)
+    shape = {"blhd": (2, 384, 3, 64), "bhld": (6, 130, 64),
+             "ragged_l1000": (2, 1000, 2, 64), "l1": (2, 1, 3, 64)}[layout]
+    return tuple(rnd(*shape) for _ in range(4))
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1], ids=["p0", "p01"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("layout", ["blhd", "bhld", "ragged_l1000", "l1",
+                                    "bert_views", "gpt_views"])
+def test_flash_d64_tma_kernels_match_their_plain_versions(cuda, layout,
+                                                          causal, dropout_p):
+    """bf16 at head dim 64 takes the TMA / wgmma kernels, with dropout and
+    without (each call's design and dropout by the counts), and agrees
+    with the plain versions under the same keep mask."""
+    q, k, v, do = _d64_layout(cuda, layout)
+    kw = dict(dropout_p=dropout_p, seed=0x5EED0123) if dropout_p else {}
+    assert tfa.takes_tma(q, k, v, do, dropout_p=dropout_p) is True
+    ws = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+          tfa.flash_attention_bwd_dkv)
+    counts = ("launches", "tma_launches", "dropout_launches")
+    before = [[getattr(w, c) for c in counts] for w in ws]
+    got, (lse, delta) = _three(q, k, v, do, causal, **kw)
+    torch.cuda.synchronize()
+    assert [[getattr(w, c) for c in counts] for w in ws] == [
+        [a + 1, b + 1, c + bool(dropout_p)] for a, b, c in before]
+    _check_all(got, _three_plain(q, k, v, do, causal, lse, delta, **kw),
+               2e-2)
+
+
+def test_flash_d64_tma_keep_mask_is_exact(cuda):
+    """L = 64 = D, q = k = 0 (uniform P) and v = I: out·L·(1 − p) is the
+    forward's keep mask; with dO = I, dVᵀ·L·(1 − p) is the backward's.
+    Both equal flash_dropout_keep_mask bit for bit, on the TMA kernels;
+    p = 0 is the launch without dropout, bit for bit."""
+    B, L, H, p, seed = 2, 64, 3, 0.1, 0x5EED0123456789AB
+    zeros = torch.zeros((B, L, H, 64), dtype=torch.bfloat16, device=cuda)
+    eye = torch.eye(L, device=cuda, dtype=torch.bfloat16)
+    ident = eye[None, :, None, :].expand(B, L, H, L).contiguous()
+    keep = tfa.flash_dropout_keep_mask(seed, B, H, L, p, cuda)  # [B,H,L,L]
+    before = tfa.flash_attention_bwd_dkv.tma_launches
+    out, lse = tfa.flash_attention_fwd(zeros, zeros, ident, False, None, p,
+                                       seed)
+    delta = tfa.attention_delta(out, ident)
+    _, dv = tfa.flash_attention_bwd_dkv(zeros, zeros, ident, ident, lse,
+                                        delta, False, None, p, seed)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_dkv.tma_launches == before + 1
+    fwd_mask = (out.float() * L * (1 - p)).round().permute(0, 2, 1, 3)
+    bwd_mask = (dv.float() * L * (1 - p)).round().permute(0, 2, 3, 1)
+    assert torch.equal(fwd_mask, keep.float())
+    assert torch.equal(bwd_mask, keep.float())
+    plain = tfa.flash_attention_fwd(zeros, zeros, ident)
+    zero_p = tfa.flash_attention_fwd(zeros, zeros, ident, False, None, 0.0,
+                                     seed)
+    assert all(torch.equal(a, b) for a, b in zip(plain, zero_p))
 
 
 def test_train_step_through_the_kernels_matches_the_plain_sdpa(cuda):
