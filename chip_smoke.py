@@ -11,26 +11,42 @@ Phases, each printing one JSON line with its seconds:
 2. ``build``          compiles every kernel from ``paddle_tpu_torch``'s
                       sources with nvcc (sm_90a), one process per source,
                       printing ptxas' report (registers and spills per
-                      TMA flash kernel instance, and each kernel's CTAs
-                      an SM and shared memory); fails if a TMA flash
-                      kernel spills or a D-64 instance is missing;
-3. ``kernel_parity``  the paged-attention kernel against its plain walk
-                      on the card, over the serving geometries (decode,
-                      GQA, prefill chunk, dense whole-prompt prefill,
-                      int8 pools, the int8-KV engine's own shapes, f32,
-                      poisoned blocks), and against the same walk on
-                      f32 copies of the inputs (the kernel's arithmetic)
-                      within one bf16 rounding of the output;
-4. ``kernel_time``    the kernel, the plain walk and PyTorch's
-                      scaled_dot_product_attention (a yardstick only)
-                      at the decode geometry, beside the memory bound;
+                      TMA flash kernel instance and per split
+                      paged-attention instance, and each one's CTAs an SM
+                      and shared memory); fails if one of those spills or
+                      an instance is missing;
+3. ``kernel_parity``  the paged-attention kernels against their plain
+                      walk on the card, over the serving geometries
+                      (decode, GQA, verify windows, prefill chunk, dense
+                      whole-prompt prefill, int8 pools, the int8-KV
+                      engine's own shapes, f32, poisoned blocks, a long
+                      GQA history in many spans cut by n_tiles): each
+                      call's counts must show the design takes_split
+                      names (the split design for bf16 q over bf16 or
+                      int8 pools, the first design for f32); against the
+                      walk in the working dtype, and against the walk and
+                      the split walk (the kernel's spans, merged by its
+                      rule) on f32 copies of the inputs (the kernel's
+                      arithmetic) within one bf16 rounding of the output;
+4. ``kernel_time``    the split design, the first design through its C
+                      entry (general_ms), the plain walk and PyTorch's
+                      scaled_dot_product_attention over the same K/V
+                      gathered beforehand (a yardstick only), beside the
+                      bound: decode with bf16 and with int8 pools, and the
+                      64-row prefill chunk with its K/V out of L2 (calls
+                      rotate over four copies of the pools);
 5. ``serve``          THE SERVING PATH: a Llama-2-7B-width bf16 model with
                       random weights behind a PagedLlamaDecodeEngine and
                       a GenerationServer answers 12 requests; the kernel
-                      launch count is reset just before and read just
-                      after, and must equal layers x (decode steps +
-                      prefill chunks); then a 4-layer int8-KV engine
-                      answers 2 more requests through the kernel;
+                      launch counts are reset just before and read just
+                      after: launches and split-design launches must both
+                      equal layers x (decode steps + prefill chunks), the
+                      tensor-core launches layers x the chunks split_plan
+                      sends there (the kernels line reports these counts
+                      by path); the decode profile reports
+                      attention_ms_per_step; then a 4-layer int8-KV
+                      engine answers 2 more requests under the same
+                      gates;
 6. ``serve_parity``   an engine built with attention_impl="reference"
                       over the same weights runs one prompt beside a
                       kernel engine: logits compared, greedy agreement
@@ -159,7 +175,9 @@ Phases, each printing one JSON line with its seconds:
                       the kernel step's routing (the kernels alone).
 
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
-(K3, K1b and K2b at the Llama training geometry, K1a and K2a at
+(K3 on the split design at decode with bf16 and with int8 pools and at
+the prefill chunk, each with the first design's time, K1b and K2b at the
+Llama training geometry, K1a and K2a at
 ERNIE-MoE's, K5 in K1a/K2a at the BERT geometry, K4 at the packed
 geometry, K6 and K7 at the op bench's geometry, each flash and K6/K7 row
 naming the design it timed, its TMA launches and the first design's
@@ -324,6 +342,10 @@ def make_case(name, S, T, H, K, D, bs, MB, dtype, pos, quant=False,
         kp, vp = kq.view(NB, bs, K, D), vq.view(NB, bs, K, D)
         kw.update(k_scale=ks.view(NB, bs, K).contiguous(),
                   v_scale=vs.view(NB, bs, K).contiguous())
+        if poison:
+            # and so do the poisoned block's scales
+            kw["k_scale"][0] = float("nan")
+            kw["v_scale"][0] = float("inf")
     else:
         kp, vp = kp.to(dtype), vp.to(dtype)
     return {"name": name, "args": (q, kp, vp, tables, positions),
@@ -373,33 +395,73 @@ def parity_cases():
                   [200, 150, 47, 5], poison=True, n_tiles=13, seed=9),
         make_case("poisoned_f32", 2, 4, 8, 8, 64, 16, 16, f32,
                   [100, 60], poison=True, seed=10),
+        # a long GQA history in 16 spans, n_tiles cutting span 12
+        make_case("gqa_long_ntiles", 2, 1, 32, 8, 128, 16, 256, bf,
+                  [4095, 3000], n_tiles=200, seed=13),
+        make_case("int8_poisoned_ntiles", 4, 1, 32, 8, 128, 16, 32, bf,
+                  [200, 150, 47, 5], quant=True, poison=True, n_tiles=13,
+                  seed=14),
+        # GQA at R = 8 and head dim 64, MHA verify windows of 2 and 3
+        # rows (CUDA-core groups of 4 rows), 16-row int8 chunks at head
+        # dim 64 on 32-column blocks
+        make_case("gqa8_decode_d64", 4, 1, 32, 4, 64, 16, 32, bf,
+                  [500, 260, 16, 3], seed=15),
+        make_case("mha_verify_t3", 3, 3, 16, 16, 128, 16, 32, bf,
+                  [300, 100, 2], seed=17),
+        make_case("int8_mha_verify_t2_d64", 2, 2, 8, 8, 64, 16, 32, bf,
+                  [480, 33], quant=True, seed=18),
+        make_case("int8_d64_chunk", 2, 16, 8, 8, 64, 32, 16, bf,
+                  [400, 40], quant=True, seed=16),
     ]
 
 
 def phase_kernel_parity(result):
     import torch
     from paddle_tpu_torch.ops.kernels.paged_attention import (
-        paged_attention_kernel, paged_attention_reference)
+        _MMA_GROUP, _sms, paged_attention_kernel, paged_attention_reference,
+        paged_attention_split_reference, split_plan, takes_split)
+    pak = paged_attention_kernel
     rows = []
     worst = worst32 = 0.0
     for case in parity_cases():
-        got = paged_attention_kernel(*case["args"], **case["kw"])
+        q, kp, vp, tables, positions = case["args"]
+        split = takes_split(q, kp, tables)
+        S, T, H, D = q.shape
+        g, _, span, _ = split_plan(T, H // kp.shape[2], S, kp.shape[2], D,
+                                   kp.shape[1], tables.shape[1],
+                                   _sms(q.device))
+        want = (1, int(split), int(split and g == _MMA_GROUP))
+        before = (pak.launches, pak.split_launches, pak.mma_launches)
+        got = pak(*case["args"], **case["kw"])
         torch.cuda.synchronize()
+        counts = (pak.launches - before[0], pak.split_launches - before[1],
+                  pak.mma_launches - before[2])
+        if counts != want:
+            raise AssertionError(
+                f"{case['name']}: launches / split / tensor-core launches "
+                f"{counts}, expected {want}: takes_split names the "
+                f"{'split' if split else 'first'} design, split_plan "
+                f"{g}-row groups")
         g = got.float()
         ref = paged_attention_reference(*case["args"], **case["kw"])
         # the same walk over f32 copies of the same inputs (int8 codes
         # and their scales stay as they are: the walk dequantizes into
         # q's dtype, now f32)
-        q, kp, vp, tables, positions = case["args"]
         if kp.dtype != torch.int8:
             kp, vp = kp.float(), vp.float()
         ref32 = paged_attention_reference(q.float(), kp, vp, tables,
                                           positions, **case["kw"])
         out_dtype = case["geometry"]["dtype"]
         tol, rtol32 = case["tol"], OUT_RTOL[out_dtype]
+        refs = [("walk", ref.float(), tol, tol),
+                ("f32_walk", ref32, OUT_ATOL, rtol32)]
+        if split:
+            # ... and split into the kernel's spans, merged by its rule
+            refs.append(("f32_split", paged_attention_split_reference(
+                q.float(), kp, vp, tables, positions, span=span,
+                **case["kw"]), OUT_ATOL, rtol32))
         checks = {}
-        for key, r, atol, rtol in (("walk", ref.float(), tol, tol),
-                                   ("f32_walk", ref32, OUT_ATOL, rtol32)):
+        for key, r, atol, rtol in refs:
             fin = torch.isfinite(r)
             if not bool(torch.isfinite(g)[fin].all()):
                 raise AssertionError(f"{case['name']}: non-finite kernel "
@@ -409,19 +471,23 @@ def phase_kernel_parity(result):
             checks[key] = (float(err.max()), float(
                 (err / (atol + rtol * r[fin].abs())).max()))
         (mae, used), (mae32, used32) = checks["walk"], checks["f32_walk"]
+        used32 = max(used32, checks.get("f32_split", (0, 0))[1])
         rows.append({"case": case["name"], **case["geometry"],
+                     "design": "split" if split else "first",
                      "max_abs_err": mae, "tol": tol,
                      "tol_used": used, "max_abs_err_f32_walk": mae32,
                      "tol_f32_walk": {"atol": OUT_ATOL, "rtol": rtol32},
                      "tol_f32_walk_used": used32,
+                     "max_abs_err_f32_split": checks.get(
+                         "f32_split", (None,))[0],
                      "ok": used <= 1 and used32 <= 1})
         if not rows[-1]["ok"]:
             emit({"phase": "kernel_parity", "failed": rows[-1]})
             raise AssertionError(
                 f"{case['name']}: kernel disagrees with the walk "
                 f"(max abs err {mae}, tolerance {tol} abs/rel) or with "
-                f"the f32 walk (max abs err {mae32}, tolerance "
-                f"{OUT_ATOL} + {rtol32} rel)")
+                f"the f32 walk or its spans (max abs err {mae32}, "
+                f"tolerance {OUT_ATOL} + {rtol32} rel)")
         if case["name"] == "decode":
             result["max_abs_err"] = mae
         worst = max(worst, mae)
@@ -431,74 +497,166 @@ def phase_kernel_parity(result):
             "worst_tol_f32_walk_used": worst32}
 
 
-def decode_bytes_and_flops(case, n_tiles):
-    """What the decode call (T = 1) must move and do at these inputs:
-    the K/V of the columns the rows attend (slot s: columns 0..pos_s),
-    q, out, the table entries walked (slot s: min(n_tiles, the tiles
-    its columns span)), the positions and n_tiles; and 2 flops per MAC
-    of QK and PV over those columns."""
+def attention_bytes_and_flops(case, n_tiles):
+    """What a paged-attention call must move and do at these inputs:
+    each K/V column a slot needs read once (slot s: columns 0 .. its last
+    row's position, and none at or past n_tiles), with its int8 scales;
+    q and out; the table entries of those columns, the positions and
+    n_tiles; and 2 flops per MAC of QK and PV, summed over the rows (row
+    (s, t) attends columns 0 .. positions[s, t])."""
     import torch
     q, kp, _vp, _tables, positions = case["args"]
     S, T, H, D = q.shape
-    assert T == 1, "the count assumes one query row a slot"
     bs, K = kp.shape[1], kp.shape[2]
-    live_cols = sum(p + 1 for p in case["pos"])
+    cap = n_tiles * bs
+    pos = positions.cpu().tolist()
+    need = [min(max(row) + 1, cap) for row in pos]
+    live_cols = sum(need)
     kv = live_cols * K * D * 2 * kp.element_size()
     if kp.dtype == torch.int8:
         kv += live_cols * K * 2 * 4
-    walked = sum(min(n_tiles, p // bs + 1) for p in case["pos"])
+    walked = sum(-(-n // bs) for n in need)
     io = 2 * q.numel() * q.element_size() + walked * 4 \
         + positions.numel() * positions.element_size() + 4
-    flops = 4 * T * H * D * live_cols
+    flops = sum(4 * H * D * min(p + 1, cap) for row in pos for p in row)
     return kv + io, flops
 
 
-def phase_kernel_time(result):
+def k3_time_cases():
+    import torch
+    bf = torch.bfloat16
+    dec = decode_case()
+    dec8 = make_case("decode_int8", 8, 1, 32, 32, 128, 16, 128, bf,
+                     dec["pos"], quant=True)
+    # the serve run's longest prompt's last 64-row chunk
+    chunk = make_case("prefill_chunk", 1, 64, 32, 32, 128, 16, 128, bf,
+                      [999], seed=3)
+    return {"decode_bf16": (dec, 1), "decode_int8": (dec8, 1),
+            "prefill_chunk": (chunk, 4)}
+
+
+def k3_timing(case, copies):
+    """The split design (through the wrapper), the first design (its C
+    entry), the plain walk and SDPA over the same K/V gathered into dense
+    tensors beforehand (a yardstick only), device times. With copies > 1
+    the calls rotate over that many copies of the pools, so that each
+    finds its K/V out of L2, as a layer's chunk does in the serve run."""
     import torch
     import torch.nn.functional as F
-    from paddle_tpu_torch.ops.kernels.paged_attention import (
-        paged_attention_kernel, paged_attention_reference)
-    case = decode_case()
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
     q, kp, vp, tables, positions = case["args"]
     kw = dict(case["kw"])
-    n_tiles = max(case["pos"]) // kw["block_size"] + 1
-    kw["n_tiles"] = torch.tensor([n_tiles], dtype=torch.int32,
-                                 device=q.device)
-    kernel_ms = time_ms(
-        lambda: paged_attention_kernel(q, kp, vp, tables, positions, **kw))
-    plain_ms = time_ms(
-        lambda: paged_attention_reference(q, kp, vp, tables, positions,
-                                          **kw), samples=20, inner=1)
-    # yardstick: SDPA over the same K/V pre-gathered into dense
-    # per-slot tensors with the same mask (timed here only)
     S, T, H, D = q.shape
-    bs = kw["block_size"]
-    nt = max(case["pos"]) // bs + 1
-    L = nt * bs
-    phys = tables[:, :nt].clamp(min=0).long()
-    kd = kp[phys].reshape(S, L, H, D).transpose(1, 2).contiguous()
-    vd = vp[phys].reshape(S, L, H, D).transpose(1, 2).contiguous()
+    NB, bs, K, _ = kp.shape
+    MB = tables.shape[1]
+    n_tiles = max(case["pos"]) // bs + 1
+    kw["n_tiles"] = nt = torch.tensor([n_tiles], dtype=torch.int32,
+                                      device=q.device)
+    quant = "k_scale" in kw and kw["k_scale"] is not None
+    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(copies - 1)]
+    turn = [0]
+
+    def pool():
+        turn[0] = (turn[0] + 1) % copies
+        return pools[turn[0]]
+
+    def split():
+        k, v = pool()
+        pa.paged_attention_kernel(q, k, v, tables, positions, **kw)
+
+    out = torch.empty_like(q)
+    lib = pa._kernel_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def first():
+        k, v = pool()
+        rc = lib.paged_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kw["k_scale"].data_ptr() if quant else None,
+            kw["v_scale"].data_ptr() if quant else None, tables.data_ptr(),
+            positions.data_ptr(), nt.data_ptr(), out.data_ptr(), S, T, H, K,
+            D, bs, MB, NB, pa._DTYPE_CODES[q.dtype],
+            pa._DTYPE_CODES[k.dtype], stream)
+        if rc:
+            raise RuntimeError(f"first design's launch failed: {rc}")
+
+    pak = pa.paged_attention_kernel
+    mma = pa.split_plan(T, H // K, S, K, D, bs, MB,
+                        pa._sms(q.device))[0] == pa._MMA_GROUP
+    before = (pak.split_launches, pak.mma_launches)
+    got = pak(q, kp, vp, tables, positions, **kw)
+    torch.cuda.synchronize()
+    if (pak.split_launches - before[0],
+            pak.mma_launches - before[1]) != (1, int(mma)):
+        raise AssertionError(f"{case['name']}: not the split design's "
+                             f"{'tensor' if mma else 'CUDA'}-core path")
+    ref = pa.paged_attention_reference(q, kp, vp, tables, positions, **kw)
+    err = (got.float() - ref.float()).abs()
+    if bool((err > case["tol"] * (1 + ref.float().abs())).any()):
+        raise AssertionError(f"{case['name']}: the split design disagrees "
+                             f"with the walk (max abs err "
+                             f"{float(err.max())})")
+    kernel_ms = time_ms(split)
+    general_ms = time_ms(first)
+    plain_ms = time_ms(
+        lambda: pa.paged_attention_reference(q, kp, vp, tables, positions,
+                                             **kw), samples=5, inner=1)
+    # yardstick: SDPA over the same K/V (int8: dequantized to bf16)
+    # pre-gathered into dense per-slot tensors with the same mask
+    L = n_tiles * bs
+    phys = tables[:, :n_tiles].clamp(min=0).long()
+    dense = []
+    for k, v in pools:
+        if quant:
+            k = (k.float() * kw["k_scale"][..., None]).to(q.dtype)
+            v = (v.float() * kw["v_scale"][..., None]).to(q.dtype)
+        rep = H // K
+        dense.append(tuple(
+            x[phys].reshape(S, L, K, 1, D).expand(S, L, K, rep, D)
+            .reshape(S, L, H, D).transpose(1, 2).contiguous()
+            for x in (k, v)))
     qd = q.transpose(1, 2).contiguous()
     cols = torch.arange(L, device=q.device)
     mask = (cols[None, None, None, :]
             <= positions[:, None, :, None])   # [S, 1, T, L]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask))
-    nbytes, flops = decode_bytes_and_flops(case, n_tiles)
+
+    def library():
+        turn[0] = (turn[0] + 1) % copies
+        kd, vd = dense[turn[0]]
+        F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+
+    library_ms = time_ms(library)
+    nbytes, flops = attention_bytes_and_flops(case, n_tiles)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
-    out = {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes, "flops": flops,
-           "share_of_bound": bound_ms / kernel_ms,
-           "geometry": case["geometry"], "positions": case["pos"]}
-    result.update({k: out[k] for k in ("kernel_ms", "plain_ms",
-                                       "library_ms", "bound_ms",
-                                       "bound_by")})
-    result["ms"] = kernel_ms
-    return out
+    g, units, span, n_span = pa.split_plan(T, H // K, S, K, D, bs, MB,
+                                           pa._sms(q.device))
+    return {"max_abs_err": float(err.max()),
+            "kernel_ms": kernel_ms, "general_ms": general_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "share_of_bound": bound_ms / kernel_ms,
+            "general_share_of_bound": bound_ms / general_ms,
+            "pool_copies": copies,
+            "plan": {"group_rows": g, "ctas": units * n_span, "span": span},
+            "geometry": case["geometry"], "positions": case["pos"]}
+
+
+def phase_kernel_time(k3_rows):
+    rows = {}
+    for name, (case, copies) in k3_time_cases().items():
+        rows[name] = k3_timing(case, copies)
+        row = k3_rows[name]
+        row.update({k: rows[name][k] for k in (
+            "kernel_ms", "general_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")})
+        row["ms"] = rows[name]["kernel_ms"]
+        if name != "decode_bf16":       # kernel_parity sets the decode's
+            row["max_abs_err"] = rows[name]["max_abs_err"]
+    return {"card": nvidia_smi_line(), "rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -577,7 +735,7 @@ def profile_decode(eng, rng, vocab, ctx=1000, steps=10):
                                         for k, v in top]}
 
 
-def phase_serve(state, result):
+def phase_serve(state, k3):
     import numpy as np
     import torch
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -606,7 +764,7 @@ def phase_serve(state, result):
     budgets = [int(b) for b in rng.integers(32, 65, len(prompts))]
     hits0 = eng._kv.prefix_hits
     srv = GenerationServer(eng)
-    pak.launches = 0                       # the count starts here
+    pak.launches = pak.split_launches = pak.mma_launches = 0  # counts start
     t_start = time.monotonic()
     reqs = [srv.submit(prompts[0], budgets[0])]
     while "t_first" not in reqs[0] and not reqs[0]["done"].is_set():
@@ -615,19 +773,15 @@ def phase_serve(state, result):
     wait_all(reqs, timeout=600)
     torch.cuda.synchronize()
     t_end = time.monotonic()
-    launches = pak.launches                # ... and is read here
+    launches = pak.launches                # ... and are read here
+    split_launches, mma_launches = pak.split_launches, pak.mma_launches
     if not srv.shutdown(drain=True, timeout=60):
         raise RuntimeError("server did not drain")
     check_budget(reqs, V)
-    chunk = eng.prefill_chunk_len
-    chunks = sum(math.ceil((len(r["prompt"]) - r["prefix_hit_tokens"])
-                           / chunk) for r in reqs)
     steps = srv.steps_run
-    expected = eng.n_layers * (steps + chunks)
-    if launches != expected or launches == 0:
-        raise AssertionError(
-            f"kernel launches {launches} != layers x (decode steps + "
-            f"prefill chunks) = {eng.n_layers} x ({steps} + {chunks})")
+    chunks, mma_chunks = serve_chunks(eng, reqs)
+    check_serve_launches("the bf16 engine", eng.n_layers, steps, chunks,
+                         mma_chunks, launches, split_launches, mma_launches)
     if eng._kv.prefix_hits - hits0 < 1 \
             or reqs[5]["prefix_hit_tokens"] < 256:
         raise AssertionError("the shared prefix did not hit the radix "
@@ -637,7 +791,10 @@ def phase_serve(state, result):
     decode_tokens = sum(len(r["out"]) - 1 for r in reqs)
     ttft = [r["t_first"] - r["t0"] for r in reqs]
     state["launches"] = launches
-    result["launches"] = launches
+    # each row's count as the wrapper counted it, by path: the decode
+    # steps ran the CUDA-core kernel, the prefill chunks the tensor cores
+    k3["decode_bf16"]["launches"] = split_launches - mma_launches
+    k3["prefill_chunk"]["launches"] = mma_launches
     state["layers"] = eng.n_layers
     out = {"card": nvidia_smi_line(), "model": "llama2-7b-width",
            "layers": eng.n_layers,
@@ -652,6 +809,8 @@ def phase_serve(state, result):
            "decode_tokens_per_s": decode_tokens / wall,
            "steps": steps, "prefill_chunks": chunks,
            "kernel_launches": launches,
+           "split_launches": split_launches,
+           "mma_launches": mma_launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     out["decode_profile"] = profile_decode(eng, rng, V)
     del eng, srv
@@ -660,18 +819,58 @@ def phase_serve(state, result):
     eng8 = PagedLlamaDecodeEngine(model, max_slots=2, max_seq=1024,
                                   kv_quant="int8", num_layers=4)
     srv8 = GenerationServer(eng8)
-    before = pak.launches
+    pak.launches = pak.split_launches = pak.mma_launches = 0  # counts start
     reqs8 = [srv8.submit(rng.integers(0, V, n), 32) for n in (200, 90)]
     wait_all(reqs8, timeout=300)
     if not srv8.shutdown(drain=True, timeout=60):
         raise RuntimeError("int8 server did not drain")
+    n8, split8, mma8 = (pak.launches, pak.split_launches,  # ... are read
+                        pak.mma_launches)
     check_budget(reqs8, V)
-    if pak.launches - before <= 0:
-        raise AssertionError("the int8-KV engine did not launch the "
-                             "kernel")
-    out["int8_kv"] = {"layers": 4, "requests": 2,
-                      "kernel_launches": pak.launches - before}
+    steps8 = srv8.steps_run
+    chunks8, mma_chunks8 = serve_chunks(eng8, reqs8)
+    check_serve_launches("the int8-KV engine", eng8.n_layers, steps8,
+                         chunks8, mma_chunks8, n8, split8, mma8)
+    k3["decode_int8"]["launches"] = split8 - mma8
+    out["int8_kv"] = {"layers": 4, "requests": 2, "steps": steps8,
+                      "prefill_chunks": chunks8, "kernel_launches": n8,
+                      "split_launches": split8, "mma_launches": mma8}
     return out
+
+
+def serve_chunks(eng, reqs):
+    """The prefill chunks a serve run ran, and of those the ones whose
+    rows ``split_plan`` sends to the tensor cores."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    kvh, mb = eng.cfg.num_key_value_heads, eng._kv.block_tables.shape[1]
+    sms = pa._sms(torch.device("cuda", torch.cuda.current_device()))
+    chunks = mma = 0
+    for r in reqs:
+        left = len(r["prompt"]) - r["prefix_hit_tokens"]
+        while left > 0:
+            c = min(eng.prefill_chunk_len, left)
+            g = pa.split_plan(c, eng.n_rep, 1, kvh, eng.head_dim,
+                              eng.block_size, mb, sms)[0]
+            chunks, mma = chunks + 1, mma + int(g == pa._MMA_GROUP)
+            left -= c
+    return chunks, mma
+
+
+def check_serve_launches(what, layers, steps, chunks, mma_chunks,
+                         launches, split, mma):
+    """Every launch of a serve run took the split design, on the tensor
+    cores once a layer for each chunk split_plan sends there, on the
+    CUDA cores for the decode steps and the other chunks."""
+    want = (layers * (steps + chunks), layers * (steps + chunks),
+            layers * mma_chunks)
+    if (launches, split, mma) != want or launches == 0:
+        raise AssertionError(
+            f"{what}: launches / split / tensor-core launches "
+            f"{(launches, split, mma)}, expected {want} = layers x "
+            f"(decode steps + prefill chunks), layers x tensor-core "
+            f"chunks: {layers} x ({steps} + {chunks}), {layers} x "
+            f"{mma_chunks}")
 
 
 def phase_serve_parity(state):
@@ -2409,6 +2608,11 @@ def ptxas_instances(lines):
                 r"(?=(\d{1,3})((?:flash|gmm|paged)\w*?_kernel)I(\w*?)EEv)",
                 m.group(1)) if int(x.group(1)) == len(x.group(2))]
             args = re.findall(r"L[ib](\d+)E", k[0].group(3)) if k else []
+            if k and k[0].group(2).startswith("paged"):
+                # the split kernels' first template argument is the pool
+                # dtype: __nv_bfloat16 or int8_t (signed char, "a")
+                args.insert(0, "bf16" if k[0].group(3).startswith(
+                    "13__nv_bfloat16") else "int8")
             name = f"{k[0].group(2)}<{','.join(args)}>" if k else m.group(1)
             out[name] = [None, 0]
         elif name and "spill" in ln:
@@ -2434,6 +2638,23 @@ def flash_tma_occupancy():
             ctas = fn(which, d, 1, drop, ctypes.byref(smem))
             out[f"{kname}_d{d}{'_dropout' if drop else ''}"] = {
                 "ctas_per_sm": ctas, "smem_bytes": smem.value}
+    return out
+
+
+def paged_split_occupancy():
+    """Per split paged-attention instance: CTAs an SM and dynamic shared
+    memory (bytes)."""
+    import ctypes
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    fn = pa._kernel_lib_split().paged_attention_split_occupancy
+    out = {}
+    for kv, code in (("bf16", 1), ("int8", 2)):
+        for d in (64, 128):
+            for g in (1, 4, 64):
+                smem = ctypes.c_int(0)
+                ctas = fn(code, d, g, ctypes.byref(smem))
+                out[f"{kv}_d{d}_g{g}"] = {"ctas_per_sm": ctas,
+                                          "smem_bytes": smem.value}
     return out
 
 
@@ -2466,6 +2687,18 @@ def phase_build():
                              "instances")
     out["flash_attention_tma"]["registers_and_spills"] = tma
     out["flash_attention_tma"]["occupancy"] = flash_tma_occupancy()
+    # the split paged-attention kernels: 8 CUDA-core instances (bf16 /
+    # int8 pools, D 64 / 128, groups of 1 and 4 rows) and 4 tensor-core
+    # ones; none may spill
+    paged = ptxas_instances(out["paged_attention_split"]["ptxas"])
+    spills = {k: v for k, v in paged.items() if v[1] or v[0] is None}
+    if spills or len(paged) != 12:
+        emit({"phase": "build", "failed": {"paged_spills": spills,
+                                           "paged_instances": list(paged)}})
+        raise AssertionError("the split paged-attention kernels spill "
+                             "registers or lack instances")
+    out["paged_attention_split"]["registers_and_spills"] = paged
+    out["paged_attention_split"]["occupancy"] = paged_split_occupancy()
     return out
 
 
@@ -2487,15 +2720,25 @@ def main() -> int:
         False
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    result = {"name": "paged_attention", "route": "cuda",
+    # K3 on the split design at three geometries: decode (bf16 and int8
+    # pools) and the 64-row prefill chunk; general_ms times the first
+    # design (csrc/paged_attention.cu) on the same inputs
+    k3 = {
+        row: {"name": name, "route": "cuda",
               "source": "paddle_tpu_torch/ops/kernels/csrc/"
-                        "paged_attention.cu",
+                        "paged_attention_split.cu",
               "replaces": "paddle_tpu/ops/pallas/paged_attention.py:63",
               "tpu_kernel": "paddle_tpu/ops/pallas/paged_attention.py:"
                             "_kernel",
+              "design": "split", "geometry": row,
               "launches": None, "parity": None, "max_abs_err": None,
-              "ms": None, "kernel_ms": None, "plain_ms": None,
-              "bound_ms": None, "bound_by": None, "library_ms": None}
+              "ms": None, "kernel_ms": None, "general_ms": None,
+              "plain_ms": None, "bound_ms": None, "bound_by": None,
+              "library_ms": None}
+        for row, name in (("decode_bf16", "paged_attention"),
+                          ("decode_int8", "paged_attention_int8_decode"),
+                          ("prefill_chunk", "paged_attention_prefill_chunk"))}
+    result = k3["decode_bf16"]
     # K1b/K2b at the Llama training geometry and K1a/K2a at ERNIE-MoE's
     # (D 64, causal), both on the TMA / wgmma design (general_ms times the
     # first design alongside); K5 (dropout) in K1a/K2a at the BERT
@@ -2581,8 +2824,8 @@ def main() -> int:
                          "count": torch.cuda.device_count()}),
         ("build", phase_build),
         ("kernel_parity", lambda: phase_kernel_parity(result)),
-        ("kernel_time", lambda: phase_kernel_time(result)),
-        ("serve", lambda: phase_serve(state, result)),
+        ("kernel_time", lambda: phase_kernel_time(k3)),
+        ("serve", lambda: phase_serve(state, k3)),
         ("serve_parity", lambda: {**phase_serve_parity(state),
                                   **free_serving()}),
         ("flash_parity", lambda: phase_flash_parity(flash)),
@@ -2607,7 +2850,9 @@ def main() -> int:
         torch.cuda.synchronize()
         emit({"phase": name, "seconds": time.perf_counter() - t0, **info})
     print(smi, flush=True)
-    emit({"kernels": [result, *flash.values()],
+    for row in k3.values():
+        row["parity"] = result["parity"]
+    emit({"kernels": [*k3.values(), *flash.values()],
           "seconds": time.perf_counter() - t_all})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -19,9 +19,10 @@ Each variant is an edited copy of ``csrc/flash_attention_tma.cu``:
                   64 x 64 tiles take more than 128 registers) in place of
                   32-query ones (two CTAs an SM).
 
-Each is built with the port's nvcc flags in ``csrc/`` (so that its
-includes resolve; the copy is deleted after the build) into
-``_scratch/variants/``, its ptxas report read (registers and spills per
+Each copy is written under ``_scratch/variants/`` and built there with
+the port's nvcc flags (``-I`` to the package's sources, so that its
+includes resolve; the package's source directory is never written to),
+its ptxas report read (registers and spills per
 D-64 instance), checked against the plain versions at the BERT geometry
 with and without dropout (the largest error of out, dq, dk, dv as a
 share of chip_smoke.py's bf16 limit), then its C entries timed
@@ -131,16 +132,17 @@ def main() -> int:
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, subs in VARIANTS.items():
-        cu = build.CSRC / f"_variant_{name}.cu"
+        # the copy lives under _scratch; -I resolves its includes
+        cu = out / f"variant_{name}.cu"
         cu.write_text(variant_source(src, subs))
-        procs[name] = (cu, subprocess.Popen(
-            build.nvcc_command(cu, out / f"libflash_{name}.so",
-                               verbose=True),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        cmd = build.nvcc_command(cu, out / f"libflash_{name}.so",
+                                 verbose=True)
+        cmd[cmd.index("-o"):cmd.index("-o")] = ["-I", str(build.CSRC)]
+        procs[name] = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, res = {}, {}
-    for name, (cu, proc) in procs.items():
+    for name, proc in procs.items():
         log, _ = proc.communicate()
-        cu.unlink()
         print(name, "nvcc", proc.returncode, flush=True)
         if proc.returncode:
             print(log[-3000:])

@@ -1,5 +1,7 @@
 """Tests of the port that need the card: the Hopper paged-attention
-kernel against its plain walk, a tiny engine through the kernel against
+kernels against their plain walks (the split design for bf16 calls, by
+its counts; its entry's refusals, its tickets), a tiny engine through
+the kernel against
 the same engine through the walk, the three flash-attention kernels
 against their plain versions (plain, with dropout and with segments;
 bf16 at head dim 64 or 128 without segments on the TMA / wgmma kernels,
@@ -98,6 +100,101 @@ def test_kernel_raises_instead_of_falling_back(cuda):
                                    args[3].t().contiguous().t(), args[4],
                                    **kw)
     assert tpk.paged_attention_kernel.launches == before
+
+
+@pytest.mark.parametrize("geo,quant", [
+    ((3, 1, 8, 8, 128, 16, 40), False),
+    ((3, 2, 8, 8, 64, 16, 40), True),
+    ((2, 1, 32, 8, 128, 16, 64), False),
+    ((1, 64, 8, 8, 128, 16, 80), True),
+    ((1, 40, 4, 1, 64, 32, 20), False),
+    ((1, 96, 4, 4, 128, 128, 8), False)],
+    ids=["mha-decode", "int8-verify-t2-d64", "gqa4-decode",
+         "int8-prefill-chunk", "mqa-chunk-d64-bs32", "dense-bs128-t96"])
+def test_split_design_takes_bf16_calls_and_matches_its_plain_versions(
+        cuda, geo, quant):
+    """bf16 calls take the split design (CUDA-core groups of 1 and 4 rows,
+    tensor-core groups of 64, as split_plan names them), as the counts
+    show, and agree with the
+    walk in bf16 (2e-2 abs + rel) and, within one bf16 rounding of the
+    output (1e-5 + 2^-8 rel), with the split walk on f32 copies of the
+    same inputs, spanned as the kernel spans them."""
+    args, kw = _inputs(cuda, *geo, dtype=torch.bfloat16, quant=quant, seed=3)
+    q, kp, vp, tables, pos = args
+    assert tpk.takes_split(q, kp, tables)
+    S, T, H, D = q.shape
+    g, _, span, _ = tpk.split_plan(T, kw["n_rep"], S, kp.shape[2], D,
+                                   kp.shape[1], tables.shape[1],
+                                   tpk._sms(q.device))
+    w = tpk.paged_attention_kernel
+    before = (w.launches, w.split_launches, w.mma_launches)
+    got = w(*args, **kw).float()
+    torch.cuda.synchronize()
+    assert (w.launches, w.split_launches, w.mma_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int(g == 64))
+    want = tpk.paged_attention_reference(*args, **kw).float()
+    assert bool(((got - want).abs() <= 2e-2 * (1 + want.abs())).all())
+    if kp.dtype != torch.int8:
+        kp, vp = kp.float(), vp.float()
+    ref32 = tpk.paged_attention_split_reference(q.float(), kp, vp, tables,
+                                                pos, span=span, **kw)
+    err = (got - ref32).abs()
+    assert bool((err <= 1e-5 + 2.0 ** -8 * ref32.abs()).all()), \
+        float(err.max())
+
+
+def test_split_design_leaves_its_tickets_at_zero_and_repeats_itself(cuda):
+    """A long history over many spans: the last CTA of each unit resets
+    its ticket (the buffer is all zeros after the launch), and the merge
+    adds the spans in a fixed order, so a second launch gives the same
+    bits."""
+    args, kw = _inputs(cuda, 2, 1, 16, 4, 128, 16, 256, torch.bfloat16,
+                       False, seed=6)
+    first = tpk.paged_attention_kernel(*args, **kw)
+    second = tpk.paged_attention_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    tickets = tpk._ticket_bufs[(first.device.index, stream)]
+    assert int(tickets.abs().sum()) == 0
+
+
+def test_split_entry_refuses_and_the_wrapper_raises(cuda, monkeypatch):
+    """The split entry re-checks what takes_split and split_plan decided
+    and returns an error for what its kernels do not take; a wrapper
+    whose split launch is refused raises, counts nothing and does not
+    fall back to the first design."""
+    args, kw = _inputs(cuda, 2, 1, 4, 4, 128, 16, 8, torch.bfloat16, False,
+                       seed=4)
+    q, kp, vp, tables, pos = args
+    out = torch.empty_like(q)
+    nt = torch.tensor([8], dtype=torch.int32, device=cuda)
+    lib = tpk._kernel_lib_split()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(group_rows=1, span=256, D=128, kv=1, q_ptr=None):
+        # 128 columns in one span: no scratch is needed
+        return lib.paged_attention_split_forward(
+            q_ptr or q.data_ptr(), kp.data_ptr(), vp.data_ptr(), None, None,
+            tables.data_ptr(), pos.data_ptr(), nt.data_ptr(), out.data_ptr(),
+            None, None, None, 2, 1, 4, 4, D, 16, 8, kp.shape[0], kv,
+            group_rows, span, stream)
+
+    assert call() == 0
+    for bad in (dict(group_rows=8), dict(span=48), dict(span=4096),
+                dict(D=96), dict(kv=0), dict(q_ptr=q.data_ptr() + 2)):
+        assert call(**bad) != 0, bad
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *a: 1          # cudaErrorInvalidValue
+
+    monkeypatch.setattr(tpk, "_kernel_lib_split", lambda: Refusing())
+    w = tpk.paged_attention_kernel
+    before = (w.launches, w.split_launches, w.mma_launches)
+    with pytest.raises(RuntimeError, match="split"):
+        w(*args, **kw)
+    assert (w.launches, w.split_launches, w.mma_launches) == before
 
 
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
