@@ -11,10 +11,10 @@ Phases, each printing one JSON line with its seconds:
 2. ``build``          compiles every kernel from ``paddle_tpu_torch``'s
                       sources with nvcc (sm_90a), one process per source,
                       printing ptxas' report (registers and spills per
-                      TMA flash kernel instance and per split
-                      paged-attention instance, and each one's CTAs an SM
-                      and shared memory); fails if one of those spills or
-                      an instance is missing;
+                      TMA flash kernel instance, the segment instances
+                      among them, and per split paged-attention instance,
+                      and each one's CTAs an SM and shared memory); fails
+                      if one of those spills or an instance is missing;
 3. ``kernel_parity``  the paged-attention kernels against their plain
                       walk on the card, over the serving geometries
                       (decode, GQA, verify windows, prefill chunk, dense
@@ -102,19 +102,33 @@ Phases, each printing one JSON line with its seconds:
                       autograd through the plain sdpa with the same mask;
 12. ``flash_varlen_parity``  the segment-masked kernels (K4) on 12,288
                       packed tokens (sequences of 32-512 from a numpy
-                      seed, H 12, D 64), bf16 and f32, causal and full:
-                      against their plain versions and against the plain
-                      sdpa with the block-diagonal mask; then the packed
-                      entry flash_attn_varlen_qkvpacked, forward and
-                      backward, with the segmented launch counts reset
-                      just before and read just after;
+                      seed, H 12, D 64), bf16 and f32, causal and full,
+                      and bf16 on the same ids shuffled, and at the JAX
+                      package's segmented op bench (B 2, L 2048, H 8,
+                      D 128, 4 segments a row), bf16 and f32, causal and
+                      full: against their plain versions, each call's
+                      design gated by its counts (the TMA kernels with
+                      their windows for bf16, the first design for f32),
+                      the first design forced on every bf16 case and held
+                      against the same plain versions, and the autograd
+                      function against the plain sdpa with the
+                      block-diagonal mask; then the packed entry
+                      flash_attn_varlen_qkvpacked, forward and backward,
+                      on the packed batch (full) and on the op bench's
+                      rows packed (causal), each with the segmented and
+                      TMA launch counts reset just before and read just
+                      after (1 each), its output and gradient held
+                      against the plain versions on the same views;
 13. ``flash_time_bert``  the kernels with and without dropout at the BERT
                       geometry (the TMA design, the first design beside
                       it with the same dropout: general_ms; what dropout
                       adds to each) and the segmented kernels at the
-                      packed geometry, beside their plain versions, their
-                      bounds (the pairs the function needs) and
-                      PyTorch's SDPA (a yardstick);
+                      packed geometry and at the JAX package's segmented
+                      op bench (B 2, L 2048, H 8, D 128, causal, 4
+                      segments), the first design with the same segments
+                      beside them, their plain versions, their bounds
+                      (the pairs the function needs) and PyTorch's SDPA
+                      (a yardstick);
 14. ``bert_train``    THE BERT PATH: BERT-base MLM (12 layers, hidden 768,
                       vocab 30522, bf16, dropout 0.1) trains with AdamW
                       through TrainStep on 24 x 512 tokens: 2 warm-up and
@@ -178,10 +192,10 @@ Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
 (K3 on the split design at decode with bf16 and with int8 pools and at
 the prefill chunk, each with the first design's time, K1b and K2b at the
 Llama training geometry, K1a and K2a at
-ERNIE-MoE's, K5 in K1a/K2a at the BERT geometry, K4 at the packed
-geometry, K6 and K7 at the op bench's geometry, each flash and K6/K7 row
-naming the design it timed, its TMA launches and the first design's
-time where the TMA design took it)
+ERNIE-MoE's, K5 in K1a/K2a at the BERT geometry, K4 in them at the
+packed geometry, K6 and K7 at the op bench's geometry, each flash and
+K6/K7 row naming the design it timed, its TMA launches and the first
+design's time where the TMA design took it)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Without CUDA, or when run outside a checkout, it
@@ -246,6 +260,9 @@ BERT = dict(batch=24, seq=512, layers=12, warmup=2, steps=5, lr=1e-4,
             dropout=0.1)
 BERT_SHAPE = (24, 512, 12, 64)       # [B, L, H, D] of its attention
 VARLEN = dict(total=12288, heads=12, head_dim=64, min_len=32, max_len=512)
+# the JAX package's segmented op bench (bench_ops.py:161-174): B 2, L 2048,
+# H 8, D 128, causal, 4 equal segments a row
+SEG_D128 = dict(shape=(2, 2048, 8, 128), segments=4)
 # bert_train_parity, bf16 at 2 layers with dropout 0.1: the kernels vs
 # the plain sdpa with the same keep masks; besides train_parity's
 # roundings, the plain sdpa divides the bf16 probabilities by bf16(0.9)
@@ -967,13 +984,13 @@ def flash_case_inputs(case, shape, dtype, seed):
     return [*qkv, do]
 
 
-def flash_tma_expected(dtype, shape, dropout=False):
-    """Whether the TMA / wgmma design should take a call without
-    segments: bf16 at head dim 64 or 128, with dropout at 64 only (the
-    inputs are fresh tensors or views with 16-byte rows)."""
+def flash_tma_expected(dtype, shape, dropout=False, seg=False):
+    """Whether the TMA / wgmma design should take a call: bf16 at head
+    dim 64 or 128, with dropout at 64 only, with segments without dropout
+    (the inputs are fresh tensors or views with 16-byte rows)."""
     import torch
     return dtype == torch.bfloat16 and shape[-1] in (64, 128) and \
-        (not dropout or shape[-1] == 64)
+        (not dropout or shape[-1] == 64) and not (dropout and seg)
 
 
 def flash_wrappers():
@@ -1018,16 +1035,15 @@ def kernels_all(q, k, v, do, causal, lse, delta, **kw):
                                         None, **kw))
 
 
-def parity_row(row, got, ref, ref32, dname):
-    """Each of out, lse, dq, dk, dv: elementwise against the plain
-    version in the working dtype, RMS against the plain version on f32
-    copies (FLASH_TOL, FLASH_RMS). Fills ``row``; returns whether all
-    passed."""
+def parity_row(row, got, ref, ref32, dname,
+               names=("out", "lse", "dq", "dk", "dv")):
+    """Each output (``names``): elementwise against the plain version in
+    the working dtype, RMS against the plain version on f32 copies
+    (FLASH_TOL, FLASH_RMS). Fills ``row``; returns whether all passed."""
     tol, rms_r = FLASH_TOL[dname], FLASH_RMS[dname]
     row.update(tol=tol, rms_tol=rms_r)
     ok = True
-    for n, g_, r, r32 in zip(("out", "lse", "dq", "dk", "dv"), got, ref,
-                             ref32):
+    for n, g_, r, r32 in zip(names, got, ref, ref32, strict=True):
         g_, r, r32 = g_.float(), r.float(), r32.float()
         err = (g_ - r).abs()
         used = float((err / (tol * (1 + r.abs()))).max())
@@ -1158,22 +1174,25 @@ def bound(flops, nbytes):
 
 
 def flash_general(q, k, v, do, lse, delta, causal, dropout_p=0.0,
-                  seed=None):
+                  seed=None, seg=None):
     """The first design's kernels (mma.sync, flash_attention.cuh) on bf16
     inputs that the wrappers send to the TMA design: called through the
-    first design's C entries (with the same dropout), so one run times
-    both designs on one card."""
+    first design's C entries (with the same dropout or segments), so one
+    run times both designs on one card. Each call returns its outputs:
+    (out, lse), dq, (dk, dv)."""
     import torch
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     B, L, H, D = fa._as4(q).shape
     lib = fa._kernel_lib(q.dtype, D)
     thresh, inv = fa._dropout_args(dropout_p, seed)
     lo, hi = fa._seed_words(seed) if thresh else (0, 0)
+    rng = fa._seg_ranges(seg) if seg is not None else None
+    segs = (seg.data_ptr(), seg.stride(0), rng.data_ptr()) \
+        if seg is not None else (None, 0, None)
 
-    def tail():  # sizes, causal, scale, bf16, no segments, the dropout
-        return (B, L, H, D, int(causal), 1.0 / math.sqrt(D), 1, None, 0,
-                None, lo, hi, thresh, inv,
-                torch.cuda.current_stream().cuda_stream)
+    def tail():  # sizes, causal, scale, bf16, the segments, the dropout
+        return (B, L, H, D, int(causal), 1.0 / math.sqrt(D), 1, *segs,
+                lo, hi, thresh, inv, torch.cuda.current_stream().cuda_stream)
 
     def check(rc, what):
         if rc:
@@ -1186,6 +1205,7 @@ def flash_general(q, k, v, do, lse, delta, causal, dropout_p=0.0,
         check(lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ls.data_ptr(), fa._strides(q, k, v, out), *tail()), "forward")
+        return out, fa._lse_shape(q, ls)
 
     def dq():
         g = torch.empty_like(q)
@@ -1193,6 +1213,7 @@ def flash_general(q, k, v, do, lse, delta, causal, dropout_p=0.0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), g.data_ptr(),
             fa._strides(q, k, v, do, g), *tail()), "dQ")
+        return g
 
     def dkv():
         gk, gv = torch.empty_like(k), torch.empty_like(v)
@@ -1200,6 +1221,7 @@ def flash_general(q, k, v, do, lse, delta, causal, dropout_p=0.0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), gk.data_ptr(), gv.data_ptr(),
             fa._strides(q, k, v, do, gk, gv), *tail()), "dK/dV")
+        return gk, gv
 
     return {"flash_attention_fwd": fwd, "flash_attention_bwd_dq": dq,
             "flash_attention_bwd_dkv": dkv}
@@ -1215,12 +1237,17 @@ def flash_timings(shape, causal, kw=None, pairs=None, lib_kw=None,
     seg); ``pairs`` is the pairs a head needs, ``extra_bytes`` what the
     call reads besides (the segment ids). Where the wrappers take the TMA
     design (checked by their counts), general_ms times the first design
-    on the same inputs."""
+    on the same inputs. Segmented rows also give wrapper_host_us_ids, the
+    host cost of the same launch given the ids instead of their plan."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     kw, lib_kw = kw or {}, lib_kw or {"is_causal": causal}
     q, k, v, do = flash_inputs(shape, torch.bfloat16, seed=1)
+    plain_kw, seg = kw, kw.get("seg")
+    if seg is not None:
+        # the kernels reuse one plan (chunk ranges, windows), as a step does
+        kw = dict(kw, seg=fa.SegmentPlan(seg))
     B, L, H, D = (shape[0], shape[1], 1, shape[2]) if len(shape) == 3 \
         else shape
     out, lse = fa.flash_attention_fwd(q, k, v, causal, None, **kw)
@@ -1234,8 +1261,8 @@ def flash_timings(shape, causal, kw=None, pairs=None, lib_kw=None,
         raise AssertionError(f"flash_time: the wrappers took another design "
                              f"than takes_tma ({tma}) at {list(shape)}")
     first = flash_general(q, k, v, do, lse, delta, causal,
-                          kw.get("dropout_p", 0.0), kw.get("seed")) \
-        if tma else {}
+                          kw.get("dropout_p", 0.0), kw.get("seed"),
+                          seg) if tma else {}
     lib_in = [(x[:, :, None] if x.dim() == 3 else x).transpose(1, 2)
               .contiguous() for x in (q, k, v, do)]
     qt, kt, vt, dot = lib_in
@@ -1249,32 +1276,42 @@ def flash_timings(shape, causal, kw=None, pairs=None, lib_kw=None,
         o, ls = fa.flash_attention_fwd(q, k, v, causal, None, **kw)
         fa.flash_attention_bwd(q, k, v, o, ls, do, causal, None, **kw)
 
+    # the segmented launches given the ids alone, so that each builds its
+    # chunk ranges and window anew: what the plan saves the host a call
+    ids_calls = {} if seg is None else {
+        "flash_attention_fwd": lambda: fa.flash_attention_fwd(
+            q, k, v, causal, None, **plain_kw),
+        "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, causal, None, **plain_kw),
+        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, causal, None, **plain_kw)}
     rows = {
         # name: (kernel, plain, library, products, [B, L, H, D] tensors
         # read or written, f32 [B, H, L] arrays read or written)
         "flash_attention_fwd": (
             lambda: fa.flash_attention_fwd(q, k, v, causal, None, **kw),
             lambda: fa.flash_attention_fwd_reference(q, k, v, causal, None,
-                                                     **kw),
+                                                     **plain_kw),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw),
             2, 4, 1),
         "flash_attention_bwd_dq": (
             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
                                               causal, None, **kw),
             lambda: fa.flash_attention_bwd_dq_reference(
-                q, k, v, do, lse, delta, causal, None, **kw),
+                q, k, v, do, lse, delta, causal, None, **plain_kw),
             None, 3, 5, 2),
         "flash_attention_bwd_dkv": (
             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                causal, None, **kw),
             lambda: fa.flash_attention_bwd_dkv_reference(
-                q, k, v, do, lse, delta, causal, None, **kw),
+                q, k, v, do, lse, delta, causal, None, **plain_kw),
             None, 4, 6, 2),
         "backward_with_delta": (
             lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal,
                                            None, **kw),
             lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
-                                                     causal, None, **kw),
+                                                     causal, None,
+                                                     **plain_kw),
             None, 5, 8, 1),
         "forward_backward": (fwd_bwd, None, lib_fwd_bwd, 7, 8, 0),
     }
@@ -1287,6 +1324,8 @@ def flash_timings(shape, causal, kw=None, pairs=None, lib_kw=None,
         r = {"design": "tma_wgmma" if tma else "general_mma_sync",
              "kernel_ms": time_ms(kern, samples=10, inner=5),
              "wrapper_host_us": host_us(kern),
+             "wrapper_host_us_ids": host_us(ids_calls[name])
+             if name in ids_calls else None,
              "general_ms": time_ms(first[name], samples=10, inner=5)
              if name in first else None,
              "plain_ms": time_ms(plain, samples=5, inner=1)
@@ -1666,93 +1705,194 @@ def varlen_seg(lens):
         torch.tensor(lens))[None].to("cuda")
 
 
-def phase_flash_varlen_parity(results):
+def seg_d128_ids():
+    """SEG_D128's ids: each row's segments of equal length, in order."""
     import torch
-    from paddle_tpu_torch.nn.functional import (flash_attn_varlen_qkvpacked,
-                                                sdpa_reference)
+    B, L = SEG_D128["shape"][:2]
+    n = L // SEG_D128["segments"]
+    return torch.arange(SEG_D128["segments"], dtype=torch.int32,
+                        device="cuda").repeat_interleave(n)[None] \
+        .repeat(B, 1).contiguous()
+
+
+def block_diagonal_mask(ids):
+    """The additive mask [B, 1, L, L] of the pairs ``ids`` [B, L] allow."""
+    import torch
+    return torch.where(ids[:, :, None] == ids[:, None, :], 0.0,
+                       -1e30)[:, None]
+
+
+def segmented_parity(shape, ids, causal, dtype, seed, info):
+    """One segmented case: the kernels (one launch each, on the design
+    flash_tma_expected names) and, where that is the TMA design, the
+    first design forced on the same inputs, each held against the plain
+    versions in the working dtype and on f32 copies. -> (rows, inputs)."""
+    import torch
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    lens = varlen_lengths()
-    seg = varlen_seg(lens)
-    T, H, D = VARLEN["total"], VARLEN["heads"], VARLEN["head_dim"]
-    shape = (1, T, H, D)
-    rows, auto, failed = [], [], []
-    same = seg[0][:, None] == seg[0][None, :]
-    block_mask = torch.where(same, 0.0, -1e30)[None, None]  # [1,1,T,T]
-    del same
-    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
-        dname = str(dtype).replace("torch.", "")
-        for causal in (False, True):
-            q, k, v, do = flash_inputs(shape, dtype, seed=300 + 2 * i +
-                                       causal)
-            ref = plain_all(q, k, v, do, causal, seg=seg)
-            delta = fa.attention_delta(ref[0], do)
-            before = flash_counts()
-            got = kernels_all(q, k, v, do, causal, ref[1], delta, seg=seg)
-            torch.cuda.synchronize()
-            paths = flash_paths(before)
-            ref32 = plain_all(*(x.float() for x in (q, k, v, do)), causal,
-                              seg=seg)
-            row = {"shape": list(shape), "sequences": len(lens),
-                   "causal": causal, "dtype": dname,
-                   "design": "general_mma_sync",
-                   "launches_and_tma_launches": paths}
-            rows.append(row)
-            # segments take the first design, one launch each
-            ok = parity_row(row, got, ref, ref32, dname)
-            row["ok"] = ok = ok and paths == [(1, 0)] * 3
-            if not ok:
-                failed.append(row)
-            if dtype == torch.bfloat16 and not causal:
-                record_errors(results, "_segmented", row)
-            del ref, ref32, got
-            torch.cuda.empty_cache()
-            auto.append(autograd_row(
-                q, k, v, do,
-                lambda a, b, c: fa.flash_attention_segmented(a, b, c, seg,
-                                                             causal),
-                lambda a, b, c: sdpa_reference(a, b, c, causal=causal,
-                                               mask=block_mask), dname))
-            auto[-1]["causal"] = causal
-            if not auto[-1]["ok"]:
-                failed.append({"autograd": auto[-1]})
-            del q, k, v, do
-            torch.cuda.empty_cache()
-    del block_mask
-    finish_parity("flash_varlen_parity", results, ("_segmented",), failed)
-    # the packed entry as a user calls it: forward and backward of one
-    # [total, 3, H, D] batch; the counts start here ...
+    dname = str(dtype).replace("torch.", "")
+    q, k, v, do = flash_inputs(shape, dtype, seed=seed)
+    ref = plain_all(q, k, v, do, causal, seg=ids)
+    delta = fa.attention_delta(ref[0], do)
+    before = flash_counts()
+    got = kernels_all(q, k, v, do, causal, ref[1], delta, seg=ids)
+    torch.cuda.synchronize()
+    paths = flash_paths(before)
+    ref32 = plain_all(*(x.float() for x in (q, k, v, do)), causal, seg=ids)
+    tma = flash_tma_expected(dtype, shape, seg=True)
+    row = {"shape": list(shape), **info, "causal": causal, "dtype": dname,
+           "design": "tma_wgmma" if tma else "general_mma_sync",
+           "launches_and_tma_launches": paths}
+    # bf16 takes the TMA design, f32 the first, one launch each
+    row["ok"] = parity_row(row, got, ref, ref32, dname) and \
+        paths == [(1, int(tma))] * 3
+    rows = [row]
+    if tma:
+        # the first design forced on the same inputs, held against the
+        # same plain versions
+        first = flash_general(q, k, v, do, ref[1], delta, causal, seg=ids)
+        got1 = (*first["flash_attention_fwd"](),
+                first["flash_attention_bwd_dq"](),
+                *first["flash_attention_bwd_dkv"]())
+        torch.cuda.synchronize()
+        row1 = {"shape": list(shape), **info, "causal": causal,
+                "dtype": dname, "design": "general_mma_sync", "forced": True}
+        parity_row(row1, got1, ref, ref32, dname)
+        rows.append(row1)
+        del got1
+    del ref, ref32, got
+    torch.cuda.empty_cache()
+    return rows, (q, k, v, do)
+
+
+def varlen_entry(results, suffix, lens, H, D, causal):
+    """The packed entry as a user calls it: forward and backward of one
+    [total, 3, H, D] batch of sequences of ``lens``, its counts set to 0
+    just before and read just after; its output and gradient held against
+    the plain versions on the same views and ids, in bf16 and on f32
+    copies (FLASH_TOL, FLASH_RMS)."""
+    import torch
+    from paddle_tpu_torch.nn.functional import flash_attn_varlen_qkvpacked
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    T = sum(lens)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     qkv = torch.randn((T, 3, H, D), generator=g, device="cuda").to(
         torch.bfloat16).requires_grad_()
     dout = torch.randn((T, H, D), generator=g, device="cuda").to(
         torch.bfloat16)
     cu = torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
-    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-                fa.flash_attention_bwd_dkv)
-    for w in wrappers:
+    wrappers = flash_wrappers()
+    for w in wrappers:                        # the counts start here ...
         w.launches = w.dropout_launches = w.segmented_launches = 0
         w.tma_launches = 0
     out, _ = flash_attn_varlen_qkvpacked(qkv, cu, cu, max(lens), max(lens),
-                                         None, causal=False)
+                                         None, causal=causal)
     out.backward(dout)
     torch.cuda.synchronize()
     launches = [w.segmented_launches for w in wrappers]   # ... read here
     tma = [w.tma_launches for w in wrappers]
-    finite = bool(torch.isfinite(out).all() and
-                  torch.isfinite(qkv.grad).all())
-    if launches != [1, 1, 1] or tma != [0, 0, 0] or not finite:
-        raise AssertionError(f"varlen entry: segmented launches {launches} "
-                             f"(want 1 each), TMA launches {tma} (want "
-                             f"none: segments take the first design), "
-                             f"finite {finite}")
-    for name, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
-                        "flash_attention_bwd_dkv"), launches):
-        results[name + "_segmented"]["launches"] = n
-        results[name + "_segmented"]["tma_launches"] = 0
+    seg = varlen_seg(lens)
+    views = [x.detach()[None] for x in qkv.unbind(1)]     # [1, T, H, D]
+
+    def plain(q, k, v, do):
+        o, lse = fa.flash_attention_fwd_reference(q, k, v, causal, None,
+                                                  seg=seg)
+        return (o, *fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                     causal, None, seg=seg))
+
+    ref = plain(*views, dout[None])
+    ref32 = plain(*(x.float() for x in (*views, dout[None])))
+    got = (out.detach()[None], *(x[None] for x in qkv.grad.unbind(1)))
+    row = {"qkv": [T, 3, H, D], "sequences": len(lens), "causal": causal,
+           "segmented_launches": launches, "tma_launches": tma}
+    ok = parity_row(row, got, ref, ref32, "bfloat16",
+                    names=("out", "dq", "dk", "dv"))
+    del ref, ref32, got, views, qkv, out
+    torch.cuda.empty_cache()
+    if launches != [1, 1, 1] or tma != [1, 1, 1] or not ok:
+        raise AssertionError(f"varlen entry {row}: want one segmented TMA "
+                             f"launch a wrapper (bf16 segments take the TMA "
+                             f"design) and outputs within the limits")
+    for name, n, m in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"), launches, tma):
+        results[name + suffix]["launches"] = n
+        results[name + suffix]["tma_launches"] = m
+    return row
+
+
+def phase_flash_varlen_parity(results):
+    import torch
+    from paddle_tpu_torch.nn.functional import sdpa_reference
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    lens = varlen_lengths()
+    seg = varlen_seg(lens)
+    T, H, D = VARLEN["total"], VARLEN["heads"], VARLEN["head_dim"]
+    # the same ids shuffled: the TMA kernels' windows are then supersets
+    # and every tile in them is masked element by element
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    shuffled = seg[:, torch.randperm(seg.shape[1], generator=g,
+                                     device="cuda")].contiguous()
+    seg2 = seg_d128_ids()
+    d64 = {"sequences": len(lens)}
+    d128 = {"segments": SEG_D128["segments"]}
+    # (suffix, shape, ids, row info, causal, seed): D 64 at the packed
+    # geometry, sorted causal and full and shuffled; D 128 at the op
+    # bench's geometry, causal and full
+    cases = [("_segmented", (1, T, H, D), seg, {**d64, "ids": "sorted"},
+              False, 300),
+             ("_segmented", (1, T, H, D), seg, {**d64, "ids": "sorted"},
+              True, 301),
+             ("_segmented", (1, T, H, D), shuffled,
+              {**d64, "ids": "shuffled"}, False, 304),
+             ("_segmented_d128", SEG_D128["shape"], seg2,
+              {**d128, "ids": "sorted"}, True, 311),
+             ("_segmented_d128", SEG_D128["shape"], seg2,
+              {**d128, "ids": "sorted"}, False, 310)]
+    rows, auto, failed = [], [], []
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        dname = str(dtype).replace("torch.", "")
+        for suffix, shape, ids, info, causal, seed in cases:
+            sorted_ids = info["ids"] == "sorted"
+            if dtype == torch.float32 and not sorted_ids:
+                continue
+            case_rows, (q, k, v, do) = segmented_parity(
+                shape, ids, causal, dtype, seed + 2 * i, info)
+            rows += case_rows
+            failed += [r for r in case_rows if not r["ok"]]
+            # the kernels line's errors: D 64 from the full case, D 128
+            # from the op bench's causal one
+            if dtype == torch.bfloat16 and sorted_ids and \
+                    causal == (suffix == "_segmented_d128"):
+                record_errors(results, suffix, case_rows[0])
+            if sorted_ids:
+                tma = flash_tma_expected(dtype, shape, seg=True)
+                mask = block_diagonal_mask(ids)
+                before = flash_counts()
+                auto.append(autograd_row(
+                    q, k, v, do,
+                    lambda a, b, c: fa.flash_attention_segmented(
+                        a, b, c, ids, causal),
+                    lambda a, b, c: sdpa_reference(a, b, c, causal=causal,
+                                                   mask=mask), dname))
+                paths = flash_paths(before)
+                auto[-1].update(causal=causal,
+                                launches_and_tma_launches=paths)
+                auto[-1]["ok"] &= paths == [(1, int(tma))] * 3
+                if not auto[-1]["ok"]:
+                    failed.append({"autograd": auto[-1]})
+                del mask
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    finish_parity("flash_varlen_parity", results,
+                  ("_segmented", "_segmented_d128"), failed)
+    B2, L2 = SEG_D128["shape"][:2]
+    entry = [varlen_entry(results, "_segmented", lens, H, D, False),
+             # D 128: the op bench's rows packed one after the other
+             varlen_entry(results, "_segmented_d128",
+                          [L2 // SEG_D128["segments"]]
+                          * (B2 * SEG_D128["segments"]),
+                          *SEG_D128["shape"][2:], True)]
     return {"sequences": len(lens), "lengths": lens, "cases": rows,
-            "autograd_vs_block_diagonal_sdpa": auto,
-            "entry": {"qkv": [T, 3, H, D], "segmented_launches": launches,
-                      "finite": finite}}
+            "autograd_vs_block_diagonal_sdpa": auto, "entry": entry}
 
 
 def phase_flash_time_bert(results):
@@ -1776,7 +1916,22 @@ def phase_flash_time_bert(results):
                           extra_bytes=seg.numel() * 4)
     del same
     torch.cuda.empty_cache()
-    for suffix, table in (("_dropout", drop), ("_segmented", seg_t)):
+    # D 128 at the op bench's geometry (causal, 4 equal segments): the
+    # pairs a head needs are the causal halves of each segment, B x the
+    # sum of n (n + 1) / 2
+    L2 = SEG_D128["shape"][1]
+    n2 = L2 // SEG_D128["segments"]
+    seg2 = seg_d128_ids()
+    same2 = seg2[:, :, None] == seg2[:, None, :]
+    causal2 = torch.ones(L2, L2, dtype=torch.bool, device="cuda").tril()
+    seg128 = flash_timings(SEG_D128["shape"], True, kw=dict(seg=seg2),
+                           pairs=SEG_D128["segments"] * n2 * (n2 + 1) // 2,
+                           lib_kw={"attn_mask": (same2 & causal2)[:, None]},
+                           extra_bytes=seg2.numel() * 4)
+    del same2, causal2
+    torch.cuda.empty_cache()
+    for suffix, table in (("_dropout", drop), ("_segmented", seg_t),
+                          ("_segmented_d128", seg128)):
         fill_times(results, suffix, table)
     # what the keep mask costs each design: the same call with dropout
     # minus without
@@ -1802,6 +1957,12 @@ def phase_flash_time_bert(results):
                           "dtype": "bfloat16",
                           "pairs": sum(n * n for n in lens),
                           "dense_pairs": T * T, "times": seg_t},
+            "segmented_d128": {"shape": list(SEG_D128["shape"]),
+                               "segments": SEG_D128["segments"],
+                               "causal": True, "dtype": "bfloat16",
+                               "source": "bench_ops.py:161-174",
+                               "pairs": SEG_D128["segments"] * n2 *
+                               (n2 + 1) // 2, "times": seg128},
             "library": "torch.nn.functional.scaled_dot_product_attention: "
                        "with dropout_p (its own random bits) for the "
                        "dropout rows, with the block-diagonal bool mask "
@@ -2629,15 +2790,17 @@ def flash_tma_occupancy():
     import ctypes
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     fn = fa._kernel_lib_tma().flash_attention_tma_occupancy
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = {}
     for which, kname in enumerate(("fwd", "dq", "dkv")):
-        for d, drop in ((128, 0), (64, 0), (64, 1)):
+        for d, drop, seg in ((128, 0, 0), (128, 0, 1), (64, 0, 0),
+                             (64, 1, 0), (64, 0, 1)):
             smem = ctypes.c_int(0)
-            ctas = fn(which, d, 1, drop, ctypes.byref(smem))
-            out[f"{kname}_d{d}{'_dropout' if drop else ''}"] = {
-                "ctas_per_sm": ctas, "smem_bytes": smem.value}
+            ctas = fn(which, d, 1, drop, seg, ctypes.byref(smem))
+            tag = "_dropout" if drop else "_segments" if seg else ""
+            out[f"{kname}_d{d}{tag}"] = {"ctas_per_sm": ctas,
+                                        "smem_bytes": smem.value}
     return out
 
 
@@ -2673,18 +2836,22 @@ def phase_build():
     spills = {k: v for k, v in tma.items() if v[1] or v[0] is None}
     serial = [ln for ln in out["flash_attention_tma"]["ptxas"]
               if "Performance Loss" in ln]
-    # the D-64 instances: forward, dQ and dK/dV <causal, dropout>, four
-    # each
+    # the D-64 instances: forward, dQ and dK/dV <causal, dropout,
+    # segments>, six each (no dropout with segments); D 128 <128, causal,
+    # segments>, four each
     d64 = [k for k in tma if k.startswith(("flash_fwd64_tma_kernel<",
                                            "flash_bwd_dq64_tma_kernel<",
                                            "flash_bwd_dkv64_tma_kernel<"))]
-    if spills or serial or len(d64) != 12:
+    d128 = [k for k in tma if k.startswith(("flash_fwd_tma_kernel<",
+                                            "flash_bwd_dq_tma_kernel<",
+                                            "flash_bwd_dkv_tma_kernel<"))]
+    if spills or serial or len(d64) != 18 or len(d128) != 12:
         emit({"phase": "build", "failed": {"spills": spills,
                                            "serialised": serial,
-                                           "d64_instances": d64}})
+                                           "d64_instances": d64,
+                                           "d128_instances": d128}})
         raise AssertionError("the TMA flash kernels spill registers, have "
-                             "serialised wgmmas or lack their D-64 "
-                             "instances")
+                             "serialised wgmmas or lack instances")
     out["flash_attention_tma"]["registers_and_spills"] = tma
     out["flash_attention_tma"]["occupancy"] = flash_tma_occupancy()
     # the split paged-attention kernels: 8 CUDA-core instances (bf16 /
@@ -2742,8 +2909,8 @@ def main() -> int:
     # K1b/K2b at the Llama training geometry and K1a/K2a at ERNIE-MoE's
     # (D 64, causal), both on the TMA / wgmma design (general_ms times the
     # first design alongside); K5 (dropout) in K1a/K2a at the BERT
-    # geometry, on the TMA design too; K4 (segments) at the packed
-    # geometry, on the first design
+    # geometry and K4 (segments) at the packed geometry (D 64) and the op
+    # bench's (D 128), on the TMA design too
     flash = {
         name: {"name": name, "route": "cuda",
                "source": "paddle_tpu_torch/ops/kernels/csrc/" + src,
@@ -2783,15 +2950,24 @@ def main() -> int:
             ("flash_attention_bwd_dkv_dropout", 76,
              "_keep_mask in _bwd_dkv_kernel (dropout_p > 0)",
              "flash_attention_tma.cu"),
-            ("flash_attention_fwd_segmented", 738,
-             "_flash_fwd_pallas_seg (_fwd_kernel, segmented=True)",
-             "flash_attention.cuh"),
-            ("flash_attention_bwd_dq_segmented", 768,
-             "_flash_bwd_pallas_seg (_bwd_dq_kernel, segmented=True)",
-             "flash_attention.cuh"),
-            ("flash_attention_bwd_dkv_segmented", 768,
-             "_flash_bwd_pallas_seg (_bwd_dkv_kernel, segmented=True)",
-             "flash_attention.cuh"))}
+            ("flash_attention_fwd_segmented", 746,
+             "_flash_fwd_pallas_seg :738 (_fwd_kernel, segmented=True)",
+             "flash_attention_tma.cu"),
+            ("flash_attention_bwd_dq_segmented", 773,
+             "_flash_bwd_pallas_seg :768 (_bwd_dq_kernel, segmented=True)",
+             "flash_attention_tma.cu"),
+            ("flash_attention_bwd_dkv_segmented", 791,
+             "_flash_bwd_pallas_seg :768 (_bwd_dkv_kernel, segmented=True)",
+             "flash_attention_tma.cu"),
+            ("flash_attention_fwd_segmented_d128", 746,
+             "_flash_fwd_pallas_seg :738 (_fwd_kernel, segmented=True)",
+             "flash_attention_tma.cu"),
+            ("flash_attention_bwd_dq_segmented_d128", 773,
+             "_flash_bwd_pallas_seg :768 (_bwd_dq_kernel, segmented=True)",
+             "flash_attention_tma.cu"),
+            ("flash_attention_bwd_dkv_segmented_d128", 791,
+             "_flash_bwd_pallas_seg :768 (_bwd_dkv_kernel, segmented=True)",
+             "flash_attention_tma.cu"))}
     # K6 (forward, and dlhs on the transposed weights) and K7
     for name, line, body in (
             ("grouped_matmul_fwd", 180, "_gmm_kernel via _gmm_fwd_impl"),

@@ -18,10 +18,10 @@
 // flash_attention_<dtype>_d<D>.cu files, so the four builds run in
 // parallel; each library exports the same three C entry points and takes
 // only its own dtype and head dim. bf16 calls that a TMA tensor map
-// describes, without segments (and at D 128 without dropout), take the
-// TMA / wgmma kernels of flash_attention_tma.cu instead (takes_tma in
-// ops/kernels/flash_attention.py); this design keeps f32, segments,
-// dropout at D 128 and the layouts TMA cannot describe.
+// describes, with dropout (at D 64 only) or segments but not both, take
+// the TMA / wgmma kernels of flash_attention_tma.cu instead (takes_tma in
+// ops/kernels/flash_attention.py); this design keeps f32, dropout at
+// D 128, dropout with segments and the layouts TMA cannot describe.
 //
 //   forward  S = scale * Q K^T (masked: causal, other segments and the
 //            ragged tail -> -1e30), online softmax over KV tiles in f32

@@ -1,23 +1,25 @@
 // Flash attention for Hopper (sm_90a), the TMA / wgmma design: the forward,
-// dQ and dK/dV kernels for bf16 at head dim 64 or 128, causal or not,
-// without segments; at head dim 64 also with attention dropout (the Llama
-// training attention at D 128; BERT's and ERNIE-MoE's at D 64).
+// dQ and dK/dV kernels for bf16 at head dim 64 or 128, causal or not, with
+// segment (varlen) masking or without; at head dim 64 also with attention
+// dropout, without segments (the Llama training attention at D 128;
+// BERT's and ERNIE-MoE's at D 64; the varlen entry's packed sequences).
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
-// that _flash_fwd_pallas_blhd / _flash_fwd_pallas (_fwd_kernel) and
-// _flash_bwd_pallas_blhd / _flash_bwd_pallas (_bwd_dq_kernel,
-// _bwd_dkv_kernel) launch, with the dropout keep mask _keep_mask
-// regenerates inside them (K5). The plain PyTorch versions beside the
-// wrappers (ops/kernels/flash_attention.py) are the oracles;
+// that _flash_fwd_pallas_blhd / _flash_fwd_pallas / _flash_fwd_pallas_seg
+// (_fwd_kernel) and _flash_bwd_pallas_blhd / _flash_bwd_pallas /
+// _flash_bwd_pallas_seg (_bwd_dq_kernel, _bwd_dkv_kernel) launch, with the
+// dropout keep mask _keep_mask regenerates inside them (K5) and their
+// segment mask (K4). The plain PyTorch versions beside the wrappers
+// (ops/kernels/flash_attention.py) are the oracles;
 // ops/kernels/flash_attention.py's takes_tma picks this design before a
-// launch, and every other call (f32, segments, dropout at D 128, rows a
-// tensor map cannot describe) takes the first design in
+// launch, and every other call (f32, dropout at D 128, dropout with
+// segments, rows a tensor map cannot describe) takes the first design in
 // flash_attention.cuh. The numerics are that design's:
 //
-//   forward  S = scale * Q K^T (masked: causal and the ragged tail ->
-//            -1e30), online softmax over KV tiles in f32 on the undropped
-//            P, O += (keep o P) V with keep o P rounded to bf16;
-//            out = acc / (1 - p) / max(l, 1e-30) in bf16 and
+//   forward  S = scale * Q K^T (masked: causal, other segments and the
+//            ragged tail -> -1e30), online softmax over KV tiles in f32 on
+//            the undropped P, O += (keep o P) V with keep o P rounded to
+//            bf16; out = acc / (1 - p) / max(l, 1e-30) in bf16 and
 //            lse = m + log(max(l, 1e-30)) in f32 [B, H, L].
 //   dQ       P = exp(scale * Q K^T - lse) (re-masked), dP = dO V^T,
 //            dP <- keep o dP / (1 - p), dS = P * (dP - delta) * scale,
@@ -31,7 +33,9 @@
 // Without dropout keep is all ones and the division by 1 - p is skipped
 // (its own instance). The keep mask is philox.cuh's, the first design's
 // bits: Philox4x32-10 on (col >> 2, row, b * H + h, 0) over absolute rows
-// and columns, whatever the tiles.
+// and columns, whatever the tiles. With segments a pair (i, j) is allowed
+// iff seg[i] == seg[j] (and j <= i when causal); the segment instances are
+// their own, so the others carry none of it (the Segments section below).
 //
 // What bounds them. At the Llama training geometry (B 4, L 2048, H 32,
 // D 128, causal) the work is ~1.4e11 flops forward and ~3.4e11 needed
@@ -81,6 +85,8 @@
 //   grid's fastest dimension, so that a head's blocks run together and
 //   share its K and V, or Q and dO, through L2), at D 64 across the whole
 //   grid (block_of).
+// - With segments a CTA walks only its window of tiles (the Segments
+//   section below), not the whole sequence.
 // - Every wait on an mbarrier traps after 10 s: a broken protocol fails
 //   the launch instead of hanging.
 //
@@ -134,17 +140,172 @@ __host__ __device__ constexpr int tile_bytes(int rows) {
   return rows * D * 2;
 }
 
+// -- Segments (K4) ----------------------------------------------------------
+// A pair (i, j) is allowed iff seg[i] == seg[j]. The TPU kernels (and this
+// port's first design) walk every tile of the sequence and skip those of
+// other segments one by one: at the varlen geometry (12,288 packed tokens,
+// sequences of 32-512) a CTA walks 96-384 tiles to find ~8 with work. Here
+// each CTA walks a window: win [B, blocks, 2] holds, for its block of rows,
+// the first tile of the other operand and one past the last whose 32-row
+// chunk id ranges (rng [B, ceil(L / 32), 2], min and max id of each chunk)
+// overlap the block's, built by the wrapper on the device (exact for sorted
+// ids, a superset otherwise; causal clips it at the diagonal). Inside the
+// window:
+// - each ring stage carries its rows' ids and chunk ranges beside the
+//   tiles, copied by cp.async (a lane a row, any L, no alignment) and
+//   completing on the stage's full barrier, so the mask reads no global
+//   memory; each thread keeps its own two rows' ids in registers;
+// - a warpgroup skips the products of a tile whose id range is disjoint
+//   from its rows' (as it skips a tile past the causal diagonal);
+// - a tile is masked element by element unless its ids and the
+//   warpgroup's rows' are all one and the same id. So every tile that
+//   holds a disallowed pair is masked, and a row that meets whole tiles
+//   of another segment before its own keys has them re-masked to exactly
+//   0 after the exponential (s == m there, and 2^0 == 1 would leak into
+//   l).
+// The segment instances are their own (kSeg), without dropout: no public
+// entry combines the two.
+constexpr int kChunk = 32;  // rows of one rng entry
+
+// The segments of a launch: ids [B, L] with batch stride sb, their chunk
+// ranges and the CTAs' windows. Instances without segments never read it.
+struct Seg {
+  const int* ids;
+  long long sb;
+  const int* rng;
+  const int* win;
+};
+
+// bytes of a stage's ids: N rows' ids, then the (min, max) of their N / 32
+// chunks, rounded up to 16 bytes
+template <int N>
+__host__ __device__ constexpr int ids_bytes() {
+  return (4 * N + 8 * (N / kChunk) + 15) / 16 * 16;
+}
+
+// 4 bytes from global to shared memory by cp.async, zeros when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// One arrival on bar of this lane once its earlier cp.asyncs completed (the
+// barrier counts it among its expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
+// The ids of rows r0 .. r0 + N - 1 and the ranges of their chunks into dst
+// (every lane of one warp): rows past L read as id 0 (the ragged edge masks
+// them), chunks past L as the last chunk's range.
+template <int N>
+__device__ __forceinline__ void fill_ids(uint32_t dst, const Seg& sg, int b,
+                                         int r0, int L) {
+  const int lane = threadIdx.x & 31;
+  const int* ids = sg.ids + b * sg.sb;
+#pragma unroll
+  for (int r = lane; r < N; r += 32)
+    cp_async4(dst + 4 * r, ids + min(r0 + r, L - 1), r0 + r < L);
+  if (lane < 2 * (N / kChunk)) {
+    const int n32 = (L + kChunk - 1) / kChunk;
+    const int c = min(r0 / kChunk + lane / 2, n32 - 1);
+    cp_async4(dst + 4 * N + 4 * lane,
+              sg.rng + 2LL * (b * n32 + c) + (lane & 1), true);
+  }
+}
+
+// The id range (min, max) of rows r0 .. r0 + 32 N - 1 from rng; empty
+// (min > max) when r0 is past L
+template <int N>
+__device__ __forceinline__ int2 rows_range(const Seg& sg, int b, int r0,
+                                           int L) {
+  const int n32 = (L + kChunk - 1) / kChunk;
+  const int* r = sg.rng + 2LL * b * n32;
+  int2 out = make_int2(0x7fffffff, -0x7fffffff - 1);
+#pragma unroll
+  for (int c = r0 / kChunk; c < r0 / kChunk + N; ++c)
+    if (c < n32) {
+      out.x = min(out.x, r[2 * c]);
+      out.y = max(out.y, r[2 * c + 1]);
+    }
+  return out;
+}
+
+// The id range of a stage's rows from its chunk ranges (N / 32 of them,
+// after the N ids), read from shared memory
+template <int N>
+__device__ __forceinline__ int2 stage_range(const int* ids) {
+  int2 out = *reinterpret_cast<const int2*>(ids + N);
+#pragma unroll
+  for (int c = 1; c < N / kChunk; ++c) {
+    const int2 x = *reinterpret_cast<const int2*>(ids + N + 2 * c);
+    out = make_int2(min(out.x, x.x), max(out.y, x.y));
+  }
+  return out;
+}
+
+// Whether a stage of range t needs no element mask for a warpgroup of
+// range w: every id of both is one and the same
+__device__ __forceinline__ bool one_segment(int2 t, int2 w) {
+  return t.x == t.y && w.x == w.y && t.x == w.x;
+}
+
+// Whether the two ranges share no id: the warpgroup skips the tile
+__device__ __forceinline__ bool disjoint(int2 t, int2 w) {
+  return t.y < w.x || t.x > w.y;
+}
+
+// The pairs of an N-column stage whose ids equal their row's (sr): bit i
+// for accumulator element i (column 8 (i >> 2) + 2 t + (i & 1) of the
+// stage, row (i >> 1) & 1), the layout of mask_bits and mask_bits_keys
+template <int N>
+__device__ __forceinline__ uint32_t seg_bits(const int* ids,
+                                             const int (&sr)[2]) {
+  const int t = threadIdx.x & 3;
+  uint32_t ok = 0;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int2 c = *reinterpret_cast<const int2*>(ids + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ok |= static_cast<uint32_t>(((e & 1) ? c.y : c.x) == sr[e >> 1])
+            << (4 * j + e);
+  }
+  return ok;
+}
+
+// This CTA's window [first, end) of tiles from win, clipped to [0, n)
+__device__ __forceinline__ int2 seg_window(const Seg& sg, int b, int blk,
+                                           int n) {
+  const int* w = sg.win + 2LL * (b * static_cast<int>(gridDim.x) + blk);
+  return make_int2(max(w[0], 0), min(w[1], n));
+}
+
+// Thread's rows' ids: row[r] < L ? ids[row[r]] : anything (never stored)
+__device__ __forceinline__ void row_ids(int (&sr)[2], const Seg& sg, int b,
+                                        const int (&row)[2], int L) {
+  const int* ids = sg.ids + b * sg.sb;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) sr[r] = ids[min(row[r], L - 1)];
+}
+
 constexpr int kAux = 4;  // dK/dV's P ring between the consumer warpgroups
 
 // The 1024-aligned shared memory of a CTA: the tiles read once (kOnce
 // bytes), the ring's stages (kStage bytes each), kExtra bytes the consumer
-// warpgroups share, then the barriers once, full[s], empty[s] and aux[i].
-template <int kOnce, int kStage, int kExtra = 0>
+// warpgroups share, each stage's segment ids (kIds bytes each, none
+// without segments), then the barriers once, full[s], empty[s] and aux[i].
+template <int kOnce, int kStage, int kExtra = 0, int kIds = 0>
 struct Smem {
   unsigned char* p;  // generic address
   uint32_t s;        // the same in the shared window
   static constexpr int kExtraAt = kOnce + kStages * kStage;
-  static constexpr int kBars = kExtraAt + kExtra;
+  static constexpr int kIdsAt = kExtraAt + kExtra;
+  static constexpr int kBars = kIdsAt + kStages * kIds;
   // the barriers and room to align to 1024 bytes (the swizzle's period)
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages + kAux) + 1024;
   __device__ uint32_t once() const { return s; }
@@ -153,6 +314,10 @@ struct Smem {
     return p + kOnce + st * kStage;
   }
   __device__ unsigned char* extra() const { return p + kExtraAt; }
+  __device__ uint32_t ids(int st) const { return s + kIdsAt + st * kIds; }
+  __device__ int* ids_ptr(int st) const {
+    return reinterpret_cast<int*>(p + kIdsAt + st * kIds);
+  }
   __device__ uint32_t once_bar() const { return s + kBars; }
   __device__ uint32_t full(int st) const { return s + kBars + 8 + 8 * st; }
   __device__ uint32_t empty(int st) const { return full(st) + 8 * kStages; }
@@ -271,36 +436,54 @@ __device__ __forceinline__ void store_rows(const View& o, int b, int h,
 // each taken in two halves of 64 (so that a score tile is 32 registers).
 // Per half a warpgroup runs S = Q K^T (A = Q, B = K, both K-major), the
 // online softmax in registers (in base 2, the scale folded in), then
-// O += P V (A = P from registers, B = V MN-major).
-template <int D, bool kCausal>
+// O += P V (A = P from registers, B = V MN-major). With segments the
+// producer warp walks the CTA's window, all its lanes copying each stage's
+// ids beside the TMA copies.
+template <int D, bool kSeg>
+using FwdSmem = Smem<tile_bytes<D>(kRows), 2 * tile_bytes<D>(kFwdKV), 0,
+                     kSeg ? ids_bytes<kFwdKV>() : 0>;
+
+template <int D, bool kCausal, bool kSeg>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v, View o,
-                         float* __restrict__ lse, int L, int H,
-                         float scale) {
-  using S = Smem<tile_bytes<D>(kRows), 2 * tile_bytes<D>(kFwdKV)>;
-  const S sm = make_smem<S>();
+                         float* __restrict__ lse, int L, int H, float scale,
+                         Seg sg) {
+  using S = FwdSmem<D, kSeg>;
+  // full[s]: the copies' arrival (and with segments every producer lane's)
+  const S sm = make_smem<S>(kSeg ? 1 + 32 : 1);
   const int h = blockIdx.y, b = blockIdx.z;
   const int blk = static_cast<int>(kCausal ? gridDim.x - 1 - blockIdx.x
                                            : blockIdx.x);
   const int q0 = blk * kRows;
   const int kv_end = kCausal ? min(L, q0 + kRows) : L;
-  const int n_tiles = (kv_end + kFwdKV - 1) / kFwdKV;
+  int2 win = make_int2(0, (kv_end + kFwdKV - 1) / kFwdKV);
+  if constexpr (kSeg) win = seg_window(sg, b, blk, win.y);
 
   // the warpgroup (2: the producer warp), uniform across each warp
   const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / 128, 0);
   if (wg == kConsumers / 128) {  // the producer warp
-    if (threadIdx.x == kConsumers) {
-      mbar_expect_tx(sm.once_bar(), tile_bytes<D>(kRows));
-      load_rows<D, kRows>(sm.once(), &map_q, sm.once_bar(), q0, h, b);
+    const int lane = threadIdx.x & 31;
+    if (kSeg || lane == 0) {
+      if (lane == 0) {
+        mbar_expect_tx(sm.once_bar(), tile_bytes<D>(kRows));
+        load_rows<D, kRows>(sm.once(), &map_q, sm.once_bar(), q0, h, b);
+      }
       Pipe p;
-      for (int j = 0; j < n_tiles; ++j, p.next()) {
-        const uint32_t full = produce(sm, p, 2 * tile_bytes<D>(kFwdKV));
-        const uint32_t kt = sm.stage(p.stage);
-        load_rows<D, kFwdKV>(kt, &map_k, full, j * kFwdKV, h, b);
-        load_rows<D, kFwdKV>(kt + tile_bytes<D>(kFwdKV), &map_v, full,
-                             j * kFwdKV, h, b);
+      for (int j = win.x; j < win.y; ++j, p.next()) {
+        mbar_wait(sm.empty(p.stage), p.phase ^ 1);
+        const uint32_t full = sm.full(p.stage), kt = sm.stage(p.stage);
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * tile_bytes<D>(kFwdKV));
+          load_rows<D, kFwdKV>(kt, &map_k, full, j * kFwdKV, h, b);
+          load_rows<D, kFwdKV>(kt + tile_bytes<D>(kFwdKV), &map_v, full,
+                               j * kFwdKV, h, b);
+        }
+        if constexpr (kSeg) {
+          fill_ids<kFwdKV>(sm.ids(p.stage), sg, b, j * kFwdKV, L);
+          cp_async_arrive(full);
+        }
       }
     }
   } else {  // a consumer warpgroup
@@ -311,6 +494,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t qa = sm.once() + wg * 64 * 128;  // its rows of Q
     constexpr uint32_t kQPanel = kRows * 128, kKVPanel = kFwdKV * 128;
     const float sl2 = scale * kLog2e;  // logits in base-2 units
+    // its rows' ids and their range
+    int sr[2] = {0, 0};
+    int2 wr = make_int2(0, 0);
+    if constexpr (kSeg) {
+      row_ids(sr, sg, b, row, L);
+      wr = rows_range<2>(sg, b, r0, L);
+    }
 
     // m is the running row maximum in base-2 units, l the row sum
     float acc[D / 2], s[kFwdHalf / 2];
@@ -322,17 +512,29 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     mbar_wait(sm.once_bar(), 0);
     Pipe p;
-    for (int j = 0; j < n_tiles; ++j, p.next()) {
+    for (int j = win.x; j < win.y; ++j, p.next()) {
       mbar_wait(sm.full(p.stage), p.phase);
 #pragma unroll 1
       for (int half = 0; half < kFwdKV / kFwdHalf; ++half) {
         const int k0 = j * kFwdKV + half * kFwdHalf;
         // causal: every key of the half is after all of this warpgroup's
         // rows (the upper half of the diagonal stage for warpgroup 0)
-        const bool skip = kCausal && k0 > r0 + 63;
+        bool skip = kCausal && k0 > r0 + 63;
         // a half on the diagonal or the ragged edge is masked
-        const bool edge =
-            (kCausal && k0 + kFwdHalf - 1 > r0) || k0 + kFwdHalf > L;
+        bool edge = (kCausal && k0 + kFwdHalf - 1 > r0) || k0 + kFwdHalf > L;
+        // the half's ids; a half of other segments only is skipped, one
+        // not all of this warpgroup's segment is masked
+        const int* hid = nullptr;
+        if constexpr (kSeg) {
+          hid = sm.ids_ptr(p.stage) + half * kFwdHalf;
+          const int2 c = *reinterpret_cast<const int2*>(
+              sm.ids_ptr(p.stage) + kFwdKV + 4 * half);
+          const int2 c1 = *reinterpret_cast<const int2*>(
+              sm.ids_ptr(p.stage) + kFwdKV + 4 * half + 2);
+          const int2 hr = make_int2(min(c.x, c1.x), max(c.y, c1.y));
+          skip = skip || disjoint(hr, wr);
+          edge = edge || !one_segment(hr, wr);
+        }
         const uint32_t kt = sm.stage(p.stage) + half * kFwdHalf * 128;
         const uint32_t vt = kt + tile_bytes<D>(kFwdKV);
         if (skip) continue;
@@ -346,12 +548,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait<0>();
         fence_operand(s);
         float mx[2] = {m[0], m[1]};
+        uint32_t sok = kFull;  // the pairs of this segment (bit i)
+        if constexpr (kSeg)
+          if (edge) sok = seg_bits<kFwdHalf>(hid, sr);
 #pragma unroll
         for (int i = 0; i < kFwdHalf / 2; ++i) {
           float x = s[i] * sl2;
           if (edge) {
             const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-            const bool ok = col < L && (!kCausal || col <= row[(i >> 1) & 1]);
+            const bool ok = col < L &&
+                            (!kCausal || col <= row[(i >> 1) & 1]) &&
+                            ((sok >> i) & 1u);
             x = ok ? x : kNegInf;
           }
           s[i] = x;
@@ -371,7 +578,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             // re-masked: a row whose columns are all masked so far has
             // s == m == -1e30 and exp2() == 1
             const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-            const bool ok = col < L && (!kCausal || col <= row[r]);
+            const bool ok = col < L && (!kCausal || col <= row[r]) &&
+                            ((sok >> i) & 1u);
             pv = ok ? pv : 0.f;
           }
           rs[r] += pv;
@@ -415,8 +623,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 // A CTA owns 128 query rows: Q, dO (and each row's lse and delta) loaded
 // once, K and V in tiles of 64 keys. Per tile a warpgroup runs S = Q K^T
 // and dP = dO V^T (K and V K-major), dS in registers, then dQ += dS K
-// (A = dS from registers, B = K MN-major).
-template <int D, bool kCausal>
+// (A = dS from registers, B = K MN-major). With segments as the forward.
+template <int D, bool kSeg>
+using DqSmem = Smem<2 * tile_bytes<D>(kRows), 2 * tile_bytes<D>(kDqKV), 0,
+                    kSeg ? ids_bytes<kDqKV>() : 0>;
+
+template <int D, bool kCausal, bool kSeg>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_k,
@@ -424,31 +636,42 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const __grid_constant__ CUtensorMap map_do,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta, View dq, int L,
-                            int H, float scale) {
-  using S = Smem<2 * tile_bytes<D>(kRows), 2 * tile_bytes<D>(kDqKV)>;
-  const S sm = make_smem<S>();
+                            int H, float scale, Seg sg) {
+  using S = DqSmem<D, kSeg>;
+  const S sm = make_smem<S>(kSeg ? 1 + 32 : 1);
   const int h = blockIdx.y, b = blockIdx.z;
   const int blk = static_cast<int>(kCausal ? gridDim.x - 1 - blockIdx.x
                                            : blockIdx.x);
   const int q0 = blk * kRows;
   const int kv_end = kCausal ? min(L, q0 + kRows) : L;
-  const int n_tiles = (kv_end + kDqKV - 1) / kDqKV;
+  int2 win = make_int2(0, (kv_end + kDqKV - 1) / kDqKV);
+  if constexpr (kSeg) win = seg_window(sg, b, blk, win.y);
 
   // the warpgroup (2: the producer warp), uniform across each warp
   const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / 128, 0);
   if (wg == kConsumers / 128) {  // the producer warp
-    if (threadIdx.x == kConsumers) {
-      mbar_expect_tx(sm.once_bar(), 2 * tile_bytes<D>(kRows));
-      load_rows<D, kRows>(sm.once(), &map_q, sm.once_bar(), q0, h, b);
-      load_rows<D, kRows>(sm.once() + tile_bytes<D>(kRows), &map_do,
-                          sm.once_bar(), q0, h, b);
+    const int lane = threadIdx.x & 31;
+    if (kSeg || lane == 0) {
+      if (lane == 0) {
+        mbar_expect_tx(sm.once_bar(), 2 * tile_bytes<D>(kRows));
+        load_rows<D, kRows>(sm.once(), &map_q, sm.once_bar(), q0, h, b);
+        load_rows<D, kRows>(sm.once() + tile_bytes<D>(kRows), &map_do,
+                            sm.once_bar(), q0, h, b);
+      }
       Pipe p;
-      for (int j = 0; j < n_tiles; ++j, p.next()) {
-        const uint32_t full = produce(sm, p, 2 * tile_bytes<D>(kDqKV));
-        const uint32_t kt = sm.stage(p.stage);
-        load_rows<D, kDqKV>(kt, &map_k, full, j * kDqKV, h, b);
-        load_rows<D, kDqKV>(kt + tile_bytes<D>(kDqKV), &map_v, full,
-                            j * kDqKV, h, b);
+      for (int j = win.x; j < win.y; ++j, p.next()) {
+        mbar_wait(sm.empty(p.stage), p.phase ^ 1);
+        const uint32_t full = sm.full(p.stage), kt = sm.stage(p.stage);
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * tile_bytes<D>(kDqKV));
+          load_rows<D, kDqKV>(kt, &map_k, full, j * kDqKV, h, b);
+          load_rows<D, kDqKV>(kt + tile_bytes<D>(kDqKV), &map_v, full,
+                              j * kDqKV, h, b);
+        }
+        if constexpr (kSeg) {
+          fill_ids<kDqKV>(sm.ids(p.stage), sg, b, j * kDqKV, L);
+          cp_async_arrive(full);
+        }
       }
     }
   } else {  // a consumer warpgroup
@@ -467,6 +690,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t qa = sm.once() + wg * 64 * 128;
     const uint32_t oa = qa + tile_bytes<D>(kRows);  // its rows of dO
     constexpr uint32_t kQPanel = kRows * 128, kKVPanel = kDqKV * 128;
+    int sr[2] = {0, 0};  // its rows' ids and their range
+    int2 wr = make_int2(0, 0);
+    if constexpr (kSeg) {
+      row_ids(sr, sg, b, row, L);
+      wr = rows_range<2>(sg, b, r0, L);
+    }
 
     float acc[D / 2], s[kDqKV / 2], dp[kDqKV / 2];
 #pragma unroll
@@ -476,12 +705,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     mbar_wait(sm.once_bar(), 0);
     Pipe p;
-    for (int j = 0; j < n_tiles; ++j, p.next()) {
+    for (int j = win.x; j < win.y; ++j, p.next()) {
       const int k0 = j * kDqKV;
       mbar_wait(sm.full(p.stage), p.phase);
       // causal: no key of the tile is at or before any of this
-      // warpgroup's rows
-      if (!(kCausal && k0 > r0 + 63)) {
+      // warpgroup's rows; segments: none is of its rows' segments
+      bool skip = kCausal && k0 > r0 + 63, seg_edge = false;
+      if constexpr (kSeg) {
+        const int2 tr = stage_range<kDqKV>(sm.ids_ptr(p.stage));
+        skip = skip || disjoint(tr, wr);
+        seg_edge = !one_segment(tr, wr);
+      }
+      if (!skip) {
         const uint32_t kt = sm.stage(p.stage);
         const uint32_t vt = kt + tile_bytes<D>(kDqKV);
         fence_operand(s);
@@ -498,14 +733,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait<0>();
         fence_operand(s);
         fence_operand(dp);
-        const bool edge = (kCausal && k0 + kDqKV - 1 > r0) || k0 + kDqKV > L;
+        const bool edge = seg_edge || (kCausal && k0 + kDqKV - 1 > r0) ||
+                          k0 + kDqKV > L;
+        uint32_t sok = kFull;  // the pairs of this segment (bit i)
+        if constexpr (kSeg)
+          if (edge) sok = seg_bits<kDqKV>(sm.ids_ptr(p.stage), sr);
 #pragma unroll
         for (int i = 0; i < kDqKV / 2; ++i) {
           const int r = (i >> 1) & 1;
           float pv = exp2f(s[i] * sl2 - lse2[r]);
           if (edge) {
             const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-            const bool ok = col < L && (!kCausal || col <= row[r]);
+            const bool ok = col < L && (!kCausal || col <= row[r]) &&
+                            ((sok >> i) & 1u);
             pv = ok ? pv : 0.f;
           }
           s[i] = pv * (dp[i] - dl_r[r]) * scale;  // dS
@@ -542,7 +782,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // no operand is transposed through shared memory. The producer warp's
 // lanes copy each tile's lse and delta (two rows a lane) with plain loads
 // and arrive on the stage's full barrier after their stores, beside the
-// TMA copies: any L, no alignment.
+// TMA copies: any L, no alignment; with segments the tile's ids too. Both
+// warpgroups own the same 64 keys, so a tile in the window holds work for
+// both and none is skipped (warpgroup 0 masks P^T).
 constexpr int kDkvKeys = 64;                 // keys a dK/dV CTA owns
 constexpr int kPBuf = kDkvKeys * kDkvQ * 4;  // one P^T tile in f32
 
@@ -552,7 +794,11 @@ __host__ __device__ constexpr int dkv_stage_bytes() {
   return (2 * tile_bytes<D>(kDkvQ) + 2 * kDkvQ * 4 + 1023) / 1024 * 1024;
 }
 
-template <int D, bool kCausal>
+template <int D, bool kSeg>
+using DkvSmem = Smem<2 * tile_bytes<D>(kDkvKeys), dkv_stage_bytes<D>(),
+                     2 * kPBuf, kSeg ? ids_bytes<kDkvQ>() : 0>;
+
+template <int D, bool kCausal, bool kSeg>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
@@ -560,16 +806,20 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const __grid_constant__ CUtensorMap map_do,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta, View dk,
-                             View dv, int L, int H, float scale) {
-  using S = Smem<2 * tile_bytes<D>(kDkvKeys), dkv_stage_bytes<D>(),
-                 2 * kPBuf>;
+                             View dv, int L, int H, float scale, Seg sg) {
+  using S = DkvSmem<D, kSeg>;
   constexpr int kStats = 2 * tile_bytes<D>(kDkvQ);  // lse, then delta
   const S sm = make_smem<S>(1 + 32);  // the copies' arrival, every lane's
   const int h = blockIdx.y, b = blockIdx.z;
   // causal: the first key blocks see the most queries and go first
   const int k0 = static_cast<int>(blockIdx.x) * kDkvKeys;
-  const int i0 = kCausal ? k0 / kDkvQ : 0;
   const int n_q = (L + kDkvQ - 1) / kDkvQ;
+  int2 win = make_int2(kCausal ? k0 / kDkvQ : 0, n_q);
+  if constexpr (kSeg) {
+    const int2 w = seg_window(sg, b, blockIdx.x, n_q);
+    win = make_int2(max(win.x, w.x), w.y);
+  }
+  const int i0 = win.x;
 
   // the warpgroup (2: the producer warp), uniform across each warp
   const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / 128, 0);
@@ -583,7 +833,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     const long long rbase = static_cast<long long>(b * H + h) * L;
     Pipe p;
-    for (int i = i0; i < n_q; ++i, p.next()) {
+    for (int i = i0; i < win.y; ++i, p.next()) {
       mbar_wait(sm.empty(p.stage), p.phase ^ 1);
       const uint32_t full = sm.full(p.stage), qt = sm.stage(p.stage);
       if (lane == 0) {
@@ -599,6 +849,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int row = i * kDkvQ + r;
         stats[r] = row < L ? lse[rbase + row] : 0.f;
         stats[kDkvQ + r] = row < L ? delta[rbase + row] : 0.f;
+      }
+      if constexpr (kSeg) {  // the ids and chunk ranges, as fill_ids
+        int* ids = sm.ids_ptr(p.stage);
+        const int* src = sg.ids + b * sg.sb;
+#pragma unroll
+        for (int r = lane; r < kDkvQ; r += 32) {
+          const int row = i * kDkvQ + r;
+          ids[r] = row < L ? src[row] : 0;
+        }
+        if (lane < 2 * (kDkvQ / kChunk)) {
+          const int n32 = (L + kChunk - 1) / kChunk;
+          const int c = min(i * kDkvQ / kChunk + lane / 2, n32 - 1);
+          ids[kDkvQ + lane] = sg.rng[2LL * (b * n32 + c) + (lane & 1)];
+        }
       }
       mbar_arrive(full);
     }
@@ -621,10 +885,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < kDkvQ / 2; ++i) x[i] = 0.f;
+    int sk[2] = {0, 0};  // the keys' ids and the CTA's range
+    int2 wr = make_int2(0, 0);
+    if constexpr (kSeg) {
+      if (wg == 0) row_ids(sk, sg, b, key, L);
+      wr = rows_range<2>(sg, b, k0, L);
+    }
 
     mbar_wait(sm.once_bar(), 0);
     Pipe p;
-    for (int i = i0; i < n_q; ++i, p.next()) {
+    for (int i = i0; i < win.y; ++i, p.next()) {
       const int q0 = i * kDkvQ, n = i - i0, pb = n & 1;
       mbar_wait(sm.full(p.stage), p.phase);
       const uint32_t qt = sm.stage(p.stage);
@@ -643,9 +913,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       float2* mine = pbuf + pb * (kPBuf / 8) + tid;
       if (wg == 0) {
         const float* sl = stats;  // lse
-        // on the diagonal or the ragged edge
-        const bool edge =
-            (kCausal && q0 < k0 + kDkvKeys - 1) || q0 + kDkvQ > L;
+        // on the diagonal or the ragged edge, or not one segment
+        bool edge = (kCausal && q0 < k0 + kDkvKeys - 1) || q0 + kDkvQ > L;
+        uint32_t sok = kFull;  // the pairs of this segment (bit i4)
+        if constexpr (kSeg) {
+          const int* ids = sm.ids_ptr(p.stage);
+          edge = edge || !one_segment(stage_range<kDkvQ>(ids), wr);
+          if (edge) sok = seg_bits<kDkvQ>(ids, sk);
+        }
 #pragma unroll
         for (int jn = 0; jn < kDkvQ / 8; ++jn) {
           const int c = 8 * jn + 2 * t;  // this thread's query columns
@@ -655,7 +930,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int i4 = 4 * jn + e, cq = q0 + c + (e & 1);
             float pv = exp2f(x[i4] * sl2 - ((e & 1) ? lq.y : lq.x) * kLog2e);
             if (edge) {
-              const bool ok = cq < L && (!kCausal || cq >= key[e >> 1]);
+              const bool ok = cq < L && (!kCausal || cq >= key[e >> 1]) &&
+                              ((sok >> i4) & 1u);
               pv = ok ? pv : 0.f;
             }
             x[i4] = pv;  // P^T
@@ -737,19 +1013,25 @@ constexpr int kDkv64Stage =
     (2 * tile_bytes<64>(kDkv64Q) + 2 * kDkv64Q * 4 + 1023) / 1024 * 1024;
 
 // The 1024-aligned shared memory of a D-64 CTA: the tiles read once (kOnce
-// bytes), the ring's stages (kStage bytes each), then the barriers once and
+// bytes), the ring's stages (kStage bytes each), each stage's segment ids
+// (kIds bytes each, none without segments), then the barriers once and
 // full[s] and a release count per stage.
-template <int kOnce, int kStage>
+template <int kOnce, int kStage, int kIds = 0>
 struct Smem64 {
   unsigned char* p;  // generic address
   uint32_t s;        // the same in the shared window
-  static constexpr int kBars = kOnce + k64Stages * kStage;
+  static constexpr int kIdsAt = kOnce + k64Stages * kStage;
+  static constexpr int kBars = kIdsAt + k64Stages * kIds;
   static constexpr int kBytes =
       kBars + 8 * (1 + k64Stages) + 4 * k64Stages + 1024;
   __device__ uint32_t once() const { return s; }
   __device__ uint32_t stage(int st) const { return s + kOnce + st * kStage; }
   __device__ unsigned char* stage_ptr(int st) const {
     return p + kOnce + st * kStage;
+  }
+  __device__ uint32_t ids(int st) const { return s + kIdsAt + st * kIds; }
+  __device__ int* ids_ptr(int st) const {
+    return reinterpret_cast<int*>(p + kIdsAt + st * kIds);
   }
   __device__ uint32_t once_bar() const { return s + kBars; }
   __device__ uint32_t full(int st) const { return s + kBars + 8 + 8 * st; }
@@ -758,10 +1040,16 @@ struct Smem64 {
   }
 };
 
-using Fwd64Smem = Smem64<tile_bytes<64>(kRows), 2 * tile_bytes<64>(k64Keys)>;
+template <bool kSeg>
+using Fwd64Smem = Smem64<tile_bytes<64>(kRows), 2 * tile_bytes<64>(k64Keys),
+                         kSeg ? ids_bytes<k64Keys>() : 0>;
+template <bool kSeg>
 using Dq64Smem =
-    Smem64<2 * tile_bytes<64>(kRows), 2 * tile_bytes<64>(k64Keys)>;
-using Dkv64Smem = Smem64<2 * tile_bytes<64>(kDkv64Keys), kDkv64Stage>;
+    Smem64<2 * tile_bytes<64>(kRows), 2 * tile_bytes<64>(k64Keys),
+           kSeg ? ids_bytes<k64Keys>() : 0>;
+template <bool kSeg>
+using Dkv64Smem = Smem64<2 * tile_bytes<64>(kDkv64Keys), kDkv64Stage,
+                         kSeg ? ids_bytes<kDkv64Q>() : 0>;
 
 // This CTA's shared memory, its barriers initialised and its counts
 // zeroed: once completes with one arrival and its bytes, full[s] with
@@ -860,18 +1148,26 @@ __device__ __forceinline__ uint32_t mask_bits_keys(int q0,
   return ok;
 }
 
-// Tile j's K and V rows (64 keys) into stage st, completing on full[st]
-// (one lane)
-template <typename S>
+// Tile j's K and V rows (64 keys) into stage st, completing on full[st]:
+// one lane; with segments a whole warp, whose lanes also copy the tile's
+// ids (fill_ids) and arrive once those land.
+template <bool kSeg, typename S>
 __device__ __forceinline__ void fill_kv64(const S& sm, int st,
                                           const CUtensorMap* map_k,
                                           const CUtensorMap* map_v, int j,
-                                          int h, int b) {
+                                          int h, int b, const Seg& sg,
+                                          int L) {
   const uint32_t full = sm.full(st), kt = sm.stage(st);
-  mbar_expect_tx(full, 2 * tile_bytes<64>(k64Keys));
-  load_rows<64, k64Keys>(kt, map_k, full, j * k64Keys, h, b);
-  load_rows<64, k64Keys>(kt + tile_bytes<64>(k64Keys), map_v, full,
-                         j * k64Keys, h, b);
+  if (!kSeg || (threadIdx.x & 31) == 0) {
+    mbar_expect_tx(full, 2 * tile_bytes<64>(k64Keys));
+    load_rows<64, k64Keys>(kt, map_k, full, j * k64Keys, h, b);
+    load_rows<64, k64Keys>(kt + tile_bytes<64>(k64Keys), map_v, full,
+                           j * k64Keys, h, b);
+  }
+  if constexpr (kSeg) {
+    fill_ids<k64Keys>(sm.ids(st), sg, b, j * k64Keys, L);
+    cp_async_arrive(full);
+  }
 }
 
 // Forward: a CTA owns 128 query rows (64 a warpgroup), Q loaded once, K and
@@ -879,27 +1175,33 @@ __device__ __forceinline__ void fill_kv64(const S& sm, int st,
 // tile's keep bits under it (dropout), takes the row maxima of the raw
 // scores (the scale is positive), P = 2^(S scale log2 e - m) and the
 // online softmax in registers, then O += (keep o P) V (A = P from
-// registers, B = V MN-major).
-template <bool kCausal, bool kDrop>
+// registers, B = V MN-major). With segments (kSeg, never with kDrop) it
+// walks the CTA's window of tiles only.
+template <bool kCausal, bool kDrop, bool kSeg>
 __global__ void __launch_bounds__(k64Threads, 2)
     flash_fwd64_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v, View o,
                            float* __restrict__ lse, int L, int H,
-                           float scale, Drop dr) {
+                           float scale, Drop dr, Seg sg) {
   constexpr int D = 64;
-  const Fwd64Smem sm = make_smem64<Fwd64Smem>(1);
+  using S = Fwd64Smem<kSeg>;
+  // full[s]: the copies' arrival (and with segments every filling lane's)
+  const S sm = make_smem64<S>(kSeg ? 1 + 32 : 1);
   const int3 at = block_of<kCausal>();
   const int h = at.y, b = at.z;
   const int blk = kCausal ? static_cast<int>(gridDim.x) - 1 - at.x : at.x;
   const int q0 = blk * kRows;
   const int kv_end = kCausal ? min(L, q0 + kRows) : L;
-  const int n_tiles = (kv_end + k64Keys - 1) / k64Keys;
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(sm.once_bar(), tile_bytes<D>(kRows));
-    load_rows<D, kRows>(sm.once(), &map_q, sm.once_bar(), q0, h, b);
-    for (int j = 0; j < min(n_tiles, k64Stages); ++j)
-      fill_kv64(sm, j, &map_k, &map_v, j, h, b);
+  int2 win = make_int2(0, (kv_end + k64Keys - 1) / k64Keys);
+  if constexpr (kSeg) win = seg_window(sg, b, blk, win.y);
+  if (threadIdx.x < (kSeg ? 32 : 1)) {  // the first copies
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(sm.once_bar(), tile_bytes<D>(kRows));
+      load_rows<D, kRows>(sm.once(), &map_q, sm.once_bar(), q0, h, b);
+    }
+    for (int j = win.x; j < min(win.y, win.x + k64Stages); ++j)
+      fill_kv64<kSeg>(sm, j - win.x, &map_k, &map_v, j, h, b, sg, L);
   }
   const int wg = threadIdx.x / 128;  // uniform across each warp
   const int warp = (threadIdx.x >> 5) & 3;
@@ -911,6 +1213,13 @@ __global__ void __launch_bounds__(k64Threads, 2)
   constexpr uint32_t kQPanel = kRows * 128, kKVPanel = k64Keys * 128;
   const float sl2 = scale * kLog2e;  // logits in base-2 units
 
+  int sr[2] = {0, 0};  // this thread's rows' ids, its warpgroup's range
+  int2 wr = make_int2(0, 0);
+  if constexpr (kSeg) {
+    row_ids(sr, sg, b, row, L);
+    wr = rows_range<2>(sg, b, r0, L);
+  }
+
   // m is the running row maximum in base-2 units, l the row sum
   float acc[D / 2], s[k64Keys / 2];
 #pragma unroll
@@ -919,14 +1228,21 @@ __global__ void __launch_bounds__(k64Threads, 2)
 
   mbar_wait(sm.once_bar(), 0);
   Pipe64 p;
-  for (int j = 0; j < n_tiles; ++j, p.next()) {
+  for (int j = win.x; j < win.y; ++j, p.next()) {
     const int k0 = j * k64Keys;
     mbar_wait(sm.full(p.stage), p.phase);
     // causal: skip a tile every key of which is after all of this
-    // warpgroup's rows
-    if (!(kCausal && k0 > r0 + 63)) {
+    // warpgroup's rows. Segments: skip a tile of other segments only,
+    // mask one that is not all this warpgroup's one segment.
+    bool skip = kCausal && k0 > r0 + 63, seg_edge = false;
+    if constexpr (kSeg) {
+      const int2 tr = stage_range<k64Keys>(sm.ids_ptr(p.stage));
+      skip = skip || disjoint(tr, wr);
+      seg_edge = !one_segment(tr, wr);
+    }
+    if (!skip) {
       // a tile on the diagonal or the ragged edge is masked
-      const bool edge = (kCausal && k0 + k64Keys - 1 > r0) ||
+      const bool edge = seg_edge || (kCausal && k0 + k64Keys - 1 > r0) ||
                         k0 + k64Keys > L;
       const uint32_t kt = sm.stage(p.stage);
       const uint32_t vt = kt + tile_bytes<D>(k64Keys);
@@ -944,11 +1260,13 @@ __global__ void __launch_bounds__(k64Threads, 2)
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(s);
-      // the tile's allowed pairs (bit i for s[i]), on the diagonal or the
-      // ragged edge only: the loops below branch around the masking
+      // the tile's allowed pairs (bit i for s[i]), on the diagonal, the
+      // ragged edge or not one segment only: the loops below branch
+      // around the masking
       uint32_t ok = kFull;
       if (edge) {
         ok = mask_bits<kCausal>(k0, row, L);
+        if constexpr (kSeg) ok &= seg_bits<k64Keys>(sm.ids_ptr(p.stage), sr);
 #pragma unroll
         for (int i = 0; i < k64Keys / 2; ++i)
           s[i] = (ok >> i) & 1u ? s[i] : kNegInf;
@@ -997,8 +1315,10 @@ __global__ void __launch_bounds__(k64Threads, 2)
       wgmma_wait<0>();
       fence_operand(acc);
     }
-    if (release_last(sm, p.stage) && j + k64Stages < n_tiles && lane == 0)
-      fill_kv64(sm, p.stage, &map_k, &map_v, j + k64Stages, h, b);
+    if (release_last(sm, p.stage) && j + k64Stages < win.y &&
+        (kSeg || lane == 0))
+      fill_kv64<kSeg>(sm, p.stage, &map_k, &map_v, j + k64Stages, h, b, sg,
+                      L);
   }
 
   // out = acc / (1 - p) / max(l, 1e-30): one division a row
@@ -1024,8 +1344,8 @@ __global__ void __launch_bounds__(k64Threads, 2)
 // loaded once, K and V in stages of 64 keys. Per tile a warpgroup runs
 // S = Q K^T and dP = dO V^T, draws the keep bits under them (dropout),
 // computes dS in registers, then dQ += dS K (A = dS from registers, B = K
-// MN-major).
-template <bool kCausal, bool kDrop>
+// MN-major). Segments as the forward.
+template <bool kCausal, bool kDrop, bool kSeg>
 __global__ void __launch_bounds__(k64Threads, 2)
     flash_bwd_dq64_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
@@ -1033,22 +1353,26 @@ __global__ void __launch_bounds__(k64Threads, 2)
                               const __grid_constant__ CUtensorMap map_do,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta, View dq,
-                              int L, int H, float scale, Drop dr) {
+                              int L, int H, float scale, Drop dr, Seg sg) {
   constexpr int D = 64;
-  const Dq64Smem sm = make_smem64<Dq64Smem>(1);
+  using S = Dq64Smem<kSeg>;
+  const S sm = make_smem64<S>(kSeg ? 1 + 32 : 1);
   const int3 at = block_of<kCausal>();
   const int h = at.y, b = at.z;
   const int blk = kCausal ? static_cast<int>(gridDim.x) - 1 - at.x : at.x;
   const int q0 = blk * kRows;
   const int kv_end = kCausal ? min(L, q0 + kRows) : L;
-  const int n_tiles = (kv_end + k64Keys - 1) / k64Keys;
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(sm.once_bar(), 2 * tile_bytes<D>(kRows));
-    load_rows<D, kRows>(sm.once(), &map_q, sm.once_bar(), q0, h, b);
-    load_rows<D, kRows>(sm.once() + tile_bytes<D>(kRows), &map_do,
-                        sm.once_bar(), q0, h, b);
-    for (int j = 0; j < min(n_tiles, k64Stages); ++j)
-      fill_kv64(sm, j, &map_k, &map_v, j, h, b);
+  int2 win = make_int2(0, (kv_end + k64Keys - 1) / k64Keys);
+  if constexpr (kSeg) win = seg_window(sg, b, blk, win.y);
+  if (threadIdx.x < (kSeg ? 32 : 1)) {  // the first copies
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(sm.once_bar(), 2 * tile_bytes<D>(kRows));
+      load_rows<D, kRows>(sm.once(), &map_q, sm.once_bar(), q0, h, b);
+      load_rows<D, kRows>(sm.once() + tile_bytes<D>(kRows), &map_do,
+                          sm.once_bar(), q0, h, b);
+    }
+    for (int j = win.x; j < min(win.y, win.x + k64Stages); ++j)
+      fill_kv64<kSeg>(sm, j - win.x, &map_k, &map_v, j, h, b, sg, L);
   }
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x >> 5) & 3;
@@ -1067,6 +1391,12 @@ __global__ void __launch_bounds__(k64Threads, 2)
   const uint32_t qa = sm.once() + wg * 64 * 128;
   const uint32_t oa = qa + tile_bytes<D>(kRows);  // its rows of dO
   constexpr uint32_t kQPanel = kRows * 128, kKVPanel = k64Keys * 128;
+  int sr[2] = {0, 0};  // this thread's rows' ids, its warpgroup's range
+  int2 wr = make_int2(0, 0);
+  if constexpr (kSeg) {
+    row_ids(sr, sg, b, row, L);
+    wr = rows_range<2>(sg, b, r0, L);
+  }
 
   float acc[D / 2], s[k64Keys / 2], dp[k64Keys / 2];
 #pragma unroll
@@ -1076,12 +1406,18 @@ __global__ void __launch_bounds__(k64Threads, 2)
 
   mbar_wait(sm.once_bar(), 0);
   Pipe64 p;
-  for (int j = 0; j < n_tiles; ++j, p.next()) {
+  for (int j = win.x; j < win.y; ++j, p.next()) {
     const int k0 = j * k64Keys;
     mbar_wait(sm.full(p.stage), p.phase);
     // causal: no key of the tile is at or before any of this
-    // warpgroup's rows
-    if (!(kCausal && k0 > r0 + 63)) {
+    // warpgroup's rows; segments: none is of its rows' segments
+    bool skip = kCausal && k0 > r0 + 63, seg_edge = false;
+    if constexpr (kSeg) {
+      const int2 tr = stage_range<k64Keys>(sm.ids_ptr(p.stage));
+      skip = skip || disjoint(tr, wr);
+      seg_edge = !one_segment(tr, wr);
+    }
+    if (!skip) {
       const uint32_t kt = sm.stage(p.stage);
       const uint32_t vt = kt + tile_bytes<D>(k64Keys);
       fence_operand(s);
@@ -1104,9 +1440,11 @@ __global__ void __launch_bounds__(k64Threads, 2)
 #pragma unroll
       for (int i = 0; i < k64Keys / 2; ++i)
         s[i] = fast_exp2(fmaf(s[i], sl2, nlse2[(i >> 1) & 1]));  // P
-      // on the diagonal or the ragged edge: re-masked
-      if ((kCausal && k0 + k64Keys - 1 > r0) || k0 + k64Keys > L) {
-        const uint32_t ok = mask_bits<kCausal>(k0, row, L);
+      // on the diagonal, the ragged edge or not one segment: re-masked
+      if (seg_edge || (kCausal && k0 + k64Keys - 1 > r0) ||
+          k0 + k64Keys > L) {
+        uint32_t ok = mask_bits<kCausal>(k0, row, L);
+        if constexpr (kSeg) ok &= seg_bits<k64Keys>(sm.ids_ptr(p.stage), sr);
 #pragma unroll
         for (int i = 0; i < k64Keys / 2; ++i)
           s[i] = (ok >> i) & 1u ? s[i] : 0.f;
@@ -1128,30 +1466,25 @@ __global__ void __launch_bounds__(k64Threads, 2)
       wgmma_wait<0>();
       fence_operand(acc);
     }
-    if (release_last(sm, p.stage) && j + k64Stages < n_tiles && lane == 0)
-      fill_kv64(sm, p.stage, &map_k, &map_v, j + k64Stages, h, b);
+    if (release_last(sm, p.stage) && j + k64Stages < win.y &&
+        (kSeg || lane == 0))
+      fill_kv64<kSeg>(sm, p.stage, &map_k, &map_v, j + k64Stages, h, b, sg,
+                      L);
   }
   const float one[2] = {1.f, 1.f};
   store_rows<D>(dq, b, h, row, L, acc, one);
 }
 
-// 4 bytes from global to shared memory by cp.async, zeros when !valid
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 // Query tile i's Q and dO rows into stage st by TMA (lane 0) and its lse
-// and delta by cp.async (every lane, a row each), each lane's copies
-// arriving on full[st] once complete: a whole warp, none of which waits.
-// Rows past L read as zeros (their columns are masked).
-template <typename S>
+// and delta (with segments also its ids) by cp.async (every lane, a row
+// each), each lane's copies arriving on full[st] once complete: a whole
+// warp, none of which waits. Rows past L read as zeros (their columns are
+// masked).
+template <bool kSeg, typename S>
 __device__ __forceinline__ void fill_qdo64(
     const S& sm, int st, const CUtensorMap* map_q, const CUtensorMap* map_do,
     const float* __restrict__ lse, const float* __restrict__ delta, int i,
-    int h, int b, int L, long long rbase) {
+    int h, int b, int L, long long rbase, const Seg& sg) {
   constexpr int kStats = 2 * tile_bytes<64>(kDkv64Q);  // lse, then delta
   const int lane = threadIdx.x & 31;
   const uint32_t full = sm.full(st), qt = sm.stage(st);
@@ -1169,9 +1502,8 @@ __device__ __forceinline__ void fill_qdo64(
     cp_async4(stats + 4 * r, lse + at, row < L);
     cp_async4(stats + 4 * (kDkv64Q + r), delta + at, row < L);
   }
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
-                   "r"(full)
-               : "memory");
+  if constexpr (kSeg) fill_ids<kDkv64Q>(sm.ids(st), sg, b, i * kDkv64Q, L);
+  cp_async_arrive(full);
 }
 
 // dK / dV: the dK and dV accumulators are 32 registers each, so one
@@ -1187,8 +1519,9 @@ __device__ __forceinline__ void fill_qdo64(
 // dK += dS^T Q (A from registers, B MN-major). Computing the transposes
 // puts P^T and dS^T in registers as A operands (Q and dO are K-major for
 // the scores and MN-major for the accumulations). Nothing passes between
-// the warpgroups: the D-128 kernel's P^T ring is not needed.
-template <bool kCausal, bool kDrop>
+// the warpgroups: the D-128 kernel's P^T ring is not needed. With segments
+// (kSeg, never with kDrop) a CTA walks its window of query stages only.
+template <bool kCausal, bool kDrop, bool kSeg>
 __global__ void __launch_bounds__(k64Threads, 2)
     flash_bwd_dkv64_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                                const __grid_constant__ CUtensorMap map_k,
@@ -1196,17 +1529,24 @@ __global__ void __launch_bounds__(k64Threads, 2)
                                const __grid_constant__ CUtensorMap map_do,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta, View dk,
-                               View dv, int L, int H, float scale, Drop dr) {
+                               View dv, int L, int H, float scale, Drop dr,
+                               Seg sg) {
   constexpr int D = 64;
   constexpr int kStats = 2 * tile_bytes<D>(kDkv64Q);  // lse, then delta
+  using S = Dkv64Smem<kSeg>;
   // full[s]: the copies' arrival and every lane's of the filling warp
-  const Dkv64Smem sm = make_smem64<Dkv64Smem>(1 + 32);
+  const S sm = make_smem64<S>(1 + 32);
   // causal: the first key blocks see the most queries and go first
   const int3 at = block_of<kCausal>();
   const int h = at.y, b = at.z;
   const int k0 = at.x * kDkv64Keys;
-  const int i0 = kCausal ? k0 / kDkv64Q : 0;
   const int n_q = (L + kDkv64Q - 1) / kDkv64Q;
+  int2 win = make_int2(kCausal ? k0 / kDkv64Q : 0, n_q);
+  if constexpr (kSeg) {
+    const int2 w = seg_window(sg, b, at.x, n_q);
+    win = make_int2(max(win.x, w.x), w.y);
+  }
+  const int i0 = win.x;
   const int bh = b * H + h;
   const long long rbase = static_cast<long long>(bh) * L;
   if (threadIdx.x < 32) {  // warp 0: the first copies
@@ -1216,9 +1556,9 @@ __global__ void __launch_bounds__(k64Threads, 2)
       load_rows<D, kDkv64Keys>(sm.once() + tile_bytes<D>(kDkv64Keys),
                                &map_v, sm.once_bar(), k0, h, b);
     }
-    for (int i = i0; i < min(n_q, i0 + k64Stages); ++i)
-      fill_qdo64(sm, i - i0, &map_q, &map_do, lse, delta, i, h, b, L,
-                 rbase);
+    for (int i = i0; i < min(win.y, i0 + k64Stages); ++i)
+      fill_qdo64<kSeg>(sm, i - i0, &map_q, &map_do, lse, delta, i, h, b, L,
+                       rbase, sg);
   }
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x >> 5) & 3;
@@ -1229,6 +1569,13 @@ __global__ void __launch_bounds__(k64Threads, 2)
   const uint32_t va = ka + tile_bytes<D>(kDkv64Keys);  // ... and of V
   constexpr uint32_t kKPanel = kDkv64Keys * 128, kQPanel = kDkv64Q * 128;
   const float sl2 = scale * kLog2e;
+
+  int sk[2] = {0, 0};  // this thread's keys' ids, its warpgroup's range
+  int2 wr = make_int2(0, 0);
+  if constexpr (kSeg) {
+    row_ids(sk, sg, b, key, L);
+    wr = rows_range<2>(sg, b, kw, L);
+  }
 
   // x: S^T, then the dropped P^T; y: dP^T, then dS^T
   float dk_acc[D / 2], dv_acc[D / 2], x[kDkv64Q / 2], y[kDkv64Q / 2];
@@ -1246,13 +1593,19 @@ __global__ void __launch_bounds__(k64Threads, 2)
   if constexpr (kDrop) keep_next = next_keep(i0 * kDkv64Q);
   mbar_wait(sm.once_bar(), 0);
   Pipe64 p;
-  for (int i = i0; i < n_q; ++i, p.next()) {
+  for (int i = i0; i < win.y; ++i, p.next()) {
     const int q0 = i * kDkv64Q;
     const uint32_t keep = keep_next;
     mbar_wait(sm.full(p.stage), p.phase);
     // causal: every query of the tile is before all of this warpgroup's
-    // keys (the first tile for warpgroup 1)
-    const bool skip = kCausal && q0 + kDkv64Q - 1 < kw;
+    // keys (the first tile for warpgroup 1); segments: none is of its
+    // keys' segments
+    bool skip = kCausal && q0 + kDkv64Q - 1 < kw, seg_edge = false;
+    if constexpr (kSeg) {
+      const int2 tr = stage_range<kDkv64Q>(sm.ids_ptr(p.stage));
+      skip = skip || disjoint(tr, wr);
+      seg_edge = !one_segment(tr, wr);
+    }
     const uint32_t qt = sm.stage(p.stage);
     const uint32_t ot = qt + tile_bytes<D>(kDkv64Q);  // dO
     if (!skip) {
@@ -1280,9 +1633,10 @@ __global__ void __launch_bounds__(k64Threads, 2)
         for (int e = 0; e < 4; ++e)  // P^T
           x[4 * jn + e] = fast_exp2(fmaf(x[4 * jn + e], sl2, nl[e & 1]));
       }
-      // on the diagonal or the ragged edge: re-masked
-      if ((kCausal && q0 < kw + 63) || q0 + kDkv64Q > L) {
-        const uint32_t ok = mask_bits_keys<kCausal, kDkv64Q>(q0, key, L);
+      // on the diagonal, the ragged edge or not one segment: re-masked
+      if (seg_edge || (kCausal && q0 < kw + 63) || q0 + kDkv64Q > L) {
+        uint32_t ok = mask_bits_keys<kCausal, kDkv64Q>(q0, key, L);
+        if constexpr (kSeg) ok &= seg_bits<kDkv64Q>(sm.ids_ptr(p.stage), sk);
 #pragma unroll
         for (int i = 0; i < kDkv64Q / 2; ++i)
           x[i] = (ok >> i) & 1u ? x[i] : 0.f;
@@ -1319,16 +1673,16 @@ __global__ void __launch_bounds__(k64Threads, 2)
       }
       wgmma_commit();
       if constexpr (kDrop)
-        if (i + 1 < n_q) keep_next = next_keep(q0 + kDkv64Q);
+        if (i + 1 < win.y) keep_next = next_keep(q0 + kDkv64Q);
       wgmma_wait<0>();
       fence_operand(dv_acc);
       fence_operand(dk_acc);
     } else if constexpr (kDrop) {
-      if (i + 1 < n_q) keep_next = next_keep(q0 + kDkv64Q);
+      if (i + 1 < win.y) keep_next = next_keep(q0 + kDkv64Q);
     }
-    if (release_last(sm, p.stage) && i + k64Stages < n_q)
-      fill_qdo64(sm, p.stage, &map_q, &map_do, lse, delta, i + k64Stages, h,
-                 b, L, rbase);
+    if (release_last(sm, p.stage) && i + k64Stages < win.y)
+      fill_qdo64<kSeg>(sm, p.stage, &map_q, &map_do, lse, delta,
+                       i + k64Stages, h, b, L, rbase, sg);
   }
   const float one[2] = {1.f, 1.f};
   store_rows<D>(dk, b, h, key, L, dk_acc, one);
@@ -1350,14 +1704,14 @@ bool bhld_map(CUtensorMap* map, const void* base, const long long* st, int B,
 View view(void* p, const long long* st) { return View{p, st[0], st[1], st[2]}; }
 
 // What these kernels take, as takes_tma decides it: head dim 64 or 128
-// (dropout, thresh != 0, at 64 only), every size positive and inside the
-// grid's and the tensor maps' int32 ranges, 16-byte aligned bases and
-// (batch, seq, head) strides multiples of 8 elements. n views, three
-// strides each.
+// (dropout, thresh != 0, at 64 only and without segments), every size
+// positive and inside the grid's and the tensor maps' int32 ranges, 16-byte
+// aligned bases and (batch, seq, head) strides multiples of 8 elements. n
+// views, three strides each.
 bool takes(void* const* ptrs, int n, const long long* strides, int B, int L,
-           int H, int D, uint32_t thresh) {
-  if ((D != 64 && D != 128) || (thresh != 0u && D != 64) || B <= 0 ||
-      L <= 0 || H <= 0 || B > 65535 || H > 65535 ||
+           int H, int D, uint32_t thresh, bool seg) {
+  if ((D != 64 && D != 128) || (thresh != 0u && (D != 64 || seg)) ||
+      B <= 0 || L <= 0 || H <= 0 || B > 65535 || H > 65535 ||
       static_cast<long long>(B) * H * L > 0x7fffffffLL)
     return false;
   for (int i = 0; i < n; ++i) {
@@ -1396,53 +1750,73 @@ struct Kernel {
   int threads, smem;
 };
 
-Kernel fwd_kernel(int D, bool causal, bool drop) {
-  using S128 = Smem<tile_bytes<128>(kRows), 2 * tile_bytes<128>(kFwdKV)>;
-  if (D == 128)
-    return {causal ? (const void*)flash_fwd_tma_kernel<128, true>
-                   : (const void*)flash_fwd_tma_kernel<128, false>,
-            kThreads, S128::kBytes};
-  const void* fn =
-      causal ? (drop ? (const void*)flash_fwd64_tma_kernel<true, true>
-                     : (const void*)flash_fwd64_tma_kernel<true, false>)
-             : (drop ? (const void*)flash_fwd64_tma_kernel<false, true>
-                     : (const void*)flash_fwd64_tma_kernel<false, false>);
-  return {fn, k64Threads, Fwd64Smem::kBytes};
+// One instance per (causal, dropout, segments) flag set; dropout and
+// segments never together.
+template <bool kC>
+const void* fwd64(bool drop, bool seg) {
+  return drop  ? (const void*)flash_fwd64_tma_kernel<kC, true, false>
+         : seg ? (const void*)flash_fwd64_tma_kernel<kC, false, true>
+               : (const void*)flash_fwd64_tma_kernel<kC, false, false>;
+}
+template <bool kC>
+const void* dq64(bool drop, bool seg) {
+  return drop  ? (const void*)flash_bwd_dq64_tma_kernel<kC, true, false>
+         : seg ? (const void*)flash_bwd_dq64_tma_kernel<kC, false, true>
+               : (const void*)flash_bwd_dq64_tma_kernel<kC, false, false>;
+}
+template <bool kC>
+const void* dkv64(bool drop, bool seg) {
+  return drop  ? (const void*)flash_bwd_dkv64_tma_kernel<kC, true, false>
+         : seg ? (const void*)flash_bwd_dkv64_tma_kernel<kC, false, true>
+               : (const void*)flash_bwd_dkv64_tma_kernel<kC, false, false>;
 }
 
-Kernel dq_kernel(int D, bool causal, bool drop) {
-  using S128 = Smem<2 * tile_bytes<128>(kRows), 2 * tile_bytes<128>(kDqKV)>;
-  if (D == 128)
-    return {causal ? (const void*)flash_bwd_dq_tma_kernel<128, true>
-                   : (const void*)flash_bwd_dq_tma_kernel<128, false>,
-            kThreads, S128::kBytes};
-  const void* fn =
-      causal ? (drop ? (const void*)flash_bwd_dq64_tma_kernel<true, true>
-                     : (const void*)flash_bwd_dq64_tma_kernel<true, false>)
-             : (drop ? (const void*)flash_bwd_dq64_tma_kernel<false, true>
-                     : (const void*)flash_bwd_dq64_tma_kernel<false, false>);
-  return {fn, k64Threads, Dq64Smem::kBytes};
+template <bool kC>
+const void* fwd128(bool seg) {
+  return seg ? (const void*)flash_fwd_tma_kernel<128, kC, true>
+             : (const void*)flash_fwd_tma_kernel<128, kC, false>;
+}
+template <bool kC>
+const void* dq128(bool seg) {
+  return seg ? (const void*)flash_bwd_dq_tma_kernel<128, kC, true>
+             : (const void*)flash_bwd_dq_tma_kernel<128, kC, false>;
+}
+template <bool kC>
+const void* dkv128(bool seg) {
+  return seg ? (const void*)flash_bwd_dkv_tma_kernel<128, kC, true>
+             : (const void*)flash_bwd_dkv_tma_kernel<128, kC, false>;
 }
 
-Kernel dkv_kernel(int D, bool causal, bool drop) {
-  using S128 = Smem<2 * tile_bytes<128>(kDkvKeys), dkv_stage_bytes<128>(),
-                    2 * kPBuf>;
+Kernel fwd_kernel(int D, bool causal, bool drop, bool seg) {
   if (D == 128)
-    return {causal ? (const void*)flash_bwd_dkv_tma_kernel<128, true>
-                   : (const void*)flash_bwd_dkv_tma_kernel<128, false>,
-            kThreads, S128::kBytes};
-  const void* fn =
-      causal ? (drop ? (const void*)flash_bwd_dkv64_tma_kernel<true, true>
-                     : (const void*)flash_bwd_dkv64_tma_kernel<true, false>)
-             : (drop ? (const void*)flash_bwd_dkv64_tma_kernel<false, true>
-                     : (const void*)flash_bwd_dkv64_tma_kernel<false, false>);
-  return {fn, k64Threads, Dkv64Smem::kBytes};
+    return {causal ? fwd128<true>(seg) : fwd128<false>(seg), kThreads,
+            seg ? FwdSmem<128, true>::kBytes : FwdSmem<128, false>::kBytes};
+  return {causal ? fwd64<true>(drop, seg) : fwd64<false>(drop, seg),
+          k64Threads,
+          seg ? Fwd64Smem<true>::kBytes : Fwd64Smem<false>::kBytes};
+}
+
+Kernel dq_kernel(int D, bool causal, bool drop, bool seg) {
+  if (D == 128)
+    return {causal ? dq128<true>(seg) : dq128<false>(seg), kThreads,
+            seg ? DqSmem<128, true>::kBytes : DqSmem<128, false>::kBytes};
+  return {causal ? dq64<true>(drop, seg) : dq64<false>(drop, seg), k64Threads,
+          seg ? Dq64Smem<true>::kBytes : Dq64Smem<false>::kBytes};
+}
+
+Kernel dkv_kernel(int D, bool causal, bool drop, bool seg) {
+  if (D == 128)
+    return {causal ? dkv128<true>(seg) : dkv128<false>(seg), kThreads,
+            seg ? DkvSmem<128, true>::kBytes : DkvSmem<128, false>::kBytes};
+  return {causal ? dkv64<true>(drop, seg) : dkv64<false>(drop, seg),
+          k64Threads,
+          seg ? Dkv64Smem<true>::kBytes : Dkv64Smem<false>::kBytes};
 }
 
 // Launches kernel k on a grid (blocks of `rows` rows, H, B), so that the
 // blocks of one head run together and share its K and V (Q and dO)
-// through L2. args points to each argument in order; a kernel without
-// dropout ignores the last (the Drop).
+// through L2. args points to each argument in order: the D-64 kernels end
+// with (Drop, Seg), the D-128 ones with the Seg alone and ignore the last.
 int launch_kernel(const Kernel& k, int rows, int L, int H, int B,
                   cudaStream_t stream, void** args) {
   const cudaError_t rc = cudaFuncSetAttribute(
@@ -1454,86 +1828,142 @@ int launch_kernel(const Kernel& k, int rows, int L, int H, int B,
   return static_cast<int>(rl != cudaSuccess ? rl : cudaGetLastError());
 }
 
-Kernel kernel_of(int which, int D, bool causal, bool drop) {
-  return which == 0   ? fwd_kernel(D, causal, drop)
-         : which == 1 ? dq_kernel(D, causal, drop)
-                      : dkv_kernel(D, causal, drop);
+Kernel kernel_of(int which, int D, bool causal, bool drop, bool seg) {
+  return which == 0   ? fwd_kernel(D, causal, drop, seg)
+         : which == 1 ? dq_kernel(D, causal, drop, seg)
+                      : dkv_kernel(D, causal, drop, seg);
+}
+
+// The tiles of kernel `which` (0 forward, 1 dQ, 2 dK/dV) at head dim D:
+// x the rows a CTA owns (queries; keys for dK/dV), y the rows of the other
+// operand a tile or ring stage holds, the units of win's windows
+int2 tiles_of(int which, int D) {
+  if (which == 0) return make_int2(kRows, D == 128 ? kFwdKV : k64Keys);
+  if (which == 1) return make_int2(kRows, D == 128 ? kDqKV : k64Keys);
+  return D == 128 ? make_int2(kDkvKeys, kDkvQ)
+                  : make_int2(kDkv64Keys, kDkv64Q);
+}
+
+// The argument after the scale: the D-64 kernels' Drop (then their Seg),
+// the D-128 kernels' Seg (they take no dropout)
+void* last(int D, Drop* dr, Seg* sg) {
+  return D == 128 ? static_cast<void*>(sg) : static_cast<void*>(dr);
+}
+
+// The segments of a call: all three arrays or none
+bool make_seg(Seg* sg, const int* seg, long long seg_sb, const int* seg_rng,
+              const int* win) {
+  *sg = Seg{seg, seg_sb, seg_rng, win};
+  return (seg == nullptr) == (seg_rng == nullptr) &&
+         (seg == nullptr) == (win == nullptr);
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes; the arguments of the first
-// design's entries (flash_attention.cuh) without dtype and segments.
-// Tensors are bf16 [B, L, H, D] views with D = 64 or 128 contiguous and
-// their own element strides (batch, seq, head) in `strides`, three per
-// view in argument order; lse and delta are contiguous f32 [B, H, L]. The
-// caller allocates the outputs. `thresh` is 0 without dropout, else the
-// keep threshold with the Philox key (seed_lo, seed_hi) and inv_keep =
-// 1 / (1 - p) (D 64 only). Each returns 0, the cudaError_t of the launch,
-// cudaErrorInvalidValue for a call takes_tma would refuse, or -1 when
-// cuTensorMapEncodeTiled refuses a map.
+// design's entries (flash_attention.cuh) without dtype, with each CTA's
+// window of tiles after the segment ranges. Tensors are bf16 [B, L, H, D]
+// views with D = 64 or 128 contiguous and their own element strides
+// (batch, seq, head) in `strides`, three per view in argument order; lse
+// and delta are contiguous f32 [B, H, L]. The caller allocates the
+// outputs. `seg` ([B, L] int32, batch stride seg_sb), `seg_rng`
+// ([B, ceil(L / 32), 2] int32: min and max id of every 32-row chunk) and
+// `win` ([B, blocks, 2] int32: the first tile and one past the last of
+// each CTA's block, in the kernel's tiles: flash_attention_tma_tiles) are
+// all null without segments.
+// `thresh` is 0 without dropout, else the keep threshold with the Philox
+// key (seed_lo, seed_hi) and inv_keep = 1 / (1 - p) (D 64, no segments).
+// Each returns 0, the cudaError_t of the launch, cudaErrorInvalidValue for
+// a call takes_tma would refuse, or -1 when cuTensorMapEncodeTiled refuses
+// a map.
 extern "C" int flash_attention_tma_forward(
     void* q, void* k, void* v, void* out, float* lse,
     const long long* strides, int B, int L, int H, int D, int causal,
-    float scale, uint32_t seed_lo, uint32_t seed_hi, uint32_t thresh,
+    float scale, const int* seg, long long seg_sb, const int* seg_rng,
+    const int* win, uint32_t seed_lo, uint32_t seed_hi, uint32_t thresh,
     float inv_keep, void* stream) {
   void* ptrs[4] = {q, k, v, out};
-  if (!takes(ptrs, 4, strides, B, L, H, D, thresh))
+  Seg sg;
+  if (!make_seg(&sg, seg, seg_sb, seg_rng, win) ||
+      !takes(ptrs, 4, strides, B, L, H, D, thresh, seg != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int kv = D == 128 ? kFwdKV : k64Keys;
-  const int rows[3] = {kRows, kv, kv};
+  const int2 t = tiles_of(0, D);
+  const int rows[3] = {t.x, t.y, t.y};
   Call c;
   if (!prepare(&c, ptrs, 3, 1, strides, B, L, H, D, rows))
     return kEncodeFailed;
   Drop dr{seed_lo, seed_hi, thresh, inv_keep};
   void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2], &c.views[0],
                   &lse,       &L,         &H,         &scale,
-                  &dr};
-  return launch_kernel(fwd_kernel(D, causal, thresh != 0u), kRows, L, H, B,
-                       static_cast<cudaStream_t>(stream), args);
+                  last(D, &dr, &sg), &sg};
+  return launch_kernel(fwd_kernel(D, causal, thresh != 0u, seg != nullptr),
+                       t.x, L, H, B, static_cast<cudaStream_t>(stream),
+                       args);
 }
 
 extern "C" int flash_attention_tma_backward_dq(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dq, const long long* strides, int B, int L,
-    int H, int D, int causal, float scale, uint32_t seed_lo,
-    uint32_t seed_hi, uint32_t thresh, float inv_keep, void* stream) {
+    int H, int D, int causal, float scale, const int* seg, long long seg_sb,
+    const int* seg_rng, const int* win, uint32_t seed_lo, uint32_t seed_hi,
+    uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[5] = {q, k, v, dout, dq};
-  if (!takes(ptrs, 5, strides, B, L, H, D, thresh))
+  Seg sg;
+  if (!make_seg(&sg, seg, seg_sb, seg_rng, win) ||
+      !takes(ptrs, 5, strides, B, L, H, D, thresh, seg != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int kv = D == 128 ? kDqKV : k64Keys;
-  const int rows[4] = {kRows, kv, kv, kRows};
+  const int2 t = tiles_of(1, D);
+  const int rows[4] = {t.x, t.y, t.y, t.x};
   Call c;
   if (!prepare(&c, ptrs, 4, 1, strides, B, L, H, D, rows))
     return kEncodeFailed;
   Drop dr{seed_lo, seed_hi, thresh, inv_keep};
   void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2], &c.maps[3],
                   &lse,       &delta,     &c.views[0], &L,
-                  &H,         &scale,     &dr};
-  return launch_kernel(dq_kernel(D, causal, thresh != 0u), kRows, L, H, B,
-                       static_cast<cudaStream_t>(stream), args);
+                  &H,         &scale,     last(D, &dr, &sg), &sg};
+  return launch_kernel(dq_kernel(D, causal, thresh != 0u, seg != nullptr),
+                       t.x, L, H, B, static_cast<cudaStream_t>(stream),
+                       args);
 }
 
 extern "C" int flash_attention_tma_backward_dkv(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dk, void* dv, const long long* strides, int B,
-    int L, int H, int D, int causal, float scale, uint32_t seed_lo,
+    int L, int H, int D, int causal, float scale, const int* seg,
+    long long seg_sb, const int* seg_rng, const int* win, uint32_t seed_lo,
     uint32_t seed_hi, uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[6] = {q, k, v, dout, dk, dv};
-  if (!takes(ptrs, 6, strides, B, L, H, D, thresh))
+  Seg sg;
+  if (!make_seg(&sg, seg, seg_sb, seg_rng, win) ||
+      !takes(ptrs, 6, strides, B, L, H, D, thresh, seg != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int keys = D == 128 ? kDkvKeys : kDkv64Keys;
-  const int queries = D == 128 ? kDkvQ : kDkv64Q;
-  const int rows[4] = {queries, keys, keys, queries};
+  const int2 t = tiles_of(2, D);
+  const int rows[4] = {t.y, t.x, t.x, t.y};
   Call c;
   if (!prepare(&c, ptrs, 4, 2, strides, B, L, H, D, rows))
     return kEncodeFailed;
   Drop dr{seed_lo, seed_hi, thresh, inv_keep};
   void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2],  &c.maps[3],
                   &lse,       &delta,     &c.views[0], &c.views[1],
-                  &L,         &H,         &scale,      &dr};
-  return launch_kernel(dkv_kernel(D, causal, thresh != 0u), keys, L, H, B,
-                       static_cast<cudaStream_t>(stream), args);
+                  &L,         &H,         &scale,      last(D, &dr, &sg),
+                  &sg};
+  return launch_kernel(dkv_kernel(D, causal, thresh != 0u, seg != nullptr),
+                       t.x, L, H, B, static_cast<cudaStream_t>(stream),
+                       args);
+}
+
+// The tiles of each kernel of this library (which: 0 forward, 1 dQ, 2
+// dK/dV) at head dim D, the units of win's windows: the rows a CTA owns
+// (queries; keys for dK/dV) in *block, the rows of the other operand a
+// tile holds in *tile. Returns 0, or -1 for a kernel the library does not
+// hold.
+extern "C" int flash_attention_tma_tiles(int which, int D, int* block,
+                                         int* tile) {
+  if ((D != 64 && D != 128) || which < 0 || which > 2) return -1;
+  const int2 t = tiles_of(which, D);
+  *block = t.x;
+  *tile = t.y;
+  return 0;
 }
 
 // Per kernel of this library (which: 0 forward, 1 dQ, 2 dK/dV; D and the
@@ -1542,11 +1972,13 @@ extern "C" int flash_attention_tma_backward_dkv(
 // dynamic shared memory in *smem; -1 for an instance the library does not
 // hold or a refused query.
 extern "C" int flash_attention_tma_occupancy(int which, int D, int causal,
-                                             int dropout, int* smem) {
-  if ((D != 64 && D != 128) || (dropout && D != 64) || which < 0 ||
-      which > 2)
+                                             int dropout, int segments,
+                                             int* smem) {
+  if ((D != 64 && D != 128) || (dropout && (D != 64 || segments)) ||
+      which < 0 || which > 2)
     return -1;
-  const Kernel k = kernel_of(which, D, causal != 0, dropout != 0);
+  const Kernel k =
+      kernel_of(which, D, causal != 0, dropout != 0, segments != 0);
   *smem = k.smem;
   int n = 0;
   if (cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

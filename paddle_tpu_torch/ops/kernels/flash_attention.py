@@ -11,15 +11,15 @@ taken as ``H = 1``); ``lse`` and ``delta`` are f32 ``[B, H, L]``
 Three wrappers launch the CUDA kernels on CUDA tensors; a CPU tensor
 takes the plain version of the same function (and counts nothing).
 Two designs share each wrapper, and :func:`takes_tma` picks one before
-the launch from the operands alone: bf16 at head dim 64 or 128 without
-segments (and at 128 without dropout), with bases and strides a TMA
-tensor map can describe, goes to the TMA / ``wgmma`` kernels of
-``csrc/flash_attention_tma.cu``; everything else to the first design,
-``csrc/flash_attention.cuh``. Both draw the keep mask of
-``csrc/philox.cuh``. Each wrapper counts every launch
+the launch from the operands alone: bf16 at head dim 64 or 128, with
+segments or dropout but not both, dropout at head dim 64 only, with
+bases and strides a TMA tensor map can describe, goes to the TMA /
+``wgmma`` kernels of ``csrc/flash_attention_tma.cu``; everything else
+to the first design, ``csrc/flash_attention.cuh``. Both draw the keep
+mask of ``csrc/philox.cuh``. Each wrapper counts every launch
 (``.launches``), those of the TMA design (``.tma_launches``) and, apart,
-each launch with dropout and each with segments. There is no fallback:
-a CUDA call the chosen kernel refuses raises:
+each launch with dropout and each with segments, in either design.
+There is no fallback: a CUDA call the chosen kernel refuses raises:
 
 - :func:`flash_attention_fwd` -> ``(out, lse)``; plain version
   :func:`flash_attention_fwd_reference`, a tiled online-softmax walk;
@@ -47,6 +47,12 @@ masked logit is -1e30 and masked probabilities are exactly zero;
 tail is masked (the JAX entry instead falls back to XLA for shapes that
 do not tile).
 
+Segments: ``seg`` is the int32 ids ``[B, L]`` or a :class:`SegmentPlan`
+of them, which holds what the kernels read beside the ids (each 32-row
+chunk's id range; the TMA kernels' window of tiles a CTA walks,
+:func:`segment_windows`), built once on the device and reused by the
+launches of a step.
+
 Dropout: the keep mask is a pure function of ``(seed, b, h, row, col)``
 — Philox4x32-10 (:func:`philox4x32_10`) keyed by the 64-bit seed, on the
 counter ``(col >> 2, row, b·H + h, 0)``, word ``col & 3``; a pair is kept
@@ -61,7 +67,7 @@ from __future__ import annotations
 import ctypes
 import math
 import numbers
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -69,6 +75,7 @@ from . import build as _build
 
 __all__ = ["FlashAttention", "flash_attention", "flash_attention_segmented",
            "flash_attention_fwd", "flash_attention_bwd", "takes_tma",
+           "SegmentPlan", "segment_windows",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_fwd_reference", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq_reference",
@@ -87,6 +94,8 @@ _tma_lib: Optional[ctypes.CDLL] = None
 _TMA_HEAD_DIMS = (64, 128)         # the head dims the TMA design is built for
 _TMA_DROPOUT_HEAD_DIM = 64         # ... and the one it takes dropout at
 _INT32_MAX = 2 ** 31 - 1
+_TMA_KERNELS = ("fwd", "dq", "dkv")  # the TMA library's kernel codes
+_tma_tiles_of: Dict[Tuple[str, int], Tuple[int, int]] = {}
 
 
 def _scale(d: int, scale: Optional[float]) -> float:
@@ -406,16 +415,35 @@ def _kernel_lib_tma() -> ctypes.CDLL:
     if _tma_lib is None:
         lib = _build.load("flash_attention_tma")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        tail = [p, i, i, i, i, i, ctypes.c_float, u, u, u, ctypes.c_float, p]
+        tail = [p, i, i, i, i, i, ctypes.c_float, p, ctypes.c_longlong, p,
+                p, u, u, u, ctypes.c_float, p]
         lib.flash_attention_tma_forward.argtypes = [p] * 5 + tail
         lib.flash_attention_tma_backward_dq.argtypes = [p] * 7 + tail
         lib.flash_attention_tma_backward_dkv.argtypes = [p] * 8 + tail
+        lib.flash_attention_tma_tiles.argtypes = [i, i, p, p]
         for fn in (lib.flash_attention_tma_forward,
                    lib.flash_attention_tma_backward_dq,
-                   lib.flash_attention_tma_backward_dkv):
+                   lib.flash_attention_tma_backward_dkv,
+                   lib.flash_attention_tma_tiles):
             fn.restype = ctypes.c_int
         _tma_lib = lib
     return _tma_lib
+
+
+def _tma_tiles(kernel: str, d: int) -> Tuple[int, int]:
+    """(rows a CTA owns, rows of the other operand's tile) of a TMA kernel
+    ("fwd", "dq", "dkv") at head dim ``d``, as the library sizes them: the
+    units of its windows (forward and dQ blocks of queries over key
+    tiles, dK/dV blocks of keys over query stages)."""
+    key = (kernel, d)
+    if key not in _tma_tiles_of:
+        block, tile = ctypes.c_int(), ctypes.c_int()
+        if _kernel_lib_tma().flash_attention_tma_tiles(
+                _TMA_KERNELS.index(kernel), d, ctypes.byref(block),
+                ctypes.byref(tile)):
+            raise ValueError(f"no TMA kernel {kernel} at head dim {d}")
+        _tma_tiles_of[key] = (block.value, tile.value)
+    return _tma_tiles_of[key]
 
 
 def takes_tma(q, k, v, do=None, *, dropout_p: float = 0.0,
@@ -425,13 +453,16 @@ def takes_tma(q, k, v, do=None, *, dropout_p: float = 0.0,
 
     They take ``q``, ``k``, ``v`` (and the backward's ``do``) in bf16 of
     one shape, ``[B, L, H, D]`` or ``[BH, L, D]``, with head dim 64 or 128
-    contiguous and no segments, with dropout at head dim 64 only; every
-    base 16-byte aligned and every (batch, seq, head) stride a multiple
-    of 8 elements (16 bytes), so that a TMA tensor map describes each
-    tensor in place (q, k, v may be strided views of one projection);
-    and sizes inside the grid's and the kernels' 32-bit ranges."""
-    if seg is not None:
-        return False
+    contiguous; with dropout at head dim 64 only, or with segments
+    (``seg`` int32 ``[B, L]`` with contiguous rows, or its
+    :class:`SegmentPlan`) without dropout: each flag set has its own
+    instance, and no public entry combines the two (the varlen entry
+    takes no dropout); every base 16-byte aligned and every (batch, seq,
+    head) stride a multiple of 8 elements (16 bytes), so that a TMA
+    tensor map describes each tensor in place (q, k, v may be strided
+    views of one projection, as the varlen entry's packed
+    ``[total, 3, H, D]`` is); and sizes inside the grid's and the
+    kernels' 32-bit ranges."""
     ts = [t for t in (q, k, v, do) if t is not None]
     if any(t.dtype != torch.bfloat16 or t.shape != q.shape for t in ts):
         return False
@@ -441,6 +472,11 @@ def takes_tma(q, k, v, do=None, *, dropout_p: float = 0.0,
     if dropout_p > 0.0 and q.shape[-1] != _TMA_DROPOUT_HEAD_DIM:
         return False
     B, L, H, _ = _as4(q).shape
+    ids = _ids(seg)
+    if ids is not None and (dropout_p > 0.0 or ids.dtype != torch.int32
+                            or tuple(ids.shape) != (B, L)
+                            or ids.stride(1) != 1 or ids.device != q.device):
+        return False
     if B > 65535 or H > 65535 or B * H * L > _INT32_MAX:
         return False
     return all(_as4(t).stride(3) == 1 and t.data_ptr() % 16 == 0
@@ -503,18 +539,99 @@ def _seg_ranges(seg: torch.Tensor) -> torch.Tensor:
     return torch.stack([c.amin(dim=2), c.amax(dim=2)], dim=2).contiguous()
 
 
+def _group_ranges(rng: torch.Tensor, n: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(least, largest) id ``[B, ceil(C / n)]`` of each group of ``n``
+    consecutive chunks of ``rng`` ``[B, C, 2]`` (the last group padded
+    with the last chunk)."""
+    lo, hi = rng[..., 0], rng[..., 1]
+    pad = -lo.shape[1] % n
+    if pad:
+        lo = torch.cat([lo, lo[:, -1:].expand(-1, pad)], dim=1)
+        hi = torch.cat([hi, hi[:, -1:].expand(-1, pad)], dim=1)
+    B = lo.shape[0]
+    return lo.reshape(B, -1, n).amin(dim=2), hi.reshape(B, -1, n).amax(dim=2)
+
+
+def segment_windows(rng: torch.Tensor, block_rows: int, tile_rows: int,
+                    causal: bool, rows_are_keys: bool = False
+                    ) -> torch.Tensor:
+    """The window of tiles each CTA of the TMA kernels walks:
+    ``[B, ceil(L / block_rows), 2]`` int32, for each block of
+    ``block_rows`` rows (queries; keys when ``rows_are_keys``) the first
+    tile of ``tile_rows`` rows of the other operand and one past the last
+    whose chunk id ranges (``rng``, :func:`_seg_ranges`) overlap the
+    block's; causal clips it at the diagonal (key tiles that start after
+    the block's last query, query tiles that end before its first key).
+    Every allowed pair lies inside its block's window, whatever the ids;
+    for sorted ids (every varlen call) the window is exact: its first
+    and last tiles hold allowed pairs. Plain torch on the ids' device, no
+    host sync; both sizes are multiples of 32."""
+    blo, bhi = _group_ranges(rng, block_rows // _CHUNK)
+    tlo, thi = _group_ranges(rng, tile_rows // _CHUNK)
+    hit = (tlo[:, None, :] <= bhi[:, :, None]) & \
+        (thi[:, None, :] >= blo[:, :, None])          # [B, blocks, tiles]
+    if causal:
+        blk = torch.arange(blo.shape[1], device=rng.device)[:, None]
+        t = torch.arange(tlo.shape[1], device=rng.device)[None, :]
+        hit &= ((t + 1) * tile_rows > blk * block_rows) if rows_are_keys \
+            else (t * tile_rows < (blk + 1) * block_rows)
+    n = hit.shape[2]
+    first = hit.to(torch.uint8).argmax(dim=2)
+    end = n - hit.flip(2).to(torch.uint8).argmax(dim=2)
+    some = hit.any(dim=2)
+    return torch.stack([torch.where(some, first, 0),
+                        torch.where(some, end, 0)], dim=2) \
+        .to(torch.int32).contiguous()
+
+
+class SegmentPlan:
+    """Segment ids ``[B, L]`` (int32, contiguous rows) with what the
+    kernels read beside them, built once on the ids' device and reused by
+    the three launches of a step: ``ranges``, each 32-row chunk's least
+    and largest id (both designs), and the TMA kernels' windows
+    (:func:`segment_windows`), built at a kernel's first call and kept."""
+
+    def __init__(self, ids: torch.Tensor):
+        self.ids = ids
+        self.ranges = _seg_ranges(ids)
+        self._windows: Dict[Tuple[int, int, bool, bool], torch.Tensor] = {}
+
+    def window(self, kernel: str, d: int, causal: bool) -> torch.Tensor:
+        """The windows of one TMA kernel ("fwd", "dq" or "dkv") at head
+        dim ``d``."""
+        block, tile = _tma_tiles(kernel, d)
+        key = (block, tile, bool(causal), kernel == "dkv")
+        if key not in self._windows:
+            self._windows[key] = segment_windows(self.ranges, *key)
+        return self._windows[key]
+
+
+# a wrapper's ``seg``: the ids, their plan, or None
+Segments = Optional[Union[torch.Tensor, SegmentPlan]]
+
+
+def _plan(seg: Segments) -> Optional[SegmentPlan]:
+    if seg is None or isinstance(seg, SegmentPlan):
+        return seg
+    return SegmentPlan(seg)
+
+
+def _ids(seg: Segments) -> Optional[torch.Tensor]:
+    return seg.ids if isinstance(seg, SegmentPlan) else seg
+
+
 def _launch(wrapper, fn, name, args, shape, causal, scale, dtype, device,
-            dropout_p, seed, seg):
+            dropout_p, seed, seg: Optional[SegmentPlan]):
     B, L, H, D = shape
     thresh, inv = _dropout_args(dropout_p, seed)
     lo, hi = _seed_words(seed) if thresh else (0, 0)
-    rng = _seg_ranges(seg) if seg is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*args, B, L, H, D, int(bool(causal)), scale,
             _DTYPE_CODES[dtype],
-            seg.data_ptr() if seg is not None else None,
-            seg.stride(0) if seg is not None else 0,
-            rng.data_ptr() if rng is not None else None,
+            seg.ids.data_ptr() if seg is not None else None,
+            seg.ids.stride(0) if seg is not None else 0,
+            seg.ranges.data_ptr() if seg is not None else None,
             lo, hi, thresh, inv, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError "
@@ -526,25 +643,33 @@ def _launch(wrapper, fn, name, args, shape, causal, scale, dtype, device,
     wrapper.segmented_launches += seg is not None
 
 
-def _launch_tma(wrapper, fn, name, args, shape, causal, scale, device,
-                dropout_p, seed):
+def _launch_tma(wrapper, fn, name, kernel, args, shape, causal, scale,
+                device, dropout_p, seed, seg: Optional[SegmentPlan]):
     """A launch of the TMA design (``takes_tma`` accepted the call): the
     C entry re-checks and returns an error, which raises here. p = 0
-    takes the instance without dropout."""
+    takes the instance without dropout; segments take theirs, with the
+    windows of ``kernel`` ("fwd", "dq", "dkv")."""
     B, L, H, D = shape
     thresh, inv = _dropout_args(dropout_p, seed)
     lo, hi = _seed_words(seed) if thresh else (0, 0)
+    win = seg.window(kernel, D, causal) if seg is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, B, L, H, D, int(bool(causal)), scale, lo, hi, thresh, inv,
-            stream)
+    rc = fn(*args, B, L, H, D, int(bool(causal)), scale,
+            seg.ids.data_ptr() if seg is not None else None,
+            seg.ids.stride(0) if seg is not None else 0,
+            seg.ranges.data_ptr() if seg is not None else None,
+            win.data_ptr() if win is not None else None,
+            lo, hi, thresh, inv, stream)
     if rc != 0:
         what = "cuTensorMapEncodeTiled refused a tensor map" if rc == -1 \
             else f"kernel launch failed with cudaError {rc}"
         raise RuntimeError(f"{name}: TMA {what} (B={B} L={L} H={H} D={D} "
-                           f"causal={bool(causal)} dropout_p={dropout_p})")
+                           f"causal={bool(causal)} dropout_p={dropout_p} "
+                           f"segments={seg is not None})")
     wrapper.launches += 1
     wrapper.tma_launches += 1
     wrapper.dropout_launches += bool(thresh)
+    wrapper.segmented_launches += seg is not None
 
 
 def _on(x: torch.Tensor, name: str) -> bool:
@@ -559,15 +684,16 @@ def _on(x: torch.Tensor, name: str) -> bool:
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         scale: Optional[float] = None,
                         dropout_p: float = 0.0, seed: Optional[int] = None,
-                        seg: Optional[torch.Tensor] = None
+                        seg: Segments = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on CUDA tensors (the plain walk for CPU
     tensors). -> ``(out, lse)``."""
     name = "flash_attention_fwd"
     if not _on(q, name):
         return flash_attention_fwd_reference(q, k, v, causal, scale,
-                                             dropout_p, seed, seg)
-    shape = _check(name, q, (q, k, v), seg=seg)
+                                             dropout_p, seed, _ids(seg))
+    shape = _check(name, q, (q, k, v), seg=_ids(seg))
+    seg = _plan(seg)
     s = _scale(shape[3], scale)
     out = torch.empty_like(q)
     lse = torch.empty((shape[0], shape[2], shape[1]), dtype=torch.float32,
@@ -577,7 +703,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     if takes_tma(q, k, v, dropout_p=dropout_p, seg=seg):
         _launch_tma(flash_attention_fwd,
                     _kernel_lib_tma().flash_attention_tma_forward, name,
-                    args, shape, causal, s, q.device, dropout_p, seed)
+                    "fwd", args, shape, causal, s, q.device, dropout_p,
+                    seed, seg)
     else:
         _launch(flash_attention_fwd,
                 _kernel_lib(q.dtype, shape[3]).flash_attention_forward, name,
@@ -590,7 +717,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                            scale: Optional[float] = None,
                            dropout_p: float = 0.0,
                            seed: Optional[int] = None,
-                           seg: Optional[torch.Tensor] = None
+                           seg: Segments = None
                            ) -> torch.Tensor:
     """Launch the dQ kernel on CUDA tensors (its plain version for CPU
     tensors)."""
@@ -598,8 +725,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     if not _on(q, name):
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
                                                 causal, scale, dropout_p,
-                                                seed, seg)
-    shape = _check(name, q, (q, k, v, do), (lse, delta), seg=seg)
+                                                seed, _ids(seg))
+    shape = _check(name, q, (q, k, v, do), (lse, delta), seg=_ids(seg))
+    seg = _plan(seg)
     s = _scale(shape[3], scale)
     dq = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -608,7 +736,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     if takes_tma(q, k, v, do, dropout_p=dropout_p, seg=seg):
         _launch_tma(flash_attention_bwd_dq,
                     _kernel_lib_tma().flash_attention_tma_backward_dq, name,
-                    args, shape, causal, s, q.device, dropout_p, seed)
+                    "dq", args, shape, causal, s, q.device, dropout_p, seed,
+                    seg)
     else:
         _launch(flash_attention_bwd_dq,
                 _kernel_lib(q.dtype, shape[3]).flash_attention_backward_dq,
@@ -621,7 +750,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                             scale: Optional[float] = None,
                             dropout_p: float = 0.0,
                             seed: Optional[int] = None,
-                            seg: Optional[torch.Tensor] = None
+                            seg: Segments = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel on CUDA tensors (its plain version for
     CPU tensors). -> ``(dk, dv)``."""
@@ -629,8 +758,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     if not _on(q, name):
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                  causal, scale, dropout_p,
-                                                 seed, seg)
-    shape = _check(name, q, (q, k, v, do), (lse, delta), seg=seg)
+                                                 seed, _ids(seg))
+    shape = _check(name, q, (q, k, v, do), (lse, delta), seg=_ids(seg))
+    seg = _plan(seg)
     s = _scale(shape[3], scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -639,7 +769,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     if takes_tma(q, k, v, do, dropout_p=dropout_p, seg=seg):
         _launch_tma(flash_attention_bwd_dkv,
                     _kernel_lib_tma().flash_attention_tma_backward_dkv, name,
-                    args, shape, causal, s, q.device, dropout_p, seed)
+                    "dkv", args, shape, causal, s, q.device, dropout_p, seed,
+                    seg)
     else:
         _launch(flash_attention_bwd_dkv,
                 _kernel_lib(q.dtype, shape[3]).flash_attention_backward_dkv,
@@ -658,10 +789,13 @@ for _w in (flash_attention_fwd, flash_attention_bwd_dq,
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
                         scale: Optional[float] = None,
                         dropout_p: float = 0.0, seed: Optional[int] = None,
-                        seg: Optional[torch.Tensor] = None):
+                        seg: Segments = None):
     """Δ in f32 outside the kernels (as the TPU launcher does), then the
-    dQ and dK/dV launches. -> ``(dq, dk, dv)``."""
+    dQ and dK/dV launches (on CUDA tensors one :class:`SegmentPlan` for
+    both). -> ``(dq, dk, dv)``."""
     delta = attention_delta(out, do)
+    if q.device.type == "cuda":
+        seg = _plan(seg)
     extra = (dropout_p, seed, seg)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale,
                                 *extra)
@@ -673,25 +807,30 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
 class FlashAttention(torch.autograd.Function):
     """``torch.autograd.Function`` in place of the JAX ``custom_vjp``:
     forward saves ``(q, k, v, out, lse)`` and the segment ids, and keeps
-    the dropout seed; backward runs :func:`flash_attention_bwd`, whose
-    kernels regenerate the forward's keep mask from that seed."""
+    the dropout seed and, on CUDA tensors, the ids' :class:`SegmentPlan`
+    (chunk ranges and windows, built once a step); backward runs
+    :func:`flash_attention_bwd`, whose kernels regenerate the forward's
+    keep mask from that seed and reuse the plan."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = False,
                 scale: Optional[float] = None, dropout_p: float = 0.0,
                 seed: Optional[int] = None,
                 seg: Optional[torch.Tensor] = None):
+        plan = _plan(seg) if q.device.type == "cuda" else None
         out, lse = flash_attention_fwd(q, k, v, causal, scale, dropout_p,
-                                       seed, seg)
+                                       seed, seg if plan is None else plan)
         ctx.save_for_backward(q, k, v, out, lse, seg)
         ctx.causal, ctx.scale = causal, scale
-        ctx.dropout_p, ctx.seed = dropout_p, seed
+        ctx.dropout_p, ctx.seed, ctx.plan = dropout_p, seed, plan
         return out
 
     @staticmethod
     def backward(ctx, do):
         do = do.contiguous()
         q, k, v, out, lse, seg = ctx.saved_tensors
+        if ctx.plan is not None:
+            seg = ctx.plan
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
                                          ctx.scale, ctx.dropout_p, ctx.seed,
                                          seg)

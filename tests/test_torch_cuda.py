@@ -4,9 +4,9 @@ its counts; its entry's refusals, its tickets), a tiny engine through
 the kernel against
 the same engine through the walk, the three flash-attention kernels
 against their plain versions (plain, with dropout and with segments;
-bf16 at head dim 64 or 128 without segments on the TMA / wgmma kernels,
-with dropout at head dim 64, everything else on the first design, by
-their counts; the D-64 keep mask bit for bit),
+bf16 at head dim 64 or 128 on the TMA / wgmma kernels, with dropout at
+head dim 64 and with segments without dropout, everything else on the
+first design, by their counts; the D-64 keep mask bit for bit),
 a tiny Llama train step through them against the same step through
 the plain sdpa, the grouped-matmul kernels (K6 forward and dlhs, K7
 drhs; TMA / wgmma for bf16 with 16-byte rows, the general kernels
@@ -335,30 +335,87 @@ def test_flash_dropout_kernels_match_their_plain_versions(cuda, shape,
         assert torch.equal(a, b)
 
 
+_FLASH_WRAPPERS = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                   tfa.flash_attention_bwd_dkv)
+
+
+def _seg_counts():
+    return [(w.segmented_launches, w.tma_launches) for w in _FLASH_WRAPPERS]
+
+
+def _packed(dev, lengths):
+    return torch.repeat_interleave(
+        torch.arange(len(lengths), dtype=torch.int32),
+        torch.tensor(lengths))[None].to(dev)
+
+
+@pytest.mark.parametrize("d", [64, 128], ids=["d64", "d128"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_segmented_kernels_match_their_plain_versions(cuda, causal,
-                                                            dtype, tol):
+                                                            dtype, tol, d):
     """K4: packed sequences of 1 to 300 tokens (tiles that start inside
-    another segment, tiles skipped), and unsorted ids."""
-    lengths = [1, 300, 37, 64, 5, 150, 99]
-    seg = torch.repeat_interleave(
-        torch.arange(len(lengths), dtype=torch.int32),
-        torch.tensor(lengths))[None].to(cuda)
+    another segment, tiles skipped), and unsorted ids; bf16 on the TMA
+    kernels (their windows a superset for the unsorted ids), f32 on the
+    first design, by the counts."""
+    seg = _packed(cuda, [1, 300, 37, 64, 5, 150, 99])
     shuffled = torch.randint(0, 3, seg.shape, device=cuda,
                              generator=torch.Generator(device=cuda)
                              .manual_seed(1), dtype=torch.int32)
+    tma = int(dtype == torch.bfloat16)
     for s in (seg, shuffled):
-        q, k, v, do = _flash_inputs(cuda, (1, seg.shape[1], 4, 64), dtype,
+        q, k, v, do = _flash_inputs(cuda, (1, seg.shape[1], 4, d), dtype,
                                     seed=12)
-        before = tfa.flash_attention_bwd_dkv.segmented_launches
+        before = _seg_counts()
         got, (lse, delta) = _three(q, k, v, do, causal, seg=s)
         torch.cuda.synchronize()
-        assert tfa.flash_attention_bwd_dkv.segmented_launches == before + 1
+        assert _seg_counts() == [(a + 1, b + tma) for a, b in before]
         _check_all(got, _three_plain(q, k, v, do, causal, lse, delta, seg=s),
                    tol)
+
+
+@pytest.mark.parametrize("d", [64, 128], ids=["d64", "d128"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_segmented_tma_masks_whole_tiles_of_another_segment(cuda,
+                                                                  causal, d):
+    """K4 on the TMA kernels where rows meet whole tiles of another
+    segment before their own keys: the block of rows 128-255 starts
+    inside the first sequence (rows 0-159), so the rows of the second
+    sequence in it see the first sequence's key tiles (and, as keys of
+    a dK/dV block, its query stages) in their window before their own:
+    those pairs must come out as exact zeros, not 2^0 = 1. Two batch
+    rows, B 2, the second with the boundary one tile later."""
+    seg = torch.cat([_packed(cuda, [160, 300, 52]),
+                     _packed(cuda, [224, 236, 52])])
+    q, k, v, do = _flash_inputs(cuda, (2, seg.shape[1], 3, d),
+                                torch.bfloat16, seed=13)
+    before = _seg_counts()
+    got, (lse, delta) = _three(q, k, v, do, causal, seg=seg)
+    torch.cuda.synchronize()
+    assert _seg_counts() == [(a + 1, b + 1) for a, b in before]
+    _check_all(got, _three_plain(q, k, v, do, causal, lse, delta, seg=seg),
+               2e-2)
+    assert bool(torch.isfinite(got[1]).all())
+
+
+def test_flash_tma_tiles_size_the_windows(cuda):
+    """The TMA library reports the tiles each kernel walks, and a plan's
+    window table has one entry for each CTA of that kernel's grid: blocks
+    of 64 or 128 rows over tiles of 32 to 128, the sizes at which
+    tests/test_torch_flash_tma.py holds the windows against a pair
+    scan."""
+    seg = _packed(cuda, [100, 200, 77])
+    plan = tfa.SegmentPlan(seg)
+    for d in (64, 128):
+        for kernel in ("fwd", "dq", "dkv"):
+            block, tile = tfa._tma_tiles(kernel, d)
+            assert block in (64, 128) and tile in (32, 64, 128)
+            win = plan.window(kernel, d, True)
+            assert tuple(win.shape) == (1, -(-seg.shape[1] // block), 2)
+    with pytest.raises(ValueError):
+        tfa._tma_tiles("fwd", 96)
 
 
 def test_flash_dropout_and_segment_arguments_raise(cuda):
@@ -473,22 +530,36 @@ def test_flash_tma_entries_refuse_and_the_wrappers_raise(cuda, monkeypatch):
     out = torch.empty_like(q)
     lse = torch.empty(1, 2, 64, dtype=torch.float32, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
+    no_seg = (None, 0, None, None)
     no_drop = (0, 0, 0, 1.0)
+    drop = (1, 2, tfa.dropout_threshold(0.1), 1 / 0.9)
     for D in (32, 96, 130):     # head dims these kernels do not take
         assert lib.flash_attention_tma_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 2, D, 1,
-            0.1, *no_drop, stream) != 0
+            0.1, *no_seg, *no_drop, stream) != 0
     # dropout (thresh != 0) at D 128
     assert lib.flash_attention_tma_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 2, 128, 1, 0.1,
-        1, 2, tfa.dropout_threshold(0.1), 1 / 0.9, stream) != 0
+        *no_seg, *drop, stream) != 0
     misaligned = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)[1:]
     assert lib.flash_attention_tma_forward(
         misaligned.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 2, 128, 1, 0.1,
-        *no_drop, stream) != 0
+        *no_seg, *no_drop, stream) != 0
+    # segments with dropout (no instance), and ids without their windows
+    plan = tfa.SegmentPlan(torch.zeros(1, 64, dtype=torch.int32,
+                                       device=cuda))
+    win = plan.window("fwd", 64, True)
+    q64, k64, v64 = (x[..., :64].contiguous() for x in (q, k, v))
+    o64 = torch.empty_like(q64)
+    segs = (plan.ids.data_ptr(), 64, plan.ranges.data_ptr(), win.data_ptr())
+    for seg, dr in ((segs, drop), (segs[:3] + (None,), no_drop)):
+        assert lib.flash_attention_tma_forward(
+            q64.data_ptr(), k64.data_ptr(), v64.data_ptr(), o64.data_ptr(),
+            lse.data_ptr(), tfa._strides(q64, k64, v64, o64), 1, 64, 2, 64,
+            1, 0.125, *seg, *dr, stream) != 0
 
     class Refusing:
         def __getattr__(self, name):

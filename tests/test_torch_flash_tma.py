@@ -2,13 +2,16 @@
 
 ``takes_tma`` decides from the operands alone which calls the TMA /
 wgmma kernels (``csrc/flash_attention_tma.cu``: bf16, head dim 64 or
-128, no segments, dropout at head dim 64 only, bases and strides a TMA
-tensor map describes) take; everything else goes to the first design.
-On the CPU the three wrappers take their plain versions whatever the
-design would be, and count nothing. The kernels themselves run in
-``tests/test_torch_cuda.py`` and ``chip_smoke.py`` on the card. No JAX
-here.
+128, dropout at head dim 64 only, segments without dropout, bases and
+strides a TMA tensor map describes) take; everything else goes to the
+first design. ``segment_windows`` gives each CTA of those kernels its
+window of tiles: here it is held against a brute-force scan of the
+allowed pairs. On the CPU the three wrappers take their plain versions
+whatever the design would be, and count nothing. The kernels themselves
+run in ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` on the card.
+No JAX here.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -32,6 +35,18 @@ def _three(make):
 def _strided_qkv(seed=0):
     """q, k, v as views of one [B, L, 3, H, D] projection."""
     return list(_bf16(B, L, 3, H, D, seed=seed).unbind(2))
+
+
+def _varlen_views(seed=0):
+    """q, k, v as ``flash_attn_varlen_qkvpacked`` takes them: strided
+    views of one packed ``[total, 3, H, 64]`` tensor, with a batch of
+    one in front (sequence stride 3 H 64)."""
+    qkv = _bf16(B * L, 3, H, 64, seed=seed)
+    return [qkv[:, i][None] for i in range(3)]
+
+
+def _seg(n=L, batch=B):
+    return torch.zeros(batch, n, dtype=torch.int32)
 
 
 def _misaligned(seed=0, d=D):
@@ -98,6 +113,14 @@ ACCEPTED = {
         lambda seed: _bf16(B * H, L, 64, seed=seed)), {"dropout_p": 0.1}),
     "d64_one_row_dropout": (lambda: _three(
         lambda seed: _bf16(B, 1, H, 64, seed=seed)), {"dropout_p": 0.1}),
+    # segments (varlen packing) without dropout, at both head dims, and
+    # the varlen entry's strided views of its packed qkv
+    "d64_segments": (lambda: _three(lambda seed: _bf16(B, L, H, 64,
+                                                       seed=seed)),
+                     {"seg": _seg()}),
+    "segments": (lambda: _three(lambda seed: _bf16(B, L, H, D, seed=seed)),
+                 {"seg": _seg()}),
+    "varlen_qkvpacked": (_varlen_views, {"seg": _seg(B * L, 1)}),
 }
 
 # the views the models build, captured with pytest's monkeypatch
@@ -112,15 +135,26 @@ REFUSED = {
     "d64_f32_dropout": (lambda: _three(
         lambda seed: _bf16(B, L, H, 64, seed=seed).float()),
         {"dropout_p": 0.1}),
-    "d64_segments": (lambda: _three(lambda seed: _bf16(B, L, H, 64,
-                                                       seed=seed)),
-                     {"seg": torch.zeros(B, L, dtype=torch.int32)}),
+    # segments with dropout (no instance: no public entry combines them),
+    # in f32, or with ids the kernels cannot read in place
+    "d64_segments_dropout": (lambda: _three(
+        lambda seed: _bf16(B, L, H, 64, seed=seed)),
+        {"seg": _seg(), "dropout_p": 0.1}),
+    "d64_segments_f32": (lambda: _three(
+        lambda seed: _bf16(B, L, H, 64, seed=seed).float()),
+        {"seg": _seg()}),
+    "d64_segments_int64": (lambda: _three(
+        lambda seed: _bf16(B, L, H, 64, seed=seed)),
+        {"seg": _seg().long()}),
+    "d64_segments_strided_rows": (lambda: _three(
+        lambda seed: _bf16(B, L, H, 64, seed=seed)),
+        {"seg": torch.zeros(B, 2 * L, dtype=torch.int32)[:, ::2]}),
+    "d64_segments_other_length": (lambda: _three(
+        lambda seed: _bf16(B, L, H, 64, seed=seed)), {"seg": _seg(L + 1)}),
     "d64_misaligned_base": (lambda: [_misaligned(0, 64)] + _three(
         lambda seed: _bf16(B, L, H, 64, seed=seed))[1:], {}),
     "d64_stride_not_16_bytes": (lambda: _three(
         lambda seed: _bf16(B, L, H, 68, seed=seed)[..., :64]), {}),
-    "segments": (lambda: _three(lambda seed: _bf16(B, L, H, D, seed=seed)),
-                 {"seg": torch.zeros(B, L, dtype=torch.int32)}),
     "head_dim_not_contiguous": (lambda: _three(
         lambda seed: _bf16(B, L, H, 2 * D, seed=seed)[..., ::2]), {}),
     "misaligned_base": (lambda: [_misaligned(0)] + _three(
@@ -178,7 +212,8 @@ def test_takes_tma_checks_the_backward_dout(which):
 
 
 @pytest.mark.parametrize("layout", ["blhd", "strided_qkv", "d64",
-                                    "d64_dropout"])
+                                    "d64_dropout", "d64_segments",
+                                    "varlen_qkvpacked"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing(layout,
                                                                causal):
@@ -187,11 +222,15 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing(layout,
     make, drop = ACCEPTED[layout]
     q, k, v = make()
     kw = dict(drop, seed=0x5EED) if drop else {}
+    if "seg" in drop:              # two segments of the rows
+        kw["seg"] = drop["seg"].clone()
+        kw["seg"][:, q.shape[1] // 3:] = 1
     do = _bf16(*q.shape, seed=9)
     assert tfa.takes_tma(q, k, v, do, **drop)
     ws = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
           tfa.flash_attention_bwd_dkv)
-    counts = ("launches", "tma_launches", "dropout_launches")
+    counts = ("launches", "tma_launches", "dropout_launches",
+              "segmented_launches")
     before = [[getattr(w, c) for c in counts] for w in ws]
     out, lse = tfa.flash_attention_fwd(q, k, v, causal, **kw)
     delta = tfa.attention_delta(out, do)
@@ -208,3 +247,109 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing(layout,
     for got, ref in ((out, ref_out), (lse, ref_lse), (dq, ref_dq),
                      (dk, ref_dk), (dv, ref_dv)):
         assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the TMA kernels' windows of tiles
+# ---------------------------------------------------------------------------
+
+def _ids(kind):
+    """[2, L] int32 segment ids of one kind: packed sequences (sorted;
+    lengths from 1 up, L not a multiple of 32), random ids (unsorted),
+    one segment, and sequences that end one row into a block."""
+    rng = np.random.default_rng({"sorted": 1, "unsorted": 2, "single": 3,
+                                 "edges": 4}[kind])
+    if kind == "unsorted":
+        return torch.from_numpy(rng.integers(0, 4, (2, 300))
+                                .astype(np.int32))
+    if kind == "single":
+        return torch.zeros(2, 77, dtype=torch.int32)
+    lens = ([[1, 160, 37, 64, 5, 33], [129, 1, 63, 65, 42]]
+            if kind == "edges" else
+            [list(rng.integers(1, 120, 5)) for _ in range(2)])
+    n = max(sum(x) for x in lens)
+    rows = []
+    for x in lens:
+        x = list(x) + [n - sum(x)] if sum(x) < n else list(x)
+        rows.append(np.repeat(np.arange(len(x)), x))
+    return torch.from_numpy(np.stack(rows).astype(np.int32))
+
+
+def _brute_windows(seg, block, tile, causal, rows_are_keys):
+    """Per block, the tiles holding an allowed pair, from every pair:
+    ``[B, blocks]`` lists."""
+    batch, n = seg.shape
+    out = []
+    for b in range(batch):
+        s = seg[b]
+        same = s[:, None] == s[None, :]          # [row, column]
+        if causal:
+            r = torch.arange(n)
+            same &= (r[None, :] >= r[:, None]) if rows_are_keys \
+                else (r[None, :] <= r[:, None])
+        out.append([sorted({int(c) // tile for c in
+                            same[i:i + block].nonzero()[:, 1]})
+                    for i in range(0, n, block)])
+    return out
+
+
+# (rows a block owns, rows of a tile, whether the block's rows are keys):
+# every size the windows are built at is a multiple of 32, and the TMA
+# kernels' (which the library reports, tests/test_torch_cuda.py) are among
+# these
+WINDOW_GEOMETRIES = [(block, tile, keys) for block in (64, 128)
+                     for tile in (32, 64, 128) for keys in (False, True)]
+
+
+@pytest.mark.parametrize(
+    "geometry", WINDOW_GEOMETRIES,
+    ids=lambda x: f"{'keys' if x[2] else 'queries'}{x[0]}_over{x[1]}")
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "single", "edges"])
+def test_segment_windows_hold_every_allowed_pair(kind, causal, geometry):
+    """Every tile holding an allowed pair of a block lies inside the
+    block's window, in both directions (query blocks over key tiles,
+    key blocks over query stages) and for any ids; for sorted ids the
+    window is exact: it starts and ends on such tiles."""
+    seg = _ids(kind)
+    block, tile, keys = geometry
+    win = tfa.segment_windows(tfa._seg_ranges(seg), block, tile, causal,
+                              keys)
+    want = _brute_windows(seg, block, tile, causal, keys)
+    n = seg.shape[1]
+    assert win.dtype == torch.int32 and win.is_contiguous()
+    assert tuple(win.shape) == (seg.shape[0], -(-n // block), 2)
+    for b, blocks in enumerate(want):
+        for i, tiles in enumerate(blocks):
+            lo, hi = (int(x) for x in win[b, i])
+            assert tiles, "a block's rows always pair with themselves"
+            assert lo <= tiles[0] and tiles[-1] < hi <= -(-n // tile)
+            if kind != "unsorted":
+                assert (lo, hi) == (tiles[0], tiles[-1] + 1)
+
+
+def test_segment_plan_builds_each_window_once(monkeypatch):
+    """A plan builds its chunk ranges once and each window at its first
+    use, at the tiles the library reports (here a stand-in for it): two
+    kernels of one tile geometry share a window (the D-64 forward and
+    dQ, 128-row blocks over 64-key tiles), dK/dV and causal calls have
+    their own."""
+    tiles = {("fwd", 64): (128, 64), ("dq", 64): (128, 64),
+             ("dkv", 64): (128, 32), ("fwd", 128): (128, 128)}
+    monkeypatch.setattr(tfa, "_tma_tiles", lambda kernel, d: tiles[kernel, d])
+    seg = _ids("sorted")
+    plan = tfa.SegmentPlan(seg)
+    assert torch.equal(plan.ranges, tfa._seg_ranges(seg))
+    fwd = plan.window("fwd", 64, False)
+    assert plan.window("dq", 64, False) is fwd
+    assert plan.window("fwd", 64, False) is fwd
+    assert plan.window("fwd", 64, True) is not fwd
+    assert plan.window("dkv", 64, False).shape == fwd.shape
+    assert plan.window("fwd", 128, False) is not fwd
+    # a wrapper takes the plan or the ids alike
+    q, k, v = _three(lambda seed: _bf16(2, seg.shape[1], 1, 64, seed=seed))
+    assert tfa.takes_tma(q, k, v, seg=plan) and tfa.takes_tma(q, k, v,
+                                                             seg=seg)
+    a, la = tfa.flash_attention_fwd(q, k, v, True, seg=plan)
+    b, lb = tfa.flash_attention_fwd(q, k, v, True, seg=seg)
+    assert torch.equal(a, b) and torch.equal(la, lb)
