@@ -76,7 +76,31 @@ Phases, each printing one JSON line with its seconds:
                       versions, their bounds and
                       PyTorch's scaled_dot_product_attention (a
                       yardstick only);
-9. ``train``          THE TRAINING PATH: a Llama-2-7B-width bf16 model
+9. ``optimizer_parity``  the fused optimizer step's kernels (O1
+                      unscale / finite check / norms / clip scale, O2
+                      Adam-AdamW) against their plain versions on the card:
+                      AdamW and Adam, bf16 and f16 parameters with moments
+                      of their dtype and f32, f32, transposed parameters
+                      and moments with strided gradients, decay
+                      exemptions, each clip
+                      spec, the plain, found and scaled modes (an inf
+                      planted, a prior flag), numel 1, odd sizes, a
+                      misaligned view and more tensors than one launch
+                      takes: parameters, moments and powers bit-equal given
+                      the same clip scale, O1's scale and norms within
+                      1e-6, unscaled gradients bit-equal, a skipped step
+                      bit-equal to before it, launches per case counted;
+10. ``optimizer_time``  the JAX bench's 64 x (64x64) AdamW + global-norm
+                      clip + cosine schedule step (host µs, fused and the
+                      loop), and at the train phase's 1.07 B bf16
+                      parameters O2 and O1 beside their bounds, their plain
+                      versions, the loop, the optimizer's whole fused step
+                      and torch._fused_adamw_ / torch._foreach_norm
+                      (yardsticks); before the timing, O2 without a clip
+                      and then O1 (unscale, global norm) and O2 with its
+                      scale and flag are held against their plain versions
+                      on those tensors (O2 bit-equal, O1 within 1e-6);
+11. ``train``          THE TRAINING PATH: a Llama-2-7B-width bf16 model
                       (4 layers, random weights) trains with AdamW
                       through TrainStep on a batch of 4 x 2048 tokens:
                       2 warm-up and 5 timed steps; the three flash
@@ -84,11 +108,31 @@ Phases, each printing one JSON line with its seconds:
                       before the timed steps and read just after, and
                       must each equal layers x timed steps; losses finite
                       and falling; then one step under torch.profiler;
-10. ``train_parity``  one step of the same widths at 2 layers through
+                      AdamW steps through O2 (launches = timed steps x
+                      batches of <= 256 tensors, no fallback to the loop,
+                      counted the same way); the profiled step runs once
+                      through the kernels and once through the loop
+                      (FLAGS_fused_optimizer=0), each with the device ms
+                      of its optimizer.step();
+12. ``train_parity``  one step of the same widths at 2 layers through
                       the kernels against the same step with
                       use_flash_attention=False (autograd through the
                       plain sdpa): loss and every gradient compared;
-11. ``flash_dropout_parity``  attention dropout inside the three flash
+13. ``amp_scaler``  THE AMP PATH: a 2-layer Llama-2-7B-width bf16 model
+                      trains with ClipGradByGlobalNorm(1.0), LinearWarmup
+                      over CosineAnnealingDecay and GradScaler(2**15,
+                      decr_every_n_nan_or_inf=1) through O1 and O2; one
+                      step gets an inf planted: that step leaves every
+                      parameter and state bit-equal and halves the scale;
+                      an earlier step is held against the plain versions
+                      (unscaled gradients, parameters and states bit-equal
+                      given the kernel's clip scale, which is within 1e-6);
+                      scaler.step, scaler.update and scheduler.step run
+                      under torch.cuda.set_sync_debug_mode("error"); the
+                      O1/O2 launch counts are reset before and read after
+                      (batches + finalize and batches a step, no
+                      fallback);
+14. ``flash_dropout_parity``  attention dropout inside the three flash
                       kernels (K5) at the BERT-base geometry (B 24, L 512,
                       H 12, D 64, bf16) and a small f32 case, p = 0.1,
                       causal and full: each kernel against its plain
@@ -100,7 +144,7 @@ Phases, each printing one JSON line with its seconds:
                       launch without dropout, two seeds differing, and
                       the FlashAttention autograd function against
                       autograd through the plain sdpa with the same mask;
-12. ``flash_varlen_parity``  the segment-masked kernels (K4) on 12,288
+15. ``flash_varlen_parity``  the segment-masked kernels (K4) on 12,288
                       packed tokens (sequences of 32-512 from a numpy
                       seed, H 12, D 64), bf16 and f32, causal and full,
                       and bf16 on the same ids shuffled, and at the JAX
@@ -119,7 +163,7 @@ Phases, each printing one JSON line with its seconds:
                       TMA launch counts reset just before and read just
                       after (1 each), its output and gradient held
                       against the plain versions on the same views;
-13. ``flash_time_bert``  the kernels with and without dropout at the BERT
+16. ``flash_time_bert``  the kernels with and without dropout at the BERT
                       geometry (the TMA design, the first design beside
                       it with the same dropout: general_ms; what dropout
                       adds to each) and the segmented kernels at the
@@ -129,7 +173,7 @@ Phases, each printing one JSON line with its seconds:
                       beside them, their plain versions, their bounds
                       (the pairs the function needs) and PyTorch's SDPA
                       (a yardstick);
-14. ``bert_train``    THE BERT PATH: BERT-base MLM (12 layers, hidden 768,
+17. ``bert_train``    THE BERT PATH: BERT-base MLM (12 layers, hidden 768,
                       vocab 30522, bf16, dropout 0.1) trains with AdamW
                       through TrainStep on 24 x 512 tokens: 2 warm-up and
                       5 timed steps; the flash launch counts (and their
@@ -138,12 +182,18 @@ Phases, each printing one JSON line with its seconds:
                       equal layers x timed steps; losses finite and
                       falling;
                       then one step under torch.profiler;
-15. ``bert_train_parity``  one step of BERT-base widths at 2 layers
+                      AdamW steps through O2 (launches = timed steps x
+                      batches of <= 256 tensors, no fallback to the loop,
+                      counted the same way); the profiled step runs once
+                      through the kernels and once through the loop
+                      (FLAGS_fused_optimizer=0), each with the device ms
+                      of its optimizer.step();
+18. ``bert_train_parity``  one step of BERT-base widths at 2 layers
                       through the kernels against the same step through
                       the plain sdpa (an all-zero additive mask routes it
                       there) with the same seeds drawn in the same order:
                       loss and every gradient compared;
-16. ``gmm_parity``    the grouped-matmul kernels (K6 forward, K6 as dlhs on
+19. ``gmm_parity``    the grouped-matmul kernels (K6 forward, K6 as dlhs on
                       the transposed weights, K7 drhs) against their plain
                       versions, bf16 and f32, on the op bench's geometry,
                       ERNIE-MoE's expert FFN (w_in and w_out at 8 x 5120
@@ -158,19 +208,19 @@ Phases, each printing one JSON line with its seconds:
                       general mma.sync kernels for f32 and K 37, N 45;
                       then GroupedMatmul's autograd against autograd
                       through the dense oracle;
-17. ``gmm_op``        THE OP PATH: one forward + backward through the
+20. ``gmm_op``        THE OP PATH: one forward + backward through the
                       grouped_matmul entry at the op bench's geometry
                       (bf16); the three counts and their TMA counts are
                       reset just before and read just after: K6 twice
                       (forward, dlhs), K7 once, all through the TMA
                       kernels;
-18. ``gmm_time``      the three kernels at the op bench's geometry and at
+21. ``gmm_time``      the three kernels at the op bench's geometry and at
                       ERNIE-MoE's w_in and w_out products (the TMA
                       kernels), beside the first design's general kernels
                       on the same inputs, their plain versions, their
                       bounds, torch.bmm over the equal groups and
                       torch._grouped_mm (yardsticks);
-19. ``moe_train``     THE ERNIE-MOE PATH: ERNIE-MoE at ErnieMoEConfig()
+22. ``moe_train``     THE ERNIE-MOE PATH: ERNIE-MoE at ErnieMoEConfig()
                       (12 layers, 6 of them MoE with 8 experts, top-2,
                       hidden 768, vocab 30522, bf16) trains with AdamW
                       through TrainStep on 8 x 2048 tokens with the LM loss
@@ -181,7 +231,13 @@ Phases, each printing one JSON line with its seconds:
                       steps; losses finite and
                       falling; the share of token choices capacity drops
                       per MoE layer; then one step under torch.profiler;
-20. ``moe_train_parity``  one step of a 2-layer ERNIE-MoE (one dense, one
+                      AdamW steps through O2 (launches = timed steps x
+                      batches of <= 256 tensors, no fallback to the loop,
+                      counted the same way); the profiled step runs once
+                      through the kernels and once through the loop
+                      (FLAGS_fused_optimizer=0), each with the device ms
+                      of its optimizer.step();
+23. ``moe_train_parity``  one step of a 2-layer ERNIE-MoE (one dense, one
                       MoE layer) through the kernels against the same step
                       through the plain sdpa: loss, every gradient and the
                       share of tokens whose top-2 experts differ; beside
@@ -195,7 +251,9 @@ Llama training geometry, K1a and K2a at
 ERNIE-MoE's, K5 in K1a/K2a at the BERT geometry, K4 in them at the
 packed geometry, K6 and K7 at the op bench's geometry, each flash and
 K6/K7 row naming the design it timed, its TMA launches and the first
-design's time where the TMA design took it)
+design's time where the TMA design took it, and O1 and O2 at the train
+phase's parameters with their launches from the amp_scaler and train
+phases)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Without CUDA, or when run outside a checkout, it
@@ -1400,7 +1458,8 @@ def train_ids(vocab):
 
 def profile_train_step(step, ids):
     """Device time of one train step by kernel group (torch.profiler,
-    CUDA activity only) beside its wall time."""
+    CUDA activity only; "optimizer" is the fused step's multi_tensor
+    kernels) beside its wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1416,10 +1475,12 @@ def profile_train_step(step, ids):
         if us:
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
     groups = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
-              "gemm": 0.0, "other": 0.0}
+              "gemm": 0.0, "optimizer": 0.0, "other": 0.0}
     for key, us in by_kernel.items():
         kl = key.lower()
-        if "flash_fwd" in kl:
+        if "multi_tensor" in kl:
+            groups["optimizer"] += us
+        elif "flash_fwd" in kl:
             groups["flash_fwd"] += us
         elif "flash_bwd_dq" in kl:
             groups["flash_dq"] += us
@@ -1461,6 +1522,7 @@ def phase_train(results):
     torch.cuda.synchronize()
     for kern in kernels:
         kern.launches = kern.tma_launches = 0    # the counts start here
+    reset_optimizer_counts()
     t0 = time.perf_counter()
     for _ in range(TRAIN["steps"]):
         losses.append(step(ids, ids))
@@ -1468,6 +1530,9 @@ def phase_train(results):
     wall = time.perf_counter() - t0
     launches = [kern.launches for kern in kernels]   # ... and are read here
     tma = [kern.tma_launches for kern in kernels]
+    opt_counts = check_optimizer_launches("train", opt, TRAIN["steps"],
+                                          False)
+    results["multi_tensor_adam"]["launches"] = opt_counts["o2"]
     expected = TRAIN["layers"] * TRAIN["steps"]
     if launches != [expected] * 3 or tma != [expected] * 3:
         raise AssertionError(
@@ -1493,7 +1558,8 @@ def phase_train(results):
     attn_per_token = 3 * 2 * 2 * heads * hd * (TRAIN["seq"] + 1) / 2 \
         * TRAIN["layers"]
     mfu = (6 * n_params + attn_per_token) * tok_s / BF16_FLOPS
-    prof = profile_train_step(step, (ids, ids))
+    both = optimizer_both_ways(step, (ids, ids))
+    prof = both["fused"]
     out = {"card": nvidia_smi_line(), "model": "llama2-7b-width",
            "layers": TRAIN["layers"], "hidden": cfg.hidden_size,
            "intermediate": cfg.intermediate_size, "heads": heads,
@@ -1510,7 +1576,9 @@ def phase_train(results):
            "mfu": mfu, "mfu_flops_per_token": 6 * n_params + attn_per_token,
            "flash_launches": dict(zip(("fwd", "dq", "dkv"), launches)),
            "flash_tma_launches": dict(zip(("fwd", "dq", "dkv"), tma)),
-           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof}
+           "optimizer_launches": opt_counts,
+           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof,
+           "profile_one_step_loop": both["loop"]}
     del step, opt, model
     torch.cuda.empty_cache()
     return out
@@ -2015,6 +2083,7 @@ def phase_bert_train(results):
     for w in wrappers:                     # the counts start here
         w.launches = w.dropout_launches = w.segmented_launches = 0
         w.tma_launches = 0
+    reset_optimizer_counts()
     t0 = time.perf_counter()
     for _ in range(BERT["steps"]):
         losses.append(step(ids, ids))
@@ -2023,6 +2092,8 @@ def phase_bert_train(results):
     launches = [w.launches for w in wrappers]        # ... and are read here
     dropped = [w.dropout_launches for w in wrappers]
     tma = [w.tma_launches for w in wrappers]
+    opt_counts = check_optimizer_launches("bert_train", opt, BERT["steps"],
+                                          False)
     expected = BERT["layers"] * BERT["steps"]
     if launches != [expected] * 3 or dropped != [expected] * 3 \
             or tma != [expected] * 3:
@@ -2043,7 +2114,8 @@ def phase_bert_train(results):
     tokens = BERT["batch"] * BERT["seq"]
     tok_s = tokens * BERT["steps"] / wall
     mfu = 6 * n_params * tok_s / BF16_FLOPS      # as bench.py:848 counts
-    prof = profile_train_step(step, (ids, ids))
+    both = optimizer_both_ways(step, (ids, ids))
+    prof = both["fused"]
     out = {"card": nvidia_smi_line(), "model": "bert-base-mlm",
            "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
            "intermediate": cfg.intermediate_size,
@@ -2063,7 +2135,9 @@ def phase_bert_train(results):
            "flash_dropout_launches": dict(zip(("fwd", "dq", "dkv"),
                                               dropped)),
            "flash_tma_launches": dict(zip(("fwd", "dq", "dkv"), tma)),
-           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof}
+           "optimizer_launches": opt_counts,
+           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof,
+           "profile_one_step_loop": both["loop"]}
     del step, opt, model
     torch.cuda.empty_cache()
     return out
@@ -2568,6 +2642,7 @@ def phase_moe_train(results):
     torch.cuda.synchronize()
     for kern in kernels:
         kern.launches = kern.tma_launches = 0    # the counts start here
+    reset_optimizer_counts()
     t0 = time.perf_counter()
     drops = []
     for _ in range(MOE["steps"]):
@@ -2577,6 +2652,8 @@ def phase_moe_train(results):
     wall = time.perf_counter() - t0
     launches = [kern.launches for kern in kernels]   # ... and are read here
     tma = [kern.tma_launches for kern in kernels]
+    opt_counts = check_optimizer_launches("moe_train", opt, MOE["steps"],
+                                          False)
     expected = cfg.num_hidden_layers * MOE["steps"]
     if launches != [expected] * 3 or tma != [expected] * 3:
         raise AssertionError(
@@ -2601,7 +2678,8 @@ def phase_moe_train(results):
     attn_per_token = 3 * 2 * 2 * cfg.num_attention_heads * hd * \
         (MOE["seq"] + 1) / 2 * cfg.num_hidden_layers
     mfu = (6 * n_active + attn_per_token) * tok_s / BF16_FLOPS
-    prof = profile_train_step(step, (ids, ids))
+    both = optimizer_both_ways(step, (ids, ids))
+    prof = both["fused"]
     capacity = max(1, int(cfg.capacity_factor * tokens * cfg.top_k
                           / cfg.num_experts))
     out = {"card": nvidia_smi_line(), "model": "ernie-moe",
@@ -2629,7 +2707,9 @@ def phase_moe_train(results):
                [float(x) for x in row] for row in drops],
            "flash_launches": dict(zip(("fwd", "dq", "dkv"), launches)),
            "flash_tma_launches": dict(zip(("fwd", "dq", "dkv"), tma)),
+           "optimizer_launches": opt_counts,
            "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof,
+           "profile_one_step_loop": both["loop"],
            # the profiled step's own wall carries the profiler's cost:
            # the idle share against the timed steps' mean
            "device_idle_share_of_timed_step":
@@ -2756,6 +2836,768 @@ def phase_moe_train_parity():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the optimizer step: O1 (unscale, finite check, norms) and O2 (Adam/AdamW)
+# ---------------------------------------------------------------------------
+
+# O1's clip scale and sums of squares vs the plain version's: the same f32
+# squares added in another order (chunks, then tensors, on the card)
+OPT_NORM_RTOL = 1e-6
+OPT_LOSS_SCALE = 2.0 ** 15
+OPT_MIXED = [(1000, 4096), (4096,), (1,), (37,), (129, 65), (3, 5, 7)]
+OPT_MISALIGNED = 1001        # a view one element past its buffer's start
+# (name, decoupled, param dtype, f32 moments, decay exemption, clip spec,
+#  mode, planted inf, prior found flag, tensors)
+OPT_CASES = (
+    ("adamw_bf16_plain", True, "bfloat16", False, 3, (), "plain", False,
+     None, "mixed"),
+    ("adamw_bf16_f32m_global", True, "bfloat16", True, 3,
+     ("global_norm", 1.0), "plain", False, None, "mixed"),
+    ("adam_f32_norm", False, "float32", True, 0, ("norm", 0.5), "plain",
+     False, None, "mixed"),
+    ("adamw_bf16_value_found0", True, "bfloat16", False, 2,
+     ("value", -0.3, 0.3), "found", False, False, "mixed"),
+    ("adam_bf16_f32m_scaled_global", False, "bfloat16", True, 0,
+     ("global_norm", 1.0), "scaled", False, None, "mixed"),
+    ("adamw_f32_scaled_inf", True, "float32", True, 3, ("global_norm", 1.0),
+     "scaled", True, None, "mixed"),
+    ("adamw_bf16_found1_norm", True, "bfloat16", False, 0, ("norm", 0.5),
+     "found", False, True, "mixed"),
+    ("adam_f32_value_scaled_prior", False, "float32", True, 0,
+     ("value", -0.3, 0.3), "scaled", False, True, "mixed"),
+    ("adamw_bf16_f32m_many_scaled", True, "bfloat16", True, 5,
+     ("global_norm", 1.0), "scaled", False, None, "many"),
+    ("adam_f16_f32m_scaled_global", False, "float16", True, 0,
+     ("global_norm", 1.0), "scaled", False, None, "mixed"),
+    ("adamw_f16_norm_inf", True, "float16", False, 3, ("norm", 0.5),
+     "scaled", True, None, "mixed"),
+    ("adamw_bf16_f32m_strided_scaled", True, "bfloat16", True, 2,
+     ("global_norm", 1.0), "scaled", False, None, "strided"),
+)
+# the loss scale of an f16 case: 2**15 times a unit normal overflows f16
+OPT_LOSS_SCALE_F16 = 2.0 ** 10
+
+
+def opt_shapes(kind):
+    import numpy as np
+    if kind == "mixed":
+        return OPT_MIXED + [(OPT_MISALIGNED,)]
+    if kind == "strided":
+        return [(1000, 4096), (129, 65), (1, 7), (37, 1)]
+    rng = np.random.default_rng(SEED)
+    # more tensors than one launch takes, odd sizes, one of several chunks
+    return [(int(n),) for n in rng.integers(1, 3000, 300)] + [(70001,)]
+
+
+def opt_tensors(shapes, dtype, mdtype, gscale, seed, device,
+                strided=False):
+    """Parameters, gradients (the parameters' dtype, times ``gscale``),
+    moments mid-run and beta powers; the last entry of a "mixed" table is
+    a view one element into its buffers (not 16-byte aligned). With
+    ``strided`` each parameter and moment is the transpose of a
+    contiguous tensor and each gradient every other column of a tensor
+    twice as wide."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def make(shape, dt, scale, positive=False, offset=0):
+        n = math.prod(shape)
+        x = (torch.rand if positive else torch.randn)(
+            n + offset, generator=g, device=device) * scale
+        return x.to(dt)[offset:].view(shape)
+
+    def make_t(shape, dt, scale, positive=False):
+        return make(shape[::-1], dt, scale, positive).t()
+
+    cols = {k: [] for k in ("p", "g", "m1", "m2", "b1", "b2")}
+    for i, shape in enumerate(shapes):
+        if strided:
+            cols["p"].append(make_t(shape, dtype, 1.0))
+            cols["g"].append(make((shape[0], 2 * shape[1]), dtype,
+                                  gscale)[:, ::2])
+            cols["m1"].append(make_t(shape, mdtype, 0.1))
+            cols["m2"].append(make_t(shape, mdtype, 0.01, True))
+            cols["b1"].append(torch.full((), 0.9 ** 3, device=device))
+            cols["b2"].append(torch.full((), 0.999 ** 3, device=device))
+            continue
+        off = int(shape == (OPT_MISALIGNED,))
+        cols["p"].append(make(shape, dtype, 1.0, offset=off))
+        cols["g"].append(make(shape, dtype, gscale, offset=off))
+        cols["m1"].append(make(shape, mdtype, 0.1, offset=off))
+        cols["m2"].append(make(shape, mdtype, 0.01, True, offset=off))
+        cols["b1"].append(torch.full((), 0.9 ** 3, device=device))
+        cols["b2"].append(torch.full((), 0.999 ** 3, device=device))
+    return cols
+
+
+def opt_clone(cols):
+    import torch
+    out = {}
+    for k, ts in cols.items():
+        out[k] = []
+        for t in ts:
+            if t.storage_offset():      # keep the view's misalignment
+                base = torch.empty(t.numel() + t.storage_offset(),
+                                   dtype=t.dtype, device=t.device)
+                c = base[t.storage_offset():].view(t.shape)
+                c.copy_(t)
+            else:
+                c = t.clone()
+            out[k].append(c)
+    return out
+
+
+def opt_equal(a, b):
+    """Bit-equal tensors (NaN equal to NaN at the same places)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(
+        torch.equal(torch.where(na, 0, a), torch.where(nb, 0, b)))
+
+
+def rel_err(a, b):
+    import torch
+    a, b = a.double(), b.double()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    err = ((a - b).abs() / b.abs().clamp(min=1e-30)).masked_fill(same, 0)
+    return float(err.max()) if err.numel() else 0.0
+
+
+def abs_err(a, b):
+    """max |a - b|, equal values (infinities, NaN beside NaN) 0."""
+    import torch
+    a, b = a.double(), b.double()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    err = (a - b).abs().masked_fill(same, 0)
+    return float(err.max()) if err.numel() else 0.0
+
+
+def o1_errors(rk, rr):
+    """O1's results against its plain version's: the largest relative
+    and absolute errors of the sums of squares, the norm and the clip
+    scale."""
+    pairs = [(rk.stats, rr.stats)]
+    if rk.scale is not None:
+        pairs.append((rk.scale, rr.scale))
+    return (max(rel_err(a, b) for a, b in pairs),
+            max(abs_err(a, b) for a, b in pairs))
+
+
+def opt_mismatches(got, want, keys=("p", "m1", "m2", "b1", "b2")):
+    """The entries of ``got`` not bit-equal to ``want`` (dicts of
+    columns), named column[index]."""
+    return [f"{k}[{i}]" for k in keys
+            for i, (a, b) in enumerate(zip(got[k], want[k]))
+            if not opt_equal(a, b)]
+
+
+def note_optimizer_parity(results, o1_rel, o1_abs, o2_abs, ok):
+    """Fold one parity check into the kernels line's O1 and O2 rows:
+    the largest errors so far, and parity "ok" while every check held."""
+    r1, r2 = results["multi_tensor_unscale_norm"], \
+        results["multi_tensor_adam"]
+    r1["max_rel_err"] = max(r1["max_rel_err"] or 0.0, o1_rel)
+    r1["max_abs_err"] = max(r1["max_abs_err"] or 0.0, o1_abs)
+    r2["max_abs_err"] = max(r2["max_abs_err"] or 0.0, o2_abs)
+    for r in (r1, r2):
+        r["parity"] = "ok" if ok and r["parity"] in (None, "ok") \
+            else "fail"
+
+
+def optimizer_case(case, device="cuda"):
+    """One case of optimizer_parity: O1 and O2 on the kernel side, their
+    plain versions on a copy, on the card; the plain O2 gets the kernel
+    O1's scale and found flag (the same clip scale)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    (name, decoupled, dname, f32m, exempt, clip, mode, poison, prior,
+     kind) = case
+    dtype = getattr(torch, dname)
+    shapes = opt_shapes(kind)
+    scaled = mode == "scaled"
+    loss_scale = OPT_LOSS_SCALE_F16 if dtype == torch.float16 \
+        else OPT_LOSS_SCALE
+    ks = opt_tensors(shapes, dtype, torch.float32 if f32m else dtype,
+                     loss_scale if scaled else 1.0, SEED + len(name),
+                     device, strided=kind == "strided")
+    if poison:
+        ks["g"][1].reshape(-1)[7] = float("inf")
+    ps = opt_clone(ks)
+    before = opt_clone(ks)
+    lr = torch.full((), 1e-3, device=device)
+    wds = [0.0 if exempt and i % exempt == 0 else 0.01
+           for i in range(len(shapes))]
+    inv = torch.reciprocal(torch.full((), loss_scale, device=device)) \
+        if scaled else None
+    flags = [] if prior is None else [
+        torch.full((), prior, dtype=torch.bool, device=device)]
+    on_card = device != "cpu"
+    if on_card:
+        _, most = mt.config()
+        batches = -(-len(shapes) // most)
+    l1, l2 = mt.multi_tensor_unscale_norm.launches, \
+        mt.multi_tensor_adam.launches
+    row = {"case": name, "tensors": len(shapes), "dtype": dname,
+           "moments": "float32" if f32m else dname, "clip": list(clip),
+           "mode": mode, "planted_inf": poison, "prior_found": prior,
+           "decoupled": decoupled}
+    ok = True
+    scale = None
+    if scaled or clip[:1] in (("global_norm",), ("norm",)):
+        rk = mt.multi_tensor_unscale_norm(ks["g"], inv, clip)
+        rr = mt.multi_tensor_unscale_norm_reference(ps["g"], inv, clip)
+        scale = rk.scale
+        row["o1_stats_rel_err"] = rel_err(rk.stats, rr.stats)
+        row["o1_scale_rel_err"] = 0.0 if scale is None else \
+            rel_err(rk.scale, rr.scale)
+        row["o1_max_abs_err"] = o1_errors(rk, rr)[1]
+        row["o1_grads_bit_equal"] = all(
+            opt_equal(a, b) for a, b in zip(ks["g"], ps["g"]))
+        ok &= row["o1_stats_rel_err"] <= OPT_NORM_RTOL and \
+            row["o1_scale_rel_err"] <= OPT_NORM_RTOL and \
+            row["o1_grads_bit_equal"]
+        if scaled:
+            row["found"] = bool(rk.found)
+            ok &= row["found"] == bool(rr.found) == poison
+            flags = [rk.found] + flags
+    kw = dict(lr=lr, beta1=0.9, beta2=0.999, epsilon=1e-8,
+              decoupled=decoupled, clip=clip, scale=scale, found=flags)
+    mt.multi_tensor_adam(ks["p"], ks["g"], ks["m1"], ks["m2"], ks["b1"],
+                         ks["b2"], wds, **kw)
+    mt.multi_tensor_adam_reference(ps["p"], ps["g"], ps["m1"], ps["m2"],
+                                   ps["b1"], ps["b2"], wds, **kw)
+    bad = opt_mismatches(ks, ps)
+    row["o2_bit_equal"] = not bad
+    row["o2_max_abs_err"] = max(
+        float((a.double() - b.double()).abs().nan_to_num(0).max())
+        for k in ("p", "m1", "m2") for a, b in zip(ks[k], ps[k]))
+    ok &= not bad
+    skip = poison or bool(prior)
+    if skip:
+        unchanged = opt_mismatches(ks, before)
+        row["skipped_step_unchanged"] = not unchanged
+        ok &= not unchanged
+    else:
+        row["params_moved"] = not all(
+            opt_equal(a, b) for a, b in zip(ks["p"], before["p"]))
+        ok &= row["params_moved"]
+    if on_card:
+        n1 = mt.multi_tensor_unscale_norm.launches - l1
+        n2 = mt.multi_tensor_adam.launches - l2
+        want1 = batches + 1 if "o1_stats_rel_err" in row else 0
+        row["launches"] = {"o1": n1, "o2": n2}
+        ok &= n1 == want1 and n2 == batches
+    if bad:
+        row["o2_mismatches"] = bad[:8]
+    row["ok"] = bool(ok)
+    return row
+
+
+def phase_optimizer_parity(results, device="cuda"):
+    rows = [optimizer_case(case, device) for case in OPT_CASES]
+    failed = [r for r in rows if not r["ok"]]
+    note_optimizer_parity(
+        results,
+        max(max(r.get("o1_scale_rel_err", 0.0),
+                r.get("o1_stats_rel_err", 0.0)) for r in rows),
+        max(r.get("o1_max_abs_err", 0.0) for r in rows),
+        max(r["o2_max_abs_err"] for r in rows), not failed)
+    out = {"cases": rows, "norm_rtol": OPT_NORM_RTOL,
+           "note": "params, moments and beta powers bit-equal to the plain "
+                   "version given the kernel O1's scale and flag; O1's "
+                   "scale and sums of squares within norm_rtol (summation "
+                   "order); unscaled grads bit-equal; a skipped step "
+                   "leaves every tensor bit-equal to before it"}
+    if failed:
+        emit({"phase": "optimizer_parity", "failed": failed})
+        raise AssertionError(f"optimizer kernels disagree with their plain "
+                             f"versions in {[r['case'] for r in failed]}")
+    return out
+
+
+def optimizer_fallbacks():
+    """The sum over reasons of ``optimizer.fallbacks_total``."""
+    from paddle_tpu_torch.observability import metrics
+    c = metrics.default_registry().get("optimizer.fallbacks_total")
+    return 0 if c is None else c.total()
+
+
+def reset_optimizer_counts():
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    mt.multi_tensor_unscale_norm.launches = 0
+    mt.multi_tensor_adam.launches = 0
+    c = metrics.default_registry().get("optimizer.fallbacks_total")
+    if c is not None:
+        c.reset()
+
+
+def check_optimizer_launches(phase, opt, steps, o1_per_batch):
+    """After ``steps`` steps: O2 launched once a batch of parameters a
+    step, O1 (with a clip by norm or a scaler) once a batch plus its
+    finalize, no fallback to the loop."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    _, most = mt.config()
+    batches = -(-len(opt._parameter_list) // most)
+    got = {"o1": mt.multi_tensor_unscale_norm.launches,
+           "o2": mt.multi_tensor_adam.launches,
+           "fallbacks": optimizer_fallbacks()}
+    want = {"o1": steps * (batches + 1) if o1_per_batch else 0,
+            "o2": steps * batches, "fallbacks": 0}
+    if got != want:
+        from paddle_tpu_torch.observability import metrics
+        c = metrics.default_registry().get("optimizer.fallbacks_total")
+        raise AssertionError(f"{phase}: optimizer launches and fallbacks "
+                             f"{got} != {want} over {steps} steps "
+                             f"(fallback reasons {dict(c._cells)})")
+    return got
+
+
+def optimizer_both_ways(step, batch):
+    """One profiled train step through the fused kernels and one through
+    the loop (FLAGS_fused_optimizer=0), in this run: each step's profile
+    (its "optimizer" group: the multi_tensor kernels), the device ms of
+    ``optimizer.step()`` inside it (CUDA events around the call) and the
+    wall ms of one more step without the profiler (synchronised before
+    and after)."""
+    import torch
+    from paddle_tpu_torch.core.flags import set_flags
+    opt = step.optimizer
+    out = {}
+    for name, flag in (("fused", True), ("loop", False)):
+        events = []
+        inner = type(opt).step.__get__(opt)
+
+        def timed():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            inner()
+            b.record()
+            events.append((a, b))
+
+        set_flags({"FLAGS_fused_optimizer": flag})
+        opt.step = timed
+        try:
+            prof = profile_train_step(step, batch)
+            del opt.step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*batch)
+            torch.cuda.synchronize()
+            prof["step_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            if "step" in vars(opt):
+                del opt.step
+            set_flags({"FLAGS_fused_optimizer": True})
+        prof["optimizer_step_ms"] = events[0][0].elapsed_time(events[0][1])
+        out[name] = prof
+    return out
+
+
+def bench_small_optimizer():
+    """The JAX package's bench_fused_optimizer_step (bench.py:1415-1500):
+    64 f32 parameters of 64 x 64, AdamW + ClipGradByGlobalNorm(1.0) +
+    CosineAnnealingDecay(1e-3, T_max=200), gradients kept across steps;
+    host µs a step (20 steps, one sync at the end, best of 3) and the
+    host µs to issue one, fused and through the loop."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    n_params, shape, steps = 64, (64, 64), 20
+    rng = np.random.default_rng(0)
+    grads = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                              * 1e-3).cuda() for _ in range(n_params)]
+
+    def measure(reps=3):
+        ps = [torch.from_numpy(np.random.default_rng(i).standard_normal(
+            shape).astype(np.float32)).cuda().requires_grad_()
+            for i in range(n_params)]
+        sched = lr.CosineAnnealingDecay(learning_rate=1e-3, T_max=200)
+        opt = AdamW(learning_rate=sched, parameters=ps,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        for p, g in zip(ps, grads):
+            p.grad = g
+        for _ in range(3):
+            opt.step()
+            sched.step()
+        torch.cuda.synchronize()
+        best = issue = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                opt.step()
+                sched.step()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) / steps)
+            issue = min(issue, (t1 - t0) / steps)
+        return best * 1e6, issue * 1e6
+
+    out = {"n_params": n_params, "shape": list(shape), "steps": steps,
+           "optimizer": "AdamW + ClipGradByGlobalNorm(1.0) + "
+                        "CosineAnnealingDecay(1e-3, T_max=200), f32"}
+    try:
+        set_flags({"FLAGS_fused_optimizer": True})
+        l1, l2 = mt.multi_tensor_unscale_norm.launches, \
+            mt.multi_tensor_adam.launches
+        out["fused_us"], out["fused_issue_us"] = measure()
+        n = 3 + 3 * steps
+        out["fused_launches_per_step"] = {
+            "o1": (mt.multi_tensor_unscale_norm.launches - l1) / n,
+            "o2": (mt.multi_tensor_adam.launches - l2) / n}
+        set_flags({"FLAGS_fused_optimizer": False})
+        out["loop_us"], out["loop_issue_us"] = measure()
+    finally:
+        set_flags({"FLAGS_fused_optimizer": True})
+    out["speedup"] = out["loop_us"] / out["fused_us"]
+    return out
+
+
+def optimizer_train_parity(cols, wds):
+    """O1 and O2 against their plain versions on the train phase's
+    tensors (``cols``: p, g, m1, m2, b1, b2; thousands of chunks in the
+    largest tensor, tens of thousands of blocks a launch): a step of O2
+    alone, then the GradScaler's step, the gradients times the loss
+    scale: O1 unscales them with a global-norm clip and O2 takes its
+    scale and flag. The plain versions run on copies; the kernels leave
+    the gradients as they found them (times the scale, unscaled)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    keys = ("p", "g", "m1", "m2", "b1", "b2")
+    ks = dict(zip(keys, cols))
+    ps = {k: [t.detach().clone() for t in v] for k, v in ks.items()}
+    kw = dict(lr=torch.full((), 1e-3, device="cuda"), beta1=0.9,
+              beta2=0.999, epsilon=1e-8, decoupled=True)
+    row = {"tensors": len(cols[0]),
+           "largest_tensor": max(t.numel() for t in cols[0]),
+           "chunks": sum(-(-t.numel() // mt.config()[0]) for t in cols[0])}
+    mt.multi_tensor_adam(*cols, wds, **kw)
+    mt.multi_tensor_adam_reference(*(ps[k] for k in keys), wds, **kw)
+    bad = opt_mismatches(ks, ps)
+    err = [float((a.detach().double() - b.double()).abs().max())
+           for k in ("p", "m1", "m2") for a, b in zip(ks[k], ps[k])]
+    for g in ks["g"] + ps["g"]:
+        g.mul_(OPT_LOSS_SCALE)          # a power of two: exact in bf16
+    inv = torch.reciprocal(torch.full((), OPT_LOSS_SCALE, device="cuda"))
+    clip = ("global_norm", 1.0)
+    rk = mt.multi_tensor_unscale_norm(ks["g"], inv, clip)
+    rr = mt.multi_tensor_unscale_norm_reference(ps["g"], inv, clip)
+    row["o1_rel_err"], row["o1_abs_err"] = o1_errors(rk, rr)
+    row["global_norm"] = float(rk.stats[-1])
+    row["clip_scale"] = float(rk.scale[0])
+    row["found"] = [bool(rk.found), bool(rr.found)]
+    row["o1_grads_bit_equal"] = not opt_mismatches(ks, ps, ("g",))
+    step = dict(kw, clip=clip, scale=rk.scale, found=[rk.found])
+    mt.multi_tensor_adam(*cols, wds, **step)
+    mt.multi_tensor_adam_reference(*(ps[k] for k in keys), wds, **step)
+    bad += [f"scaled step {x}" for x in opt_mismatches(ks, ps)]
+    err += [float((a.detach().double() - b.double()).abs().max())
+            for k in ("p", "m1", "m2") for a, b in zip(ks[k], ps[k])]
+    row["o2_bit_equal"] = not bad
+    row["o2_max_abs_err"] = max(err)
+    row["ok"] = (row["o2_bit_equal"] and row["o1_grads_bit_equal"]
+                 and row["o1_rel_err"] <= OPT_NORM_RTOL
+                 and row["found"] == [False, False])
+    if bad:
+        row["o2_mismatches"] = bad[:8]
+    del ps, rk, rr
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_optimizer_time(results):
+    import torch
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    from paddle_tpu_torch.optimizer import AdamW
+    small = bench_small_optimizer()
+    # the train phase's parameters (7B widths, 4 layers, bf16), bf16
+    # gradients and bf16 moments (multi_precision=False, as train runs)
+    model = train_model(TRAIN["layers"])
+    named = list(model.named_parameters())
+    ps = [p for _, p in named]
+    n = sum(p.numel() for p in ps)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    gs = [(torch.randn(p.shape, generator=g, device="cuda") * 1e-3).to(
+        torch.bfloat16) for p in ps]
+    m1 = [torch.zeros_like(p) for p in ps]
+    m2 = [torch.zeros_like(p) for p in ps]
+    b1 = [torch.ones((), device="cuda") for _ in ps]
+    b2 = [torch.ones((), device="cuda") for _ in ps]
+    wds = [0.01] * len(ps)
+    lr = torch.full((), 1e-3, device="cuda")
+    one = torch.ones((), device="cuda")
+    clip = ("global_norm", 1.0)
+    kw = dict(lr=lr, beta1=0.9, beta2=0.999, epsilon=1e-8, decoupled=True)
+    parity = optimizer_train_parity([ps, gs, m1, m2, b1, b2], wds)
+    note_optimizer_parity(results, parity["o1_rel_err"],
+                          parity["o1_abs_err"], parity["o2_max_abs_err"],
+                          parity["ok"])
+    if not parity["ok"]:
+        emit({"phase": "optimizer_time", "failed": parity})
+        raise AssertionError("O1/O2 disagree with their plain versions on "
+                             "the train phase's tensors")
+    res = mt.multi_tensor_unscale_norm(gs, None, clip)
+    fns = {
+        "o2": lambda: mt.multi_tensor_adam(ps, gs, m1, m2, b1, b2, wds, **kw),
+        "o2_clip": lambda: mt.multi_tensor_adam(
+            ps, gs, m1, m2, b1, b2, wds, clip=clip, scale=res.scale, **kw),
+        "o1_norm": lambda: mt.multi_tensor_unscale_norm(gs, None, clip),
+        "o1_scaled": lambda: mt.multi_tensor_unscale_norm(gs, one, clip),
+    }
+    t = {k: time_ms(f, samples=10, inner=2) for k, f in fns.items()}
+    t["o2_plain"] = time_ms(lambda: mt.multi_tensor_adam_reference(
+        ps, gs, m1, m2, b1, b2, wds, **kw), samples=3, inner=1, warmup=1)
+    t["o1_plain"] = time_ms(lambda: mt.multi_tensor_unscale_norm_reference(
+        gs, None, clip), samples=3, inner=1, warmup=1)
+    steps = [torch.zeros((), device="cuda") for _ in ps]
+    t["library_fused_adamw"] = time_ms(lambda: torch._fused_adamw_(
+        ps, gs, m1, m2, [], steps, lr=1e-3, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False),
+        samples=10, inner=2)
+    t["library_foreach_norm"] = time_ms(lambda: torch._foreach_norm(gs),
+                                        samples=10, inner=2)
+    # the optimizer itself, fused and through the loop, with and without
+    # the clip
+    for clipped in (False, True):
+        opt = AdamW(learning_rate=1e-3, parameters=named,
+                    multi_precision=False,
+                    grad_clip=ClipGradByGlobalNorm(1.0) if clipped else None)
+        for p, gr in zip(ps, gs):
+            p.grad = gr
+        tag = "_clip" if clipped else ""
+        try:
+            set_flags({"FLAGS_fused_optimizer": False})
+            t["loop" + tag] = time_ms(opt.step, samples=3, inner=1,
+                                      warmup=1)
+            set_flags({"FLAGS_fused_optimizer": True})
+            t["fused_step" + tag] = time_ms(opt.step, samples=10, inner=2)
+        finally:
+            set_flags({"FLAGS_fused_optimizer": True})
+        opt.clear_grad()
+        del opt
+    bound = {"o2": 14 * n / HBM_BYTES_PER_S * 1e3,
+             "o1_norm": 2 * n / HBM_BYTES_PER_S * 1e3,
+             "o1_scaled": 4 * n / HBM_BYTES_PER_S * 1e3}
+    bound["o2_clip"] = bound["o2"]
+    rows = (("multi_tensor_adam", "o2", "o2_plain", "library_fused_adamw"),
+            ("multi_tensor_unscale_norm", "o1_norm", "o1_plain",
+             "library_foreach_norm"))
+    for key, k, plain, lib in rows:
+        r = results[key]
+        r.update(ms=t[k], kernel_ms=t[k], plain_ms=t[plain],
+                 bound_ms=bound[k], bound_by="bytes", library_ms=t[lib],
+                 loop_ms=t["loop"] if k == "o2" else None)
+    out = {"card": nvidia_smi_line(), "small_bench": small,
+           "train_geometry_parity": parity,
+           "geometry": "the train phase's parameters: llama2-7b widths, "
+                       f"{TRAIN['layers']} layers, {len(ps)} tensors, "
+                       f"{n} bf16 parameters, bf16 gradients and moments",
+           "params": n, "tensors": len(ps), "times_ms": t,
+           "bound_ms": bound,
+           "bound_note": "O2 14 B a parameter (p, g, m1, m2 read; p, m1, m2 "
+                         "written, bf16), O1 2 B (g read; 4 B when it "
+                         "unscales in place); at 3.35 TB/s",
+           "library": "torch._fused_adamw_ on the same bf16 tensors (decays "
+                      "before the step and updates in bf16: a yardstick, "
+                      "not the JAX formula); torch._foreach_norm over the "
+                      "gradients for O1 (the norms only: no clip scale, "
+                      "no finite check, no unscale)",
+           "loop": "Optimizer.step with FLAGS_fused_optimizer=0 (the "
+                   "per-parameter loop) on the same parameters and "
+                   "gradients; fused_step: Optimizer.step through O1/O2"}
+    for p in ps:
+        p.grad = None
+    del model, named, ps, gs, m1, m2, b1, b2, steps, res
+    torch.cuda.empty_cache()
+    return out
+
+
+AMP = dict(layers=2, batch=2, seq=2048, steps=6, poison_step=3,
+           parity_step=2, lr=1e-4, warmup=2, t_max=100)
+
+
+def amp_snapshot(opt, scaler):
+    """What one scaler.step reads: the parameters with gradients (in the
+    fused table's order), copies of them, of their gradients (times the
+    loss scale), of their states, the loss scale and the decays."""
+    params = [p for p, _ in opt._params_grads()]
+    idx = [opt._index[id(p)] for p in params]
+    return {"params": params,
+            "p": [p.detach().clone() for p in params],
+            "g": [p.grad.clone() for p in params],
+            **{k: [opt._states[i][slot].clone() for i in idx]
+               for k, slot in (("m1", "moment1"), ("m2", "moment2"),
+                               ("b1", "beta1_pow"), ("b2", "beta2_pow"))},
+            "scale": scaler._scale.clone(),
+            "wds": [float(opt._use_wd(i)) for i in idx], "idx": idx}
+
+
+def amp_step_parity(opt, snap, o1, lr):
+    """One fused scaler.step against the plain versions run on its
+    snapshot: the unscaled gradients and O1's clip scale and norms
+    (``o1``: the UnscaleNorm the step's O1 returned), then O2 given that
+    scale and flag: parameters, moments and powers bit-equal."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    clip = ("global_norm", 1.0)
+    rr = mt.multi_tensor_unscale_norm_reference(
+        snap["g"], torch.reciprocal(snap["scale"]), clip)
+    row = {"step": AMP["parity_step"], "tensors": len(snap["p"])}
+    row["o1_rel_err"], row["o1_abs_err"] = o1_errors(o1, rr)
+    row["found"] = [bool(o1.found), bool(rr.found)]
+    row["o1_grads_bit_equal"] = all(
+        opt_equal(p.grad, g) for p, g in zip(snap["params"], snap["g"]))
+    before = [t.clone() for t in snap["p"]]
+    mt.multi_tensor_adam_reference(
+        snap["p"], snap["g"], snap["m1"], snap["m2"], snap["b1"],
+        snap["b2"], snap["wds"], lr=torch.full((), lr, device="cuda"),
+        beta1=opt._beta1, beta2=opt._beta2, epsilon=opt._epsilon,
+        decoupled=opt._decoupled_wd, clip=clip, scale=o1.scale,
+        found=[o1.found])
+    got = {"p": [p.detach() for p in snap["params"]],
+           **{k: [opt._states[i][slot] for i in snap["idx"]]
+              for k, slot in (("m1", "moment1"), ("m2", "moment2"),
+                              ("b1", "beta1_pow"), ("b2", "beta2_pow"))}}
+    bad = opt_mismatches(got, snap)
+    row["o2_bit_equal"] = not bad
+    row["o2_max_abs_err"] = max(
+        float((a.double() - b.double()).abs().max())
+        for k in ("p", "m1", "m2") for a, b in zip(got[k], snap[k]))
+    row["params_moved"] = not all(opt_equal(a, b)
+                                  for a, b in zip(got["p"], before))
+    row["ok"] = (not bad and row["o1_grads_bit_equal"]
+                 and row["o1_rel_err"] <= OPT_NORM_RTOL
+                 and row["found"] == [False, False])
+    if bad:
+        row["o2_mismatches"] = bad[:8]
+    return row
+
+
+def phase_amp_scaler(results):
+    """THE AMP PATH: a 2-layer bf16 Llama at 7B widths trains with
+    ClipGradByGlobalNorm(1.0), LinearWarmup over CosineAnnealingDecay
+    and GradScaler(2**15, decr_every_n_nan_or_inf=1); one step gets an
+    inf planted in a gradient. scaler.step, scaler.update and every
+    scheduler.step() run under torch.cuda.set_sync_debug_mode("error")."""
+    import torch
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    model = train_model(AMP["layers"])
+    sched = lr.LinearWarmup(
+        lr.CosineAnnealingDecay(AMP["lr"], T_max=AMP["t_max"]),
+        warmup_steps=AMP["warmup"], start_lr=0.0, end_lr=AMP["lr"])
+    opt = AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                multi_precision=False, grad_clip=ClipGradByGlobalNorm(1.0))
+    scaler = GradScaler(init_loss_scaling=OPT_LOSS_SCALE,
+                        decr_every_n_nan_or_inf=1)
+    crit = LlamaPretrainingCriterion()
+    ids = train_ids(model.config.vocab_size)[:AMP["batch"]]
+    losses, scales, lrs, skipped, parity = [], [], [], None, None
+    reset_optimizer_counts()
+    o1_seen = []
+    o1_call = mt.AdamTable.unscale_norm
+
+    def o1_spy(table, *a, **k):       # keeps the step's O1 results
+        o1_seen.append(o1_call(table, *a, **k))
+        return o1_seen[-1]
+
+    for s in range(AMP["steps"]):
+        loss = crit(model(ids), ids).float()
+        scaler.scale(loss).backward()
+        snap = amp_snapshot(opt, scaler) if s == AMP["parity_step"] \
+            else None
+        if s == AMP["poison_step"]:
+            before = {"params": [p.detach().clone()
+                                 for p in opt._parameter_list],
+                      "states": {i: {k: v.clone() for k, v in st.items()}
+                                 for i, st in opt._states.items()}}
+            opt._parameter_list[1].grad.view(-1)[5] = float("inf")
+        scale_before = float(scaler._scale)
+        lrs.append(opt.get_lr())
+        torch.cuda.synchronize()
+        o1_seen.clear()
+        mt.AdamTable.unscale_norm = o1_spy
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            scaler.step(opt)
+            scaler.update()
+            sched.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            mt.AdamTable.unscale_norm = o1_call
+        if snap is not None:
+            parity = amp_step_parity(opt, snap, o1_seen[0], lrs[-1])
+            del snap
+        opt.clear_grad()
+        losses.append(float(loss))
+        scales.append(float(scaler._scale))
+        if s == AMP["poison_step"]:
+            params_same = all(opt_equal(a, b) for a, b in zip(
+                before["params"], opt._parameter_list))
+            states_same = all(opt_equal(v, opt._states[i][k])
+                              for i, st in before["states"].items()
+                              for k, v in st.items())
+            skipped = {"params_bit_equal": params_same,
+                       "states_bit_equal": states_same,
+                       "scale_before": scale_before,
+                       "scale_after": scales[-1]}
+            del before
+    counts = check_optimizer_launches("amp_scaler", opt, AMP["steps"], True)
+    results["multi_tensor_unscale_norm"]["launches"] = counts["o1"]
+    expected_scales = []
+    sc = OPT_LOSS_SCALE
+    for s in range(AMP["steps"]):
+        sc = sc / 2 if s == AMP["poison_step"] else sc
+        expected_scales.append(sc)
+    note_optimizer_parity(results, parity["o1_rel_err"],
+                          parity["o1_abs_err"], parity["o2_max_abs_err"],
+                          parity["ok"])
+    ok = (skipped["params_bit_equal"] and skipped["states_bit_equal"]
+          and parity["ok"] and parity["params_moved"]
+          and scales == expected_scales
+          and all(math.isfinite(x) for x in losses)
+          and opt._global_step == AMP["steps"])
+    out = {"card": nvidia_smi_line(), "model": "llama2-7b-width",
+           "layers": AMP["layers"], "batch": AMP["batch"],
+           "seq": AMP["seq"], "dtype": "bfloat16",
+           "optimizer": "AdamW(multi_precision=False, "
+                        "grad_clip=ClipGradByGlobalNorm(1.0))",
+           "lr": f"LinearWarmup({AMP['warmup']} steps, 0 -> {AMP['lr']}) "
+                 f"over CosineAnnealingDecay({AMP['lr']}, "
+                 f"T_max={AMP['t_max']})",
+           "scaler": f"GradScaler(init_loss_scaling={OPT_LOSS_SCALE}, "
+                     "decr_every_n_nan_or_inf=1)",
+           "reduced": ["depth 32 -> 2 layers", "batch 2 x 2048",
+                       "random weights from a seed"],
+           "losses": losses, "lrs": lrs, "loss_scales": scales,
+           "expected_loss_scales": expected_scales,
+           "poisoned_step": AMP["poison_step"], "skipped_step": skipped,
+           "step_parity": parity,
+           "launches": counts,
+           "sync_debug_mode": "error around scaler.step, scaler.update "
+                              "and scheduler.step: no sync raised",
+           "ok": ok}
+    del opt, model, scaler
+    torch.cuda.empty_cache()
+    if not ok:
+        emit({"phase": "amp_scaler", "failed": out})
+        raise AssertionError("the AMP step did not skip the poisoned step "
+                             "bit-exactly, a step disagreed with the plain "
+                             "versions or the loss scale went wrong")
+    return out
+
+
 def ptxas_instances(lines):
     """{kernel<template args>: (registers, spill bytes)} from ptxas'
     report of one library: each "Compiling entry function" line, then its
@@ -2774,7 +3616,10 @@ def ptxas_instances(lines):
                 # dtype: __nv_bfloat16 or int8_t (signed char, "a")
                 args.insert(0, "bf16" if k[0].group(3).startswith(
                     "13__nv_bfloat16") else "int8")
-            name = f"{k[0].group(2)}<{','.join(args)}>" if k else m.group(1)
+            plain = re.search(r"multi_tensor_(?:adam|unscale_norm|finalize)"
+                              r"_kernel", m.group(1))
+            name = f"{k[0].group(2)}<{','.join(args)}>" if k else \
+                plain.group(0) if plain else m.group(1)
             out[name] = [None, 0]
         elif name and "spill" in ln:
             out[name][1] = sum(int(x) for x in
@@ -2866,6 +3711,15 @@ def phase_build():
                              "registers or lack instances")
     out["paged_attention_split"]["registers_and_spills"] = paged
     out["paged_attention_split"]["occupancy"] = paged_split_occupancy()
+    # the optimizer kernels: O1, its finalize and O2; none may spill
+    opt = ptxas_instances(out["multi_tensor_optimizer"]["ptxas"])
+    spills = {k: v for k, v in opt.items() if v[1] or v[0] is None}
+    if spills or len(opt) != 3:
+        emit({"phase": "build", "failed": {"optimizer_spills": spills,
+                                           "optimizer_instances": list(opt)}})
+        raise AssertionError("the optimizer kernels spill registers or lack "
+                             "instances")
+    out["multi_tensor_optimizer"]["registers_and_spills"] = opt
     return out
 
 
@@ -2987,6 +3841,31 @@ def main() -> int:
             "ms": None, "kernel_ms": None, "general_ms": None,
             "plain_ms": None, "bound_ms": None, "bound_by": None,
             "library_ms": None}
+    # O1 and O2, the fused optimizer step's kernels: the JAX package runs
+    # the step as one XLA program (no Pallas kernel); "replaces" names
+    # the function of that program each kernel computes
+    for name, line, body in (
+            ("multi_tensor_unscale_norm", 535,
+             "_unscale_fn :535 and clip_by_spec's norms "
+             "(utils/clip_grad.py:48-73) inside _make_fn :217"),
+            ("multi_tensor_adam", 217,
+             "_make_fn :217 (apply_update_tail :190: Adam._update, "
+             "optimizer.py:299, and where(found, old, new) :240)")):
+        flash[name] = {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/kernels/csrc/"
+                      "multi_tensor_optimizer.cu",
+            "replaces": f"paddle_tpu/optimizer/fused_step.py:{line}",
+            "tpu_kernel": "none: one XLA program, fused_step.py " + body,
+            "design": "multi-tensor table in the kernel parameters, "
+                      "(tensor, chunk) blocks, 16-byte vectors",
+            "launches": None, "parity": None, "max_abs_err": None,
+            "ms": None, "kernel_ms": None, "plain_ms": None,
+            "bound_ms": None, "bound_by": None, "library_ms": None,
+            "loop_ms": None}
+    # O1's norms add in another order than the plain version's: its
+    # relative error beside the absolute one (O2's is bit-equal)
+    flash["multi_tensor_unscale_norm"]["max_rel_err"] = None
     state: dict = {}
 
     def free_serving():
@@ -3006,8 +3885,11 @@ def main() -> int:
                                   **free_serving()}),
         ("flash_parity", lambda: phase_flash_parity(flash)),
         ("flash_time", lambda: phase_flash_time(flash)),
+        ("optimizer_parity", lambda: phase_optimizer_parity(flash)),
+        ("optimizer_time", lambda: phase_optimizer_time(flash)),
         ("train", lambda: phase_train(flash)),
         ("train_parity", phase_train_parity),
+        ("amp_scaler", lambda: phase_amp_scaler(flash)),
         ("flash_dropout_parity", lambda: phase_flash_dropout_parity(flash)),
         ("flash_varlen_parity", lambda: phase_flash_varlen_parity(flash)),
         ("flash_time_bert", lambda: phase_flash_time_bert(flash)),

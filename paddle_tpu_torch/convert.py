@@ -12,22 +12,32 @@ BERT, ERNIE-MoE, any tree); without one, the Llama projection names
 Linear's weight — ERNIE-MoE's expert stacks ``w_in [E, H, F]`` and
 ``w_out [E, F, H]`` and its gate weight ``[H, E]`` — keep the JAX
 layout and are copied as they are, their optimizer moments too.
-:func:`optimizer_state_from_jax` carries the optimizer's per-parameter
-slots (Adam/AdamW moments and beta powers) by parameter name, the
-moments of Linear weights transposed like their weights, so a port run
-resumes from a JAX optimizer state. bf16 arrays (numpy's ``bfloat16``
-extension dtype) come across as ``torch.bfloat16``, exactly.
+:func:`optimizer_state_from_jax` carries any optimizer's per-parameter
+slots by parameter name, the slots of Linear weights transposed like
+their weights (the last two axes, so ASGD's ``[n, in, out]`` gradient
+history too), so a port run resumes from a JAX optimizer state.
+:func:`optimizer_state_dict_from_jax` takes a whole JAX
+``optimizer.state_dict()`` (``global_step``, ``LR_Scheduler``,
+``param_{i}_{slot}``) as numpy into the port's ``set_state_dict`` keys,
+re-indexed by parameter name where the two optimizers list their
+parameters in another order; :func:`lr_state_from_jax` and
+:func:`grad_scaler_state_from_jax` carry an LR scheduler's and a
+``GradScaler``'s state dicts (numpy scalars become Python numbers).
+bf16 arrays (numpy's ``bfloat16`` extension dtype) come across as
+``torch.bfloat16``, exactly.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import re
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 __all__ = ["state_dict_from_jax", "load_from_jax",
-           "optimizer_state_from_jax", "linear_weight_names",
-           "LINEAR_WEIGHTS"]
+           "optimizer_state_from_jax", "optimizer_state_dict_from_jax",
+           "lr_state_from_jax", "grad_scaler_state_from_jax",
+           "linear_weight_names", "LINEAR_WEIGHTS"]
 
 # the Linear layers of the Llama module tree (their ``.weight`` leaves):
 # the default when no port model is given
@@ -54,12 +64,14 @@ def _linear_test(model: Optional[torch.nn.Module]):
 
 
 def _tensor(name: str, a, transpose: bool) -> torch.Tensor:
+    """``a`` as a torch tensor; ``transpose`` swaps its last two axes
+    (a Linear weight ``[in, out]``, or a slot ending in that shape)."""
     a = np.asarray(a)
     if transpose:
-        if a.ndim != 2:
+        if a.ndim < 2:
             raise ValueError(f"{name}: Linear weight must be 2-D, got "
                              f"shape {a.shape}")
-        a = a.T
+        a = np.swapaxes(a, -1, -2)
     bf16 = a.dtype.name == "bfloat16"
     t = torch.from_numpy(np.array(a.astype(np.float32) if bf16 else a,
                                   copy=True, order="C"))
@@ -82,17 +94,84 @@ def optimizer_state_from_jax(
         states: Mapping[str, Mapping[str, np.ndarray]],
         model: Optional[torch.nn.Module] = None
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """``{parameter name: {slot: numpy array}}`` — the JAX optimizer's
-    per-parameter slots (``moment1``, ``moment2``, ``beta1_pow``,
-    ``beta2_pow``) keyed by the JAX model's parameter names -> the same
-    in the port's layout, for ``Optimizer.set_named_states``: the
-    moments of Linear weights transposed like the weights, the 0-d beta
-    powers copied."""
+    """``{parameter name: {slot: numpy array}}`` — any JAX optimizer's
+    per-parameter slots (Adam's ``moment1``, ``moment2``, ``beta1_pow``,
+    ``beta2_pow``, Momentum's ``velocity``, ASGD's ``ys`` ...) keyed by
+    the JAX model's parameter names -> the same in the port's layout,
+    for ``Optimizer.set_named_states``: the slots of Linear weights with
+    two or more axes transposed in their last two, the rest copied."""
     is_linear = _linear_test(model)
     return {name: {k: _tensor(f"{name}:{k}", a,
-                              is_linear(name) and np.ndim(a) == 2)
+                              is_linear(name) and np.ndim(a) >= 2)
                    for k, a in slots.items()}
             for name, slots in states.items()}
+
+
+def _py(v):
+    """numpy scalars and arrays -> Python numbers and lists."""
+    if isinstance(v, np.generic):
+        return v.item()
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, (list, tuple)):
+        return type(v)(_py(x) for x in v)
+    if isinstance(v, dict):
+        return {k: _py(x) for k, x in v.items()}
+    return v
+
+
+def lr_state_from_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX ``LRScheduler.state_dict()`` -> the port's (the same keys;
+    numpy scalars become Python numbers)."""
+    return {k: _py(v) for k, v in state.items()}
+
+
+def grad_scaler_state_from_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX ``GradScaler.state_dict()`` (scale, ratios, good and bad
+    step counts) -> the port's ``GradScaler.load_state_dict`` input."""
+    out = {k: _py(v) for k, v in state.items()}
+    for k in ("good_steps", "bad_steps"):
+        if k in out:
+            out[k] = int(out[k])
+    return out
+
+
+_SLOT_KEY = re.compile(r"param_(\d+)_(.+)")
+
+
+def optimizer_state_dict_from_jax(
+        state_dict: Mapping[str, Any],
+        names: Optional[Sequence[str]] = None,
+        port_names: Optional[Sequence[str]] = None,
+        model: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
+    """A JAX ``optimizer.state_dict()`` (values as numpy) -> a dict for
+    the port's ``Optimizer.set_state_dict``, with the same keys.
+
+    ``names`` are the JAX optimizer's parameter names in its order
+    (``[n for n, _ in model.named_parameters()]``); with them the slots
+    of Linear weights are transposed like their weights (``model``, the
+    port model, decides which are Linear weights, else
+    :data:`LINEAR_WEIGHTS`), and with ``port_names`` (the port
+    optimizer's ``_param_names``) each ``param_{i}`` is re-indexed to
+    the port optimizer's position of the same name."""
+    is_linear = _linear_test(model)
+    out: Dict[str, Any] = {}
+    for key, v in state_dict.items():
+        m = _SLOT_KEY.fullmatch(key) if isinstance(key, str) else None
+        if key == "LR_Scheduler":
+            out[key] = lr_state_from_jax(v)
+        elif m is None:
+            out[key] = _py(v)
+        else:
+            i, slot = int(m.group(1)), m.group(2)
+            name = names[i] if names is not None else None
+            j = port_names.index(name) if port_names is not None \
+                and name is not None else i
+            a = np.asarray(getattr(v, "_data", v))
+            out[f"param_{j}_{slot}"] = _tensor(
+                f"{key}", a, name is not None and is_linear(name)
+                and a.ndim >= 2)
+    return out
 
 
 def load_from_jax(model: torch.nn.Module,

@@ -107,3 +107,11 @@ define_flag("paged_attention_kernel", True,
             "serving_cache.paged_attention seam for CUDA tensors. On a "
             "CUDA engine 0 raises: the plain walk runs on the card only "
             "when asked for by name (attention_impl='reference')")
+define_flag("fused_optimizer", True,
+            "One fused optimizer step: Adam and AdamW update every "
+            "parameter in one multi-tensor pass on the card (the "
+            "hand-written kernels of ops/kernels/multi_tensor.py), with "
+            "gradient clipping, the AMP unscale and finite check and the "
+            "skip of a non-finite step inside it; lr and the loss scale "
+            "stay in device memory. Kill switch: FLAGS_fused_optimizer=0 "
+            "restores the per-parameter update loop")

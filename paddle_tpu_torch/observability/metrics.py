@@ -75,6 +75,11 @@ class Counter(_Instrument):
         with self._lock:
             return self._cells.get(key, 0)
 
+    def total(self):
+        """The unlabeled cell plus every labeled one."""
+        with self._lock:
+            return self._v + sum(self._cells.values())
+
     def reset(self) -> None:
         with self._lock:
             self._cells.clear()

@@ -819,3 +819,299 @@ def test_ernie_moe_step_through_the_kernels_matches_the_plain_sdpa(cuda):
         rel = (a - b).square().mean().sqrt() / \
             b.square().mean().sqrt().clamp(min=1e-30)
         assert float(rel) <= 1e-4
+
+
+# -- the fused optimizer step (O1, O2) ---------------------------------------
+
+def _opt_table(dev, shapes, dtype, mdtype, seed, gscale=1.0):
+    """Parameters, gradients, moments mid-run and beta powers; the last
+    entry a view one element into its buffers (not 16-byte aligned)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(n, dt, scale, positive=False):
+        x = (torch.rand if positive else torch.randn)(
+            n + 1, generator=g, device=dev) * scale
+        return x.to(dt)[1:] if n == 1001 else x.to(dt)[:n]
+
+    cols = {k: [] for k in ("p", "g", "m1", "m2", "b1", "b2")}
+    for n in shapes:
+        cols["p"].append(make(n, dtype, 1.0))
+        cols["g"].append(make(n, dtype, gscale))
+        cols["m1"].append(make(n, mdtype, 0.1))
+        cols["m2"].append(make(n, mdtype, 0.01, True))
+        cols["b1"].append(torch.full((), 0.9 ** 3, device=dev))
+        cols["b2"].append(torch.full((), 0.999 ** 3, device=dev))
+    return cols
+
+
+def _copy(cols):
+    out = {}
+    for k, ts in cols.items():
+        out[k] = []
+        for t in ts:
+            c = torch.empty(t.numel() + t.storage_offset(), dtype=t.dtype,
+                            device=t.device)[t.storage_offset():]
+            out[k].append(c.view(t.shape).copy_(t))
+    return out
+
+
+OPT_SHAPES = [70001, 1, 37, 4096, 1001]
+
+
+@pytest.mark.parametrize("dtype,f32m", [(torch.bfloat16, False),
+                                        (torch.bfloat16, True),
+                                        (torch.float32, True),
+                                        (torch.float16, False),
+                                        (torch.float16, True)],
+                         ids=["bf16", "bf16-f32m", "f32", "f16", "f16-f32m"])
+@pytest.mark.parametrize("clip,mode", [((), "plain"),
+                                       (("global_norm", 1.0), "scaled"),
+                                       (("norm", 0.5), "plain"),
+                                       (("value", -0.3, 0.3), "found")],
+                         ids=["plain", "global-scaled", "norm", "value-found"])
+def test_optimizer_kernels_match_their_plain_versions(cuda, dtype, f32m,
+                                                      clip, mode):
+    """O2 bit-equal to its plain version given O1's scale and flag; O1's
+    norms and scale within 1e-6 of its plain version's (summation
+    order), its unscaled gradients bit-equal."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    scaled = mode == "scaled"
+    ks = _opt_table(cuda, OPT_SHAPES, dtype,
+                    torch.float32 if f32m else dtype, 7,
+                    1024.0 if scaled else 1.0)
+    ps = _copy(ks)
+    lr = torch.full((), 1e-3, device=cuda)
+    inv = torch.full((), 1 / 1024.0, device=cuda) if scaled else None
+    flags = [torch.zeros((), dtype=torch.bool, device=cuda)] \
+        if mode == "found" else []
+    before = (mt.multi_tensor_unscale_norm.launches,
+              mt.multi_tensor_adam.launches)
+    scale = None
+    o1 = scaled or clip[0] in ("global_norm", "norm") if clip else scaled
+    if o1:
+        rk = mt.multi_tensor_unscale_norm(ks["g"], inv, clip)
+        rr = mt.multi_tensor_unscale_norm_reference(ps["g"], inv, clip)
+        torch.testing.assert_close(rk.stats, rr.stats, rtol=1e-6, atol=0)
+        if rk.scale is not None:
+            torch.testing.assert_close(rk.scale, rr.scale, rtol=1e-6, atol=0)
+        for a, b in zip(ks["g"], ps["g"]):
+            assert torch.equal(a, b)
+        if scaled:
+            assert not rk.found and not rr.found
+            flags = [rk.found]
+        scale = rk.scale
+    kw = dict(lr=lr, beta1=0.9, beta2=0.999, epsilon=1e-8, decoupled=True,
+              clip=clip, scale=scale, found=flags)
+    wds = [0.0, 0.01, 0.01, 0.0, 0.01]
+    mt.multi_tensor_adam(ks["p"], ks["g"], ks["m1"], ks["m2"], ks["b1"],
+                         ks["b2"], wds, **kw)
+    mt.multi_tensor_adam_reference(ps["p"], ps["g"], ps["m1"], ps["m2"],
+                                   ps["b1"], ps["b2"], wds, **kw)
+    for k in ("p", "m1", "m2", "b1", "b2"):
+        for a, b in zip(ks[k], ps[k]):
+            assert torch.equal(a, b), k
+    assert (mt.multi_tensor_unscale_norm.launches - before[0],
+            mt.multi_tensor_adam.launches - before[1]) == (2 * o1, 1)
+
+
+def test_optimizer_kernels_skip_a_non_finite_step(cuda):
+    """An inf in one gradient: O1 finds it and O2 writes nothing; more
+    tensors than one launch takes: O1 and O2 launch twice."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    _, most = mt.config()
+    ks = _opt_table(cuda, [3 + i for i in range(most + 5)], torch.bfloat16,
+                    torch.float32, 8)
+    ks["g"][most + 2][1] = float("inf")
+    before = _copy(ks)
+    n1, n2 = mt.multi_tensor_unscale_norm.launches, \
+        mt.multi_tensor_adam.launches
+    res = mt.multi_tensor_unscale_norm(ks["g"], torch.ones((), device=cuda),
+                                       ("global_norm", 1.0))
+    assert bool(res.found)
+    mt.multi_tensor_adam(ks["p"], ks["g"], ks["m1"], ks["m2"], ks["b1"],
+                         ks["b2"], [0.01] * len(ks["p"]),
+                         lr=torch.full((), 1e-3, device=cuda), beta1=0.9,
+                         beta2=0.999, epsilon=1e-8, decoupled=True,
+                         clip=("global_norm", 1.0), scale=res.scale,
+                         found=[res.found])
+    for k in ("p", "m1", "m2", "b1", "b2"):
+        for a, b in zip(ks[k], before[k]):
+            assert torch.equal(a, b), k
+    assert (mt.multi_tensor_unscale_norm.launches - n1,
+            mt.multi_tensor_adam.launches - n2) == (3, 2)
+
+
+def test_optimizer_kernels_raise_instead_of_falling_back(cuda):
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    ks = _opt_table(cuda, [5, 7], torch.float32, torch.float32, 9)
+    lr = torch.full((), 1e-3, device=cuda)
+    kw = dict(lr=lr, beta1=0.9, beta2=0.999, epsilon=1e-8, decoupled=True)
+    args = [ks[k] for k in ("p", "g", "m1", "m2", "b1", "b2")]
+    n = mt.multi_tensor_adam.launches
+    with pytest.raises(ValueError, match="dtype"):
+        mt.multi_tensor_adam(*args[:1], [ks["g"][0].double(), ks["g"][1]],
+                             *args[2:], [0.0, 0.0], **kw)
+    with pytest.raises(ValueError, match="moments"):
+        mt.multi_tensor_adam(*args[:3], [ks["m2"][0].bfloat16(),
+                                         ks["m2"][1]], *args[4:],
+                             [0.0, 0.0], **kw)
+    with pytest.raises(ValueError, match="lr"):
+        mt.multi_tensor_adam(*args, [0.0, 0.0], **dict(kw, lr=lr.cpu()))
+    with pytest.raises(ValueError, match="scale"):
+        mt.multi_tensor_adam(*args, [0.0, 0.0], clip=("norm", 1.0),
+                             **{k: v for k, v in kw.items()})
+    with pytest.raises(ValueError, match="expected"):
+        mt.multi_tensor_unscale_norm([torch.ones(4, device=cuda),
+                                      torch.ones(4)])
+    assert mt.multi_tensor_adam.launches == n
+
+
+def test_optimizer_kernels_take_tensors_that_are_not_contiguous(cuda):
+    """Transposed parameters and moments, strided gradients: O1 unscales
+    them in place and O2 updates them in place through contiguous
+    copies, bit-equal to the plain versions, one launch each."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    g = torch.Generator(device=cuda).manual_seed(12)
+
+    def make(shape, dt, scale=1.0, positive=False):
+        x = (torch.rand if positive else torch.randn)(
+            shape, generator=g, device=cuda) * scale
+        return x.to(dt)
+
+    shapes = [(64, 48), (33, 5), (1, 7)]
+    ks = {"p": [make(s, torch.bfloat16).t() for s in shapes],
+          "g": [make((s[1], 2 * s[0]), torch.bfloat16, 1024.0)[:, ::2]
+                for s in shapes],
+          "m1": [make(s, torch.float32, 0.1).t() for s in shapes],
+          "m2": [make(s, torch.float32, 0.01, True).t() for s in shapes],
+          "b1": [torch.full((), 0.9 ** 3, device=cuda) for _ in shapes],
+          "b2": [torch.full((), 0.999 ** 3, device=cuda) for _ in shapes]}
+    ps = {k: [t.clone() for t in v] for k, v in ks.items()}
+    assert not any(t.is_contiguous() for t in ks["p"][:2] + ks["g"])
+    n1, n2 = mt.multi_tensor_unscale_norm.launches, \
+        mt.multi_tensor_adam.launches
+    clip = ("global_norm", 1.0)
+    inv = torch.full((), 1 / 1024.0, device=cuda)
+    table = mt.AdamTable(ks["p"], ks["m1"], ks["m2"], ks["b1"], ks["b2"],
+                         [0.01, 0.0, 0.01])
+    table.set_grads(ks["g"])
+    rk = table.unscale_norm(inv, clip)
+    rr = mt.multi_tensor_unscale_norm_reference(ps["g"], inv, clip)
+    torch.testing.assert_close(rk.scale, rr.scale, rtol=1e-6, atol=0)
+    kw = dict(lr=torch.full((), 1e-3, device=cuda), beta1=0.9, beta2=0.999,
+              epsilon=1e-8, decoupled=True, clip=clip, scale=rk.scale,
+              found=[rk.found])
+    table.adam(**kw)
+    mt.multi_tensor_adam_reference(ps["p"], ps["g"], ps["m1"], ps["m2"],
+                                   ps["b1"], ps["b2"], [0.01, 0.0, 0.01],
+                                   **kw)
+    for k in ("p", "g", "m1", "m2", "b1", "b2"):
+        for a, b in zip(ks[k], ps[k]):
+            assert torch.equal(a, b), k
+    assert (mt.multi_tensor_unscale_norm.launches - n1,
+            mt.multi_tensor_adam.launches - n2) == (2, 1)
+
+
+def test_f16_and_transposed_parameters_step_through_the_kernels(cuda):
+    """Adam and AdamW over f16 parameters (f16 or f32 moments) and over
+    transposed parameters take the kernels, no fallback counted, and
+    equal the loop (FLAGS_fused_optimizer=0) on the card bit for bit."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    from paddle_tpu_torch.optimizer import Adam
+    c = metrics.default_registry().get("optimizer.fallbacks_total")
+    total = 0 if c is None else c.total()
+    for cls, dtype, multi, transposed in ((Adam, torch.float16, True, False),
+                                          (AdamW, torch.float16, False,
+                                           False),
+                                          (AdamW, torch.bfloat16, True,
+                                           True)):
+        runs = []
+        for fused in (True, False):
+            set_flags({"FLAGS_fused_optimizer": fused})
+            try:
+                ks = _opt_table(cuda, [4096, 33, 1], dtype, dtype, 13)
+                ps = [(p.view(64, 64).t() if transposed and p.numel() == 4096
+                       else p).clone().requires_grad_() for p in ks["p"]]
+                opt = cls(learning_rate=1e-2, parameters=ps,
+                          weight_decay=0.01, multi_precision=multi,
+                          grad_clip=ClipGradByGlobalNorm(1.0))
+                n2 = mt.multi_tensor_adam.launches
+                for s in range(3):
+                    for p, gr in zip(ps, ks["g"]):
+                        p.grad = (gr.view(p.shape) * (1 + s)).to(dtype)
+                    opt.step()
+                assert mt.multi_tensor_adam.launches - n2 == \
+                    (3 if fused else 0)
+                runs.append([p.detach() for p in ps])
+            finally:
+                set_flags({"FLAGS_fused_optimizer": True})
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+    c = metrics.default_registry().get("optimizer.fallbacks_total")
+    assert (0 if c is None else c.total()) == total
+
+
+def test_adamw_step_through_the_kernels_equals_the_loop_on_the_card(cuda):
+    """Optimizer.step through O2 against FLAGS_fused_optimizer=0 (the
+    loop, torch's CUDA ops) on the same card: bit-equal."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.nn import ClipGradByValue
+    from paddle_tpu_torch.optimizer import lr as tlr
+    runs = []
+    for fused in (True, False):
+        set_flags({"FLAGS_fused_optimizer": fused})
+        try:
+            ks = _opt_table(cuda, [4096, 33, 1], torch.bfloat16,
+                            torch.bfloat16, 10)
+            ps = [p.clone().requires_grad_() for p in ks["p"]]
+            sched = tlr.CosineAnnealingDecay(1e-2, T_max=10)
+            opt = AdamW(learning_rate=sched, parameters=ps,
+                        multi_precision=False,
+                        grad_clip=ClipGradByValue(0.5))
+            for s in range(3):
+                for p, g in zip(ps, ks["g"]):
+                    p.grad = g * (1 + s)
+                opt.step()
+                sched.step()
+            runs.append([p.detach() for p in ps])
+        finally:
+            set_flags({"FLAGS_fused_optimizer": True})
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_grad_scaler_step_and_update_never_sync(cuda):
+    """GradScaler.step / update and a scheduler step under
+    torch.cuda.set_sync_debug_mode("error"), through the kernels; a
+    planted inf skips the step and halves the scale."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr as tlr
+    ks = _opt_table(cuda, [4096, 33], torch.bfloat16, torch.float32, 11,
+                    2.0 ** 10)
+    ps = [p.clone().requires_grad_() for p in ks["p"]]
+    sched = tlr.LinearWarmup(tlr.CosineAnnealingDecay(1e-3, T_max=10),
+                             warmup_steps=2, start_lr=0.0, end_lr=1e-3)
+    opt = AdamW(learning_rate=sched, parameters=ps,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    scaler = GradScaler(init_loss_scaling=2.0 ** 10,
+                        decr_every_n_nan_or_inf=1)
+    for s in range(3):
+        for p, g in zip(ps, ks["g"]):
+            p.grad = g.clone()
+        if s == 2:
+            ps[1].grad[4] = float("inf")
+            kept = [p.detach().clone() for p in ps]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            scaler.step(opt)
+            scaler.update()
+            sched.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for a, b in zip(kept, ps))
+    assert float(scaler._scale) == 2.0 ** 9

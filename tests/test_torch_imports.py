@@ -49,21 +49,26 @@ def test_port_covers_the_slice_modules():
             "nn/transformer.py", "models/bert.py",
             # the ERNIE-MoE slice and the grouped-matmul op
             "ops/kernels/grouped_matmul.py", "incubate/moe_dispatch.py",
-            "incubate/moe.py", "models/gpt.py", "models/ernie_moe.py"}
+            "incubate/moe.py", "models/gpt.py", "models/ernie_moe.py",
+            # the optimizer plane
+            "optimizer/lr.py", "optimizer/extra.py",
+            "optimizer/fused_step.py", "regularizer.py",
+            "utils/clip_grad.py", "amp/grad_scaler.py",
+            "ops/kernels/multi_tensor.py"}
     have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert want <= have, sorted(want - have)
     for src in ("paged_attention.cu", "flash_attention.cuh",
                 "flash_attention_bf16_d64.cu", "flash_attention_bf16_d128.cu",
                 "flash_attention_f32_d64.cu", "flash_attention_f32_d128.cu",
-                "grouped_matmul.cu"):
+                "grouped_matmul.cu", "multi_tensor_optimizer.cu"):
         assert (PKG / "ops/kernels/csrc" / src).is_file()
 
 
 def test_importing_the_port_loads_no_jax():
     """A fresh interpreter with only the repo on its path imports the
-    serving, Llama, BERT and ERNIE-MoE training stacks and the grouped
-    matmul op (and chip_smoke)
-    without pulling in JAX or the JAX package."""
+    serving, Llama, BERT and ERNIE-MoE training stacks, the grouped
+    matmul op and the optimizer plane (and chip_smoke) without pulling
+    in JAX or the JAX package."""
     code = (
         "import sys, chip_smoke, paddle_tpu_torch.serving, "
         "paddle_tpu_torch.convert, paddle_tpu_torch.models.llama, "
@@ -72,7 +77,10 @@ def test_importing_the_port_loads_no_jax():
         "paddle_tpu_torch.jit, paddle_tpu_torch.nn.functional, "
         "paddle_tpu_torch.nn, paddle_tpu_torch.models.bert, "
         "paddle_tpu_torch.core.random, paddle_tpu_torch.models.ernie_moe, "
-        "paddle_tpu_torch.ops.kernels.grouped_matmul\n"
+        "paddle_tpu_torch.ops.kernels.grouped_matmul, "
+        "paddle_tpu_torch.optimizer.fused_step, paddle_tpu_torch.amp, "
+        "paddle_tpu_torch.regularizer, paddle_tpu_torch.utils.clip_grad, "
+        "paddle_tpu_torch.ops.kernels.multi_tensor\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -136,7 +144,8 @@ def test_flags_keep_the_jax_names_and_defaults(monkeypatch):
     names = {"serving_block_size", "serving_num_blocks",
              "serving_prefill_chunk", "serving_prefix_cache",
              "serving_prefix_cache_blocks", "serving_shed_queue",
-             "serving_admission_policy", "paged_attention_kernel"}
+             "serving_admission_policy", "paged_attention_kernel",
+             "fused_optimizer"}
     assert set(tflags._registry) == names
     for n in names:
         assert tflags._registry[n].default == jflags._registry[n].default
@@ -197,11 +206,13 @@ def test_kernel_build_is_lazy_and_names_sm90a(monkeypatch, tmp_path):
         build.NVCC_FLAGS)
     # the first flash design builds as four libraries, one per (dtype,
     # head dim), and the TMA design as a fifth; the two paged-attention
-    # designs as two more, so that nvcc compiles them in parallel
+    # designs as two more, the optimizer kernels as one, so that nvcc
+    # compiles them in parallel
     assert [p.name for p in build.sources()] == [
         "flash_attention_bf16_d128.cu", "flash_attention_bf16_d64.cu",
         "flash_attention_f32_d128.cu", "flash_attention_f32_d64.cu",
-        "flash_attention_tma.cu", "grouped_matmul.cu", "paged_attention.cu",
+        "flash_attention_tma.cu", "grouped_matmul.cu",
+        "multi_tensor_optimizer.cu", "paged_attention.cu",
         "paged_attention_split.cu"]
     monkeypatch.setenv(build.BUILD_DIR_ENV, str(tmp_path / "k"))
     assert build.build_dir() == tmp_path / "k"
@@ -214,7 +225,7 @@ def test_kernel_build_is_lazy_and_names_sm90a(monkeypatch, tmp_path):
         pytest.skip("this machine has nvcc")
     for name in ("paged_attention", "paged_attention_split",
                  "flash_attention_bf16_d64", "flash_attention_tma",
-                 "grouped_matmul"):
+                 "grouped_matmul", "multi_tensor_optimizer"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.load(name)
     assert not (tmp_path / "k").exists()
