@@ -17,7 +17,8 @@ Phases, each printing one JSON line with its seconds:
                       if one of those spills or an instance is missing;
 3. ``kernel_parity``  the paged-attention kernels against their plain
                       walk on the card, over the serving geometries
-                      (decode, GQA, verify windows, prefill chunk, dense
+                      (decode, GQA, verify windows — serve_spec's among
+                      them —, prefill chunk, dense
                       whole-prompt prefill, int8 pools, the int8-KV
                       engine's own shapes, f32, poisoned blocks, a long
                       GQA history in many spans cut by n_tiles): each
@@ -32,9 +33,11 @@ Phases, each printing one JSON line with its seconds:
                       entry (general_ms), the plain walk and PyTorch's
                       scaled_dot_product_attention over the same K/V
                       gathered beforehand (a yardstick only), beside the
-                      bound: decode with bf16 and with int8 pools, and the
+                      bound: decode with bf16 and with int8 pools, the
                       64-row prefill chunk with its K/V out of L2 (calls
-                      rotate over four copies of the pools);
+                      rotate over four copies of the pools) and the
+                      speculative verify window (8 slots x 5 rows at the
+                      decode's positions) beside the decode's time;
 5. ``serve``          THE SERVING PATH: a Llama-2-7B-width bf16 model with
                       random weights behind a PagedLlamaDecodeEngine and
                       a GenerationServer answers 12 requests; the kernel
@@ -51,7 +54,35 @@ Phases, each printing one JSON line with its seconds:
                       over the same weights runs one prompt beside a
                       kernel engine: logits compared, greedy agreement
                       printed;
-7. ``flash_parity``   the flash-attention forward, dQ and dK/dV kernels
+7. ``serve_spec``     SPECULATIVE SERVING: the serve phase's model and 12
+                      requests through a target at 8 slots x 2048 tokens
+                      with make_draft()'s 16-layer view (the target's own
+                      weight tensors, by data_ptr; its extra memory is its
+                      KV pool alone) proposing 4 tokens a step: exact
+                      budgets; K3 launches = target layers x (plain steps
+                      + verify steps + chunks) + draft layers x (4 x spec
+                      steps + plain steps + draft chunks), the verify
+                      windows and 64-row chunks on the tensor cores;
+                      exactly one device-to-host read a spec step
+                      (counted on the loop thread over the run, and the
+                      profiled step's DtoH copies); check_invariants() on
+                      both pools; every stream equal to the serve phase's
+                      or parted where the plain logits are a near-tie
+                      (0.1 + 0.02 |top|); acceptance, tokens a verify,
+                      tokens/s and TTFT beside the plain phase's, and a
+                      profiled spec step (K3 ms of verify and proposals);
+8. ``serve_spec_full_accept``  4 layers of the same weights with an
+                      independent 4-layer engine as the draft: the same
+                      gates on launches and budgets, acceptance >= 95 %,
+                      each rejection a near-tie of the verify logits;
+9. ``hot_swap``       4 layers, 4 slots: 4 requests unswapped, then again
+                      with a swap to cloned weights mid-stream (the
+                      streams must equal the unswapped run's, the clones
+                      installed) and a swap to a state dict with one leaf
+                      of another shape (rejected and counted, the
+                      streams go on); the swap's seconds at the step
+                      boundary;
+10. ``flash_parity``  the flash-attention forward, dQ and dK/dV kernels
                       against their plain versions on the card, bf16 and
                       f32, at the training geometry (B 4, L 2048, H 32,
                       D 128) causal and full, D 64 through the [BH, L, D]
@@ -67,7 +98,7 @@ Phases, each printing one JSON line with its seconds:
                       f32 copies of the inputs; then the FlashAttention
                       autograd function against autograd through the
                       plain sdpa;
-8. ``flash_time``     the three kernels, the whole backward (with delta)
+11. ``flash_time``    the three kernels, the whole backward (with delta)
                       and forward + backward at the training geometry,
                       ERNIE-MoE's (D 64, causal) and D 64 in the [BH, L,
                       D] layout (BERT-base heads), all on the TMA design,
@@ -76,7 +107,7 @@ Phases, each printing one JSON line with its seconds:
                       versions, their bounds and
                       PyTorch's scaled_dot_product_attention (a
                       yardstick only);
-9. ``optimizer_parity``  the fused optimizer step's kernels (O1
+12. ``optimizer_parity``  the fused optimizer step's kernels (O1
                       unscale / finite check / norms / clip scale, O2
                       Adam-AdamW) against their plain versions on the card:
                       AdamW and Adam, bf16 and f16 parameters with moments
@@ -90,7 +121,7 @@ Phases, each printing one JSON line with its seconds:
                       the same clip scale, O1's scale and norms within
                       1e-6, unscaled gradients bit-equal, a skipped step
                       bit-equal to before it, launches per case counted;
-10. ``optimizer_time``  the JAX bench's 64 x (64x64) AdamW + global-norm
+13. ``optimizer_time``  the JAX bench's 64 x (64x64) AdamW + global-norm
                       clip + cosine schedule step (host µs, fused and the
                       loop), and at the train phase's 1.07 B bf16
                       parameters O2 and O1 beside their bounds, their plain
@@ -100,7 +131,7 @@ Phases, each printing one JSON line with its seconds:
                       and then O1 (unscale, global norm) and O2 with its
                       scale and flag are held against their plain versions
                       on those tensors (O2 bit-equal, O1 within 1e-6);
-11. ``train``          THE TRAINING PATH: a Llama-2-7B-width bf16 model
+14. ``train``          THE TRAINING PATH: a Llama-2-7B-width bf16 model
                       (4 layers, random weights) trains with AdamW
                       through TrainStep on a batch of 4 x 2048 tokens:
                       2 warm-up and 5 timed steps; the three flash
@@ -114,11 +145,11 @@ Phases, each printing one JSON line with its seconds:
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
                       of its optimizer.step();
-12. ``train_parity``  one step of the same widths at 2 layers through
+15. ``train_parity``  one step of the same widths at 2 layers through
                       the kernels against the same step with
                       use_flash_attention=False (autograd through the
                       plain sdpa): loss and every gradient compared;
-13. ``amp_scaler``  THE AMP PATH: a 2-layer Llama-2-7B-width bf16 model
+16. ``amp_scaler``  THE AMP PATH: a 2-layer Llama-2-7B-width bf16 model
                       trains with ClipGradByGlobalNorm(1.0), LinearWarmup
                       over CosineAnnealingDecay and GradScaler(2**15,
                       decr_every_n_nan_or_inf=1) through O1 and O2; one
@@ -132,7 +163,7 @@ Phases, each printing one JSON line with its seconds:
                       O1/O2 launch counts are reset before and read after
                       (batches + finalize and batches a step, no
                       fallback);
-14. ``flash_dropout_parity``  attention dropout inside the three flash
+17. ``flash_dropout_parity``  attention dropout inside the three flash
                       kernels (K5) at the BERT-base geometry (B 24, L 512,
                       H 12, D 64, bf16) and a small f32 case, p = 0.1,
                       causal and full: each kernel against its plain
@@ -144,7 +175,7 @@ Phases, each printing one JSON line with its seconds:
                       launch without dropout, two seeds differing, and
                       the FlashAttention autograd function against
                       autograd through the plain sdpa with the same mask;
-15. ``flash_varlen_parity``  the segment-masked kernels (K4) on 12,288
+18. ``flash_varlen_parity``  the segment-masked kernels (K4) on 12,288
                       packed tokens (sequences of 32-512 from a numpy
                       seed, H 12, D 64), bf16 and f32, causal and full,
                       and bf16 on the same ids shuffled, and at the JAX
@@ -163,7 +194,7 @@ Phases, each printing one JSON line with its seconds:
                       TMA launch counts reset just before and read just
                       after (1 each), its output and gradient held
                       against the plain versions on the same views;
-16. ``flash_time_bert``  the kernels with and without dropout at the BERT
+19. ``flash_time_bert``  the kernels with and without dropout at the BERT
                       geometry (the TMA design, the first design beside
                       it with the same dropout: general_ms; what dropout
                       adds to each) and the segmented kernels at the
@@ -173,7 +204,7 @@ Phases, each printing one JSON line with its seconds:
                       beside them, their plain versions, their bounds
                       (the pairs the function needs) and PyTorch's SDPA
                       (a yardstick);
-17. ``bert_train``    THE BERT PATH: BERT-base MLM (12 layers, hidden 768,
+20. ``bert_train``    THE BERT PATH: BERT-base MLM (12 layers, hidden 768,
                       vocab 30522, bf16, dropout 0.1) trains with AdamW
                       through TrainStep on 24 x 512 tokens: 2 warm-up and
                       5 timed steps; the flash launch counts (and their
@@ -188,12 +219,12 @@ Phases, each printing one JSON line with its seconds:
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
                       of its optimizer.step();
-18. ``bert_train_parity``  one step of BERT-base widths at 2 layers
+21. ``bert_train_parity``  one step of BERT-base widths at 2 layers
                       through the kernels against the same step through
                       the plain sdpa (an all-zero additive mask routes it
                       there) with the same seeds drawn in the same order:
                       loss and every gradient compared;
-19. ``gmm_parity``    the grouped-matmul kernels (K6 forward, K6 as dlhs on
+22. ``gmm_parity``    the grouped-matmul kernels (K6 forward, K6 as dlhs on
                       the transposed weights, K7 drhs) against their plain
                       versions, bf16 and f32, on the op bench's geometry,
                       ERNIE-MoE's expert FFN (w_in and w_out at 8 x 5120
@@ -208,19 +239,19 @@ Phases, each printing one JSON line with its seconds:
                       general mma.sync kernels for f32 and K 37, N 45;
                       then GroupedMatmul's autograd against autograd
                       through the dense oracle;
-20. ``gmm_op``        THE OP PATH: one forward + backward through the
+23. ``gmm_op``        THE OP PATH: one forward + backward through the
                       grouped_matmul entry at the op bench's geometry
                       (bf16); the three counts and their TMA counts are
                       reset just before and read just after: K6 twice
                       (forward, dlhs), K7 once, all through the TMA
                       kernels;
-21. ``gmm_time``      the three kernels at the op bench's geometry and at
+24. ``gmm_time``      the three kernels at the op bench's geometry and at
                       ERNIE-MoE's w_in and w_out products (the TMA
                       kernels), beside the first design's general kernels
                       on the same inputs, their plain versions, their
                       bounds, torch.bmm over the equal groups and
                       torch._grouped_mm (yardsticks);
-22. ``moe_train``     THE ERNIE-MOE PATH: ERNIE-MoE at ErnieMoEConfig()
+25. ``moe_train``     THE ERNIE-MOE PATH: ERNIE-MoE at ErnieMoEConfig()
                       (12 layers, 6 of them MoE with 8 experts, top-2,
                       hidden 768, vocab 30522, bf16) trains with AdamW
                       through TrainStep on 8 x 2048 tokens with the LM loss
@@ -237,7 +268,7 @@ Phases, each printing one JSON line with its seconds:
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
                       of its optimizer.step();
-23. ``moe_train_parity``  one step of a 2-layer ERNIE-MoE (one dense, one
+26. ``moe_train_parity``  one step of a 2-layer ERNIE-MoE (one dense, one
                       MoE layer) through the kernels against the same step
                       through the plain sdpa: loss, every gradient and the
                       share of tokens whose top-2 experts differ; beside
@@ -245,10 +276,10 @@ Phases, each printing one JSON line with its seconds:
                       the kernel step's routing (the kernels alone).
 
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
-(K3 on the split design at decode with bf16 and with int8 pools and at
-the prefill chunk, each with the first design's time, K1b and K2b at the
-Llama training geometry, K1a and K2a at
-ERNIE-MoE's, K5 in K1a/K2a at the BERT geometry, K4 in them at the
+(K3 on the split design at decode with bf16 and with int8 pools, at
+the prefill chunk and at the speculative verify window, each with the
+first design's time, K1b and K2b at the Llama training geometry, K1a
+and K2a at ERNIE-MoE's, K5 in K1a/K2a at the BERT geometry, K4 in them at the
 packed geometry, K6 and K7 at the op bench's geometry, each flash and
 K6/K7 row naming the design it timed, its TMA launches and the first
 design's time where the TMA design took it, and O1 and O2 at the train
@@ -487,7 +518,16 @@ def parity_cases():
                   [480, 33], quant=True, seed=18),
         make_case("int8_d64_chunk", 2, 16, 8, 8, 64, 32, 16, bf,
                   [400, 40], quant=True, seed=16),
+        verify_case(),
     ]
+
+
+def verify_case():
+    import torch
+    # the serve_spec phase's verify window: k + 1 = 5 rows a slot at the
+    # serve geometry (MHA: 5 rows a KV head, one 64-row tensor-core group)
+    return make_case("mha_verify_t5_serve", 8, 5, 32, 32, 128, 16, 128,
+                     torch.bfloat16, decode_case()["pos"], seed=19)
 
 
 def phase_kernel_parity(result):
@@ -607,7 +647,7 @@ def k3_time_cases():
     chunk = make_case("prefill_chunk", 1, 64, 32, 32, 128, 16, 128, bf,
                       [999], seed=3)
     return {"decode_bf16": (dec, 1), "decode_int8": (dec8, 1),
-            "prefill_chunk": (chunk, 4)}
+            "prefill_chunk": (chunk, 4), "spec_verify_t5": (verify_case(), 1)}
 
 
 def k3_timing(case, copies):
@@ -731,6 +771,12 @@ def phase_kernel_time(k3_rows):
         row["ms"] = rows[name]["kernel_ms"]
         if name != "decode_bf16":       # kernel_parity sets the decode's
             row["max_abs_err"] = rows[name]["max_abs_err"]
+    # the verify window reads the decode's K/V with 5 rows a slot in a
+    # 64-row tensor-core group: its time beside the decode's
+    verify = rows["spec_verify_t5"]
+    verify["decode_kernel_ms"] = rows["decode_bf16"]["kernel_ms"]
+    verify["vs_decode"] = verify["kernel_ms"] / verify["decode_kernel_ms"]
+    k3_rows["spec_verify_t5"]["decode_ms"] = verify["decode_kernel_ms"]
     return {"card": nvidia_smi_line(), "rows": rows}
 
 
@@ -810,8 +856,49 @@ def profile_decode(eng, rng, vocab, ctx=1000, steps=10):
                                         for k, v in top]}
 
 
-def phase_serve(state, k3):
+def serve_workload(vocab):
+    """The serve phases' 12 requests: prompts of 16-1000 tokens from the
+    seed (requests 0 and 5 share a 256-token prefix) and budgets of
+    32-64 tokens, and the generator the rest of the phase draws from."""
     import numpy as np
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, vocab, 256)
+    lengths = [296, 1000, 16, 640, 48, 356, 800, 120, 500, 64, 200, 900]
+    prompts = [rng.integers(0, vocab, n) for n in lengths]
+    prompts[0] = np.concatenate([prefix, rng.integers(0, vocab, 40)])
+    prompts[5] = np.concatenate([prefix, rng.integers(0, vocab, 100)])
+    budgets = [int(b) for b in rng.integers(32, 65, len(prompts))]
+    return prompts, budgets, rng
+
+
+def serve_requests(srv, prompts, budgets, timeout=600):
+    """Submit the requests as every serve phase does — request 0 first,
+    the rest once it has prefilled, so that request 5's admission finds
+    the shared prefix in the radix tree — and wait for all of them.
+    Returns the requests and the run's wall seconds (synchronized)."""
+    import torch
+    t_start = time.monotonic()
+    reqs = [srv.submit(prompts[0], budgets[0])]
+    while "t_first" not in reqs[0] and not reqs[0]["done"].is_set():
+        time.sleep(0.005)
+    reqs += [srv.submit(p, b) for p, b in zip(prompts[1:], budgets[1:])]
+    wait_all(reqs, timeout=timeout)
+    torch.cuda.synchronize()
+    return reqs, time.monotonic() - t_start
+
+
+def serve_numbers(reqs, wall):
+    decode_tokens = sum(len(r["out"]) - 1 for r in reqs)
+    ttft = [r["t_first"] - r["t0"] for r in reqs]
+    return {"wall_s": wall,
+            "generated_tokens": sum(len(r["out"]) for r in reqs),
+            "decode_tokens": decode_tokens,
+            "decode_tokens_per_s": decode_tokens / wall,
+            "ttft_s": ttft, "ttft_median_s": statistics.median(ttft),
+            "ttft_max_s": max(ttft)}
+
+
+def phase_serve(state, k3):
     import torch
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops.kernels.paged_attention import \
@@ -827,27 +914,12 @@ def phase_serve(state, k3):
     init_s = time.perf_counter() - t0
     state["model"] = model
     eng = PagedLlamaDecodeEngine(model, max_slots=8, max_seq=2048)
-    rng = np.random.default_rng(SEED)
     V = cfg.vocab_size
-    prefix = rng.integers(0, V, 256)
-    lengths = [296, 1000, 16, 640, 48, 356, 800, 120, 500, 64, 200, 900]
-    prompts = [rng.integers(0, V, n) for n in lengths]
-    # requests 0 and 5 share the 256-token prefix; 0 is submitted and
-    # prefilled first, so 5's admission finds it in the radix tree
-    prompts[0] = np.concatenate([prefix, rng.integers(0, V, 40)])
-    prompts[5] = np.concatenate([prefix, rng.integers(0, V, 100)])
-    budgets = [int(b) for b in rng.integers(32, 65, len(prompts))]
+    prompts, budgets, rng = serve_workload(V)
     hits0 = eng._kv.prefix_hits
     srv = GenerationServer(eng)
     pak.launches = pak.split_launches = pak.mma_launches = 0  # counts start
-    t_start = time.monotonic()
-    reqs = [srv.submit(prompts[0], budgets[0])]
-    while "t_first" not in reqs[0] and not reqs[0]["done"].is_set():
-        time.sleep(0.005)
-    reqs += [srv.submit(p, b) for p, b in zip(prompts[1:], budgets[1:])]
-    wait_all(reqs, timeout=600)
-    torch.cuda.synchronize()
-    t_end = time.monotonic()
+    reqs, wall = serve_requests(srv, prompts, budgets)
     launches = pak.launches                # ... and are read here
     split_launches, mma_launches = pak.split_launches, pak.mma_launches
     if not srv.shutdown(drain=True, timeout=60):
@@ -861,10 +933,10 @@ def phase_serve(state, k3):
             or reqs[5]["prefix_hit_tokens"] < 256:
         raise AssertionError("the shared prefix did not hit the radix "
                              "tree")
-    wall = t_end - t_start
-    generated = sum(len(r["out"]) for r in reqs)
-    decode_tokens = sum(len(r["out"]) - 1 for r in reqs)
-    ttft = [r["t_first"] - r["t0"] for r in reqs]
+    numbers = serve_numbers(reqs, wall)
+    state["serve"] = {"prompts": prompts, "budgets": budgets,
+                      "streams": [list(r["out"]) for r in reqs],
+                      "steps": steps, **numbers}
     state["launches"] = launches
     # each row's count as the wrapper counted it, by path: the decode
     # steps ran the CUDA-core kernel, the prefill chunks the tensor cores
@@ -878,11 +950,7 @@ def phase_serve(state, k3):
            "prompt_lengths": [len(p) for p in prompts],
            "budgets": budgets, "prefix_hit_tokens":
                [r["prefix_hit_tokens"] for r in reqs],
-           "ttft_s": ttft, "ttft_median_s": statistics.median(ttft),
-           "wall_s": wall, "generated_tokens": generated,
-           "decode_tokens": decode_tokens,
-           "decode_tokens_per_s": decode_tokens / wall,
-           "steps": steps, "prefill_chunks": chunks,
+           **numbers, "steps": steps, "prefill_chunks": chunks,
            "kernel_launches": launches,
            "split_launches": split_launches,
            "mma_launches": mma_launches,
@@ -989,6 +1057,496 @@ def phase_serve_parity(state):
             "tolerance": {"atol": LOGITS_ATOL, "rtol": LOGITS_RTOL},
             "greedy_agreement": f"{agree}/{n_tok}",
             "kernel_tokens": k_toks, "reference_tokens": r_toks}
+
+
+# ---------------------------------------------------------------------------
+# speculative serving and weight hot-swap
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4                      # draft tokens a speculative step proposes
+# acceptance of a draft equal to its target, counting the proposals a
+# near-tie rejection forfeits as explained (bf16 logits tie often:
+# their unit in the last place is 2^-7 near |logit| 1-2)
+SPEC_ACCEPT_MIN = 0.95
+
+
+class HostReads:
+    """Counts, while a thread has set ``on``, the ways a CUDA tensor's
+    values reach the host: ``.cpu()``, ``.to("cpu")``, ``.item()``,
+    ``.tolist()`` and int / float / bool / index of a tensor. Installed
+    on ``torch.Tensor`` for the ``with`` block only."""
+
+    NAMES = ("cpu", "to", "item", "tolist", "__int__", "__float__",
+             "__bool__", "__index__")
+
+    def __init__(self):
+        import threading
+        self.local = threading.local()
+        self.count = 0
+        self._saved = {}
+
+    def _host_bound(self, name, a, kw):
+        if name != "to":
+            return True
+        import torch
+        dev = kw.get("device", a[0] if a else None)
+        return isinstance(dev, (str, torch.device)) \
+            and torch.device(dev).type == "cpu"
+
+    def __enter__(self):
+        import torch
+        for name in self.NAMES:
+            self._saved[name] = torch.Tensor.__dict__.get(name)
+            orig = getattr(torch.Tensor, name)
+
+            def counted(t, *a, _orig=orig, _name=name, **kw):
+                if getattr(self.local, "on", False) and t.is_cuda \
+                        and self._host_bound(_name, a, kw):
+                    self.count += 1
+                return _orig(t, *a, **kw)
+
+            setattr(torch.Tensor, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for name, orig in self._saved.items():
+            if orig is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, orig)
+        return False
+
+    def watch(self, fn):
+        """``fn`` with counting on for the calling thread."""
+        def watched(*a, **kw):
+            self.local.on = True
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.local.on = False
+        return watched
+
+
+def count_chunks(eng):
+    """Record the rows of every prefill chunk ``eng`` runs (its own
+    calls and, for a draft, the target's mirrored ones)."""
+    rows = []
+    orig = eng.prefill_chunk
+
+    def chunk(slot):
+        st = eng._prefill_state[slot]
+        limit = eng.prefill_chunk_len if eng._chunk_cap is None \
+            else max(8, min(eng.prefill_chunk_len, eng._chunk_cap))
+        rows.append(min(limit, len(st["ids"]) - st["next"]))
+        return orig(slot)
+
+    eng.prefill_chunk = chunk
+    return rows
+
+
+def spec_counters():
+    from paddle_tpu_torch.observability import metrics as om
+    reg = om.default_registry()
+    return {n: reg.get("serving." + n).value() for n in (
+        "spec_steps_total", "spec_proposed_total", "spec_accepted_total",
+        "spec_rolled_back_total")}
+
+
+def commit_counter(eng):
+    """Wrap ``eng.spec_step`` to add up the tokens each verify commits
+    and the slot windows it closes."""
+    tally = {"committed": 0, "windows": 0}
+    orig = eng.spec_step
+
+    def step():
+        act = eng.active.copy()
+        toks, counts = orig()
+        tally["committed"] += int(counts[act].sum())
+        tally["windows"] += int(act.sum())
+        return toks, counts
+
+    eng.spec_step = step
+    return tally
+
+
+def check_spec_launches(what, eng, rows_t, rows_d, spec_steps, plain_steps,
+                        got):
+    """K3's launches in a speculative serve run, by path: the target
+    once a layer for each plain step, verify step and prefill chunk; the
+    draft once a layer for each of its k proposals a spec step, each
+    mirrored plain step and each of its prefill chunks. Verify windows
+    and chunks that split_plan sends to the tensor cores count there."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    draft = eng._draft
+    lt, ld, k = eng.n_layers, draft.n_layers, eng._spec_k
+    kvh, mb = eng.cfg.num_key_value_heads, eng._kv.block_tables.shape[1]
+    sms = pa._sms(torch.device("cuda", torch.cuda.current_device()))
+
+    def mma(rows, S=1):
+        return pa.split_plan(rows, eng.n_rep, S, kvh, eng.head_dim,
+                             eng.block_size, mb, sms)[0] == pa._MMA_GROUP
+
+    verify_mma = mma(k + 1, eng.max_slots)
+    total = lt * (plain_steps + spec_steps + len(rows_t)) \
+        + ld * (k * spec_steps + plain_steps + len(rows_d))
+    on_mma = lt * (spec_steps * verify_mma + sum(map(mma, rows_t))) \
+        + ld * sum(map(mma, rows_d))
+    if tuple(got) != (total, total, on_mma) or total == 0:
+        raise AssertionError(
+            f"{what}: launches / split / tensor-core launches {tuple(got)},"
+            f" expected {(total, total, on_mma)}: target {lt} layers x "
+            f"({plain_steps} plain + {spec_steps} verify steps + "
+            f"{len(rows_t)} chunks), draft {ld} layers x ({k} x "
+            f"{spec_steps} + {plain_steps} + {len(rows_d)} chunks)")
+    return {"verify_launches": lt * spec_steps,
+            "verify_on_tensor_cores": bool(verify_mma),
+            "propose_launches": ld * k * spec_steps,
+            "target_chunks": len(rows_t), "draft_chunks": len(rows_d)}
+
+
+def profile_spec(eng, rng, vocab, ctx=1000, steps=5):
+    """Where a full speculative step's time goes: every slot active at
+    ``ctx`` tokens of history, host wall time per step (synchronized),
+    the device time by kernel from torch.profiler (K3 split into the
+    verify's tensor-core launches and the proposals' CUDA-core ones),
+    and the step's device-to-host copies as the profiler sees them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for s in range(eng.max_slots):
+        eng.prefill(s, rng.integers(0, vocab, ctx),
+                    budget=(steps * 2 + 4) * eng._spec_k)
+    for _ in range(2):
+        eng.spec_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.spec_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.spec_step()
+        torch.cuda.synchronize()
+    by_kernel, d2h = {}, 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if "DtoH" in ev.key:
+            d2h += ev.count
+        if us:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
+    for s in range(eng.max_slots):
+        eng.release(s)
+    if d2h != steps:
+        raise AssertionError(f"a profiled spec step made {d2h / steps} "
+                             f"device-to-host copies, expected 1")
+    device_ms = sum(by_kernel.values()) / 1e3 / steps
+    verify_ms = sum(v for k, v in by_kernel.items()
+                    if "paged_attention_split_mma" in k) / 1e3 / steps
+    propose_ms = sum(v for k, v in by_kernel.items()
+                     if "paged_attention" in k
+                     and "split_mma" not in k) / 1e3 / steps
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {"slots": eng.max_slots, "context": ctx, "steps": steps,
+            "step_wall_ms": wall_ms, "device_ms_per_step": device_ms,
+            "k3_verify_ms_per_step": verify_ms,
+            "k3_propose_ms_per_step": propose_ms,
+            "device_to_host_copies_per_step": d2h / steps,
+            "device_idle_share": 1 - device_ms / wall_ms,
+            "top_kernels_ms_per_step": [[k[:80], v / 1e3 / steps]
+                                        for k, v in top]}
+
+
+def near_tie(eng1, prompt, stream, j, other):
+    """The plain target's logits where two greedy streams part (token
+    ``j``: ``stream[j]`` there, ``other`` in the other stream),
+    recomputed by prefilling ``prompt + stream[:j]`` into a one-slot
+    engine: both tokens must lie within the engine logit tolerance of
+    the largest logit (0.1 + 0.02 |top|)."""
+    import numpy as np
+    eng1.prefill(0, np.concatenate([prompt, np.asarray(stream[:j])]),
+                 budget=1)
+    lg = eng1.last_logits.float()
+    eng1.release(0)
+    top2 = lg.topk(2).values
+    top = float(top2[0])
+    tol = LOGITS_ATOL + LOGITS_RTOL * abs(top)
+    below = top - min(float(lg[stream[j]]), float(lg[other]))
+    return {"token": j, "top2_gap": top - float(top2[1]),
+            "candidates_below_top": below, "tol": tol, "ok": below <= tol}
+
+
+def shared_weights(eng, draft):
+    """Every weight tensor of the draft is one of the target's (the same
+    storage), for the first ``draft.n_layers`` layers and the embedding,
+    norm and head."""
+    ok = all(draft.params[n].data_ptr() == eng.params[n].data_ptr()
+             for n in ("emb", "norm", "head"))
+    for i, lp in enumerate(draft.params["layers"]):
+        ok &= all(w.data_ptr() == eng.params["layers"][i][nm].data_ptr()
+                  for nm, w in lp.items())
+    return ok and len(draft.params["layers"]) == draft.n_layers
+
+
+def phase_serve_spec(state, k3):
+    """The serve phase's model and requests through a speculative
+    server: the target at 8 slots and 2048 tokens with make_draft()'s
+    16-layer weight-sharing view proposing SPEC_K tokens a step."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.kernels.paged_attention import \
+        paged_attention_kernel as pak
+    from paddle_tpu_torch.serving import (GenerationServer,
+                                          PagedLlamaDecodeEngine)
+    model, plain = state["model"], state["serve"]
+    V = model.config.vocab_size
+    eng = PagedLlamaDecodeEngine(model, max_slots=8, max_seq=2048)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    draft = eng.make_draft()
+    torch.cuda.synchronize()
+    draft_mem = torch.cuda.memory_allocated() - mem0
+    eng.attach_draft(draft, spec_tokens=SPEC_K)
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for ts in draft.kvs.values() for t in ts)
+    if not shared_weights(eng, draft) or draft.n_layers != 16 \
+            or not 0 <= draft_mem - pool_bytes < 2 ** 20:
+        raise AssertionError(
+            f"the draft ({draft.n_layers} layers) does not share the "
+            f"target's weights, or takes {draft_mem} bytes for a "
+            f"{pool_bytes}-byte KV pool")
+    rows_t, rows_d = count_chunks(eng), count_chunks(draft)
+    tally = commit_counter(eng)
+    srv = GenerationServer(eng)
+    c0 = spec_counters()
+    with HostReads() as reads:
+        eng.spec_step = reads.watch(eng.spec_step)
+        pak.launches = pak.split_launches = pak.mma_launches = 0
+        reqs, wall = serve_requests(srv, plain["prompts"], plain["budgets"])
+        got = (pak.launches, pak.split_launches, pak.mma_launches)
+    if not srv.shutdown(drain=True, timeout=60):
+        raise RuntimeError("speculative server did not drain")
+    check_budget(reqs, V)
+    c1 = spec_counters()
+    spec_steps = c1["spec_steps_total"] - c0["spec_steps_total"]
+    proposed = c1["spec_proposed_total"] - c0["spec_proposed_total"]
+    accepted = c1["spec_accepted_total"] - c0["spec_accepted_total"]
+    plain_steps = srv.steps_run - spec_steps
+    paths = check_spec_launches("the speculative engine", eng, rows_t,
+                                rows_d, spec_steps, plain_steps, got)
+    if reads.count != spec_steps or spec_steps == 0:
+        raise AssertionError(
+            f"{reads.count} device-to-host reads in {spec_steps} spec "
+            f"steps: each must make exactly one")
+    eng._kv.check_invariants()
+    draft._kv.check_invariants()
+    k3["spec_verify_t5"]["launches"] = paths["verify_launches"]
+    out = {"card": nvidia_smi_line(), "target_layers": eng.n_layers,
+           "draft_layers": draft.n_layers, "spec_tokens": SPEC_K,
+           "draft_weights_shared": True, "draft_extra_bytes": draft_mem,
+           "draft_pool_bytes": pool_bytes,
+           **serve_numbers(reqs, wall),
+           "spec_steps": spec_steps, "plain_steps": plain_steps,
+           "proposed": proposed, "accepted": accepted,
+           "acceptance": accepted / max(proposed, 1),
+           "rolled_back_blocks": c1["spec_rolled_back_total"]
+           - c0["spec_rolled_back_total"],
+           "tokens_per_verify_step": tally["committed"] / max(spec_steps, 1),
+           "tokens_per_verify_window": tally["committed"]
+           / max(tally["windows"], 1),
+           "host_reads_in_spec_steps": reads.count,
+           "kernel_launches": got[0], "mma_launches": got[2], **paths}
+    out["spec_profile"] = profile_spec(eng, np.random.default_rng(SEED + 2),
+                                       V)
+    del srv, eng, draft
+    torch.cuda.empty_cache()
+    # the streams against the plain serve phase's: where one parts, the
+    # plain target's logits there must be a near-tie
+    eng1 = PagedLlamaDecodeEngine(model, max_slots=1, max_seq=2048)
+    parted = []
+    for i, (r, want) in enumerate(zip(reqs, plain["streams"])):
+        got_s = list(r["out"])
+        j = next((j for j, (a, b) in enumerate(zip(want, got_s))
+                  if a != b), None)
+        if j is not None:
+            tie = near_tie(eng1, plain["prompts"][i], want, j, got_s[j])
+            parted.append({"request": i, **tie})
+    del eng1
+    torch.cuda.empty_cache()
+    out["streams_equal_plain"] = len(reqs) - len(parted)
+    out["streams_parted_at_near_ties"] = parted
+    out["plain"] = {k: plain[k] for k in (
+        "decode_tokens_per_s", "ttft_median_s", "ttft_max_s", "wall_s",
+        "steps")}
+    if not all(p["ok"] for p in parted):
+        emit({"phase": "serve_spec", "failed": parted})
+        raise AssertionError("a speculative stream parted from the plain "
+                             "one where the plain logits are no near-tie")
+    return out
+
+
+def phase_serve_spec_full_accept(state):
+    """4 layers of the same weights with, as the draft, an independent
+    engine of the target's full depth: every proposal is the target's
+    own greedy token up to the numerics of the two paths (the draft's
+    M = 8 products and CUDA-core K3, the verify's M = 40 products and
+    tensor-core K3), so each rejection must be a near-tie of the
+    verify's logits, and the acceptance, with the proposals those
+    near-ties forfeit counted as explained, must reach
+    SPEC_ACCEPT_MIN."""
+    import torch
+    from paddle_tpu_torch.ops.kernels.paged_attention import \
+        paged_attention_kernel as pak
+    from paddle_tpu_torch.serving import (GenerationServer,
+                                          PagedLlamaDecodeEngine)
+    model, plain = state["model"], state["serve"]
+    V = model.config.vocab_size
+    geo = dict(max_slots=8, max_seq=2048, num_layers=4)
+    eng = PagedLlamaDecodeEngine(model, **geo)
+    draft = PagedLlamaDecodeEngine(model, **geo)
+    eng.attach_draft(draft, spec_tokens=SPEC_K)
+    rows_t, rows_d = count_chunks(eng), count_chunks(draft)
+    rejections = []
+    verify = eng._spec_verify
+
+    def inspected(draft_tok):
+        t, n_acc = verify(draft_tok)
+        act = torch.as_tensor(eng.active, device=t.device)
+        for s in torch.nonzero((n_acc < SPEC_K) & act).flatten().tolist():
+            i = int(n_acc[s])
+            lg = eng.last_logits[s, i].float()
+            a, b = int(t[s, i]), int(draft_tok[s, i])
+            tol = LOGITS_ATOL + LOGITS_RTOL * abs(float(lg[a]))
+            gap = float(lg[a] - lg[b])
+            rejections.append({"gap": gap, "tol": tol, "ok": gap <= tol,
+                               "forfeit": SPEC_K - i})
+        return t, n_acc
+
+    eng._spec_verify = inspected
+    srv = GenerationServer(eng)
+    c0 = spec_counters()
+    pak.launches = pak.split_launches = pak.mma_launches = 0
+    reqs, wall = serve_requests(srv, plain["prompts"], plain["budgets"])
+    got = (pak.launches, pak.split_launches, pak.mma_launches)
+    if not srv.shutdown(drain=True, timeout=60):
+        raise RuntimeError("full-accept server did not drain")
+    check_budget(reqs, V)
+    c1 = spec_counters()
+    spec_steps = c1["spec_steps_total"] - c0["spec_steps_total"]
+    proposed = c1["spec_proposed_total"] - c0["spec_proposed_total"]
+    accepted = c1["spec_accepted_total"] - c0["spec_accepted_total"]
+    paths = check_spec_launches("the full-accept engine", eng, rows_t,
+                                rows_d, spec_steps,
+                                srv.steps_run - spec_steps, got)
+    eng._kv.check_invariants()
+    draft._kv.check_invariants()
+    acceptance = accepted / max(proposed, 1)
+    explained = (accepted + sum(r["forfeit"] for r in rejections
+                                if r["ok"])) / max(proposed, 1)
+    out = {"target_layers": 4, "draft_layers": 4, "spec_tokens": SPEC_K,
+           "spec_steps": spec_steps,
+           "plain_steps": srv.steps_run - spec_steps,
+           "proposed": proposed, "accepted": accepted,
+           "acceptance": acceptance,
+           "acceptance_with_near_ties": explained,
+           "rejections": len(rejections),
+           "rejections_near_tie": sum(r["ok"] for r in rejections),
+           "worst_rejection_gap": max((r["gap"] for r in rejections),
+                                      default=None),
+           **serve_numbers(reqs, wall), **paths}
+    del srv, eng, draft
+    torch.cuda.empty_cache()
+    forfeited = sum(r["forfeit"] for r in rejections)
+    if explained < SPEC_ACCEPT_MIN or not all(r["ok"] for r in rejections) \
+            or forfeited != proposed - accepted:
+        emit({"phase": "serve_spec_full_accept", "failed": out})
+        raise AssertionError(
+            f"acceptance {acceptance:.4f} of a draft equal to its target, "
+            f"{explained:.4f} with near-ties (limit {SPEC_ACCEPT_MIN}), a "
+            f"rejection that is no near-tie, or rejections that do not "
+            f"add up to the counters ({forfeited} forfeited, "
+            f"{proposed - accepted} not accepted)")
+    return out
+
+
+def phase_hot_swap(state):
+    """4 layers, 4 slots: four requests run once unswapped and once with
+    two swaps mid-stream — to a copy of the same weights (installed at a
+    step boundary; the streams must equal the unswapped run's) and to a
+    state dict with one leaf of another shape (rejected: the counter
+    rises, the copies stay installed, the streams go on)."""
+    import torch
+    from paddle_tpu_torch.observability import metrics as om
+    from paddle_tpu_torch.serving import (GenerationServer,
+                                          PagedLlamaDecodeEngine)
+    model, plain = state["model"], state["serve"]
+    prompts, budgets = plain["prompts"][:4], [64] * 4
+    geo = dict(max_slots=4, max_seq=2048, num_layers=4)
+    ref_srv = GenerationServer(PagedLlamaDecodeEngine(model, **geo))
+    ref, _ = serve_requests(ref_srv, prompts, budgets)
+    if not ref_srv.shutdown(drain=True, timeout=60):
+        raise RuntimeError("reference server did not drain")
+    del ref_srv
+    keys = ["llama.embed_tokens.weight", "llama.norm.weight"] + \
+        ([] if model.config.tie_word_embeddings else ["lm_head.weight"]) + \
+        [k for k in model.state_dict() if any(
+            k.startswith(f"llama.layers.{i}.") for i in range(4))]
+    sd = model.state_dict()
+    copy = {k: sd[k].clone() for k in keys}
+    bad = dict(copy)
+    up = "llama.layers.0.mlp.up_proj.weight"
+    bad[up] = copy[up][:-8]
+    reg = om.default_registry()
+    rejected0 = reg.get("serving.weight_swaps_rejected_total").value()
+    eng = PagedLlamaDecodeEngine(model, **geo)
+    srv = GenerationServer(eng)
+    reqs = [srv.submit(p, b) for p, b in zip(prompts, budgets)]
+
+    def wait_tokens(n):
+        t_end = time.monotonic() + 120
+        while min(len(r["out"]) for r in reqs) < n:
+            if time.monotonic() > t_end:
+                raise TimeoutError("hot_swap requests made no progress")
+            time.sleep(0.001)
+
+    wait_tokens(4)
+    res = srv.swap_weights(copy, timeout=60)
+    installed = eng.params
+    wait_tokens(12)
+    try:
+        srv.swap_weights(bad, timeout=60)
+        raise AssertionError("a swap to another shape was accepted")
+    except ValueError as e:
+        reason = str(e)
+    in_flight = sum(not r["done"].is_set() for r in reqs)
+    wait_all(reqs, timeout=300)
+    if not srv.shutdown(drain=True, timeout=60):
+        raise RuntimeError("hot_swap server did not drain")
+    rejected = reg.get("serving.weight_swaps_rejected_total").value() \
+        - rejected0
+    streams_equal = [list(a["out"]) == list(b["out"])
+                     for a, b in zip(reqs, ref)]
+    out = {"layers": 4, "slots": 4, "requests": 4,
+           "swap_seconds": res["seconds"], "in_flight_at_swap":
+               res["in_flight"], "steps_before_swap": res["steps_run"],
+           "weight_swaps": srv.stats()["weight_swaps"],
+           "rejected_swaps": rejected, "rejection": reason[:160],
+           "in_flight_after_rejection": in_flight,
+           "copies_installed": eng.params is installed
+           and eng.params["emb"].data_ptr()
+           == copy["llama.embed_tokens.weight"].data_ptr(),
+           "streams_equal_unswapped": streams_equal}
+    del srv, eng, copy, bad
+    torch.cuda.empty_cache()
+    if not (all(streams_equal) and res["in_flight"] >= 1 and rejected == 1
+            and in_flight >= 1 and out["copies_installed"]
+            and out["weight_swaps"] == 1):
+        emit({"phase": "hot_swap", "failed": out})
+        raise AssertionError("hot swap: streams, swap counts or the "
+                             "installed weights are not as required")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3741,9 +4299,10 @@ def main() -> int:
         False
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    # K3 on the split design at three geometries: decode (bf16 and int8
-    # pools) and the 64-row prefill chunk; general_ms times the first
-    # design (csrc/paged_attention.cu) on the same inputs
+    # K3 on the split design at four geometries: decode (bf16 and int8
+    # pools), the 64-row prefill chunk and the speculative verify window
+    # (5 rows a slot, tensor cores); general_ms times the first design
+    # (csrc/paged_attention.cu) on the same inputs
     k3 = {
         row: {"name": name, "route": "cuda",
               "source": "paddle_tpu_torch/ops/kernels/csrc/"
@@ -3758,7 +4317,8 @@ def main() -> int:
               "library_ms": None}
         for row, name in (("decode_bf16", "paged_attention"),
                           ("decode_int8", "paged_attention_int8_decode"),
-                          ("prefill_chunk", "paged_attention_prefill_chunk"))}
+                          ("prefill_chunk", "paged_attention_prefill_chunk"),
+                          ("spec_verify_t5", "paged_attention_spec_verify"))}
     result = k3["decode_bf16"]
     # K1b/K2b at the Llama training geometry and K1a/K2a at ERNIE-MoE's
     # (D 64, causal), both on the TMA / wgmma design (general_ms times the
@@ -3881,8 +4441,11 @@ def main() -> int:
         ("kernel_parity", lambda: phase_kernel_parity(result)),
         ("kernel_time", lambda: phase_kernel_time(k3)),
         ("serve", lambda: phase_serve(state, k3)),
-        ("serve_parity", lambda: {**phase_serve_parity(state),
-                                  **free_serving()}),
+        ("serve_parity", lambda: phase_serve_parity(state)),
+        ("serve_spec", lambda: phase_serve_spec(state, k3)),
+        ("serve_spec_full_accept",
+         lambda: phase_serve_spec_full_accept(state)),
+        ("hot_swap", lambda: {**phase_hot_swap(state), **free_serving()}),
         ("flash_parity", lambda: phase_flash_parity(flash)),
         ("flash_time", lambda: phase_flash_time(flash)),
         ("optimizer_parity", lambda: phase_optimizer_parity(flash)),

@@ -98,10 +98,29 @@ define_flag("serving_shed_queue", 0,
             "with no available KV blocks AND more than this many "
             "requests deferred, submit() rejects (reason=shed). "
             "0 (default) disables shedding")
+define_flag("serving_spec_tokens", 4,
+            "Draft tokens a speculative decode step proposes per "
+            "target step (the speculation window). The target model "
+            "verifies the whole window in ONE batched paged-attention "
+            "call and commits the accepted prefix; greedy output is "
+            "bit-equal to the non-speculative stream regardless of "
+            "the window size — this only trades draft work against "
+            "acceptance length")
+define_flag("serving_spec_draft_layers", 0,
+            "Decoder layers in the auto-built truncated-layer draft "
+            "model (PagedLlamaDecodeEngine.make_draft): the draft "
+            "shares the target's embedding/head/first-N-layer weights "
+            "at zero extra weight memory. 0 (default) = half the "
+            "target's layers (min 1)")
 define_flag("serving_admission_policy", "static",
             "Admission policy a GenerationServer builds when none is "
-            "passed. Only 'static' (the FLAGS_serving_shed_queue rule) "
-            "is ported")
+            "passed: 'static' keeps the FLAGS_serving_shed_queue rule "
+            "(the fallback policy), 'adaptive' installs "
+            "serving_supervisor.AdaptiveAdmissionPolicy — "
+            "step-boundary EWMAs of blocks_free/backlog/throughput "
+            "driving graceful brownout (speculative window, then "
+            "prefill chunk) before hard shedding, plus deadline-aware "
+            "rejection at submit")
 define_flag("paged_attention_kernel", True,
             "Run the hand-written paged-attention kernel behind the "
             "serving_cache.paged_attention seam for CUDA tensors. On a "

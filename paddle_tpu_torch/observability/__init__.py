@@ -1,1 +1,2 @@
-"""Observability plane of the port: metrics registry and flight ring."""
+"""Observability plane of the port: metrics registry, its HTTP
+exposition and the flight ring."""

@@ -2,22 +2,26 @@
 
 The port's copy of the instruments, scopes and registry of
 ``paddle_tpu.observability.metrics``, which the serving modules count
-into. Not ported: the ``FLAGS_metrics`` kill switch (instruments always
-record), pull gauges, collectors, ``snapshot()`` and the Prometheus
-exposition, which come with the metrics endpoint. Stdlib only.
+into, with its views: *collectors* (callbacks polled only at
+``snapshot()`` / ``render_prometheus()`` time), ``snapshot()`` (one
+nested JSON-able dict) and ``render_prometheus()`` (Prometheus text
+exposition v0.0.4). For the same instruments and increments both views
+equal the JAX package's. Not ported: the ``FLAGS_metrics`` kill switch
+(instruments always record) and pull gauges. Stdlib only.
 """
 from __future__ import annotations
 
 import bisect
 import math
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..analysis.locks import make_lock
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "Scope",
     "default_registry", "counter", "gauge", "histogram", "scope",
+    "register_collector", "snapshot", "render_prometheus",
     "DEFAULT_BUCKETS",
 ]
 
@@ -36,11 +40,18 @@ class _Instrument:
     """Shared cell bookkeeping: () is the unlabeled cell, labeled cells
     key on sorted (name, value) tuples."""
 
+    kind = "untyped"
+
     def __init__(self, name: str, help: str = ""):
         self.name = name
         self.help = help
         self._lock = make_lock(f"metrics.instrument:{name}")
         self._cells: Dict[Tuple, Any] = {}
+
+    def series(self) -> Dict[Tuple, Any]:
+        """{label-key tuple: cell snapshot} — () = unlabeled."""
+        with self._lock:
+            return dict(self._cells)
 
     def reset(self) -> None:
         with self._lock:
@@ -55,6 +66,8 @@ class Counter(_Instrument):
     labeled. The unlabeled cell is the plain attribute ``_v`` (a
     lock-free add; telemetry tolerates a lost increment across racing
     threads)."""
+
+    kind = "counter"
 
     def __init__(self, name: str, help: str = ""):
         super().__init__(name, help)
@@ -80,6 +93,13 @@ class Counter(_Instrument):
         with self._lock:
             return self._v + sum(self._cells.values())
 
+    def series(self) -> Dict[Tuple, Any]:
+        with self._lock:
+            out = dict(self._cells)
+        if self._v or not out:
+            out[()] = self._v
+        return out
+
     def reset(self) -> None:
         with self._lock:
             self._cells.clear()
@@ -88,6 +108,8 @@ class Counter(_Instrument):
 
 class Gauge(_Instrument):
     """Point-in-time value."""
+
+    kind = "gauge"
 
     def set(self, v: float, **labels) -> None:
         key = _label_key(labels) if labels else ()
@@ -122,6 +144,8 @@ class _HistCell:
 class Histogram(_Instrument):
     """Fixed-bucket histogram (log-spaced by default)."""
 
+    kind = "histogram"
+
     def __init__(self, name: str, help: str = "", buckets=None):
         super().__init__(name, help)
         self.buckets: Tuple[float, ...] = tuple(
@@ -141,6 +165,20 @@ class Histogram(_Instrument):
             cell.min = min(cell.min, v)
             cell.max = max(cell.max, v)
 
+    def _cell_dict(self, cell: _HistCell) -> Dict[str, Any]:
+        nonzero = {_fmt_num(le): c
+                   for le, c in zip(self.buckets, cell.counts) if c}
+        if cell.counts[-1]:
+            nonzero["+Inf"] = cell.counts[-1]
+        return {
+            "count": cell.count,
+            "sum": round(cell.sum, 9),
+            "avg": round(cell.sum / cell.count, 9) if cell.count else 0.0,
+            "min": cell.min if cell.count else 0.0,
+            "max": cell.max if cell.count else 0.0,
+            "buckets": nonzero,  # per-bucket (not cumulative) counts
+        }
+
     def value(self, **labels) -> Dict[str, Any]:
         """count, sum, avg, min, max and the per-bucket (not
         cumulative) counts of the non-empty buckets, keyed by upper
@@ -151,15 +189,42 @@ class Histogram(_Instrument):
             if cell is None:
                 return {"count": 0, "sum": 0.0, "avg": 0.0,
                         "min": 0.0, "max": 0.0, "buckets": {}}
-            nonzero = {format(le, "g"): c
-                       for le, c in zip(self.buckets, cell.counts) if c}
-            if cell.counts[-1]:
-                nonzero["+Inf"] = cell.counts[-1]
-            return {"count": cell.count,
-                    "sum": round(cell.sum, 9),
-                    "avg": round(cell.sum / cell.count, 9),
-                    "min": cell.min, "max": cell.max,
-                    "buckets": nonzero}
+            return self._cell_dict(cell)
+
+
+def _fmt_num(v) -> str:
+    """Compact numeric literal valid in both exposition values and
+    JSON-ish snapshots (1e-06, 0.25, 3)."""
+    if isinstance(v, float) and v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(v) if not isinstance(v, float) else format(v, "g")
+
+
+def _escape_help(s: str) -> str:
+    return s.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _escape_label(s: str) -> str:
+    return (s.replace("\\", "\\\\").replace("\n", "\\n")
+            .replace('"', '\\"'))
+
+
+def _sanitize(name: str) -> str:
+    out = []
+    for i, ch in enumerate(name):
+        if ch.isalnum() and (i > 0 or not ch.isdigit()) or ch in "_:":
+            out.append(ch)
+        else:
+            out.append("_")
+    return "".join(out)
+
+
+def _labels_str(key: Tuple[Tuple[str, Any], ...]) -> str:
+    if not key:
+        return ""
+    inner = ",".join(
+        f'{_sanitize(k)}="{_escape_label(str(v))}"' for k, v in key)
+    return "{" + inner + "}"
 
 
 class Scope:
@@ -188,13 +253,14 @@ class Scope:
 
 
 class Registry:
-    """Central instrument table. Instrument creation is get-or-create by
-    dotted name; asking for an existing name with a different type
-    raises."""
+    """Central instrument table + snapshot-time collectors. Instrument
+    creation is get-or-create by dotted name; asking for an existing
+    name with a different type raises."""
 
     def __init__(self):
         self._lock = make_lock("metrics.registry", rlock=True)
         self._instruments: "OrderedDict[str, _Instrument]" = OrderedDict()
+        self._collectors: "OrderedDict[str, Callable]" = OrderedDict()
 
     def _get_or_create(self, cls, name: str, help: str, **kw):
         with self._lock:
@@ -222,6 +288,13 @@ class Registry:
     def scope(self, prefix: str) -> Scope:
         return Scope(self, prefix)
 
+    def register_collector(self, name: str, fn: Callable) -> None:
+        """``fn() -> {dotted_name: number | {label_value: number}}``,
+        polled only at snapshot/exposition time. Re-registering a name
+        replaces the callback."""
+        with self._lock:
+            self._collectors[name] = fn
+
     def get(self, name: str) -> Optional[_Instrument]:
         with self._lock:
             return self._instruments.get(name)
@@ -231,8 +304,115 @@ class Registry:
             return list(self._instruments.values())
 
     def reset(self) -> None:
+        """Zero every instrument cell (collectors keep their own
+        state)."""
         for inst in self.instruments():
             inst.reset()
+
+    def _collected(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        with self._lock:
+            items = list(self._collectors.items())
+        for _name, fn in items:
+            try:
+                part = fn() or {}
+            except Exception:  # noqa: BLE001 — one bad view can't kill all
+                continue
+            out.update(part)
+        return out
+
+    def snapshot(self) -> Dict[str, Any]:
+        """One nested dict over every instrument + collector: dotted
+        names split into sub-dicts (``serving.admitted_total`` lands at
+        ``snap["serving"]["admitted_total"]``)."""
+        flat: Dict[str, Any] = {}
+        for inst in self.instruments():
+            series = inst.series()
+            if isinstance(inst, Histogram):
+                if not series or tuple(series) == ((),):
+                    flat[inst.name] = inst.value()
+                else:
+                    flat[inst.name] = {
+                        (key[0][1] if len(key) == 1 else
+                         ",".join(f"{k}={v}" for k, v in key)):
+                        inst._cell_dict(cell)
+                        for key, cell in series.items()}
+            elif not series:
+                flat[inst.name] = (inst.value()
+                                   if isinstance(inst, Gauge) else 0)
+            elif tuple(series) == ((),):
+                flat[inst.name] = series[()]
+            else:
+                out = {}
+                for key, v in series.items():
+                    if key == ():
+                        out["_total"] = v
+                    elif len(key) == 1:
+                        out[key[0][1]] = v
+                    else:
+                        out[",".join(f"{k}={lv}" for k, lv in key)] = v
+                flat[inst.name] = out
+        flat.update(self._collected())
+        nested: Dict[str, Any] = {}
+        for name, v in flat.items():
+            parts = name.split(".")
+            d = nested
+            for p in parts[:-1]:
+                nxt = d.get(p)
+                if not isinstance(nxt, dict):
+                    nxt = d[p] = {}
+                d = nxt
+            d[parts[-1]] = v
+        return nested
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition format v0.0.4."""
+        lines: List[str] = []
+        for inst in self.instruments():
+            mname = _sanitize(inst.name.replace(".", "_"))
+            if inst.help:
+                lines.append(f"# HELP {mname} {_escape_help(inst.help)}")
+            lines.append(f"# TYPE {mname} {inst.kind}")
+            series = inst.series()
+            if isinstance(inst, Histogram):
+                if not series:
+                    series = {(): _HistCell(len(inst.buckets))}
+                for key, cell in series.items():
+                    cum = 0
+                    for le, c in zip(inst.buckets, cell.counts):
+                        cum += c
+                        lk = key + (("le", _fmt_num(le)),)
+                        lines.append(
+                            f"{mname}_bucket{_labels_str(lk)} {cum}")
+                    cum += cell.counts[-1]
+                    lk = key + (("le", "+Inf"),)
+                    lines.append(f"{mname}_bucket{_labels_str(lk)} {cum}")
+                    lines.append(
+                        f"{mname}_sum{_labels_str(key)} "
+                        f"{_fmt_num(float(cell.sum))}")
+                    lines.append(
+                        f"{mname}_count{_labels_str(key)} {cell.count}")
+            else:
+                if not series:
+                    series = {(): inst.value()
+                              if isinstance(inst, Gauge) else 0}
+                for key, v in series.items():
+                    lines.append(
+                        f"{mname}{_labels_str(key)} "
+                        f"{_fmt_num(float(v))}")
+        # collectors render as untyped counters, one implicit label
+        # ("key") for a dict of values
+        for name, v in sorted(self._collected().items()):
+            mname = _sanitize(name.replace(".", "_"))
+            lines.append(f"# TYPE {mname} counter")
+            if isinstance(v, dict):
+                for lv, n in sorted(v.items(), key=lambda kv: str(kv[0])):
+                    lines.append(
+                        f'{mname}{{key="{_escape_label(str(lv))}"}} '
+                        f"{_fmt_num(float(n))}")
+            else:
+                lines.append(f"{mname} {_fmt_num(float(v))}")
+        return "\n".join(lines) + "\n"
 
 
 _default = Registry()
@@ -256,3 +436,15 @@ def histogram(name: str, help: str = "", buckets=None) -> Histogram:
 
 def scope(prefix: str) -> Scope:
     return _default.scope(prefix)
+
+
+def register_collector(name: str, fn: Callable) -> None:
+    _default.register_collector(name, fn)
+
+
+def snapshot() -> Dict[str, Any]:
+    return _default.snapshot()
+
+
+def render_prometheus() -> str:
+    return _default.render_prometheus()

@@ -31,13 +31,29 @@ tables, write targets and the walk's tile count are host values, so
 each step moves a few small index tensors to the card and reads back
 one token per slot.
 
-Left for later slices: speculative decoding, weight hot-swap, warm
-bundles, ``export_decode``, the ``int8=True`` s8 projections, the
-supervisor and adaptive admission, and CUDA graphs for the step.
+The paged engine also decodes **speculatively** (``attach_draft``): a
+cheap draft — typically ``make_draft``'s truncated-layer view, which
+shares the target's weight tensors — proposes
+``FLAGS_serving_spec_tokens`` tokens a step with its tokens kept on the
+card, the target scores the whole window in ONE ``[S, k+1]`` call
+(the paged-attention kernel on the tensor cores), the accepted-prefix
+length is computed on the card, and ONE host read closes the window.
+Rejected suffixes roll their blocks back (``PagedKVCache.truncate``);
+the greedy stream equals plain stepping's. ``swap_weights`` replaces
+the weights between steps (validated leaf for leaf, a sharing draft
+re-pointed in the same swap), and the server applies a pending swap at
+its step boundary, takes the adaptive admission policy's brownout
+knobs (``_apply_brownout``) and serves its metrics over HTTP
+(``metrics_endpoint``).
+
+Left for later slices: warm bundles, ``export_decode``, the
+``int8=True`` s8 projections, the supervisor and canary ``rollout``,
+checkpoint paths as a swap source, and CUDA graphs for the step.
 """
 from __future__ import annotations
 
 import itertools
+import os
 import queue as _queue
 import threading
 import time
@@ -79,10 +95,40 @@ _M_queue_s = _M.histogram(
 _M_decode_s = _M.histogram(
     "decode_seconds",
     "Admission-to-completion wall time per request (prefill + decode)")
+_M_spec_steps = _M.counter(
+    "spec_steps_total", "Speculative decode steps (draft propose + "
+    "one batched verify) run by engines")
+_M_spec_proposed = _M.counter(
+    "spec_proposed_total", "Draft tokens proposed to the target")
+_M_spec_accepted = _M.counter(
+    "spec_accepted_total",
+    "Draft tokens the target verified and committed")
+_M_spec_rolled = _M.counter(
+    "spec_rolled_back_total",
+    "KV blocks rolled back from rejected draft suffixes (re-credited "
+    "to the slot's admission reservation)")
 _M_shed = _M.counter(
     "shed_total",
     "Submissions rejected by the load-shedding policy (block pool "
-    "exhausted AND the deferred list over FLAGS_serving_shed_queue)")
+    "exhausted AND the deferred list over FLAGS_serving_shed_queue, "
+    "or the adaptive policy at its shed level)")
+_M_deadline_rej = _M.counter(
+    "admission_deadline_rejected_total",
+    "Submissions rejected at submit time because the request's "
+    "deadline cannot be met at the observed decode rate (adaptive "
+    "admission; the request never takes KV blocks)")
+_M_swaps = _M.counter(
+    "weight_swaps_total",
+    "Weight hot-swaps applied by server loops (between decode steps; "
+    "no request dropped)")
+_M_swap_rejected = _M.counter(
+    "weight_swaps_rejected_total",
+    "Weight hot-swaps rejected (shape/dtype/name/device mismatch "
+    "against the live weights) — the old weights stay installed")
+_M_swap_s = _M.histogram(
+    "swap_seconds",
+    "Wall seconds a weight hot-swap held the decode loop at its step "
+    "boundary (validation + install)")
 _M_pa_kernel = _M.counter(
     "paged_attention_kernel_steps_total",
     "Engine steps whose attention ran the Hopper paged-attention kernel")
@@ -115,14 +161,21 @@ class LlamaDecodeEngine:
 
     ``device`` defaults to ``cuda`` (raises without it unless
     ``device="cpu"``); ``attention_impl`` is ``"kernel"`` (the seam's
-    default path) or ``"reference"`` (the plain walk, by name)."""
+    default path) or ``"reference"`` (the plain walk, by name).
+
+    ``num_layers`` below the model's depth builds the TRUNCATED-LAYER
+    view (first N decoder layers + the full norm and head);
+    ``share_params`` (another engine's ``params``) re-binds that
+    engine's tensors instead of building weights — the draft of
+    speculative decoding costs no second weight set (``make_draft``)."""
 
     paged = False
 
     def __init__(self, model, max_slots: int = 4, max_seq: int = 256,
                  eos_id: Optional[int] = None,
                  num_layers: Optional[int] = None, device=None,
-                 attention_impl: str = "kernel"):
+                 attention_impl: str = "kernel",
+                 share_params: Optional[Dict[str, object]] = None):
         cfg = model.config
         self.cfg = cfg
         self.max_slots = int(max_slots)
@@ -151,7 +204,12 @@ class LlamaDecodeEngine:
         self._use_kernel = attention_impl == "kernel"
         # what the per-step path counters report
         self._pa_kernel = self._use_kernel and self.device.type == "cuda"
-        self.params = self._build_params(model.state_dict())
+        if share_params is not None:
+            p: Dict[str, object] = dict(share_params)
+            p["layers"] = list(share_params["layers"])[:self.n_layers]
+            self.params = p
+        else:
+            self.params = self._build_params(model.state_dict())
         d2 = self.head_dim // 2
         self._inv_freq = 1.0 / (cfg.rope_theta ** (torch.arange(
             0, d2, dtype=torch.float32, device=self.device) / d2))
@@ -161,11 +219,19 @@ class LlamaDecodeEngine:
         self.active = np.zeros(S, bool)
         self.last_ids = np.zeros((S, 1), np.int32)
         # logits behind the latest greedy tokens: [S, V] after step(),
-        # [V] after a prompt's final prefill (a view, not a copy)
+        # [S, k+1, V] after spec_step(), [V] after a prompt's final
+        # prefill (a view, not a copy)
         self.last_logits: Optional[torch.Tensor] = None
         self._attend_tile = next(
             ts for ts in (128, 64, 32, 16, 8, 4, 2, 1)
             if self.max_seq % ts == 0)
+        self._draft: Optional["PagedLlamaDecodeEngine"] = None
+        self._spec_k = 0
+        # adaptive-admission brownout knobs, set by the server at step
+        # boundaries: _spec_suppressed drops speculative windows to
+        # plain steps, _chunk_cap bounds the prefill chunk length
+        self._spec_suppressed = False
+        self._chunk_cap: Optional[int] = None
         self._init_cache()
 
     def _build_params(self, sd) -> Dict[str, object]:
@@ -201,6 +267,60 @@ class LlamaDecodeEngine:
             layers.append(lp)
         p["layers"] = layers
         return p
+
+    @staticmethod
+    def _leaf_specs(p) -> Dict[str, tuple]:
+        """leaf name -> (shape, dtype, device) of a weight tree."""
+        def spec(v):
+            return (tuple(v.shape), str(v.dtype), str(v.device))
+
+        out: Dict[str, tuple] = {}
+        for k, v in p.items():
+            if k == "layers":
+                for i, lp in enumerate(v):
+                    for nm, lv in lp.items():
+                        out[f"layers.{i}.{nm}"] = spec(lv)
+            else:
+                out[k] = spec(v)
+        return out
+
+    def prepare_swap(self, state_dict):
+        """Build the weight tree for a swap WITHOUT installing it (the
+        host-to-device half, runnable off the decode loop's thread);
+        pass the result to ``swap_weights(prepared=...)``."""
+        return self._build_params(dict(state_dict))
+
+    def swap_weights(self, state_dict=None, *, prepared=None) -> None:
+        """Replace this engine's weights between decode steps:
+        ``state_dict`` (model parameter names -> tensors) is prepared
+        like boot-time weights (or arrives via ``prepared=``, see
+        :meth:`prepare_swap`), validated leaf for leaf against the live
+        tree — name, shape, dtype and device — and only then installed.
+        Any mismatch raises with the old weights intact. Slot state and
+        KV blocks are untouched, so in-flight requests continue on the
+        new weights. An attached weight-sharing draft (``make_draft``)
+        is re-pointed at the new tensors in the same swap; an
+        independent draft keeps its own weights."""
+        new_p = prepared if prepared is not None \
+            else self._build_params(dict(state_dict))
+        old_spec, new_spec = (self._leaf_specs(self.params),
+                              self._leaf_specs(new_p))
+        if old_spec != new_spec:
+            bad = [k for k in sorted(set(old_spec) | set(new_spec))
+                   if old_spec.get(k) != new_spec.get(k)]
+            raise ValueError(
+                f"weight swap rejected: {len(bad)} leaf(s) with "
+                f"incompatible name/shape/dtype/device (first: "
+                f"{bad[:4]}) — a swap requires the checkpoint to match "
+                f"the serving model's geometry exactly")
+        old = self.params
+        self.params = new_p
+        draft = self._draft
+        if draft is not None and draft.params.get("emb") is \
+                old.get("emb"):
+            view: Dict[str, object] = dict(new_p)
+            view["layers"] = list(new_p["layers"])[:draft.n_layers]
+            draft.params = view
 
     def reset_state(self) -> None:
         """Discard ALL slot and cache state: fresh zero caches replace
@@ -435,9 +555,14 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
     ``kv_quant``: None stores blocks in the model dtype, "bfloat16"
     halves f32 pools, "int8" stores absmax codes + per-(token, head)
     scales, dequantized by the attention as it loads each tile.
+
+    Speculative decoding: ``attach_draft(make_draft())`` and the server
+    runs :meth:`spec_step` whenever :meth:`spec_ready`.
     """
 
     paged = True
+    # the process-registry prefix metrics are the target's only: an
+    # attached draft mirrors every admission (attach_draft clears this)
     _prefix_metrics = True
 
     def __init__(self, model, max_slots: int = 4, max_seq: int = 256,
@@ -447,7 +572,8 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
                  kv_quant: Optional[str] = None,
                  prefill_chunk: Optional[int] = None,
                  num_layers: Optional[int] = None, device=None,
-                 attention_impl: str = "kernel"):
+                 attention_impl: str = "kernel",
+                 share_params: Optional[Dict[str, object]] = None):
         from .core.flags import flag_value
         self.block_size = int(block_size or
                               flag_value("serving_block_size"))
@@ -464,7 +590,8 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
             prefill_chunk or flag_value("serving_prefill_chunk"))
         super().__init__(model, max_slots=max_slots, max_seq=max_seq,
                          eos_id=eos_id, num_layers=num_layers,
-                         device=device, attention_impl=attention_impl)
+                         device=device, attention_impl=attention_impl,
+                         share_params=share_params)
 
     def _alloc_pools(self) -> Dict[str, list]:
         """Fresh zeroed block pools (per-layer K/V + int8 scales), at
@@ -496,7 +623,7 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         """Reset over the block pool: every owned slot is released as a
         counted EVICTION, staged prefills are dropped, the radix tree
         empties (its blocks' content dies with the pools) and the pools
-        are rebuilt as fresh zeros."""
+        are rebuilt as fresh zeros. An attached draft resets with it."""
         for s in range(self.max_slots):
             self._kv.release(s, evicted=True)
         self._kv.reset_prefix_cache()
@@ -506,6 +633,8 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         self.active[:] = False
         self.last_ids[:] = 0
         self.kvs = self._alloc_pools()
+        if self._draft is not None:
+            self._draft.reset_state()
 
     # -- device side --------------------------------------------------------
     def _plan_writes(self, positions: np.ndarray, tables: np.ndarray,
@@ -564,17 +693,120 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
             h = self._ffn(lp, h)
         return self._head(h)
 
-    def _decode_logits(self, ids, pos: np.ndarray) -> torch.Tensor:
+    def _decode_logits(self, ids, pos: np.ndarray,
+                       active: Optional[np.ndarray] = None
+                       ) -> torch.Tensor:
         """One token for every slot at write positions ``pos`` [S];
-        inactive slots neither write nor advance. The walk is bounded by
-        the LONGEST history, so short batches pay only their own
-        tiles."""
+        slots not ``active`` (default: this engine's) neither write nor
+        advance. The walk is bounded by the LONGEST history, so short
+        batches pay only their own tiles."""
+        act = self.active if active is None else active
         return self._forward_paged(
-            ids, pos[:, None], self._kv.block_tables,
-            self.active[:, None],
+            ids, pos[:, None], self._kv.block_tables, act[:, None],
             int(pos.max()) // self.block_size + 1)[:, -1]
 
+    def _propose(self, last_ids, pos: np.ndarray, active: np.ndarray,
+                 k: int) -> torch.Tensor:
+        """DRAFT side of a speculative step: ``k`` chained greedy decode
+        steps writing this engine's pool at positions [pos, pos + k).
+        Each step's tokens feed the next on the card; positions and
+        tile counts come from the host's ``pos + i``, so nothing is
+        read back. Returns the proposals [S, k] (on the card)."""
+        ids = torch.as_tensor(last_ids).to(self.device, torch.long)
+        toks = []
+        for i in range(k):
+            nxt = self._decode_logits(ids, pos + i, active).argmax(dim=-1)
+            toks.append(nxt)
+            ids = nxt[:, None]
+        return torch.stack(toks, dim=1)
+
+    def _spec_verify(self, draft_tok: torch.Tensor):
+        """TARGET side: score the whole window in ONE call — ids
+        [S, k+1] = [last_id, d1..dk] at positions [pos, pos+k] —
+        writing the target's K/V for every window position. Returns the
+        greedy targets t [S, k+1] (t[:, i] conditions on the prefix
+        through d_i) and the accepted-prefix length n_acc [S] = |leading
+        i with d_{i+1} == t_i|, both computed on the card; the window's
+        logits stay in ``last_logits``."""
+        k = int(draft_tok.shape[1])
+        ids = torch.cat([torch.as_tensor(self.last_ids).to(
+            self.device, torch.long), draft_tok], dim=1)
+        positions = self.pos[:, None] + np.arange(k + 1, dtype=np.int32)
+        wmask = np.broadcast_to(self.active[:, None], positions.shape)
+        logits = self._forward_paged(
+            ids, positions, self._kv.block_tables, wmask,
+            (int(self.pos.max()) + k) // self.block_size + 1)
+        self.last_logits = logits
+        t = logits.argmax(dim=-1)
+        match = (draft_tok == t[:, :k]).long()
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1)
+        return t, n_acc
+
     # -- host orchestration -------------------------------------------------
+    def make_draft(self, model=None, num_layers: Optional[int] = None
+                   ) -> "PagedLlamaDecodeEngine":
+        """The cheap draft for speculative decoding as a TRUNCATED-LAYER
+        view of this target: the same geometry (slots, max_seq, pool,
+        quantization, chunk, device), the first ``num_layers`` decoder
+        layers (default ``FLAGS_serving_spec_draft_layers``, 0 = half
+        the target's, min 1), and the target's own weight tensors
+        re-bound, so the draft costs only its KV pool. ``model`` is
+        accepted for the JAX package's signature; only its config is
+        read (default: the target's)."""
+        from types import SimpleNamespace
+
+        from .core.flags import flag_value
+        n = int(num_layers or flag_value("serving_spec_draft_layers")
+                or max(1, self.n_layers // 2))
+        if not 1 <= n <= self.n_layers:
+            raise ValueError(
+                f"draft num_layers must be in [1, {self.n_layers}] — "
+                f"the TARGET's depth, not the model's — got {n} (a "
+                f"draft at least as deep as its target makes "
+                f"speculation strictly slower than plain stepping)")
+        if model is None:
+            model = SimpleNamespace(config=self.cfg)
+        return PagedLlamaDecodeEngine(
+            model, max_slots=self.max_slots, max_seq=self.max_seq,
+            eos_id=self.eos_id, block_size=self.block_size,
+            num_blocks=self.num_blocks, kv_quant=self.kv_quant,
+            prefill_chunk=self.prefill_chunk_len, num_layers=n,
+            device=self.device, attention_impl=self.attention_impl,
+            share_params=self.params)
+
+    def attach_draft(self, draft: "PagedLlamaDecodeEngine",
+                     spec_tokens: Optional[int] = None
+                     ) -> "PagedLlamaDecodeEngine":
+        """Enable speculative decoding: ``draft`` (a make_draft view or
+        ANY second paged engine of the same geometry) proposes
+        ``spec_tokens`` (default ``FLAGS_serving_spec_tokens``) tokens a
+        step and this target verifies the window in one call. Admission
+        then reserves ``spec_tokens`` extra tokens a request, so the
+        window's pre-extension never out-draws the reservation.
+        Requires an idle engine. Returns self."""
+        from .core.flags import flag_value
+        k = int(spec_tokens or flag_value("serving_spec_tokens"))
+        if k < 1:
+            raise ValueError(f"spec_tokens must be >= 1, got {k}")
+        if (draft.max_slots != self.max_slots
+                or draft.max_seq != self.max_seq
+                or draft.block_size != self.block_size):
+            raise ValueError(
+                "draft engine geometry (max_slots/max_seq/block_size) "
+                "must match the target's — the two advance in "
+                "lockstep over mirrored slot state")
+        if self.active.any() or self._prefill_state \
+                or self._kv.occupied_slots():
+            raise ValueError(
+                "attach_draft requires an IDLE engine: requests "
+                "admitted before attachment were reserved without the "
+                "spec_k margin and have no mirrored draft slot. Drain "
+                "or release every slot first")
+        self._draft = draft
+        draft._prefix_metrics = False
+        self._spec_k = k
+        return self
+
     def _device_cow(self, slot: int, src: int, dst: int) -> None:
         """Boundary copy-on-write: clone block ``src`` into ``dst`` in
         every pool leaf (per-layer K/V + int8 scales), in place."""
@@ -603,15 +835,28 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
     def begin_request(self, slot: int, prompt_ids,
                       max_new_tokens: int) -> bool:
         """Admit a request into ``slot``: map blocks for the prompt and
-        reserve its worst-case generation budget. Returns False when the
-        pool cannot cover it right now (the caller keeps it queued);
-        raises ValueError for a request the pool could NEVER hold."""
+        reserve its worst-case generation budget (+ the speculation
+        window with a draft attached: verify writes up to ``spec_k``
+        positions past the committed stream before rollback). Returns
+        False when the pool cannot cover it right now (the caller keeps
+        it queued); raises ValueError for a request the pool could NEVER
+        hold. An attached draft admits the same request in lockstep:
+        both pools or neither."""
         prompt_ids = self._check_prompt(prompt_ids)
         n = int(prompt_ids.shape[0])
-        budget = max(int(max_new_tokens), 1)
+        budget = max(int(max_new_tokens), 1) + self._spec_k
         total = min(n + budget, self.max_seq)
         if not self._kv.admit(slot, n, total, token_ids=prompt_ids):
             return False
+        if self._draft is not None:
+            try:
+                ok = self._draft.begin_request(slot, prompt_ids, budget)
+            except Exception:
+                self._kv.release(slot)
+                raise
+            if not ok:
+                self._kv.release(slot)
+                return False
         # prefix hit: matched tokens are already resident in aliased
         # blocks — prefill starts at the first unmatched token (a
         # block-aligned FULL match re-prefills only the last prompt
@@ -636,7 +881,10 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         st = self._prefill_state[slot]
         ids, start = st["ids"], st["next"]
         n = int(ids.shape[0])
-        c = min(self.prefill_chunk_len, n - start)
+        # _chunk_cap is the adaptive-admission brownout knob (floor 8)
+        limit = self.prefill_chunk_len if self._chunk_cap is None \
+            else max(8, min(self.prefill_chunk_len, self._chunk_cap))
+        c = min(limit, n - start)
         positions = (start + np.arange(c, dtype=np.int32))[None, :]
         logits = self._forward_paged(
             ids[None, start:start + c], positions,
@@ -647,7 +895,12 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         # publish every fully-written prompt block into the radix tree
         # as soon as its last token lands
         self._kv.commit_prefix(slot, ids, st["next"])
+        draft = self._draft
         if st["next"] < n:
+            # one draft chunk per target chunk (a make_draft view
+            # finishes in lockstep; another engine catches up below)
+            if draft is not None and slot in draft._prefill_state:
+                draft.prefill_chunk(slot)
             return None
         self.last_logits = logits[0, -1]
         first = int(self.last_logits.argmax())
@@ -655,6 +908,12 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         self.pos[slot] = n
         self.active[slot] = True
         self.last_ids[slot, 0] = first
+        if draft is not None:
+            while slot in draft._prefill_state:
+                draft.prefill_chunk(slot)
+            # the draft's stream mirrors the TARGET's: the target's
+            # first token seeds both engines' next step
+            draft.last_ids[slot, 0] = first
         return first
 
     def prefill(self, slot: int, prompt_ids,
@@ -688,9 +947,100 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
     def step(self) -> np.ndarray:
         """One decode iteration for ALL active slots; returns next token
         per slot (garbage for inactive slots — callers consult
-        .active)."""
+        .active). An attached draft runs a mirrored step on the same
+        inputs, so its cache has no hole when the next iteration
+        speculates again."""
         self._extend_tables()
-        return super().step()
+        draft = self._draft
+        if draft is not None:
+            for s in range(self.max_slots):
+                if self.active[s]:
+                    draft._shared_write_guard(s)
+                    draft._kv.ensure_token(s, int(self.pos[s]))
+            draft._decode_logits(self.last_ids, self.pos, self.active)
+        nxt = super().step()
+        if draft is not None:
+            for s in range(self.max_slots):
+                if self.active[s]:
+                    draft.pos[s] = self.pos[s]
+                    draft.last_ids[s, 0] = nxt[s]
+        return nxt
+
+    def spec_ready(self) -> bool:
+        """True when the next iteration can run speculatively: a draft
+        is attached, no brownout suppresses it, at least one slot is
+        active, and every active slot has room for the whole verify
+        window (a slot within ``spec_k`` tokens of capacity drops the
+        batch to a plain step for that iteration)."""
+        if self._draft is None or self._spec_suppressed:
+            return False
+        act = [s for s in range(self.max_slots) if self.active[s]]
+        if not act:
+            return False
+        k = self._spec_k
+        return all(int(self.pos[s]) + k + 1 <= self.max_seq - 1
+                   for s in act)
+
+    def spec_step(self):
+        """One SPECULATIVE decode iteration for all active slots: the
+        draft proposes ``spec_k`` tokens (chained on the card), the
+        target verifies the window in one call, and ONE host read of
+        ``(t, n_acc)`` closes it — the host-read budget of one plain
+        step, for up to ``spec_k`` committed tokens.
+
+        Greedy acceptance: with d1..dk the proposals and t0..tk the
+        target's greedy tokens, the committed prefix is t[:m], m =
+        min(n_acc + 1, k); every committed token conditions on a
+        committed prefix, so the stream equals plain decoding. ``pos``
+        moves by m and the rejected suffix's blocks roll back on both
+        pools (``PagedKVCache.truncate``); stale K/V past ``pos`` is
+        overwritten by the next write and masked by position until then.
+
+        Returns ``(tokens [S, k+1], counts [S])``: row s's first
+        ``counts[s]`` tokens continue its stream (garbage for inactive
+        slots — callers consult ``.active``)."""
+        k = self._spec_k
+        draft = self._draft
+        for s in range(self.max_slots):
+            if self.active[s]:
+                # window pre-extension, drawn from the +spec_k admission
+                # margin: target writes [pos, pos+k], draft [pos,
+                # pos+k-1]; both COW-guard the shared prefix first
+                self._shared_write_guard(s)
+                draft._shared_write_guard(s)
+                self._kv.reserve_through(s, int(self.pos[s]) + k)
+                draft._kv.reserve_through(s, int(self.pos[s]) + k - 1)
+        draft_tok = draft._propose(self.last_ids, self.pos, self.active,
+                                   k)
+        t, n_acc = self._spec_verify(draft_tok)
+        self._count_pa_path()
+        host = torch.cat([t, n_acc[:, None]], dim=1).cpu().numpy()
+        toks = host[:, :k + 1].astype(np.int32)       # the one read
+        acc = host[:, k + 1]
+        counts = np.minimum(acc + 1, k).astype(np.int32)
+        proposed = accepted = rolled = 0
+        for s in range(self.max_slots):
+            if not self.active[s]:
+                continue
+            m = int(counts[s])
+            self.pos[s] += m
+            self.last_ids[s, 0] = toks[s, m - 1]
+            draft.pos[s] = self.pos[s]
+            draft.last_ids[s, 0] = toks[s, m - 1]
+            rolled += self._kv.truncate(s, int(self.pos[s]))
+            rolled += draft._kv.truncate(s, int(self.pos[s]))
+            proposed += k
+            accepted += int(acc[s])
+        _M_spec_steps.inc()
+        if proposed:
+            _M_spec_proposed.inc(proposed)
+        if accepted:
+            _M_spec_accepted.inc(accepted)
+        if rolled:
+            _M_spec_rolled.inc(rolled)
+        _flight.record("serving", "spec_step", proposed=proposed,
+                       accepted=accepted, rolled_back=rolled)
+        return toks, counts
 
     def decode_steps(self, n: int) -> np.ndarray:
         """``n`` chained decode iterations, tokens kept on the card and
@@ -724,12 +1074,15 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
     def release(self, slot: int, evicted: bool = False) -> None:
         """Free the slot AND return its blocks + reservation to the
         pool; ``evicted=True`` (expiry/failure/cancellation) counts them
-        into ``serving.block_evictions_total``."""
+        into ``serving.block_evictions_total``. An attached draft
+        releases its mirrored slot in the same call."""
         self.active[slot] = False
         self.pos[slot] = 0
         self._prefill_state.pop(slot, None)
         self.prefix_hit_tokens.pop(slot, None)
         self._kv.release(slot, evicted=evicted)
+        if self._draft is not None:
+            self._draft.release(slot, evicted=evicted)
 
 
 class GenerationServer:
@@ -750,7 +1103,13 @@ class GenerationServer:
     counted evictions. ``shutdown()`` drains: new submissions are
     rejected, queued and in-flight requests finish, then the loop
     exits. Each request dict records ``t0`` (submit), ``t_admit`` and
-    ``t_first`` (first token) on the host's monotonic clock."""
+    ``t_first`` (first token) on the host's monotonic clock.
+
+    With a draft attached (``engine.attach_draft``) an iteration runs
+    ``engine.spec_step()`` whenever ``engine.spec_ready()``: up to
+    ``spec_k`` tokens a slot, cut at eos or the budget mid-window.
+    ``swap_weights`` installs new weights at a step boundary, and
+    ``metrics_endpoint`` serves the metrics registry over HTTP."""
 
     _STOP = object()  # queue sentinel: wake the loop for shutdown
 
@@ -766,7 +1125,9 @@ class GenerationServer:
         self.admitted = 0
         self.rejected = 0
         self.shed = 0
+        self.deadline_rejected = 0  # unmeetable-deadline rejections
         self.deadline_expired = 0
+        self.weight_swaps = 0       # hot-swaps applied by this loop
         self.tokens_delivered = 0
         if policy is None:
             from .serving_supervisor import default_policy
@@ -777,6 +1138,11 @@ class GenerationServer:
         # orders submit's stopping-check+enqueue against shutdown's
         # stopping.set(), so the drain loop cannot strand a request
         self._submit_lock = make_lock("serving.submit")
+        # pending weight hot-swap: (prepared weights, done Event, result
+        # dict), set under the submit lock, applied by the LOOP thread
+        # at its next step boundary
+        self._swap_req = None
+        self._metrics_server = None
         self._crashed = False
         self._crash_error: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -798,6 +1164,30 @@ class GenerationServer:
                            + len(self._prefilling))
             self._set_gauges()
             raise
+
+    def _apply_brownout(self, spec_off: bool,
+                        chunk_cap: Optional[int]) -> None:
+        """Install the adaptive policy's brownout knobs on the engine
+        (step-boundary safe: both steer only what the next iteration
+        runs)."""
+        eng = self.engine
+        eng._spec_suppressed = bool(spec_off)
+        eng._chunk_cap = chunk_cap
+
+    def metrics_endpoint(self, port: int = 0, host: str = "127.0.0.1"):
+        """Serve the process metrics registry over HTTP: ``GET
+        /metrics`` (Prometheus text exposition), ``/metrics.json`` (the
+        nested snapshot) and ``/healthz`` (readiness: loop alive, not
+        draining, admission below hard shed). Idempotent per server;
+        ``shutdown()`` closes it. Returns the handle (``.url``,
+        ``.port``, ``.close()``)."""
+        if self._metrics_server is None:
+            from .observability.http import start_metrics_server
+            from .serving_fleet import health_snapshot
+            self._metrics_server = start_metrics_server(
+                port=port, host=host,
+                health_cb=lambda: health_snapshot(self))
+        return self._metrics_server
 
     def submit(self, prompt_ids, max_new_tokens: int = 32,
                deadline: Optional[float] = None) -> dict:
@@ -822,6 +1212,10 @@ class GenerationServer:
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         verdict = self.policy.admit_verdict(
             self, int(prompt.shape[0]), int(max_new_tokens), deadline)
+        if verdict == "deadline":
+            self.deadline_rejected += 1
+            _M_deadline_rej.inc()
+            self._reject(trace_id, verdict)
         if verdict is not None:
             self.shed += 1
             _M_shed.inc()
@@ -850,6 +1244,12 @@ class GenerationServer:
             raise RuntimeError(
                 "GenerationServer is shutting down; new submissions are "
                 "rejected (in-flight requests are draining)")
+        if reason == "deadline":
+            raise RuntimeError(
+                f"request rejected by the {self.policy.name} admission "
+                f"policy (reason=deadline): its deadline cannot be met "
+                f"at the observed decode rate — retry with a larger "
+                f"deadline or fewer tokens")
         raise RuntimeError(
             f"request rejected by the {self.policy.name} admission "
             f"policy (reason={reason}): the replica is overloaded (KV "
@@ -865,6 +1265,132 @@ class GenerationServer:
         if req["error"] is not None:
             raise req["error"]
         return list(req["out"])
+
+    @staticmethod
+    def _swap_state(source) -> dict:
+        """A swap source as a model state dict, on the caller's thread:
+        a flat ``{name: tensor}`` mapping, or one nested under a
+        ``model`` / ``state_dict`` / ``params`` key. Checkpoint paths
+        and checkpoint managers need ``framework/checkpoint.py``, which
+        the port does not have yet: they raise."""
+        if isinstance(source, (str, bytes, os.PathLike)) \
+                or hasattr(source, "restore"):
+            raise NotImplementedError(
+                "swap_weights from a checkpoint path or CheckpointManager "
+                "needs framework/checkpoint.py, which is not ported yet: "
+                "load the checkpoint yourself and pass its state dict")
+
+        def flat(d):
+            return (isinstance(d, dict) and d
+                    and all(isinstance(k, str) for k in d)
+                    and all(hasattr(v, "shape") for v in d.values()))
+
+        if isinstance(source, dict):
+            for key in ("model", "state_dict", "params"):
+                if flat(source.get(key)):
+                    return source[key]
+            if flat(source):
+                return source
+        raise ValueError(
+            "cannot find a model state dict in the swap source — "
+            "expected a flat {name: tensor} mapping or one nested under "
+            "a 'model'/'state_dict'/'params' key")
+
+    def swap_weights(self, state_dict=None,
+                     timeout: Optional[float] = 300.0, *,
+                     prepared=None) -> dict:
+        """Install new weights into the running engine BETWEEN decode
+        steps, dropping no in-flight request: their KV blocks and
+        partial streams are untouched and the next step runs on the new
+        weights (a weight-sharing draft follows in the same swap).
+
+        ``state_dict`` is a model state dict (see :meth:`_swap_state`);
+        its weights are prepared on THIS thread
+        (:meth:`~LlamaDecodeEngine.prepare_swap`), and the loop thread
+        only validates and installs them at its next step boundary. A
+        mismatch raises here with the old weights intact (counted in
+        ``serving.weight_swaps_rejected_total``). Returns the swap's
+        stats (``seconds`` at the boundary, ``in_flight``, ...). A
+        timeout cancels the swap if the loop has not claimed it yet.
+        ``prepared=`` skips the preparation (``prepare_swap``'s output,
+        or a retained earlier ``engine.params``)."""
+        if prepared is not None:
+            prepped = prepared
+        else:
+            sd = self._swap_state(state_dict)
+            try:
+                prepped = self.engine.prepare_swap(sd)
+            except Exception:
+                _M_swap_rejected.inc()
+                _flight.record("serving", "swap_end", ok=False,
+                               error="prepare")
+                raise
+        done = threading.Event()
+        slot: dict = {}
+        with self._submit_lock:
+            if self._stopping.is_set():
+                raise RuntimeError(
+                    "GenerationServer is shutting down; weights cannot "
+                    "be swapped into a draining loop")
+            if self._swap_req is not None:
+                raise RuntimeError(
+                    "a weight swap is already pending; wait for it "
+                    "before submitting another")
+            self._swap_req = (prepped, done, slot)
+        self._q.put(self._STOP)  # wake an idle loop (sentinel no-op)
+        if not done.wait(timeout):
+            with self._submit_lock:
+                cancelled = (self._swap_req is not None
+                             and self._swap_req[1] is done)
+                if cancelled:
+                    self._swap_req = None
+            raise TimeoutError(
+                f"weight swap not applied within {timeout}s — "
+                + ("cancelled before the loop claimed it"
+                   if cancelled else
+                   "the loop claimed it mid-apply; it may still land"))
+        if "error" in slot:
+            raise slot["error"]
+        return slot["result"]
+
+    def _apply_pending_swap(self) -> None:
+        """Apply a pending weight swap HERE, on the loop thread, at a
+        step boundary: the last step has committed its tokens and no
+        new step has started, so no in-flight request drops or corrupts
+        a token. A rejected swap leaves the old weights installed and
+        the loop running."""
+        if self._swap_req is None:
+            return
+        with self._submit_lock:  # the claim races a caller's timeout
+            req = self._swap_req
+            self._swap_req = None
+        if req is None:
+            return
+        prepped, done, slot = req
+        t0 = time.perf_counter()
+        _flight.record("serving", "swap_begin",
+                       in_flight=len(self._slots),
+                       prefilling=len(self._prefilling))
+        try:
+            self.engine.swap_weights(prepared=prepped)
+        except Exception as e:  # noqa: BLE001 — surfaced to the caller
+            _M_swap_rejected.inc()
+            _flight.record("serving", "swap_end", ok=False,
+                           error=type(e).__name__)
+            slot["error"] = e
+            done.set()
+            return
+        dt = time.perf_counter() - t0
+        self.weight_swaps += 1
+        _M_swaps.inc()
+        _M_swap_s.observe(dt)
+        _flight.record("serving", "swap_end", ok=True,
+                       seconds=round(dt, 4))
+        slot["result"] = {"seconds": dt,
+                          "in_flight": len(self._slots),
+                          "prefilling": len(self._prefilling),
+                          "steps_run": self.steps_run}
+        done.set()
 
     def _shed(self) -> bool:
         """The static load-shedding rule: shed when admission is
@@ -1107,6 +1633,7 @@ class GenerationServer:
     def _loop(self):
         while True:
             try:
+                self._apply_pending_swap()
                 self._admit()
                 if self._paged and self._prefilling:
                     self._run_prefill()
@@ -1130,13 +1657,30 @@ class GenerationServer:
                     self._admit_one(req, self._free_slots()[0])
                     continue
                 eng = self.engine
-                toks = eng.step()
+                if self._paged and eng.spec_ready():
+                    # speculative iteration: up to spec_k tokens a slot
+                    # for one host read; the greedy stream equals plain
+                    # stepping's, so a request cut off mid-window (eos,
+                    # budget) sees exactly the tokens it would anyway
+                    toks, counts = eng.spec_step()
+                else:
+                    # plain stepping: the counts == 1 case of the same
+                    # commit loop
+                    toks = eng.step()[:, None]
+                    counts = np.ones(eng.max_slots, np.int32)
                 self.steps_run += 1
                 _M_steps.inc()
                 for slot in list(self._slots):
                     req = self._slots[slot]
-                    req["out"].append(int(toks[slot]))
-                    self.tokens_delivered += 1
+                    before = len(req["out"])
+                    for j in range(int(counts[slot])):
+                        tok = int(toks[slot, j])
+                        req["out"].append(tok)
+                        if len(req["out"]) >= req["max_new"]:
+                            break
+                        if eng.eos_id is not None and tok == eng.eos_id:
+                            break
+                    self.tokens_delivered += len(req["out"]) - before
                     _flight.record("serving", "decode",
                                    trace_id=req.get("trace_id"),
                                    step=self.steps_run,
@@ -1153,6 +1697,14 @@ class GenerationServer:
                     table.clear()
                 self._set_gauges()
         self._set_gauges()
+        # a swap still pending at loop exit can never apply: unblock its
+        # caller with the reason instead of letting it time out
+        req = self._swap_req
+        if req is not None:
+            self._swap_req = None
+            req[2]["error"] = RuntimeError(
+                "server shut down before the weight swap applied")
+            req[1].set()
         self._drained.set()
 
     def _set_gauges(self) -> None:
@@ -1182,6 +1734,11 @@ class GenerationServer:
         drained = self._drained.wait(timeout)
         if drained:
             self._thread.join(timeout)
+        if self._metrics_server is not None:
+            try:
+                self._metrics_server.close()
+            finally:
+                self._metrics_server = None
         return drained
 
     @staticmethod
@@ -1199,7 +1756,9 @@ class GenerationServer:
                          and not r["done"].is_set())
         out = {"steps_run": self.steps_run, "admitted": self.admitted,
                "rejected": self.rejected, "shed": self.shed,
+               "deadline_rejected": self.deadline_rejected,
                "deadline_expired": self.deadline_expired,
+               "weight_swaps": self.weight_swaps,
                "tokens_delivered": self.tokens_delivered,
                "crashed": int(self._crashed),
                "in_flight": len(self._slots), "queued": queued,

@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the Hopper paged-attention
 kernels against their plain walks (the split design for bf16 calls, by
-its counts; its entry's refusals, its tickets), a tiny engine through
-the kernel against
-the same engine through the walk, the three flash-attention kernels
+its counts; its entry's refusals, its tickets; the speculative verify
+window on the tensor cores), a tiny engine through the kernel against
+the same engine through the walk, a speculative server's stream against
+plain stepping and a weight swap on the card, the three flash-attention kernels
 against their plain versions (plain, with dropout and with segments;
 bf16 at head dim 64 or 128 on the TMA / wgmma kernels, with dropout at
 head dim 64 and with segments without dropout, everything else on the
@@ -108,9 +109,11 @@ def test_kernel_raises_instead_of_falling_back(cuda):
     ((2, 1, 32, 8, 128, 16, 64), False),
     ((1, 64, 8, 8, 128, 16, 80), True),
     ((1, 40, 4, 1, 64, 32, 20), False),
-    ((1, 96, 4, 4, 128, 128, 8), False)],
+    ((1, 96, 4, 4, 128, 128, 8), False),
+    ((4, 5, 8, 8, 128, 16, 40), False)],
     ids=["mha-decode", "int8-verify-t2-d64", "gqa4-decode",
-         "int8-prefill-chunk", "mqa-chunk-d64-bs32", "dense-bs128-t96"])
+         "int8-prefill-chunk", "mqa-chunk-d64-bs32", "dense-bs128-t96",
+         "mha-spec-verify-t5"])
 def test_split_design_takes_bf16_calls_and_matches_its_plain_versions(
         cuda, geo, quant):
     """bf16 calls take the split design (CUDA-core groups of 1 and 4 rows,
@@ -228,6 +231,63 @@ def test_engine_through_the_kernel_matches_the_walk(cuda, kv_quant):
             streams["kernel"]
     finally:
         assert srv.shutdown(timeout=60)
+
+
+def _tiny_llama_on_card():
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                           num_key_value_heads=1, use_flash_attention=False)
+    return LlamaForCausalLM(cfg, device="cuda")
+
+
+_SPEC_GEO = dict(max_slots=2, max_seq=128, block_size=16, prefill_chunk=16)
+
+
+def test_speculative_stream_on_the_card_equals_plain_stepping(cuda):
+    """A 2-layer target with make_draft()'s 1-layer view through a
+    speculative server: the stream equals plain stepping's (f32, the
+    kernel on both paths), spec steps ran, one K3 launch a layer for each
+    verify and k a draft layer for each proposal window, and both pools
+    drain with their invariants holding."""
+    from paddle_tpu_torch.observability import metrics as om
+    model = _tiny_llama_on_card()
+    prompt = list(range(1, 40))
+    want = PagedLlamaDecodeEngine(model, **_SPEC_GEO).generate(prompt, 24)
+    eng = PagedLlamaDecodeEngine(model, **_SPEC_GEO)
+    eng.attach_draft(eng.make_draft(), spec_tokens=4)
+    steps = om.default_registry().get("serving.spec_steps_total")
+    before = steps.value()
+    srv = GenerationServer(eng)
+    try:
+        got = srv.generate(prompt, 24, timeout=120)
+    finally:
+        assert srv.shutdown(timeout=60)
+    assert got == want
+    assert steps.value() > before
+    for kv in (eng._kv, eng._draft._kv):
+        kv.check_invariants()
+        assert kv.stats()["blocks_used"] == 0
+
+
+def test_weight_swap_on_the_card(cuda):
+    """Swapping to a clone of the same weights mid-stream leaves the
+    stream as it was; a prepared tree with one leaf on the CPU is
+    refused on its device with the old weights kept."""
+    model = _tiny_llama_on_card()
+    prompt = list(range(3, 30))
+    want = PagedLlamaDecodeEngine(model, **_SPEC_GEO).generate(prompt, 16)
+    eng = PagedLlamaDecodeEngine(model, **_SPEC_GEO)
+    out = [eng.prefill(0, prompt, budget=16)]
+    out += [int(eng.step()[0]) for _ in range(5)]
+    eng.swap_weights({k: v.clone() for k, v in model.state_dict().items()})
+    out += [int(eng.step()[0]) for _ in range(10)]
+    assert out == want
+    old = eng.params
+    tree = eng.prepare_swap(model.state_dict())
+    tree["layers"][0]["q_proj"] = tree["layers"][0]["q_proj"].cpu()
+    with pytest.raises(ValueError, match="layers.0.q_proj"):
+        eng.swap_weights(prepared=tree)
+    assert eng.params is old
+    eng.release(0)
 
 
 def _flash_inputs(dev, shape, dtype, seed):

@@ -145,7 +145,8 @@ def test_flags_keep_the_jax_names_and_defaults(monkeypatch):
              "serving_prefill_chunk", "serving_prefix_cache",
              "serving_prefix_cache_blocks", "serving_shed_queue",
              "serving_admission_policy", "paged_attention_kernel",
-             "fused_optimizer"}
+             "fused_optimizer", "serving_spec_tokens",
+             "serving_spec_draft_layers"}
     assert set(tflags._registry) == names
     for n in names:
         assert tflags._registry[n].default == jflags._registry[n].default
@@ -185,13 +186,12 @@ def test_paged_attention_flag_off_raises_on_a_cuda_engine(monkeypatch):
 
 def test_adaptive_policy_is_not_silently_dropped():
     from paddle_tpu_torch.core.flags import set_flags
-    from paddle_tpu_torch.serving_supervisor import (StaticShedPolicy,
-                                                     default_policy)
+    from paddle_tpu_torch.serving_supervisor import (
+        AdaptiveAdmissionPolicy, StaticShedPolicy, default_policy)
     assert isinstance(default_policy(), StaticShedPolicy)
     set_flags({"serving_admission_policy": "adaptive"})
     try:
-        with pytest.raises(NotImplementedError, match="adaptive"):
-            default_policy()
+        assert isinstance(default_policy(), AdaptiveAdmissionPolicy)
     finally:
         set_flags({"serving_admission_policy": "static"})
 
