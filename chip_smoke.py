@@ -82,7 +82,42 @@ Phases, each printing one JSON line with its seconds:
                       of another shape (rejected and counted, the
                       streams go on); the swap's seconds at the step
                       boundary;
-10. ``flash_parity``  the flash-attention forward, dQ and dK/dV kernels
+10. ``serve_supervised``  THE SUPERVISED SERVING PATH: the serve phase's
+                      model and 12 requests at 8 slots x 2048 tokens under
+                      supervise(srv), with the flight crash hooks on and
+                      dumps to a temporary directory: a KillPoint at
+                      serving.decode on the 31st decode passage (every
+                      slot taken), then a stall (a 5 s sleep after the
+                      70th engine.step has returned, against a 2 s
+                      watchdog); gates: 2 restarts and 1 stall, the
+                      requests recovered at each death = the requests
+                      active then, none quarantined (quarantine_after=3:
+                      a request active at both deaths is recovered
+                      twice), one terminal flight event a request, exact
+                      budgets, K3 launches = layers x (engine steps +
+                      prefill chunks) over both incarnations (the stalled
+                      step ran, its tokens uncommitted), all split, the
+                      tensor-core ones = layers x the chunks split_plan
+                      sends there; the supervisor's dumps hold loop_death,
+                      recover and restart; check_invariants(); device
+                      memory after the run within one KV pool of before
+                      the kill; each stream equal to the serve phase's or
+                      parted at a near-tie; recovery seconds (death to the
+                      restarted loop's first committed token), the extra
+                      prefill chunks, tokens/s and TTFT beside serve's;
+11. ``rollout``       two replicas at the 7B widths, 2 layers and 4 slots
+                      each; a CheckpointManager saves (a) their own
+                      weights, (b) weights of another seed, (c) (a) with
+                      one NaN, and rollout() deploys each from its path
+                      with RolloutPolicy(max_divergence=0.0): (a) swaps
+                      both with equal probes, (b) rolls the canary back
+                      (its probe as before the swap; replica 2 never
+                      swapped), (c) halts before any swap with the NaN
+                      counted; a file truncated by
+                      fault_injection.write_bytes is skipped by latest();
+                      checkpoint bytes, save seconds (fsync on), load +
+                      CRC-verify seconds and each stage's swap_seconds;
+12. ``flash_parity``  the flash-attention forward, dQ and dK/dV kernels
                       against their plain versions on the card, bf16 and
                       f32, at the training geometry (B 4, L 2048, H 32,
                       D 128) causal and full, D 64 through the [BH, L, D]
@@ -98,7 +133,7 @@ Phases, each printing one JSON line with its seconds:
                       f32 copies of the inputs; then the FlashAttention
                       autograd function against autograd through the
                       plain sdpa;
-11. ``flash_time``    the three kernels, the whole backward (with delta)
+13. ``flash_time``    the three kernels, the whole backward (with delta)
                       and forward + backward at the training geometry,
                       ERNIE-MoE's (D 64, causal) and D 64 in the [BH, L,
                       D] layout (BERT-base heads), all on the TMA design,
@@ -107,7 +142,7 @@ Phases, each printing one JSON line with its seconds:
                       versions, their bounds and
                       PyTorch's scaled_dot_product_attention (a
                       yardstick only);
-12. ``optimizer_parity``  the fused optimizer step's kernels (O1
+14. ``optimizer_parity``  the fused optimizer step's kernels (O1
                       unscale / finite check / norms / clip scale, O2
                       Adam-AdamW) against their plain versions on the card:
                       AdamW and Adam, bf16 and f16 parameters with moments
@@ -121,7 +156,7 @@ Phases, each printing one JSON line with its seconds:
                       the same clip scale, O1's scale and norms within
                       1e-6, unscaled gradients bit-equal, a skipped step
                       bit-equal to before it, launches per case counted;
-13. ``optimizer_time``  the JAX bench's 64 x (64x64) AdamW + global-norm
+15. ``optimizer_time``  the JAX bench's 64 x (64x64) AdamW + global-norm
                       clip + cosine schedule step (host µs, fused and the
                       loop), and at the train phase's 1.07 B bf16
                       parameters O2 and O1 beside their bounds, their plain
@@ -131,7 +166,7 @@ Phases, each printing one JSON line with its seconds:
                       and then O1 (unscale, global norm) and O2 with its
                       scale and flag are held against their plain versions
                       on those tensors (O2 bit-equal, O1 within 1e-6);
-14. ``train``          THE TRAINING PATH: a Llama-2-7B-width bf16 model
+16. ``train``          THE TRAINING PATH: a Llama-2-7B-width bf16 model
                       (4 layers, random weights) trains with AdamW
                       through TrainStep on a batch of 4 x 2048 tokens:
                       2 warm-up and 5 timed steps; the three flash
@@ -145,11 +180,11 @@ Phases, each printing one JSON line with its seconds:
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
                       of its optimizer.step();
-15. ``train_parity``  one step of the same widths at 2 layers through
+17. ``train_parity``  one step of the same widths at 2 layers through
                       the kernels against the same step with
                       use_flash_attention=False (autograd through the
                       plain sdpa): loss and every gradient compared;
-16. ``amp_scaler``  THE AMP PATH: a 2-layer Llama-2-7B-width bf16 model
+18. ``amp_scaler``  THE AMP PATH: a 2-layer Llama-2-7B-width bf16 model
                       trains with ClipGradByGlobalNorm(1.0), LinearWarmup
                       over CosineAnnealingDecay and GradScaler(2**15,
                       decr_every_n_nan_or_inf=1) through O1 and O2; one
@@ -163,7 +198,7 @@ Phases, each printing one JSON line with its seconds:
                       O1/O2 launch counts are reset before and read after
                       (batches + finalize and batches a step, no
                       fallback);
-17. ``flash_dropout_parity``  attention dropout inside the three flash
+19. ``flash_dropout_parity``  attention dropout inside the three flash
                       kernels (K5) at the BERT-base geometry (B 24, L 512,
                       H 12, D 64, bf16) and a small f32 case, p = 0.1,
                       causal and full: each kernel against its plain
@@ -175,7 +210,7 @@ Phases, each printing one JSON line with its seconds:
                       launch without dropout, two seeds differing, and
                       the FlashAttention autograd function against
                       autograd through the plain sdpa with the same mask;
-18. ``flash_varlen_parity``  the segment-masked kernels (K4) on 12,288
+20. ``flash_varlen_parity``  the segment-masked kernels (K4) on 12,288
                       packed tokens (sequences of 32-512 from a numpy
                       seed, H 12, D 64), bf16 and f32, causal and full,
                       and bf16 on the same ids shuffled, and at the JAX
@@ -194,7 +229,7 @@ Phases, each printing one JSON line with its seconds:
                       TMA launch counts reset just before and read just
                       after (1 each), its output and gradient held
                       against the plain versions on the same views;
-19. ``flash_time_bert``  the kernels with and without dropout at the BERT
+21. ``flash_time_bert``  the kernels with and without dropout at the BERT
                       geometry (the TMA design, the first design beside
                       it with the same dropout: general_ms; what dropout
                       adds to each) and the segmented kernels at the
@@ -204,7 +239,7 @@ Phases, each printing one JSON line with its seconds:
                       beside them, their plain versions, their bounds
                       (the pairs the function needs) and PyTorch's SDPA
                       (a yardstick);
-20. ``bert_train``    THE BERT PATH: BERT-base MLM (12 layers, hidden 768,
+22. ``bert_train``    THE BERT PATH: BERT-base MLM (12 layers, hidden 768,
                       vocab 30522, bf16, dropout 0.1) trains with AdamW
                       through TrainStep on 24 x 512 tokens: 2 warm-up and
                       5 timed steps; the flash launch counts (and their
@@ -219,12 +254,12 @@ Phases, each printing one JSON line with its seconds:
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
                       of its optimizer.step();
-21. ``bert_train_parity``  one step of BERT-base widths at 2 layers
+23. ``bert_train_parity``  one step of BERT-base widths at 2 layers
                       through the kernels against the same step through
                       the plain sdpa (an all-zero additive mask routes it
                       there) with the same seeds drawn in the same order:
                       loss and every gradient compared;
-22. ``gmm_parity``    the grouped-matmul kernels (K6 forward, K6 as dlhs on
+24. ``gmm_parity``    the grouped-matmul kernels (K6 forward, K6 as dlhs on
                       the transposed weights, K7 drhs) against their plain
                       versions, bf16 and f32, on the op bench's geometry,
                       ERNIE-MoE's expert FFN (w_in and w_out at 8 x 5120
@@ -239,19 +274,19 @@ Phases, each printing one JSON line with its seconds:
                       general mma.sync kernels for f32 and K 37, N 45;
                       then GroupedMatmul's autograd against autograd
                       through the dense oracle;
-23. ``gmm_op``        THE OP PATH: one forward + backward through the
+25. ``gmm_op``        THE OP PATH: one forward + backward through the
                       grouped_matmul entry at the op bench's geometry
                       (bf16); the three counts and their TMA counts are
                       reset just before and read just after: K6 twice
                       (forward, dlhs), K7 once, all through the TMA
                       kernels;
-24. ``gmm_time``      the three kernels at the op bench's geometry and at
+26. ``gmm_time``      the three kernels at the op bench's geometry and at
                       ERNIE-MoE's w_in and w_out products (the TMA
                       kernels), beside the first design's general kernels
                       on the same inputs, their plain versions, their
                       bounds, torch.bmm over the equal groups and
                       torch._grouped_mm (yardsticks);
-25. ``moe_train``     THE ERNIE-MOE PATH: ERNIE-MoE at ErnieMoEConfig()
+27. ``moe_train``     THE ERNIE-MOE PATH: ERNIE-MoE at ErnieMoEConfig()
                       (12 layers, 6 of them MoE with 8 experts, top-2,
                       hidden 768, vocab 30522, bf16) trains with AdamW
                       through TrainStep on 8 x 2048 tokens with the LM loss
@@ -268,7 +303,7 @@ Phases, each printing one JSON line with its seconds:
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
                       of its optimizer.step();
-26. ``moe_train_parity``  one step of a 2-layer ERNIE-MoE (one dense, one
+28. ``moe_train_parity``  one step of a 2-layer ERNIE-MoE (one dense, one
                       MoE layer) through the kernels against the same step
                       through the plain sdpa: loss, every gradient and the
                       share of tokens whose top-2 experts differ; beside
@@ -294,6 +329,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -936,7 +972,7 @@ def phase_serve(state, k3):
     numbers = serve_numbers(reqs, wall)
     state["serve"] = {"prompts": prompts, "budgets": budgets,
                       "streams": [list(r["out"]) for r in reqs],
-                      "steps": steps, **numbers}
+                      "steps": steps, "chunks": chunks, **numbers}
     state["launches"] = launches
     # each row's count as the wrapper counted it, by path: the decode
     # steps ran the CUDA-core kernel, the prefill chunks the tensor cores
@@ -1206,39 +1242,64 @@ def check_spec_launches(what, eng, rows_t, rows_d, spec_steps, plain_steps,
             "target_chunks": len(rows_t), "draft_chunks": len(rows_d)}
 
 
-def profile_spec(eng, rng, vocab, ctx=1000, steps=5):
+def profile_spec(eng, rng, vocab, ctx=1000, steps=5, tries=3):
     """Where a full speculative step's time goes: every slot active at
     ``ctx`` tokens of history, host wall time per step (synchronized),
     the device time by kernel from torch.profiler (K3 split into the
     verify's tensor-core launches and the proposals' CUDA-core ones),
-    and the step's device-to-host copies as the profiler sees them."""
+    and the step's device-to-host copies as the profiler sees them.
+
+    At 32 layers (~5,300 device records a step) the profiler can drop
+    records at both ends of its window: the first step's first copies,
+    and a copy that ends just before the window closes. So the window
+    opens after a warm-up step (a schedule) and closes after a pause,
+    and a profile counts only when its device memcpy records match the
+    runtime's memcpy calls one for one; one that does not is taken
+    again, at most ``tries`` times, on slots filled anew."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    for s in range(eng.max_slots):
-        eng.prefill(s, rng.integers(0, vocab, ctx),
-                    budget=(steps * 2 + 4) * eng._spec_k)
-    for _ in range(2):
-        eng.spec_step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        eng.spec_step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
+    from torch.profiler import ProfilerActivity, profile, schedule
+    wall_ms = None
+    for attempt in range(1, tries + 1):
+        for s in range(eng.max_slots):
+            eng.prefill(s, rng.integers(0, vocab, ctx),
+                        budget=(steps * 2 + 4) * eng._spec_k)
+        for _ in range(2):
             eng.spec_step()
         torch.cuda.synchronize()
-    by_kernel, d2h = {}, 0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if "DtoH" in ev.key:
-            d2h += ev.count
-        if us:
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
-    for s in range(eng.max_slots):
-        eng.release(s)
+        if wall_ms is None:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.spec_step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=steps,
+                                       repeat=1)) as prof:
+            for i in range(steps + 1):
+                eng.spec_step()
+                torch.cuda.synchronize()
+                if i == steps:
+                    time.sleep(0.05)
+                prof.step()
+        by_kernel, d2h, copies, calls = {}, 0, 0, 0
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            if ev.key.startswith("Memcpy "):
+                copies += ev.count
+                d2h += ev.count if "DtoH" in ev.key else 0
+            elif ev.key.startswith("cudaMemcpy"):
+                calls += ev.count
+            if us:
+                by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
+        for s in range(eng.max_slots):
+            eng.release(s)
+        if calls and copies == calls:
+            break
+    else:
+        raise AssertionError(
+            f"torch.profiler kept {copies} device memcpy records of "
+            f"{calls} runtime memcpy calls in each of {tries} profiles")
     if d2h != steps:
         raise AssertionError(f"a profiled spec step made {d2h / steps} "
                              f"device-to-host copies, expected 1")
@@ -1254,6 +1315,8 @@ def profile_spec(eng, rng, vocab, ctx=1000, steps=5):
             "k3_verify_ms_per_step": verify_ms,
             "k3_propose_ms_per_step": propose_ms,
             "device_to_host_copies_per_step": d2h / steps,
+            "memcpy_records_per_step": copies / steps,
+            "profiles_taken": attempt,
             "device_idle_share": 1 - device_ms / wall_ms,
             "top_kernels_ms_per_step": [[k[:80], v / 1e3 / steps]
                                         for k, v in top]}
@@ -1546,6 +1609,401 @@ def phase_hot_swap(state):
         emit({"phase": "hot_swap", "failed": out})
         raise AssertionError("hot swap: streams, swap counts or the "
                              "installed weights are not as required")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the supervised serving path and canary rollout
+# ---------------------------------------------------------------------------
+
+SUP_KILL_SKIP = 30      # the kill: the 31st decode passage (slots full)
+SUP_STALL_STEP = 70     # the stall: after the 70th engine.step returned
+SUP_STALL_SECONDS = 2.0  # the watchdog's limit (a step or chunk: < 0.3 s)
+SUP_STALL_SLEEP = 5.0   # the stalled thread's sleep, past the limit
+
+
+def quiet_killpoints():
+    """A thread hook that stays silent for the phase's own KillPoint and
+    prints any other thread death as the default hook does; returns the
+    hook it replaced."""
+    import threading
+    from paddle_tpu_torch.utils import fault_injection as fi
+    prev = threading.excepthook
+
+    def hook(args):
+        if not issubclass(args.exc_type, fi.KillPoint):
+            prev(args)
+
+    threading.excepthook = hook
+    return prev
+
+
+def first_commit_after(evs, t_us):
+    """Timestamp of the first committed token (a decode step's or a
+    finished prefill's) at or after ``t_us``."""
+    return min(e["ts_us"] for e in evs if e["cat"] == "serving"
+               and e["name"] in ("decode", "prefilled")
+               and e["ts_us"] >= t_us)
+
+
+def phase_serve_supervised(state):
+    """The serve phase's model and 12 requests under supervise(srv): a
+    KillPoint at serving.decode mid-stream with every slot taken, then a
+    stall (a sleep past the watchdog's limit after an engine.step has
+    returned, so the stalled thread's device work is done before the
+    fence). Both deaths are recovered: the pools rebuilt, the loop
+    restarted, every active request re-prefilled with its committed
+    tokens. quarantine_after=3, so that a request active at both deaths
+    is recovered twice rather than quarantined."""
+    import gc
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from paddle_tpu_torch.core.flags import get_flags, set_flags
+    from paddle_tpu_torch.observability import flight
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels.paged_attention import \
+        paged_attention_kernel as pak
+    from paddle_tpu_torch.serving import (GenerationServer,
+                                          PagedLlamaDecodeEngine)
+    from paddle_tpu_torch.serving_supervisor import supervise
+    from paddle_tpu_torch.utils import fault_injection as fi
+    model, plain = state["model"], state["serve"]
+    V = model.config.vocab_size
+    gc.collect()  # earlier phases' engines in reference cycles: gone
+    # before the memory level is read
+    dump_dir = tempfile.mkdtemp(prefix="flight-")
+    saved = get_flags(["FLAGS_flight_dump_dir",
+                       "FLAGS_flight_recorder_capacity"])
+    set_flags({"FLAGS_flight_dump_dir": dump_dir,
+               "FLAGS_flight_recorder_capacity": 1 << 17})
+    prev_hook = quiet_killpoints()
+    flight.install_crash_hooks()
+    eng = PagedLlamaDecodeEngine(model, max_slots=8, max_seq=2048)
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for ts in eng.kvs.values() for t in ts)
+    rows = count_chunks(eng)
+    chunk_call = eng.prefill_chunk
+    calls = {"steps": 0, "stall_at": None, "slowest_step_s": 0.0,
+             "slowest_chunk_s": 0.0, "mem_before_kill": None}
+    step_call = eng.step
+
+    def step():
+        t0 = time.perf_counter()
+        out = step_call()
+        calls["slowest_step_s"] = max(calls["slowest_step_s"],
+                                      time.perf_counter() - t0)
+        calls["steps"] += 1
+        if calls["steps"] == SUP_KILL_SKIP:  # the last step before the kill
+            torch.cuda.synchronize()
+            calls["mem_before_kill"] = torch.cuda.memory_allocated()
+        if calls["steps"] == SUP_STALL_STEP:
+            torch.cuda.synchronize()
+            calls["stall_at"] = time.perf_counter()
+            time.sleep(SUP_STALL_SLEEP)
+        return out
+
+    def chunk(slot):
+        t0 = time.perf_counter()
+        out = chunk_call(slot)
+        calls["slowest_chunk_s"] = max(calls["slowest_chunk_s"],
+                                       time.perf_counter() - t0)
+        return out
+
+    eng.step, eng.prefill_chunk = step, chunk
+    srv = GenerationServer(eng)
+    sup = supervise(srv, stall_seconds=SUP_STALL_SECONDS,
+                    quarantine_after=3)
+    fired0 = fi.stats().get("serving.decode", 0)
+    try:
+        flight.clear()
+        fi.inject("serving.decode", kill=True, skip=SUP_KILL_SKIP)
+        pak.launches = pak.split_launches = pak.mma_launches = 0  # start
+        reqs, wall = serve_requests(srv, plain["prompts"], plain["budgets"])
+        got = (pak.launches, pak.split_launches, pak.mma_launches)  # read
+        evs = flight.events()
+        fired = fi.stats().get("serving.decode", 0) - fired0
+        sup.stop()
+        if not srv.shutdown(drain=True, timeout=60):
+            raise RuntimeError("supervised server did not drain")
+        steps_committed = srv.steps_run
+        sup_dumps = [d for d in flight.find_dumps(dump_dir)
+                     if d.endswith("-supervisor.jsonl")]
+        dumped = {e["name"] for e in flight.load_dump(sup_dumps[0])[1]
+                  if e["cat"] == "supervisor"} if sup_dumps else set()
+        crash_dumps = [d for d in flight.find_dumps(dump_dir)
+                       if d.endswith("-exception.jsonl")]
+    finally:
+        fi.clear("serving.decode")
+        sup.stop()
+        srv.shutdown(drain=False, timeout=10)
+        flight.uninstall_crash_hooks()
+        threading.excepthook = prev_hook
+        set_flags(saved)
+        shutil.rmtree(dump_dir, ignore_errors=True)
+    check_budget(reqs, V)
+    eng._kv.check_invariants()
+    st = sup.stats()
+    del srv, sup
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    # the journal: two deaths (the kill, then the stall), every active
+    # request recovered at each, one terminal event a request
+    sup_evs = [e for e in evs if e["cat"] == "supervisor"]
+    deaths = [e["attrs"] for e in sup_evs if e["name"] == "loop_death"]
+    restarts = [e for e in sup_evs if e["name"] == "restart"]
+    recovered = [e for e in sup_evs if e["name"] == "recover"]
+    crashed = [e for e in evs if e["cat"] == "serving"
+               and e["name"] == "loop_crashed"]
+    terminal = {r["trace_id"]: sum(
+        1 for e in evs if e.get("trace_id") == r["trace_id"]
+        and e["name"] in ("finished", "expired", "failed")) for r in reqs}
+    twice = [t for t in {e.get("trace_id") for e in recovered}
+             if sum(e.get("trace_id") == t for e in recovered) == 2]
+    # K3: every engine.step (the stalled one included: it ran, and its
+    # tokens were never committed) and every chunk, both incarnations
+    kvh, mb = eng.cfg.num_key_value_heads, eng._kv.block_tables.shape[1]
+    sms = pa._sms(torch.device("cuda", torch.cuda.current_device()))
+    mma_chunks = sum(pa.split_plan(r, eng.n_rep, 1, kvh, eng.head_dim,
+                                   eng.block_size, mb, sms)[0]
+                     == pa._MMA_GROUP for r in rows)
+    L = eng.n_layers
+    want = (L * (calls["steps"] + len(rows)),) * 2 + (L * mma_chunks,)
+    kill_t = crashed[0]["ts_us"] if crashed else 0.0
+    recovery_s = [
+        (first_commit_after(evs, restarts[0]["ts_us"]) - kill_t) / 1e6,
+        first_commit_after(evs, restarts[1]["ts_us"]) / 1e6
+        - calls["stall_at"]] if len(restarts) == 2 and crashed else None
+    numbers = serve_numbers(reqs, wall)
+    out = {"card": nvidia_smi_line(), "layers": L, "slots": eng.max_slots,
+           "requests": len(reqs), "killpoints_fired": fired,
+           "restarts": st["restarts"], "stalls": st["stalls"],
+           "recovered": st["recovered"], "quarantined": st["quarantined"],
+           "deaths": deaths,
+           "recovered_per_restart": [e["attrs"]["recovered"]
+                                     for e in restarts],
+           "backoff_s": [e["attrs"]["backoff"] for e in restarts],
+           "recovered_twice": len(twice),
+           "recovery_seconds": recovery_s,
+           "stall_seconds": SUP_STALL_SECONDS,
+           "slowest_step_s": calls["slowest_step_s"],
+           "slowest_chunk_s": calls["slowest_chunk_s"],
+           "prefill_chunks": len(rows),
+           "extra_prefill_chunks": len(rows) - plain["chunks"],
+           "engine_steps": calls["steps"],
+           "steps_committed": steps_committed,
+           "kernel_launches": got[0], "split_launches": got[1],
+           "mma_launches": got[2], "expected_launches": list(want),
+           "supervisor_dumps": len(sup_dumps),
+           "supervisor_dump_events": sorted(dumped),
+           "crash_dumps": len(crash_dumps),
+           "pool_bytes": pool_bytes,
+           "mem_before_kill": calls["mem_before_kill"],
+           "mem_after_recovery": mem_after, **numbers,
+           "serve": {k: plain[k] for k in (
+               "decode_tokens_per_s", "ttft_median_s", "ttft_max_s",
+               "wall_s", "steps")}}
+    # the streams against the serve phase's: where one parts, the plain
+    # logits there must be a near-tie
+    eng.step, eng.prefill_chunk = step_call, chunk_call
+    eng1 = PagedLlamaDecodeEngine(model, max_slots=1, max_seq=2048)
+    parted = []
+    for i, (r, want_s) in enumerate(zip(reqs, plain["streams"])):
+        got_s = list(r["out"])
+        j = next((j for j, (a, b) in enumerate(zip(want_s, got_s))
+                  if a != b), None)
+        if j is not None:
+            parted.append({"request": i, **near_tie(
+                eng1, plain["prompts"][i], want_s, j, got_s[j])})
+    del eng1, eng
+    torch.cuda.empty_cache()
+    out["streams_equal_serve"] = len(reqs) - len(parted)
+    out["streams_parted_at_near_ties"] = parted
+    checks = {
+        "one kill fired": fired == 1,
+        "restarts 2, stalls 1": (st["restarts"], st["stalls"]) == (2, 1),
+        "the deaths: the kill, then the stall": [
+            (d["kind"], d["error"]) for d in deaths]
+        == [("crash", "KillPoint"), ("stall", "stall")]
+        and [e["attrs"]["error"] for e in crashed] == ["KillPoint"],
+        "the kill with every slot taken": bool(deaths)
+        and deaths[0]["in_flight"] == out["slots"],
+        "recovered = active at each death": len(restarts) == 2
+        and [e["attrs"]["recovered"] for e in restarts]
+        == [d["in_flight"] for d in deaths]
+        and st["recovered"] == len(recovered) == sum(
+            d["in_flight"] for d in deaths),
+        "quarantined 0": st["quarantined"] == 0,
+        "one terminal event a request": set(terminal.values()) == {1},
+        "K3 launches by path": got == want and got[0] > 0,
+        "the stalled step uncommitted": calls["steps"]
+        == steps_committed + 1,
+        "the supervisor's dumps": len(sup_dumps) == 2
+        and {"loop_death", "recover", "restart"} <= dumped,
+        "memory back within one pool": calls["mem_before_kill"] is not None
+        and abs(mem_after - calls["mem_before_kill"]) < pool_bytes,
+        "streams equal or parted at near-ties": all(p["ok"]
+                                                    for p in parted),
+    }
+    out["failed_gates"] = [k for k, ok in checks.items() if not ok]
+    if out["failed_gates"]:
+        emit({"phase": "serve_supervised", "failed": out})
+        raise AssertionError("serve_supervised: " +
+                             "; ".join(out["failed_gates"]))
+    return out
+
+
+def rollout_keys(model, layers):
+    return ["llama.embed_tokens.weight", "llama.norm.weight"] + \
+        ([] if model.config.tie_word_embeddings else ["lm_head.weight"]) + \
+        [k for k in model.state_dict() if any(
+            k.startswith(f"llama.layers.{i}.") for i in range(layers))]
+
+
+def phase_rollout(state):
+    """Two replicas at the 7B widths, 2 layers and 4 slots each. A
+    CheckpointManager saves three checkpoints — (a) the replicas' own
+    weights, (b) weights of another seed, (c) (a) with one NaN — and
+    rollout() deploys each from its path: (a) reaches both replicas with
+    equal probes, (b) rolls the canary back bit-equal and never reaches
+    replica 2, (c) halts before any swap; a file truncated by
+    fault_injection.write_bytes is skipped by latest()."""
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch.core.flags import flag_value
+    from paddle_tpu_torch.framework.checkpoint import (CheckpointManager,
+                                                       load_checkpoint)
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import metrics as om
+    from paddle_tpu_torch.serving import (GenerationServer,
+                                          PagedLlamaDecodeEngine)
+    from paddle_tpu_torch.serving_supervisor import RolloutPolicy, rollout
+    from paddle_tpu_torch.utils import fault_injection as fi
+    model = state["model"]
+    layers = 2
+    geo = dict(max_slots=4, max_seq=2048, num_layers=layers)
+    sd = model.state_dict()
+    own = {k: sd[k] for k in rollout_keys(model, layers)}
+    other_model = LlamaForCausalLM(
+        LlamaConfig(dtype="bfloat16", use_flash_attention=False,
+                    num_hidden_layers=layers), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 7))
+    other = dict(other_model.state_dict())
+    nan = dict(own)
+    nan["llama.norm.weight"] = own["llama.norm.weight"].clone()
+    nan["llama.norm.weight"][0] = float("nan")
+    root = tempfile.mkdtemp(prefix="ckpt-")
+    reg = om.default_registry()
+
+    def count(name):
+        inst = reg.get("serving." + name)
+        return inst.value() if inst is not None else 0
+
+    servers = []
+    try:
+        mgr = CheckpointManager(root, keep_n=4)
+        saves = []
+        for step, tree in enumerate((own, other, nan)):
+            t0 = time.perf_counter()
+            path = mgr.save({"model": tree, "step": step}, step=step)
+            saves.append((path, time.perf_counter() - t0))
+        del other_model, other, nan
+        torch.cuda.empty_cache()
+        nbytes = os.path.getsize(saves[0][0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_checkpoint(saves[0][0])  # CRC check, then the card
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        equal_load = all(torch.equal(loaded["model"][k], own[k])
+                         for k in own)
+        del loaded
+        servers = [GenerationServer(PagedLlamaDecodeEngine(model, **geo))
+                   for _ in range(2)]
+        pol = RolloutPolicy(max_divergence=0.0)
+        probe = servers[0].generate(pol.probe_prompt, pol.probe_tokens)
+        rb0, nf0 = count("rollout_rollbacks_total"), count(
+            "rollout_nonfinite_weights_total")
+        rep_a = rollout(saves[0][0], servers, pol)
+        before_1 = servers[1].engine.params
+        swaps_1 = servers[1].stats()["weight_swaps"]
+        rep_b = rollout(saves[1][0], servers, pol)
+        probe_b = servers[0].generate(pol.probe_prompt, pol.probe_tokens)
+        untouched = servers[1].engine.params is before_1 \
+            and servers[1].stats()["weight_swaps"] == swaps_1
+        rep_c = rollout(saves[2][0], servers, pol)
+        probe_c = servers[0].generate(pol.probe_prompt, pol.probe_tokens)
+        nonfinite = count("rollout_nonfinite_weights_total") - nf0
+        rollbacks = count("rollout_rollbacks_total") - rb0
+        swaps = [s.stats()["weight_swaps"] for s in servers]
+        # a torn write at the next step's path: latest() walks past it
+        skipped0 = mgr.stats()["corrupt_skipped"]
+        with open(saves[0][0], "rb") as f:
+            head = f.read(1 << 20)
+        fi.inject("chip.torn_write", truncate_at=4096)
+        with open(mgr._path(3), "wb") as f:
+            try:
+                fi.write_bytes("chip.torn_write", f, head)
+                torn = False
+            except fi.InjectedFault:
+                torn = True
+        latest = mgr.latest()
+        skipped = mgr.stats()["corrupt_skipped"] - skipped0
+    finally:
+        fi.clear("chip.torn_write")
+        for srv in servers:
+            srv.shutdown(drain=True, timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+    stages = {name: [{k: v for k, v in st.items()
+                      if k not in ("probe_pre", "probe_post")}
+                     for st in rep["stages"]]
+              for name, rep in (("a", rep_a), ("b", rep_b), ("c", rep_c))}
+    out = {"card": nvidia_smi_line(), "replicas": 2, "layers": layers,
+           "slots": 4, "checkpoint_bytes": nbytes,
+           "save_seconds": [s for _, s in saves],
+           "save_gb_per_s": [nbytes / s / 1e9 for _, s in saves],
+           "load_verify_seconds": load_s,
+           "load_verify_gb_per_s": nbytes / load_s / 1e9,
+           "fsync": bool(flag_value("checkpoint_fsync")),
+           "probe": probe,
+           "verdicts": {n: {k: r[k] for k in ("swapped", "rolled_back",
+                                               "halted", "reason")}
+                        for n, r in (("a", rep_a), ("b", rep_b),
+                                     ("c", rep_c))},
+           "stages": stages,
+           "swap_seconds": {n: [st.get("swap_seconds") for st in v]
+                            for n, v in stages.items()},
+           "weight_swaps": swaps, "nonfinite_counted": nonfinite,
+           "rollbacks_counted": rollbacks,
+           "torn_file_skipped": skipped,
+           "latest_after_torn_write": os.path.basename(latest or "")}
+    checks = {
+        "the load equals what was saved": equal_load,
+        "(a) swaps both, probes equal": rep_a["swapped"] == 2
+        and not rep_a["halted"] and rep_a["stages"][0]["divergence"] == 0.0
+        and rep_a["stages"][0]["probe_pre"] == probe
+        and rep_a["stages"][0]["probe_post"] == probe,
+        "(b) rolls the canary back": rep_b["halted"]
+        and rep_b["rolled_back"] == 1 and rollbacks == 1
+        and rep_b["reason"] == "probe_divergence"
+        and rep_b["stages"][0]["divergence"] > 0.0,
+        "(b) the canary's probe as before the swap": probe_b == probe,
+        "(b) replica 2 never swapped": untouched
+        and len(rep_b["stages"]) == 1,
+        "(c) halts before any swap": rep_c["halted"]
+        and rep_c["swapped"] == 0 and rep_c["reason"] == "nonfinite_weights"
+        and nonfinite == 1 and probe_c == probe,
+        "swap counts": swaps == [3, 1],
+        "the torn file skipped": torn and skipped == 1
+        and latest == saves[2][0],
+    }
+    out["failed_gates"] = [k for k, ok in checks.items() if not ok]
+    if out["failed_gates"]:
+        emit({"phase": "rollout", "failed": out})
+        raise AssertionError("rollout: " + "; ".join(out["failed_gates"]))
     return out
 
 
@@ -4445,7 +4903,9 @@ def main() -> int:
         ("serve_spec", lambda: phase_serve_spec(state, k3)),
         ("serve_spec_full_accept",
          lambda: phase_serve_spec_full_accept(state)),
-        ("hot_swap", lambda: {**phase_hot_swap(state), **free_serving()}),
+        ("hot_swap", lambda: phase_hot_swap(state)),
+        ("serve_supervised", lambda: phase_serve_supervised(state)),
+        ("rollout", lambda: {**phase_rollout(state), **free_serving()}),
         ("flash_parity", lambda: phase_flash_parity(flash)),
         ("flash_time", lambda: phase_flash_time(flash)),
         ("optimizer_parity", lambda: phase_optimizer_parity(flash)),

@@ -15,7 +15,14 @@ Serving (paged-KV Llama):
 - ``serving`` — the dense and paged decode engines and the
   ``GenerationServer``;
 - ``ops.kernels.paged_attention`` — the hand-written Hopper
-  paged-attention kernel and its plain PyTorch walk.
+  paged-attention kernel and its plain PyTorch walk;
+- ``serving_supervisor`` — the admission policies, the supervised
+  decode loop (crash and stall recovery) and canary ``rollout``;
+- ``framework`` — ``save`` / ``load`` and the crash-safe checkpoints
+  (``CheckpointManager``) in the JAX package's file format;
+- ``observability`` — metrics, the flight recorder with its dumps and
+  crash hooks, and their CLI; ``utils.fault_injection`` and
+  ``utils.backoff``.
 
 Training (Llama with AdamW):
 
@@ -59,5 +66,16 @@ ERNIE-MoE training and the grouped-matmul op:
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without CUDA and without that argument it raises.
-Importing this package imports no submodule (and never JAX).
+Importing this package imports no submodule (and never JAX):
+``paddle_tpu_torch.save`` / ``load`` bind ``framework.io``'s on first
+use.
 """
+
+__all__ = ["save", "load"]
+
+
+def __getattr__(name):
+    if name in ("save", "load"):
+        from .framework import io
+        return getattr(io, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

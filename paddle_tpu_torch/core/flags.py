@@ -134,3 +134,39 @@ define_flag("fused_optimizer", True,
             "skip of a non-finite step inside it; lr and the loss scale "
             "stay in device memory. Kill switch: FLAGS_fused_optimizer=0 "
             "restores the per-parameter update loop")
+define_flag("serving_supervisor_backoff", 0.05,
+            "Base seconds of the ServingSupervisor's bounded "
+            "exponential restart backoff: death N of a streak waits "
+            "backoff * 2^(N-1), capped; the streak resets after a "
+            "healthy stretch")
+define_flag("serving_supervisor_stall_seconds", 0.0,
+            "Decode-loop stall watchdog: a loop thread that is alive "
+            "but has not heartbeat for this many seconds WHILE "
+            "holding work is fenced and restarted like a crash (0 = "
+            "stall detection off; an idle loop parked on the empty "
+            "queue never counts as stalled)")
+define_flag("backoff_full_jitter", True,
+            "Full jitter on every bounded-exponential backoff (supervisor "
+            "restarts, TCPStore retries, fleet replica resurrection): sleep "
+            "uniform(0, bound) instead of the deterministic bound, so "
+            "correlated failures do not synchronize retriers into a "
+            "stampede. 0 restores the deterministic schedule; "
+            "utils.backoff.seed(n) makes the jittered draws reproducible "
+            "for tests")
+define_flag("flight_recorder", True,
+            "Always-on black-box event journal (observability.flight): a "
+            "fixed-capacity ring of structured events (fusion flushes, host "
+            "syncs, collectives, checkpoint/elastic/serving lifecycle) "
+            "dumped as crash forensics on unhandled exceptions, watchdog "
+            "timeouts, signals or flight.dump(). 0 disables recording "
+            "(dump() still writes whatever the ring holds)")
+define_flag("flight_recorder_capacity", 4096,
+            "Event capacity of the flight-recorder ring; the oldest events "
+            "are evicted first (a dump carries the LAST N events)")
+define_flag("flight_dump_dir", "",
+            "Directory flight-recorder dumps are written to; empty "
+            "(default) uses the system temp dir")
+define_flag("checkpoint_fsync", True,
+            "fsync checkpoint temp files (and their directory) before "
+            "the atomic rename. Durability contract against power loss; "
+            "disable only in tests/benchmarks on throwaway dirs")

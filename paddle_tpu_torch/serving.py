@@ -46,9 +46,14 @@ its step boundary, takes the adaptive admission policy's brownout
 knobs (``_apply_brownout``) and serves its metrics over HTTP
 (``metrics_endpoint``).
 
+The server also carries the supervision seams that
+``serving_supervisor.ServingSupervisor`` drives: an epoch fence that
+retires a replaced loop thread (``_epoch``, ``_fenced``), a heartbeat
+(``_beat``, ``_idle``), ``_start_loop`` for a restart, and the fault
+site ``serving.decode`` before each decode or speculative step.
+
 Left for later slices: warm bundles, ``export_decode``, the
-``int8=True`` s8 projections, the supervisor and canary ``rollout``,
-checkpoint paths as a swap source, and CUDA graphs for the step.
+``int8=True`` s8 projections and CUDA graphs for the step.
 """
 from __future__ import annotations
 
@@ -68,6 +73,7 @@ from .analysis.locks import make_lock
 from .core.device import resolve_device
 from .observability import flight as _flight
 from .observability import metrics as _om
+from .utils import fault_injection as _fi
 
 __all__ = ["LlamaDecodeEngine", "PagedLlamaDecodeEngine",
            "GenerationServer"]
@@ -1109,7 +1115,13 @@ class GenerationServer:
     ``engine.spec_step()`` whenever ``engine.spec_ready()``: up to
     ``spec_k`` tokens a slot, cut at eos or the budget mid-window.
     ``swap_weights`` installs new weights at a step boundary, and
-    ``metrics_endpoint`` serves the metrics registry over HTTP."""
+    ``metrics_endpoint`` serves the metrics registry over HTTP.
+
+    A ``ServingSupervisor`` (``serving_supervisor.supervise``) restarts
+    a dead or stalled loop: each loop thread stamps the epoch it started
+    in and exits, touching nothing, once the supervisor has moved the
+    epoch on; ``_beat`` is the loop's heartbeat and ``_idle`` marks it
+    parked on the empty queue."""
 
     _STOP = object()  # queue sentinel: wake the loop for shutdown
 
@@ -1129,6 +1141,9 @@ class GenerationServer:
         self.deadline_expired = 0
         self.weight_swaps = 0       # hot-swaps applied by this loop
         self.tokens_delivered = 0
+        self.loop_restarts = 0      # supervisor restarts of this loop
+        self.recovered = 0          # requests resumed after a loop death
+        self.quarantined = 0        # poison requests failed, not retried
         if policy is None:
             from .serving_supervisor import default_policy
             policy = default_policy()
@@ -1143,11 +1158,37 @@ class GenerationServer:
         # at its next step boundary
         self._swap_req = None
         self._metrics_server = None
+        # supervision: _epoch fences a replaced loop thread, _beat is the
+        # heartbeat the stall watchdog reads, _idle marks the loop parked
+        # on the empty queue (not a stall)
+        self._epoch = 0
+        self._beat = time.monotonic()
+        self._idle = False
+        self._start_loop()
+
+    def _start_loop(self) -> None:
+        """Start (or, from the supervisor, restart) the loop thread. The
+        crash markers reset so that the supervisor tells this
+        incarnation's death from the last one's, and the heartbeat
+        restarts now, so that the stall watchdog does not fire on the
+        dead loop's stale beat."""
         self._crashed = False
         self._crash_error: Optional[BaseException] = None
+        self._beat = time.monotonic()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serving-loop")
         self._thread.start()
+
+    def _fenced(self) -> bool:
+        """True on a replaced ("zombie") loop thread: its stamped epoch
+        is no longer the server's. The admission and prefill helpers
+        check it before they touch a request or the slot tables, so a
+        stalled thread that wakes during a recovery commits nothing.
+        Threads that are not loop threads carry no stamp and are never
+        fenced."""
+        my = getattr(threading.current_thread(),
+                     "_serving_loop_epoch", None)
+        return my is not None and my != self._epoch
 
     def _run(self) -> None:
         """Loop-thread body with a crash boundary: an escape that
@@ -1267,34 +1308,27 @@ class GenerationServer:
         return list(req["out"])
 
     @staticmethod
-    def _swap_state(source) -> dict:
-        """A swap source as a model state dict, on the caller's thread:
-        a flat ``{name: tensor}`` mapping, or one nested under a
-        ``model`` / ``state_dict`` / ``params`` key. Checkpoint paths
-        and checkpoint managers need ``framework/checkpoint.py``, which
-        the port does not have yet: they raise."""
-        if isinstance(source, (str, bytes, os.PathLike)) \
-                or hasattr(source, "restore"):
-            raise NotImplementedError(
-                "swap_weights from a checkpoint path or CheckpointManager "
-                "needs framework/checkpoint.py, which is not ported yet: "
-                "load the checkpoint yourself and pass its state dict")
-
-        def flat(d):
-            return (isinstance(d, dict) and d
-                    and all(isinstance(k, str) for k in d)
-                    and all(hasattr(v, "shape") for v in d.values()))
-
-        if isinstance(source, dict):
-            for key in ("model", "state_dict", "params"):
-                if flat(source.get(key)):
-                    return source[key]
-            if flat(source):
-                return source
-        raise ValueError(
-            "cannot find a model state dict in the swap source — "
-            "expected a flat {name: tensor} mapping or one nested under "
-            "a 'model'/'state_dict'/'params' key")
+    def _swap_state(source, device=None) -> dict:
+        """A swap source as a model state dict, on the caller's thread
+        (disk reads and CRC checks never stall the loop): a
+        ``CheckpointManager`` restores its newest good checkpoint, a path
+        loads through the verifying ``framework.checkpoint`` reader (the
+        tensors onto ``device``), and a dict passes through; a state dict
+        nested under ``model`` / ``state_dict`` / ``params`` is taken out
+        by ``extract_state_dict``."""
+        from .framework.checkpoint import (CheckpointManager,
+                                           extract_state_dict,
+                                           load_checkpoint)
+        if isinstance(source, CheckpointManager):
+            got = source.restore(device=device)
+            if got is None:
+                raise ValueError(
+                    f"no loadable checkpoint under {source.root!r} to "
+                    f"swap from")
+            source = got[1]
+        elif isinstance(source, (str, os.PathLike)):
+            source = load_checkpoint(os.fspath(source), device=device)
+        return extract_state_dict(source)
 
     def swap_weights(self, state_dict=None,
                      timeout: Optional[float] = 300.0, *,
@@ -1304,8 +1338,9 @@ class GenerationServer:
         partial streams are untouched and the next step runs on the new
         weights (a weight-sharing draft follows in the same swap).
 
-        ``state_dict`` is a model state dict (see :meth:`_swap_state`);
-        its weights are prepared on THIS thread
+        ``state_dict`` is a model state dict, a checkpoint path or a
+        ``CheckpointManager`` (see :meth:`_swap_state`); its weights are
+        prepared on THIS thread
         (:meth:`~LlamaDecodeEngine.prepare_swap`), and the loop thread
         only validates and installs them at its next step boundary. A
         mismatch raises here with the old weights intact (counted in
@@ -1317,7 +1352,8 @@ class GenerationServer:
         if prepared is not None:
             prepped = prepared
         else:
-            sd = self._swap_state(state_dict)
+            sd = self._swap_state(state_dict,
+                                  getattr(self.engine, "device", None))
             try:
                 prepped = self.engine.prepare_swap(sd)
             except Exception:
@@ -1445,20 +1481,32 @@ class GenerationServer:
 
     def _first_token(self, slot, req, first: int) -> None:
         req["out"].append(first)
-        req["t_first"] = time.monotonic()
+        # a recovered request's re-prefill keeps its first token's time
+        req.setdefault("t_first", time.monotonic())
         self._slots[slot] = req
+
+    def _observe_queue(self, req) -> None:
+        """Stamp the admission and observe the queue wait, from
+        ``t_queue0`` for a recovered request (its time before the loop
+        died was decode, not queueing)."""
+        req["t_admit"] = time.monotonic()
+        _M_queue_s.observe(req["t_admit"] - req.get("t_queue0", req["t0"]))
 
     def _admit_one(self, req, slot) -> None:
         if self._expired(req):
             self._expire(req, "while queued")
             return
-        req["t_admit"] = time.monotonic()
-        _M_queue_s.observe(req["t_admit"] - req["t0"])
+        self._observe_queue(req)
         try:
             first = self.engine.prefill(slot, req["prompt"])
         except Exception as e:  # noqa: BLE001 — surfaced per request
+            if self._fenced():
+                return  # zombie: the request was re-admitted already
             self._fail(req, e)
             return
+        if self._fenced():
+            return  # zombie woke from a wedged prefill: the new loop
+            # owns this request
         self._first_token(slot, req, first)
         self.admitted += 1
         _M_admitted.inc()
@@ -1478,12 +1526,14 @@ class GenerationServer:
         """Paged admission: allocate + reserve blocks and start the
         chunked prefill. Returns 'admitted', 'defer' (the pool cannot
         cover the reservation yet) or 'dropped'."""
-        if req is self._STOP or req["done"].is_set():
+        if req is self._STOP or req["done"].is_set() or self._fenced():
             return "dropped"
         if self._expired(req):
             self._expire(req, "while queued")
             return "dropped"
         try:
+            # budget = the tokens still to come: a recovered request
+            # re-admits with prompt + committed tokens as its prompt
             ok = self.engine.begin_request(
                 slot, req["prompt"], max(req["max_new"] - len(req["out"]),
                                          1))
@@ -1492,10 +1542,9 @@ class GenerationServer:
             return "dropped"
         if not ok:
             return "defer"
-        req["t_admit"] = time.monotonic()
-        _M_queue_s.observe(req["t_admit"] - req["t0"])
-        req["prefix_hit_tokens"] = self.engine.prefix_hit_tokens.get(
-            slot, 0)
+        self._observe_queue(req)
+        req["prefix_hit_tokens"] = getattr(
+            self.engine, "prefix_hit_tokens", {}).get(slot, 0)
         self._prefilling[slot] = req
         self.admitted += 1
         _M_admitted.inc()
@@ -1507,6 +1556,17 @@ class GenerationServer:
     def _admit(self):
         if not self._paged:
             free = self._free_slots()
+            # supervisor-recovered requests land in _waiting (a dense
+            # engine never defers on blocks): admit them ahead of the
+            # queue, oldest first
+            while free and self._waiting:
+                req = self._waiting.pop(0)
+                if req["done"].is_set():
+                    continue
+                self._admit_one(req, free[0])
+                if req["done"].is_set() and req["error"] is not None:
+                    continue  # rejected before prefill: slot still free
+                free.pop(0)
             while free:
                 try:
                     req = self._q.get_nowait()
@@ -1565,10 +1625,14 @@ class GenerationServer:
             try:
                 first = self.engine.prefill_chunk(slot)
             except Exception as e:  # noqa: BLE001 — per-request
+                if self._fenced():
+                    return  # zombie: recovery owns the request now
                 del self._prefilling[slot]
                 self._release_slot(slot, evicted=True)
                 self._fail(req, e)
                 return
+            if self._fenced():
+                return  # zombie woke from a wedged chunk: commit nothing
             if first is not None:
                 del self._prefilling[slot]
                 self._first_token(slot, req, first)
@@ -1631,7 +1695,17 @@ class GenerationServer:
         self.policy.on_step(self)
 
     def _loop(self):
+        # the epoch read here fences THIS incarnation: after a supervisor
+        # restart a zombie of it that wakes sees a newer epoch and exits
+        # without touching slots, engine state or the queue (the thread
+        # stamp lets the admission and prefill helpers check the same
+        # fence from inside a call the zombie was wedged in)
+        my_epoch = self._epoch
+        threading.current_thread()._serving_loop_epoch = my_epoch
         while True:
+            if self._epoch != my_epoch:
+                return  # fenced: a supervisor replaced this loop
+            self._beat = time.monotonic()  # the stall watchdog's heartbeat
             try:
                 self._apply_pending_swap()
                 self._admit()
@@ -1646,7 +1720,17 @@ class GenerationServer:
                     # idle: block for the next request and admit it
                     # directly (a get-then-requeue would break FIFO)
                     self._set_gauges()
-                    req = self._q.get()
+                    self._idle = True  # parked, not stalled
+                    try:
+                        req = self._q.get()
+                    finally:
+                        self._idle = False
+                    if self._epoch != my_epoch:
+                        # fenced while parked: the request belongs to the
+                        # new loop — hand it back and exit
+                        if req is not self._STOP:
+                            self._q.put(req)
+                        return
                     if req is self._STOP or req["done"].is_set():
                         continue
                     if self._paged:
@@ -1656,6 +1740,9 @@ class GenerationServer:
                         continue
                     self._admit_one(req, self._free_slots()[0])
                     continue
+                # fault site: a kill armed here is a crash mid-decode (the
+                # thread dies: KillPoint is a BaseException)
+                _fi.fire("serving.decode")
                 eng = self.engine
                 if self._paged and eng.spec_ready():
                     # speculative iteration: up to spec_k tokens a slot
@@ -1668,6 +1755,9 @@ class GenerationServer:
                     # commit loop
                     toks = eng.step()[:, None]
                     counts = np.ones(eng.max_slots, np.int32)
+                if self._epoch != my_epoch:
+                    return  # fenced mid-step (a stall restart): the new
+                    # loop owns the slots — commit and fail nothing
                 self.steps_run += 1
                 _M_steps.inc()
                 for slot in list(self._slots):
@@ -1688,6 +1778,8 @@ class GenerationServer:
                     self._finish_if_done(slot, req)
                 self._step_boundary()
             except Exception as e:  # noqa: BLE001 — fail loudly, stay up
+                if self._epoch != my_epoch:
+                    return  # fenced: the slots hold re-admitted requests
                 _flight.record("serving", "loop_error",
                                error=type(e).__name__)
                 for table in (self._slots, self._prefilling):
@@ -1760,6 +1852,9 @@ class GenerationServer:
                "deadline_expired": self.deadline_expired,
                "weight_swaps": self.weight_swaps,
                "tokens_delivered": self.tokens_delivered,
+               "loop_restarts": self.loop_restarts,
+               "recovered": self.recovered,
+               "quarantined": self.quarantined,
                "crashed": int(self._crashed),
                "in_flight": len(self._slots), "queued": queued,
                "prefilling": len(self._prefilling),

@@ -54,7 +54,11 @@ def test_port_covers_the_slice_modules():
             "optimizer/lr.py", "optimizer/extra.py",
             "optimizer/fused_step.py", "regularizer.py",
             "utils/clip_grad.py", "amp/grad_scaler.py",
-            "ops/kernels/multi_tensor.py"}
+            "ops/kernels/multi_tensor.py",
+            # the self-healing serving plane
+            "utils/backoff.py", "utils/fault_injection.py",
+            "observability/__main__.py", "framework/__init__.py",
+            "framework/io.py", "framework/checkpoint.py"}
     have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert want <= have, sorted(want - have)
     for src in ("paged_attention.cu", "flash_attention.cuh",
@@ -80,7 +84,12 @@ def test_importing_the_port_loads_no_jax():
         "paddle_tpu_torch.ops.kernels.grouped_matmul, "
         "paddle_tpu_torch.optimizer.fused_step, paddle_tpu_torch.amp, "
         "paddle_tpu_torch.regularizer, paddle_tpu_torch.utils.clip_grad, "
-        "paddle_tpu_torch.ops.kernels.multi_tensor\n"
+        "paddle_tpu_torch.ops.kernels.multi_tensor, "
+        "paddle_tpu_torch.serving_supervisor, paddle_tpu_torch.framework, "
+        "paddle_tpu_torch.observability.flight, "
+        "paddle_tpu_torch.observability.__main__, "
+        "paddle_tpu_torch.utils.fault_injection, "
+        "paddle_tpu_torch.utils.backoff\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -91,6 +100,39 @@ def test_importing_the_port_loads_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "ok"
+
+
+def test_checkpoint_write_and_read_load_no_jax(tmp_path):
+    """A fresh interpreter writes and reads a checkpoint in the JAX
+    package's format (f32 and bf16 tensors, the payload pickled under
+    the JAX class path) and still has no JAX, ml_dtypes or JAX package
+    loaded; the JAX package then reads the same file."""
+    path = tmp_path / "ck"
+    code = (
+        "import sys, torch\n"
+        "from paddle_tpu_torch.framework import checkpoint as c\n"
+        "tree = {'w': torch.arange(6.).reshape(2, 3), "
+        "'b': torch.tensor([1.5, -2.0]).bfloat16(), 'step': 4}\n"
+        f"c.atomic_save(tree, {str(path)!r})\n"
+        f"got = c.load_checkpoint({str(path)!r}, device='cpu')\n"
+        "assert torch.equal(got['w'], tree['w'])\n"
+        "assert got['b'].dtype == torch.bfloat16\n"
+        "assert torch.equal(got['b'], tree['b']) and got['step'] == 4\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ml_dtypes', 'paddle_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
+    assert b"paddle_tpu.framework.io" in path.read_bytes()
+    from paddle_tpu.framework.checkpoint import load_checkpoint
+    got = load_checkpoint(str(path), return_numpy=True)
+    assert got["w"].tolist() == [[0, 1, 2], [3, 4, 5]]
+    assert got["b"].astype("float32").tolist() == [1.5, -2.0]
 
 
 @pytest.fixture
@@ -146,7 +188,10 @@ def test_flags_keep_the_jax_names_and_defaults(monkeypatch):
              "serving_prefix_cache_blocks", "serving_shed_queue",
              "serving_admission_policy", "paged_attention_kernel",
              "fused_optimizer", "serving_spec_tokens",
-             "serving_spec_draft_layers"}
+             "serving_spec_draft_layers", "serving_supervisor_backoff",
+             "serving_supervisor_stall_seconds", "backoff_full_jitter",
+             "flight_recorder", "flight_recorder_capacity",
+             "flight_dump_dir", "checkpoint_fsync"}
     assert set(tflags._registry) == names
     for n in names:
         assert tflags._registry[n].default == jflags._registry[n].default

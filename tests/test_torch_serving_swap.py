@@ -17,6 +17,7 @@ from paddle_tpu.models.llama import LlamaConfig as JaxConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
 from paddle_tpu.serving import PagedLlamaDecodeEngine as JaxPaged
 from paddle_tpu_torch.convert import load_from_jax
+from paddle_tpu_torch.framework import checkpoint as tckpt
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.observability import metrics as om
 from paddle_tpu_torch.serving import GenerationServer, PagedLlamaDecodeEngine
@@ -257,25 +258,36 @@ def test_swap_the_loop_never_reached_fails_at_shutdown(models):
 
 
 def test_swap_sources(models, tmp_path):
-    """A state dict nested under 'model' is taken; a checkpoint path and
-    a checkpoint manager raise NotImplementedError naming the module
-    they need, before anything is read."""
-    (_, tma), _ = models
-    srv = GenerationServer(_port(tma, draft=False))
-
-    class Manager:
-        def restore(self):
-            raise AssertionError("must not be read")
-
+    """A state dict nested under 'model' is taken; a checkpoint path (a
+    string or a path object) and a CheckpointManager load through
+    ``framework.checkpoint`` on the caller's thread, onto the engine's
+    device, and the stream follows the swapped weights; a manager
+    without a good checkpoint and a payload without a state dict
+    raise."""
+    (_, tma), (_, tmb) = models
+    eng = _port(tma, draft=False)
+    srv = GenerationServer(eng)
+    path = tmp_path / "b.pdckpt"
+    tckpt.atomic_save({"model": tmb.state_dict(), "step": 3}, str(path))
+    mgr = tckpt.CheckpointManager(str(tmp_path / "mgr"))
+    mgr.save({"model": tma.state_dict()}, step=0)
+    want_b = _port(tmb, draft=False).generate([3, 2, 1], max_new_tokens=6)
+    want_a = _port(tma, draft=False).generate([3, 2, 1], max_new_tokens=6)
+    assert want_a != want_b
     try:
-        for source in (str(tmp_path / "ckpt"), tmp_path, Manager()):
-            with pytest.raises(NotImplementedError,
-                               match="framework/checkpoint.py"):
-                srv.swap_weights(source, timeout=60)
+        for source in (str(path), path):
+            srv.swap_weights(source, timeout=60)
+            assert srv.generate([3, 2, 1], 6, timeout=60) == want_b
+            assert eng.params["emb"].device == torch.device("cpu")
+        srv.swap_weights(mgr, timeout=60)
+        assert srv.generate([3, 2, 1], 6, timeout=60) == want_a
+        with pytest.raises(ValueError, match="no loadable checkpoint"):
+            srv.swap_weights(tckpt.CheckpointManager(str(tmp_path / "e")),
+                             timeout=60)
         with pytest.raises(ValueError, match="state dict"):
             srv.swap_weights({"step": 3}, timeout=60)
-        srv.swap_weights({"model": tma.state_dict(), "step": 3},
+        srv.swap_weights({"model": tmb.state_dict(), "step": 3},
                          timeout=60)
-        assert srv.stats()["weight_swaps"] == 1
+        assert srv.stats()["weight_swaps"] == 4
     finally:
         assert srv.shutdown(timeout=60)
