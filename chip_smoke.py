@@ -117,7 +117,40 @@ Phases, each printing one JSON line with its seconds:
                       fault_injection.write_bytes is skipped by latest();
                       checkpoint bytes, save seconds (fsync on), load +
                       CRC-verify seconds and each stage's swap_seconds;
-12. ``flash_parity``  the flash-attention forward, dQ and dK/dV kernels
+12. ``fleet``         THE FLEET PATH: Llama-2 7B widths (32 layers, the
+                      serve phase's weights by seed), bf16, in replica
+                      processes (serving_fleet, 8 slots x 2048, block 16,
+                      chunk 64, supervised): (a) one replica boots
+                      against an empty FLAGS_executable_cache_dir — nvcc
+                      of every kernel source, gated: misses = writes =
+                      the sources — primes, exports the warm bundle and
+                      answers serve_workload's first 8 requests one by
+                      one (the oracle); (b) spawn_fleet(2) boots two
+                      replicas from that cache and bundle (misses 0,
+                      pre-warmed programs > 0, failures 0), policy rr,
+                      0.2 s heartbeat, and a FleetRouter takes the 8
+                      requests while fault_injection SIGKILLs replica 1
+                      at its 4th poll that brought tokens: every request
+                      finishes, one terminal fleet event each, a
+                      failover, replica 1 resurrected with misses 0 and
+                      one more request through it equal to its oracle
+                      stream, every stream equal to the oracle's or
+                      parted at a near-tie of logits this process
+                      computes from the same seeded weights, each
+                      replica's K3 counters (from its stats reply) all
+                      split and = layers x its engine calls; seconds of
+                      the cold boot, each warm boot, kill to
+                      resurrected and kill to the next token of each
+                      failed-over request, decode tokens/s and TTFT
+                      through the router beside the serve phase's;
+13. ``serve_http``    THE INFERENCE FRONT END: save_inference_model of a
+                      2-layer model at the 7B widths, inference.serve(
+                      generate=True, fleet=2) over it; four concurrent
+                      POST /generate equal to this process's engine's
+                      greedy streams or parted at near-ties, one POST
+                      /run equal to Predictor.run, the server and its
+                      replica processes stopped within bounded waits;
+14. ``flash_parity``  the flash-attention forward, dQ and dK/dV kernels
                       against their plain versions on the card, bf16 and
                       f32, at the training geometry (B 4, L 2048, H 32,
                       D 128) causal and full, D 64 through the [BH, L, D]
@@ -133,7 +166,7 @@ Phases, each printing one JSON line with its seconds:
                       f32 copies of the inputs; then the FlashAttention
                       autograd function against autograd through the
                       plain sdpa;
-13. ``flash_time``    the three kernels, the whole backward (with delta)
+15. ``flash_time``    the three kernels, the whole backward (with delta)
                       and forward + backward at the training geometry,
                       ERNIE-MoE's (D 64, causal) and D 64 in the [BH, L,
                       D] layout (BERT-base heads), all on the TMA design,
@@ -142,7 +175,7 @@ Phases, each printing one JSON line with its seconds:
                       versions, their bounds and
                       PyTorch's scaled_dot_product_attention (a
                       yardstick only);
-14. ``optimizer_parity``  the fused optimizer step's kernels (O1
+16. ``optimizer_parity``  the fused optimizer step's kernels (O1
                       unscale / finite check / norms / clip scale, O2
                       Adam-AdamW) against their plain versions on the card:
                       AdamW and Adam, bf16 and f16 parameters with moments
@@ -156,7 +189,7 @@ Phases, each printing one JSON line with its seconds:
                       the same clip scale, O1's scale and norms within
                       1e-6, unscaled gradients bit-equal, a skipped step
                       bit-equal to before it, launches per case counted;
-15. ``optimizer_time``  the JAX bench's 64 x (64x64) AdamW + global-norm
+17. ``optimizer_time``  the JAX bench's 64 x (64x64) AdamW + global-norm
                       clip + cosine schedule step (host µs, fused and the
                       loop), and at the train phase's 1.07 B bf16
                       parameters O2 and O1 beside their bounds, their plain
@@ -166,7 +199,7 @@ Phases, each printing one JSON line with its seconds:
                       and then O1 (unscale, global norm) and O2 with its
                       scale and flag are held against their plain versions
                       on those tensors (O2 bit-equal, O1 within 1e-6);
-16. ``train``          THE TRAINING PATH: a Llama-2-7B-width bf16 model
+18. ``train``          THE TRAINING PATH: a Llama-2-7B-width bf16 model
                       (4 layers, random weights) trains with AdamW
                       through TrainStep on a batch of 4 x 2048 tokens:
                       2 warm-up and 5 timed steps; the three flash
@@ -180,11 +213,11 @@ Phases, each printing one JSON line with its seconds:
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
                       of its optimizer.step();
-17. ``train_parity``  one step of the same widths at 2 layers through
+19. ``train_parity``  one step of the same widths at 2 layers through
                       the kernels against the same step with
                       use_flash_attention=False (autograd through the
                       plain sdpa): loss and every gradient compared;
-18. ``amp_scaler``  THE AMP PATH: a 2-layer Llama-2-7B-width bf16 model
+20. ``amp_scaler``  THE AMP PATH: a 2-layer Llama-2-7B-width bf16 model
                       trains with ClipGradByGlobalNorm(1.0), LinearWarmup
                       over CosineAnnealingDecay and GradScaler(2**15,
                       decr_every_n_nan_or_inf=1) through O1 and O2; one
@@ -198,7 +231,7 @@ Phases, each printing one JSON line with its seconds:
                       O1/O2 launch counts are reset before and read after
                       (batches + finalize and batches a step, no
                       fallback);
-19. ``flash_dropout_parity``  attention dropout inside the three flash
+21. ``flash_dropout_parity``  attention dropout inside the three flash
                       kernels (K5) at the BERT-base geometry (B 24, L 512,
                       H 12, D 64, bf16) and a small f32 case, p = 0.1,
                       causal and full: each kernel against its plain
@@ -210,7 +243,7 @@ Phases, each printing one JSON line with its seconds:
                       launch without dropout, two seeds differing, and
                       the FlashAttention autograd function against
                       autograd through the plain sdpa with the same mask;
-20. ``flash_varlen_parity``  the segment-masked kernels (K4) on 12,288
+22. ``flash_varlen_parity``  the segment-masked kernels (K4) on 12,288
                       packed tokens (sequences of 32-512 from a numpy
                       seed, H 12, D 64), bf16 and f32, causal and full,
                       and bf16 on the same ids shuffled, and at the JAX
@@ -229,7 +262,7 @@ Phases, each printing one JSON line with its seconds:
                       TMA launch counts reset just before and read just
                       after (1 each), its output and gradient held
                       against the plain versions on the same views;
-21. ``flash_time_bert``  the kernels with and without dropout at the BERT
+23. ``flash_time_bert``  the kernels with and without dropout at the BERT
                       geometry (the TMA design, the first design beside
                       it with the same dropout: general_ms; what dropout
                       adds to each) and the segmented kernels at the
@@ -239,7 +272,7 @@ Phases, each printing one JSON line with its seconds:
                       beside them, their plain versions, their bounds
                       (the pairs the function needs) and PyTorch's SDPA
                       (a yardstick);
-22. ``bert_train``    THE BERT PATH: BERT-base MLM (12 layers, hidden 768,
+24. ``bert_train``    THE BERT PATH: BERT-base MLM (12 layers, hidden 768,
                       vocab 30522, bf16, dropout 0.1) trains with AdamW
                       through TrainStep on 24 x 512 tokens: 2 warm-up and
                       5 timed steps; the flash launch counts (and their
@@ -254,12 +287,12 @@ Phases, each printing one JSON line with its seconds:
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
                       of its optimizer.step();
-23. ``bert_train_parity``  one step of BERT-base widths at 2 layers
+25. ``bert_train_parity``  one step of BERT-base widths at 2 layers
                       through the kernels against the same step through
                       the plain sdpa (an all-zero additive mask routes it
                       there) with the same seeds drawn in the same order:
                       loss and every gradient compared;
-24. ``gmm_parity``    the grouped-matmul kernels (K6 forward, K6 as dlhs on
+26. ``gmm_parity``    the grouped-matmul kernels (K6 forward, K6 as dlhs on
                       the transposed weights, K7 drhs) against their plain
                       versions, bf16 and f32, on the op bench's geometry,
                       ERNIE-MoE's expert FFN (w_in and w_out at 8 x 5120
@@ -274,19 +307,19 @@ Phases, each printing one JSON line with its seconds:
                       general mma.sync kernels for f32 and K 37, N 45;
                       then GroupedMatmul's autograd against autograd
                       through the dense oracle;
-25. ``gmm_op``        THE OP PATH: one forward + backward through the
+27. ``gmm_op``        THE OP PATH: one forward + backward through the
                       grouped_matmul entry at the op bench's geometry
                       (bf16); the three counts and their TMA counts are
                       reset just before and read just after: K6 twice
                       (forward, dlhs), K7 once, all through the TMA
                       kernels;
-26. ``gmm_time``      the three kernels at the op bench's geometry and at
+28. ``gmm_time``      the three kernels at the op bench's geometry and at
                       ERNIE-MoE's w_in and w_out products (the TMA
                       kernels), beside the first design's general kernels
                       on the same inputs, their plain versions, their
                       bounds, torch.bmm over the equal groups and
                       torch._grouped_mm (yardsticks);
-27. ``moe_train``     THE ERNIE-MOE PATH: ERNIE-MoE at ErnieMoEConfig()
+29. ``moe_train``     THE ERNIE-MOE PATH: ERNIE-MoE at ErnieMoEConfig()
                       (12 layers, 6 of them MoE with 8 experts, top-2,
                       hidden 768, vocab 30522, bf16) trains with AdamW
                       through TrainStep on 8 x 2048 tokens with the LM loss
@@ -303,7 +336,7 @@ Phases, each printing one JSON line with its seconds:
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
                       of its optimizer.step();
-28. ``moe_train_parity``  one step of a 2-layer ERNIE-MoE (one dense, one
+30. ``moe_train_parity``  one step of a 2-layer ERNIE-MoE (one dense, one
                       MoE layer) through the kernels against the same step
                       through the plain sdpa: loss, every gradient and the
                       share of tokens whose top-2 experts differ; beside
@@ -313,7 +346,8 @@ Phases, each printing one JSON line with its seconds:
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
 (K3 on the split design at decode with bf16 and with int8 pools, at
 the prefill chunk and at the speculative verify window, each with the
-first design's time, K1b and K2b at the Llama training geometry, K1a
+first design's time — the decode and prefill-chunk rows also carry
+``fleet_launches``, the fleet replicas' launches on that path —, K1b and K2b at the Llama training geometry, K1a
 and K2a at ERNIE-MoE's, K5 in K1a/K2a at the BERT geometry, K4 in them at the
 packed geometry, K6 and K7 at the op bench's geometry, each flash and
 K6/K7 row naming the design it timed, its TMA launches and the first
@@ -2004,6 +2038,363 @@ def phase_rollout(state):
     if out["failed_gates"]:
         emit({"phase": "rollout", "failed": out})
         raise AssertionError("rollout: " + "; ".join(out["failed_gates"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet and the inference front end
+# ---------------------------------------------------------------------------
+
+FLEET_LAYERS = 32       # Llama-2 7B's depth: two replicas take ~45 GB
+FLEET_REQUESTS = 8      # the first 8 of serve_workload's requests
+FLEET_KILL_SKIP = 3     # SIGKILL replica 1 at its 4th poll with tokens
+FLEET_HEARTBEAT = 0.2
+FLEET_TERMINAL = ("finished", "failed", "shed")
+
+
+def gpu_memory():
+    """The card's memory in use and in all (MiB) as nvidia-smi reads it:
+    every process on the card counted; None without nvidia-smi."""
+    try:
+        got = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    used, total = (int(x) for x in
+                   got.stdout.strip().splitlines()[0].split(","))
+    return {"used_mib": used, "total_mib": total}
+
+
+def fleet_model_spec(layers, widths=None):
+    """The replicas' tiny_llama model: Llama-2 7B widths (the serve
+    phase's config and seed, so the same weights), bf16."""
+    cfg = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+               num_attention_heads=32, num_key_value_heads=32,
+               max_position_embeddings=4096, use_flash_attention=False,
+               dtype="bfloat16")
+    cfg.update(widths or {})
+    cfg["num_hidden_layers"] = layers
+    return {"kind": "tiny_llama", "seed": SEED, "config": cfg}
+
+
+def fleet_parent_model(spec, device):
+    """The same seeded weights in this process, to judge near-ties."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    return LlamaForCausalLM(
+        LlamaConfig.tiny(**spec["config"]), device=device,
+        generator=torch.Generator(device=device).manual_seed(spec["seed"]))
+
+
+def streams_against(model, prompts, want, got, max_seq):
+    """Each got stream against its want: equal, or parted where the
+    logits of ``model`` (a one-slot engine) are a near-tie."""
+    from paddle_tpu_torch.serving import PagedLlamaDecodeEngine
+    eng1 = PagedLlamaDecodeEngine(model, max_slots=1, max_seq=max_seq,
+                                  device=model.llama.embed_tokens.weight
+                                  .device)
+    parted = []
+    for i, (w, g) in enumerate(zip(want, got)):
+        if len(w) != len(g):
+            parted.append({"request": i, "ok": False,
+                           "lengths": [len(w), len(g)]})
+            continue
+        j = next((j for j, (a, b) in enumerate(zip(w, g)) if a != b), None)
+        if j is not None:
+            parted.append({"request": i, **near_tie(
+                eng1, prompts[i], w, j, g[j])})
+    return parted
+
+
+def phase_fleet(state, k3, device="cuda", widths=None, layers=FLEET_LAYERS,
+                timeout=900):
+    """THE FLEET PATH. (a) One replica process boots against an empty
+    FLAGS_executable_cache_dir (nvcc of every kernel source), primes,
+    exports the warm bundle and answers the 8 prompts one by one through
+    ReplicaClient.generate: the oracle. (b) spawn_fleet(2) boots two
+    replicas from that cache and bundle (no nvcc; the bundle's programs
+    pre-warmed), round-robin, 0.2 s heartbeat; the router takes the 8
+    requests and fault_injection SIGKILLs replica 1 at its 4th poll that
+    brought tokens; the victims fail over to replica 0 with their
+    committed tokens and replica 1 is resurrected from the cache."""
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch.observability import flight
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.serving_fleet import (ReplicaClient,
+                                                launch_replica, spawn_fleet)
+    from paddle_tpu_torch.utils import fault_injection as fi
+    spec = fleet_model_spec(layers, widths)
+    V = spec["config"]["vocab_size"]
+    prompts, budgets, _ = serve_workload(V)
+    prompts, budgets = prompts[:FLEET_REQUESTS], budgets[:FLEET_REQUESTS]
+    prompts = [[int(t) for t in p] for p in prompts]
+    base = {"model": spec, "device": device, "max_slots": 8,
+            "max_seq": 2048, "block_size": 16, "prefill_chunk": 64,
+            "supervised": True}
+    root = tempfile.mkdtemp(prefix="fleet-")
+    bundle = os.path.join(root, "warm_bundle.json")
+    env = {"FLAGS_executable_cache_dir": os.path.join(root, "cache")}
+    n_src = len(build.sources()) if device == "cuda" else 0
+    out = {"card": nvidia_smi_line(), "model": "llama2-7b-width",
+           "layers": layers, "dtype": "bfloat16", "slots": 8,
+           "max_seq": 2048, "requests": len(prompts),
+           "kernel_sources": n_src}
+    router = None
+    try:
+        # (a) the cold boot and the oracle
+        cold = dict(base, prime=prompts[2] + prompts[4][:100],
+                    prime_tokens=4, export_bundle=bundle)
+        t0 = time.perf_counter()
+        proc, port, boot = launch_replica(cold, env=env, timeout=timeout)
+        out["cold_boot_seconds"] = time.perf_counter() - t0
+        out["cold_boot"] = boot
+        cli = ReplicaClient("127.0.0.1", port)
+        try:
+            oracle = [cli.generate(p, b, timeout=timeout)
+                      for p, b in zip(prompts, budgets)]
+            out["cold_cache_after_traffic"] = cli._call(
+                {"op": "cache_stats"})["cache"]
+            cli._call({"op": "shutdown", "drain": True})
+        finally:
+            cli.close()
+            try:
+                proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+            proc.stderr_log.close()
+        with open(bundle) as f:
+            out["bundle_entries"] = [e["name"] + ":" + str(
+                e["meta"].get("bucket", "")) for e in
+                json.load(f)["entries"]]
+        # (b) the fleet
+        flight.clear()
+        warm = dict(base, warm_bundle=bundle)
+        t0 = time.perf_counter()
+        router = spawn_fleet(2, warm, env=env, timeout=timeout,
+                             router_kwargs=dict(
+                                 policy="rr",
+                                 heartbeat_seconds=FLEET_HEARTBEAT,
+                                 heartbeat_misses=3, restart_backoff=0.05,
+                                 max_restarts=4))
+        out["fleet_boot_seconds"] = time.perf_counter() - t0
+        out["gpu_memory_two_replicas"] = gpu_memory()
+        boots = [h.boot for h in router.replicas]
+        fi.inject("fleet.apply.r1", skip=FLEET_KILL_SKIP)
+        reqs, wall = serve_requests(router, prompts, budgets,
+                                    timeout=timeout)
+        got = [list(r["out"]) for r in reqs]
+        out["gpu_memory_after_traffic"] = gpu_memory()
+        evs = flight.events(category="fleet")
+        dead = [e for e in evs if e["name"] == "replica_dead"]
+        t_end = time.monotonic() + timeout
+        while router.stats()["live"] < 2 and time.monotonic() < t_end:
+            time.sleep(0.05)
+        evs = flight.events(category="fleet")
+        back = [e for e in evs if e["name"] == "resurrected"]
+        reborn = router.replicas[1]
+        boots.append(reborn.boot)
+        cli = ReplicaClient(reborn.host, reborn.port)
+        try:
+            t0 = time.perf_counter()
+            extra = cli.generate(prompts[1], budgets[1], timeout=timeout)
+            extra_s = time.perf_counter() - t0
+        finally:
+            cli.close()
+        k3s = [h.call({"op": "stats"})["k3"] for h in router.replicas]
+        stats = router.stats()
+        terminal = {r["trace_id"]: sum(
+            1 for e in evs if e.get("trace_id") == r["trace_id"]
+            and e["name"] in FLEET_TERMINAL) for r in reqs}
+        resume = [r["t_resume"] - r["t_failover"] for r in reqs
+                  if "t_resume" in r]
+        numbers = serve_numbers(reqs, wall)
+        t0 = time.perf_counter()
+        router.shutdown(drain=False, timeout=120)
+        out["shutdown_seconds"] = time.perf_counter() - t0
+        procs = [h.proc for h in router.replicas]
+        router = None
+    finally:
+        fi.clear()
+        if router is not None:
+            router.shutdown(drain=False, timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+    out.update({
+        "warm_boots": boots,
+        "warm_boot_seconds": [b.get("seconds") for b in boots],
+        "kill_to_resurrected_seconds": (back[-1]["ts_us"]
+                                        - dead[0]["ts_us"]) / 1e6
+        if dead and back else None,
+        "kill_to_next_token_seconds": resume,
+        "router": stats, "replica_k3": k3s,
+        "extra_request_seconds": extra_s,
+        **numbers,
+        "serve": state.get("serve_summary")})
+    # the streams against the oracle: equal, or parted at near-ties of
+    # logits this process computes from the same seeded weights
+    model = fleet_parent_model(spec, device)
+    parted = streams_against(model, prompts, oracle, got, 2048)
+    parted_extra = streams_against(model, [prompts[1]], [oracle[1]],
+                                   [extra], 2048)
+    del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["streams_equal_oracle"] = len(prompts) - len(parted)
+    out["streams_parted_at_near_ties"] = parted
+    out["extra_request_equals_oracle"] = extra == oracle[1]
+    k3["decode_bf16"]["fleet_launches"] = sum(
+        k["split_launches"] - k["mma_launches"] for k in k3s)
+    k3["prefill_chunk"]["fleet_launches"] = sum(k["mma_launches"]
+                                                for k in k3s)
+    kernel = device == "cuda"
+    checks = {
+        "cold boot: misses = kernel sources = writes":
+            (out["cold_boot"]["cache"]["misses"],
+             out["cold_boot"]["cache"]["writes"]) == (n_src, n_src),
+        "warm boots: misses 0, programs > 0, failures 0": all(
+            b["cache"]["misses"] == 0 and b["prewarm"]["programs"] > 0
+            and b["prewarm"]["failures"] == 0 for b in boots),
+        "every request finished without error": all(
+            r["error"] is None for r in reqs),
+        "exact budgets": all(len(g) == b for g, b in zip(got, budgets)),
+        "one terminal fleet event a request":
+            set(terminal.values()) == {1},
+        "a failover": stats["failovers"] >= 1 and len(dead) >= 1
+        and dead[0]["attrs"]["replica"] == 1,
+        "replica 1 back": stats["live"] == 2 and reborn.restarts >= 1,
+        "streams equal or parted at near-ties":
+            all(p["ok"] for p in parted),
+        "replica 1's extra request equals its oracle stream":
+            extra == oracle[1],
+        "K3 in every replica: launches = split = layers x engine calls":
+            not kernel or all(k["launches"] == k["split_launches"]
+                              == k["layers"] * k["engine_calls"] > 0
+                              for k in k3s),
+        "replicas exited": all(p.poll() is not None for p in procs),
+    }
+    out["parted_extra"] = parted_extra
+    out["failed_gates"] = [k for k, ok in checks.items() if not ok]
+    if out["failed_gates"]:
+        emit({"phase": "fleet", "failed": out})
+        raise AssertionError("fleet: " + "; ".join(out["failed_gates"]))
+    return out
+
+
+def http_post_npz(port, path, timeout=600, **arrays):
+    import http.client
+    import io
+    import numpy as np
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=buf.getvalue())
+        resp = conn.getresponse()
+        body = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise RuntimeError(f"POST {path}: {resp.status} {body[:500]!r}")
+    return dict(np.load(io.BytesIO(body)))
+
+
+def phase_serve_http(device="cuda", widths=None, layers=2):
+    """THE INFERENCE FRONT END: save_inference_model stores a 2-layer
+    model at the 7B widths; inference.serve(generate=True, fleet=2)
+    serves it over HTTP from two replica processes; four concurrent
+    POST /generate calls against this process's engine over the same
+    weights, one POST /run against Predictor.run; then the server and
+    its replicas stop."""
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import PagedLlamaDecodeEngine
+    spec = fleet_model_spec(layers, widths)
+    spec["config"]["use_flash_attention"] = device == "cuda"
+    model = fleet_parent_model(spec, device)
+    V = spec["config"]["vocab_size"]
+    rng = np.random.default_rng(SEED + 13)
+    prompts = [[int(t) for t in rng.integers(0, V, n)]
+               for n in (100, 37, 200, 64)]
+    budget = 16
+    root = tempfile.mkdtemp(prefix="serve-http-")
+    path = os.path.join(root, "llama")
+    out = {"card": nvidia_smi_line(), "layers": layers, "dtype": "bfloat16"}
+    server = None
+    try:
+        t0 = time.perf_counter()
+        inference.save_inference_model(path, model)
+        out["save_seconds"] = time.perf_counter() - t0
+        out["pdmodel_bytes"] = os.path.getsize(path + ".pdmodel")
+        eng = PagedLlamaDecodeEngine(model, max_slots=4, max_seq=512,
+                                     device=device)
+        want = [eng.generate(np.asarray(p), budget) for p in prompts]
+        del eng
+        t0 = time.perf_counter()
+        server = inference.serve(path, port=0, generate=True, fleet=2,
+                                 block=False, max_seq=512, device=device)
+        out["serve_up_seconds"] = time.perf_counter() - t0
+        port = server.server_address[1]
+        got = [None] * len(prompts)
+        errors = []
+
+        def post(i):
+            try:
+                got[i] = [int(t) for t in http_post_npz(
+                    port, "/generate", input_ids=np.asarray(prompts[i]),
+                    max_new_tokens=np.asarray(budget))["output_ids"]]
+            except Exception as e:  # noqa: BLE001 — gated below
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        out["generate_seconds"] = time.perf_counter() - t0
+        ids = rng.integers(0, V, (1, 32)).astype(np.int32)
+        run = http_post_npz(port, "/run", input_0=ids)["output_0"]
+        ref = inference.Predictor(inference.Config(path),
+                                  device=device).run(ids)[0]
+        procs = [h.proc for h in server.fleet_router.replicas]
+        t0 = time.perf_counter()
+        server.shutdown(timeout=120)
+        out["stop_seconds"] = time.perf_counter() - t0
+        server = None
+    finally:
+        if server is not None:
+            server.shutdown(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+    parted = streams_against(model, prompts, want,
+                             [g or [] for g in got], 512)
+    del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out.update({"errors": errors, "streams_equal": len(prompts)
+                - len(parted), "streams_parted_at_near_ties": parted,
+                "run_shape": list(run.shape),
+                "run_max_abs_diff": float(np.abs(run - ref).max())})
+    checks = {
+        "no request failed": not errors,
+        "/generate equal or parted at near-ties":
+            all(p["ok"] for p in parted),
+        "/run equals Predictor.run": run.shape == ref.shape
+        and bool(np.array_equal(run, ref)),
+        "replicas exited": all(p.poll() is not None for p in procs),
+    }
+    out["failed_gates"] = [k for k, ok in checks.items() if not ok]
+    if out["failed_gates"]:
+        emit({"phase": "serve_http", "failed": out})
+        raise AssertionError("serve_http: " + "; ".join(out["failed_gates"]))
     return out
 
 
@@ -4887,7 +5278,11 @@ def main() -> int:
     state: dict = {}
 
     def free_serving():
+        serve = state.get("serve", {})
         state.clear()
+        # the fleet phase prints its rates beside the serve phase's
+        state["serve_summary"] = {k: serve.get(k) for k in (
+            "decode_tokens_per_s", "ttft_median_s", "ttft_max_s", "wall_s")}
         torch.cuda.empty_cache()
         return {}
 
@@ -4906,6 +5301,8 @@ def main() -> int:
         ("hot_swap", lambda: phase_hot_swap(state)),
         ("serve_supervised", lambda: phase_serve_supervised(state)),
         ("rollout", lambda: {**phase_rollout(state), **free_serving()}),
+        ("fleet", lambda: phase_fleet(state, k3)),
+        ("serve_http", phase_serve_http),
         ("flash_parity", lambda: phase_flash_parity(flash)),
         ("flash_time", lambda: phase_flash_time(flash)),
         ("optimizer_parity", lambda: phase_optimizer_parity(flash)),

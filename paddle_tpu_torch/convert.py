@@ -24,7 +24,11 @@ parameters in another order; :func:`lr_state_from_jax` and
 :func:`grad_scaler_state_from_jax` carry an LR scheduler's and a
 ``GradScaler``'s state dicts (numpy scalars become Python numbers).
 bf16 arrays (numpy's ``bfloat16`` extension dtype) come across as
-``torch.bfloat16``, exactly.
+``torch.bfloat16``, exactly; the arrays may also be torch tensors (a JAX
+file read by ``framework.io``), which keep their dtype.
+:func:`llama_config_from_jax` maps a JAX ``LlamaConfig`` (an object, a
+``framework.io.JaxRecord`` read from a file, or a dict) to the port's,
+refusing the features the port lacks.
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ import torch
 __all__ = ["state_dict_from_jax", "load_from_jax",
            "optimizer_state_from_jax", "optimizer_state_dict_from_jax",
            "lr_state_from_jax", "grad_scaler_state_from_jax",
-           "linear_weight_names", "LINEAR_WEIGHTS"]
+           "llama_config_from_jax", "linear_weight_names",
+           "LINEAR_WEIGHTS"]
 
 # the Linear layers of the Llama module tree (their ``.weight`` leaves):
 # the default when no port model is given
@@ -66,6 +71,13 @@ def _linear_test(model: Optional[torch.nn.Module]):
 def _tensor(name: str, a, transpose: bool) -> torch.Tensor:
     """``a`` as a torch tensor; ``transpose`` swaps its last two axes
     (a Linear weight ``[in, out]``, or a slot ending in that shape)."""
+    if isinstance(a, torch.Tensor):
+        if transpose:
+            if a.dim() < 2:
+                raise ValueError(f"{name}: Linear weight must be 2-D, got "
+                                 f"shape {tuple(a.shape)}")
+            a = a.transpose(-1, -2)
+        return a.contiguous()
     a = np.asarray(a)
     if transpose:
         if a.ndim < 2:
@@ -172,6 +184,30 @@ def optimizer_state_dict_from_jax(
                 f"{key}", a, name is not None and is_linear(name)
                 and a.ndim >= 2)
     return out
+
+
+# the port LlamaConfig's fields, and the JAX features it has no path for
+# (each must be off in a config the port takes)
+_LLAMA_FIELDS = ("vocab_size", "hidden_size", "intermediate_size",
+                 "num_hidden_layers", "num_attention_heads",
+                 "num_key_value_heads", "max_position_embeddings",
+                 "rms_norm_eps", "rope_theta", "use_flash_attention",
+                 "tie_word_embeddings", "dtype")
+_LLAMA_UNPORTED = ("sequence_parallel", "recompute", "cp_mesh")
+
+
+def llama_config_from_jax(cfg):
+    """A JAX ``LlamaConfig`` -> the port's ``LlamaConfig``: the fields
+    the port has are kept; a config that turns on sequence parallelism,
+    recompute or a context-parallel mesh raises ``ValueError`` (the port
+    has none of them)."""
+    from .models.llama import LlamaConfig
+    d = dict(cfg) if isinstance(cfg, Mapping) else dict(vars(cfg))
+    on = [k for k in _LLAMA_UNPORTED if d.get(k)]
+    if on:
+        raise ValueError(f"the JAX LlamaConfig turns on {on}, which the "
+                         f"port does not have")
+    return LlamaConfig(**{k: d[k] for k in _LLAMA_FIELDS if k in d})
 
 
 def load_from_jax(model: torch.nn.Module,

@@ -121,6 +121,37 @@ define_flag("serving_admission_policy", "static",
             "driving graceful brownout (speculative window, then "
             "prefill chunk) before hard shedding, plus deadline-aware "
             "rejection at submit")
+define_flag("serving_fleet_heartbeat_seconds", 0.5,
+            "Fleet router heartbeat period: every replica's /health "
+            "RPC is probed this often on a dedicated short-timeout "
+            "connection, and the returned gauges (blocks_free, "
+            "backlog, admission pressure level) feed KV-pressure-"
+            "aware placement")
+define_flag("serving_fleet_heartbeat_misses", 3,
+            "Consecutive failed heartbeats before the fleet router "
+            "declares a replica dead: its epoch is fenced (late "
+            "responses discarded), in-flight requests fail over to "
+            "healthy replicas seeded with their committed tokens, "
+            "and resurrection begins. A data-plane connection error "
+            "fences immediately without waiting for misses")
+define_flag("serving_fleet_restart_backoff", 0.05,
+            "Base seconds of the fleet router's bounded exponential "
+            "resurrection backoff: relaunch attempt N of a dead "
+            "replica waits backoff * 2^(N-1) (capped, full-jittered "
+            "under FLAGS_backoff_full_jitter) before spawning the "
+            "replacement process from the shared executable cache + "
+            "warm bundle")
+define_flag("serving_fleet_max_restarts", 8,
+            "Resurrection attempts per dead replica before the fleet "
+            "router gives up on it and degrades to the surviving "
+            "replicas (the router itself never crashes; a degraded "
+            "slot is journaled and counted)")
+define_flag("serving_fleet_retry_after", 1.0,
+            "Seconds clients are told to wait (the retry_after hint "
+            "on the fleet-shed error) when every live replica reports "
+            "admission pressure level 3 — fleet-level shed fires only "
+            "after per-replica brownout has already been exhausted "
+            "everywhere")
 define_flag("paged_attention_kernel", True,
             "Run the hand-written paged-attention kernel behind the "
             "serving_cache.paged_attention seam for CUDA tensors. On a "

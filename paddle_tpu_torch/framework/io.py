@@ -12,7 +12,10 @@ module's:
   check it, and that module imports JAX;
 - **reading** — :class:`_Unpickler` maps the path to the port's own
   class and refuses any other class of the JAX package, so a load never
-  imports it.
+  imports it. The plain-data configs listed in :data:`JAX_RECORDS` (the
+  ``init_config`` of a JAX ``.pdmodel``) come back as
+  :class:`JaxRecord` objects — their attributes, never their class —
+  for ``convert`` to map.
 
 bf16 bytes are encoded through an ``int16`` view and decoded with
 ``torch.frombuffer``; with ``return_numpy=True`` a bf16 tensor comes
@@ -43,6 +46,19 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "uint64": torch.uint64, "bool": torch.bool,
            "complex64": torch.complex64, "complex128": torch.complex128}
 _NAMES = {v: k for k, v in _DTYPES.items()}
+
+# JAX-package classes of plain data that a file may hold and the port
+# reads as records (their instance dicts)
+JAX_RECORDS = ("paddle_tpu.models.llama.LlamaConfig",)
+
+
+class JaxRecord:
+    """A plain-data object of the JAX package (one of
+    :data:`JAX_RECORDS`) read from a file: the instance attributes it
+    was pickled with, never its class."""
+
+    def __repr__(self):
+        return f"JaxRecord({vars(self)})"
 
 
 class _TensorPayload:
@@ -101,6 +117,8 @@ class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if name == PAYLOAD_NAME and module in (PAYLOAD_MODULE, __name__):
             return _TensorPayload
+        if f"{module}.{name}" in JAX_RECORDS:
+            return JaxRecord
         if module.split(".")[0] in _FOREIGN:
             raise pickle.UnpicklingError(
                 f"checkpoint references {module}.{name}, which the port "

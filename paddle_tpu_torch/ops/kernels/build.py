@@ -9,6 +9,12 @@ carries a hash of its source, the shared headers and the compiler
 flags, so an edited source rebuilds and an unchanged one loads from
 disk. Sources that need building compile in parallel: one ``nvcc``
 process each, all started together.
+
+The directory of built libraries is the port's executable cache: what
+a warm process skips is ``nvcc``. ``FLAGS_executable_cache_dir``
+(``jit.warmup``), when set, names it, and while it is set the counters
+``executable_cache.{hits,misses,writes}_total`` count a library loaded
+from disk, an ``nvcc`` run and a library written.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List
+
+from ...jit import warmup as _warmup
 
 __all__ = ["BuildInfo", "build_all", "build_dir", "load", "nvcc_command",
            "nvcc_path", "sources"]
@@ -47,7 +55,10 @@ class BuildInfo:
 
 
 def build_dir() -> Path:
-    d = os.environ.get(BUILD_DIR_ENV)
+    """``FLAGS_executable_cache_dir`` when set, else
+    ``$PADDLE_TPU_TORCH_KERNEL_DIR``, else ``_build/`` beside this
+    file."""
+    d = _warmup.cache_dir() or os.environ.get(BUILD_DIR_ENV)
     return Path(d) if d else Path(__file__).resolve().parent / "_build"
 
 
@@ -108,6 +119,7 @@ def build_all(verbose: bool = False) -> Dict[str, BuildInfo]:
     if todo:
         nvcc_path()  # fail before touching the disk
         build_dir().mkdir(parents=True, exist_ok=True)
+    _warmup.count_cache("misses", len(todo))
     procs = []
     for src, lib in todo:
         tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
@@ -124,6 +136,7 @@ def build_all(verbose: bool = False) -> Dict[str, BuildInfo]:
             tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, lib)  # atomic: concurrent builds race safely
+        _warmup.count_cache("writes")
         out[src.stem] = BuildInfo(src.stem, lib, dt, log)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -140,7 +153,9 @@ def load(name: str) -> ctypes.CDLL:
             if not src.exists():
                 raise FileNotFoundError(f"no kernel source {src}")
             path = _library(src)
-            if not path.exists():
+            if path.exists():
+                _warmup.count_cache("hits")
+            else:
                 path = build_all()[name].path
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib

@@ -52,8 +52,15 @@ retires a replaced loop thread (``_epoch``, ``_fenced``), a heartbeat
 (``_beat``, ``_idle``), ``_start_loop`` for a restart, and the fault
 site ``serving.decode`` before each decode or speculative step.
 
-Left for later slices: warm bundles, ``export_decode``, the
-``int8=True`` s8 projections and CUDA graphs for the step.
+Warm bundles (``jit.warmup``): each engine records every program the
+first time it runs it — the JAX engines' ``serving`` entries, under the
+same names and with the same geometry meta — and ``_prewarm_entry``
+replays an entry at boot: the kernel libraries its program launches
+are loaded and the program runs once at the entry's shapes on an idle
+engine, writing nothing to the pools.
+
+Left for later slices: ``export_decode``, the ``int8=True`` s8
+projections and CUDA graphs for the step.
 """
 from __future__ import annotations
 
@@ -71,6 +78,7 @@ import torch.nn.functional as F
 from . import serving_cache as _sc
 from .analysis.locks import make_lock
 from .core.device import resolve_device
+from .jit import warmup as _warmup
 from .observability import flight as _flight
 from .observability import metrics as _om
 from .utils import fault_injection as _fi
@@ -176,6 +184,8 @@ class LlamaDecodeEngine:
     speculative decoding costs no second weight set (``make_draft``)."""
 
     paged = False
+    # the warm-bundle name of the decode program (the JAX engine's)
+    _decode_name = "serving.decode"
 
     def __init__(self, model, max_slots: int = 4, max_seq: int = 256,
                  eos_id: Optional[int] = None,
@@ -238,6 +248,8 @@ class LlamaDecodeEngine:
         # plain steps, _chunk_cap bounds the prefill chunk length
         self._spec_suppressed = False
         self._chunk_cap: Optional[int] = None
+        # (name, meta) of the programs already recorded for warm bundles
+        self._warm_noted: set = set()
         self._init_cache()
 
     def _build_params(self, sd) -> Dict[str, object]:
@@ -327,6 +339,61 @@ class LlamaDecodeEngine:
             view: Dict[str, object] = dict(new_p)
             view["layers"] = list(new_p["layers"])[:draft.n_layers]
             draft.params = view
+
+    # -- warm bundles -------------------------------------------------------
+    def _warm_geo(self) -> Dict[str, object]:
+        """The serving geometry recorded beside every warm-bundle entry,
+        which ``_bundle_stale`` checks a bundle against at pre-warm."""
+        return {"layout": "dense", "slots": self.max_slots,
+                "max_seq": self.max_seq}
+
+    def _bundle_stale(self, meta, keys=None) -> List[str]:
+        """Geometry keys on which a warm-bundle entry disagrees with this
+        engine (empty = fresh). ``keys`` restricts the check to the
+        geometry the program's shapes depend on; keys absent from
+        ``meta`` are not checked."""
+        geo = self._warm_geo()
+        if keys is not None:
+            geo = {k: geo[k] for k in keys if k in geo}
+        return sorted(k for k, v in geo.items()
+                      if k in meta and meta[k] != v)
+
+    def _note_warm(self, name: str, meta: Dict[str, object]) -> None:
+        """Record a program in the warm bundle the first time this engine
+        runs it (the JAX engines record at their first compile)."""
+        key = (name, tuple(sorted(meta.items())))
+        if key not in self._warm_noted:
+            self._warm_noted.add(key)
+            _warmup.note_program("serving", name, {"meta": dict(meta)})
+
+    def _check_idle(self) -> None:
+        if self.active.any():
+            raise ValueError("pre-warm needs an idle engine: its programs "
+                             "run on the live pools")
+
+    def _prewarm_entry(self, entry):
+        """Replay one recorded ``serving`` entry: load the kernel
+        libraries of its program and run it once at its shapes. Returns
+        False for an entry this engine does not run and ``"stale"`` for
+        one recorded against another geometry. The dense engine replays
+        its decode step; the rows it writes (row 0 of each slot) are
+        zeroed again."""
+        meta = entry.get("meta") or {}
+        if meta.get("program") != "decode":
+            return False
+        if self._bundle_stale(meta):
+            return "stale"
+        self._check_idle()
+        S = self.max_slots
+        self._decode_logits(np.zeros((S, 1), np.int32),
+                            np.zeros(S, np.int32))
+        for kc, vc in zip(self.k_cache, self.v_cache):
+            kc[:, 0].zero_()
+            vc[:, 0].zero_()
+        self.last_logits = None
+        self._count_pa_path()
+        _flight.record("warmup", "serving_program", program="decode")
+        return True
 
     def reset_state(self) -> None:
         """Discard ALL slot and cache state: fresh zero caches replace
@@ -485,6 +552,8 @@ class LlamaDecodeEngine:
         self.last_logits = self._decode_logits(self.last_ids, self.pos)
         nxt = self.last_logits.argmax(dim=-1).cpu().numpy()
         self._count_pa_path()
+        self._note_warm(self._decode_name,
+                        {"program": "decode", **self._warm_geo()})
         for s in range(self.max_slots):
             if self.active[s]:
                 self.pos[s] += 1
@@ -567,6 +636,7 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
     """
 
     paged = True
+    _decode_name = "serving.paged_decode"
     # the process-registry prefix metrics are the target's only: an
     # attached draft mirrors every admission (attach_draft clears this)
     _prefix_metrics = True
@@ -598,6 +668,86 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
                          eos_id=eos_id, num_layers=num_layers,
                          device=device, attention_impl=attention_impl,
                          share_params=share_params)
+
+    def _warm_geo(self) -> Dict[str, object]:
+        return {"layout": "paged", "slots": self.max_slots,
+                "max_seq": self.max_seq, "block_size": self.block_size,
+                "num_blocks": self.num_blocks,
+                "chunk": self.prefill_chunk_len}
+
+    def _bucket(self, n: int) -> int:
+        """The JAX engine's prefill program bucket of an ``n``-token
+        chunk (the next power of two from 8, at most max_seq): only the
+        warm-bundle entries use it here, a chunk runs at its exact
+        length."""
+        b = 8
+        while b < n:
+            b *= 2
+        return min(b, self.max_seq)
+
+    def _check_idle(self) -> None:
+        if self.active.any() or self._prefill_state \
+                or self._kv.occupied_slots():
+            raise ValueError("pre-warm needs an idle engine: its programs "
+                             "run on the live pools")
+
+    def _prewarm_entry(self, entry):
+        """Replay one recorded ``serving`` entry — decode, prefill (per
+        recorded bucket) and, with a draft attached, the speculative
+        propose and verify — with the JAX engine's stale rule and return
+        values: False for an entry this engine does not run (a spec
+        entry without a draft), ``"stale"`` for one recorded against
+        another pool geometry (slots, max_seq, block size, blocks), a
+        prefill bucket over the live chunk or another ``spec_k``. The
+        program runs once at the entry's shapes on this idle engine with
+        every write masked off, so its kernel libraries load and cuBLAS
+        and the caching allocator are set up; pools and tables stay as
+        they were."""
+        meta = entry.get("meta") or {}
+        prog = meta.get("program")
+        if prog in ("spec_draft", "spec_verify") and self._draft is None:
+            return False
+        if prog not in ("decode", "prefill", "spec_draft", "spec_verify"):
+            return False
+        stale = self._bundle_stale(
+            meta, ("layout", "slots", "max_seq", "block_size",
+                   "num_blocks"))
+        if prog == "prefill" and isinstance(meta.get("bucket"), int) \
+                and meta["bucket"] > self.prefill_chunk_len:
+            stale.append("bucket")
+        if prog in ("spec_draft", "spec_verify") \
+                and "k" in meta and meta["k"] != self._spec_k:
+            stale.append("k")
+        if stale:
+            _flight.record("warmup", "stale_entry", program=str(prog),
+                           mismatches=",".join(stale))
+            return "stale"
+        self._check_idle()
+        S = self.max_slots
+        idle = np.zeros(S, bool)
+        if prog == "decode":
+            self._forward_paged(np.zeros((S, 1), np.int32),
+                                np.zeros((S, 1), np.int32),
+                                self._kv.block_tables, idle[:, None], 1)
+        elif prog == "prefill":
+            b = int(meta.get("bucket", 0) or
+                    min(self._bucket(1), self.prefill_chunk_len))
+            self._forward_paged(
+                np.zeros((1, b), np.int32),
+                np.arange(b, dtype=np.int32)[None, :],
+                self._kv.block_tables[:1], np.zeros((1, b), bool),
+                (b - 1) // self.block_size + 1)
+        elif prog == "spec_draft":
+            self._draft._propose(np.zeros((S, 1), np.int32),
+                                 np.zeros(S, np.int32), idle, self._spec_k)
+        else:  # the verify window reads this engine's idle slots: no write
+            self._spec_verify(torch.zeros((S, self._spec_k),
+                                          dtype=torch.long,
+                                          device=self.device))
+            self.last_logits = None
+        self._count_pa_path()
+        _flight.record("warmup", "serving_program", program=str(prog))
+        return True
 
     def _alloc_pools(self) -> Dict[str, list]:
         """Fresh zeroed block pools (per-layer K/V + int8 scales), at
@@ -819,6 +969,8 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         for pools in self.kvs.values():
             for pool in pools:
                 _sc.copy_block(pool, src, dst)
+        self._note_warm("serving.prefix_cow",
+                        {"program": "prefix_cow", **self._warm_geo()})
         if self._prefix_metrics:
             _flight.record("serving", "prefix_cow", slot=slot,
                            src=src, dst=dst)
@@ -897,6 +1049,10 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
             self._kv.block_tables[slot:slot + 1],
             np.ones((1, c), bool), (start + c - 1) // self.block_size + 1)
         self._count_pa_path()
+        self._note_warm("serving.paged_prefill", {
+            "program": "prefill",
+            "bucket": min(self._bucket(c), self.prefill_chunk_len),
+            **self._warm_geo()})
         st["next"] = start + c
         # publish every fully-written prompt block into the radix tree
         # as soon as its last token lands
@@ -964,6 +1120,8 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
                     draft._shared_write_guard(s)
                     draft._kv.ensure_token(s, int(self.pos[s]))
             draft._decode_logits(self.last_ids, self.pos, self.active)
+            draft._note_warm(draft._decode_name,
+                             {"program": "decode", **draft._warm_geo()})
         nxt = super().step()
         if draft is not None:
             for s in range(self.max_slots):
@@ -1020,6 +1178,11 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
                                    k)
         t, n_acc = self._spec_verify(draft_tok)
         self._count_pa_path()
+        draft._note_warm("serving.spec_draft", {
+            "program": "spec_draft", "k": k,
+            "draft_layers": draft.n_layers, **self._warm_geo()})
+        self._note_warm("serving.spec_verify", {
+            "program": "spec_verify", "k": k, **self._warm_geo()})
         host = torch.cat([t, n_acc[:, None]], dim=1).cpu().numpy()
         toks = host[:, :k + 1].astype(np.int32)       # the one read
         acc = host[:, k + 1]

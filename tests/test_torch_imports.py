@@ -58,7 +58,9 @@ def test_port_covers_the_slice_modules():
             # the self-healing serving plane
             "utils/backoff.py", "utils/fault_injection.py",
             "observability/__main__.py", "framework/__init__.py",
-            "framework/io.py", "framework/checkpoint.py"}
+            "framework/io.py", "framework/checkpoint.py",
+            # the serving fleet and the inference front end
+            "jit/warmup.py", "serving_fleet.py", "inference.py"}
     have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert want <= have, sorted(want - have)
     for src in ("paged_attention.cu", "flash_attention.cuh",
@@ -71,8 +73,8 @@ def test_port_covers_the_slice_modules():
 def test_importing_the_port_loads_no_jax():
     """A fresh interpreter with only the repo on its path imports the
     serving, Llama, BERT and ERNIE-MoE training stacks, the grouped
-    matmul op and the optimizer plane (and chip_smoke) without pulling
-    in JAX or the JAX package."""
+    matmul op, the optimizer plane, the fleet and the inference front
+    end (and chip_smoke) without pulling in JAX or the JAX package."""
     code = (
         "import sys, chip_smoke, paddle_tpu_torch.serving, "
         "paddle_tpu_torch.convert, paddle_tpu_torch.models.llama, "
@@ -89,7 +91,8 @@ def test_importing_the_port_loads_no_jax():
         "paddle_tpu_torch.observability.flight, "
         "paddle_tpu_torch.observability.__main__, "
         "paddle_tpu_torch.utils.fault_injection, "
-        "paddle_tpu_torch.utils.backoff\n"
+        "paddle_tpu_torch.utils.backoff, paddle_tpu_torch.jit.warmup, "
+        "paddle_tpu_torch.serving_fleet, paddle_tpu_torch.inference\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -181,6 +184,8 @@ def test_entry_points_default_to_cuda(no_cuda):
 
 
 def test_flags_keep_the_jax_names_and_defaults(monkeypatch):
+    import paddle_tpu.jit.warmup  # noqa: F401 — defines its flags
+    import paddle_tpu_torch.jit.warmup  # noqa: F401 — defines its flags
     from paddle_tpu.core import flags as jflags
     from paddle_tpu_torch.core import flags as tflags
     names = {"serving_block_size", "serving_num_blocks",
@@ -191,7 +196,12 @@ def test_flags_keep_the_jax_names_and_defaults(monkeypatch):
              "serving_spec_draft_layers", "serving_supervisor_backoff",
              "serving_supervisor_stall_seconds", "backoff_full_jitter",
              "flight_recorder", "flight_recorder_capacity",
-             "flight_dump_dir", "checkpoint_fsync"}
+             "flight_dump_dir", "checkpoint_fsync",
+             "serving_fleet_heartbeat_seconds",
+             "serving_fleet_heartbeat_misses",
+             "serving_fleet_restart_backoff", "serving_fleet_max_restarts",
+             "serving_fleet_retry_after", "executable_cache_dir",
+             "warmup_bundle", "executable_cache_gc_days"}
     assert set(tflags._registry) == names
     for n in names:
         assert tflags._registry[n].default == jflags._registry[n].default
