@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and MoE paths on one card.
+"""Drive the PyTorch/CUDA port's serving, training, MoE and eager paths on one card.
 
 Run from the root of a checkout on a machine with a Hopper card:
 
@@ -341,13 +341,36 @@ Phases, each printing one JSON line with its seconds:
                       through the plain sdpa: loss, every gradient and the
                       share of tokens whose top-2 experts differ; beside
                       it the same comparison with the plain step replaying
-                      the kernel step's routing (the kernels alone).
+                      the kernel step's routing (the kernels alone);
+31. ``eager_core``    the paddle-API eager core on the card through
+                      ``import paddle_tpu_torch as paddle``: a linear
+                      regression fitted with ``to_tensor``, ``matmul``,
+                      ``.backward()``, ``.grad`` and ``set_value``, a small
+                      ``nn.Layer`` MLP trained with AdamW (both losses
+                      gated at their targets), and the host us of a
+                      grad-recording ``paddle.add`` on 128 x 128 beside a
+                      raw ``torch.add`` (best of 5 x 500, the JAX bench's
+                      op);
+32. ``gpt_train``     GPT at GPT-3 13B widths (hidden 5120, 40 heads of
+                      128, FFN 20480, vocab 50304), 3 layers, bf16,
+                      4 x 2048 tokens, the eager paddle loop
+                      (``CrossEntropyLoss`` over ``logits.reshape([-1,
+                      vocab])``, ``backward``, ``AdamW(1e-4,
+                      multi_precision=False).step``, ``clear_grad``), 2
+                      warm-up and 5 timed steps: tokens/s, step ms, MFU and
+                      a profiled step; K1b and K2b launches = layers x
+                      steps, all on the TMA design, O2 launches = steps,
+                      no fallback, losses finite and falling; then one
+                      2-layer step through the kernels against the same
+                      step through the plain sdpa (loss and every
+                      gradient).
 
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
 (K3 on the split design at decode with bf16 and with int8 pools, at
 the prefill chunk and at the speculative verify window, each with the
 first design's time — the decode and prefill-chunk rows also carry
-``fleet_launches``, the fleet replicas' launches on that path —, K1b and K2b at the Llama training geometry, K1a
+``fleet_launches``, the fleet replicas' launches on that path —, K1b and K2b at the Llama training geometry (with
+``gpt_launches``, their launches in the gpt_train phase), K1a
 and K2a at ERNIE-MoE's, K5 in K1a/K2a at the BERT geometry, K4 in them at the
 packed geometry, K6 and K7 at the op bench's geometry, each flash and
 K6/K7 row naming the design it timed, its TMA launches and the first
@@ -3029,6 +3052,268 @@ def phase_train_parity():
 
 
 # ---------------------------------------------------------------------------
+# the paddle-API eager core and GPT on it
+# ---------------------------------------------------------------------------
+
+# BASELINE workload 4 as bench.py:873-890 builds it: GPT-3 13B widths,
+# depth cut from 40 to 3 layers
+GPT = dict(batch=4, seq=2048, layers=3, warmup=2, steps=5, lr=1e-4)
+GPT_WIDTHS = dict(vocab_size=50304, hidden_size=5120, num_attention_heads=40,
+                  intermediate_size=20480, max_position_embeddings=2048)
+EAGER_REG_LOSS = 1e-6        # the regression's final mean squared error
+EAGER_REG_W_ERR = 1e-3       # ... and its weights against the true ones
+EAGER_MLP_DROP = 0.1         # the MLP's final loss / its first loss
+
+
+def phase_eager_core():
+    """The verify skill's eager-core and nn/optimizer recipes on the
+    card, through the paddle API, and the host cost of one op."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    rng = np.random.default_rng(SEED)
+    x_np = rng.standard_normal((256, 4)).astype(np.float32)
+    w_true = np.float32([[1.5], [-2.0], [0.5], [3.0]])
+    x = paddle.to_tensor(x_np)
+    y = paddle.to_tensor(x_np @ w_true + 0.25)
+    w = paddle.to_tensor(np.zeros((4, 1), np.float32), stop_gradient=False)
+    b = paddle.to_tensor(np.zeros((1,), np.float32), stop_gradient=False)
+    assert x.place == paddle.CUDAPlace(torch.cuda.current_device())
+    for _ in range(500):
+        loss = ((paddle.matmul(x, w) + b - y) ** 2).mean()
+        loss.backward()
+        w.set_value(w - 0.1 * w.grad)
+        b.set_value(b - 0.1 * b.grad)
+        w.clear_grad()
+        b.clear_grad()
+    reg_loss = float(((paddle.matmul(x, w) + b - y) ** 2).mean())
+    w_err = float(np.abs(w.numpy() - w_true).max())
+    b_err = abs(float(b) - 0.25)
+
+    class MLP(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = paddle.nn.Linear(8, 64)
+            self.fc2 = paddle.nn.Linear(64, 1)
+
+        def forward(self, h):
+            return self.fc2(paddle.nn.functional.gelu(self.fc1(h)))
+
+    mlp = MLP()
+    opt = paddle.optimizer.AdamW(learning_rate=1e-2,
+                                 parameters=mlp.parameters())
+    xm = paddle.to_tensor(rng.standard_normal((512, 8)).astype(np.float32))
+    ym = paddle.sin(xm.sum(axis=1, keepdim=True))
+    mlp_losses = []
+    for _ in range(300):
+        loss = ((mlp(xm) - ym) ** 2).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        mlp_losses.append(float(loss))
+    a = paddle.to_tensor(rng.standard_normal((128, 128)).astype(np.float32),
+                         stop_gradient=False)
+    c = paddle.to_tensor(np.ones((128, 128), np.float32))
+
+    def best_us(fn, n=500, reps=5):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / n)
+        torch.cuda.synchronize()
+        return best * 1e6
+
+    op_us = best_us(lambda: paddle.add(a, c))
+    raw_us = best_us(lambda: torch.add(a._t, c._t))
+    out = {"card": nvidia_smi_line(),
+           "regression": {"steps": 500, "loss": reg_loss, "w_max_err": w_err,
+                          "b_err": b_err, "loss_limit": EAGER_REG_LOSS,
+                          "w_err_limit": EAGER_REG_W_ERR},
+           "mlp": {"steps": 300, "first_loss": mlp_losses[0],
+                   "last_loss": mlp_losses[-1],
+                   "limit": f"last < {EAGER_MLP_DROP} x first"},
+           "op_host_us": {"paddle.add (grad-recording, 128x128 f32)": op_us,
+                          "torch.add (raw)": raw_us,
+                          "wrapper_us": op_us - raw_us}}
+    ok = (reg_loss < EAGER_REG_LOSS and w_err < EAGER_REG_W_ERR
+          and b_err < EAGER_REG_W_ERR
+          and mlp_losses[-1] < EAGER_MLP_DROP * mlp_losses[0])
+    if not ok:
+        emit({"phase": "eager_core", "failed": out})
+        raise AssertionError("the eager core did not reach its targets")
+    return out
+
+
+def gpt_model(layers, flash=True):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    model = GPTForCausalLM(GPTConfig(num_hidden_layers=layers,
+                                     use_flash_attention=flash,
+                                     **GPT_WIDTHS))
+    model.bfloat16()
+    return model
+
+
+def gpt_ids(vocab):
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    rng = np.random.default_rng(SEED)
+    return paddle.to_tensor(rng.integers(0, vocab,
+                                         (GPT["batch"], GPT["seq"])))
+
+
+def gpt_loss(model, crit, ids):
+    vocab = model.config.vocab_size
+    return crit(model(ids).reshape([-1, vocab]), ids.reshape([-1]))
+
+
+def phase_gpt_train(results):
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    t0 = time.perf_counter()
+    model = gpt_model(GPT["layers"])
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = paddle.optimizer.AdamW(learning_rate=GPT["lr"],
+                                 parameters=model.parameters(),
+                                 multi_precision=False)
+    crit = paddle.nn.CrossEntropyLoss()
+    ids = gpt_ids(cfg.vocab_size)
+
+    def step():
+        loss = gpt_loss(model, crit, ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(GPT["warmup"])]
+    torch.cuda.synchronize()
+    for kern in kernels:
+        kern.launches = kern.tma_launches = 0    # the counts start here
+    reset_optimizer_counts()
+    t0 = time.perf_counter()
+    for _ in range(GPT["steps"]):
+        losses.append(step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [kern.launches for kern in kernels]   # ... and are read here
+    tma = [kern.tma_launches for kern in kernels]
+    opt_counts = check_optimizer_launches("gpt_train", opt, GPT["steps"],
+                                          False)
+    expected = GPT["layers"] * GPT["steps"]
+    if launches != [expected] * 3 or tma != [expected] * 3:
+        raise AssertionError(
+            f"gpt_train: flash launches (fwd, dq, dkv) {launches}, of them "
+            f"through the TMA design {tma}, != layers x timed steps = "
+            f"{GPT['layers']} x {GPT['steps']} each")
+    for kern, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkv"), launches):
+        results[kern]["gpt_launches"] = n
+    loss_values = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in loss_values):
+        raise AssertionError(f"gpt_train: non-finite loss: {loss_values}")
+    if not loss_values[-1] < loss_values[0]:
+        raise AssertionError(f"gpt_train: the loss did not fall: "
+                             f"{loss_values}")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = GPT["batch"] * GPT["seq"]
+    tok_s = tokens * GPT["steps"] / wall
+    heads = cfg.num_attention_heads
+    hd = cfg.hidden_size // heads
+    # attention products per token, forward + backward: 3 x (QK^T + PV)
+    # over (L + 1) / 2 keys on average (causal), 2 flops a MAC
+    attn_per_token = 3 * 2 * 2 * heads * hd * (GPT["seq"] + 1) / 2 \
+        * GPT["layers"]
+    mfu = (6 * n_params + attn_per_token) * tok_s / BF16_FLOPS
+    prof = profile_train_step(lambda: step(), ())
+    if prof["device_ms"]:
+        # the profiled step's wall holds the profiler's own start: the
+        # idle share against the timed steps' mean is the one to read
+        prof["device_idle_share_vs_step_ms"] = \
+            1 - prof["device_ms"] / (wall / GPT["steps"] * 1e3)
+    out = {"card": nvidia_smi_line(), "model": "gpt3-13b-width",
+           "layers": GPT["layers"], "hidden": cfg.hidden_size,
+           "intermediate": cfg.intermediate_size, "heads": heads,
+           "head_dim": hd, "vocab": cfg.vocab_size, "dtype": "bfloat16",
+           "params": n_params,
+           "optimizer": f"AdamW(lr={GPT['lr']}, multi_precision=False)",
+           "loop": "eager paddle: loss.backward(); opt.step(); "
+                   "opt.clear_grad()",
+           "batch": GPT["batch"], "seq": GPT["seq"],
+           "reduced": ["depth 40 -> 3 layers (bench.py:873-890)",
+                       "random weights from a seed (no checkpoint in the "
+                       "repo)"],
+           "init_seconds": init_s, "losses": loss_values,
+           "warmup_steps": GPT["warmup"], "timed_steps": GPT["steps"],
+           "step_ms": wall / GPT["steps"] * 1e3, "tokens_per_s": tok_s,
+           "mfu": mfu, "mfu_flops_per_token": 6 * n_params + attn_per_token,
+           "flash_launches": dict(zip(("fwd", "dq", "dkv"), launches)),
+           "flash_tma_launches": dict(zip(("fwd", "dq", "dkv"), tma)),
+           "optimizer_launches": opt_counts,
+           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof}
+    del step, opt, model, losses
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gpt_train_parity():
+    """One 2-layer GPT step (loss and gradients) through the kernels
+    against the same step through the plain sdpa."""
+    import torch
+    import paddle_tpu_torch as paddle
+    model = gpt_model(2)
+    crit = paddle.nn.CrossEntropyLoss()
+    ids = gpt_ids(model.config.vocab_size)
+    runs = []
+    for flash in (True, False):
+        for blk in model.blocks:
+            blk.attn.use_flash = flash
+        loss = gpt_loss(model, crit, ids)
+        loss.backward()
+        runs.append((float(loss), {n: p.grad._t for n, p in
+                                   model.named_parameters()}))
+        model.clear_gradients()
+    (lk, gk), (lr_, gr) = runs
+    loss_rel = abs(lk - lr_) / abs(lr_)
+    worst, rows = 0.0, {}
+    for name, a in gk.items():
+        b = gr[name].float()
+        rel = float((a.float() - b).square().mean().sqrt()
+                    / b.square().mean().sqrt().clamp(min=1e-30))
+        rows[name] = rel
+        worst = max(worst, rel)
+    ok = loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RMS
+    out = {"layers": 2, "loss_kernels": lk, "loss_reference": lr_,
+           "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+           "grad_rel_rms_worst": worst, "grad_rel_rms_tol": TRAIN_GRAD_RMS,
+           "grad_rel_rms": rows, "ok": ok}
+    del model, gk, gr, runs
+    torch.cuda.empty_cache()
+    if not ok:
+        emit({"phase": "gpt_train_parity", "failed": out})
+        raise AssertionError("gpt_train: the step through the kernels "
+                             "disagrees with the step through the plain "
+                             "sdpa")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # dropout (K5) and segments (K4) inside the flash kernels
 # ---------------------------------------------------------------------------
 
@@ -5320,6 +5605,9 @@ def main() -> int:
         ("gmm_time", lambda: phase_gmm_time(flash)),
         ("moe_train", lambda: phase_moe_train(flash)),
         ("moe_train_parity", phase_moe_train_parity),
+        ("eager_core", phase_eager_core),
+        ("gpt_train", lambda: {**phase_gpt_train(flash),
+                               "parity": phase_gpt_train_parity()}),
     ]
     t_all = time.perf_counter()
     for name, fn in phases:

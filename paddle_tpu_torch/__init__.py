@@ -2,7 +2,7 @@
 
 The port runs on an NVIDIA Hopper card (H100) and keeps the JAX
 package's module names, so each module here has a counterpart of the
-same name in ``paddle_tpu``. Four slices are ported.
+same name in ``paddle_tpu``.
 
 Serving (paged-KV Llama):
 
@@ -64,14 +64,68 @@ ERNIE-MoE training and the grouped-matmul op:
 - ``convert`` again — the expert stacks and gate weights copied as
   they are.
 
+The paddle-API eager core and GPT on it:
+
+- ``core.dtype``, ``core.tensor`` (``Tensor``, ``Parameter``,
+  ``to_tensor``), ``core.autograd`` (grad modes, ``apply_op``,
+  ``backward``, ``grad``), ``core.device`` (``set_device`` and the
+  places) and ``core.random`` (``seed``);
+- ``ops`` — the creation, math, manipulation and linear-algebra ops
+  with the Tensor methods and operators, the in-place ``op_`` forms,
+  and the op table (``ops.op_registry`` over ``ops/ops.yaml``);
+- ``nn`` — ``Layer`` (a ``torch.nn.Module`` with paddle's methods),
+  the containers, ``Linear``, ``Embedding``, ``Dropout``,
+  ``LayerNorm``, ``RMSNorm``, ``CrossEntropyLoss``, ``initializer``
+  and the functional entries on Tensors;
+- ``models.gpt`` — ``GPTForCausalLM`` (its attention through the flash
+  kernels).
+
+``import paddle_tpu_torch as paddle`` gives the names of the JAX
+package's top level that are ported: the dtypes, ``Tensor``,
+``Parameter``, ``to_tensor``, the grad modes and ``grad``, the flags,
+``seed``, the devices, the op surface, ``nn`` and ``optimizer``.
+
 Every entry point runs on ``cuda`` unless the caller passes
-``device="cpu"``; without CUDA and without that argument it raises.
-Importing this package imports no submodule (and never JAX):
-``paddle_tpu_torch.save`` / ``load`` bind ``framework.io``'s on first
-use.
+``device="cpu"`` (the eager core: ``set_device("cpu")``); without CUDA
+and without that it raises. Importing this package imports no JAX and
+nothing of serving: ``paddle_tpu_torch.save`` / ``load`` bind
+``framework.io``'s on first use.
 """
 
-__all__ = ["save", "load"]
+from .core.dtype import (  # noqa: F401
+    bool_, bool_ as bool8, uint8, int8, int16, int32, int64, float16,
+    bfloat16, float32, float64, complex64, complex128, get_default_dtype,
+    set_default_dtype,
+)
+from .core import dtype as dtype_module  # noqa: F401
+from .core.tensor import Tensor, Parameter, to_tensor  # noqa: F401
+from .core.autograd import (  # noqa: F401
+    no_grad, enable_grad, is_grad_enabled, set_grad_enabled, grad,
+)
+from .core.flags import get_flags, set_flags  # noqa: F401
+from .core.random import seed, get_rng_state, set_rng_state  # noqa: F401
+from .core.device import (  # noqa: F401
+    set_device, get_device, device_count, is_compiled_with_cuda,
+    is_compiled_with_tpu, CPUPlace, CUDAPlace, TPUPlace, Place,
+)
+
+from .ops import *  # noqa: F401,F403,E402
+from .ops import cast, increment  # noqa: F401,E402
+
+from . import nn  # noqa: F401,E402
+from . import optimizer  # noqa: F401,E402
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """A new Parameter (zeros for a bias, XavierNormal otherwise)."""
+    from .core.device import current_device
+    from .core.dtype import convert_dtype
+    from .nn import initializer as _init
+    init = default_initializer or (_init.Constant(0.0) if is_bias
+                                   else _init.XavierNormal())
+    return Parameter(init(tuple(shape), convert_dtype(dtype),
+                          current_device()), name=name)
 
 
 def __getattr__(name):
@@ -79,3 +133,7 @@ def __getattr__(name):
         from .framework import io
         return getattr(io, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+# paddle.bool: assigned last so the module body above keeps the builtin
+bool = bool_  # noqa: A001

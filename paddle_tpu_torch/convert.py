@@ -29,6 +29,13 @@ file read by ``framework.io``), which keep their dtype.
 :func:`llama_config_from_jax` maps a JAX ``LlamaConfig`` (an object, a
 ``framework.io.JaxRecord`` read from a file, or a dict) to the port's,
 refusing the features the port lacks.
+
+A model built on the eager core (``nn.Layer`` with paddle ``Linear``,
+``[in, out]``) keeps the JAX layouts: :func:`load_layer_from_jax`
+copies a JAX state dict into any Layer by name through
+``Layer.set_state_dict``, transposing nothing, and
+:func:`gpt_from_jax` builds the port's ``GPTForCausalLM`` from a JAX
+``GPTConfig`` and loads the JAX GPT's weights into it.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ __all__ = ["state_dict_from_jax", "load_from_jax",
            "optimizer_state_from_jax", "optimizer_state_dict_from_jax",
            "lr_state_from_jax", "grad_scaler_state_from_jax",
            "llama_config_from_jax", "linear_weight_names",
+           "load_layer_from_jax", "gpt_config_from_jax", "gpt_from_jax",
            "LINEAR_WEIGHTS"]
 
 # the Linear layers of the Llama module tree (their ``.weight`` leaves):
@@ -216,3 +224,36 @@ def load_from_jax(model: torch.nn.Module,
     name must match), casting to the model's dtype and device."""
     model.load_state_dict(state_dict_from_jax(arrays, model), strict=True)
     return model
+
+
+def load_layer_from_jax(layer, arrays: Mapping[str, np.ndarray],
+                        strict: bool = True):
+    """Copy the JAX parameters (``{name: array}``) into an eager-core
+    ``Layer`` in place, by name and without transposes, cast to the
+    layer's dtypes and device; ``strict`` raises on a missing or an
+    unexpected name."""
+    missing, unexpected = layer.set_state_dict(
+        {name: _tensor(name, a, False) for name, a in arrays.items()})
+    if strict and (missing or unexpected):
+        raise KeyError(f"load_layer_from_jax: missing {missing}, "
+                       f"unexpected {unexpected}")
+    return layer
+
+
+def gpt_config_from_jax(cfg):
+    """A JAX ``GPTConfig`` (an object or a dict) -> the port's."""
+    import dataclasses
+    from .models.gpt import GPTConfig
+    d = dict(cfg) if isinstance(cfg, Mapping) else dict(vars(cfg))
+    return GPTConfig(**{f.name: d[f.name] for f in dataclasses.fields(
+        GPTConfig) if f.name in d})
+
+
+def gpt_from_jax(cfg, arrays: Mapping[str, np.ndarray], device=None,
+                 dtype=None):
+    """The port's ``GPTForCausalLM`` for the JAX ``cfg``, on ``device``
+    (else the current device), holding the JAX GPT's weights."""
+    from .models.gpt import GPTForCausalLM
+    model = GPTForCausalLM(gpt_config_from_jax(cfg), device=device,
+                           dtype=dtype)
+    return load_layer_from_jax(model, arrays)

@@ -1,0 +1,172 @@
+"""Eager autograd of the port: grad modes, ``apply_op``, ``backward``
+and ``grad``.
+
+The counterpart of ``paddle_tpu.core.autograd``. The JAX package keeps
+its own tape (a ``GradNode`` per op holding a ``jax.vjp`` closure);
+the port has none: every op runs on the wrapped ``torch.Tensor``s, so
+``torch.autograd`` records it, and ``backward`` / ``grad`` are torch's
+with paddle's rules on top (a gradient to an input that does not
+require one is "unused"; ``allow_unused`` turns the error into None).
+Tensor hooks, ``retain_grads`` and ``create_graph`` are torch's too.
+
+:func:`apply_op` dispatches each op as it comes (no lazy fusion, no
+AMP cast yet): it unwraps Tensor arguments, calls ``fn`` on torch
+tensors and wraps what comes back — unless it was given no Tensor at
+all, when it returns torch tensors, so one function serves paddle user
+code and the port's torch modules.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, Optional
+
+import torch
+
+__all__ = ["no_grad", "enable_grad", "is_grad_enabled", "set_grad_enabled",
+           "apply_op", "backward", "grad"]
+
+
+def is_grad_enabled() -> bool:
+    return torch.is_grad_enabled()
+
+
+class _GradModeGuard:
+    """A context manager and decorator that sets torch's grad mode."""
+
+    def __init__(self, mode: bool):
+        self._mode = bool(mode)
+
+    def __enter__(self):
+        self._prev = torch.is_grad_enabled()
+        torch.set_grad_enabled(self._mode)
+        return self
+
+    def __exit__(self, *exc):
+        torch.set_grad_enabled(self._prev)
+        return False
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with type(self)(self._mode):
+                return fn(*args, **kwargs)
+        return wrapper
+
+
+def no_grad(func=None):
+    """Context manager or decorator: ops record no gradient."""
+    guard = _GradModeGuard(False)
+    return guard(func) if func is not None else guard
+
+
+def enable_grad(func=None):
+    guard = _GradModeGuard(True)
+    return guard(func) if func is not None else guard
+
+
+def set_grad_enabled(mode):
+    """A guard (context manager) that sets the grad mode to ``mode``."""
+    return _GradModeGuard(mode)
+
+
+_Tensor = None
+
+
+def _tensor_cls():
+    global _Tensor
+    if _Tensor is None:
+        from .tensor import Tensor
+        _Tensor = Tensor
+    return _Tensor
+
+
+def _wrap(out, Tensor):
+    if isinstance(out, torch.Tensor):
+        return Tensor(out)
+    if isinstance(out, (tuple, list)):
+        return tuple(Tensor(o) if isinstance(o, torch.Tensor) else o
+                     for o in out)
+    return out
+
+
+def apply_op(fn: Callable, *args, op_name: Optional[str] = None, **kwargs):
+    """Run ``fn`` (a function of torch tensors) on ``args``, where
+    Tensors are unwrapped; the result (a tensor or a tuple of them) is
+    wrapped when any argument was a Tensor and returned as it is
+    otherwise. ``kwargs`` are passed through unchanged."""
+    Tensor = _Tensor or _tensor_cls()
+    wrapped = False
+    raw = []
+    for a in args:
+        if isinstance(a, Tensor):
+            raw.append(a._t)
+            wrapped = True
+        else:
+            raw.append(a)
+    out = fn(*raw, **kwargs)
+    return _wrap(out, Tensor) if wrapped else out
+
+
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def backward(tensors, grad_tensors=None, retain_graph=False):
+    """``paddle.autograd.backward``: accumulate the gradients of
+    ``tensors`` into the ``.grad`` of the leaves; a root that is not a
+    single element needs its gradient."""
+    from .tensor import as_torch
+    roots = [t._t for t in _as_list(tensors)]
+    if grad_tensors is None:
+        grads = [None] * len(roots)
+    else:
+        grads = [None if g is None else as_torch(g, device=r.device)
+                 for g, r in zip(_as_list(grad_tensors), roots)]
+    for r, g in zip(roots, grads):
+        if g is None and r.numel() != 1:
+            raise RuntimeError(
+                "grad must be provided for non-scalar backward root")
+    # a root that records no gradient (stop_gradient) contributes none
+    live = [(r, g) for r, g in zip(roots, grads) if r.requires_grad]
+    if live:
+        torch.autograd.backward(
+            [r for r, _ in live],
+            [torch.ones_like(r) if g is None else g.to(r.dtype)
+             for r, g in live], retain_graph=retain_graph)
+
+
+def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
+         create_graph=False, only_inputs=True, allow_unused=False,
+         no_grad_vars=None):
+    """``paddle.grad``: the gradients of ``outputs`` with respect to
+    ``inputs``, without touching ``.grad``. With ``create_graph`` the
+    backward pass is recorded, so the results compose for grad-of-grad.
+    An input the outputs do not depend on (or that does not require a
+    gradient) raises unless ``allow_unused``, which gives None."""
+    from .tensor import Tensor, as_torch
+    outs = [t._t for t in _as_list(outputs)]
+    ins = _as_list(inputs)
+    gos = [None] * len(outs) if grad_outputs is None else \
+        _as_list(grad_outputs)
+    seeds, roots = [], []
+    for o, g in zip(outs, gos):
+        if not o.requires_grad:
+            continue
+        roots.append(o)
+        seeds.append(torch.ones_like(o) if g is None
+                     else as_torch(g, device=o.device).to(o.dtype))
+    live = [i for i, t in enumerate(ins) if t._t.requires_grad]
+    got = [None] * len(ins)
+    if roots and live:
+        res = torch.autograd.grad(
+            roots, [ins[i]._t for i in live], seeds,
+            retain_graph=retain_graph if retain_graph is not None
+            else create_graph,
+            create_graph=create_graph, allow_unused=True)
+        for i, g in zip(live, res):
+            got[i] = g
+    if not allow_unused and any(g is None for g in got):
+        raise RuntimeError(
+            "One of the differentiated tensors appears unused; pass "
+            "allow_unused=True to return None for it")
+    return [None if g is None else Tensor(g) for g in got]

@@ -13,7 +13,11 @@ device:
   ``nn.functional.dropout`` (the JAX package's ``derive_seed`` of a
   fresh key, as ``jnp.uint32``);
 - :func:`device_generator` — a generator on a device, seeded from this
-  one, for Bernoulli draws made there.
+  one, for Bernoulli draws made there;
+- :func:`generator_for` — the generator the eager core's random ops and
+  the initializers draw from: this one on the CPU, a fresh device
+  generator seeded from it on the card (so ``seed`` makes both
+  deterministic).
 
 The JAX and the port's streams differ (a JAX key is not a torch
 generator state); tests that need the same random numbers on both
@@ -24,7 +28,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["seed", "get_rng_state", "set_rng_state", "default_generator",
-           "kernel_seed", "hash_seed", "device_generator"]
+           "kernel_seed", "hash_seed", "device_generator", "generator_for"]
 
 _generator = torch.Generator(device="cpu")
 _generator.manual_seed(0)
@@ -67,3 +71,11 @@ def device_generator(device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded from the port's
     generator: Bernoulli masks are drawn where they are used."""
     return torch.Generator(device=device).manual_seed(hash_seed())
+
+
+def generator_for(device) -> torch.Generator:
+    """The port's generator for CPU draws, a device generator seeded
+    from it for draws on the card."""
+    if torch.device(device).type == "cpu":
+        return _generator
+    return device_generator(device)

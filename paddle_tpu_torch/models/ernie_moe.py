@@ -6,8 +6,9 @@ workload 5). The parameter names are the JAX model's
 ``blocks.0.attn.qkv_proj.weight``, ``blocks.1.moe.w_in``,
 ``blocks.1.moe.gate.weight``, ..., ``lm_head.weight``), so
 ``convert.load_from_jax`` carries a JAX checkpoint across by name: the
-``torch.nn.Linear`` weights transposed, the expert stacks and the gate
-weight copied as they are. Layer i is an MoE layer
+``torch.nn.Linear`` weights (embeddings aside: the FFN and ``lm_head``)
+transposed; the attention's paddle ``Linear`` weights (``[in, out]``),
+the expert stacks and the gate weight copied as they are. Layer i is an MoE layer
 (``incubate.moe.MoELayer``, GShard top-2 with capacity, index dispatch,
 tanh-GELU experts) when ``i % moe_every == moe_every - 1``, else a
 Linear–erf GELU–Linear FFN; attention is ``GPTAttention`` (causal flash
@@ -36,6 +37,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..incubate.moe import MoELayer
 from ..nn import functional as F
+from ..nn.layers_common import Linear as PaddleLinear
 from ..nn.layers_conv_norm import LayerNorm
 from .gpt import GPTAttention, GPTConfig
 
@@ -131,7 +133,9 @@ class ErnieMoEForCausalLM(nn.Module):
     @torch.no_grad()
     def _init_weights(self, g: torch.Generator) -> None:
         """The Linear and Embedding draws (the MoE layers drew their own
-        gate and experts when they were built)."""
+        gate and experts when they were built). A paddle ``Linear``
+        (the attention's, ``[in, out]``) takes the draw a
+        ``torch.nn.Linear`` of its shape would, transposed."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 fan_out, fan_in = m.weight.shape
@@ -139,6 +143,15 @@ class ErnieMoEForCausalLM(nn.Module):
                                  generator=g)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, PaddleLinear):
+                w, b = m._parameters["weight"], m._parameters["bias"]
+                fan_in, fan_out = w.shape
+                w.copy_(torch.empty(fan_out, fan_in, dtype=w.dtype,
+                                    device=w.device).normal_(
+                    0.0, math.sqrt(2.0 / (fan_in + fan_out)),
+                    generator=g).t())
+                if b is not None:
+                    b.zero_()
             elif isinstance(m, nn.Embedding):
                 m.weight.normal_(0.0, 0.02, generator=g)
 

@@ -1,32 +1,47 @@
-"""GPT parts that ERNIE-MoE builds on: ``GPTConfig`` and ``GPTAttention``.
+"""GPT (GPT-2/3-style decoder) of the port: ``GPTConfig``,
+``GPTAttention``, ``GPTBlock`` and ``GPTForCausalLM``.
 
-The port of the ``paddle_tpu.models.gpt`` pieces that
-``models/ernie_moe.py`` imports. ``GPTAttention`` projects with one
-``qkv_proj`` Linear, splits q, k and v (strided views, read in place by
-the flash kernels) into heads of ``hidden / heads`` and attends
-causally: through the flash-attention entry
-(``ops.kernels.flash_attention``, the Hopper kernels on the card, their
-plain versions on the CPU) when ``use_flash_attention`` is set, through
-the plain :func:`~paddle_tpu_torch.nn.functional.sdpa_reference`
-otherwise. ``GPTBlock``, ``GPTForCausalLM`` and ``shard_gpt`` are not
-ported yet.
+The port of ``paddle_tpu.models.gpt``, written on the paddle-API core
+as the JAX model is: Layers (:class:`~paddle_tpu_torch.nn.Layer`) with paddle
+``Linear`` (``[in, out]`` weights, so a JAX state dict loads without
+transposes), ``Embedding``, ``LayerNorm``, ``Dropout``, ``F.gelu`` and
+``apply_op``. Pre-LN blocks with learned positions.
+
+``GPTAttention`` projects with one ``qkv_proj``, splits q, k and v
+(strided views of it, read in place by the kernels) into heads of
+``hidden / heads`` and attends causally: through the flash-attention
+entry (``ops.kernels.flash_attention``: at bf16 and head dim 64 or 128
+the TMA kernels K1/K2 on the card, the plain versions on the CPU) when
+``use_flash_attention`` is set, through the plain
+:func:`~paddle_tpu_torch.nn.functional.sdpa_reference` otherwise.
+ERNIE-MoE builds its attention from it, called with torch tensors.
+``shard_gpt`` waits for the distributed plane.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
-from torch import nn
+import torch
 
+from ..core.autograd import apply_op
+from ..nn import functional as F
+from ..nn import initializer as I
+from ..nn.container import LayerList
 from ..nn.functional.attention import sdpa_reference
+from ..nn.layer import Layer
+from ..nn.layers_common import Dropout, Embedding, Linear, _place
+from ..nn.layers_conv_norm import LayerNorm
 from ..ops.kernels.flash_attention import flash_attention
 
-__all__ = ["GPTConfig", "GPTAttention"]
+__all__ = ["GPTConfig", "GPTAttention", "GPTBlock", "GPTForCausalLM"]
 
 
 @dataclass
 class GPTConfig:
-    """The JAX package's defaults (GPT-style widths, 12 layers)."""
+    """The JAX package's defaults (GPT-style widths, 12 layers); the
+    13B geometry is ``GPTConfig(hidden_size=5120, num_hidden_layers=40,
+    num_attention_heads=40, intermediate_size=20480)``."""
     vocab_size: int = 50304
     hidden_size: int = 768
     intermediate_size: Optional[int] = None    # default 4 * hidden
@@ -49,7 +64,7 @@ class GPTConfig:
         return GPTConfig(**base)
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         self.num_heads = config.num_attention_heads
@@ -57,17 +72,74 @@ class GPTAttention(nn.Module):
         self.hidden_size = config.hidden_size
         self.use_flash = config.use_flash_attention
         kw = dict(device=device, dtype=dtype)
-        self.qkv_proj = nn.Linear(config.hidden_size, 3 * config.hidden_size,
-                                  **kw)
-        self.out_proj = nn.Linear(config.hidden_size, config.hidden_size,
-                                  **kw)
+        self.qkv_proj = Linear(config.hidden_size, 3 * config.hidden_size,
+                               **kw)
+        self.out_proj = Linear(config.hidden_size, config.hidden_size, **kw)
 
-    def forward(self, h):
-        b, l, _ = h.shape
+    def _attend(self, qkv: torch.Tensor) -> torch.Tensor:
+        b, l, _ = qkv.shape
         q, k, v = (x.view(b, l, self.num_heads, self.head_dim)
-                   for x in self.qkv_proj(h).split(self.hidden_size, dim=-1))
+                   for x in qkv.split(self.hidden_size, dim=-1))
         if self.use_flash:
             out = flash_attention(q, k, v, causal=True)
         else:
             out = sdpa_reference(q, k, v, causal=True)
-        return self.out_proj(out.reshape(b, l, self.hidden_size))
+        return out.reshape(b, l, self.hidden_size)
+
+    def forward(self, h):
+        qkv = self.qkv_proj(h)
+        return self.out_proj(apply_op(self._attend, qkv,
+                                      op_name="gpt_attention"))
+
+
+class GPTBlock(Layer):
+    def __init__(self, config: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.ln_1 = LayerNorm(config.hidden_size, config.layer_norm_eps,
+                              **kw)
+        self.attn = GPTAttention(config, **kw)
+        self.ln_2 = LayerNorm(config.hidden_size, config.layer_norm_eps,
+                              **kw)
+        self.fc_in = Linear(config.hidden_size, config.intermediate_size,
+                            **kw)
+        self.fc_out = Linear(config.intermediate_size, config.hidden_size,
+                             **kw)
+        self.drop = Dropout(config.dropout)
+
+    def forward(self, h):
+        h = h + self.attn(self.ln_1(h))
+        return h + self.drop(self.fc_out(F.gelu(self.fc_in(self.ln_2(h)))))
+
+
+def _positions(ids: torch.Tensor) -> torch.Tensor:
+    return torch.arange(ids.shape[1], device=ids.device)[None, :]
+
+
+class GPTForCausalLM(Layer):
+    """``input_ids [B, L] -> logits [B, L, V]``. The parameters are made
+    on ``device`` (else the current device: the card unless
+    ``set_device("cpu")``) in ``dtype`` (else the default dtype)."""
+
+    def __init__(self, config: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        _place(self, device, dtype)
+        self.config = config
+        kw = dict(device=device, dtype=dtype)
+        self.wte = Embedding(config.vocab_size, config.hidden_size,
+                             weight_attr=I.Normal(0.0, 0.02), **kw)
+        self.wpe = Embedding(config.max_position_embeddings,
+                             config.hidden_size,
+                             weight_attr=I.Normal(0.0, 0.02), **kw)
+        self.blocks = LayerList([GPTBlock(config, **kw)
+                                 for _ in range(config.num_hidden_layers)])
+        self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_eps,
+                              **kw)
+        self.lm_head = Linear(config.hidden_size, config.vocab_size,
+                              bias_attr=False, **kw)
+
+    def forward(self, input_ids):
+        h = self.wte(input_ids) + self.wpe(apply_op(_positions, input_ids))
+        for blk in self.blocks:
+            h = blk(h)
+        return self.lm_head(self.ln_f(h))

@@ -1,8 +1,9 @@
-"""Functional ops of the port (the paddle ``nn.functional`` names)."""
+"""Functional ops of the port (the paddle ``nn.functional`` names);
+each takes Tensors or torch tensors and returns the same kind."""
 from .activation import gelu, tanh  # noqa: F401
 from .attention import (flash_attention,  # noqa: F401
                         flash_attn_varlen_qkvpacked,
                         scaled_dot_product_attention, sdpa_reference)
-from .common import dropout, linear  # noqa: F401
+from .common import dropout, embedding, linear  # noqa: F401
 from .loss import cross_entropy  # noqa: F401
-from .norm import layer_norm  # noqa: F401
+from .norm import layer_norm, rms_norm  # noqa: F401

@@ -11,7 +11,9 @@ to the flash-attention kernels (``ops.kernels.flash_attention``, their
 plain versions on the CPU) with a seed drawn from the port's generator
 (``core.random.kernel_seed``) when it drops; a call with a mask goes to
 :func:`sdpa_reference`, as the JAX code routes them; packed varlen
-sequences go to the segment-masked kernels.
+sequences go to the segment-masked kernels. The three entries take
+Tensors or torch tensors (``core.autograd.apply_op``) and return the
+same kind.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional
 import torch
 
 from ...core import random as _random
+from ...core.autograd import apply_op
 from ...ops.kernels.flash_attention import flash_attention as _flash
 from ...ops.kernels.flash_attention import (flash_attention_segmented,
                                             flash_dropout_keep_mask)
@@ -76,6 +79,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training: bool = True, name=None):
     """Layout ``[batch, seq, heads, head_dim]``, the paddle API. Dropout
     applies only in training (``training=False`` turns it off)."""
+    return apply_op(_sdpa, query, key, value, attn_mask,
+                    dropout_p=dropout_p, is_causal=is_causal,
+                    training=training)
+
+
+def _sdpa(query, key, value, attn_mask, dropout_p, is_causal, training):
     drop = dropout_p if training else 0.0
     seed = _random.kernel_seed() if 0.0 < drop < 1.0 else None
     if attn_mask is None and drop < 1.0:
@@ -115,6 +124,11 @@ def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
     parity and unused. ``dropout`` is accepted and unused, as the JAX
     entry does. A ``cu_seqlens_k`` that differs from ``cu_seqlens_q``
     raises: packed qkv has one set of boundaries."""
+    return apply_op(_varlen_qkvpacked, qkv, cu_seqlens_q, cu_seqlens_k,
+                    scale=scale, causal=causal), None
+
+
+def _varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k, scale, causal):
     if cu_seqlens_k is not None and cu_seqlens_k is not cu_seqlens_q:
         cq, ck = torch.as_tensor(cu_seqlens_q), torch.as_tensor(cu_seqlens_k)
         if cq.shape != ck.shape or not torch.equal(cq.to(ck.device), ck):
@@ -130,4 +144,4 @@ def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
     q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]           # [total, H, D]
     out = flash_attention_segmented(q[None], k[None], v[None],
                                     seg[None].to(torch.int32), causal, scale)
-    return out[0], None
+    return out[0]

@@ -1,8 +1,10 @@
-"""Common functionals of the port: ``linear`` and ``dropout``.
+"""Common functionals of the port: ``linear``, ``embedding`` and
+``dropout``.
 
 The port of ``paddle_tpu/nn/functional/common.py`` (``linear``,
-``dropout``). Plain PyTorch elementwise code: the JAX package has no
-Pallas kernel for either.
+``embedding``, ``dropout``). Plain PyTorch code: the JAX package has no
+Pallas kernel for any of them. Each takes Tensors or torch tensors
+(``core.autograd.apply_op``) and returns the same kind.
 
 ``dropout`` in its main mode (``upscale_in_train`` over the whole
 tensor) draws the JAX package's hash mask: a murmur3 finalizer over
@@ -20,17 +22,37 @@ import math
 import torch
 
 from ...core import random as _random
+from ...core.autograd import apply_op
 
-__all__ = ["linear", "dropout", "hash_keep_mask"]
+__all__ = ["linear", "embedding", "dropout", "hash_keep_mask"]
 
 _M32 = 0xFFFFFFFF
 
 
-def linear(x: torch.Tensor, weight: torch.Tensor, bias=None, name=None):
-    """``y = x W + b`` with paddle's ``[in, out]`` weight layout (the
-    port's layers are ``torch.nn.Linear``, ``[out, in]``)."""
-    y = torch.matmul(x, weight)
-    return y if bias is None else y + bias
+def _linear(x, weight, bias):
+    # the [in, out] weight read transposed: one GEMM with the bias in
+    # its epilogue, and the weight's gradient comes out [in, out]
+    return torch.nn.functional.linear(x, weight.t(), bias)
+
+
+def linear(x, weight, bias=None, name=None):
+    """``y = x W + b`` with paddle's ``[in, out]`` weight layout."""
+    return apply_op(_linear, x, weight, bias)
+
+
+def _embedding(idx, weight, padding_idx):
+    out = torch.nn.functional.embedding(idx, weight)
+    if padding_idx is not None:
+        out = torch.where((idx == padding_idx)[..., None],
+                          torch.zeros((), dtype=out.dtype,
+                                      device=out.device), out)
+    return out
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at the ids ``x``; ids equal to ``padding_idx``
+    give zeros (and no gradient), as in the JAX function."""
+    return apply_op(_embedding, x, weight, padding_idx=padding_idx)
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -59,13 +81,18 @@ def _scale_value(p: float, dtype: torch.dtype) -> float:
     return torch.tensor(1.0 - p, dtype=dtype).item()
 
 
-def dropout(x: torch.Tensor, p: float = 0.5, axis=None,
-            training: bool = True, mode: str = "upscale_in_train",
-            name=None) -> torch.Tensor:
+def dropout(x, p: float = 0.5, axis=None, training: bool = True,
+            mode: str = "upscale_in_train", name=None):
     """Paddle's dropout. ``upscale_in_train``: kept elements are divided
     by ``1 - p`` in training, eval passes ``x`` through;
     ``downscale_in_infer``: training applies the raw mask, eval scales
     by ``1 - p``. ``axis`` shares one mask along the other axes."""
+    return apply_op(_dropout, x, p=p, axis=axis, training=training,
+                    mode=mode)
+
+
+def _dropout(x: torch.Tensor, p: float, axis, training: bool,
+             mode: str) -> torch.Tensor:
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"mode must be 'upscale_in_train' or "
                          f"'downscale_in_infer', got {mode!r}")

@@ -5,12 +5,14 @@ routed as the JAX version routes it: a hard-label mean over 2-D or 3-D
 logits with a vocabulary of at least 4096, no class weights and no
 label smoothing goes to the chunked fused cross-entropy
 (``ops.fused_ce``), which never holds ``[N, V]`` in f32; everything
-else is the plain f32 log-softmax.
+else is the plain f32 log-softmax. It takes Tensors or torch tensors
+(``core.autograd.apply_op``) and returns the same kind.
 """
 from __future__ import annotations
 
 import torch
 
+from ...core.autograd import apply_op
 from ...ops.fused_ce import fused_softmax_ce_mean
 
 __all__ = ["cross_entropy"]
@@ -32,12 +34,22 @@ def _is_soft(logits, label, axis) -> bool:
             and label.is_floating_point())
 
 
-def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
-                  ignore_index: int = -100, reduction: str = "mean",
-                  soft_label: bool = False, axis: int = -1,
-                  use_softmax: bool = True, label_smoothing: float = 0.0,
-                  name=None) -> torch.Tensor:
+def cross_entropy(input, label, weight=None, ignore_index: int = -100,
+                  reduction: str = "mean", soft_label: bool = False,
+                  axis: int = -1, use_softmax: bool = True,
+                  label_smoothing: float = 0.0, name=None):
     """Softmax + NLL (paddle semantics); the loss is f32."""
+    return apply_op(_cross_entropy, input, label, weight,
+                    ignore_index=ignore_index, reduction=reduction,
+                    soft_label=soft_label, axis=axis,
+                    use_softmax=use_softmax,
+                    label_smoothing=label_smoothing)
+
+
+def _cross_entropy(input: torch.Tensor, label: torch.Tensor, weight,
+                   ignore_index: int, reduction: str, soft_label: bool,
+                   axis: int, use_softmax: bool,
+                   label_smoothing: float) -> torch.Tensor:
     logits = input
     hard = not _is_soft(logits, label, axis)
     if (use_softmax and not soft_label and hard and weight is None

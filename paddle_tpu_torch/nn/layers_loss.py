@@ -2,18 +2,19 @@
 
 The port of ``paddle_tpu/nn/layers_loss.py`` ``CrossEntropyLoss`` over
 :func:`~paddle_tpu_torch.nn.functional.cross_entropy` (a big-vocab
-hard-label mean takes the chunked fused cross-entropy).
+hard-label mean takes the chunked fused cross-entropy), as a
+:class:`~.layer.Layer`: Tensors in, a Tensor out; torch tensors in, a
+torch tensor out.
 """
 from __future__ import annotations
 
-from torch import nn
-
 from .functional import cross_entropy
+from .layer import Layer
 
 __all__ = ["CrossEntropyLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index: int = -100,
                  reduction: str = "mean", soft_label: bool = False,
                  axis: int = -1, use_softmax: bool = True,

@@ -8,7 +8,12 @@ The port of ``paddle_tpu/nn/transformer.py`` ``MultiHeadAttention``,
 Attention goes through
 :func:`~paddle_tpu_torch.nn.functional.scaled_dot_product_attention`:
 without a mask the flash kernels, with attention dropout inside them in
-training; with a mask the plain sdpa. The decoder is not ported yet.
+training; with a mask the plain sdpa. The three classes are
+Layers (:class:`~.layer.Layer`) whose ``forward`` is written against torch
+tensors (``_torch_forward``): paddle code calls them with Tensors and
+gets Tensors back, torch parents (BERT) with torch tensors. Their
+projections stay ``torch.nn.Linear`` (``[out, in]`` weights; the JAX
+layers' are ``[in, out]``). The decoder is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 from torch import nn
 
 from . import functional as F
+from .layer import Layer
 from .layers_common import Dropout
 from .layers_conv_norm import LayerNorm
 
@@ -35,7 +41,9 @@ def _convert_attention_mask(attn_mask):
     return attn_mask
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
+    _torch_forward = True
+
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  kdim=None, vdim=None, need_weights: bool = False,
                  bias: bool = True, device=None, dtype=None):
@@ -64,7 +72,9 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out.reshape(b, -1, self.embed_dim))
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
+    _torch_forward = True
+
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float = 0.1, activation: str = "relu",
                  attn_dropout=None, act_dropout=None,
@@ -104,9 +114,10 @@ class TransformerEncoderLayer(nn.Module):
         return src
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer`` (deep copies, as the
     JAX class makes them), then ``norm`` if given."""
+    _torch_forward = True
 
     def __init__(self, encoder_layer: TransformerEncoderLayer,
                  num_layers: int, norm=None):

@@ -22,8 +22,10 @@ values into the parameters in place (the JAX package replaces its
 immutable arrays; here the copy saves memory).
 
 ``parameters`` may be tensors or ``(name, tensor)`` pairs
-(``model.named_parameters()``); unnamed parameters are ``param_{i}``,
-the JAX package's names. ``apply_decay_param_fun`` is called with those
+(``model.named_parameters()``), torch tensors or the eager core's
+Parameters (a ``Layer``'s ``parameters()``: the optimizer keeps the
+``torch.nn.Parameter`` each wraps); unnamed parameters are the
+Parameter's ``name`` or ``param_{i}``, the JAX package's names. ``apply_decay_param_fun`` is called with those
 names. ``state_dict`` / ``set_state_dict`` use the JAX package's keys
 (``global_step``, ``LR_Scheduler``, ``param_{i}_{slot}``);
 ``named_states`` / ``set_named_states`` carry the slots by parameter
@@ -39,6 +41,7 @@ from typing import Any, Dict, List, Mapping
 
 import torch
 
+from ..core.tensor import Tensor
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
@@ -56,7 +59,11 @@ class Optimizer:
             self._param_names = [n for n, _ in params]
             params = [p for _, p in params]
         else:
-            self._param_names = [f"param_{i}" for i in range(len(params))]
+            # a paddle Parameter's name, else the JAX package's param_{i}
+            self._param_names = [getattr(p, "name", "") or f"param_{i}"
+                                 if isinstance(p, Tensor) else
+                                 f"param_{i}" for i, p in enumerate(params)]
+        params = [p._t if isinstance(p, Tensor) else p for p in params]
         self._parameter_list: List[torch.Tensor] = params
         self._index = {id(p): i for i, p in enumerate(params)}
         self._learning_rate = learning_rate

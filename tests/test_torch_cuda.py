@@ -1175,3 +1175,76 @@ def test_grad_scaler_step_and_update_never_sync(cuda):
             torch.cuda.set_sync_debug_mode("default")
     assert all(torch.equal(a, b) for a, b in zip(kept, ps))
     assert float(scaler._scale) == 2.0 ** 9
+
+
+# -- the paddle-API eager core and GPT on it ---------------------------------
+
+def test_eager_core_on_the_card_matches_the_cpu(cuda):
+    """The eager core's ops and gradients on the card equal the same
+    calls on the CPU (f32, TF32 off), and land on the card by default."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device
+    prev = device._current
+    rng = np.random.default_rng(0)
+    a_np = rng.standard_normal((8, 16)).astype(np.float32)
+    b_np = rng.standard_normal((16, 4)).astype(np.float32)
+    outs = []
+    try:
+        for where in ("gpu", "cpu"):
+            paddle.set_device(where)
+            a = paddle.to_tensor(a_np, stop_gradient=False)
+            b = paddle.to_tensor(b_np, stop_gradient=False)
+            h = paddle.nn.functional.gelu(paddle.matmul(a, b))
+            loss = (paddle.topk(h, 2, axis=1)[0].sum()
+                    + paddle.logsumexp(h, axis=0).mean())
+            loss.backward()
+            outs.append([t.numpy() for t in (h, loss, a.grad, b.grad)])
+            assert (a.place == paddle.CUDAPlace(torch.cuda.current_device())
+                    if where == "gpu" else a.place == paddle.CPUPlace())
+    finally:
+        device._current = prev
+    for g, c in zip(*outs):
+        np.testing.assert_allclose(g, c, atol=1e-5, rtol=1e-5)
+
+
+def test_gpt_step_through_the_kernels_matches_the_plain_sdpa(cuda):
+    """A tiny bf16 GPT at head dim 128 (the 13B geometry's) through K1b
+    and K2b (TMA launches = layers) against the same step through the
+    plain sdpa: loss within 1e-2, every gradient within 5e-2 relative
+    RMS (chip_smoke's gpt_train limits)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    prev = device._current
+    try:
+        paddle.set_device("gpu")
+        paddle.seed(0)
+        model = GPTForCausalLM(GPTConfig.tiny(
+            hidden_size=256, num_attention_heads=2,
+            max_position_embeddings=256))
+        model.bfloat16()
+        crit = paddle.nn.CrossEntropyLoss()
+        ids = paddle.to_tensor(np.random.default_rng(1).integers(
+            0, 128, (2, 256)))
+        runs = []
+        for flash in (True, False):
+            for blk in model.blocks:
+                blk.attn.use_flash = flash
+            before = (tfa.flash_attention_fwd.tma_launches,
+                      tfa.flash_attention_bwd_dkv.tma_launches)
+            loss = crit(model(ids).reshape([-1, 128]), ids.reshape([-1]))
+            loss.backward()
+            got = (tfa.flash_attention_fwd.tma_launches - before[0],
+                   tfa.flash_attention_bwd_dkv.tma_launches - before[1])
+            assert got == ((2, 2) if flash else (0, 0))
+            runs.append((float(loss), [p.grad._t.float() for p in
+                                       model.parameters()]))
+            model.clear_gradients()
+    finally:
+        device._current = prev
+    (lk, gk), (lr_, gr) = runs
+    assert abs(lk - lr_) <= 1e-2 * abs(lr_)
+    for a, b in zip(gk, gr):
+        rel = float((a - b).square().mean().sqrt()
+                    / b.square().mean().sqrt().clamp(min=1e-30))
+        assert rel <= 5e-2

@@ -31,6 +31,20 @@ from paddle_tpu_torch.nn.functional import \
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 
 ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread while this file's tests run. Its f64 gradcheck
+    makes thousands of calls on tensors of a few hundred elements;
+    beside the other workers of a parallel run, torch's intra-op threads
+    oversubscribe the cores and each call slows ~100x (six copies of
+    the gradcheck at once: 733 s each with 8 threads, 6.5 s with one),
+    which pushed the whole tier-1 run past its time limit."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 BH, L, BLOCK = 2, 256, 128
 
 

@@ -88,7 +88,7 @@ def _gpt_views(monkeypatch):
     attn = tgpt.GPTAttention(tgpt.GPTConfig(hidden_size=768,
                                             num_attention_heads=12,
                                             use_flash_attention=True),
-                             dtype=torch.bfloat16)
+                             device="cpu", dtype=torch.bfloat16)
     x = _bf16(B, L, 768)
     return _captured(tgpt, "flash_attention", monkeypatch, lambda: attn(x))
 

@@ -60,9 +60,15 @@ def test_port_covers_the_slice_modules():
             "observability/__main__.py", "framework/__init__.py",
             "framework/io.py", "framework/checkpoint.py",
             # the serving fleet and the inference front end
-            "jit/warmup.py", "serving_fleet.py", "inference.py"}
+            "jit/warmup.py", "serving_fleet.py", "inference.py",
+            # the paddle-API eager core and GPT on it
+            "core/dtype.py", "core/tensor.py", "core/autograd.py",
+            "ops/op_registry.py", "ops/creation.py", "ops/math.py",
+            "ops/manipulation.py", "ops/linalg.py", "ops/inplace.py",
+            "nn/initializer.py", "nn/layer.py", "nn/container.py"}
     have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert want <= have, sorted(want - have)
+    assert (PKG / "ops" / "ops.yaml").is_file()
     for src in ("paged_attention.cu", "flash_attention.cuh",
                 "flash_attention_bf16_d64.cu", "flash_attention_bf16_d128.cu",
                 "flash_attention_f32_d64.cu", "flash_attention_f32_d128.cu",
@@ -72,11 +78,17 @@ def test_port_covers_the_slice_modules():
 
 def test_importing_the_port_loads_no_jax():
     """A fresh interpreter with only the repo on its path imports the
-    serving, Llama, BERT and ERNIE-MoE training stacks, the grouped
-    matmul op, the optimizer plane, the fleet and the inference front
-    end (and chip_smoke) without pulling in JAX or the JAX package."""
+    paddle-API top level (``import paddle_tpu_torch as paddle``), the
+    serving, Llama, BERT, ERNIE-MoE and GPT training stacks, the
+    grouped matmul op, the optimizer plane, the fleet and the inference
+    front end (and chip_smoke) without pulling in JAX or the JAX
+    package."""
     code = (
+        "import paddle_tpu_torch as paddle\n"
+        "assert callable(paddle.to_tensor) and callable(paddle.matmul)\n"
+        "assert paddle.nn.Layer and paddle.optimizer.AdamW\n"
         "import sys, chip_smoke, paddle_tpu_torch.serving, "
+        "paddle_tpu_torch.models.gpt, paddle_tpu_torch.ops.op_registry, "
         "paddle_tpu_torch.convert, paddle_tpu_torch.models.llama, "
         "paddle_tpu_torch.ops.kernels.flash_attention, "
         "paddle_tpu_torch.ops.fused_ce, paddle_tpu_torch.optimizer, "
@@ -181,6 +193,43 @@ def test_entry_points_default_to_cuda(no_cuda):
         assert len(srv.generate([1, 2, 3], 3, timeout=60)) == 3
     finally:
         assert srv.shutdown(timeout=60)
+
+
+def test_importing_the_top_level_loads_nothing_of_serving():
+    """``import paddle_tpu_torch`` brings the eager core, the op surface,
+    ``nn`` and ``optimizer``, and no serving module."""
+    code = (
+        "import sys, paddle_tpu_torch\n"
+        "bad = sorted(m for m in sys.modules if 'serving' in m or "
+        "m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert 'paddle_tpu_torch.nn.layer' in sys.modules\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
+
+
+def test_eager_core_defaults_to_cuda(no_cuda, monkeypatch):
+    """The eager core's entry points make tensors and parameters on the
+    card unless ``set_device("cpu")`` (or ``device="cpu"``) asks for
+    the CPU; without CUDA they raise."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    monkeypatch.setattr(device, "_current", None)
+    for make in (lambda: paddle.to_tensor([1.0]), lambda: paddle.ones([2]),
+                 lambda: paddle.nn.LayerNorm(4),
+                 lambda: GPTForCausalLM(GPTConfig.tiny())):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    model = GPTForCausalLM(GPTConfig.tiny(), device="cpu")
+    assert model.wte.weight.place == paddle.CPUPlace()
+    paddle.set_device("cpu")
+    assert paddle.to_tensor([1.0]).place == paddle.CPUPlace()
 
 
 def test_flags_keep_the_jax_names_and_defaults(monkeypatch):

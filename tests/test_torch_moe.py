@@ -274,12 +274,14 @@ def test_convert_copies_expert_stacks_and_gate_untransposed(pair):
     tm, arrays = pair["tm"], pair["arrays"]
     lin = linear_weight_names(tm)
     assert "blocks.1.moe.gate.weight" not in lin
-    assert {"lm_head.weight", "blocks.0.attn.qkv_proj.weight",
-            "blocks.0.fc_in.weight"} <= lin
+    # the attention's projections are paddle Linears ([in, out], as in
+    # the JAX model): copied as they are, like the expert stacks
+    assert "blocks.0.attn.qkv_proj.weight" not in lin
+    assert {"lm_head.weight", "blocks.0.fc_in.weight"} <= lin
     sd = tm.state_dict()
     assert set(sd) == set(arrays)
     for n in ("blocks.1.moe.w_in", "blocks.1.moe.w_out",
-              "blocks.1.moe.gate.weight"):
+              "blocks.1.moe.gate.weight", "blocks.0.attn.qkv_proj.weight"):
         np.testing.assert_array_equal(sd[n].numpy(), arrays[n])
 
 
