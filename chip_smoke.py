@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, MoE and eager paths on one card.
+"""Drive the PyTorch/CUDA port's serving, training, MoE, eager and Model.fit paths on one card.
 
 Run from the root of a checkout on a machine with a Hopper card:
 
@@ -363,20 +363,47 @@ Phases, each printing one JSON line with its seconds:
                       no fallback, losses finite and falling; then one
                       2-layer step through the kernels against the same
                       step through the plain sdpa (loss and every
-                      gradient).
+                      gradient);
+33. ``gpt_fit``       the high-level trainer: ``paddle.Model`` over GPT at
+                      the same widths, 3 layers, f32 master weights,
+                      ``prepare(AdamW(1e-4, ClipGradByGlobalNorm(1.0)),
+                      CrossEntropyLoss, Accuracy(), amp_configs="O1")``,
+                      ``fit`` over a ``paddle.io.DataLoader`` (2 worker
+                      processes) of seeded token ids, 4 x 2048 tokens a
+                      batch, 8 steps, then ``evaluate`` over 3 batches,
+                      through ``CapturedStep`` (whole-step CUDA graphs),
+                      then again with ``FLAGS_sot_capture=0``: step ms,
+                      tokens/s, MFU and a profiled step's idle share both
+                      ways, capture seconds, peak memory; gates: 7 of 8
+                      train steps and 2 of 3 eval batches captured, one
+                      train and one eval graph, no fallback, K1b = 3 x
+                      (8 + 3) and dQ = dK/dV = 3 x 8 (all TMA) and O1/O2
+                      = their per-step counts x 8, counted through the
+                      replays, the replays under
+                      ``set_sync_debug_mode("error")``, every loss within
+                      1e-2 of the eager run's, the final parameters
+                      within 5e-2 relative RMS (bit-equality reported),
+                      losses finite and falling;
+34. ``gpt_fit_scaled`` 2 layers at GPT-3 6.7B widths through
+                      ``Model.train_batch`` with a ``GradScaler(2**15,
+                      decr_every_n_nan_or_inf=1)``, the whole scaled
+                      iteration captured, an inf in the loss at step 3:
+                      that step skipped with the weights bit-equal, the
+                      scale halved, O1/O2 counted, no fallback.
 
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
 (K3 on the split design at decode with bf16 and with int8 pools, at
 the prefill chunk and at the speculative verify window, each with the
 first design's time — the decode and prefill-chunk rows also carry
 ``fleet_launches``, the fleet replicas' launches on that path —, K1b and K2b at the Llama training geometry (with
-``gpt_launches``, their launches in the gpt_train phase), K1a
+``gpt_launches``, their launches in the gpt_train phase, and
+``fit_launches``, those of gpt_fit's captured run), K1a
 and K2a at ERNIE-MoE's, K5 in K1a/K2a at the BERT geometry, K4 in them at the
 packed geometry, K6 and K7 at the op bench's geometry, each flash and
 K6/K7 row naming the design it timed, its TMA launches and the first
 design's time where the TMA design took it, and O1 and O2 at the train
 phase's parameters with their launches from the amp_scaler and train
-phases)
+phases and ``fit_launches`` from gpt_fit's captured run)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Without CUDA, or when run outside a checkout, it
@@ -3314,6 +3341,382 @@ def phase_gpt_train_parity():
 
 
 # ---------------------------------------------------------------------------
+# the high-level trainer: paddle.Model.fit on whole-step CUDA graphs
+# ---------------------------------------------------------------------------
+
+FIT = dict(batch=4, seq=2048, layers=3, steps=8, eval_batches=3, lr=1e-4,
+           workers=2, ids=1024)
+FIT_SCALED = dict(layers=2, batch=2, seq=2048, steps=6, poison_step=3,
+                  lr=1e-4)
+# GPT-3 6.7B's widths (d_model 4096, 32 heads of 128), "7B widths"
+GPT7B_WIDTHS = dict(vocab_size=50304, hidden_size=4096,
+                    num_attention_heads=32, intermediate_size=16384,
+                    max_position_embeddings=2048)
+FIT_LOSS_RTOL = 1e-2          # each captured step's loss vs the eager one
+FIT_PARAM_RMS = 5e-2          # final parameters, relative RMS
+
+
+def fit_dataset(vocab, n, seed):
+    """``n`` seeded sequences of token ids, each its own label (as
+    gpt_train trains), the ids drawn from the first FIT["ids"] of the
+    vocabulary: 8 steps of distinct batches then see each id ~64 times,
+    enough for the loss to fall (over the whole vocabulary most ids of a
+    batch would be new to the model, and 8 steps would not move it)."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+
+    class TokenIds(paddle.io.Dataset):
+        def __init__(self):
+            self.ids = np.random.default_rng(seed).integers(
+                0, min(vocab, FIT["ids"]), (n, FIT["seq"]))
+
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return self.ids[i], self.ids[i]
+    return TokenIds()
+
+
+def fit_loss(vocab):
+    import paddle_tpu_torch as paddle
+    crit = paddle.nn.CrossEntropyLoss()
+
+    def loss(logits, labels):
+        return crit(logits.reshape([-1, vocab]), labels.reshape([-1]))
+    return loss
+
+
+def flash_fit_counts():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    return {k: (getattr(fa, f"flash_attention_{k}").launches,
+                getattr(fa, f"flash_attention_{k}").tma_launches)
+            for k in ("fwd", "bwd_dq", "bwd_dkv")}
+
+
+def reset_flash_counts():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    for k in ("fwd", "bwd_dq", "bwd_dkv"):
+        w = getattr(fa, f"flash_attention_{k}")
+        w.launches = w.tma_launches = 0
+
+
+def step_clock(strict_from=None):
+    """A fit callback: CUDA events around each train batch (no sync),
+    each batch's lazy loss kept, and torch.cuda.set_sync_debug_mode
+    ("error") over the batches from ``strict_from`` on (the replays)."""
+    import torch
+    import paddle_tpu_torch as paddle
+
+    class StepClock(paddle.callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.events, self.losses = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append([ev, None])
+            if strict_from is not None and step >= strict_from:
+                torch.cuda.set_sync_debug_mode("error")
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.set_sync_debug_mode("default")
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events[-1][1] = ev
+            self.losses.append(logs["loss"])
+
+        def step_ms(self):
+            return [a.elapsed_time(b) for a, b in self.events]
+    return StepClock()
+
+
+def gpt_fit_run(capture, vocab):
+    """One Model.fit of FIT["steps"] steps and an evaluate of
+    FIT["eval_batches"] batches, the whole-step capture on or off.
+    Returns its numbers and the parameters after fit (on the host)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    set_flags({"FLAGS_sot_capture": capture})
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    t0 = time.perf_counter()
+    net = GPTForCausalLM(GPTConfig(num_hidden_layers=FIT["layers"],
+                                   **GPT_WIDTHS))
+    opt = paddle.optimizer.AdamW(
+        FIT["lr"], parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    model = paddle.Model(net).prepare(
+        opt, fit_loss(vocab), metrics=paddle.metric.Accuracy(),
+        amp_configs="O1")
+    train = paddle.io.DataLoader(
+        fit_dataset(vocab, FIT["batch"] * FIT["steps"], SEED),
+        batch_size=FIT["batch"], num_workers=FIT["workers"])
+    evald = paddle.io.DataLoader(
+        fit_dataset(vocab, FIT["batch"] * FIT["eval_batches"], SEED + 1),
+        batch_size=FIT["batch"], num_workers=FIT["workers"])
+    clock = step_clock(strict_from=2 if capture else None)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_flash_counts()
+    reset_optimizer_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = model.fit(train, epochs=1, verbose=0, callbacks=[clock])
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    opt_counts = check_optimizer_launches(
+        f"gpt_fit ({'captured' if capture else 'eager'})", opt,
+        FIT["steps"], True)
+    stats_fit = dict(model._captured.stats) if model._captured else None
+    params = {k: v._t.detach().float().cpu()
+              for k, v in net.state_dict().items()}
+    logs = {k: float(v) for k, v in model.evaluate(evald, verbose=0).items()}
+    torch.cuda.synchronize()
+    counts = flash_fit_counts()
+    engine = model._captured
+    stats = {k: (dict(v) if isinstance(v, dict) else v)
+             for k, v in engine.stats.items()} if engine else None
+    x, y = next(iter(train))
+    prof = profile_train_step(lambda: model.train_batch(x, y), ())
+    out = {"losses": [float(v) for v in clock.losses],
+           "step_ms": clock.step_ms(), "fit_wall_s": fit_wall,
+           "history": history, "eval": logs, "init_seconds": init_s,
+           "flash_launches": counts, "optimizer_launches": opt_counts,
+           "stats_after_fit": stats_fit, "stats": stats,
+           "graphs": engine.graphs() if engine else None,
+           "global_step": opt._global_step,
+           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof}
+    n_params = sum(p.numel() for p in net.parameters())
+    del model, opt, net, engine, train, evald, x, y, clock
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, params, n_params
+
+
+def phase_gpt_fit(results):
+    """paddle.Model(GPT at 13B widths, 3 layers, f32 master weights)
+    .prepare(AdamW(1e-4, ClipGradByGlobalNorm(1.0)), CrossEntropyLoss,
+    Accuracy(), amp_configs="O1").fit over a DataLoader (2 workers) of
+    seeded token ids, 8 steps, then evaluate over 3 batches: first with
+    the whole-step capture (CapturedStep: 7 of the 8 steps and 2 of the
+    3 eval batches replayed CUDA graphs, the replays under
+    set_sync_debug_mode("error")), then the same weights and batches
+    with FLAGS_sot_capture=0, each step's loss and the final parameters
+    held against that eager run."""
+    import torch
+    from paddle_tpu_torch.core.flags import set_flags
+    vocab = GPT_WIDTHS["vocab_size"]
+    try:
+        cap, p_cap, n_params = gpt_fit_run(True, vocab)
+        eag, p_eag, _ = gpt_fit_run(False, vocab)
+    finally:
+        set_flags({"FLAGS_sot_capture": True})
+        torch.cuda.set_sync_debug_mode("default")
+    L, S, E = FIT["layers"], FIT["steps"], FIT["eval_batches"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(cap["losses"],
+                                                     eag["losses"])]
+    worst, rms = 0.0, {}
+    for k, b in p_eag.items():
+        a = p_cap[k]
+        r = float((a - b).double().square().mean().sqrt()
+                  / b.double().square().mean().sqrt().clamp(min=1e-30))
+        rms[k] = r
+        worst = max(worst, r)
+    bit_equal = all(torch.equal(p_cap[k], p_eag[k]) for k in p_eag)
+    del p_cap, p_eag
+    cfg_hidden = GPT_WIDTHS["hidden_size"]
+    heads = GPT_WIDTHS["num_attention_heads"]
+    hd = cfg_hidden // heads
+    tokens = FIT["batch"] * FIT["seq"]
+    # attention products per token, forward + backward (as gpt_train)
+    attn_per_token = 3 * 2 * 2 * heads * hd * (FIT["seq"] + 1) / 2 * L
+    flops_per_token = 6 * n_params + attn_per_token
+
+    def rates(run, first):
+        ms = statistics.mean(run["step_ms"][first:])
+        tok_s = tokens / (ms / 1e3)
+        prof = run["profile_one_step"]
+        if prof["device_ms"]:
+            prof["device_idle_share_vs_step_ms"] = 1 - prof["device_ms"] / ms
+        return {"step_ms": ms, "tokens_per_s": tok_s,
+                "mfu": flops_per_token * tok_s / BF16_FLOPS,
+                "timed_steps": len(run["step_ms"][first:])}
+    # the same steps both ways: 3..8 (the captured run's replays after
+    # its capture step)
+    cap_rates, eag_rates = rates(cap, 2), rates(eag, 2)
+    want_flash = {"fwd": (L * (S + E),) * 2, "bwd_dq": (L * S,) * 2,
+                  "bwd_dkv": (L * S,) * 2}
+    st = cap["stats"]
+    checks = {
+        "captured_train_steps": cap["stats_after_fit"]["captured_steps"]
+        == S - 1,
+        "captured_eval_batches": st["captured_steps"]
+        - cap["stats_after_fit"]["captured_steps"] == E - 1,
+        "eager_first_sightings": st["eager_steps"] == 2,
+        "graphs": cap["graphs"] == {"train": 1, "eval": 1},
+        "no_fallbacks": st["fallbacks"] == {},
+        "flash_launches": {k: tuple(v) for k, v in
+                           cap["flash_launches"].items()} == want_flash,
+        "eager_flash_launches": {k: tuple(v) for k, v in
+                                 eag["flash_launches"].items()}
+        == want_flash,
+        "optimizer_launches": cap["optimizer_launches"]
+        == eag["optimizer_launches"],
+        "global_step": cap["global_step"] == eag["global_step"] == S + 1,
+        "losses_within_rtol": max(loss_rel) <= FIT_LOSS_RTOL,
+        "params_within_rms": worst <= FIT_PARAM_RMS,
+        "losses_finite_falling": all(map(math.isfinite, cap["losses"]))
+        and cap["losses"][-1] < cap["losses"][0],
+    }
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        key = name[len("flash_attention_"):]
+        results[name]["fit_launches"] = cap["flash_launches"][key][0]
+    results["multi_tensor_unscale_norm"]["fit_launches"] = \
+        cap["optimizer_launches"]["o1"]
+    results["multi_tensor_adam"]["fit_launches"] = \
+        cap["optimizer_launches"]["o2"]
+    out = {"card": nvidia_smi_line(), "model": "gpt3-13b-width",
+           "layers": L, "hidden": cfg_hidden,
+           "intermediate": GPT_WIDTHS["intermediate_size"], "heads": heads,
+           "head_dim": hd, "vocab": vocab, "params": n_params,
+           "master_weights": "float32", "amp": "O1 (bf16)",
+           "optimizer": f"AdamW({FIT['lr']}, "
+                        "grad_clip=ClipGradByGlobalNorm(1.0))",
+           "loop": "paddle.Model(net).prepare(opt, CrossEntropyLoss over "
+                   "logits.reshape([-1, vocab]), Accuracy(), "
+                   "amp_configs='O1').fit(DataLoader(num_workers=2)); "
+                   "evaluate",
+           "batch": FIT["batch"], "seq": FIT["seq"], "steps": S,
+           "eval_batches": E,
+           "reduced": ["depth 40 -> 3 layers (as gpt_train)",
+                       "random weights from a seed"],
+           "captured": {**cap_rates, **{k: cap[k] for k in (
+               "losses", "step_ms", "fit_wall_s", "history", "eval",
+               "init_seconds", "flash_launches", "optimizer_launches",
+               "stats_after_fit", "stats", "graphs", "peak_mem_gb",
+               "profile_one_step")},
+               "capture_seconds": st["capture_seconds"],
+               "sync_debug_mode": "error over the train batches 3..8 "
+                                  "(copy-in, replay, lazy loss): no sync "
+                                  "raised"},
+           "eager": {**eag_rates, **{k: eag[k] for k in (
+               "losses", "step_ms", "fit_wall_s", "history", "eval",
+               "init_seconds", "flash_launches", "optimizer_launches",
+               "peak_mem_gb", "profile_one_step")}},
+           "speedup_step_ms": eag_rates["step_ms"] / cap_rates["step_ms"],
+           "loss_rel_err": loss_rel, "loss_rtol": FIT_LOSS_RTOL,
+           "param_rel_rms_worst": worst, "param_rel_rms_tol": FIT_PARAM_RMS,
+           "params_bit_equal": bit_equal,
+           "param_rel_rms_top": sorted(rms.items(), key=lambda kv: -kv[1])[:5],
+           "checks": checks}
+    if not all(checks.values()):
+        emit({"phase": "gpt_fit", "failed": out})
+        raise AssertionError(f"gpt_fit: {[k for k, v in checks.items() if not v]}")
+    return out
+
+
+def phase_gpt_fit_scaled(results):
+    """A 2-layer GPT at GPT-3 6.7B widths through Model.train_batch with
+    amp_configs={"level": "O1", "scaler": GradScaler(2**15,
+    decr_every_n_nan_or_inf=1)}: the whole GradScaler iteration captured
+    (scale, backward, O1 unscale + finite check + clip scale, the masked
+    O2 update, the scale bookkeeping in place); the loss times a device
+    scalar that is inf at step 3 (filled on the device before that
+    replay): that step is skipped with the weights bit-equal, the scale
+    halves, the other steps update; replays under
+    set_sync_debug_mode("error")."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    F = FIT_SCALED
+    vocab = GPT7B_WIDTHS["vocab_size"]
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    net = GPTForCausalLM(GPTConfig(num_hidden_layers=F["layers"],
+                                   **GPT7B_WIDTHS))
+    opt = paddle.optimizer.AdamW(
+        F["lr"], parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    scaler = GradScaler(init_loss_scaling=OPT_LOSS_SCALE,
+                        decr_every_n_nan_or_inf=1)
+    poison = torch.ones((), device="cuda")
+    base = fit_loss(vocab)
+
+    def loss(logits, labels):
+        return base(logits, labels) * paddle.Tensor(poison)
+    model = paddle.Model(net).prepare(
+        opt, loss, amp_configs={"level": "O1", "scaler": scaler})
+    data = fit_dataset(vocab, F["batch"] * F["steps"], SEED)
+    reset_optimizer_counts()
+    rows, skipped = [], None
+    for s in range(F["steps"]):
+        ids = paddle.to_tensor(data.ids[s * F["batch"]:(s + 1) * F["batch"]])
+        poison.fill_(math.inf if s == F["poison_step"] else 1.0)
+        before = [p._t.detach().clone() for p in net.parameters()] \
+            if s == F["poison_step"] else None
+        torch.cuda.synchronize()
+        if s >= 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            lz = model.train_batch(ids, ids)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        found = scaler._found_inf
+        rows.append({"step": s, "loss": float(lz),
+                     "scale": float(scaler._scale),
+                     "found": bool(found) if isinstance(found, torch.Tensor)
+                     else bool(found)})
+        if before is not None:
+            skipped = all(torch.equal(a, p._t)
+                          for a, p in zip(before, net.parameters()))
+            del before
+    counts = check_optimizer_launches("gpt_fit_scaled", opt, F["steps"],
+                                      True)
+    st = model._captured.stats
+    want_scales = [OPT_LOSS_SCALE] * F["poison_step"] + \
+        [OPT_LOSS_SCALE / 2] * (F["steps"] - F["poison_step"])
+    checks = {
+        "captured_steps": st["captured_steps"] == F["steps"] - 1,
+        "no_fallbacks": st["fallbacks"] == {},
+        "poisoned_step_skipped": bool(skipped),
+        "found_only_there": [r["found"] for r in rows]
+        == [s == F["poison_step"] for s in range(F["steps"])],
+        "scale_halves": [r["scale"] for r in rows] == want_scales,
+        "other_losses_finite": all(math.isfinite(r["loss"]) for r in rows
+                                   if r["step"] != F["poison_step"]),
+        "global_step": opt._global_step == F["steps"],
+    }
+    out = {"card": nvidia_smi_line(), "model": "gpt3-6.7b-width",
+           "layers": F["layers"], "batch": F["batch"], "seq": F["seq"],
+           "amp": "O1 + GradScaler(2**15, decr_every_n_nan_or_inf=1)",
+           "optimizer": f"AdamW({F['lr']}, "
+                        "grad_clip=ClipGradByGlobalNorm(1.0))",
+           "reduced": ["depth 32 -> 2 layers", "batch 2 x 2048",
+                       "random weights from a seed"],
+           "poisoned_step": F["poison_step"], "steps": rows,
+           "expected_scales": want_scales, "launches": counts,
+           "stats": {k: (dict(v) if isinstance(v, dict) else v)
+                     for k, v in st.items()},
+           "sync_debug_mode": "error over steps 3..6 (replays)",
+           "checks": checks}
+    del model, opt, net, scaler, poison
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        emit({"phase": "gpt_fit_scaled", "failed": out})
+        raise AssertionError(
+            f"gpt_fit_scaled: {[k for k, v in checks.items() if not v]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # dropout (K5) and segments (K4) inside the flash kernels
 # ---------------------------------------------------------------------------
 
@@ -5608,6 +6011,8 @@ def main() -> int:
         ("eager_core", phase_eager_core),
         ("gpt_train", lambda: {**phase_gpt_train(flash),
                                "parity": phase_gpt_train_parity()}),
+        ("gpt_fit", lambda: phase_gpt_fit(flash)),
+        ("gpt_fit_scaled", lambda: phase_gpt_fit_scaled(flash)),
     ]
     t_all = time.perf_counter()
     for name, fn in phases:

@@ -80,10 +80,26 @@ The paddle-API eager core and GPT on it:
 - ``models.gpt`` — ``GPTForCausalLM`` (its attention through the flash
   kernels).
 
+The high-level trainer:
+
+- ``amp`` — ``auto_cast`` / ``decorate`` (the op-name cast hook of
+  ``core.autograd.apply_op``) and ``GradScaler``;
+- ``io`` — datasets, samplers and the ``DataLoader`` (worker processes,
+  the ``/dev/shm`` transport, batches on the loader's device);
+- ``metric`` and ``callbacks`` (``hapi.callbacks``);
+- ``jit.sot`` — ``CapturedStep``: a train or eval step as one CUDA graph
+  per signature;
+- ``hapi`` — ``Model`` (``prepare`` / ``fit`` / ``evaluate`` /
+  ``predict`` / ``save`` / ``load``, its steps through
+  ``CapturedStep``), ``summary`` and ``flops``;
+- ``observability.timeline`` — ``StepTimer``.
+
 ``import paddle_tpu_torch as paddle`` gives the names of the JAX
 package's top level that are ported: the dtypes, ``Tensor``,
 ``Parameter``, ``to_tensor``, the grad modes and ``grad``, the flags,
-``seed``, the devices, the op surface, ``nn`` and ``optimizer``.
+``seed``, the devices, the op surface, ``nn``, ``optimizer``, ``amp``,
+``io``, ``metric``, ``callbacks``, ``Model``, ``summary`` and
+``flops``.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (the eager core: ``set_device("cpu")``); without CUDA
@@ -114,6 +130,11 @@ from .ops import cast, increment  # noqa: F401,E402
 
 from . import nn  # noqa: F401,E402
 from . import optimizer  # noqa: F401,E402
+from . import amp  # noqa: F401,E402
+from . import io  # noqa: F401,E402
+from . import metric  # noqa: F401,E402
+from . import callbacks  # noqa: F401,E402
+from .hapi import Model, summary, flops  # noqa: F401,E402
 
 
 def create_parameter(shape, dtype="float32", name=None, attr=None,

@@ -15,10 +15,17 @@ its own ``step`` (LBFGS) takes the one host-decision path: unscale,
 read the flag, call its step. Host transfers happen only at explicit
 host boundaries (``state_dict()``, a caller reading the scale).
 
-Gradients must be f32, bf16 or f16 (the kernels' dtypes). Not ported: the
-JAX package's whole-step capture hooks (``capture_statics``,
-``capture_carry``, ``absorb_captured``), which wait for the captured
-train step.
+Gradients must be f32, bf16 or f16 (the kernels' dtypes).
+
+``update()`` writes the new scale and counters into the scaler's own
+0-d tensors (the JAX package rebinds its arrays), so that a CUDA graph
+that read and updated them keeps reading the live values. The
+whole-step capture hooks (``jit/sot.py`` ``CapturedStep``):
+:meth:`capture_statics` is the static part of the scaler for a graph's
+signature (None when the pairing must run eagerly),
+:meth:`capture_carry` the device state a captured step reads and
+updates in place, and :meth:`absorb_captured` ends the iteration after
+a replay, as ``update()`` ends an eager one.
 """
 from __future__ import annotations
 
@@ -146,10 +153,53 @@ class GradScaler:
             return
         f = found if isinstance(found, torch.Tensor) \
             else self._full(False, torch.bool)
-        self._scale, self._good_steps, self._bad_steps = _scale_update(
+        new = _scale_update(
             f, self._scale, self._good_steps, self._bad_steps,
             self._incr_ratio, self._decr_ratio, self._incr_every,
             self._decr_every)
+        for t, v in zip(self.capture_carry(), new):
+            t.copy_(v)
+
+    # -- whole-step capture (jit/sot.py CapturedStep) ---------------------
+    def capture_statics(self, optimizer):
+        """The scaler's static configuration for a captured step's
+        signature, or None when this scaler/optimizer pairing must run
+        eagerly: an overridden ``step`` / ``unscale_`` / ``update``, an
+        optimizer with its own ``step()`` (LBFGS), or a pending manual
+        ``unscale_`` (the iteration already started eagerly)."""
+        for name in ("step", "unscale_", "update"):
+            if getattr(type(self), name) is not getattr(GradScaler, name) \
+                    or name in self.__dict__:
+                return None
+        if self._unscaled_opts:
+            return None
+        from ..optimizer.optimizer import Optimizer
+        cls = type(optimizer)
+        if (getattr(cls, "step", None) is not Optimizer.step
+                or getattr(cls, "_step_masked", None)
+                is not Optimizer._step_masked
+                or "step" in optimizer.__dict__):
+            return None
+        return (bool(self._dynamic), self._incr_ratio, self._decr_ratio,
+                self._incr_every, self._decr_every)
+
+    def capture_carry(self):
+        """The device state a step reads and updates: the 0-d (scale
+        f32, good_steps i32, bad_steps i32) tensors, updated in place,
+        so a captured graph holds their addresses."""
+        return (self._scale, self._good_steps, self._bad_steps)
+
+    def absorb_captured(self, carry, found) -> None:
+        """End the iteration of a replayed step: its graph updated
+        ``carry`` in place (the tensors of :meth:`capture_carry`);
+        ``found`` is the step's 0-d device non-finite flag (reading it
+        is the caller's sync). Unscale marks clear, as ``update()``
+        clears them."""
+        if any(a is not b for a, b in zip(carry, self.capture_carry())):
+            raise RuntimeError("absorb_captured: the carry is not this "
+                               "scaler's state")
+        self._found_inf = found
+        self._unscaled_opts.clear()
 
     def is_enable(self):
         return self._enable
@@ -161,7 +211,7 @@ class GradScaler:
         return self._scale.clone()
 
     def set_init_loss_scaling(self, v):
-        self._scale = self._full(v, torch.float32)
+        self._scale.fill_(float(v))
 
     def state_dict(self):
         return {"scale": float(self._scale), "incr_ratio": self._incr_ratio,
@@ -170,9 +220,6 @@ class GradScaler:
                 "bad_steps": int(self._bad_steps)}
 
     def load_state_dict(self, state):
-        self._scale = self._full(state.get("scale", float(self._scale)),
-                                 torch.float32)
-        self._good_steps = self._full(int(state.get("good_steps", 0)),
-                                      torch.int32)
-        self._bad_steps = self._full(int(state.get("bad_steps", 0)),
-                                     torch.int32)
+        self._scale.fill_(float(state.get("scale", float(self._scale))))
+        self._good_steps.fill_(int(state.get("good_steps", 0)))
+        self._bad_steps.fill_(int(state.get("bad_steps", 0)))

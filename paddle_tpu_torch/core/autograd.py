@@ -9,11 +9,12 @@ with paddle's rules on top (a gradient to an input that does not
 require one is "unused"; ``allow_unused`` turns the error into None).
 Tensor hooks, ``retain_grads`` and ``create_graph`` are torch's too.
 
-:func:`apply_op` dispatches each op as it comes (no lazy fusion, no
-AMP cast yet): it unwraps Tensor arguments, calls ``fn`` on torch
-tensors and wraps what comes back — unless it was given no Tensor at
-all, when it returns torch tensors, so one function serves paddle user
-code and the port's torch modules.
+:func:`apply_op` dispatches each op as it comes (no lazy fusion): it
+unwraps Tensor arguments, casts them per the AMP regime when
+``amp.auto_cast`` is on (by op name, as the JAX package's dispatcher
+does), calls ``fn`` on torch tensors and wraps what comes back —
+unless it was given no Tensor at all, when it returns torch tensors,
+so one function serves paddle user code and the port's torch modules.
 """
 from __future__ import annotations
 
@@ -70,13 +71,16 @@ def set_grad_enabled(mode):
 
 
 _Tensor = None
+_amp_state = _maybe_cast_inputs = None
 
 
 def _tensor_cls():
-    global _Tensor
+    global _Tensor, _amp_state, _maybe_cast_inputs
     if _Tensor is None:
         from .tensor import Tensor
-        _Tensor = Tensor
+        from ..amp.auto_cast import _state, maybe_cast_inputs
+        _Tensor, _amp_state, _maybe_cast_inputs = \
+            Tensor, _state, maybe_cast_inputs
     return _Tensor
 
 
@@ -93,7 +97,9 @@ def apply_op(fn: Callable, *args, op_name: Optional[str] = None, **kwargs):
     """Run ``fn`` (a function of torch tensors) on ``args``, where
     Tensors are unwrapped; the result (a tensor or a tuple of them) is
     wrapped when any argument was a Tensor and returned as it is
-    otherwise. ``kwargs`` are passed through unchanged."""
+    otherwise. ``kwargs`` are passed through unchanged. Under
+    ``amp.auto_cast`` the positional tensors are cast per the regime
+    for ``op_name`` (else ``fn.__name__``)."""
     Tensor = _Tensor or _tensor_cls()
     wrapped = False
     raw = []
@@ -103,6 +109,9 @@ def apply_op(fn: Callable, *args, op_name: Optional[str] = None, **kwargs):
             wrapped = True
         else:
             raw.append(a)
+    if _amp_state.enabled:
+        raw = _maybe_cast_inputs(op_name or getattr(fn, "__name__", "op"),
+                                 raw)
     out = fn(*raw, **kwargs)
     return _wrap(out, Tensor) if wrapped else out
 

@@ -201,3 +201,13 @@ define_flag("checkpoint_fsync", True,
             "fsync checkpoint temp files (and their directory) before "
             "the atomic rename. Durability contract against power loss; "
             "disable only in tests/benchmarks on throwaway dirs")
+define_flag("sot_capture", True,
+            "Whole-step capture (jit/sot.py CapturedStep): "
+            "hapi.Model.train_batch/eval_batch run forward, loss, "
+            "backward, clip and optimizer step as ONE CUDA graph per "
+            "signature (first sighting eager, second captures, later "
+            "calls replay). 0 is the kill switch: every step runs eager")
+define_flag("sot_capture_cache", 8,
+            "Max captured CUDA graphs per CapturedStep (LRU eviction; "
+            "one entry per input signature x train/eval-mode x "
+            "trainable-set x optimizer config x AMP regime)")

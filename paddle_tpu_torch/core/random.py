@@ -19,6 +19,11 @@ device:
   generator seeded from it on the card (so ``seed`` makes both
   deterministic).
 
+:func:`draws` counts the draws made from this generator (seeds and
+device generators alike): the whole-step capture (``jit/sot.py``)
+keeps a step that drew one out of a CUDA graph, which would freeze the
+Python int it drew.
+
 The JAX and the port's streams differ (a JAX key is not a torch
 generator state); tests that need the same random numbers on both
 sides pass them explicitly.
@@ -28,7 +33,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["seed", "get_rng_state", "set_rng_state", "default_generator",
-           "kernel_seed", "hash_seed", "device_generator", "generator_for"]
+           "kernel_seed", "hash_seed", "device_generator", "generator_for",
+           "draws"]
 
 _generator = torch.Generator(device="cpu")
 _generator.manual_seed(0)
@@ -51,7 +57,18 @@ def set_rng_state(state: torch.Tensor) -> None:
     _generator.set_state(state)
 
 
+_draws = 0
+
+
+def draws() -> int:
+    """How many draws (seeds, device generators, CPU draws through
+    :func:`generator_for`) the port's generator has served."""
+    return _draws
+
+
 def _words(n: int):
+    global _draws
+    _draws += 1
     return torch.randint(0, 2 ** 32, (n,), dtype=torch.int64,
                          generator=_generator).tolist()
 
@@ -77,5 +94,7 @@ def generator_for(device) -> torch.Generator:
     """The port's generator for CPU draws, a device generator seeded
     from it for draws on the card."""
     if torch.device(device).type == "cpu":
+        global _draws
+        _draws += 1
         return _generator
     return device_generator(device)

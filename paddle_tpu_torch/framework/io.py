@@ -31,6 +31,8 @@ import pickle
 import numpy as np
 import torch
 
+from ..core.tensor import Tensor
+
 __all__ = ["save", "load"]
 
 # the class path a payload is pickled under (the JAX package's)
@@ -137,9 +139,11 @@ def _load_pickle(f):
 
 
 def _pack(obj):
-    """Tensors -> payloads through dicts, lists and tuples. Each
+    """Tensors (torch's and the eager core's) -> payloads through dicts, lists and tuples. Each
     payload copies its tensor's bytes now, so a later in-place update
     of the tensor does not reach the packed tree."""
+    if isinstance(obj, Tensor):
+        obj = obj._t
     if isinstance(obj, torch.Tensor):
         return _TensorPayload(obj)
     if isinstance(obj, dict):

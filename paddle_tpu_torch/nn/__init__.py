@@ -7,7 +7,8 @@ from .container import (  # noqa: F401
 )
 from .layers_common import Dropout, Embedding, Linear  # noqa: F401
 from .layers_conv_norm import LayerNorm, RMSNorm  # noqa: F401
-from .layers_loss import CrossEntropyLoss  # noqa: F401
+from .layers_activation import *  # noqa: F401,F403
+from .layers_loss import *  # noqa: F401,F403
 from .transformer import (MultiHeadAttention,  # noqa: F401
                           TransformerEncoder, TransformerEncoderLayer)
 from . import functional  # noqa: F401

@@ -79,9 +79,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training: bool = True, name=None):
     """Layout ``[batch, seq, heads, head_dim]``, the paddle API. Dropout
     applies only in training (``training=False`` turns it off)."""
+    # the JAX entry's names: its flash path is "flash_attention"
+    flash = attn_mask is None and (dropout_p if training else 0.0) < 1.0
     return apply_op(_sdpa, query, key, value, attn_mask,
                     dropout_p=dropout_p, is_causal=is_causal,
-                    training=training)
+                    training=training,
+                    op_name="flash_attention" if flash else "sdpa")
 
 
 def _sdpa(query, key, value, attn_mask, dropout_p, is_causal, training):

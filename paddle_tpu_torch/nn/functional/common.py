@@ -24,7 +24,8 @@ import torch
 from ...core import random as _random
 from ...core.autograd import apply_op
 
-__all__ = ["linear", "embedding", "dropout", "hash_keep_mask"]
+__all__ = ["linear", "embedding", "dropout", "hash_keep_mask", "one_hot",
+           "label_smooth"]
 
 _M32 = 0xFFFFFFFF
 
@@ -37,7 +38,7 @@ def _linear(x, weight, bias):
 
 def linear(x, weight, bias=None, name=None):
     """``y = x W + b`` with paddle's ``[in, out]`` weight layout."""
-    return apply_op(_linear, x, weight, bias)
+    return apply_op(_linear, x, weight, bias, op_name="linear")
 
 
 def _embedding(idx, weight, padding_idx):
@@ -52,7 +53,28 @@ def _embedding(idx, weight, padding_idx):
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` at the ids ``x``; ids equal to ``padding_idx``
     give zeros (and no gradient), as in the JAX function."""
-    return apply_op(_embedding, x, weight, padding_idx=padding_idx)
+    return apply_op(_embedding, x, weight, padding_idx=padding_idx,
+                    op_name="embedding")
+
+
+def one_hot(x, num_classes, name=None):
+    """f32 one-hot rows of the ids ``x``; an id outside
+    ``[0, num_classes)`` gives a row of zeros, as in the JAX function."""
+    return apply_op(lambda idx: (idx[..., None].long() == torch.arange(
+        num_classes, device=idx.device)).float(), x, op_name="one_hot")
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """``(1 - epsilon) * label + epsilon * prior`` (a uniform prior when
+    ``prior_dist`` is None)."""
+    from ...core.tensor import unwrap
+    pd = unwrap(prior_dist)   # a constant, as the JAX function's closure
+
+    def f(lbl):
+        if pd is None:
+            return (1 - epsilon) * lbl + epsilon / lbl.shape[-1]
+        return (1 - epsilon) * lbl + epsilon * pd.detach()
+    return apply_op(f, label, op_name="label_smooth")
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -88,7 +110,7 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
     ``downscale_in_infer``: training applies the raw mask, eval scales
     by ``1 - p``. ``axis`` shares one mask along the other axes."""
     return apply_op(_dropout, x, p=p, axis=axis, training=training,
-                    mode=mode)
+                    mode=mode, op_name="dropout")
 
 
 def _dropout(x: torch.Tensor, p: float, axis, training: bool,

@@ -35,7 +35,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None,
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
     return apply_op(_layer_norm, x, weight, bias,
-                    shape=list(normalized_shape), epsilon=epsilon)
+                    shape=list(normalized_shape), epsilon=epsilon,
+                    op_name="layer_norm")
 
 
 def _rms_norm(x, weight, epsilon):
@@ -47,4 +48,5 @@ def _rms_norm(x, weight, epsilon):
 
 
 def rms_norm(x, weight=None, epsilon: float = 1e-6, name=None):
-    return apply_op(_rms_norm, x, weight, epsilon=epsilon)
+    return apply_op(_rms_norm, x, weight, epsilon=epsilon,
+                    op_name="rms_norm")

@@ -1,17 +1,23 @@
-"""Loss layers of the port: ``CrossEntropyLoss``.
+"""Loss layers of the port.
 
-The port of ``paddle_tpu/nn/layers_loss.py`` ``CrossEntropyLoss`` over
-:func:`~paddle_tpu_torch.nn.functional.cross_entropy` (a big-vocab
-hard-label mean takes the chunked fused cross-entropy), as a
-:class:`~.layer.Layer`: Tensors in, a Tensor out; torch tensors in, a
-torch tensor out.
+The port of ``paddle_tpu/nn/layers_loss.py``: each a
+:class:`~.layer.Layer` over its functional in
+:mod:`~paddle_tpu_torch.nn.functional.loss` (``CrossEntropyLoss``'s
+big-vocab hard-label mean takes the chunked fused cross-entropy):
+Tensors in, a Tensor out; torch tensors in, a torch tensor out.
 """
 from __future__ import annotations
 
+from . import functional as F
 from .functional import cross_entropy
 from .layer import Layer
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
+           "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
+           "MarginRankingLoss", "CosineEmbeddingLoss", "TripletMarginLoss",
+           "HingeEmbeddingLoss", "CTCLoss", "SoftMarginLoss",
+           "MultiLabelSoftMarginLoss", "MultiMarginLoss", "PoissonNLLLoss",
+           "GaussianNLLLoss"]
 
 
 class CrossEntropyLoss(Layer):
@@ -35,3 +41,197 @@ class CrossEntropyLoss(Layer):
             soft_label=self.soft_label, axis=self.axis,
             use_softmax=self.use_softmax,
             label_smoothing=self.label_smoothing)
+
+
+class MSELoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.mse_loss(input, label, self.reduction)
+
+
+class L1Loss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.l1_loss(input, label, self.reduction)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class NLLLoss(Layer):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.nll_loss(input, label, self.weight, self.ignore_index,
+                          self.reduction)
+
+
+class BCELoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.binary_cross_entropy(input, label, self.weight,
+                                      self.reduction)
+
+
+class BCEWithLogitsLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, self.weight, self.reduction, self.pos_weight)
+
+
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean", log_target=False):
+        super().__init__()
+        self.reduction = reduction
+        self.log_target = log_target
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, self.reduction, self.log_target)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self.margin,
+                                       self.reduction)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.args = (margin, p, epsilon, swap, reduction)
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_loss(input, positive, negative, *self.args)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, self.margin,
+                                      self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)
+
+
+class SoftMarginLoss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.soft_margin_loss(input, label, reduction=self.reduction)
+
+
+class MultiLabelSoftMarginLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.multi_label_soft_margin_loss(
+            input, label, weight=self.weight, reduction=self.reduction)
+
+
+class MultiMarginLoss(Layer):
+    def __init__(self, p=1, margin=1.0, weight=None, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.p = p
+        self.margin = margin
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.multi_margin_loss(input, label, p=self.p,
+                                   margin=self.margin, weight=self.weight,
+                                   reduction=self.reduction)
+
+
+class PoissonNLLLoss(Layer):
+    def __init__(self, log_input=True, full=False, epsilon=1e-8,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.log_input = log_input
+        self.full = full
+        self.epsilon = epsilon
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.poisson_nll_loss(input, label, log_input=self.log_input,
+                                  full=self.full, epsilon=self.epsilon,
+                                  reduction=self.reduction)
+
+
+class GaussianNLLLoss(Layer):
+    def __init__(self, full=False, epsilon=1e-6, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.full = full
+        self.epsilon = epsilon
+        self.reduction = reduction
+
+    def forward(self, input, label, variance):
+        return F.gaussian_nll_loss(input, label, variance, full=self.full,
+                                   epsilon=self.epsilon,
+                                   reduction=self.reduction)

@@ -31,7 +31,7 @@ def _matmul(a, b, transpose_x=False, transpose_y=False):
 
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
     return apply_op(_matmul, x, y, transpose_x=transpose_x,
-                    transpose_y=transpose_y)
+                    transpose_y=transpose_y, op_name="matmul")
 
 
 def mm(input, mat2, name=None):
@@ -105,7 +105,8 @@ def dist(x, y, p=2, name=None):
 
 
 def einsum(equation, *operands):
-    return apply_op(lambda *ops: torch.einsum(equation, *ops), *operands)
+    return apply_op(lambda *ops: torch.einsum(equation, *ops), *operands,
+                    op_name="einsum")
 
 
 def transpose(x, perm, name=None):

@@ -99,20 +99,22 @@ def _binary_fn(tfn):
 
 
 def _make_unary(name, tfn):
+    op_name = name
     if name in _FLOAT_UNARY:
         tfn = _float_in(tfn)
 
     def op(x, name=None):
-        return apply_op(tfn, x)
+        return apply_op(tfn, x, op_name=op_name)
     op.__name__ = name
     return op
 
 
 def _make_binary(name, tfn):
     f = _binary_fn(tfn)
+    op_name = name
 
     def op(x, y, name=None):
-        return apply_op(f, x, y)
+        return apply_op(f, x, y, op_name=op_name)
     op.__name__ = name
     return op
 
@@ -184,13 +186,13 @@ def _to_float(a):
 def sum(x, axis=None, dtype=None, keepdim=False, name=None):
     d, ax = convert_dtype(dtype), _norm_axis(axis)
     return apply_op(lambda a: torch.sum(a, dim=_dims(a, ax), keepdim=keepdim,
-                                        dtype=d), x)
+                                        dtype=d), x, op_name="sum")
 
 
 def mean(x, axis=None, keepdim=False, name=None):
     ax = _norm_axis(axis)
     return apply_op(lambda a: torch.mean(_to_float(a), dim=_dims(a, ax),
-                                         keepdim=keepdim), x)
+                                         keepdim=keepdim), x, op_name="mean")
 
 
 def prod(x, axis=None, keepdim=False, dtype=None, name=None):
@@ -272,7 +274,8 @@ def median(x, axis=None, keepdim=False, name=None):
 def logsumexp(x, axis=None, keepdim=False, name=None):
     ax = _norm_axis(axis)
     return apply_op(lambda a: torch.logsumexp(_to_float(a), dim=_dims(a, ax),
-                                              keepdim=keepdim), x)
+                                              keepdim=keepdim), x,
+                    op_name="logsumexp")
 
 
 def cumsum(x, axis=None, dtype=None, name=None):
@@ -282,7 +285,7 @@ def cumsum(x, axis=None, dtype=None, name=None):
         if axis is None:
             return torch.cumsum(a.reshape(-1), 0, dtype=d)
         return torch.cumsum(a, axis, dtype=d)
-    return apply_op(f, x)
+    return apply_op(f, x, op_name="cumsum")
 
 
 def cumprod(x, dim=None, dtype=None, name=None):

@@ -12,7 +12,12 @@ a tiny Llama train step through them against the same step through
 the plain sdpa, the grouped-matmul kernels (K6 forward and dlhs, K7
 drhs; TMA / wgmma for bf16 with 16-byte rows, the general kernels
 otherwise, by their counts) against their plain versions and the op's
-autograd against the dense oracle's, and a tiny ERNIE-MoE step. Each skips (with its reason)
+autograd against the dense oracle's, a tiny ERNIE-MoE step, and the
+high-level trainer on whole-step CUDA graphs (``Model`` through
+``CapturedStep``: captured against eager bit for bit, an lr change
+between replays, a new shape and LRU eviction, lazy losses not
+aliased, a GradScaler inf step skipped, a dropout model counted
+``"rng"``). Each skips (with its reason)
 where there is no CUDA device; the decision is made inside the
 fixture, never at import. This file imports no JAX, so on a machine
 without it run it as
@@ -1248,3 +1253,173 @@ def test_gpt_step_through_the_kernels_matches_the_plain_sdpa(cuda):
         rel = float((a - b).square().mean().sqrt()
                     / b.square().mean().sqrt().clamp(min=1e-30))
         assert rel <= 5e-2
+
+
+# -- the high-level trainer on whole-step CUDA graphs (CapturedStep) --------
+
+_FIT_CFG = dict(vocab_size=4096, hidden_size=256, num_attention_heads=2,
+                intermediate_size=512, num_hidden_layers=2,
+                max_position_embeddings=128)
+
+
+@pytest.fixture
+def fit_env(cuda):
+    """The eager core on the card, the capture flags restored after."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device
+    prev = device._current
+    flags = paddle.get_flags(["FLAGS_sot_capture",
+                              "FLAGS_sot_capture_cache"])
+    paddle.set_device("gpu")
+    yield paddle
+    paddle.set_flags(flags)
+    device._current = prev
+    torch.cuda.set_sync_debug_mode("default")
+
+
+def _fit_model(paddle, capture, dropout=0.0, sched=None, scaler=None,
+               loss_scale=None, amp="O1"):
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    paddle.set_flags({"FLAGS_sot_capture": capture})
+    paddle.seed(0)
+    net = GPTForCausalLM(GPTConfig(dropout=dropout, **_FIT_CFG))
+    opt = paddle.optimizer.AdamW(
+        sched if sched is not None else 1e-3, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    crit = paddle.nn.CrossEntropyLoss()
+    V = _FIT_CFG["vocab_size"]
+
+    def loss(logits, labels):
+        out = crit(logits.reshape([-1, V]), labels.reshape([-1]))
+        return out if loss_scale is None else out * paddle.Tensor(
+            loss_scale)
+    cfg = amp if scaler is None else {"level": amp, "scaler": scaler}
+    return paddle.Model(net).prepare(opt, loss, amp_configs=cfg), net, opt
+
+
+def _fit_batches(paddle, n, seq=128):
+    ids = np.random.default_rng(0).integers(0, 512, (4 * n, seq))
+    return [(paddle.to_tensor(ids[4 * i:4 * i + 4]),) * 2 for i in range(n)]
+
+
+def _train(model, batches, strict_from=2):
+    losses = []
+    for i, (x, y) in enumerate(batches):
+        if i >= strict_from:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses.append(model.train_batch(x, y)[0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return losses
+
+
+def test_captured_fit_matches_eager_bit_for_bit(fit_env):
+    """Model.fit with O1 through CUDA graphs against FLAGS_sot_capture=0:
+    the same losses, parameters and launch counts (K1b/K2b and O1/O2
+    through the replays), one train and one eval graph, no sync in the
+    replays."""
+    paddle = fit_env
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    runs = []
+    for capture in (True, False):
+        model, net, opt = _fit_model(paddle, capture)
+        before = (tfa.flash_attention_fwd.tma_launches,
+                  tfa.flash_attention_bwd_dq.tma_launches,
+                  mt.multi_tensor_adam.launches)
+        losses = [float(v) for v in _train(model, _fit_batches(paddle, 5))]
+        model.evaluate(paddle.io.DataLoader(_EvalIds(), batch_size=4),
+                       verbose=0)
+        counts = (tfa.flash_attention_fwd.tma_launches - before[0],
+                  tfa.flash_attention_bwd_dq.tma_launches - before[1],
+                  mt.multi_tensor_adam.launches - before[2])
+        runs.append((losses, [p._t.detach().clone()
+                              for p in net.parameters()], counts,
+                     model._captured.stats, model._captured.graphs()))
+    (lc, pc, cc, st, gr), (le, pe, ce, _, _) = runs
+    assert lc == le and all(torch.equal(a, b) for a, b in zip(pc, pe))
+    assert cc == ce == (2 * (5 + 3), 2 * 5, 5)
+    assert st["captured_steps"] == 4 + 2 and st["fallbacks"] == {}
+    assert gr == {"train": 1, "eval": 1}
+
+
+class _EvalIds:
+    """Three eval batches of ids."""
+
+    def __init__(self):
+        self.ids = np.random.default_rng(5).integers(0, 512, (12, 128))
+
+    def __len__(self):
+        return 12
+
+    def __getitem__(self, i):
+        return self.ids[i], self.ids[i]
+
+
+def test_lr_change_between_replays_reaches_the_graph(fit_env):
+    """A StepDecay stepped every batch: the replays read the new lr (the
+    host refreshes the device scalar outside the graph)."""
+    paddle = fit_env
+    runs = []
+    for capture in (True, False):
+        sched = paddle.optimizer.lr.StepDecay(1e-3, step_size=1, gamma=0.3)
+        model, net, opt = _fit_model(paddle, capture, sched=sched)
+        out = []
+        for x, y in _fit_batches(paddle, 5):
+            out.append(float(model.train_batch(x, y)[0]))
+            sched.step()
+        runs.append((out, [p._t.detach().clone() for p in net.parameters()],
+                     opt._global_step))
+    assert runs[0][0] == runs[1][0] and runs[0][2] == runs[1][2] == 5
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+def test_shape_change_and_lru_eviction(fit_env):
+    """A new sequence length is a new signature (eager, then its own
+    graph); with FLAGS_sot_capture_cache=1 the old graph is evicted and
+    its shape starts over; every lazy loss is its own tensor."""
+    paddle = fit_env
+    paddle.set_flags({"FLAGS_sot_capture_cache": 1})
+    model, net, opt = _fit_model(paddle, True)
+    a, b = _fit_batches(paddle, 1, 128)[0], _fit_batches(paddle, 1, 64)[0]
+    losses = _train(model, [a, a, a, b, b, b, a, a], strict_from=99)
+    st = model._captured.stats
+    assert st["eager_steps"] == 3 and st["compiles"] == 3
+    assert st["captured_steps"] == 5 and model._captured.graphs() == \
+        {"train": 1}
+    assert len({v._t.data_ptr() for v in losses}) == len(losses)
+    vals = [float(v) for v in losses]
+    assert all(np.isfinite(vals)) and len(set(vals)) == len(vals)
+
+
+def test_grad_scaler_skips_an_inf_step_under_capture(fit_env):
+    paddle = fit_env
+    poison = torch.ones((), device="cuda")
+    scaler = paddle.amp.GradScaler(init_loss_scaling=2.0 ** 15,
+                                   decr_every_n_nan_or_inf=1)
+    model, net, opt = _fit_model(paddle, True, scaler=scaler,
+                                 loss_scale=poison)
+    scales, same = [], None
+    for i, (x, y) in enumerate(_fit_batches(paddle, 5)):
+        poison.fill_(float("inf") if i == 3 else 1.0)
+        before = [p._t.detach().clone() for p in net.parameters()]
+        model.train_batch(x, y)
+        scales.append(float(scaler._scale))
+        moved = [not torch.equal(a, p._t)
+                 for a, p in zip(before, net.parameters())]
+        if i == 3:
+            same = not any(moved)
+        else:
+            assert any(moved)
+    assert same and scales == [2.0 ** 15] * 3 + [2.0 ** 14] * 2
+    assert model._captured.stats["captured_steps"] == 4
+    assert opt._global_step == 5
+
+
+def test_dropout_model_is_counted_rng(fit_env):
+    paddle = fit_env
+    model, net, opt = _fit_model(paddle, True, dropout=0.1)
+    for x, y in _fit_batches(paddle, 3):
+        model.train_batch(x, y)
+    st = model._captured.stats
+    assert st["fallbacks"] == {"rng": 2} and st["captured_steps"] == 0

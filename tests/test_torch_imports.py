@@ -65,7 +65,14 @@ def test_port_covers_the_slice_modules():
             "core/dtype.py", "core/tensor.py", "core/autograd.py",
             "ops/op_registry.py", "ops/creation.py", "ops/math.py",
             "ops/manipulation.py", "ops/linalg.py", "ops/inplace.py",
-            "nn/initializer.py", "nn/layer.py", "nn/container.py"}
+            "nn/initializer.py", "nn/layer.py", "nn/container.py",
+            # the high-level trainer
+            "amp/auto_cast.py", "nn/layers_activation.py",
+            "io/__init__.py", "io/dataset.py", "io/sampler.py",
+            "io/dataloader.py", "io/worker.py", "metric/__init__.py",
+            "observability/timeline.py", "hapi/__init__.py",
+            "hapi/callbacks.py", "hapi/model.py", "callbacks.py",
+            "jit/sot.py", "ops/kernels/counters.py"}
     have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert want <= have, sorted(want - have)
     assert (PKG / "ops" / "ops.yaml").is_file()
@@ -80,13 +87,18 @@ def test_importing_the_port_loads_no_jax():
     """A fresh interpreter with only the repo on its path imports the
     paddle-API top level (``import paddle_tpu_torch as paddle``), the
     serving, Llama, BERT, ERNIE-MoE and GPT training stacks, the
-    grouped matmul op, the optimizer plane, the fleet and the inference
-    front end (and chip_smoke) without pulling in JAX or the JAX
-    package."""
+    grouped matmul op, the optimizer plane, the fleet, the inference
+    front end and the high-level trainer (``Model``, ``io``, ``metric``,
+    ``amp``, ``callbacks``, the whole-step capture) — and chip_smoke —
+    without pulling in JAX or the JAX package."""
     code = (
         "import paddle_tpu_torch as paddle\n"
         "assert callable(paddle.to_tensor) and callable(paddle.matmul)\n"
         "assert paddle.nn.Layer and paddle.optimizer.AdamW\n"
+        "assert paddle.Model and paddle.io.DataLoader and "
+        "paddle.metric.Accuracy and paddle.amp.auto_cast and "
+        "paddle.callbacks.EarlyStopping and paddle.summary and "
+        "paddle.flops\n"
         "import sys, chip_smoke, paddle_tpu_torch.serving, "
         "paddle_tpu_torch.models.gpt, paddle_tpu_torch.ops.op_registry, "
         "paddle_tpu_torch.convert, paddle_tpu_torch.models.llama, "
@@ -104,7 +116,9 @@ def test_importing_the_port_loads_no_jax():
         "paddle_tpu_torch.observability.__main__, "
         "paddle_tpu_torch.utils.fault_injection, "
         "paddle_tpu_torch.utils.backoff, paddle_tpu_torch.jit.warmup, "
-        "paddle_tpu_torch.serving_fleet, paddle_tpu_torch.inference\n"
+        "paddle_tpu_torch.serving_fleet, paddle_tpu_torch.inference, "
+        "paddle_tpu_torch.jit.sot, paddle_tpu_torch.hapi, "
+        "paddle_tpu_torch.observability.timeline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -235,6 +249,7 @@ def test_eager_core_defaults_to_cuda(no_cuda, monkeypatch):
 def test_flags_keep_the_jax_names_and_defaults(monkeypatch):
     import paddle_tpu.jit.warmup  # noqa: F401 — defines its flags
     import paddle_tpu_torch.jit.warmup  # noqa: F401 — defines its flags
+    import paddle_tpu.jit.sot  # noqa: F401 — defines the capture flags
     from paddle_tpu.core import flags as jflags
     from paddle_tpu_torch.core import flags as tflags
     names = {"serving_block_size", "serving_num_blocks",
@@ -250,7 +265,8 @@ def test_flags_keep_the_jax_names_and_defaults(monkeypatch):
              "serving_fleet_heartbeat_misses",
              "serving_fleet_restart_backoff", "serving_fleet_max_restarts",
              "serving_fleet_retry_after", "executable_cache_dir",
-             "warmup_bundle", "executable_cache_gc_days"}
+             "warmup_bundle", "executable_cache_gc_days", "sot_capture",
+             "sot_capture_cache"}
     assert set(tflags._registry) == names
     for n in names:
         assert tflags._registry[n].default == jflags._registry[n].default
