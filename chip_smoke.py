@@ -212,7 +212,20 @@ Phases, each printing one JSON line with its seconds:
                       counted the same way); the profiled step runs once
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
-                      of its optimizer.step();
+                      of its optimizer.step() (a replay's from the
+                      profile's optimizer kernels);
+                      TrainStep runs on CapturedStep: the first warm-up
+                      step eager, the second captured as one CUDA graph
+                      and replayed, the timed steps replays under
+                      torch.cuda.set_sync_debug_mode("error") (gated: as
+                      many captured steps as timed steps, one graph, no
+                      fallback); then the same steps through a plain
+                      eager loop from the same weights (copied before the
+                      run), seed and batches: every loss within 1e-3
+                      relative, the final parameters within 5e-2 relative
+                      RMS, the port's stream state equal after both (bit
+                      equality reported), the eager step ms, tokens/s and
+                      peak memory beside the captured ones;
 19. ``train_parity``  one step of the same widths at 2 layers through
                       the kernels against the same step with
                       use_flash_attention=False (autograd through the
@@ -243,6 +256,14 @@ Phases, each printing one JSON line with its seconds:
                       launch without dropout, two seeds differing, and
                       the FlashAttention autograd function against
                       autograd through the plain sdpa with the same mask;
+                      every launch reads its Philox key from device
+                      memory (an int64 [2] key tensor); a small dropout
+                      call (a key drawn from the port's key stream, then
+                      the three kernels) captured in one CUDA graph and
+                      replayed 3 times gives 3 different outputs, each
+                      bit-equal to the eager call with the same place in
+                      the stream after the same seed, and a reseed between
+                      replays restarts the stream inside the graph;
 22. ``flash_varlen_parity``  the segment-masked kernels (K4) on 12,288
                       packed tokens (sequences of 32-512 from a numpy
                       seed, H 12, D 64), bf16 and f32, causal and full,
@@ -286,7 +307,9 @@ Phases, each printing one JSON line with its seconds:
                       counted the same way); the profiled step runs once
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
-                      of its optimizer.step();
+                      of its optimizer.step(); captured and held against
+                      the eager loop as ``train`` is, each replay drawing
+                      its 49 dropout keys (37 hash, 12 K5) on the card;
 25. ``bert_train_parity``  one step of BERT-base widths at 2 layers
                       through the kernels against the same step through
                       the plain sdpa (an all-zero additive mask routes it
@@ -335,7 +358,9 @@ Phases, each printing one JSON line with its seconds:
                       counted the same way); the profiled step runs once
                       through the kernels and once through the loop
                       (FLAGS_fused_optimizer=0), each with the device ms
-                      of its optimizer.step();
+                      of its optimizer.step(); captured and held against
+                      the eager loop as ``train`` is (the capacity
+                      dispatch reads nothing on the host);
 30. ``moe_train_parity``  one step of a 2-layer ERNIE-MoE (one dense, one
                       MoE layer) through the kernels against the same step
                       through the plain sdpa: loss, every gradient and the
@@ -2700,14 +2725,14 @@ def flash_general(q, k, v, do, lse, delta, causal, dropout_p=0.0,
     B, L, H, D = fa._as4(q).shape
     lib = fa._kernel_lib(q.dtype, D)
     thresh, inv = fa._dropout_args(dropout_p, seed)
-    lo, hi = fa._seed_words(seed) if thresh else (0, 0)
+    key = fa._key_ptr(seed, q.device, "flash_general") if thresh else None
     rng = fa._seg_ranges(seg) if seg is not None else None
     segs = (seg.data_ptr(), seg.stride(0), rng.data_ptr()) \
         if seg is not None else (None, 0, None)
 
     def tail():  # sizes, causal, scale, bf16, the segments, the dropout
         return (B, L, H, D, int(causal), 1.0 / math.sqrt(D), 1, *segs,
-                lo, hi, thresh, inv, torch.cuda.current_stream().cuda_stream)
+                key, thresh, inv, torch.cuda.current_stream().cuda_stream)
 
     def check(rc, what):
         if rc:
@@ -2956,8 +2981,153 @@ def profile_train_step(step, ids):
             "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
 
 
+# TrainStep's captured steps against a plain eager loop with the same
+# seed, weights and batches: every loss within CAPTURE_LOSS_RTOL
+# relative, the final parameters within CAPTURE_PARAM_RMS relative RMS
+CAPTURE_LOSS_RTOL = 1e-3
+CAPTURE_PARAM_RMS = 5e-2
+
+
+def fresh_peak():
+    """Collect what earlier phases left to the garbage collector, empty
+    the allocator's cache and reset the peak, so that a peak counts what
+    the run after it holds; returns the bytes allocated at the reset."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def param_copies(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def timed_replays(step, batch, n, on_step=None):
+    """``n`` timed TrainStep calls, synchronised before and after, under
+    torch.cuda.set_sync_debug_mode("error") (a host sync in a replay
+    raises): (lazy losses, wall seconds, captured steps among them)."""
+    import torch
+    torch.cuda.synchronize()
+    c0 = step.stats["captured_steps"]
+    losses = []
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            losses.append(step(*batch))
+            if on_step is not None:
+                on_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t0, \
+        step.stats["captured_steps"] - c0
+
+
+def check_captured(phase, step, captured, steps):
+    """The timed steps were graph replays: as many as timed steps, one
+    train graph, no fallback (no "rng": dropout draws device keys)."""
+    got = {"captured_timed_steps": captured, "graphs": step._step.graphs(),
+           "fallbacks": dict(step.stats["fallbacks"])}
+    want = {"captured_timed_steps": steps, "graphs": {"train": 1},
+            "fallbacks": {}}
+    if got != want:
+        raise AssertionError(f"{phase}: TrainStep capture {got} != {want}")
+    return {**got, "eager_steps": step.stats["eager_steps"],
+            "compiles": step.stats["compiles"],
+            "capture_seconds": step.stats["capture_seconds"]}
+
+
+def eager_reference(model, start, make_opt, loss_fn, batch, warmup, steps):
+    """The captured run's steps through a plain eager loop: the parameters
+    put back to ``start`` in place, a fresh optimizer, the port's stream
+    reseeded with SEED (as before the captured run); each step forward,
+    the f32 loss, backward, a zero gradient for a parameter the loss does
+    not reach (as TrainStep gives it), ``opt.step()``, ``clear_grad()``.
+    Returns the losses, the wall seconds of the last ``steps`` steps, the
+    peak memory and the stream's state after."""
+    import torch
+    from paddle_tpu_torch.core import random as trandom
+    with torch.no_grad():
+        for p, s0 in zip(model.parameters(), start):
+            p.copy_(s0)
+    opt = make_opt()
+    model.train()
+    trandom.seed(SEED)
+    ins, lbls = batch[:-1], batch[-1:]
+
+    def one():
+        loss = loss_fn(model(*ins), *lbls).float()
+        loss.backward()
+        for p in opt._parameter_list:
+            if p.requires_grad and p.grad is None:
+                p.grad = torch.zeros_like(p)
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+    base = fresh_peak()
+    losses = [one() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [one() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"losses": [float(x) for x in losses], "wall_s": wall,
+           "step_ms": wall / steps * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "mem_at_start_gb": base / 2 ** 30,
+           "rng_state": list(trandom.get_rng_state())}
+    del opt
+    return out
+
+
+def capture_vs_eager(phase, cap_losses, cap_params, cap_state, model, eager,
+                     tokens, steps):
+    """Captured losses and final parameters against the eager loop's;
+    bit-equality reported; the stream's state after both runs equal."""
+    import torch
+    rel = [abs(a - b) / max(abs(b), 1e-30)
+           for a, b in zip(cap_losses, eager["losses"])]
+    num = den = 0.0
+    worst = 0.0
+    equal = True
+    for a, b in zip(cap_params, model.parameters()):
+        b = b.detach()
+        d = (a.float() - b.float()).square().sum()
+        r = b.float().square().sum()
+        num, den = num + float(d), den + float(r)
+        if float(r) > 0:
+            worst = max(worst, math.sqrt(float(d) / float(r)))
+        equal = equal and torch.equal(a, b)
+    out = {"eager_losses": eager["losses"],
+           "eager_step_ms": eager["step_ms"],
+           "eager_tokens_per_s": tokens * steps / eager["wall_s"],
+           "eager_peak_mem_gb": eager["peak_mem_gb"],
+           "eager_mem_at_start_gb": eager["mem_at_start_gb"],
+           "loss_rel_err_max": max(rel), "loss_rtol": CAPTURE_LOSS_RTOL,
+           "param_rel_rms": math.sqrt(num / max(den, 1e-30)),
+           "param_rel_rms_worst_tensor": worst,
+           "param_rms_tol": CAPTURE_PARAM_RMS,
+           "losses_bit_equal": cap_losses == eager["losses"],
+           "params_bit_equal": equal,
+           "rng_state_captured": list(cap_state),
+           "rng_state_eager": eager["rng_state"]}
+    out["ok"] = (out["loss_rel_err_max"] <= CAPTURE_LOSS_RTOL
+                 and out["param_rel_rms"] <= CAPTURE_PARAM_RMS
+                 and out["rng_state_captured"] == out["rng_state_eager"])
+    if not out["ok"]:
+        emit({"phase": phase, "failed": out})
+        raise AssertionError(f"{phase}: the captured steps disagree with "
+                             f"the eager loop")
+    return out
+
+
 def phase_train(results):
     import torch
+    from paddle_tpu_torch.core import random as trandom
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -2968,27 +3138,34 @@ def phase_train(results):
     model = train_model(TRAIN["layers"])
     cfg = model.config
     n_params = sum(p.numel() for p in model.parameters())
-    opt = AdamW(learning_rate=TRAIN["lr"],
-                parameters=model.named_parameters(), multi_precision=False)
-    step = TrainStep(model, LlamaPretrainingCriterion(), opt)
+
+    def make_opt():
+        return AdamW(learning_rate=TRAIN["lr"],
+                     parameters=model.named_parameters(),
+                     multi_precision=False)
+    opt = make_opt()
+    crit = LlamaPretrainingCriterion()
+    step = TrainStep(model, crit, opt)
     ids = train_ids(cfg.vocab_size)
+    start = param_copies(model)
+    trandom.seed(SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
+    mem_start = fresh_peak()
+    # the first step runs eager (builds the kernels and the optimizer
+    # state), the second is captured and replayed, the timed ones replay
     losses = [step(ids, ids) for _ in range(TRAIN["warmup"])]
     torch.cuda.synchronize()
     for kern in kernels:
         kern.launches = kern.tma_launches = 0    # the counts start here
     reset_optimizer_counts()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN["steps"]):
-        losses.append(step(ids, ids))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    timed, wall, captured = timed_replays(step, (ids, ids), TRAIN["steps"])
+    losses += timed
     launches = [kern.launches for kern in kernels]   # ... and are read here
     tma = [kern.tma_launches for kern in kernels]
     opt_counts = check_optimizer_launches("train", opt, TRAIN["steps"],
                                           False)
+    capture = check_captured("train", step, captured, TRAIN["steps"])
     results["multi_tensor_adam"]["launches"] = opt_counts["o2"]
     expected = TRAIN["layers"] * TRAIN["steps"]
     if launches != [expected] * 3 or tma != [expected] * 3:
@@ -3015,8 +3192,15 @@ def phase_train(results):
     attn_per_token = 3 * 2 * 2 * heads * hd * (TRAIN["seq"] + 1) / 2 \
         * TRAIN["layers"]
     mfu = (6 * n_params + attn_per_token) * tok_s / BF16_FLOPS
+    cap_params, cap_state = param_copies(model), trandom.get_rng_state()
     both = optimizer_both_ways(step, (ids, ids))
     prof = both["fused"]
+    del step, opt
+    torch.cuda.empty_cache()
+    eager = eager_reference(model, start, make_opt, crit, (ids, ids),
+                            TRAIN["warmup"], TRAIN["steps"])
+    vs = capture_vs_eager("train", loss_values, cap_params, cap_state,
+                          model, eager, tokens, TRAIN["steps"])
     out = {"card": nvidia_smi_line(), "model": "llama2-7b-width",
            "layers": TRAIN["layers"], "hidden": cfg.hidden_size,
            "intermediate": cfg.intermediate_size, "heads": heads,
@@ -3034,9 +3218,16 @@ def phase_train(results):
            "flash_launches": dict(zip(("fwd", "dq", "dkv"), launches)),
            "flash_tma_launches": dict(zip(("fwd", "dq", "dkv"), tma)),
            "optimizer_launches": opt_counts,
-           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof,
-           "profile_one_step_loop": both["loop"]}
-    del step, opt, model
+           "peak_mem_gb": peak / 2 ** 30,
+           "mem_at_start_gb": mem_start / 2 ** 30, "capture": capture,
+           "vs_eager": vs, "profile_one_step": prof,
+           "profile_one_step_loop": both["loop"],
+           # the profiler's own cost lands in the profiled step's wall:
+           # the idle share against the timed steps' mean
+           "device_idle_share_of_timed_step":
+               1 - prof["device_ms"] / (wall / TRAIN["steps"] * 1e3)
+               if prof["device_ms"] else None}
+    del model, start, cap_params
     torch.cuda.empty_cache()
     return out
 
@@ -3723,6 +3914,78 @@ def phase_gpt_fit_scaled(results):
 DROP_SEED = 0x5EED0123456789AB     # the kernels' Philox key in the checks
 
 
+def drop_key(seed=DROP_SEED):
+    """A 64-bit seed as the key tensor the flash wrappers take (int64
+    [2] on the card: its low and high words), as core.random draws
+    them."""
+    import torch
+    return torch.tensor([seed & 0xFFFFFFFF, seed >> 32], dtype=torch.int64,
+                        device="cuda")
+
+
+def dropout_graph_replays(p, replays=3):
+    """A small dropout attention call (a key drawn from the port's key
+    stream, then the three kernels with it) captured in one CUDA graph
+    and replayed: every replay draws a fresh key on the card, so the
+    replays' outputs differ from each other and each equals, bit for
+    bit, the eager call with the same place in the stream after the
+    same seed; a reseed between replays restarts the stream in the
+    graph (the state is written in place, no recapture)."""
+    import torch
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.ops.kernels import counters
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    dev = torch.device("cuda", torch.cuda.current_device())
+    q, k, v, do = flash_inputs((2, 256, 4, 64), torch.bfloat16, seed=9)
+
+    def call():
+        key = trandom.next_key(dev)
+        out, lse = fa.flash_attention_fwd(q, k, v, False, None, p, key)
+        delta = fa.attention_delta(out, do)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, False, None,
+                                       p, key)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, False,
+                                            None, p, key)
+        return out, dq, dk, dv
+
+    def clone(xs):
+        return [x.clone() for x in xs]
+    counts = counters.snapshot()   # these launches are checks, not the path
+    trandom.seed(SEED + 3)
+    eager = [clone(call()) for _ in range(replays)]
+    trandom.seed(SEED + 3)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            static = call()
+    torch.cuda.current_stream().wait_stream(stream)
+    # recording drew nothing on the card: the stream restarts here
+    trandom.seed(SEED + 3)
+    got = []
+    for _ in range(replays):
+        graph.replay()
+        got.append(clone(static))
+    trandom.seed(SEED + 3)
+    graph.replay()
+    again = clone(static)
+    torch.cuda.synchronize()
+    counters.restore(counts)
+    row = {"shape": [2, 256, 4, 64], "dropout_p": p, "replays": replays,
+           "replay_equals_eager_nth": [
+               all(torch.equal(a, b) for a, b in zip(g_, e))
+               for g_, e in zip(got, eager)],
+           "replays_differ": all(
+               not torch.equal(got[i][0], got[j][0])
+               for i in range(replays) for j in range(i + 1, replays)),
+           "reseed_restarts_in_graph": all(
+               torch.equal(a, b) for a, b in zip(again, eager[0]))}
+    row["ok"] = all(row["replay_equals_eager_nth"]) and \
+        row["replays_differ"] and row["reseed_restarts_in_graph"]
+    return row
+
+
 def phase_flash_dropout_parity(results):
     import torch
     from paddle_tpu_torch.nn.functional import sdpa_reference
@@ -3734,7 +3997,7 @@ def phase_flash_dropout_parity(results):
              ("small_f32", (2, 300, 4, 64), False, f32),
              ("small_f32_causal", (2, 300, 4, 64), True, f32)]
     rows, failed = [], []
-    kw = dict(dropout_p=p, seed=DROP_SEED)
+    kw = dict(dropout_p=p, seed=drop_key())
     for i, (case, shape, causal, dtype) in enumerate(cases):
         dname = str(dtype).replace("torch.", "")
         q, k, v, do = flash_inputs(shape, dtype, seed=200 + i)
@@ -3758,9 +4021,9 @@ def phase_flash_dropout_parity(results):
         # drops other pairs
         plain_launch = kernels_all(q, k, v, do, causal, ref[1], delta)
         zero = kernels_all(q, k, v, do, causal, ref[1], delta,
-                           dropout_p=0.0, seed=DROP_SEED)
+                           dropout_p=0.0, seed=drop_key())
         other = kernels_all(q, k, v, do, causal, ref[1], delta,
-                            dropout_p=p, seed=DROP_SEED + 1)
+                            dropout_p=p, seed=drop_key(DROP_SEED + 1))
         row["p0_bit_equal"] = all(torch.equal(a, b)
                                   for a, b in zip(plain_launch, zero))
         row["seeds_differ"] = not any(torch.equal(a, b) for a, b in
@@ -3775,7 +4038,7 @@ def phase_flash_dropout_parity(results):
         del q, k, v, do, ref, ref32, got, plain_launch, zero, other
         torch.cuda.empty_cache()
     B, L, H, _ = BERT_SHAPE
-    keep = fa.flash_dropout_keep_mask(DROP_SEED, B, H, L, p, "cuda")
+    keep = fa.flash_dropout_keep_mask(drop_key(), B, H, L, p, "cuda")
     rate = float(keep.float().mean())
     sigma = math.sqrt(p * (1 - p) / keep.numel())
     keep_row = {"shape": [B, H, L, L], "keep_rate": rate,
@@ -3787,6 +4050,9 @@ def phase_flash_dropout_parity(results):
     exact = keep_mask_exact(p)
     if not exact["ok"]:
         failed.append({"keep_mask_exact": exact})
+    replays = dropout_graph_replays(p)
+    if not replays["ok"]:
+        failed.append({"graph_replays": replays})
     auto = []
     for dtype in (bf, f32):
         dname = str(dtype).replace("torch.", "")
@@ -3794,14 +4060,14 @@ def phase_flash_dropout_parity(results):
         auto.append(autograd_row(
             q, k, v, do,
             lambda a, b, c: fa.flash_attention(a, b, c, False, None, p,
-                                               DROP_SEED),
+                                               drop_key()),
             lambda a, b, c: sdpa_reference(a, b, c, dropout_p=p,
-                                           seed=DROP_SEED), dname))
+                                           seed=drop_key()), dname))
         if not auto[-1]["ok"]:
             failed.append({"autograd": auto[-1]})
     finish_parity("flash_dropout_parity", results, ("_dropout",), failed)
     return {"cases": rows, "keep_rate": keep_row, "keep_mask_exact": exact,
-            "autograd": auto}
+            "graph_replays": replays, "autograd": auto}
 
 
 def keep_mask_exact(p):
@@ -3816,20 +4082,21 @@ def keep_mask_exact(p):
     zeros = torch.zeros((B, L, H, 64), dtype=torch.bfloat16, device="cuda")
     eye = torch.eye(L, dtype=torch.bfloat16, device="cuda")
     ident = eye[None, :, None, :].expand(B, L, H, L).contiguous()
-    keep = fa.flash_dropout_keep_mask(DROP_SEED, B, H, L, p, "cuda").float()
+    key = drop_key()
+    keep = fa.flash_dropout_keep_mask(key, B, H, L, p, "cuda").float()
     before = flash_counts()
     out, lse = fa.flash_attention_fwd(zeros, zeros, ident, False, None, p,
-                                      DROP_SEED)
+                                      key)
     delta = fa.attention_delta(out, ident)
     _, dv = fa.flash_attention_bwd_dkv(zeros, zeros, ident, ident, lse,
-                                       delta, False, None, p, DROP_SEED)
+                                       delta, False, None, p, key)
     torch.cuda.synchronize()
     paths = flash_paths(before)
     fwd = (out.float() * L * (1 - p)).round().permute(0, 2, 1, 3)
     bwd = (dv.float() * L * (1 - p)).round().permute(0, 2, 3, 1)
     plain = fa.flash_attention_fwd(zeros, zeros, ident)
     zero_p = fa.flash_attention_fwd(zeros, zeros, ident, False, None, 0.0,
-                                    DROP_SEED)
+                                    key)
     row = {"shape": [B, L, H, 64], "dropout_p": p,
            "launches_and_tma_launches": paths,
            "forward_bits_differ": int((fwd != keep).sum()),
@@ -4066,7 +4333,7 @@ def phase_flash_time_bert(results):
     # keep mask costs
     no_drop = flash_timings(BERT_SHAPE, False)
     drop = flash_timings(BERT_SHAPE, False,
-                         kw=dict(dropout_p=p, seed=DROP_SEED),
+                         kw=dict(dropout_p=p, seed=drop_key()),
                          lib_kw={"dropout_p": p})
     lens = varlen_lengths()
     seg = varlen_seg(lens)
@@ -4165,30 +4432,36 @@ def phase_bert_train(results):
     model = bert_model(BERT["layers"])
     cfg = model.config
     n_params = sum(p.numel() for p in model.parameters())
-    opt = AdamW(learning_rate=BERT["lr"],
-                parameters=model.named_parameters(), multi_precision=False)
-    step = TrainStep(model, CrossEntropyLoss(), opt)
+
+    def make_opt():
+        return AdamW(learning_rate=BERT["lr"],
+                     parameters=model.named_parameters(),
+                     multi_precision=False)
+    opt = make_opt()
+    crit = CrossEntropyLoss()
+    step = TrainStep(model, crit, opt)
     ids = bert_ids(cfg.vocab_size)
+    start = param_copies(model)
     trandom.seed(SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
+    mem_start = fresh_peak()
+    # the first step runs eager, the second is captured and replayed, the
+    # timed ones replay: each replay draws its 49 dropout keys on the card
     losses = [step(ids, ids) for _ in range(BERT["warmup"])]
     torch.cuda.synchronize()
     for w in wrappers:                     # the counts start here
         w.launches = w.dropout_launches = w.segmented_launches = 0
         w.tma_launches = 0
     reset_optimizer_counts()
-    t0 = time.perf_counter()
-    for _ in range(BERT["steps"]):
-        losses.append(step(ids, ids))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    timed, wall, captured = timed_replays(step, (ids, ids), BERT["steps"])
+    losses += timed
     launches = [w.launches for w in wrappers]        # ... and are read here
     dropped = [w.dropout_launches for w in wrappers]
     tma = [w.tma_launches for w in wrappers]
     opt_counts = check_optimizer_launches("bert_train", opt, BERT["steps"],
                                           False)
+    capture = check_captured("bert_train", step, captured, BERT["steps"])
     expected = BERT["layers"] * BERT["steps"]
     if launches != [expected] * 3 or dropped != [expected] * 3 \
             or tma != [expected] * 3:
@@ -4209,8 +4482,15 @@ def phase_bert_train(results):
     tokens = BERT["batch"] * BERT["seq"]
     tok_s = tokens * BERT["steps"] / wall
     mfu = 6 * n_params * tok_s / BF16_FLOPS      # as bench.py:848 counts
+    cap_params, cap_state = param_copies(model), trandom.get_rng_state()
     both = optimizer_both_ways(step, (ids, ids))
     prof = both["fused"]
+    del step, opt
+    torch.cuda.empty_cache()
+    eager = eager_reference(model, start, make_opt, crit, (ids, ids),
+                            BERT["warmup"], BERT["steps"])
+    vs = capture_vs_eager("bert_train", loss_values, cap_params, cap_state,
+                          model, eager, tokens, BERT["steps"])
     out = {"card": nvidia_smi_line(), "model": "bert-base-mlm",
            "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
            "intermediate": cfg.intermediate_size,
@@ -4231,9 +4511,16 @@ def phase_bert_train(results):
                                               dropped)),
            "flash_tma_launches": dict(zip(("fwd", "dq", "dkv"), tma)),
            "optimizer_launches": opt_counts,
-           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof,
-           "profile_one_step_loop": both["loop"]}
-    del step, opt, model
+           "peak_mem_gb": peak / 2 ** 30,
+           "mem_at_start_gb": mem_start / 2 ** 30, "capture": capture,
+           "vs_eager": vs, "profile_one_step": prof,
+           "profile_one_step_loop": both["loop"],
+           # the profiler's own cost lands in the profiled step's wall:
+           # the idle share against the timed steps' mean
+           "device_idle_share_of_timed_step":
+               1 - prof["device_ms"] / (wall / BERT["steps"] * 1e3)
+               if prof["device_ms"] else None}
+    del model, start, cap_params
     torch.cuda.empty_cache()
     return out
 
@@ -4717,6 +5004,7 @@ def moe_param_counts(model):
 
 def phase_moe_train(results):
     import torch
+    from paddle_tpu_torch.core import random as trandom
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.optimizer import AdamW
@@ -4726,29 +5014,37 @@ def phase_moe_train(results):
     model = moe_model()
     cfg = model.config
     n_params, n_active = moe_param_counts(model)
-    opt = AdamW(learning_rate=MOE["lr"],
-                parameters=model.named_parameters(), multi_precision=False)
-    step = TrainStep(model, moe_loss(model), opt)
+
+    def make_opt():
+        return AdamW(learning_rate=MOE["lr"],
+                     parameters=model.named_parameters(),
+                     multi_precision=False)
+    opt = make_opt()
+    loss_fn = moe_loss(model)
+    step = TrainStep(model, loss_fn, opt)
     ids = moe_ids(cfg.vocab_size)
+    start = param_copies(model)
+    trandom.seed(SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
+    mem_start = fresh_peak()
+    # the first step runs eager, the second is captured and replayed (the
+    # routing too: capacity dispatch has no host read), the timed replay
     losses = [step(ids, ids) for _ in range(MOE["warmup"])]
     torch.cuda.synchronize()
     for kern in kernels:
         kern.launches = kern.tma_launches = 0    # the counts start here
     reset_optimizer_counts()
-    t0 = time.perf_counter()
     drops = []
-    for _ in range(MOE["steps"]):
-        losses.append(step(ids, ids))
-        drops.append([m.drop_share for m in model.moe_layers()])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    timed, wall, captured = timed_replays(
+        step, (ids, ids), MOE["steps"], lambda: drops.append(
+            [m.drop_share.clone() for m in model.moe_layers()]))
+    losses += timed
     launches = [kern.launches for kern in kernels]   # ... and are read here
     tma = [kern.tma_launches for kern in kernels]
     opt_counts = check_optimizer_launches("moe_train", opt, MOE["steps"],
                                           False)
+    capture = check_captured("moe_train", step, captured, MOE["steps"])
     expected = cfg.num_hidden_layers * MOE["steps"]
     if launches != [expected] * 3 or tma != [expected] * 3:
         raise AssertionError(
@@ -4773,8 +5069,15 @@ def phase_moe_train(results):
     attn_per_token = 3 * 2 * 2 * cfg.num_attention_heads * hd * \
         (MOE["seq"] + 1) / 2 * cfg.num_hidden_layers
     mfu = (6 * n_active + attn_per_token) * tok_s / BF16_FLOPS
+    cap_params, cap_state = param_copies(model), trandom.get_rng_state()
     both = optimizer_both_ways(step, (ids, ids))
     prof = both["fused"]
+    del step, opt
+    torch.cuda.empty_cache()
+    eager = eager_reference(model, start, make_opt, loss_fn, (ids, ids),
+                            MOE["warmup"], MOE["steps"])
+    vs = capture_vs_eager("moe_train", loss_values, cap_params, cap_state,
+                          model, eager, tokens, MOE["steps"])
     capacity = max(1, int(cfg.capacity_factor * tokens * cfg.top_k
                           / cfg.num_experts))
     out = {"card": nvidia_smi_line(), "model": "ernie-moe",
@@ -4803,14 +5106,16 @@ def phase_moe_train(results):
            "flash_launches": dict(zip(("fwd", "dq", "dkv"), launches)),
            "flash_tma_launches": dict(zip(("fwd", "dq", "dkv"), tma)),
            "optimizer_launches": opt_counts,
-           "peak_mem_gb": peak / 2 ** 30, "profile_one_step": prof,
+           "peak_mem_gb": peak / 2 ** 30,
+           "mem_at_start_gb": mem_start / 2 ** 30, "capture": capture,
+           "vs_eager": vs, "profile_one_step": prof,
            "profile_one_step_loop": both["loop"],
            # the profiled step's own wall carries the profiler's cost:
            # the idle share against the timed steps' mean
            "device_idle_share_of_timed_step":
                1 - prof["device_ms"] / (wall / MOE["steps"] * 1e3)
                if prof["device_ms"] else None}
-    del step, opt, model
+    del model, start, cap_params
     torch.cuda.empty_cache()
     return out
 
@@ -5287,7 +5592,15 @@ def optimizer_both_ways(step, batch):
             if "step" in vars(opt):
                 del opt.step
             set_flags({"FLAGS_fused_optimizer": True})
-        prof["optimizer_step_ms"] = events[0][0].elapsed_time(events[0][1])
+        if events:
+            prof["optimizer_step_ms"] = events[0][0].elapsed_time(
+                events[0][1])
+            prof["optimizer_step_ms_from"] = "CUDA events around the call"
+        else:
+            # a graph replay calls no optimizer.step() on the host: the
+            # profile's multi_tensor kernels are its device time
+            prof["optimizer_step_ms"] = prof["groups_ms"]["optimizer"]
+            prof["optimizer_step_ms_from"] = "profile, optimizer group"
         out[name] = prof
     return out
 

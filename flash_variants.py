@@ -136,6 +136,13 @@ SEG_GEOMETRIES = {"varlen": False, "varlen_causal": True}
 SEED = 0x5EED0123456789AB
 
 
+def seed_key():
+    """SEED as the key tensor the wrappers take (its two words)."""
+    import torch
+    return torch.tensor([SEED & 0xFFFFFFFF, SEED >> 32], dtype=torch.int64,
+                        device="cuda")
+
+
 def variant_source(src: str, subs, tail: str = "") -> str:
     for old, new in subs:
         if old not in src:
@@ -145,18 +152,22 @@ def variant_source(src: str, subs, tail: str = "") -> str:
     return src + tail
 
 
-def bind(path, segments=True):
+def bind(path, segments=True, key_ptr=True):
     """A variant's library with its three entries' argument types (a
-    source from before the segment instances has no segment arguments)."""
+    source from before the segment instances has no segment arguments;
+    one from before the key in device memory takes the Philox key's two
+    words by value)."""
     lib = ctypes.CDLL(str(path))
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     seg = [p, ctypes.c_longlong, p, p] if segments else []
-    tail = [p, i, i, i, i, i, ctypes.c_float] + seg + \
-        [u, u, u, ctypes.c_float, p]
+    key = [p] if key_ptr else [u, u]
+    tail = [p, i, i, i, i, i, ctypes.c_float] + seg + key + \
+        [u, ctypes.c_float, p]
     lib.flash_attention_tma_forward.argtypes = [p] * 5 + tail
     lib.flash_attention_tma_backward_dq.argtypes = [p] * 7 + tail
     lib.flash_attention_tma_backward_dkv.argtypes = [p] * 8 + tail
     lib.segments = segments
+    lib.key_ptr = key_ptr
     return lib
 
 
@@ -170,6 +181,9 @@ def calls(lib, q, k, v, do, lse, delta, causal, p, plan=None,
     B, L, H, D = fa._as4(q).shape
     thresh, inv = fa._dropout_args(p, SEED if p else None)
     lo, hi = fa._seed_words(SEED) if thresh else (0, 0)
+    key_t = torch.tensor([lo, hi], dtype=torch.int64, device="cuda")
+    key = (key_t.data_ptr() if thresh else None,) if lib.key_ptr \
+        else (lo, hi)
     out, g = torch.empty_like(q), torch.empty_like(q)
     gk, gv = torch.empty_like(k), torch.empty_like(v)
     ls = torch.empty((B, H, L), dtype=torch.float32, device="cuda")
@@ -186,7 +200,7 @@ def calls(lib, q, k, v, do, lse, delta, causal, p, plan=None,
                     win = plan.window(kernel, D, causal)
                 seg = (plan.ids.data_ptr(), plan.ids.stride(0),
                        plan.ranges.data_ptr(), win.data_ptr())
-        return (B, L, H, D, int(causal), 1 / math.sqrt(D), *seg, lo, hi,
+        return (B, L, H, D, int(causal), 1 / math.sqrt(D), *seg, *key,
                 thresh, inv, torch.cuda.current_stream().cuda_stream)
 
     def check(rc):
@@ -314,7 +328,8 @@ def main() -> int:
             print(log[-3000:])
             continue
         libs[name] = bind(out / f"libflash_{name}.so",
-                          segments="Seg sg" in sources[name])
+                          segments="Seg sg" in sources[name],
+                          key_ptr="const long long* key" in sources[name])
         inst = cs.ptxas_instances([ln for ln in log.splitlines()
                                    if "registers" in ln or "spill" in ln
                                    or "Compiling entry" in ln])
@@ -326,7 +341,7 @@ def main() -> int:
     inputs = {}
     for g, (shape, causal, p) in GEOMETRIES.items():
         q, k, v, do = cs.flash_inputs(shape, torch.bfloat16, seed=1)
-        kw = dict(dropout_p=p, seed=SEED) if p else {}
+        kw = dict(dropout_p=p, seed=seed_key()) if p else {}
         o, lse = fa.flash_attention_fwd(q, k, v, causal, None, **kw)
         inputs[g] = (q, k, v, do, lse, fa.attention_delta(o, do), causal, p,
                      kw)
@@ -391,7 +406,7 @@ def main() -> int:
     base = {}
     for g, (shape_g, causal, p) in GEOMETRIES.items():
         q, k, v, do = cs.flash_inputs(shape_g, torch.bfloat16, seed=1)
-        kw = dict(dropout_p=p, seed=SEED) if p else {}
+        kw = dict(dropout_p=p, seed=seed_key()) if p else {}
         o, lse = fa.flash_attention_fwd(q, k, v, causal, None, **kw)
         delta = fa.attention_delta(o, do)
         general = cs.flash_general(q, k, v, do, lse, delta, causal, p,

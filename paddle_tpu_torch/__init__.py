@@ -44,8 +44,9 @@ BERT-base MLM training (dropout inside and around attention):
   ``CrossEntropyLoss``; ``nn.functional`` — ``dropout`` (the JAX hash
   mask), ``gelu``, ``tanh``, ``layer_norm``, ``cross_entropy`` and the
   packed-varlen entry ``flash_attn_varlen_qkvpacked``;
-- ``core.random`` — the port's generator and the seeds it draws for
-  the kernels' Philox dropout and the hash dropout;
+- ``core.random`` — the port's generators, whose key streams live on
+  the device: the keys of the kernels' Philox dropout and the hash
+  dropout's seed (``derive_seed``), drawn without a host read;
 - ``ops.kernels.flash_attention`` again — attention dropout (the
   Philox keep mask) and segment (varlen) masking inside the same
   kernels.

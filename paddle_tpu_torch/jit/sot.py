@@ -2,7 +2,8 @@
 
 The port of ``paddle_tpu/jit/sot.py`` ``CapturedStep`` (with
 ``BucketPolicy`` and ``_count_fallback``), the engine behind
-``hapi.Model.train_batch`` / ``eval_batch``. Where the JAX package
+``hapi.Model.train_batch`` / ``eval_batch`` (strict) and
+``jit.TrainStep`` (non-strict). Where the JAX package
 compiles a train step (forward, loss, backward, clip, optimizer update)
 into one donated XLA executable, the port records it into one
 ``torch.cuda.CUDAGraph``: the flash-attention kernels K1b/K2b, the
@@ -16,6 +17,10 @@ by one call.
   a guard miss: the old graph stays in an LRU of
   ``FLAGS_sot_capture_cache`` entries (their graphs share one memory
   pool) and the new one starts over.
+- **Network** — a paddle ``Layer`` or a plain ``torch.nn.Module`` (the
+  port's Llama, BERT and ERNIE-MoE): the graph calls it with the kind of
+  tensors the caller passed (paddle Tensors or torch tensors) and
+  returns its loss in the kind the loss function gave.
 - **Strict policy** — the first sighting of a signature returns None
   and the caller runs the eager step (which also builds the kernels,
   warms cuBLAS and autograd and creates the optimizer state). The
@@ -24,6 +29,15 @@ by one call.
   one captured step; no warm-up iterations run, so every step applies
   one update, as the eager loop does. Later calls copy the batch into
   the signature's static input buffers and replay.
+- **Non-strict** (``strict=False``, ``jit.TrainStep``'s) — the JAX
+  class's explicit whole-step mode: the kill switch does not apply. The
+  first sighting still runs eager once (the JAX step compiles on its
+  first call instead), and where the card cannot honour a capture the
+  caller runs its eager step with the reason counted, as in strict mode.
+  As the JAX step differentiates the whole trainable tree, a trainable
+  parameter the loss does not reach gets a zero gradient (AdamW still
+  decays it), written inside the graph into a buffer the graph keeps.
+  ``cast_loss_f32`` casts the loss to f32 before the backward.
 - **State in place** — parameters, optimizer moments and beta powers,
   the lr tensor (``fused_step._lr_device``, refreshed on the host side
   before every capture and replay, never filled inside a graph) and
@@ -36,6 +50,14 @@ by one call.
 - **Host state** — a replay advances ``optimizer._global_step`` and the
   kernel launch counters (``ops.kernels.counters``) by what the
   capture recorded, so launch counts read as layers x steps.
+- **Random keys** — dropout draws its keys from the port's key streams
+  (``core.random``), whose state lives on the device: the graph holds
+  each draw's in-place advance of the generator's state tensor, so
+  every replay draws fresh keys, the same keys the eager step would.
+  The capture records how many keys it drew from which generator; each
+  replay first brings those states up to the host counter (outside the
+  graph) and then advances the host mirror by the recorded draws. The
+  state tensors' addresses join the ones a replay checks.
 - **Lazy loss** — ``step()`` returns a device copy of the graph's loss
   (the next replay overwrites the graph's own), with no host sync;
   ``forward()`` copies its outputs likewise.
@@ -49,17 +71,19 @@ by one call.
   ``"device"`` — CUDA graphs exist only on the card, so a network on
   the CPU is never captured (decided where the card would capture: the
   first sighting runs eager as on the card, later ones fall back) — and
-  ``"rng"`` — a signature whose first sighting drew from the port's
-  generator (``core.random.draws``: dropout seeds, Bernoulli
-  generators) is never captured, because its seeds are Python ints a
-  graph would freeze; the JAX package carries its key on the device
-  instead. A capture that fails raises; it never runs eager quietly.
+  ``"rng"`` — a signature whose first sighting made a host draw
+  (``core.random.draws``: the generators of Bernoulli and axis
+  dropout, ``rrelu``, the initializers) is never captured, because its
+  seed is a Python int a graph would freeze. Draws from the key streams
+  (hash dropout, the flash kernels' dropout) are legal inside a graph.
+  A capture that fails raises; it never runs eager quietly.
 
-``FLAGS_sot_capture=0`` is the kill switch (every step eager, nothing
-counted).
+``FLAGS_sot_capture=0`` is the kill switch of strict mode (every step
+eager, nothing counted).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional
@@ -142,7 +166,7 @@ class BucketPolicy:
 
 
 _SEEN_STEP = object()  # first-sighting marker: signature noted, ran eager
-_RNG_STEP = object()   # the first sighting drew from the port's generator
+_RNG_STEP = object()   # the first sighting made a host draw
 
 _NOT_HYPER = {"_learning_rate", "_global_step", "_param_names", "_index",
               "_parameter_list", "_states", "_grad_clip", "_regularizer",
@@ -186,28 +210,30 @@ def _fusable(opt) -> bool:
 class _Graph:
     """One captured signature: its graph, static buffers and what a
     replay must do on the host."""
-    __slots__ = ("kind", "graph", "inputs", "out", "loss", "found", "keep",
-                 "counts", "gsteps", "ptrs")
+    __slots__ = ("kind", "graph", "inputs", "wrapped", "out", "loss",
+                 "loss_wrapped", "found", "keep", "counts", "gsteps", "ptrs",
+                 "draws")
 
 
 class CapturedStep:
     """A train (``step``) or eval (``forward``) step as one cached CUDA
-    graph per signature; see the module docstring. The JAX class's
-    non-strict mode (``jit.TrainStep``'s, which always captures) is not
-    ported: the port's TrainStep runs eager until the dropout seeds
-    live on the device."""
+    graph per signature; see the module docstring."""
 
     def __init__(self, network, loss_fn=None, optimizer=None,
-                 mean_reduce: bool = False,
+                 mean_reduce: bool = False, cast_loss_f32: bool = False,
+                 strict: bool = True,
                  bucket_policy: Optional[BucketPolicy] = None,
                  name: str = "step"):
         self.network = network
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self._mean_reduce = mean_reduce
+        self._cast_f32 = cast_loss_f32
+        self._strict = strict
         self._bucket = bucket_policy
         self._name = name
-        self._sublayers = list(network.sublayers(include_self=True))
+        self._sublayers = list(network.sublayers(include_self=True)) \
+            if hasattr(network, "sublayers") else list(network.modules())
         self._params = OrderedDict((k, _raw(p)) for k, p in
                                    network.named_parameters())
         self._buffers = OrderedDict((k, _raw(b)) for k, b in
@@ -277,13 +303,15 @@ class CapturedStep:
         return sorted(k for k, p in self._params.items() if p.requires_grad)
 
     def _signature(self, kind: str, arrays, n_ins: int, tkeys,
-                   scaler_statics=None) -> Optional[tuple]:
+                   scaler_statics=None, wrapped=None) -> Optional[tuple]:
         from ..amp.auto_cast import amp_signature
         modes = tuple(lyr.training for lyr in self._sublayers)
+        if wrapped is None:
+            wrapped = (True,) * len(arrays)
         parts: List[Any] = [kind, n_ins, modes, tuple(tkeys),
                             amp_signature()]
-        for a in arrays:
-            parts.append((tuple(a.shape), str(a.dtype), str(a.device)))
+        for a, w in zip(arrays, wrapped):
+            parts.append((tuple(a.shape), str(a.dtype), str(a.device), w))
         if kind in ("train", "train_scaled"):
             from ..utils.clip_grad import clip_spec
             opt = self.optimizer
@@ -332,12 +360,17 @@ class CapturedStep:
             self._cache.popitem(last=False)
 
     # -- capture -----------------------------------------------------------
-    def _leaf_ptrs(self, kind: str, tkeys, scaler=None) -> tuple:
+    def _leaf_ptrs(self, kind: str, tkeys, scaler=None, gens=()) -> tuple:
         """The addresses a graph holds beyond its own pool: parameters,
-        buffers and, for a train graph, the optimizer states, the lr
-        tensor and the scaler's carry."""
+        buffers, the state tensors of the default generator and of
+        ``gens`` on the network's device (each brought up to its host
+        counter first) and, for a train graph, the optimizer states, the
+        lr tensor and the scaler's carry."""
         ptrs = [t.data_ptr() for t in self._params.values()]
         ptrs += [t.data_ptr() for t in self._buffers.values()]
+        dev = self._device()
+        ptrs += [g.prepare(dev).data_ptr()
+                 for g in (random_mod.default_generator(),) + tuple(gens)]
         if kind != "eval":
             opt = self.optimizer
             for k in tkeys:
@@ -352,12 +385,38 @@ class CapturedStep:
     def _device(self) -> torch.device:
         return next(iter(self._params.values())).device
 
+    def _capture_stream(self) -> torch.cuda.Stream:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self._device())
+        return self._stream
+
+    @contextlib.contextmanager
+    def eager_stream(self):
+        """Where a caller runs its eager step on the card: the stream this
+        engine captures on, joined to the current stream before and after.
+        The autograd leaves an eager step makes (AccumulateGrad nodes,
+        which a tensor the step leaves behind keeps alive, as a model's
+        stored auxiliary loss does) then belong to the capture's stream,
+        and a later capture that meets them does not wait on the legacy
+        stream (``cudaErrorStreamCaptureImplicit``). A no-op on the
+        CPU."""
+        if not self._on_card():
+            yield
+            return
+        cur = torch.cuda.current_stream(self._device())
+        side = self._capture_stream()
+        side.wait_stream(cur)
+        try:
+            with torch.cuda.stream(side):
+                yield
+        finally:
+            cur.wait_stream(side)
+
     def _pool_handle(self):
         """The memory pool this engine's graphs share: a new one when no
         graph of the old is alive (a pool whose last graph went is
         freed and cannot take a capture again)."""
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self._device())
+        self._capture_stream()
         if self._pool is None or not self.graphs():
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
@@ -368,7 +427,8 @@ class CapturedStep:
             loss = loss.mean()
         return loss
 
-    def _capture(self, kind: str, arrays, n_ins: int, tkeys, scaler):
+    def _capture(self, kind: str, arrays, n_ins: int, tkeys, scaler,
+                 wrapped):
         """Record one step of ``kind`` into a new graph over static
         copies of ``arrays`` (nothing runs: the caller replays)."""
         from ..optimizer.fused_step import _lr_device
@@ -379,7 +439,9 @@ class CapturedStep:
         e.kind = kind
         e.inputs = [torch.empty_like(a, device=dev).copy_(a)
                     for a in arrays]
+        e.wrapped = wrapped
         e.keep, e.found, e.out, e.loss = [], None, None, None
+        e.loss_wrapped = False
         if kind != "eval":
             # persistent state outside the graph's pool, before capture:
             # the moments and powers, and the lr, refreshed here and
@@ -389,38 +451,61 @@ class CapturedStep:
             _lr_device(opt, dev)
             table_before = getattr(opt, "_fused_table", None)
             gstep0 = opt._global_step
+        random_mod.default_generator().prepare(dev)
         draws0 = random_mod.draws()
+        drawn: Dict[Any, int] = {}
+
+        def observe(gen, where):
+            if where == dev:
+                drawn[gen] = drawn.get(gen, 0) + 1
         before = _counters.snapshot()
         e.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(e.graph, pool=pool, stream=self._stream):
-            ins = [Tensor(t) for t in e.inputs[:n_ins]]
-            lbls = [Tensor(t) for t in e.inputs[n_ins:]]
-            if kind == "eval":
-                with torch.no_grad():
-                    out = self.network(*ins)
-                    loss = self._loss_value(out, lbls) \
-                        if (self.loss_fn is not None and lbls) else None
-                e.out = unwrap_tree(out)
-            else:
-                loss = self._loss_value(self.network(*ins), lbls)
-                if scaler is not None:
-                    scaler.scale(loss).backward()
-                    scaler.step(opt)
-                    e.found = scaler._found_tensor()
-                    scaler.update()
+        observer0, random_mod._draw_observer = \
+            random_mod._draw_observer, observe
+        try:
+            with torch.cuda.graph(e.graph, pool=pool, stream=self._stream):
+                vals = [Tensor(t) if w else t
+                        for t, w in zip(e.inputs, wrapped)]
+                ins, lbls = vals[:n_ins], vals[n_ins:]
+                if kind == "eval":
+                    with torch.no_grad():
+                        out = self.network(*ins)
+                        loss = self._loss_value(out, lbls) \
+                            if (self.loss_fn is not None and lbls) else None
+                    e.out = unwrap_tree(out)
                 else:
-                    loss.backward()
-                    opt.step()
-            e.loss = None if loss is None else loss._t.detach()
+                    loss = self._loss_value(self.network(*ins), lbls)
+                    if self._cast_f32:
+                        loss = loss.astype("float32") \
+                            if isinstance(loss, Tensor) else loss.float()
+                    if scaler is not None:
+                        scaler.scale(loss).backward()
+                        scaler.step(opt)
+                        e.found = scaler._found_tensor()
+                        scaler.update()
+                    else:
+                        loss.backward()
+                        if not self._strict:
+                            self._zero_unreached(tkeys)
+                        opt.step()
+                e.loss_wrapped = isinstance(loss, Tensor)
+                e.loss = None if loss is None else _raw(loss).detach()
+        finally:
+            random_mod._draw_observer = observer0
         self.stats["capture_seconds"] += time.perf_counter() - t0
         e.counts = _counters.delta(before, _counters.snapshot())
         _counters.restore(before)
+        # recording drew nothing on the device: the mirrors go back, and
+        # each replay advances them by what the graph draws
+        e.draws = tuple(drawn.items())
+        for gen, n in e.draws:
+            gen._rewind(dev, n)
         if random_mod.draws() != draws0:
             raise RuntimeError(
-                f"CapturedStep({self._name}): the step drew from the "
-                f"port's generator while it was captured; the graph "
-                f"would replay the same seeds")
+                f"CapturedStep({self._name}): the step made a host draw "
+                f"from the port's generator while it was captured; the "
+                f"graph would replay the same seed")
         e.gsteps = 0
         if kind != "eval":
             e.gsteps = opt._global_step - gstep0
@@ -437,11 +522,23 @@ class CapturedStep:
                 # built inside the capture: its tickets live in the pool
                 e.keep.append(table)
                 opt._fused_table = table_before
-        e.ptrs = self._leaf_ptrs(kind, tkeys, scaler)
+        e.ptrs = self._leaf_ptrs(kind, tkeys, scaler, self._gens(e))
         self.stats["compiles"] += 1
         _M_step_compiles.inc()
         _flight.record("sot", "capture_compile", fn=self._name, kind=kind)
         return e
+
+    def _zero_unreached(self, tkeys) -> None:
+        """A zero gradient for each trainable parameter the loss did not
+        reach (the JAX step differentiates the whole trainable tree)."""
+        for k in tkeys:
+            p = self._params[k]
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+    @staticmethod
+    def _gens(e: _Graph) -> tuple:
+        return tuple(g for g, _ in e.draws)
 
     def _replay(self, e: _Graph, arrays, scaler=None):
         if e.kind != "eval":
@@ -450,6 +547,9 @@ class CapturedStep:
         for buf, a in zip(e.inputs, arrays):
             buf.copy_(a, non_blocking=True)
         e.graph.replay()
+        dev = self._device()
+        for gen, n in e.draws:
+            gen._advance(dev, n)
         _counters.advance(e.counts)
         if e.kind != "eval":
             self.optimizer._global_step += e.gsteps
@@ -458,18 +558,20 @@ class CapturedStep:
         self.stats["captured_steps"] += 1
         _M_captured.inc()
 
-    def _run(self, kind: str, sig, arrays, tkeys, n_ins: int, scaler=None):
+    def _run(self, kind: str, sig, arrays, wrapped, tkeys, n_ins: int,
+             scaler=None):
         """Replay ``sig``'s graph, capturing it first when it is new or
         one of the addresses it holds moved."""
         entry = self._cache.get(sig)
         if isinstance(entry, _Graph):
-            if entry.ptrs == self._leaf_ptrs(kind, tkeys, scaler):
+            if entry.ptrs == self._leaf_ptrs(kind, tkeys, scaler,
+                                             self._gens(entry)):
                 self.stats["cache_hits"] += 1
                 _M_hits.inc()
                 self._replay(entry, arrays, scaler)
                 return entry
             self._cache[sig] = entry = None      # stale: capture anew
-        entry = self._capture(kind, arrays, n_ins, tkeys, scaler)
+        entry = self._capture(kind, arrays, n_ins, tkeys, scaler, wrapped)
         self._cache[sig] = entry
         self._replay(entry, arrays, scaler)
         return entry
@@ -477,21 +579,25 @@ class CapturedStep:
     # -- entry points ------------------------------------------------------
     def _admit(self, kind: str, inputs, labels, scaler=None):
         """Kill switch, gate, signature and sighting for one call:
-        ``(sig, arrays, tkeys)`` to run captured, or None when the
-        caller runs its eager step (a first sighting — then the caller
-        calls :meth:`eager_done` —, or a counted fallback)."""
-        if not _capture_flag.value:
+        ``(sig, arrays, wrapped, tkeys)`` to run captured, or None when
+        the caller runs its eager step (a first sighting — then the
+        caller calls :meth:`eager_done` —, or a counted fallback). The
+        kill switch applies in strict mode only."""
+        if self._strict and not _capture_flag.value:
             return None
         self._resolve_sighting()
         reason = self._gate(train=kind != "eval", scaler=scaler)
         if reason is None:
             if self._bucket is not None:
                 inputs = list(self._bucket.apply(tuple(inputs)))
-            arrays = self._arrays(list(inputs) + list(labels))
+            values = list(inputs) + list(labels)
+            arrays = self._arrays(values)
+            wrapped = tuple(not isinstance(v, torch.Tensor) for v in values)
             tkeys = self._tkeys()
             statics = None if scaler is None else \
                 scaler.capture_statics(self.optimizer)
-            sig = self._signature(kind, arrays, len(inputs), tkeys, statics)
+            sig = self._signature(kind, arrays, len(inputs), tkeys, statics,
+                                  wrapped)
             if sig is None:
                 reason = "param_static"
         if reason is None:
@@ -510,14 +616,14 @@ class CapturedStep:
         if reason is not None:
             self._fallback(reason)
             return None
-        return sig, arrays, tkeys
+        return sig, arrays, wrapped, tkeys
 
     def step(self, inputs, labels=(), scaler=None):
         """One train step over ``inputs`` / ``labels`` (Tensors, torch
-        tensors or arrays). Returns the lazy device loss Tensor, or None
-        when the caller must run its eager step (kill switch, a
-        fallback, a first sighting: then call :meth:`eager_done` after
-        it). With ``scaler`` (an enabled ``amp.GradScaler``) the graph
+        tensors or arrays). Returns the lazy device loss (a Tensor, or a
+        torch tensor where the loss function gave one), or None when the
+        caller must run its eager step (kill switch, a fallback, a first
+        sighting: then call :meth:`eager_done` after it). With ``scaler`` (an enabled ``amp.GradScaler``) the graph
         is the whole AMP iteration: scale, backward, unscale and finite
         check, the masked update and the scale bookkeeping."""
         if scaler is not None and not scaler.is_enable():
@@ -527,17 +633,21 @@ class CapturedStep:
         if got is None:
             return None
         e = self._run(kind, *got, len(inputs), scaler)
-        return Tensor(e.loss.clone())
+        loss = e.loss.clone()
+        return Tensor(loss) if e.loss_wrapped else loss
 
     def forward(self, inputs, labels=()):
         """One eval forward (and loss, with labels and a loss function).
-        Returns ``(out, loss)`` — device copies of the graph's outputs,
-        ``loss`` None without labels — or None for the eager path."""
+        Returns ``(out, loss)`` — device copies of the graph's outputs
+        (as Tensors when the inputs were), ``loss`` None without labels
+        — or None for the eager path."""
         got = self._admit("eval", inputs, labels)
         if got is None:
             return None
         e = self._run("eval", *got, len(inputs))
-        out = wrap_tree(_clone_tree(e.out))
+        out = _clone_tree(e.out)
+        if any(e.wrapped):
+            out = wrap_tree(out)
         return out, (None if e.loss is None else Tensor(e.loss.clone()))
 
     def graphs(self) -> Dict[str, int]:

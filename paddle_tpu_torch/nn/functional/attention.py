@@ -8,8 +8,10 @@ pairs. :func:`scaled_dot_product_attention`, :func:`flash_attention`
 and :func:`flash_attn_varlen_qkvpacked` are the paddle entries
 (``paddle_tpu/nn/functional/attention.py``): a call without a mask goes
 to the flash-attention kernels (``ops.kernels.flash_attention``, their
-plain versions on the CPU) with a seed drawn from the port's generator
-(``core.random.kernel_seed``) when it drops; a call with a mask goes to
+plain versions on the CPU) with a key drawn on the inputs' device from
+the port's key stream (``core.random.next_key``: no host read, so a CUDA
+graph that holds the call drops afresh on every replay) when it drops;
+a call with a mask goes to
 :func:`sdpa_reference`, as the JAX code routes them; packed varlen
 sequences go to the segment-masked kernels. The three entries take
 Tensors or torch tensors (``core.autograd.apply_op``) and return the
@@ -89,7 +91,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 def _sdpa(query, key, value, attn_mask, dropout_p, is_causal, training):
     drop = dropout_p if training else 0.0
-    seed = _random.kernel_seed() if 0.0 < drop < 1.0 else None
+    seed = _random.next_key(query.device) if 0.0 < drop < 1.0 else None
     if attn_mask is None and drop < 1.0:
         return _flash(query, key, value, causal=is_causal, dropout_p=drop,
                       seed=seed)

@@ -10,10 +10,13 @@ Pallas kernel for any of them. Each takes Tensors or torch tensors
 tensor) draws the JAX package's hash mask: a murmur3 finalizer over
 ``index * 0x9E3779B1 + seed`` in uint32 arithmetic, kept iff the hash is
 at least ``min(floor(p·2³²), 2³²−1)`` — from the same uint32 seed it is
-the JAX mask bit for bit. The seed comes from the port's generator
-(``core.random.hash_seed``). The ``axis`` and ``downscale_in_infer``
+the JAX mask bit for bit. The seed is a 0-dim tensor on the tensor's
+device, ``core.random.derive_seed`` of a fresh key of the port's key
+stream (as the JAX function derives it from a JAX key): the mask is
+computed from device data, so a CUDA graph that holds the call draws a
+fresh mask on every replay. The ``axis`` and ``downscale_in_infer``
 modes draw a Bernoulli mask on the tensor's device from a generator
-seeded by the port's generator.
+seeded by a host draw (``core.random.device_generator``).
 """
 from __future__ import annotations
 
@@ -83,13 +86,18 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (a * c) & _M32
 
 
-def hash_keep_mask(shape, p: float, seed: int, device=None) -> torch.Tensor:
+def hash_keep_mask(shape, p: float, seed, device=None) -> torch.Tensor:
     """The JAX package's hash dropout mask (``common.py:66-79``) as a
     bool tensor of ``shape``: element ``i`` (row-major) is kept iff
-    ``murmur3_fmix32(i * 0x9E3779B1 + seed) >= thresh``."""
+    ``murmur3_fmix32(i * 0x9E3779B1 + seed) >= thresh``. ``seed`` is the
+    uint32 seed as a 0-dim int64 tensor (``derive_seed(key, "uint32")``,
+    on ``device``; its device by default) or an int."""
     n = math.prod(shape)
+    if isinstance(seed, torch.Tensor):
+        device = seed.device if device is None else device
+        seed = seed.to(device=device, dtype=torch.int64)
     h = torch.arange(n, dtype=torch.int64, device=device)
-    h = (_mul32(h, 0x9E3779B1) + (int(seed) & _M32)) & _M32
+    h = (_mul32(h, 0x9E3779B1) + (seed & _M32)) & _M32
     h = _mul32(h ^ (h >> 16), 0x85EBCA6B)
     h = _mul32(h ^ (h >> 13), 0xC2B2AE35)
     h = h ^ (h >> 16)
@@ -126,7 +134,8 @@ def _dropout(x: torch.Tensor, p: float, axis, training: bool,
         # zeros with zero (not NaN) gradients
         return torch.where(torch.zeros_like(x, dtype=torch.bool), x, 0.0)
     if axis is None and mode == "upscale_in_train" and x.numel() > 1:
-        keep = hash_keep_mask(x.shape, p, _random.hash_seed(), x.device)
+        seed = _random.derive_seed(_random.next_key(x.device), "uint32")
+        keep = hash_keep_mask(x.shape, p, seed, x.device)
         return torch.where(keep, x / _scale_value(p, x.dtype),
                            0.0).to(x.dtype)
     shape = list(x.shape)

@@ -58,7 +58,7 @@ class _FusedSoftmaxCEMean(torch.autograd.Function):
             total = total + per.sum()
             lse[:, i:i + c] = lse_c
         if ignore_index is None:
-            n_valid = torch.tensor(float(b * l), device=logits.device)
+            n_valid = torch.full((), float(b * l), device=logits.device)
         else:
             n_valid = (labels != ignore_index).sum().float().clamp(min=1.0)
         ctx.save_for_backward(logits, labels, lse, n_valid)

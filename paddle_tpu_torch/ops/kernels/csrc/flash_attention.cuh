@@ -40,7 +40,9 @@
 //
 // Dropout (K5). The keep mask is a pure function of (seed, b, h, row,
 // col), so the forward's 64-row query tiles and dK/dV's 32-row ones draw
-// the same bits: Philox4x32-10 with key (seed_lo, seed_hi) and counter
+// the same bits: Philox4x32-10 with key (seed_lo, seed_hi), read from the
+// key tensor the launch points to at each tile (an L1 hit: held across
+// the tile loop, the two words made the dQ instance spill), and counter
 // (col >> 2, row, b * H + h, 0) gives four words for four neighbouring
 // columns; the pair (row, col) is kept iff word[col & 3] >= thresh, with
 // thresh = min(floor(p * 2^32), 2^32 - 1). thresh = 0 turns dropout off
@@ -133,7 +135,7 @@ struct Mask {
   const int* seg;      // [B, L] segment ids, or nullptr: no segments
   long long seg_sb;    // seg's batch stride (elements)
   const int* seg_rng;  // [B, ceil(L / 32), 2]: min, max id of each chunk
-  uint32_t seed_lo, seed_hi;
+  const long long* key;  // the Philox key's two words (philox.cuh)
   uint32_t thresh;     // keep iff word >= thresh; 0: no dropout
   float inv_keep;      // 1 / (1 - p)
 };
@@ -374,7 +376,9 @@ __global__ void __launch_bounds__(kThreads)
     if (seg_on) load_seg<kBN>(sSeg, segb, k0, L);
     __syncthreads();
     const uint32_t keep =
-        drop_on ? keep_bits_qrows<kBN / 8>(mk, bh, row, k0) : kFull;
+        drop_on ? keep_bits_qrows<kBN / 8>(load_key(mk.key, mk.thresh), bh,
+                                           row, k0)
+                : kFull;
 
     float s[kBN / 8][4];
 #pragma unroll
@@ -533,7 +537,9 @@ __global__ void __launch_bounds__(kThreads)
     if (seg_on) load_seg<kBN>(sSeg, segb, k0, L);
     __syncthreads();
     const uint32_t keep =
-        drop_on ? keep_bits_qrows<kBN / 8>(mk, bh, row, k0) : kFull;
+        drop_on ? keep_bits_qrows<kBN / 8>(load_key(mk.key, mk.thresh), bh,
+                                           row, k0)
+                : kFull;
 
     float s[kBN / 8][4], dp[kBN / 8][4];
 #pragma unroll
@@ -655,7 +661,8 @@ __global__ void __launch_bounds__(kThreads)
     if (seg_on) load_seg<kBQ>(sSeg, segb, q0, L);
     __syncthreads();
     const uint32_t keep =
-        drop_on ? keep_bits_krows<kBQ / 8>(mk, bh, k0 + warp * 16, q0)
+        drop_on ? keep_bits_krows<kBQ / 8>(load_key(mk.key, mk.thresh), bh,
+                                         k0 + warp * 16, q0)
                 : kFull;
 
     // S^T = K Q^T and dP^T = V dO^T: rows are this warp's keys
@@ -844,22 +851,22 @@ int dispatch(int which, void* const* ptrs, int n_views,
              const long long* strides, const float* lse_in,
              const float* delta, float* lse_out, int B, int L, int H, int D,
              int causal, float scale, int dtype, const int* seg,
-             long long seg_sb, const int* seg_rng, uint32_t seed_lo,
-             uint32_t seed_hi, uint32_t thresh, float inv_keep,
-             void* stream) {
+             long long seg_sb, const int* seg_rng, const long long* key,
+             uint32_t thresh, float inv_keep, void* stream) {
   using T = FLASH_DTYPE;
   constexpr int kD = FLASH_HEAD_DIM;
   // this library holds one (dtype, head dim): anything else is refused
   if (dtype != dtype_code<T>() || D != kD)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || L <= 0 || H <= 0) return 0;
-  if ((seg == nullptr) != (seg_rng == nullptr))
+  if ((seg == nullptr) != (seg_rng == nullptr) ||
+      (thresh != 0u && key == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   View views[6];
   for (int i = 0; i < n_views; ++i)
     views[i] = View{ptrs[i], strides[3 * i], strides[3 * i + 1],
                     strides[3 * i + 2]};
-  const Mask mask{seg, seg_sb, seg_rng, seed_lo, seed_hi, thresh, inv_keep};
+  const Mask mask{seg, seg_sb, seg_rng, key, thresh, inv_keep};
   const Args a{views, lse_in, delta, lse_out, B, L, H, scale, mask,
                static_cast<cudaStream_t>(stream)};
   return causal ? launch_flags<T, kD, true>(which, a)
@@ -874,42 +881,43 @@ int dispatch(int which, void* const* ptrs, int n_views,
 // order; lse and delta are contiguous f32 [B, H, L]. The caller allocates
 // the outputs. `seg` ([B, L] int32, batch stride seg_sb) and `seg_rng`
 // ([B, ceil(L / 32), 2] int32) are both null without segments; `thresh`
-// is 0 without dropout, else the keep threshold with the Philox key
-// (seed_lo, seed_hi) and inv_keep = 1 / (1 - p). Each returns 0 or the
+// is 0 without dropout (`key` is then not read), else the keep threshold
+// with the Philox key at `key` (int64 [2] in device memory: two unsigned
+// 32-bit words) and inv_keep = 1 / (1 - p). Each returns 0 or the
 // cudaError_t of the launch (cudaErrorInvalidValue for a dtype or head
 // dim this library does not hold).
 extern "C" int flash_attention_forward(
     void* q, void* k, void* v, void* out, float* lse,
     const long long* strides, int B, int L, int H, int D, int causal,
     float scale, int dtype, const int* seg, long long seg_sb,
-    const int* seg_rng, uint32_t seed_lo, uint32_t seed_hi, uint32_t thresh,
+    const int* seg_rng, const long long* key, uint32_t thresh,
     float inv_keep, void* stream) {
   void* ptrs[4] = {q, k, v, out};
   return dispatch(kFwd, ptrs, 4, strides, nullptr, nullptr, lse, B, L, H, D,
-                  causal, scale, dtype, seg, seg_sb, seg_rng, seed_lo,
-                  seed_hi, thresh, inv_keep, stream);
+                  causal, scale, dtype, seg, seg_sb, seg_rng, key, thresh,
+                  inv_keep, stream);
 }
 
 extern "C" int flash_attention_backward_dq(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dq, const long long* strides, int B, int L,
     int H, int D, int causal, float scale, int dtype, const int* seg,
-    long long seg_sb, const int* seg_rng, uint32_t seed_lo, uint32_t seed_hi,
+    long long seg_sb, const int* seg_rng, const long long* key,
     uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[5] = {q, k, v, dout, dq};
   return dispatch(kDq, ptrs, 5, strides, lse, delta, nullptr, B, L, H, D,
-                  causal, scale, dtype, seg, seg_sb, seg_rng, seed_lo,
-                  seed_hi, thresh, inv_keep, stream);
+                  causal, scale, dtype, seg, seg_sb, seg_rng, key, thresh,
+                  inv_keep, stream);
 }
 
 extern "C" int flash_attention_backward_dkv(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dk, void* dv, const long long* strides, int B,
     int L, int H, int D, int causal, float scale, int dtype, const int* seg,
-    long long seg_sb, const int* seg_rng, uint32_t seed_lo, uint32_t seed_hi,
+    long long seg_sb, const int* seg_rng, const long long* key,
     uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[6] = {q, k, v, dout, dk, dv};
   return dispatch(kDkv, ptrs, 6, strides, lse, delta, nullptr, B, L, H, D,
-                  causal, scale, dtype, seg, seg_sb, seg_rng, seed_lo,
-                  seed_hi, thresh, inv_keep, stream);
+                  causal, scale, dtype, seg, seg_sb, seg_rng, key, thresh,
+                  inv_keep, stream);
 }

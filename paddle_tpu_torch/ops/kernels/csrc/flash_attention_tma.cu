@@ -126,11 +126,13 @@ struct View {
   long long sb, sl, sh;
 };
 
-// The dropout of a launch: the Philox key, the keep threshold (a pair is
-// kept iff its word >= thresh) and 1 / (1 - p). The instances without
-// dropout never read it.
+// The dropout of a launch: where the Philox key lies in device memory
+// (philox.cuh's load_key), the keep threshold (a pair is kept iff its
+// word >= thresh) and 1 / (1 - p). The instances without dropout never
+// read it.
 struct Drop {
-  uint32_t seed_lo, seed_hi, thresh;
+  const long long* key;
+  uint32_t thresh;
   float inv_keep;
 };
 
@@ -1212,6 +1214,8 @@ __global__ void __launch_bounds__(k64Threads, 2)
   const uint32_t qa = sm.once() + wg * 64 * 128;  // its rows of Q
   constexpr uint32_t kQPanel = kRows * 128, kKVPanel = k64Keys * 128;
   const float sl2 = scale * kLog2e;  // logits in base-2 units
+  PhiloxKey mk{};
+  if constexpr (kDrop) mk = load_key(dr.key, dr.thresh);
 
   int sr[2] = {0, 0};  // this thread's rows' ids, its warpgroup's range
   int2 wr = make_int2(0, 0);
@@ -1251,7 +1255,7 @@ __global__ void __launch_bounds__(k64Threads, 2)
       // the score tile do not hold registers at once: the two fit 128
       // registers a thread, two CTAs an SM
       uint32_t keep = 0;
-      if constexpr (kDrop) keep = keep_bits_qrows<8>(dr, bh, row, k0);
+      if constexpr (kDrop) keep = keep_bits_qrows<8>(mk, bh, row, k0);
       wgmma_fence();
       wgmma_first<0, 0>(s, kmajor(qa, 0, kQPanel), kmajor(kt, 0, kKVPanel));
 #pragma unroll
@@ -1391,6 +1395,8 @@ __global__ void __launch_bounds__(k64Threads, 2)
   const uint32_t qa = sm.once() + wg * 64 * 128;
   const uint32_t oa = qa + tile_bytes<D>(kRows);  // its rows of dO
   constexpr uint32_t kQPanel = kRows * 128, kKVPanel = k64Keys * 128;
+  PhiloxKey mk{};
+  if constexpr (kDrop) mk = load_key(dr.key, dr.thresh);
   int sr[2] = {0, 0};  // this thread's rows' ids, its warpgroup's range
   int2 wr = make_int2(0, 0);
   if constexpr (kSeg) {
@@ -1433,7 +1439,7 @@ __global__ void __launch_bounds__(k64Threads, 2)
       wgmma_commit();
       // the keep bits of dp[i] (bit i), drawn while the tensor cores run
       uint32_t keep = 0;
-      if constexpr (kDrop) keep = keep_bits_qrows<8>(dr, bh, row, k0);
+      if constexpr (kDrop) keep = keep_bits_qrows<8>(mk, bh, row, k0);
       wgmma_wait<0>();
       fence_operand(s);
       fence_operand(dp);
@@ -1586,8 +1592,10 @@ __global__ void __launch_bounds__(k64Threads, 2)
   // while the tensor cores run the previous tile's dV and dK products
   // (issued and waited for in one branch: ptxas serialises wgmmas whose
   // wait a divergent path separates from their issue)
+  PhiloxKey mk{};
+  if constexpr (kDrop) mk = load_key(dr.key, dr.thresh);
   const auto next_keep = [&](int qt0) {
-    return keep_bits_krows<kDkv64Q / 8>(dr, bh, kw + 16 * warp, qt0);
+    return keep_bits_krows<kDkv64Q / 8>(mk, bh, kw + 16 * warp, qt0);
   };
   uint32_t keep_next = 0;
   if constexpr (kDrop) keep_next = next_keep(i0 * kDkv64Q);
@@ -1871,8 +1879,10 @@ bool make_seg(Seg* sg, const int* seg, long long seg_sb, const int* seg_rng,
 // `win` ([B, blocks, 2] int32: the first tile and one past the last of
 // each CTA's block, in the kernel's tiles: flash_attention_tma_tiles) are
 // all null without segments.
-// `thresh` is 0 without dropout, else the keep threshold with the Philox
-// key (seed_lo, seed_hi) and inv_keep = 1 / (1 - p) (D 64, no segments).
+// `thresh` is 0 without dropout (`key` is then not read), else the keep
+// threshold with the Philox key at `key` (int64 [2] in device memory, two
+// unsigned 32-bit words, read by each CTA before its first tile) and
+// inv_keep = 1 / (1 - p) (D 64, no segments).
 // Each returns 0, the cudaError_t of the launch, cudaErrorInvalidValue for
 // a call takes_tma would refuse, or -1 when cuTensorMapEncodeTiled refuses
 // a map.
@@ -1880,11 +1890,12 @@ extern "C" int flash_attention_tma_forward(
     void* q, void* k, void* v, void* out, float* lse,
     const long long* strides, int B, int L, int H, int D, int causal,
     float scale, const int* seg, long long seg_sb, const int* seg_rng,
-    const int* win, uint32_t seed_lo, uint32_t seed_hi, uint32_t thresh,
-    float inv_keep, void* stream) {
+    const int* win, const long long* key, uint32_t thresh, float inv_keep,
+    void* stream) {
   void* ptrs[4] = {q, k, v, out};
   Seg sg;
   if (!make_seg(&sg, seg, seg_sb, seg_rng, win) ||
+      (thresh != 0u && key == nullptr) ||
       !takes(ptrs, 4, strides, B, L, H, D, thresh, seg != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int2 t = tiles_of(0, D);
@@ -1892,7 +1903,7 @@ extern "C" int flash_attention_tma_forward(
   Call c;
   if (!prepare(&c, ptrs, 3, 1, strides, B, L, H, D, rows))
     return kEncodeFailed;
-  Drop dr{seed_lo, seed_hi, thresh, inv_keep};
+  Drop dr{key, thresh, inv_keep};
   void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2], &c.views[0],
                   &lse,       &L,         &H,         &scale,
                   last(D, &dr, &sg), &sg};
@@ -1905,11 +1916,12 @@ extern "C" int flash_attention_tma_backward_dq(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dq, const long long* strides, int B, int L,
     int H, int D, int causal, float scale, const int* seg, long long seg_sb,
-    const int* seg_rng, const int* win, uint32_t seed_lo, uint32_t seed_hi,
+    const int* seg_rng, const int* win, const long long* key,
     uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[5] = {q, k, v, dout, dq};
   Seg sg;
   if (!make_seg(&sg, seg, seg_sb, seg_rng, win) ||
+      (thresh != 0u && key == nullptr) ||
       !takes(ptrs, 5, strides, B, L, H, D, thresh, seg != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int2 t = tiles_of(1, D);
@@ -1917,7 +1929,7 @@ extern "C" int flash_attention_tma_backward_dq(
   Call c;
   if (!prepare(&c, ptrs, 4, 1, strides, B, L, H, D, rows))
     return kEncodeFailed;
-  Drop dr{seed_lo, seed_hi, thresh, inv_keep};
+  Drop dr{key, thresh, inv_keep};
   void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2], &c.maps[3],
                   &lse,       &delta,     &c.views[0], &L,
                   &H,         &scale,     last(D, &dr, &sg), &sg};
@@ -1930,11 +1942,12 @@ extern "C" int flash_attention_tma_backward_dkv(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dk, void* dv, const long long* strides, int B,
     int L, int H, int D, int causal, float scale, const int* seg,
-    long long seg_sb, const int* seg_rng, const int* win, uint32_t seed_lo,
-    uint32_t seed_hi, uint32_t thresh, float inv_keep, void* stream) {
+    long long seg_sb, const int* seg_rng, const int* win,
+    const long long* key, uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[6] = {q, k, v, dout, dk, dv};
   Seg sg;
   if (!make_seg(&sg, seg, seg_sb, seg_rng, win) ||
+      (thresh != 0u && key == nullptr) ||
       !takes(ptrs, 6, strides, B, L, H, D, thresh, seg != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int2 t = tiles_of(2, D);
@@ -1942,7 +1955,7 @@ extern "C" int flash_attention_tma_backward_dkv(
   Call c;
   if (!prepare(&c, ptrs, 4, 2, strides, B, L, H, D, rows))
     return kEncodeFailed;
-  Drop dr{seed_lo, seed_hi, thresh, inv_keep};
+  Drop dr{key, thresh, inv_keep};
   void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2],  &c.maps[3],
                   &lse,       &delta,     &c.views[0], &c.views[1],
                   &L,         &H,         &scale,      last(D, &dr, &sg),

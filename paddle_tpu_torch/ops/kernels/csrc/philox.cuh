@@ -12,7 +12,11 @@
 // g + 8 in each n-tile of 8 columns), which is also, warp by warp, the
 // layout of a wgmma accumulator tile: bit 4 n + e is accumulator element
 // 4 n + e. The mask argument is any type with seed_lo, seed_hi and thresh
-// (uint32_t).
+// (uint32_t): a PhiloxKey, read with load_key from the key the launch
+// points to (the TMA kernels once per CTA, before the first tile; the
+// first design at each tile), an int64 [2] tensor of two unsigned 32-bit
+// words that the device wrote (core/random.py's key streams), so that a
+// CUDA graph that holds the launch replays it with a fresh key.
 
 #pragma once
 
@@ -20,6 +24,18 @@
 #include <stdint.h>
 
 namespace {
+
+// The key words and the keep threshold of a launch with dropout.
+struct PhiloxKey {
+  uint32_t seed_lo, seed_hi, thresh;
+};
+
+// The key at `key` (two words held in int64).
+__device__ __forceinline__ PhiloxKey load_key(const long long* key,
+                                              uint32_t thresh) {
+  return PhiloxKey{static_cast<uint32_t>(__ldg(key)),
+                   static_cast<uint32_t>(__ldg(key + 1)), thresh};
+}
 
 // -- Philox4x32-10 (Salmon et al., SC'11; the Random123 constants) --------
 __device__ __forceinline__ uint4 philox(uint4 c, uint32_t k0, uint32_t k1) {

@@ -31,9 +31,9 @@ There is no fallback: a CUDA call the chosen kernel refuses raises:
 :func:`flash_attention_bwd_reference` is the whole plain backward
 (Δ = rowsum(dO∘O) in f32, then both parts). :class:`FlashAttention` is
 the ``torch.autograd.Function``: forward saves ``(q, k, v, out, lse)``
-(and the segment ids and the dropout seed), backward computes Δ outside
+(and the segment ids and the dropout key), backward computes Δ outside
 the kernels and launches dQ and dK/dV, which regenerate the forward's
-keep mask from the seed. :func:`flash_attention` and
+keep mask from the same key. :func:`flash_attention` and
 :func:`flash_attention_segmented` are the public entries.
 
 Numerics (the TPU kernels'): every product accumulates in f32 over
@@ -54,10 +54,15 @@ chunk's id range; the TMA kernels' window of tiles a CTA walks,
 launches of a step.
 
 Dropout: the keep mask is a pure function of ``(seed, b, h, row, col)``
-— Philox4x32-10 (:func:`philox4x32_10`) keyed by the 64-bit seed, on the
-counter ``(col >> 2, row, b·H + h, 0)``, word ``col & 3``; a pair is kept
-iff that word is at least ``min(floor(p·2³²), 2³²−1)``. The kernels and
-the plain versions draw the same bits, whatever their tiles;
+— Philox4x32-10 (:func:`philox4x32_10`) keyed by the two words of the
+seed, on the counter ``(col >> 2, row, b·H + h, 0)``, word ``col & 3``; a
+pair is kept iff that word is at least ``min(floor(p·2³²), 2³²−1)``. The
+seed of a launch is a key tensor (int64 ``[2]`` on the inputs' device,
+``core.random.next_key``): the kernels read its words from device
+memory, so a CUDA graph that holds the launch draws a fresh mask on
+every replay. The plain versions take a key tensor too, or, in tests, a
+Python int (its low and high 32-bit words). The kernels and the plain
+versions draw the same bits, whatever their tiles;
 :func:`flash_dropout_keep_mask` returns the whole mask. It is not the
 TPU's bit stream (``pltpu.prng_random_bits``), which no other device
 reproduces.
@@ -149,12 +154,14 @@ def _mulhilo(a: torch.Tensor, m: int):
     return (prod >> 32) & _M32, prod & _M32
 
 
-def philox4x32_10(ctr, key: Tuple[int, int]):
+def philox4x32_10(ctr, key):
     """Philox4x32-10 (the Random123 constants) on int64 tensors holding
     unsigned 32-bit words: ``ctr`` four broadcastable tensors (or ints),
-    ``key`` two ints. Returns the four output words."""
+    ``key`` two words, ints or 0-dim int64 tensors (a key tensor's, on
+    the counters' device). Returns the four output words."""
     c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
-    k0, k1 = int(key[0]) & _M32, int(key[1]) & _M32
+    k0, k1 = (k & _M32 if isinstance(k, torch.Tensor) else int(k) & _M32
+              for k in key)
     for _ in range(10):
         hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
         hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
@@ -170,20 +177,47 @@ def dropout_threshold(p: float) -> int:
     return min(int(p * (2 ** 32)), 2 ** 32 - 1)
 
 
-def _seed_words(seed: int) -> Tuple[int, int]:
+def _is_key(seed) -> bool:
+    return isinstance(seed, torch.Tensor) and seed.dtype == torch.int64 \
+        and seed.numel() == 2
+
+
+def _seed_words(seed):
+    """The two Philox key words of ``seed``: a key tensor's as 0-dim
+    tensors on its device, a Python int's (tests) as ints."""
+    if isinstance(seed, torch.Tensor):
+        if not _is_key(seed):
+            raise TypeError(f"the dropout key is an int64 [2] tensor, got "
+                            f"{seed.dtype} {tuple(seed.shape)}")
+        w = seed.reshape(2)
+        return w[0], w[1]
     if not isinstance(seed, numbers.Integral):
-        raise TypeError(f"the dropout seed is a Python int, got "
-                        f"{type(seed).__name__}")
+        raise TypeError(f"the dropout seed is a key tensor "
+                        f"(core.random.next_key), got {type(seed).__name__}")
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
     return s & _M32, s >> 32
 
 
-def _keep_tile(seed: int, B: int, H: int, rows: torch.Tensor, c0: int,
+def _key_ptr(seed, device: torch.device, name: str) -> int:
+    """The device address of a launch's key: an int64 [2] contiguous
+    tensor on the inputs' ``device``, which the kernels read."""
+    if not _is_key(seed) or not seed.is_contiguous():
+        raise TypeError(f"{name}: the dropout key is a contiguous int64 [2] "
+                        f"tensor (core.random.next_key), got "
+                        f"{type(seed).__name__}")
+    if seed.device != device:
+        raise ValueError(f"{name}: the dropout key lies on {seed.device}, "
+                         f"the inputs on {device}")
+    return seed.data_ptr()
+
+
+def _keep_tile(seed, B: int, H: int, rows: torch.Tensor, c0: int,
                n: int, thresh: int) -> torch.Tensor:
     """Keep bits of rows ``rows`` x columns ``c0 .. c0 + n - 1``:
     ``[B, H, len(rows), n]`` bool."""
     dev = rows.device
-    lo, hi = _seed_words(seed)
+    lo, hi = (w.to(dev) if isinstance(w, torch.Tensor) else w
+              for w in _seed_words(seed))
     g0, g1 = c0 >> 2, ((c0 + n - 1) >> 2) + 1
     grp = torch.arange(g0, g1, dtype=torch.int64, device=dev)
     bh = torch.arange(B * H, dtype=torch.int64, device=dev)
@@ -195,12 +229,15 @@ def _keep_tile(seed: int, B: int, H: int, rows: torch.Tensor, c0: int,
     return (w[..., off:off + n] >= thresh).view(B, H, rows.numel(), n)
 
 
-def flash_dropout_keep_mask(seed: int, B: int, H: int, L: int, p: float,
+def flash_dropout_keep_mask(seed, B: int, H: int, L: int, p: float,
                             device=None, Lk: Optional[int] = None
                             ) -> torch.Tensor:
     """The kernels' whole keep mask, ``[B, H, L, Lk]`` bool (query row,
-    key column; ``Lk`` defaults to ``L``)."""
+    key column; ``Lk`` defaults to ``L``), on ``device`` (a key tensor's
+    device by default)."""
     Lk = L if Lk is None else Lk
+    if device is None and isinstance(seed, torch.Tensor):
+        device = seed.device
     rows = torch.arange(L, device=device)
     return _keep_tile(seed, B, H, rows, 0, Lk, dropout_threshold(p))
 
@@ -213,7 +250,8 @@ def _dropout_args(dropout_p: float, seed) -> Tuple[int, float]:
         raise ValueError("flash attention dropout_p must be < 1 (p = 1 "
                          "zeroes the output: handle it at the call site)")
     if seed is None:
-        raise ValueError("flash attention dropout needs a seed")
+        raise ValueError("flash attention dropout needs a seed (a key "
+                         "tensor from core.random.next_key)")
     _seed_words(seed)
     return dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p)
 
@@ -250,7 +288,7 @@ def _check_seg(seg: Optional[torch.Tensor], B: int, L: int, device):
 def flash_attention_fwd_reference(q, k, v, causal: bool = False,
                                   scale: Optional[float] = None,
                                   dropout_p: float = 0.0,
-                                  seed: Optional[int] = None,
+                                  seed=None,
                                   seg: Optional[torch.Tensor] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain forward: an online-softmax walk over KV tiles of the
@@ -335,7 +373,7 @@ def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
                                      causal: bool = False,
                                      scale: Optional[float] = None,
                                      dropout_p: float = 0.0,
-                                     seed: Optional[int] = None,
+                                     seed=None,
                                      seg: Optional[torch.Tensor] = None
                                      ) -> torch.Tensor:
     """The dQ kernel's function in plain PyTorch: dQ = Σ_tiles dS K with
@@ -352,7 +390,7 @@ def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                       causal: bool = False,
                                       scale: Optional[float] = None,
                                       dropout_p: float = 0.0,
-                                      seed: Optional[int] = None,
+                                      seed=None,
                                       seg: Optional[torch.Tensor] = None
                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel's function in plain PyTorch: per KV tile,
@@ -372,7 +410,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do,
                                   causal: bool = False,
                                   scale: Optional[float] = None,
                                   dropout_p: float = 0.0,
-                                  seed: Optional[int] = None,
+                                  seed=None,
                                   seg: Optional[torch.Tensor] = None):
     """The whole plain backward: Δ, then dQ and dK/dV. -> (dq, dk, dv)."""
     delta = attention_delta(out, do)
@@ -396,7 +434,7 @@ def _kernel_lib(dtype: torch.dtype, d: int) -> ctypes.CDLL:
         lib = _build.load(f"flash_attention_{_DTYPE_NAMES[dtype]}_d{d}")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         tail = [p, i, i, i, i, i, ctypes.c_float, i,
-                p, ctypes.c_longlong, p, u, u, u, ctypes.c_float, p]
+                p, ctypes.c_longlong, p, p, u, ctypes.c_float, p]
         lib.flash_attention_forward.argtypes = [p] * 5 + tail
         lib.flash_attention_backward_dq.argtypes = [p] * 7 + tail
         lib.flash_attention_backward_dkv.argtypes = [p] * 8 + tail
@@ -416,7 +454,7 @@ def _kernel_lib_tma() -> ctypes.CDLL:
         lib = _build.load("flash_attention_tma")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         tail = [p, i, i, i, i, i, ctypes.c_float, p, ctypes.c_longlong, p,
-                p, u, u, u, ctypes.c_float, p]
+                p, p, u, ctypes.c_float, p]
         lib.flash_attention_tma_forward.argtypes = [p] * 5 + tail
         lib.flash_attention_tma_backward_dq.argtypes = [p] * 7 + tail
         lib.flash_attention_tma_backward_dkv.argtypes = [p] * 8 + tail
@@ -625,14 +663,14 @@ def _launch(wrapper, fn, name, args, shape, causal, scale, dtype, device,
             dropout_p, seed, seg: Optional[SegmentPlan]):
     B, L, H, D = shape
     thresh, inv = _dropout_args(dropout_p, seed)
-    lo, hi = _seed_words(seed) if thresh else (0, 0)
+    key = _key_ptr(seed, device, name) if thresh else None
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*args, B, L, H, D, int(bool(causal)), scale,
             _DTYPE_CODES[dtype],
             seg.ids.data_ptr() if seg is not None else None,
             seg.ids.stride(0) if seg is not None else 0,
             seg.ranges.data_ptr() if seg is not None else None,
-            lo, hi, thresh, inv, stream)
+            key, thresh, inv, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError "
                            f"{rc} (B={B} L={L} H={H} D={D} {dtype} "
@@ -651,7 +689,7 @@ def _launch_tma(wrapper, fn, name, kernel, args, shape, causal, scale,
     windows of ``kernel`` ("fwd", "dq", "dkv")."""
     B, L, H, D = shape
     thresh, inv = _dropout_args(dropout_p, seed)
-    lo, hi = _seed_words(seed) if thresh else (0, 0)
+    key = _key_ptr(seed, device, name) if thresh else None
     win = seg.window(kernel, D, causal) if seg is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*args, B, L, H, D, int(bool(causal)), scale,
@@ -659,7 +697,7 @@ def _launch_tma(wrapper, fn, name, kernel, args, shape, causal, scale,
             seg.ids.stride(0) if seg is not None else 0,
             seg.ranges.data_ptr() if seg is not None else None,
             win.data_ptr() if win is not None else None,
-            lo, hi, thresh, inv, stream)
+            key, thresh, inv, stream)
     if rc != 0:
         what = "cuTensorMapEncodeTiled refused a tensor map" if rc == -1 \
             else f"kernel launch failed with cudaError {rc}"
@@ -683,7 +721,7 @@ def _on(x: torch.Tensor, name: str) -> bool:
 
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         scale: Optional[float] = None,
-                        dropout_p: float = 0.0, seed: Optional[int] = None,
+                        dropout_p: float = 0.0, seed=None,
                         seg: Segments = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on CUDA tensors (the plain walk for CPU
@@ -716,7 +754,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                            scale: Optional[float] = None,
                            dropout_p: float = 0.0,
-                           seed: Optional[int] = None,
+                           seed=None,
                            seg: Segments = None
                            ) -> torch.Tensor:
     """Launch the dQ kernel on CUDA tensors (its plain version for CPU
@@ -749,7 +787,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                             scale: Optional[float] = None,
                             dropout_p: float = 0.0,
-                            seed: Optional[int] = None,
+                            seed=None,
                             seg: Segments = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel on CUDA tensors (its plain version for
@@ -788,7 +826,7 @@ for _w in (flash_attention_fwd, flash_attention_bwd_dq,
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
                         scale: Optional[float] = None,
-                        dropout_p: float = 0.0, seed: Optional[int] = None,
+                        dropout_p: float = 0.0, seed=None,
                         seg: Segments = None):
     """Δ in f32 outside the kernels (as the TPU launcher does), then the
     dQ and dK/dV launches (on CUDA tensors one :class:`SegmentPlan` for
@@ -806,45 +844,45 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
 
 class FlashAttention(torch.autograd.Function):
     """``torch.autograd.Function`` in place of the JAX ``custom_vjp``:
-    forward saves ``(q, k, v, out, lse)`` and the segment ids, and keeps
-    the dropout seed and, on CUDA tensors, the ids' :class:`SegmentPlan`
-    (chunk ranges and windows, built once a step); backward runs
-    :func:`flash_attention_bwd`, whose kernels regenerate the forward's
-    keep mask from that seed and reuse the plan."""
+    forward saves ``(q, k, v, out, lse)``, the segment ids and the
+    dropout key tensor, and keeps, on CUDA tensors, the ids'
+    :class:`SegmentPlan` (chunk ranges and windows, built once a step);
+    backward runs :func:`flash_attention_bwd`, whose kernels regenerate
+    the forward's keep mask from the same key and reuse the plan."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = False,
                 scale: Optional[float] = None, dropout_p: float = 0.0,
-                seed: Optional[int] = None,
-                seg: Optional[torch.Tensor] = None):
+                seed=None, seg: Optional[torch.Tensor] = None):
         plan = _plan(seg) if q.device.type == "cuda" else None
         out, lse = flash_attention_fwd(q, k, v, causal, scale, dropout_p,
                                        seed, seg if plan is None else plan)
-        ctx.save_for_backward(q, k, v, out, lse, seg)
+        ctx.save_for_backward(q, k, v, out, lse, seg, seed)
         ctx.causal, ctx.scale = causal, scale
-        ctx.dropout_p, ctx.seed, ctx.plan = dropout_p, seed, plan
+        ctx.dropout_p, ctx.plan = dropout_p, plan
         return out
 
     @staticmethod
     def backward(ctx, do):
         do = do.contiguous()
-        q, k, v, out, lse, seg = ctx.saved_tensors
+        q, k, v, out, lse, seg, key = ctx.saved_tensors
         if ctx.plan is not None:
             seg = ctx.plan
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
-                                         ctx.scale, ctx.dropout_p, ctx.seed,
-                                         seg)
+                                         ctx.scale, ctx.dropout_p, key, seg)
         return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, dropout_p: float = 0.0,
-                    seed: Optional[int] = None):
+                    seed=None):
     """Flash attention in the ``[B, L, H, D]`` layout (``scale=None`` is
     1/√D), differentiable. ``dropout_p`` drops attention probabilities
-    inside the kernels with the keep mask of ``seed`` (a 64-bit int, e.g.
-    ``core.random.kernel_seed()``), regenerated in the backward; it needs
-    a seed and must be below 1."""
+    inside the kernels with the keep mask of ``seed``, a key tensor from
+    ``core.random`` (``next_key(q.device)``: int64 ``[2]`` on the
+    inputs' device, read by the kernels from device memory), regenerated
+    in the backward from the same key; it needs a seed and must be below
+    1."""
     _dropout_args(dropout_p, seed)
     return FlashAttention.apply(q, k, v, causal, scale, float(dropout_p),
                                 seed if dropout_p > 0.0 else None, None)

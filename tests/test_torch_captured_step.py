@@ -8,8 +8,9 @@ from an eager backward, a layer added after the engine was built, an
 overridden GradScaler step) is built in both packages: both gates give
 the same reason string. A clean setup passes both gates; on the CPU the
 port then runs the first sighting eager and counts ``"device"`` where
-the card would capture; a model whose first sighting drew from the
-port's generator (dropout) is counted under ``"rng"``. The signature
+the card would capture; a model whose first sighting made a host draw
+from the port's generator (axis dropout) is counted under ``"rng"``,
+one that drew only device keys (hash dropout) is not. The signature
 keys on the batch, the modes, the trainable set, the optimizer's
 statics, the clip, the scaler and the AMP regime, as the JAX one does.
 """
@@ -25,14 +26,14 @@ from test_torch_tensor import port_on_cpu  # noqa: F401
 ENGINES = {tpaddle: CapturedStep, jpaddle: JaxCapturedStep}
 
 
-def _net(pkg, dropout=0.0):
+def _net(pkg, dropout=0.0, **drop_kw):
     pkg.seed(0)
 
     class Net(pkg.nn.Layer):
         def __init__(self):
             super().__init__()
             self.fc1 = pkg.nn.Linear(4, 8)
-            self.drop = pkg.nn.Dropout(dropout)
+            self.drop = pkg.nn.Dropout(dropout, **drop_kw)
             self.fc2 = pkg.nn.Linear(8, 3)
 
         def forward(self, x):
@@ -146,7 +147,18 @@ def test_cpu_runs_first_sighting_eager_then_counts_device():
 
 
 def test_a_first_sighting_that_drew_is_counted_rng():
-    net = _net(tpaddle, dropout=0.5)
+    """Axis dropout seeds a Bernoulli generator on the host: its
+    signature is counted ``"rng"``. Hash dropout draws its key from the
+    device stream, which a graph may hold: its steps go on to
+    ``"device"`` here, where the card would capture them."""
+    hashed = _net(tpaddle, dropout=0.5)
+    opt = _opt(tpaddle, hashed)
+    eng = _engine(tpaddle, hashed, opt)
+    for _ in range(3):
+        _train_batch(eng, hashed, opt, _batch(tpaddle))
+    assert eng.stats["eager_steps"] == 1
+    assert eng.stats["fallbacks"] == {"device": 2}
+    net = _net(tpaddle, dropout=0.5, axis=1)
     opt = _opt(tpaddle, net)
     eng = _engine(tpaddle, net, opt)
     batch = _batch(tpaddle)

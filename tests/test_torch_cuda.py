@@ -16,8 +16,11 @@ autograd against the dense oracle's, a tiny ERNIE-MoE step, and the
 high-level trainer on whole-step CUDA graphs (``Model`` through
 ``CapturedStep``: captured against eager bit for bit, an lr change
 between replays, a new shape and LRU eviction, lazy losses not
-aliased, a GradScaler inf step skipped, a dropout model counted
-``"rng"``). Each skips (with its reason)
+aliased, a GradScaler inf step skipped, a dropout model captured), and
+``jit.TrainStep`` on the same engine with the dropout keys drawn on the
+card (a tiny BERT with dropout captured against its eager loop, fresh
+masks every replay, a reseed between replays restarting the stream
+without a new capture). Each skips (with its reason)
 where there is no CUDA device; the decision is made inside the
 fixture, never at import. This file imports no JAX, so on a machine
 without it run it as
@@ -47,6 +50,13 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _key(dev, seed):
+    """A 64-bit seed as the key tensor the flash wrappers take (int64
+    [2] on the card, its low and high words)."""
+    return torch.tensor([seed & 0xFFFFFFFF, seed >> 32], dtype=torch.int64,
+                        device=dev)
 
 
 def _inputs(dev, S, T, H, K, D, bs, MB, dtype, quant, seed):
@@ -381,7 +391,7 @@ def test_flash_dropout_kernels_match_their_plain_versions(cuda, shape,
     """K5: the same seed gives the kernels and the plain versions the
     same keep mask; each launch counts as a dropout launch."""
     q, k, v, do = _flash_inputs(cuda, shape, dtype, seed=11)
-    kw = dict(dropout_p=0.1, seed=0xDEADBEEF12345)
+    kw = dict(dropout_p=0.1, seed=_key(cuda, 0xDEADBEEF12345))
     before = [w.dropout_launches for w in (tfa.flash_attention_fwd,
                                            tfa.flash_attention_bwd_dq,
                                            tfa.flash_attention_bwd_dkv)]
@@ -492,6 +502,12 @@ def test_flash_dropout_and_segment_arguments_raise(cuda):
         tfa.flash_attention_fwd(q, k, v, dropout_p=1.0, seed=1)
     with pytest.raises(TypeError, match="seed"):
         tfa.flash_attention_fwd(q, k, v, dropout_p=0.1, seed=1.5)
+    # the kernels read a key tensor on the inputs' device, not an int
+    with pytest.raises(TypeError, match="key"):
+        tfa.flash_attention_fwd(q, k, v, dropout_p=0.1, seed=1)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        tfa.flash_attention_fwd(q, k, v, dropout_p=0.1,
+                                seed=torch.tensor([1, 2]))
     with pytest.raises(ValueError, match="seg"):
         tfa.flash_attention_fwd(q, k, v, seg=torch.zeros(
             1, 16, dtype=torch.int64, device=cuda))
@@ -596,8 +612,9 @@ def test_flash_tma_entries_refuse_and_the_wrappers_raise(cuda, monkeypatch):
     lse = torch.empty(1, 2, 64, dtype=torch.float32, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
     no_seg = (None, 0, None, None)
-    no_drop = (0, 0, 0, 1.0)
-    drop = (1, 2, tfa.dropout_threshold(0.1), 1 / 0.9)
+    key = _key(cuda, 0x200000001)
+    no_drop = (None, 0, 1.0)
+    drop = (key.data_ptr(), tfa.dropout_threshold(0.1), 1 / 0.9)
     for D in (32, 96, 130):     # head dims these kernels do not take
         assert lib.flash_attention_tma_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -620,7 +637,9 @@ def test_flash_tma_entries_refuse_and_the_wrappers_raise(cuda, monkeypatch):
     q64, k64, v64 = (x[..., :64].contiguous() for x in (q, k, v))
     o64 = torch.empty_like(q64)
     segs = (plan.ids.data_ptr(), 64, plan.ranges.data_ptr(), win.data_ptr())
-    for seg, dr in ((segs, drop), (segs[:3] + (None,), no_drop)):
+    # ... and dropout without its key (the kernels read it from memory)
+    for seg, dr in ((segs, drop), (segs[:3] + (None,), no_drop),
+                    (no_seg, (None,) + drop[1:])):
         assert lib.flash_attention_tma_forward(
             q64.data_ptr(), k64.data_ptr(), v64.data_ptr(), o64.data_ptr(),
             lse.data_ptr(), tfa._strides(q64, k64, v64, o64), 1, 64, 2, 64,
@@ -676,7 +695,8 @@ def test_flash_d64_tma_kernels_match_their_plain_versions(cuda, layout,
     without (each call's design and dropout by the counts), and agrees
     with the plain versions under the same keep mask."""
     q, k, v, do = _d64_layout(cuda, layout)
-    kw = dict(dropout_p=dropout_p, seed=0x5EED0123) if dropout_p else {}
+    kw = dict(dropout_p=dropout_p, seed=_key(cuda, 0x5EED0123)) \
+        if dropout_p else {}
     assert tfa.takes_tma(q, k, v, do, dropout_p=dropout_p) is True
     ws = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
           tfa.flash_attention_bwd_dkv)
@@ -695,7 +715,8 @@ def test_flash_d64_tma_keep_mask_is_exact(cuda):
     forward's keep mask; with dO = I, dVᵀ·L·(1 − p) is the backward's.
     Both equal flash_dropout_keep_mask bit for bit, on the TMA kernels;
     p = 0 is the launch without dropout, bit for bit."""
-    B, L, H, p, seed = 2, 64, 3, 0.1, 0x5EED0123456789AB
+    B, L, H, p = 2, 64, 3, 0.1
+    seed = _key(cuda, 0x5EED0123456789AB)
     zeros = torch.zeros((B, L, H, 64), dtype=torch.bfloat16, device=cuda)
     eye = torch.eye(L, device=cuda, dtype=torch.bfloat16)
     ident = eye[None, :, None, :].expand(B, L, H, L).contiguous()
@@ -1417,9 +1438,131 @@ def test_grad_scaler_skips_an_inf_step_under_capture(fit_env):
 
 
 def test_dropout_model_is_counted_rng(fit_env):
+    """A GPT with dropout 0.1 through Model.train_batch: its hash dropout
+    draws device keys, so its steps are captured (no ``"rng"``), with
+    the losses and parameters of the same steps run eager from the same
+    seed."""
     paddle = fit_env
-    model, net, opt = _fit_model(paddle, True, dropout=0.1)
-    for x, y in _fit_batches(paddle, 3):
-        model.train_batch(x, y)
-    st = model._captured.stats
-    assert st["fallbacks"] == {"rng": 2} and st["captured_steps"] == 0
+    runs = []
+    for capture in (True, False):
+        model, net, opt = _fit_model(paddle, capture, dropout=0.1)
+        losses = [float(v) for v in _train(model, _fit_batches(paddle, 4))]
+        runs.append((losses, [p._t.detach().clone()
+                              for p in net.parameters()],
+                     dict(model._captured.stats)))
+    (lc, pc, st), (le, pe, _) = runs
+    assert st["fallbacks"] == {} and st["captured_steps"] == 3
+    np.testing.assert_allclose(lc, le, rtol=1e-5)
+    assert len(set(lc)) == len(lc)
+    for a, b in zip(pc, pe):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+# -- TrainStep on CapturedStep, dropout keys on the card -------------------
+
+def _tiny_bert_step(cuda, lr, seed=0):
+    """A 2-layer BERT at head dim 64 in bf16 with dropout 0.1 (hash dropout
+    and K5 inside the TMA flash kernels) and its TrainStep."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    cfg = BertConfig.tiny(hidden_size=256, num_attention_heads=4,
+                          intermediate_size=512, dropout=0.1)
+    model = BertForMaskedLM(cfg, device=cuda, dtype=torch.bfloat16,
+                            generator=torch.Generator(device=cuda)
+                            .manual_seed(seed))
+    crit = CrossEntropyLoss()
+
+    def make_opt():
+        return AdamW(learning_rate=lr, parameters=model.named_parameters(),
+                     multi_precision=False)
+    ids = torch.randint(0, 128, (4, 64), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    return model, crit, make_opt, ids
+
+
+def _replay_strictly(step, ids, n):
+    out = []
+    for _ in range(n):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out.append(step(ids, ids))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [float(v) for v in out]
+
+
+def test_captured_bert_train_step_with_dropout_matches_its_eager_loop(cuda):
+    """Five TrainSteps (one eager, one captured and replayed, three
+    replays with no host sync) against the same five steps through a
+    plain eager loop from the same weights and seed: the same losses and
+    parameters, the same stream state after; dropout launches counted
+    through the replays."""
+    from paddle_tpu_torch.core import random as trandom
+    model, crit, make_opt, ids = _tiny_bert_step(cuda, 1e-3)
+    start = [p.detach().clone() for p in model.parameters()]
+    step = TrainStep(model, crit, make_opt())
+    trandom.seed(7)
+    d0 = tfa.flash_attention_fwd.dropout_launches
+    losses = [float(step(ids, ids))] + _replay_strictly(step, ids, 4)
+    assert tfa.flash_attention_fwd.dropout_launches - d0 == 2 * 5
+    st = step.stats
+    assert st["captured_steps"] == 4 and st["fallbacks"] == {}
+    assert step._step.graphs() == {"train": 1}
+    cap = [p.detach().clone() for p in model.parameters()]
+    cap_state = trandom.get_rng_state()
+    with torch.no_grad():
+        for p, s0 in zip(model.parameters(), start):
+            p.copy_(s0)
+    opt = make_opt()
+    trandom.seed(7)
+    eager = []
+    for _ in range(5):
+        loss = crit(model(ids), ids).float()
+        loss.backward()
+        for p in opt._parameter_list:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        opt.step()
+        opt.clear_grad()
+        eager.append(float(loss.detach()))
+    np.testing.assert_allclose(losses, eager, rtol=1e-3)
+    assert trandom.get_rng_state() == cap_state
+    for a, b in zip(cap, model.parameters()):
+        torch.testing.assert_close(a.float(), b.detach().float(),
+                                   rtol=2e-2, atol=2e-3)
+
+
+def test_train_step_replays_draw_fresh_masks(cuda):
+    """With lr 0 the weights stay: every replay's loss differs from the
+    others (a fresh dropout key each replay, drawn on the card), and the
+    n-th equals the n-th eager step's from the same seed."""
+    from paddle_tpu_torch.core import random as trandom
+    model, crit, make_opt, ids = _tiny_bert_step(cuda, 0.0)
+    step = TrainStep(model, crit, make_opt())
+    trandom.seed(3)
+    got = [float(step(ids, ids))] + _replay_strictly(step, ids, 4)
+    assert step.stats["captured_steps"] == 4
+    assert len(set(got)) == len(got)
+    trandom.seed(3)
+    want = []
+    for _ in range(5):
+        with torch.no_grad():
+            want.append(float(crit(model(ids), ids).float()))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_manual_seed_between_replays_restarts_the_stream(cuda):
+    """A reseed writes the generator's state on the card in place: the
+    graph holds the same address, so it is not captured again, and its
+    replays draw the stream from its start again."""
+    from paddle_tpu_torch.core import random as trandom
+    model, crit, make_opt, ids = _tiny_bert_step(cuda, 0.0)
+    step = TrainStep(model, crit, make_opt())
+    trandom.seed(11)
+    first = [float(step(ids, ids))] + _replay_strictly(step, ids, 3)
+    trandom.seed(11)
+    again = _replay_strictly(step, ids, 3)
+    assert step.stats["compiles"] == 1
+    assert step.stats["captured_steps"] == 3 + 3
+    np.testing.assert_allclose(again, first[:3], rtol=1e-4)
+    assert again[1] == first[1] and again[2] == first[2]

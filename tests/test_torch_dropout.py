@@ -5,7 +5,8 @@ murmur3 finalizer over the element index and a uint32 seed): from the
 same seed the port's mask is the JAX mask bit for bit. The test learns
 the seed JAX drew by wrapping ``_rng_key_tensor`` and folding the key
 with ``derive_seed``, as the JAX dropout does, and hands it to the
-port's seed draw. The other modes (eval, ``p = 0``, ``p = 1``,
+port as a key tensor whose last word is that seed: the port's dropout
+folds the key with its own ``derive_seed`` on the tensor's device. The other modes (eval, ``p = 0``, ``p = 1``,
 ``downscale_in_infer``, ``axis``) and the ``Dropout`` layer follow the
 paddle semantics.
 """
@@ -48,14 +49,15 @@ def test_hash_mask_is_the_jax_mask_bit_for_bit(dtype, p, monkeypatch):
     x = rng.standard_normal((3, 17, 40)).astype(np.float32) + 3.0
     jx = np.asarray(jnp.asarray(x, getattr(jnp, dtype)))
     want, seed = _jax_dropout_and_seed(jx, p, monkeypatch)
-    monkeypatch.setattr(trandom, "hash_seed", lambda: seed)
+    monkeypatch.setattr(trandom, "next_key", lambda device=None: torch.tensor(
+        [0, seed], device=device))
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
     got = F.dropout(tx, p, training=True)
     assert got.dtype == tx.dtype
     want32 = want.astype(np.float32)
     np.testing.assert_array_equal(got.float().numpy() != 0, want32 != 0)
     np.testing.assert_array_equal(got.float().numpy(), want32)
-    keep = hash_keep_mask(x.shape, p, seed)
+    keep = hash_keep_mask(x.shape, p, torch.tensor(seed))
     np.testing.assert_array_equal(keep.numpy(), want32 != 0)
     sigma = np.sqrt(p * (1 - p) / x.size)
     assert abs(keep.float().mean().item() - (1 - p)) <= 4 * sigma
@@ -98,10 +100,22 @@ def test_axis_mode_shares_the_mask_and_the_layer_follows_train_eval():
 
 
 def test_seeds_are_drawn_on_the_host_and_replay_from_the_state():
+    """The dropout keys (the flash kernels' key, the hash dropout's
+    seed) and the host draws' seeds replay from the ``(seed, counter)``
+    state; the hash seed is a 0-dim tensor on the key's device."""
     trandom.seed(5)
     state = trandom.get_rng_state()
-    a = (trandom.kernel_seed(), trandom.hash_seed())
+
+    def draw():
+        key = trandom.next_key("cpu")
+        hseed = trandom.derive_seed(trandom.next_key("cpu"), "uint32")
+        return key, hseed, trandom.device_generator("cpu").initial_seed()
+    a = draw()
+    assert trandom.get_rng_state() == (5, 3)
     trandom.set_rng_state(state)
-    assert (trandom.kernel_seed(), trandom.hash_seed()) == a
-    assert 0 <= a[0] < 2 ** 64 and 0 <= a[1] < 2 ** 32
-    assert trandom.default_generator().device == torch.device("cpu")
+    b = draw()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert a[2] == b[2] and 0 <= a[2] < 2 ** 64
+    assert a[0].dtype == torch.int64 and a[0].shape == (2,)
+    assert a[1].dim() == 0 and 0 <= int(a[1]) < 2 ** 32
+    assert isinstance(trandom.default_generator(), trandom.Generator)

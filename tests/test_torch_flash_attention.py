@@ -215,8 +215,8 @@ def test_autograd_f32_matches_autograd_through_sdpa_reference(causal):
 def test_functional_entries_route_by_mask_and_refuse_dropout():
     """No mask: the flash kernels (plain versions here); a mask: the
     plain sdpa. Dropout is on only in training and routes to the kernels
-    with a seed drawn from the port's generator (the masked route draws
-    the same seed and the same keep mask); dropout without a seed, or
+    with a key drawn from the port's key stream (the masked route draws
+    the same key and the same keep mask); dropout without a seed, or
     at p >= 1, is refused by the kernel entry."""
     q, k, v, _ = _qkv(8, (1, 12, 2, 64))
     qt, kt, vt = _t(q, k, v)
@@ -236,7 +236,7 @@ def test_functional_entries_route_by_mask_and_refuse_dropout():
                                      training=False),
         tfa.flash_attention_fwd_reference(qt, kt, vt)[0], rtol=0, atol=0)
     state = trandom.get_rng_state()
-    seed = trandom.kernel_seed()
+    seed = trandom.next_key("cpu")
     trandom.set_rng_state(state)
     drop = scaled_dot_product_attention(qt, kt, vt, dropout_p=0.3)
     want = tfa.flash_attention_fwd_reference(qt, kt, vt, False, None, 0.3,
@@ -492,8 +492,8 @@ def test_autograd_gradcheck_f64_with_dropout_and_segments():
     seg = torch.tensor([[0] * 4 + [1] * 7, [0] * 11], dtype=torch.int32)
     for causal in (True, False):
         assert torch.autograd.gradcheck(
-            lambda a, b, c: tfa.FlashAttention.apply(a, b, c, causal, None,
-                                                     0.3, 99, None),
+            lambda a, b, c: tfa.FlashAttention.apply(
+                a, b, c, causal, None, 0.3, torch.tensor([99, 0]), None),
             (q, k, v), eps=1e-6, atol=1e-6)
         assert torch.autograd.gradcheck(
             lambda a, b, c: tfa.flash_attention_segmented(a, b, c, seg,
