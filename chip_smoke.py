@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, MoE, eager and Model.fit paths on one card.
+"""Drive the PyTorch/CUDA port's serving, training, MoE, eager, Model.fit and vision paths on one card.
 
 Run from the root of a checkout on a machine with a Hopper card:
 
@@ -415,6 +415,47 @@ Phases, each printing one JSON line with its seconds:
                       iteration captured, an inf in the loss at step 3:
                       that step skipped with the weights bit-equal, the
                       scale halved, O1/O2 counted, no fallback.
+35. ``resnet50_train`` THE VISION PATH: ResNet-50 NHWC, ``bfloat16()``
+                      (bf16 parameters and batch-norm buffers),
+                      ``Momentum(0.1, 0.9)``, ``CrossEntropyLoss``,
+                      ``jit.TrainStep``, batch 128 at 224 x 224 x 3, 1000
+                      classes, the JAX bench's configuration
+                      (``bench.py:258-293``; its int32 labels taken to
+                      int64 for the port's loss), the same seeded batch
+                      every step: one eager step (cuDNN's algorithm
+                      search, ``cudnn.benchmark`` set here, never inside
+                      a capture), then the capture, then 20 timed
+                      replays under ``set_sync_debug_mode("error")``;
+                      gates: 20 captured, one graph, no fallback, losses
+                      finite, running statistics moved, no layout copy
+                      of an activation (a dispatch count over one eager
+                      step); then the same 22 steps through a plain
+                      eager loop from the same start: losses, parameters,
+                      velocities and running statistics against the
+                      replays' (bit-equality reported); img/s, ms a
+                      step, a profiled replay's device split (cuDNN
+                      convolutions, the fc GEMM, pooling, the
+                      optimizer's multi-tensor kernels, the rest:
+                      batch norm, ReLU, residual adds, loss, casts), its
+                      copy and layout-transform kernels, the idle share,
+                      peak memory, and the port's batch norm beside
+                      ``torch.nn.functional.batch_norm`` (cuDNN,
+                      channels-last) on the 53 layers' shapes;
+36. ``resnet_parity`` ResNet-18 at 64 x 64, batch 8, 10 classes, both
+                      layouts, f32 (TF32 off) and bf16: the port on the
+                      card against the port on the CPU from the same
+                      weights (logits, loss, gradients, then parameters,
+                      velocities and running statistics after 2 Momentum
+                      steps), and NHWC against NCHW logits on the card;
+37. ``resnet_fit``    ``paddle.Model(resnet18(num_classes=10))`` with
+                      ``Momentum``, ``CrossEntropyLoss`` and
+                      ``metric.Accuracy`` over the synthetic ``Cifar10``
+                      (``RandomCrop``, ``RandomHorizontalFlip``,
+                      ``ToTensor``, ``Normalize``): one epoch of 16
+                      batches and an evaluate of 4, captured (strict)
+                      and then eager from the same weights and the same
+                      draws; gates: 15 train and 3 eval steps captured,
+                      one graph each, no fallback, losses within 1e-2.
 
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
 (K3 on the split design at decode with bf16 and with int8 pools, at
@@ -2938,10 +2979,30 @@ def train_ids(vocab):
         0, vocab, (TRAIN["batch"], TRAIN["seq"]))).to("cuda")
 
 
-def profile_train_step(step, ids):
+def train_group(kernel: str) -> str:
+    """The training phases' kernel groups: "optimizer" is the fused
+    step's multi_tensor kernels."""
+    kl = kernel.lower()
+    if "multi_tensor" in kl:
+        return "optimizer"
+    if "flash_fwd" in kl:
+        return "flash_fwd"
+    if "flash_bwd_dq" in kl:
+        return "flash_dq"
+    if "flash_bwd_dkv" in kl:
+        return "flash_dkv"
+    if any(tag in kl for tag in ("gemm", "cutlass", "nvjet", "sm90")):
+        return "gemm"
+    return "other"
+
+
+def profile_train_step(step, ids, classify=train_group,
+                       groups=("flash_fwd", "flash_dq", "flash_dkv",
+                               "gemm", "optimizer", "other"), named=()):
     """Device time of one train step by kernel group (torch.profiler,
-    CUDA activity only; "optimizer" is the fused step's multi_tensor
-    kernels) beside its wall time."""
+    CUDA activity only; ``classify`` names a kernel's group) beside its
+    wall time; the kernels of the groups in ``named`` listed with their
+    launches and ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2950,35 +3011,29 @@ def profile_train_step(step, ids):
         step(*ids)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
+    by_kernel, calls = {}, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         if us:
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
-    groups = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
-              "gemm": 0.0, "optimizer": 0.0, "other": 0.0}
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count
+    totals = dict.fromkeys(groups, 0.0)
+    launches = dict.fromkeys(groups, 0)
     for key, us in by_kernel.items():
-        kl = key.lower()
-        if "multi_tensor" in kl:
-            groups["optimizer"] += us
-        elif "flash_fwd" in kl:
-            groups["flash_fwd"] += us
-        elif "flash_bwd_dq" in kl:
-            groups["flash_dq"] += us
-        elif "flash_bwd_dkv" in kl:
-            groups["flash_dkv"] += us
-        elif any(tag in kl for tag in ("gemm", "cutlass", "nvjet", "sm90")):
-            groups["gemm"] += us
-        else:
-            groups["other"] += us
+        totals[classify(key)] += us
+        launches[classify(key)] += calls[key]
     device_ms = sum(by_kernel.values()) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_ms, "device_ms": device_ms or None,
             "device_idle_share": (1 - device_ms / wall_ms)
             if device_ms else None,
-            "groups_ms": {k: v / 1e3 for k, v in groups.items()},
-            "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
+            "groups_ms": {k: v / 1e3 for k, v in totals.items()},
+            "group_launches": launches,
+            "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top],
+            "named_kernels": {g: [[k[:120], calls[k], us / 1e3]
+                                  for k, us in by_kernel.items()
+                                  if classify(k) == g] for g in named}}
 
 
 # TrainStep's captured steps against a plain eager loop with the same
@@ -6006,6 +6061,552 @@ def phase_amp_scaler(results):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the vision path: ResNet-50 through the captured TrainStep, ResNet-18
+# parity and Model.fit
+# ---------------------------------------------------------------------------
+
+# bench.py:258-293 (bench_resnet50): batch 128 at 224 x 224, 1000 classes
+RESNET50 = dict(batch=128, hw=224, classes=1000, warmup=2, steps=20,
+                lr=0.1, momentum=0.9)
+# the replays against the eager loop: losses, parameters, velocities and
+# running statistics (bit-equality reported); max pooling's backward adds
+# with atomics, so the bits may part
+RESNET_LOSS_RTOL = 1e-3
+RESNET_STATE_RMS = 5e-2
+RESNET_PARITY = dict(batch=8, hw=64, classes=10, steps=2, lr=0.01)
+# the card against the CPU, f32 without TF32: logits and loss; gradients,
+# velocities and running statistics per tensor in relative RMS (the
+# closed-form batch-norm backward cancels Σg·x against m·Σg: two f32
+# implementations of it were measured up to ~1e-2 apart on early layers,
+# and in bf16 its outputs carry bf16's rounding of the cancelled terms);
+# all parameters together in relative RMS after two steps
+PARITY_TOL = {"float32": dict(logits=1e-3, loss=1e-4, grad=5e-2,
+                              param=1e-3, stats=1e-3, velocity=5e-2),
+              "bfloat16": dict(logits=1e-1, loss=5e-2, grad=6e-1,
+                               param=2e-2, stats=1e-1, velocity=6e-1)}
+RESNET_FIT = dict(batch=64, lr=0.01, momentum=0.9)
+
+
+def resnet_group(kernel: str) -> str:
+    """ResNet's kernel groups: cuDNN's convolutions, GEMM-named kernels
+    (the fc's cuBLAS GEMMs and 1×1 convolutions cuDNN runs as GEMMs),
+    pooling, the optimizer's multi-tensor kernels, layout transforms
+    (transpose and NCHW/NHWC kernels), torch's copy kernels (dtype
+    casts, as batch norm's ``x.float()``), and the rest (batch norm's
+    reductions and elementwise passes, ReLU, residual adds, loss)."""
+    kl = kernel.lower()
+    if any(tag in kl for tag in LAYOUT_KERNEL_TAGS[1:]):
+        return "layout"
+    if "copy_kernel" in kl:
+        return "copy"
+    if "multi_tensor" in kl:
+        return "optimizer"
+    if "pool" in kl:
+        return "pooling"
+    if any(tag in kl for tag in ("nvjet", "gemv")) or (
+            "gemm" in kl and "implicit" not in kl and "conv" not in kl):
+        return "fc_gemm"
+    # a convolution's own kernel may carry "transpose" in its template
+    # arguments: cuDNN's NCHW/NHWC converters above, the convolutions,
+    # then any other transpose
+    if any(tag in kl for tag in ("cudnn", "conv", "xmma", "implicit",
+                                 "dgrad", "wgrad", "fprop", "cutlass",
+                                 "sm90")):
+        return "conv"
+    if LAYOUT_KERNEL_TAGS[0] in kl:
+        return "layout"
+    return "other"
+
+
+RESNET_GROUPS = ("conv", "fc_gemm", "pooling", "optimizer", "layout",
+                 "copy", "other")
+LAYOUT_KERNEL_TAGS = ("transpose", "nchwtonhwc", "nhwctonchw")
+
+
+def layout_copies(fn):
+    """Run ``fn`` under a dispatch mode that lists every copy of a tensor
+    of >= 3 dims and >= 65536 elements into another memory layout
+    (``copy_``, ``_to_copy``, ``clone`` whose strides order the axes
+    differently): an NCHW copy of an NHWC activation would be one."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+    found = []
+
+    def order(t):
+        dims = [i for i in range(t.dim()) if t.shape[i] > 1]
+        return sorted(dims, key=lambda i: -t.stride(i))
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in (aten.copy_.default, aten._to_copy.default,
+                        aten.clone.default):
+                src = args[1] if func is aten.copy_.default else args[0]
+                dst = args[0] if func is aten.copy_.default else out
+                if isinstance(src, torch.Tensor) and src.dim() >= 3 and \
+                        src.numel() >= 65536 and order(src) != order(dst):
+                    found.append([str(func), list(src.shape),
+                                  list(src.stride()), list(dst.stride())])
+            return out
+
+    with Spy():
+        fn()
+    return found
+
+
+def resnet_state(model, opt):
+    """Copies of the parameters, the batch norms' running statistics and
+    the velocities."""
+    params = {k: p.detach().clone()
+              for k, p in torch_named(model, "parameters")}
+    bufs = {k: b.detach().clone() for k, b in torch_named(model, "buffers")}
+    vel = {i: s["velocity"].detach().clone()
+           for i, s in sorted(opt._states.items())}
+    return params, bufs, vel
+
+
+def torch_named(model, what):
+    import torch
+    return list(getattr(torch.nn.Module, f"named_{what}")(model))
+
+
+def rel_rms(a, b):
+    d = float((a.double() - b.double()).square().sum())
+    r = float(b.double().square().sum())
+    return math.sqrt(d / r) if r > 0 else math.sqrt(d)
+
+
+def compare_states(got, want):
+    """Worst relative RMS per part (parameters, running statistics,
+    velocities) and whether every tensor is bit-equal."""
+    import torch
+    out, equal = {}, True
+    for name, a, b in zip(("params", "stats", "velocities"), got, want):
+        out[name] = max(rel_rms(a[k], b[k]) for k in b)
+        equal = equal and all(torch.equal(a[k], b[k]) for k in b)
+    out["bit_equal"] = equal
+    return out
+
+
+def bn_shapes(model, x):
+    """The input shape of every batch norm of ``model`` in one forward
+    (hooks removed after)."""
+    import torch
+    from paddle_tpu_torch.nn.layers_conv_norm import _BatchNormBase
+    shapes, hooks = [], []
+    for m in model.sublayers():
+        if isinstance(m, _BatchNormBase):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args: shapes.append(tuple(args[0].shape))))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def bn_yardstick(shapes, dtype, device="cuda"):
+    """The port's training batch norm (forward + backward) against
+    ``torch.nn.functional.batch_norm`` (cuDNN, on the channels-last NCHW
+    view) on each NHWC shape; device ms summed over the layers."""
+    import torch
+    import paddle_tpu_torch.nn.functional as F
+    port = cudnn = 0.0
+    for shape in shapes:
+        c = shape[-1]
+        x = torch.randn(shape, device=device).to(dtype).requires_grad_()
+        g = torch.randn(shape, device=device).to(dtype)
+        w = torch.ones(c, device=device, dtype=dtype, requires_grad=True)
+        b = torch.zeros(c, device=device, dtype=dtype, requires_grad=True)
+        rm = torch.zeros(c, device=device, dtype=dtype)
+        rv = torch.ones(c, device=device, dtype=dtype)
+        w32 = w.detach().float().requires_grad_()
+        b32 = b.detach().float().requires_grad_()
+        rm32, rv32 = rm.float(), rv.float()
+
+        def ours():
+            F.batch_norm(x, rm, rv, w, b, training=True,
+                         data_format="NHWC").backward(g)
+
+        def theirs():
+            torch.nn.functional.batch_norm(
+                x.permute(0, 3, 1, 2), rm32, rv32, w32, b32, training=True,
+                momentum=0.1, eps=1e-5).backward(g.permute(0, 3, 1, 2))
+        port += time_ms(ours, samples=5, inner=2, warmup=1)
+        cudnn += time_ms(theirs, samples=5, inner=2, warmup=1)
+    return {"layers": len(shapes), "port_ms_per_step": port,
+            "cudnn_ms_per_step": cudnn,
+            "port_over_cudnn": port / cudnn if cudnn else None}
+
+
+def phase_resnet50_train(device="cuda"):
+    """bench_resnet50's step through the port's captured TrainStep
+    (``device="cpu"`` rehearses the phase's code at a small size)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.vision.models import resnet50
+    cfg = RESNET50
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    # the algorithm search runs in the eager first step, never inside
+    # the capture; deterministic algorithms only, so that the replays
+    # and the eager loop can be held to each other
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        paddle.set_device("gpu" if device == "cuda" else device)
+        paddle.seed(SEED)
+        model = resnet50(num_classes=cfg["classes"],
+                         data_format="NHWC").bfloat16()
+        n_params = sum(p.numel() for p in model.parameters())
+
+        def make_opt():
+            return paddle.optimizer.Momentum(
+                learning_rate=cfg["lr"], momentum=cfg["momentum"],
+                parameters=model.parameters())
+        opt = make_opt()
+        crit = paddle.nn.CrossEntropyLoss()
+        step = TrainStep(model, crit, opt)
+        rng = np.random.default_rng(SEED)
+        b, hw = cfg["batch"], cfg["hw"]
+        x = torch.from_numpy(rng.standard_normal((b, hw, hw, 3)).astype(
+            np.float32) * 0.1).to(device, torch.bfloat16)
+        # the bench feeds int32 labels; the port's loss takes int64
+        y = torch.from_numpy(rng.integers(0, cfg["classes"], (b,)).astype(
+            np.int32)).to(device).long()
+        params0, bufs0, _ = resnet_state(model, opt)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        mem_start = fresh_peak()
+        t1 = time.perf_counter()
+        losses = [step(x, y) for _ in range(cfg["warmup"])]
+        torch.cuda.synchronize()
+        first_two_s = time.perf_counter() - t1
+        timed, wall, captured = timed_replays(step, (x, y), cfg["steps"])
+        losses += timed
+        capture = check_captured("resnet50_train", step, captured,
+                                 cfg["steps"])
+        peak = torch.cuda.max_memory_allocated()
+        loss_values = [float(v) for v in losses]
+        if not all(math.isfinite(v) for v in loss_values):
+            raise AssertionError(f"resnet50_train: non-finite loss "
+                                 f"{loss_values}")
+        cap = resnet_state(model, opt)
+        moved = {k: not torch.equal(cap[1][k], bufs0[k]) for k in bufs0}
+        if not all(moved.values()):
+            raise AssertionError(
+                "resnet50_train: running statistics that did not move: "
+                f"{[k for k, v in moved.items() if not v][:5]}")
+        prof = profile_train_step(step, (x, y), resnet_group, RESNET_GROUPS,
+                                  named=("layout", "copy", "pooling"))
+        step_ms = wall / cfg["steps"] * 1e3
+        del step
+        # the same steps through a plain eager loop from the same start
+        with torch.no_grad():
+            for k, p in torch_named(model, "parameters"):
+                p.copy_(params0[k])
+            for k, v in torch_named(model, "buffers"):
+                v.copy_(bufs0[k])
+        opt = make_opt()
+        eager = []
+        n = cfg["warmup"] + cfg["steps"]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for _ in range(n):
+            loss = crit(model(x), y).float()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            eager.append(loss.detach())
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t2) / n * 1e3
+        eager = [float(v) for v in eager]
+        vs = compare_states(cap, resnet_state(model, opt))
+        vs["loss_rel_err_max"] = max(abs(a - e) / max(abs(e), 1e-30)
+                                     for a, e in zip(loss_values, eager))
+        vs["losses_bit_equal"] = loss_values == eager
+        vs["eager_step_ms_mean_of_22"] = eager_ms
+        vs["tol"] = {"loss_rtol": RESNET_LOSS_RTOL,
+                     "state_rms": RESNET_STATE_RMS}
+        if vs["loss_rel_err_max"] > RESNET_LOSS_RTOL or max(
+                vs[k] for k in ("params", "stats", "velocities")) > \
+                RESNET_STATE_RMS:
+            emit({"phase": "resnet50_train", "failed": vs})
+            raise AssertionError("resnet50_train: the replays disagree "
+                                 "with the eager loop")
+        if prof["group_launches"]["layout"]:
+            raise AssertionError(
+                f"resnet50_train: layout-transform kernels in a replayed "
+                f"step: {prof['named_kernels']['layout']}")
+        # no NCHW copy of an activation in one eager step
+        copies = layout_copies(
+            lambda: crit(model(x), y).float().backward())
+        opt.clear_grad()
+        if copies:
+            raise AssertionError(f"resnet50_train: layout copies of "
+                                 f"activations: {copies[:5]}")
+        shapes = bn_shapes(model, x)
+        yard = bn_yardstick(shapes, torch.bfloat16, device)
+        out = {"card": nvidia_smi_line(), "model": "resnet50",
+               "source": "bench.py:258-293 (bench_resnet50)",
+               "data_format": "NHWC", "dtype": "bfloat16",
+               "params": n_params, "batch": b, "hw": hw,
+               "classes": cfg["classes"],
+               "optimizer": f"Momentum({cfg['lr']}, {cfg['momentum']})",
+               "labels": "int32 as the bench draws them, taken to int64",
+               "cudnn": {"benchmark": True, "deterministic": True,
+                         "allow_tf32": torch.backends.cudnn.allow_tf32},
+               "init_seconds": init_s,
+               "first_two_steps_s": first_two_s,
+               "losses": loss_values, "timed_steps": cfg["steps"],
+               "step_ms": step_ms, "imgs_per_s": b / step_ms * 1e3,
+               "peak_mem_gb": peak / 2 ** 30,
+               "mem_at_start_gb": mem_start / 2 ** 30,
+               "capture": capture, "vs_eager": vs,
+               "profile_one_replay": prof,
+               "device_idle_share_of_timed_step":
+                   1 - prof["device_ms"] / step_ms
+                   if prof["device_ms"] else None,
+               "layout_copies_one_eager_step": len(copies),
+               "layout_kernels_one_replay":
+                   prof["group_launches"]["layout"],
+               "copy_kernels_one_replay": prof["group_launches"]["copy"],
+               "copy_kernel_note": "torch's copy kernels of a replay are "
+                                   "dtype casts (batch norm's f32 "
+                                   "statistics, its bf16 outputs); no "
+                                   "copy changes a layout (the dispatch "
+                                   "count above)",
+               "batch_norm": yard}
+    finally:
+        torch.backends.cudnn.benchmark, \
+            torch.backends.cudnn.deterministic = flags
+    del model, opt, x, y, params0, bufs0, cap
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet18_on(device, layout, dtype, state):
+    """The port's resnet18 on ``device`` holding ``state`` (numpy), in
+    ``dtype``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.vision.models import resnet18
+    prev = tdevice._current
+    paddle.set_device("cpu" if device == "cpu" else "gpu")
+    try:
+        model = resnet18(num_classes=RESNET_PARITY["classes"],
+                         data_format=layout)
+        model.set_state_dict(state)
+        return model.to(dtype=dtype)
+    finally:
+        tdevice._current = prev
+
+
+def resnet_parity_run(device, layout, dtype, state, x, y):
+    """Logits, loss and gradients of one training forward, then the
+    parameters, running statistics and velocities after
+    RESNET_PARITY["steps"] Momentum steps (the first on the same batch),
+    all on the host in f32."""
+    import paddle_tpu_torch as paddle
+    model = resnet18_on(device, layout, dtype, state)
+    opt = paddle.optimizer.Momentum(RESNET_PARITY["lr"], 0.9,
+                                    parameters=model.parameters())
+    crit = paddle.nn.CrossEntropyLoss()
+    xd, yd = x.to(device, dtype), y.to(device)
+    if layout == "NHWC":
+        xd = xd.permute(0, 2, 3, 1).contiguous()
+    logits = model(xd)
+    loss = crit(logits, yd)
+    loss.float().backward()
+    grads = {k: p.grad.detach().float().cpu()
+             for k, p in torch_named(model, "parameters")}
+    out = {"logits": logits.detach().float().cpu(),
+           "loss": float(loss.detach()), "grads": grads}
+    opt.step()
+    opt.clear_grad()
+    for _ in range(RESNET_PARITY["steps"] - 1):
+        crit(model(xd), yd).float().backward()
+        opt.step()
+        opt.clear_grad()
+    params, bufs, vel = resnet_state(model, opt)
+    out["params"] = {k: v.float().cpu() for k, v in params.items()}
+    out["stats"] = {k: v.float().cpu() for k, v in bufs.items()}
+    out["velocities"] = {k: v.float().cpu() for k, v in vel.items()}
+    return out
+
+
+def phase_resnet_parity():
+    """ResNet-18 on the card against the same model on the CPU (which
+    the tier-1 tests hold against the JAX package), f32 and bf16, NHWC
+    and NCHW; NHWC against NCHW logits on the card."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet18
+    cfg = RESNET_PARITY
+    paddle.seed(SEED)
+    state = {k: v.numpy() for k, v in
+             resnet18(num_classes=cfg["classes"]).state_dict().items()}
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal(
+        (cfg["batch"], 3, cfg["hw"], cfg["hw"])).astype(np.float32) * 0.5)
+    y = torch.from_numpy(rng.integers(0, cfg["classes"], (cfg["batch"],)))
+    rows, logits_by_layout = {}, {}
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = PARITY_TOL[str(dtype).split(".")[-1]]
+        for layout in ("NHWC", "NCHW"):
+            card = resnet_parity_run("cuda", layout, dtype, state, x, y)
+            cpu = resnet_parity_run("cpu", layout, dtype, state, x, y)
+            row = {"logits": rel_rms(card["logits"], cpu["logits"]),
+                   "loss": abs(card["loss"] - cpu["loss"])
+                   / max(abs(cpu["loss"]), 1e-30),
+                   "loss_card": card["loss"], "loss_cpu": cpu["loss"]}
+            for part in ("grads", "stats", "velocities"):
+                row[part] = max(rel_rms(card[part][k], cpu[part][k])
+                                for k in cpu[part])
+            row["grads_global"] = rel_rms(
+                torch.cat([card["grads"][k].reshape(-1) for k in cpu[
+                    "grads"]]),
+                torch.cat([v.reshape(-1) for v in cpu["grads"].values()]))
+            # over all parameters at once: a bias starts at zero, so its
+            # own relative error is its updates', the gradients' error
+            row["params"] = rel_rms(
+                torch.cat([card["params"][k].reshape(-1) for k in cpu[
+                    "params"]]),
+                torch.cat([v.reshape(-1) for v in cpu["params"].values()]))
+            limits = {"logits": tol["logits"], "loss": tol["loss"],
+                      "grads": tol["grad"], "params": tol["param"],
+                      "stats": tol["stats"], "velocities": tol["velocity"]}
+            row["tol"] = limits
+            bad = [k for k, lim in limits.items() if not row[k] <= lim]
+            if bad:
+                failed.append((str(dtype), layout, bad))
+            rows[f"{str(dtype).split('.')[-1]}_{layout}"] = row
+            if dtype == torch.float32:
+                logits_by_layout[layout] = card["logits"]
+    layouts = rel_rms(logits_by_layout["NHWC"], logits_by_layout["NCHW"])
+    if layouts > 1e-4:
+        failed.append(("float32", "NHWC vs NCHW logits", layouts))
+    out = {"model": "resnet18", "batch": cfg["batch"], "hw": cfg["hw"],
+           "classes": cfg["classes"], "steps": cfg["steps"],
+           "lr": cfg["lr"], "tf32": torch.backends.cudnn.allow_tf32,
+           "rel_rms_card_vs_cpu": rows,
+           "nhwc_vs_nchw_logits_rel_rms_f32": layouts,
+           "nhwc_vs_nchw_tol": 1e-4}
+    if failed:
+        emit({"phase": "resnet_parity", "failed": failed, **out})
+        raise AssertionError(f"resnet_parity: {failed}")
+    return out
+
+
+def resnet_fit_run(capture, state):
+    """One epoch of Model.fit over the synthetic Cifar10 and an
+    evaluate, the whole-step capture on or off; the same weights, data
+    order and transform draws each time."""
+    import random
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import Cifar10
+    from paddle_tpu_torch.vision.models import resnet18
+    set_flags({"FLAGS_sot_capture": capture})
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    random.seed(SEED)
+    net = resnet18(num_classes=10)
+    net.set_state_dict(state)
+    opt = paddle.optimizer.Momentum(RESNET_FIT["lr"],
+                                    RESNET_FIT["momentum"],
+                                    parameters=net.parameters())
+    model = paddle.Model(net).prepare(opt, paddle.nn.CrossEntropyLoss(),
+                                      metrics=paddle.metric.Accuracy())
+    norm = T.Normalize(mean=[0.5] * 3, std=[0.5] * 3)
+    train = Cifar10(mode="train", transform=T.Compose([
+        T.RandomCrop(32, padding=4), T.RandomHorizontalFlip(),
+        T.ToTensor(), norm]))
+    test = Cifar10(mode="test", transform=T.Compose([T.ToTensor(), norm]))
+    clock = step_clock(strict_from=2 if capture else None)
+    t0 = time.perf_counter()
+    history = model.fit(train, test, batch_size=RESNET_FIT["batch"],
+                        epochs=1, shuffle=False, drop_last=True,
+                        verbose=0, callbacks=[clock])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine = model._captured
+    out = {"losses": [float(v) for v in clock.losses],
+           "step_ms": clock.step_ms(), "fit_wall_s": wall,
+           "history": {k: [float(v) for v in vs]
+                       for k, vs in history.items()},
+           "stats": {k: (dict(v) if isinstance(v, dict) else v)
+                     for k, v in engine.stats.items()} if engine else None,
+           "graphs": engine.graphs() if engine else None}
+    del model, opt, net, engine, clock
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resnet_fit():
+    """paddle.Model(resnet18) over the synthetic Cifar10, captured and
+    then eager."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.vision.models import resnet18
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        paddle.set_device("gpu")
+        paddle.seed(SEED)
+        state = {k: v._t.detach().cpu().numpy()
+                 for k, v in resnet18(num_classes=10).state_dict().items()}
+        cap = resnet_fit_run(True, state)
+        eager = resnet_fit_run(False, state)
+    finally:
+        set_flags({"FLAGS_sot_capture": True})
+        torch.backends.cudnn.deterministic = deterministic
+    n = len(cap["losses"])
+    st = cap["stats"]
+    # 16 train batches: the first eager, 15 captured; 4 eval batches:
+    # the first eager, 3 captured
+    want = {"captured_steps": (n - 1) + 3, "fallbacks": {},
+            "graphs": {"train": 1, "eval": 1}}
+    got = {"captured_steps": st["captured_steps"],
+           "fallbacks": st["fallbacks"], "graphs": cap["graphs"]}
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(cap["losses"], eager["losses"]))
+    eval_keys = [k for k in cap["history"] if k.startswith("eval_")]
+    out = {"model": "resnet18", "dataset": "Cifar10 (synthetic, 1024 "
+           "train / 256 test)", "batch": RESNET_FIT["batch"],
+           "train_batches": n, "captured": got,
+           "losses_captured": cap["losses"], "losses_eager": eager["losses"],
+           "loss_rel_err_max": rel, "loss_rtol": FIT_LOSS_RTOL,
+           "losses_bit_equal": cap["losses"] == eager["losses"],
+           "history_captured": cap["history"],
+           "history_eager": eager["history"],
+           "step_ms_captured": cap["step_ms"],
+           "step_ms_eager": eager["step_ms"],
+           "fit_wall_s": [cap["fit_wall_s"], eager["fit_wall_s"]]}
+    ok = (got == want and rel <= FIT_LOSS_RTOL and n == 16 and eval_keys
+          and all(math.isfinite(v) for v in cap["losses"]))
+    if not ok:
+        emit({"phase": "resnet_fit", "failed": {"want": want}, **out})
+        raise AssertionError("resnet_fit: capture or losses off")
+    return out
+
+
 def ptxas_instances(lines):
     """{kernel<template args>: (registers, spill bytes)} from ptxas'
     report of one library: each "Compiling entry function" line, then its
@@ -6326,6 +6927,9 @@ def main() -> int:
                                "parity": phase_gpt_train_parity()}),
         ("gpt_fit", lambda: phase_gpt_fit(flash)),
         ("gpt_fit_scaled", lambda: phase_gpt_fit_scaled(flash)),
+        ("resnet50_train", phase_resnet50_train),
+        ("resnet_parity", phase_resnet_parity),
+        ("resnet_fit", phase_resnet_fit),
     ]
     t_all = time.perf_counter()
     for name, fn in phases:

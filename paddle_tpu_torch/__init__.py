@@ -93,14 +93,16 @@ The high-level trainer:
 - ``hapi`` — ``Model`` (``prepare`` / ``fit`` / ``evaluate`` /
   ``predict`` / ``save`` / ``load``, its steps through
   ``CapturedStep``), ``summary`` and ``flops``;
-- ``observability.timeline`` — ``StepTimer``.
+- ``observability.timeline`` — ``StepTimer``;
+- ``vision`` — the ResNet family (``vision.models``), the numpy
+  transforms and the synthetic datasets.
 
 ``import paddle_tpu_torch as paddle`` gives the names of the JAX
 package's top level that are ported: the dtypes, ``Tensor``,
 ``Parameter``, ``to_tensor``, the grad modes and ``grad``, the flags,
 ``seed``, the devices, the op surface, ``nn``, ``optimizer``, ``amp``,
-``io``, ``metric``, ``callbacks``, ``Model``, ``summary`` and
-``flops``.
+``io``, ``metric``, ``callbacks``, ``vision``, ``Model``, ``summary``
+and ``flops``.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (the eager core: ``set_device("cpu")``); without CUDA
@@ -135,6 +137,7 @@ from . import amp  # noqa: F401,E402
 from . import io  # noqa: F401,E402
 from . import metric  # noqa: F401,E402
 from . import callbacks  # noqa: F401,E402
+from . import vision  # noqa: F401,E402
 from .hapi import Model, summary, flops  # noqa: F401,E402
 
 

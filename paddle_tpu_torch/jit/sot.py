@@ -7,8 +7,8 @@ The port of ``paddle_tpu/jit/sot.py`` ``CapturedStep`` (with
 compiles a train step (forward, loss, backward, clip, optimizer update)
 into one donated XLA executable, the port records it into one
 ``torch.cuda.CUDAGraph``: the flash-attention kernels K1b/K2b, the
-GEMMs and the fused optimizer's O1/O2 launches of the step, replayed
-by one call.
+GEMMs and the fused optimizer's O1/O2 launches (or SGD's and
+Momentum's multi-tensor update) of the step, replayed by one call.
 
 - **Signature** — batch shapes, dtypes and devices, the layers'
   train/eval modes, the trainable set, the optimizer type with its
@@ -38,7 +38,9 @@ by one call.
   parameter the loss does not reach gets a zero gradient (AdamW still
   decays it), written inside the graph into a buffer the graph keeps.
   ``cast_loss_f32`` casts the loss to f32 before the backward.
-- **State in place** — parameters, optimizer moments and beta powers,
+- **State in place** — parameters, optimizer moments, velocities and
+  beta powers, batch norms' running statistics (written in place by
+  ``nn.functional.batch_norm``),
   the lr tensor (``fused_step._lr_device``, refreshed on the host side
   before every capture and replay, never filled inside a graph) and
   the GradScaler's scale and counters (updated in place) keep their
@@ -201,9 +203,8 @@ def _fusable(opt) -> bool:
     """Whether ``optimizer.step()`` runs as the fused kernels (lr read
     from device memory), the only update a graph may replay."""
     from ..optimizer import fused_step
-    from ..optimizer.optimizer import Adam, AdamW
     return (getattr(opt, "_fusable_step", True) is not False
-            and fused_step.enabled() and type(opt) in (Adam, AdamW)
+            and fused_step.enabled() and fused_step._kind(opt) is not None
             and opt._regularizer is None)
 
 

@@ -1,4 +1,5 @@
-"""Common layers of the port: ``Linear``, ``Embedding`` and ``Dropout``
+"""Common layers of the port: ``Linear``, ``Embedding``, ``Dropout`` and
+``Flatten``
 (``paddle_tpu/nn/layers_common.py``), as Layers (:class:`~.layer.Layer`).
 
 ``Linear`` keeps paddle's ``[in, out]`` weight (XavierNormal, zero
@@ -16,7 +17,7 @@ from . import functional as F
 from . import initializer as I
 from .layer import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Linear", "Embedding", "Dropout", "Flatten"]
 
 
 def _place(layer: Layer, device, dtype) -> None:
@@ -88,3 +89,15 @@ class Dropout(Layer):
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+class Flatten(Layer):
+    """Axes ``start_axis`` .. ``stop_axis`` merged into one."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return x.flatten(self.start_axis, self.stop_axis)

@@ -1,4 +1,5 @@
-"""One fused optimizer step: Adam and AdamW as two multi-tensor kernels.
+"""One fused optimizer step: Adam and AdamW as two multi-tensor kernels,
+SGD and Momentum as multi-tensor ops on the device lr.
 
 The port of ``paddle_tpu/optimizer/fused_step.py``. The JAX package
 flattens the whole parameter tree and compiles one donated XLA program a
@@ -14,6 +15,14 @@ parameters, gradients and states:
 - O2 (``multi_tensor_adam``): clip, decay, moments, bias corrections,
   parameters and beta powers in place, masked by the found flags.
 
+SGD and Momentum (the JAX bench's ResNet-50 step) take no kernel: their
+``_update`` runs over every parameter as ``torch._foreach_*`` ops with
+lr read from the same device tensor, parameters and velocities written
+in place (:func:`_sgd_momentum_step`), bit-equal on CPU tensors to the
+per-parameter loop; the JAX package runs that update inside its one XLA
+program too. The clip is ``clip_by_spec`` and, under a ``GradScaler``,
+O1 unscales and checks first.
+
 lr lives in a 0-d f32 tensor on the parameters' device, refilled on the
 device only when the host value changes; the loss scale, the clip scale
 and the found flags never leave the device. So a step issues its
@@ -24,9 +33,10 @@ The gate :func:`_prepare` sends everything the kernels do not take to
 the per-parameter loop (``Optimizer._eager_step``), counted by reason
 in ``optimizer.fallbacks_total`` and journaled in the flight ring:
 ``optimizer`` (a step that is not one update, LBFGS), ``optimizer_type``
-(every optimizer but Adam and AdamW, subclasses included: their update
-may differ), ``grad_clip`` (a clip object that is not one of the three
-in-tree classes), ``regularizer`` (``L1Decay``), ``duplicate_param``,
+(every optimizer but Adam, AdamW, SGD and Momentum, subclasses
+included: their update may differ), ``grad_clip`` (a clip object that
+is not one of the three in-tree classes), ``regularizer``
+(``L1Decay``), ``duplicate_param``,
 ``param_static`` (an ``apply_decay_param_fun`` that fails) and
 ``frozen_param_grads``: the JAX gate's reasons that have a meaning here,
 and the three configurations the kernels do not compute.
@@ -104,7 +114,16 @@ def apply_update_tail(opt, params, grads, lr, cspec=()):
 
 
 class _Prep:
-    __slots__ = ("grads", "table", "cspec", "device")
+    __slots__ = ("kind", "params", "states", "grads", "table", "cspec",
+                 "device")
+
+
+def _kind(opt):
+    """``"adam"`` (O1/O2), ``"sgd"`` or ``"momentum"`` (multi-tensor ops)
+    for the exact classes, else None."""
+    from .optimizer import SGD, Adam, AdamW, Momentum
+    return {Adam: "adam", AdamW: "adam", SGD: "sgd",
+            Momentum: "momentum"}.get(type(opt))
 
 
 _SLOTS = ("moment1", "moment2", "beta1_pow", "beta2_pow")
@@ -126,10 +145,10 @@ def _table(opt, params, states, wds) -> _mt.AdamTable:
 def _prepare(opt, params_grads) -> Optional[_Prep]:
     """Gate + table. Returns None (fallback, reason counted) or the
     tensors the kernels take."""
-    from .optimizer import Adam, AdamW
     if getattr(opt, "_fusable_step", True) is False:
         return _fallback("optimizer")
-    if type(opt) not in (Adam, AdamW):
+    kind = _kind(opt)
+    if kind is None:
         return _fallback("optimizer_type")
     cspec = clip_spec(opt._grad_clip)
     if cspec is None:
@@ -148,8 +167,11 @@ def _prepare(opt, params_grads) -> Optional[_Prep]:
         except (TypeError, ValueError):
             return _fallback("param_static")
     prep = _Prep()
+    prep.kind = kind
+    prep.params, prep.states = params, states
     prep.grads = [g for _, g in params_grads]
-    prep.table = _table(opt, params, states, wds)
+    prep.table = _table(opt, params, states, wds) if kind == "adam" \
+        else None
     prep.cspec = cspec
     prep.device = params[0].device
     return prep
@@ -170,10 +192,56 @@ def _lr_device(opt, device) -> torch.Tensor:
     return t
 
 
+def _write(dst, src, found):
+    """``dst = src`` in place (cast to ``dst``'s dtypes), each element
+    kept where the 0-d device bool ``found`` is set."""
+    if found is not None:
+        src = [torch.where(found, d, s) for d, s in zip(dst, src)]
+    torch._foreach_copy_(dst, src)
+
+
+@torch.no_grad()
+def _sgd_momentum_step(opt, prep, lr, found):
+    """SGD's or Momentum's ``_update`` (``optimizer.py``) for every
+    parameter at once, operation for operation: the gradient in f32
+    with the L2 decay added, Momentum's f32 velocity ``μ·v + g`` and
+    ``p − lr·upd`` in f32 (Nesterov: ``upd = g + μ·v``); SGD's
+    ``p − lr·g`` in the parameter's dtype, the product rounded to it
+    as the loop's is. ``lr`` is the 0-d f32 device tensor, so a graph
+    that holds the step reads the current lr. Parameters and velocities
+    are written in place, masked by ``found``."""
+    params = prep.params
+    g32 = [g.float() for g in prep.grads]
+    wd = opt._weight_decay
+    if wd:
+        g32 = torch._foreach_add(
+            g32, torch._foreach_mul([p.float() for p in params], wd))
+    if prep.kind == "sgd":
+        gd = [g.to(p.dtype).float() for g, p in zip(g32, params)]
+        steps = [s.to(p.dtype) for s, p in
+                 zip(torch._foreach_mul(gd, lr), params)]
+        _write(params, torch._foreach_sub(params, steps), found)
+        return
+    mu = opt._momentum
+    vel = [st["velocity"] for st in prep.states]
+    v_new = torch._foreach_mul(vel, mu)
+    torch._foreach_add_(v_new, g32)
+    upd = torch._foreach_add(g32, torch._foreach_mul(v_new, mu)) \
+        if opt._nesterov else v_new
+    p_new = torch._foreach_sub([p.float() for p in params],
+                               torch._foreach_mul(upd, lr))
+    _write(params, p_new, found)
+    _write(vel, v_new, found)
+
+
 def _execute(opt, prep, mode, found=(), inv_scale=None):
-    """O1 where the step unscales or clips by a norm, then O2. Returns
-    O1's found flag of this check in the ``scaled`` mode."""
+    """O1 where the step unscales or clips by a norm, then O2 (Adam and
+    AdamW); O1 where it unscales, then the clip and the multi-tensor
+    update (SGD, Momentum). Returns O1's found flag of this check in the
+    ``scaled`` mode."""
     lr = _lr_device(opt, prep.device)
+    if prep.kind != "adam":
+        return _execute_sgd_momentum(opt, prep, mode, lr, found, inv_scale)
     kind = prep.cspec[0] if prep.cspec else None
     res = None
     table = prep.table
@@ -192,6 +260,23 @@ def _execute(opt, prep, mode, found=(), inv_scale=None):
     _flight.record("optimizer", "fused_step", mode=mode,
                    params=len(prep.grads))
     return res.found if mode == "scaled" else None
+
+
+def _execute_sgd_momentum(opt, prep, mode, lr, found, inv_scale):
+    flags = [f for f in found if f is not None]
+    res_found = None
+    if mode == "scaled":
+        _, res_found = unscale_and_check(prep.grads, inv_scale)
+        flags.insert(0, res_found)
+    mask = None
+    for f in flags:
+        mask = f if mask is None else torch.logical_or(mask, f)
+    prep.grads = clip_by_spec(prep.cspec, prep.grads)
+    _sgd_momentum_step(opt, prep, lr, mask)
+    _M_steps.inc()
+    _flight.record("optimizer", "fused_step", mode=mode,
+                   params=len(prep.grads))
+    return res_found
 
 
 def try_step(opt, params_grads, found_inf=None) -> bool:

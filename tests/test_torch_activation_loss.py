@@ -305,9 +305,24 @@ PORTED_ROWS = {
 }
 
 
+# the rows the vision slice ported after it (conv, pooling, the norms,
+# resizing, the vision dropouts): ``tests/test_torch_conv_pool.py``
+# pins the list left after both
+VISION_ROWS = {
+    "conv1d", "conv2d", "conv3d", "conv1d_transpose", "conv2d_transpose",
+    "conv3d_transpose", "max_pool1d", "max_pool2d", "max_pool3d",
+    "avg_pool1d", "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d",
+    "adaptive_avg_pool2d", "adaptive_avg_pool3d", "adaptive_max_pool1d",
+    "adaptive_max_pool2d", "adaptive_max_pool3d", "batch_norm",
+    "group_norm", "instance_norm", "local_response_norm", "interpolate",
+    "upsample", "pixel_shuffle", "pixel_unshuffle", "channel_shuffle",
+    "fold", "dropout2d", "dropout3d", "alpha_dropout",
+}
+
+
 def test_unported_shrinks_by_exactly_the_ported_rows():
     left = set(op_registry.unported())
     assert not left & PORTED_ROWS
-    assert len(left) == 95 - len(PORTED_ROWS)
+    assert len(left) == 95 - len(PORTED_ROWS) - len(VISION_ROWS)
     for name in PORTED_ROWS:
         assert op_registry.resolve(name) is not None, name

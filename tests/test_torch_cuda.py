@@ -20,7 +20,10 @@ aliased, a GradScaler inf step skipped, a dropout model captured), and
 ``jit.TrainStep`` on the same engine with the dropout keys drawn on the
 card (a tiny BERT with dropout captured against its eager loop, fresh
 masks every replay, a reseed between replays restarting the stream
-without a new capture). Each skips (with its reason)
+without a new capture), and the vision slice (conv, pooling and batch
+norm on the card against the same calls on the CPU, batch norm with no
+host read, a tiny NHWC ResNet through ``TrainStep`` with Momentum:
+replays against its eager loop). Each skips (with its reason)
 where there is no CUDA device; the decision is made inside the
 fixture, never at import. This file imports no JAX, so on a machine
 without it run it as
@@ -1566,3 +1569,127 @@ def test_manual_seed_between_replays_restarts_the_stream(cuda):
     assert step.stats["captured_steps"] == 3 + 3
     np.testing.assert_allclose(again, first[:3], rtol=1e-4)
     assert again[1] == first[1] and again[2] == first[2]
+
+
+def _vision_inputs(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(4, 9, 9, 8, generator=g),
+            torch.randn(16, 8, 3, 3, generator=g),
+            torch.randn(8, 4, 3, 3, generator=g))
+
+
+def test_vision_functionals_on_the_card_match_the_cpu(cuda):
+    """NHWC conv (stride 2, 'SAME'), transposed conv, max pool with
+    ReLU ties, average and adaptive pools and a training batch norm in
+    f32 (TF32 off): outputs and input gradients within 1e-4 of the same
+    calls on the CPU (cuDNN adds in another order)."""
+    import paddle_tpu_torch.nn.functional as F
+    x, w, wt = _vision_inputs()
+    outs = []
+    for dev in ("cpu", cuda):
+        xd = x.detach().to(dev).requires_grad_()
+        rm = torch.zeros(16, device=dev)
+        rv = torch.ones(16, device=dev)
+        y = F.conv2d(xd, w.to(dev).contiguous(
+            memory_format=torch.channels_last), stride=2, padding="SAME",
+            data_format="NHWC")
+        y = F.batch_norm(y, rm, rv, training=True, data_format="NHWC")
+        y = F.relu(y)
+        p = F.max_pool2d(y, 3, 2, 1, data_format="NHWC")
+        a = F.avg_pool2d(y, 2, 2, ceil_mode=True, data_format="NHWC")
+        c = F.adaptive_avg_pool2d(y, 1, data_format="NHWC")
+        t = F.conv2d_transpose(x.to(dev).permute(0, 3, 1, 2), wt.to(dev),
+                               stride=2, padding=1, output_padding=1)
+        loss = p.square().sum() + a.sum() + c.sum() + t.square().mean()
+        loss.backward()
+        outs.append([v.detach().cpu() for v in (p, a, c, t, xd.grad, rm,
+                                                 rv)])
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_batch_norm_on_the_card_makes_no_host_read(cuda):
+    """Forward (a cold anchor takes the repair) and backward under
+    ``set_sync_debug_mode("error")``: no device value reaches the
+    host."""
+    from paddle_tpu_torch.nn import BatchNorm2D
+    bn = BatchNorm2D(8, data_format="NHWC").to(cuda)
+    x = (torch.randn(16, 5, 5, 8, device=cuda) + 300).requires_grad_()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bn(x).square().sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(x.grad).all() and bn._mean.abs().min() > 10
+
+
+def test_captured_resnet_train_step_matches_its_eager_loop(cuda):
+    """A ResNet-18 at 32×32, NHWC, bf16 with ``Momentum`` through
+    ``TrainStep``: one eager step, the capture, three replays with no
+    host sync, no fallback; then the same five steps through a plain eager loop from
+    the same start. With cuDNN deterministic both run the same kernels
+    in the same order: losses, parameters, velocities and running
+    statistics bit for bit."""
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+    torch.backends.cudnn.deterministic = True
+    prev = tdevice._current
+    tdevice.set_device("gpu")
+    try:
+        torch.manual_seed(0)
+        model = resnet18(num_classes=10, data_format="NHWC").bfloat16()
+        start = {k: v.detach().clone()
+                 for k, v in model.state_dict(keep_vars=True,
+                                              prefix="").items()}
+        g = torch.Generator(device=cuda).manual_seed(1)
+        x = (torch.randn(8, 32, 32, 3, device=cuda, generator=g)
+             * 0.1).bfloat16()
+        y = torch.randint(0, 10, (8,), device=cuda, generator=g)
+        crit = CrossEntropyLoss()
+
+        def make_opt():
+            return Momentum(0.1, 0.9, parameters=model.parameters())
+        opt = make_opt()
+        step = TrainStep(model, crit, opt)
+        # the first call runs eager, the second captures (its set-up may
+        # copy to the card), the rest replay without a host sync
+        losses = [float(step(x, y)) for _ in range(2)] + \
+            _replay_strictly_xy(step, x, y, 3)
+        st = step.stats
+        assert st["captured_steps"] == 4 and st["fallbacks"] == {}
+        got = {k: v.detach().clone() for k, v in model.state_dict(
+            keep_vars=True, prefix="").items()}
+        vel = [s["velocity"].clone() for _, s in sorted(opt._states.items())]
+        with torch.no_grad():
+            for k, v in model.state_dict(keep_vars=True, prefix="").items():
+                v.copy_(start[k])
+        opt = make_opt()
+        eager = []
+        for _ in range(5):
+            loss = crit(model(x), y).float()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            eager.append(float(loss.detach()))
+        assert losses == eager
+        for k, v in model.state_dict(keep_vars=True, prefix="").items():
+            assert torch.equal(v, got[k]), k
+        assert not torch.equal(got["bn1._mean"], start["bn1._mean"])
+        for a, (_, s) in zip(vel, sorted(opt._states.items())):
+            assert torch.equal(a, s["velocity"])
+    finally:
+        tdevice._current = prev
+        torch.backends.cudnn.deterministic = False
+
+
+def _replay_strictly_xy(step, x, y, n):
+    out = []
+    for _ in range(n):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out.append(step(x, y))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [float(v) for v in out]

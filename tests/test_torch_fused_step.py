@@ -230,13 +230,23 @@ class _MyAdam(topt.Adam):
     pass
 
 
+class _MySGD(topt.SGD):
+    pass
+
+
+class _MyMomentum(topt.Momentum):
+    pass
+
+
 @pytest.mark.parametrize("reason,make", [
     ("regularizer", lambda ps: topt.Adam(
         parameters=ps, weight_decay=treg.L1Decay(0.01))),
     ("grad_clip", lambda ps: topt.AdamW(parameters=ps,
                                         grad_clip=_MyClip(1.0))),
-    ("optimizer_type", lambda ps: topt.SGD(parameters=ps)),
-    ("optimizer_type", lambda ps: topt.Momentum(parameters=ps)),
+    # SGD and Momentum take the fused step since the vision slice: a
+    # subclass of each (its update may differ) is counted
+    ("optimizer_type", lambda ps: _MySGD(parameters=ps)),
+    ("optimizer_type", lambda ps: _MyMomentum(parameters=ps)),
     ("optimizer_type", lambda ps: _MyAdam(parameters=ps)),
     ("duplicate_param", lambda ps: topt.Adam(parameters=[ps[0], ps[0]])),
 ], ids=["L1Decay", "clip-subclass", "SGD", "Momentum", "Adam-subclass",

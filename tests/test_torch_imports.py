@@ -349,3 +349,44 @@ def test_kernel_build_is_lazy_and_names_sm90a(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.load(name)
     assert not (tmp_path / "k").exists()
+
+
+VISION_MODULES = ("nn/functional/conv.py", "nn/functional/pooling.py",
+                  "vision/__init__.py", "vision/image.py",
+                  "vision/transforms.py", "vision/datasets.py",
+                  "vision/models/__init__.py", "vision/models/_utils.py",
+                  "vision/models/resnet.py")
+
+
+def test_port_covers_the_vision_modules():
+    have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert set(VISION_MODULES) <= have, sorted(set(VISION_MODULES) - have)
+
+
+def test_importing_the_vision_slice_loads_no_jax():
+    """The vision slice (conv, pooling and norm functionals and layers,
+    the ResNet family, transforms and datasets) imports without JAX, and
+    ``resnet50(data_format="NHWC")`` builds (on the CPU, by name)."""
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch as paddle\n"
+        "import paddle_tpu_torch.vision.models.resnet, "
+        "paddle_tpu_torch.vision.transforms, "
+        "paddle_tpu_torch.vision.datasets, paddle_tpu_torch.vision.image, "
+        "paddle_tpu_torch.nn.functional.conv, "
+        "paddle_tpu_torch.nn.functional.pooling\n"
+        "paddle.set_device('cpu')\n"
+        "m = paddle.vision.models.resnet50(data_format='NHWC')\n"
+        "assert sum(p.size for p in m.parameters()) == 25557032\n"
+        "assert paddle.nn.Conv2D and paddle.nn.BatchNorm2D and "
+        "paddle.nn.MaxPool2D and paddle.nn.Flatten\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")

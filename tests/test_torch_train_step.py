@@ -3,8 +3,8 @@
 Both are thin wrappers over their package's ``CapturedStep`` in
 non-strict mode with ``cast_loss_f32``. On the CPU the port's engine
 captures nothing: the first call of a signature runs eager and the
-later ones fall back with ``"device"`` (``"optimizer"`` for a
-per-parameter optimizer such as SGD), counted; the eager step is the
+later ones fall back with ``"device"`` (SGD's and AdamW's steps alike:
+both update on the device lr), counted; the eager step is the
 one the card would capture. Its losses and weights are held to the JAX
 step's from the same weights (copied with ``convert``): a linear model
 as ``tests/test_sot_capture.py``'s ``TrainStepWrapper`` trains it, a
@@ -49,7 +49,7 @@ def _xy():
 
 
 @pytest.mark.parametrize("opt,lr,fallbacks", [
-    ("SGD", 0.05, {"optimizer": 10}),
+    ("SGD", 0.05, {"device": 9}),
     ("AdamW", 0.1, {"device": 9})])
 def test_linear_train_step_matches_jax(opt, lr, fallbacks):
     """``tests/test_sot_capture.py``'s linear model and loss: ten steps,
@@ -77,7 +77,7 @@ def test_linear_train_step_matches_jax(opt, lr, fallbacks):
                                    atol=1e-6, rtol=1e-5, err_msg=n)
     st = steps[tpaddle].stats
     assert st["fallbacks"] == fallbacks and st["captured_steps"] == 0
-    assert st["eager_steps"] == (1 if opt == "AdamW" else 0)
+    assert st["eager_steps"] == 1
 
 
 def _model_pair(kind):
