@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, MoE, eager, Model.fit and vision paths on one card.
+"""Drive the PyTorch/CUDA port's serving, training, MoE, eager, Model.fit, vision, dy2static and export paths on one card.
 
 Run from the root of a checkout on a machine with a Hopper card:
 
@@ -117,8 +117,9 @@ Phases, each printing one JSON line with its seconds:
                       fault_injection.write_bytes is skipped by latest();
                       checkpoint bytes, save seconds (fsync on), load +
                       CRC-verify seconds and each stage's swap_seconds;
-12. ``fleet``         THE FLEET PATH: Llama-2 7B widths (32 layers, the
-                      serve phase's weights by seed), bf16, in replica
+12. ``fleet``         THE FLEET PATH: Llama-2 7B widths (depth 32 cut to
+                      8 layers for the run's time, the serve phase's
+                      weights by seed), bf16, in replica
                       processes (serving_fleet, 8 slots x 2048, block 16,
                       chunk 64, supervised): (a) one replica boots
                       against an empty FLAGS_executable_cache_dir — nvcc
@@ -455,7 +456,36 @@ Phases, each printing one JSON line with its seconds:
                       batches and an evaluate of 4, captured (strict)
                       and then eager from the same weights and the same
                       draws; gates: 15 train and 3 eval steps captured,
-                      one graph each, no fallback, losses within 1e-2.
+                      one graph each, no fallback, losses within 1e-2;
+38. ``to_static_gpt`` GPT at GPT-3 13B widths (3 layers, bf16, eval, ids
+                      [4, 2048] from the seed) through
+                      ``paddle.jit.to_static``: an eager forward under
+                      no-grad is the reference; 12 SOT calls (1 record,
+                      1 op-by-op replay, 10 CUDA-graph replays), gates:
+                      logits bit-equal to eager (else within 2e-2 (1 +
+                      |ref|), said why), one cache entry, no fallback,
+                      K1b 3 a call counted through the replays; the same
+                      under ``full_graph=True`` (1 eager call, 1 capture,
+                      11 replays); a function branching on the logits,
+                      called with two id batches in turns: both paths
+                      recorded, guard misses and replays counted, results
+                      equal to eager, one device-to-host copy in a
+                      profiled guarded replay; eager and replay ms (CUDA
+                      events), the host us to issue a replay, the
+                      logits' clone ms, capture seconds, peak memory;
+39. ``jit_export``    ``save_inference_model(aot=True)`` of that GPT
+                      (``InputSpec([4, 2048], "int64")``) and of
+                      ResNet-50 (NHWC bf16, eval,
+                      ``InputSpec([128, 224, 224, 3], "bfloat16")``),
+                      each payload's module renamed so that its class
+                      cannot be imported; one fresh child process runs
+                      ``jit.load`` -> ``TranslatedLayer`` on both on the
+                      card; gates: the child imported neither model
+                      module, K1b 3 in the child for GPT, logits of both
+                      within the bf16 gate of the parent's eager logits,
+                      the GPT program under 1 % of its payload's bytes;
+                      save seconds, payload and blob bytes, the child's
+                      load and forward seconds.
 
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
 (K3 on the split design at decode with bf16 and with int8 pools, at
@@ -469,7 +499,11 @@ packed geometry, K6 and K7 at the op bench's geometry, each flash and
 K6/K7 row naming the design it timed, its TMA launches and the first
 design's time where the TMA design took it, and O1 and O2 at the train
 phase's parameters with their launches from the amp_scaler and train
-phases and ``fit_launches`` from gpt_fit's captured run)
+phases and ``fit_launches`` from gpt_fit's captured run; K1b's row also
+has ``to_static_launches``, ``full_graph_launches`` and
+``jit_export_child_launches`` from the last two phases and
+``op_host_us`` / ``op_dispatch_us``, the host cost of the same forward
+through the ``paddle_tpu_torch::flash_fwd`` operator)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Without CUDA, or when run outside a checkout, it
@@ -2161,7 +2195,7 @@ def phase_rollout(state):
 # the serving fleet and the inference front end
 # ---------------------------------------------------------------------------
 
-FLEET_LAYERS = 32       # Llama-2 7B's depth: two replicas take ~45 GB
+FLEET_LAYERS = 8        # Llama-2 7B widths, depth 32 -> 8 (run time)
 FLEET_REQUESTS = 8      # the first 8 of serve_workload's requests
 FLEET_KILL_SKIP = 3     # SIGKILL replica 1 at its 4th poll with tokens
 FLEET_HEARTBEAT = 0.2
@@ -2916,6 +2950,16 @@ def flash_timings(shape, causal, kw=None, pairs=None, lib_kw=None,
              "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
              "bytes": nbytes}
         r["share_of_bound"] = b_ms / r["kernel_ms"]
+        if name == "flash_attention_fwd":
+            # the same launch through the paddle_tpu_torch::flash_fwd
+            # operator (FlashAttention.forward's route): what the
+            # dispatcher adds to the wrapper's host cost
+            plan = kw.get("seg")
+            r["op_host_us"] = host_us(lambda: fa.flash_fwd_op(
+                q, k, v, causal, None, float(kw.get("dropout_p", 0.0)),
+                kw.get("seed"), None if plan is None else plan.ids,
+                None if plan is None else plan.ranges))
+            r["op_dispatch_us"] = r["op_host_us"] - r["wrapper_host_us"]
         table[name] = r
     return table
 
@@ -2928,6 +2972,9 @@ def fill_times(results, suffix, table):
             "design", "kernel_ms", "general_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")})
         results[name + suffix]["ms"] = table[name]["kernel_ms"]
+    for key in ("op_host_us", "op_dispatch_us"):
+        results["flash_attention_fwd" + suffix][key] = \
+            table["flash_attention_fwd"].get(key)
 
 
 def phase_flash_time(results):
@@ -3424,24 +3471,24 @@ def phase_eager_core():
     return out
 
 
-def gpt_model(layers, flash=True):
+def gpt_model(layers, flash=True, widths=None, device="cuda"):
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
-    paddle.set_device("gpu")
+    paddle.set_device("gpu" if device == "cuda" else device)
     paddle.seed(SEED)
     model = GPTForCausalLM(GPTConfig(num_hidden_layers=layers,
                                      use_flash_attention=flash,
-                                     **GPT_WIDTHS))
+                                     **(widths or GPT_WIDTHS)))
     model.bfloat16()
     return model
 
 
-def gpt_ids(vocab):
+def gpt_ids(vocab, batch=None, seq=None, seed=SEED):
     import numpy as np
     import paddle_tpu_torch as paddle
-    rng = np.random.default_rng(SEED)
-    return paddle.to_tensor(rng.integers(0, vocab,
-                                         (GPT["batch"], GPT["seq"])))
+    rng = np.random.default_rng(seed)
+    return paddle.to_tensor(rng.integers(
+        0, vocab, (batch or GPT["batch"], seq or GPT["seq"])))
 
 
 def gpt_loss(model, crit, ids):
@@ -6607,6 +6654,379 @@ def phase_resnet_fit():
     return out
 
 
+# ---------------------------------------------------------------------------
+# dy2static and the inference artifact
+# ---------------------------------------------------------------------------
+
+TO_STATIC = dict(calls=12, branch_calls=8)
+LOGITS_GATE = 2e-2     # |got - ref| <= 2e-2 (1 + |ref|): the bf16 gate
+
+
+def bf16_gate(got, ref):
+    """(max |got - ref|, whether every element is within the bf16 gate)."""
+    import torch
+    err = (got.float() - ref.float()).abs()
+    ok = bool((err <= LOGITS_GATE * (1 + ref.float().abs())).all())
+    return float(err.max()), ok
+
+
+def k1_counts():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    f = fa.flash_attention_fwd
+    return f.launches, f.tma_launches
+
+
+def reset_k1():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    f = fa.flash_attention_fwd
+    f.launches = f.tma_launches = 0
+
+
+def count_dtoh(fn):
+    """Device-to-host copies of one call of ``fn`` as torch.profiler's
+    device records show them, checked against the runtime's memcpy
+    calls (the profiler can drop records at its window's ends)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for i in range(2):
+            fn()
+            torch.cuda.synchronize()
+            if i == 1:
+                time.sleep(0.05)
+            prof.step()
+    d2h = copies = calls = 0
+    for ev in prof.key_averages():
+        if ev.key.startswith("Memcpy "):
+            copies += ev.count
+            d2h += ev.count if "DtoH" in ev.key else 0
+        elif ev.key.startswith("cudaMemcpy"):
+            calls += ev.count
+    return {"dtoh": d2h, "memcpy_records": copies, "memcpy_calls": calls}
+
+
+def run_calls(fn, ref, n, what):
+    """``n`` calls of ``fn`` (no grad), each output held to ``ref``:
+    bit-equal, or else within the bf16 gate. Returns the per-call
+    seconds (synchronized) and the largest error."""
+    import torch
+    secs, worst, equal = [], 0.0, True
+    for i in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got = out._t if hasattr(out, "_t") else out
+        if not torch.equal(got, ref):
+            equal = False
+            err, ok = bf16_gate(got, ref)
+            worst = max(worst, err)
+            if not ok:
+                raise AssertionError(f"{what}: call {i + 1} is outside the "
+                                     f"bf16 gate of the eager logits "
+                                     f"(max |err| {err})")
+        del out, got
+    return secs, worst, equal
+
+
+def phase_to_static_gpt(results, device="cuda", layers=None, widths=None,
+                        batch=None, seq=None):
+    """GPT at GPT-3 13B widths through paddle.jit.to_static: SOT (record,
+    op-by-op replay, CUDA-graph replays), full_graph=True, and a branch
+    on the logits (guards: hits, misses, one fetch a replay)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    cuda = device == "cuda"
+    layers = layers or GPT["layers"]
+    batch, seq = batch or GPT["batch"], seq or GPT["seq"]
+    n = TO_STATIC["calls"]
+    if cuda:
+        fresh_peak()
+    model = gpt_model(layers, widths=widths, device=device)
+    model.eval()
+    vocab = model.config.vocab_size
+    ids = gpt_ids(vocab, batch, seq)
+    with paddle.no_grad():
+        ref = model(ids)._t
+        eager_ms = time_ms(lambda: model(ids), samples=5, inner=1) \
+            if cuda else None
+    reset_k1()
+    paddle.jit.to_static(model)
+    sot = model.forward
+    with paddle.no_grad():
+        secs, worst, equal = run_calls(lambda: model(ids), ref, n,
+                                       "to_static_gpt (SOT)")
+    sot_launches = k1_counts()
+    st = dict(sot.stats)
+    want = {"records": 1, "op_replays": 1 if cuda else n - 1,
+            "graph_replays": n - 2 if cuda else 0}
+    got = {k: st[k] for k in want}
+    if got != want or sot.cache_size() != 1 or st["fallbacks"] \
+            or st["eager_calls"]:
+        raise AssertionError(f"to_static_gpt: SOT ran {st} with "
+                             f"cache_size {sot.cache_size()}, expected "
+                             f"{want}, one entry and no fallback")
+    if cuda and sot_launches != (layers * n, layers * n):
+        raise AssertionError(f"to_static_gpt: K1b launches (all, TMA) "
+                             f"{sot_launches} != layers x calls = "
+                             f"{layers * n}")
+    sot_info = {"stats": st, "cache_size": sot.cache_size(),
+                "k1b_launches": sot_launches[0],
+                "k1b_tma_launches": sot_launches[1],
+                "bit_equal_to_eager": equal, "max_abs_err": worst,
+                "call_seconds": secs}
+    if cuda:
+        with paddle.no_grad():
+            sot_info["replay_ms"] = time_ms(lambda: model(ids), samples=5,
+                                            inner=1)
+            sot_info["replay_host_us"] = host_us(lambda: model(ids), 5)
+            sot_info["logits_clone_ms"] = time_ms(lambda: ref.clone(),
+                                                  samples=5, inner=1)
+        sot_info["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        reset_k1()
+    del model.forward                    # the class's forward again
+
+    # full_graph=True: one graph for the signature
+    reset_k1()
+    static = paddle.jit.to_static(model, full_graph=True)
+    with paddle.no_grad():
+        secs2, worst2, equal2 = run_calls(lambda: static(ids), ref, n,
+                                          "to_static_gpt (full_graph)")
+    fg_launches = k1_counts()
+    fst = dict(static.stats)
+    want2 = {"eager_calls": 1 if cuda else n,
+             "captures": 1 if cuda else 0, "replays": n - 1 if cuda else 0}
+    if {k: fst[k] for k in want2} != want2 or \
+            fst["fallbacks"] != ({} if cuda else {"device": n - 1}):
+        raise AssertionError(f"to_static_gpt: full_graph ran {fst}, "
+                             f"expected {want2}")
+    if cuda and fg_launches != (layers * n, layers * n):
+        raise AssertionError(f"to_static_gpt: full_graph K1b launches "
+                             f"{fg_launches} != {layers * n}")
+    fg_info = {"stats": fst, "k1b_launches": fg_launches[0],
+               "bit_equal_to_eager": equal2, "max_abs_err": worst2,
+               "call_seconds": secs2}
+    if cuda:
+        with paddle.no_grad():
+            fg_info["replay_ms"] = time_ms(lambda: static(ids), samples=5,
+                                           inner=1)
+            fg_info["replay_host_us"] = host_us(lambda: static(ids), 5)
+
+    # a branch on the logits: both paths taken, guards hit and miss
+    ids_b = gpt_ids(vocab, batch, seq, seed=SEED + 1)
+    with paddle.no_grad():
+        ref_b = model(ids_b)._t
+        m_a = float(ref[:, -1].float().mean())
+        m_b = float(ref_b[:, -1].float().mean())
+    thresh = (m_a + m_b) / 2
+
+    def pick(x):
+        last = model(x)[:, -1].astype("float32")
+        if last.mean() > thresh:
+            return last.argmax(axis=-1)
+        return last.argmin(axis=-1)
+
+    want_a = (ref[:, -1].float().argmax(-1) if m_a > thresh
+              else ref[:, -1].float().argmin(-1))
+    want_b = (ref_b[:, -1].float().argmax(-1) if m_b > thresh
+              else ref_b[:, -1].float().argmin(-1))
+    branch = paddle.jit.to_static(pick)
+    with paddle.no_grad():
+        for i in range(TO_STATIC["branch_calls"]):
+            x, want_i = (ids, want_a) if i % 2 == 0 else (ids_b, want_b)
+            got_i = branch(x)._t
+            if not torch.equal(got_i, want_i.to(got_i.dtype)):
+                raise AssertionError(f"to_static_gpt: branch call {i + 1} "
+                                     f"differs from eager")
+        bst = dict(branch.stats)
+        fetch = count_dtoh(lambda: branch(ids)) if cuda else None
+    replays = bst["op_replays"] + bst["graph_replays"]
+    if bst["records"] != 2 or bst["guard_misses"] < 1 or replays < 1 \
+            or bst["fallbacks"] or branch.cache_size() != 2:
+        raise AssertionError(f"to_static_gpt: branch ran {bst}")
+    if cuda and (fetch["dtoh"] != 1
+                 or fetch["memcpy_records"] != fetch["memcpy_calls"]):
+        raise AssertionError(f"to_static_gpt: a guarded replay made "
+                             f"{fetch} device-to-host copies, expected 1")
+    out = {"model": "gpt3-13b-width", "layers": layers, "batch": batch,
+           "seq": seq, "vocab": vocab, "dtype": "bfloat16", "mode": "eval",
+           "eager_ms": eager_ms, "sot": sot_info, "full_graph": fg_info,
+           "branch": {"stats": bst, "cache_size": branch.cache_size(),
+                      "threshold": thresh, "means": [m_a, m_b],
+                      "profiled_replay": fetch}}
+    if cuda:
+        out["card"] = nvidia_smi_line()
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        results["flash_attention_fwd"]["to_static_launches"] = \
+            sot_launches[0]
+        results["flash_attention_fwd"]["full_graph_launches"] = \
+            fg_launches[0]
+    del model, static, branch, ref, ref_b
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+EXPORT_RESNET = dict(batch=128, hw=224)
+EXPORT_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import torch
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
+paddle.set_device(sys.argv[3])
+out = {"import_s": time.perf_counter() - t0}
+for name in ("gpt", "resnet"):
+    path = sys.argv[2] + "/" + name
+    t = time.perf_counter()
+    tl = paddle.jit.load(path)
+    load_s = time.perf_counter() - t
+    x = torch.load(path + "_in.pt").to(sys.argv[3])
+    ref = torch.load(path + "_ref.pt").to(sys.argv[3])
+    fa.flash_attention_fwd.launches = 0
+    t = time.perf_counter()
+    y = tl(x)._t
+    if sys.argv[3] == "cuda":
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    k1b = fa.flash_attention_fwd.launches
+    t = time.perf_counter()
+    y2 = tl(x)._t
+    if sys.argv[3] == "cuda":
+        torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs()
+    gate = 2e-2 * (1 + ref.float().abs())
+    out[name] = {"type": type(tl).__name__, "load_s": load_s,
+                 "first_forward_s": first_s,
+                 "forward_s": time.perf_counter() - t,
+                 "shape": list(y.shape), "dtype": str(y.dtype),
+                 "k1b_launches": k1b, "max_abs_err": float(err.max()),
+                 "within_gate": bool((err <= gate).all()),
+                 "repeat_equal": bool(torch.equal(y, y2)),
+                 "digest": float(y.float().sum())}
+    del tl, x, ref, y, y2
+out["imported"] = [m for m in ("paddle_tpu_torch.models.gpt",
+                               "paddle_tpu_torch.vision.models.resnet",
+                               "paddle_tpu_torch.vision")
+                   if m in sys.modules]
+out["seconds"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def export_and_hide(path, model, spec, x, ref):
+    """save_inference_model(aot=True), then the payload's module renamed
+    so that its class cannot be imported; the input and the eager
+    output written beside it for the child."""
+    import torch
+    from paddle_tpu_torch.framework.checkpoint import load_checkpoint
+    from paddle_tpu_torch.framework.io import save as _save
+    from paddle_tpu_torch.inference import save_inference_model
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    save_inference_model(path, model, input_spec=[spec], aot=True)
+    save_s = time.perf_counter() - t0
+    # the rename rewrites a file this phase just wrote in a temporary
+    # directory: read without the CRC check, written without fsync
+    payload = load_checkpoint(path + ".pdmodel", device="cpu", verify=False)
+    blob = len(payload["aot"]["blob"])
+    payload["module"] = "chip_smoke_unimportable." + payload["module"]
+    fsync = paddle.get_flags(["FLAGS_checkpoint_fsync"])
+    paddle.set_flags({"FLAGS_checkpoint_fsync": False})
+    try:
+        _save(payload, path + ".pdmodel")
+    finally:
+        paddle.set_flags(fsync)
+    torch.save(x.cpu(), path + "_in.pt")
+    torch.save(ref.cpu(), path + "_ref.pt")
+    return {"save_s": save_s, "payload_bytes":
+            os.path.getsize(path + ".pdmodel"), "blob_bytes": blob}
+
+
+def phase_jit_export(results, device="cuda", layers=None, widths=None,
+                     batch=None, seq=None, resnet=None):
+    """save_inference_model(aot=True) of GPT (13B widths) and ResNet-50
+    (NHWC bf16, batch 128 at 224^2), their classes made unimportable,
+    then jit.load -> TranslatedLayer in one fresh child process."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import InputSpec
+    from paddle_tpu_torch.vision.models import resnet50
+    cuda = device == "cuda"
+    layers = layers or GPT["layers"]
+    batch, seq = batch or GPT["batch"], seq or GPT["seq"]
+    rn = dict(EXPORT_RESNET, **(resnet or {}))
+    root = tempfile.mkdtemp(prefix="jit-export-")
+    try:
+        model = gpt_model(layers, widths=widths, device=device)
+        model.eval()
+        ids = gpt_ids(model.config.vocab_size, batch, seq)
+        with paddle.no_grad():
+            ref = model(ids)._t
+        gpt = export_and_hide(os.path.join(root, "gpt"), model,
+                              InputSpec([batch, seq], "int64"), ids._t, ref)
+        del model, ref
+        paddle.seed(SEED)
+        net = resnet50(data_format="NHWC")
+        net = net.to(device=device, dtype="bfloat16")
+        net.eval()
+        rng = np.random.default_rng(SEED)
+        x = torch.from_numpy(rng.standard_normal(
+            (rn["batch"], rn["hw"], rn["hw"], 3)).astype(np.float32)) \
+            .to(device=device, dtype=torch.bfloat16)
+        with paddle.no_grad():
+            ref = net(x)
+            ref = ref._t if hasattr(ref, "_t") else ref
+        res = export_and_hide(os.path.join(root, "resnet"), net,
+                              InputSpec(list(x.shape), "bfloat16"), x, ref)
+        del net, x, ref
+        if cuda:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD, str(ROOT), root, device],
+            capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"jit_export: the child failed "
+                                 f"({proc.returncode}): "
+                                 f"{proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    problems = []
+    if child["imported"]:
+        problems.append(f"the child imported {child['imported']}")
+    for name in ("gpt", "resnet"):
+        c = child[name]
+        if c["type"] != "TranslatedLayer" or not c["within_gate"]:
+            problems.append(f"{name}: {c}")
+    if cuda and child["gpt"]["k1b_launches"] != layers:
+        problems.append(f"gpt: K1b launches in the child "
+                        f"{child['gpt']['k1b_launches']} != {layers}")
+    if not gpt["blob_bytes"] < 0.01 * gpt["payload_bytes"]:
+        problems.append(f"gpt: the program holds {gpt['blob_bytes']} of "
+                        f"the payload's {gpt['payload_bytes']} bytes")
+    if problems:
+        raise AssertionError("jit_export: " + "; ".join(problems))
+    if cuda:
+        results["flash_attention_fwd"]["jit_export_child_launches"] = \
+            child["gpt"]["k1b_launches"]
+    return {"card": nvidia_smi_line() if cuda else None,
+            "gpt": {"layers": layers, "batch": batch, "seq": seq, **gpt},
+            "resnet50": {"layout": "NHWC", "dtype": "bfloat16", **rn,
+                         **res},
+            "child": child, "child_wall_s": child_s,
+            "gate": f"|err| <= {LOGITS_GATE} (1 + |ref|)"}
+
+
 def ptxas_instances(lines):
     """{kernel<template args>: (registers, spill bytes)} from ptxas'
     report of one library: each "Compiling entry function" line, then its
@@ -6930,6 +7350,8 @@ def main() -> int:
         ("resnet50_train", phase_resnet50_train),
         ("resnet_parity", phase_resnet_parity),
         ("resnet_fit", phase_resnet_fit),
+        ("to_static_gpt", lambda: phase_to_static_gpt(flash)),
+        ("jit_export", lambda: phase_jit_export(flash)),
     ]
     t_all = time.perf_counter()
     for name, fn in phases:

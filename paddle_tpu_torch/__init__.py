@@ -137,7 +137,8 @@ from . import amp  # noqa: F401,E402
 from . import io  # noqa: F401,E402
 from . import metric  # noqa: F401,E402
 from . import callbacks  # noqa: F401,E402
-from . import vision  # noqa: F401,E402
+from . import jit  # noqa: F401,E402
+from . import static  # noqa: F401,E402
 from .hapi import Model, summary, flops  # noqa: F401,E402
 
 
@@ -157,6 +158,11 @@ def __getattr__(name):
     if name in ("save", "load"):
         from .framework import io
         return getattr(io, name)
+    if name == "vision":
+        # imported on first use: a process that serves an exported
+        # program imports no model class (jit.load -> TranslatedLayer)
+        import importlib
+        return importlib.import_module(".vision", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

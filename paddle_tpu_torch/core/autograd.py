@@ -15,6 +15,15 @@ unwraps Tensor arguments, casts them per the AMP regime when
 does), calls ``fn`` on torch tensors and wraps what comes back —
 unless it was given no Tensor at all, when it returns torch tensors,
 so one function serves paddle user code and the port's torch modules.
+
+The recorder seams of the JAX module, for ``jit/sot.py``:
+``_op_recorder(fn, args, kwargs, outs, name)`` is called after each op
+that ``apply_op`` runs outside another op, with ``fn`` wrapped so that
+it repeats the AMP cast (the recorder replays it), and
+``_backward_observer()`` before each :func:`backward` / :func:`grad`.
+``_op_depth`` is how many ``apply_op`` calls are running (the recorder
+tells an op's own torch calls from the user's by it). With no recorder
+installed an op pays one test of ``_op_recorder``.
 """
 from __future__ import annotations
 
@@ -93,6 +102,11 @@ def _wrap(out, Tensor):
     return out
 
 
+_op_recorder = None
+_backward_observer = None
+_op_depth = 0
+
+
 def apply_op(fn: Callable, *args, op_name: Optional[str] = None, **kwargs):
     """Run ``fn`` (a function of torch tensors) on ``args``, where
     Tensors are unwrapped; the result (a tensor or a tuple of them) is
@@ -112,8 +126,37 @@ def apply_op(fn: Callable, *args, op_name: Optional[str] = None, **kwargs):
     if _amp_state.enabled:
         raw = _maybe_cast_inputs(op_name or getattr(fn, "__name__", "op"),
                                  raw)
+    if _op_recorder is not None:
+        return _apply_recorded(fn, args, raw, kwargs, op_name, wrapped,
+                               Tensor)
     out = fn(*raw, **kwargs)
     return _wrap(out, Tensor) if wrapped else out
+
+
+def _apply_recorded(fn, args, raw, kwargs, op_name, wrapped, Tensor):
+    """``apply_op`` under a recorder: the op runs as usual, then the
+    recorder gets it with the arguments as given (before the AMP cast,
+    which ``record_fn`` repeats); an op inside another op's ``fn`` is
+    the outer op's. An op on torch tensors (a Layer called with them)
+    is given with those tensors in and out."""
+    global _op_depth
+    _op_depth += 1
+    try:
+        out = fn(*raw, **kwargs)
+    finally:
+        _op_depth -= 1
+    rec = _op_recorder
+    if _op_depth or rec is None:
+        return _wrap(out, Tensor) if wrapped else out
+    name = op_name or getattr(fn, "__name__", "op")
+    record_fn = fn
+    if _amp_state.enabled:
+        def record_fn(*a, _fn=fn, _name=name, **kw):
+            return _fn(*_maybe_cast_inputs(_name, list(a)), **kw)
+    res = _wrap(out, Tensor) if wrapped else out
+    multi = isinstance(res, (tuple, list))
+    rec(record_fn, args, kwargs, tuple(res) if multi else (res,), name)
+    return res
 
 
 def _as_list(x):
@@ -125,6 +168,8 @@ def backward(tensors, grad_tensors=None, retain_graph=False):
     ``tensors`` into the ``.grad`` of the leaves; a root that is not a
     single element needs its gradient."""
     from .tensor import as_torch
+    if _backward_observer is not None:
+        _backward_observer()
     roots = [t._t for t in _as_list(tensors)]
     if grad_tensors is None:
         grads = [None] * len(roots)
@@ -153,6 +198,8 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
     An input the outputs do not depend on (or that does not require a
     gradient) raises unless ``allow_unused``, which gives None."""
     from .tensor import Tensor, as_torch
+    if _backward_observer is not None:
+        _backward_observer()
     outs = [t._t for t in _as_list(outputs)]
     ins = _as_list(inputs)
     gos = [None] * len(outs) if grad_outputs is None else \

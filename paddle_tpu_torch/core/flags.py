@@ -202,11 +202,21 @@ define_flag("checkpoint_fsync", True,
             "the atomic rename. Durability contract against power loss; "
             "disable only in tests/benchmarks on throwaway dirs")
 define_flag("sot_capture", True,
-            "Whole-step capture (jit/sot.py CapturedStep): "
+            "Whole-step capture (jit/sot.py): SOTFunction replays "
+            "recorded paths (CUDA-graph segments on the card) and "
             "hapi.Model.train_batch/eval_batch run forward, loss, "
             "backward, clip and optimizer step as ONE CUDA graph per "
             "signature (first sighting eager, second captures, later "
-            "calls replay). 0 is the kill switch: every step runs eager")
+            "calls replay). 0 is the kill switch: every step and every "
+            "SOTFunction call runs eager")
+define_flag("sot_cache_size", 64,
+            "Max (signature, guard-path) entries in a SOTFunction's "
+            "cache (LRU eviction)")
+define_flag("sot_guard_budget", 512,
+            "Max TOTAL guard bytes a recorded SOT path may validate per "
+            "replay (per-guard values are capped at 256B separately); an "
+            "over-budget recording stays eager with a counted fallback "
+            "reason")
 define_flag("sot_capture_cache", 8,
             "Max captured CUDA graphs per CapturedStep (LRU eviction; "
             "one entry per input signature x train/eval-mode x "

@@ -314,8 +314,9 @@ def default_generator() -> Generator:
     return _default_generator
 
 
-# hooks: _key_observer() is called on every next_key() (the JAX
-# module's); _draw_observer(generator, device) on every device draw of a
+# hooks: _key_observer() is called on every next_key() and every host
+# draw (the JAX module's; jit/sot.py keeps a recording that drew out of
+# replay); _draw_observer(generator, device) on every device draw of a
 # Generator (jit/sot.py records a capture's draws through it)
 _key_observer = None
 _draw_observer = None
@@ -386,6 +387,8 @@ def draws() -> int:
 
 def _host_seed() -> int:
     global _draws
+    if _key_observer is not None:
+        _key_observer()
     _draws += 1
     lo, hi = _default_generator._host_key()
     return lo | hi << 32

@@ -34,6 +34,14 @@ from . import device as device_mod
 __all__ = ["Tensor", "Parameter", "to_tensor", "unwrap", "wrap",
            "wrap_leaf", "as_torch", "unwrap_tree", "wrap_tree"]
 
+# recorder seams (jit/sot.py), as in the JAX module: _materialize_hook(
+# tensor, kind) before a value leaves for the host (``numpy``, ``item``,
+# ``tolist``, ``__array__`` and the Python number conversions through
+# them), _mutation_hook(tensor) before a Tensor is written in place or
+# rebound
+_materialize_hook = None
+_mutation_hook = None
+
 
 def unwrap_tree(x):
     if isinstance(x, Tensor):
@@ -80,6 +88,13 @@ def as_torch(value, device=None, dtype=None) -> torch.Tensor:
     if device is not None or dtype is not None:
         t = t.to(device=device, dtype=dtype)
     return t
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
 
 
 def _is_diff(t: torch.Tensor) -> bool:
@@ -173,14 +188,21 @@ class Tensor:
     def numpy(self):
         """The values as numpy (bf16 comes back as float32: numpy has no
         bfloat16 of its own)."""
-        t = self._t.detach()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.cpu().numpy()
+        if _materialize_hook is not None:
+            _materialize_hook(self, "numpy")
+            # the hook's recorder has seen the read: the conversion is
+            # not the user's
+            with torch._C.DisableTorchFunction():
+                return _to_numpy(self._t)
+        return _to_numpy(self._t)
 
     def item(self, *args):
         if args:
             return self.numpy().item(*args)
+        if _materialize_hook is not None:
+            _materialize_hook(self, "item")
+            with torch._C.DisableTorchFunction():
+                return self._t.item()
         return self._t.item()
 
     def tolist(self):
@@ -257,6 +279,8 @@ class Tensor:
     def _assign(self, value: torch.Tensor):
         """Write ``value`` (same shape) into a leaf in place, or rebind a
         non-leaf to it."""
+        if _mutation_hook is not None:
+            _mutation_hook(self)
         t = self._t
         if t.is_leaf:
             with torch.no_grad():
@@ -321,6 +345,8 @@ class Tensor:
         return _apply(lambda a: a[idx], self)
 
     def __setitem__(self, idx, value):
+        if _mutation_hook is not None:
+            _mutation_hook(self)
         idx = unwrap_tree(idx)
         t = self._t
         v = value._t if isinstance(value, Tensor) else (

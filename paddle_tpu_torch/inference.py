@@ -19,9 +19,26 @@ engine behind a ``GenerationServer``, or with ``fleet=N`` a
 ``serving_fleet.FleetRouter`` over N replica processes) and ``GET
 /health``.
 
-Not ported: ``aot=True`` (``jax.export`` has no counterpart yet: it
-raises ``NotImplementedError``) and ``int8=True`` (the s8 projections;
-it raises as the port's engines do).
+``save_inference_model(aot=True)`` also exports the eval forward with
+``torch.export`` (the counterpart of the JAX package's ``jax.export``):
+a functional wrapper ``(params, buffers, *inputs)`` is exported at the
+fully static ``input_spec`` shapes, so the program holds no weight (they
+live once, in the payload's state dict), and the flash-attention forward
+stays in it as the operator ``paddle_tpu_torch::flash_fwd``. The
+payload's ``aot`` entry is ``{"format": "torch.export", "blob",
+"param_keys", "buffer_keys", "buffers", "device"}`` (``buffers``: the
+non-persistable ones the state dict lacks; ``device``: where it was
+exported). A :class:`Predictor` over such an artifact — what
+``jit.load`` serves as a ``TranslatedLayer`` when the class cannot be
+imported — imports the kernel module (which registers the operator)
+before ``torch.export.load`` and runs the program on the card (on the
+CPU after ``Config.disable_gpu()``). An AOT payload the JAX package
+wrote holds a StableHLO program, which cannot run under torch: it loads
+through the class mapping where ``_JAX_MODELS`` maps its class, and
+raises ``ValueError`` otherwise.
+
+Not ported: ``int8=True`` (the s8 projections; it raises as the port's
+engines do).
 """
 from __future__ import annotations
 
@@ -40,6 +57,7 @@ import torch
 
 from . import convert as _convert
 from .core.device import resolve_device
+from .core.tensor import Tensor, as_torch
 from .framework.checkpoint import load_checkpoint
 from .framework.io import save as _save
 
@@ -55,21 +73,83 @@ _JAX_MODELS = {
 }
 
 
+def _forced_eval_fwd(model, apply):
+    """The forward in eval semantics, the caller's per-module modes
+    restored after it."""
+    def fwd(params, buffers, *args):
+        mods = list(model.modules())
+        snapshot = [(m, m.training) for m in mods]
+        try:
+            for m in mods:
+                m.training = False
+            out, _ = apply(params, buffers, *args)
+        finally:
+            for m, t in snapshot:
+                m.training = t
+        return out
+    return fwd
+
+
+class _Program(torch.nn.Module):
+    """The module ``torch.export`` traces: ``(params, buffers, *inputs)
+    -> outputs``."""
+
+    def __init__(self, fwd):
+        super().__init__()
+        self._fwd = fwd
+
+    def forward(self, params, buffers, *inputs):
+        return self._fwd(params, buffers, *inputs)
+
+
+def _export_aot(model, input_spec):
+    """The eval forward exported with ``torch.export`` at the static
+    shapes of ``input_spec``, serialized without example inputs: the
+    program alone."""
+    from .core.dtype import convert_dtype
+    from .jit.api import functionalize
+    from .ops.kernels import flash_attention  # noqa: F401 - its operator
+    apply, params, buffers = functionalize(model)
+    leaves = list(params.values()) + list(buffers.values())
+    dev = leaves[0].device if leaves else torch.device("cpu")
+    args = []
+    for s in input_spec:
+        if any(d is None or int(d) <= 0 for d in s.shape):
+            raise ValueError(
+                f"AOT export needs fully-static input shapes, got "
+                f"{list(s.shape)} (use bucketing for varlen serving)")
+        args.append(torch.zeros([int(d) for d in s.shape],
+                                dtype=convert_dtype(s.dtype), device=dev))
+    p = {k: params[k] for k in sorted(params)}
+    b = {k: buffers[k] for k in sorted(buffers)}
+    with torch.no_grad():
+        ep = torch.export.export(_Program(_forced_eval_fwd(model, apply)),
+                                 (p, b, *args))
+    ep._example_inputs = None    # the weights stay out of the program
+    blob = io.BytesIO()
+    torch.export.save(ep, blob)
+    persist = set(model.state_dict())
+    return {"format": "torch.export", "blob": blob.getvalue(),
+            "param_keys": sorted(params), "buffer_keys": sorted(buffers),
+            "buffers": {k: v.detach() for k, v in b.items()
+                        if k not in persist},
+            "device": dev.type}
+
+
 def save_inference_model(path: str, model, input_spec=None, aot=False):
     """Persist ``model``'s state dict and the importable factory
     (``<path>.pdmodel``) so that a serving process can rebuild it.
     ``input_spec`` (objects with ``shape`` and ``dtype``) is stored for
-    consumers that pre-compile.
+    consumers that pre-compile; with ``aot=True`` it fixes the exported
+    program's signature (see the module docstring).
 
     Reconstructability is checked at save time: a model whose
-    ``__init__`` needs arguments must expose them as ``.config``."""
-    if aot:
-        raise NotImplementedError(
-            "save_inference_model(aot=True): the port has no counterpart "
-            "of jax.export yet; save without aot and serve the module")
+    ``__init__`` needs arguments must expose them as ``.config`` —
+    unless ``aot=True``, whose program serves the model without its
+    class (a ResNet built by ``resnet50(...)`` has no ``.config``)."""
     cls = type(model)
     cfg = getattr(model, "config", None)
-    if cfg is None:
+    if cfg is None and not aot:
         sig = inspect.signature(cls.__init__)
         P_ = inspect.Parameter
         required = [
@@ -89,13 +169,42 @@ def save_inference_model(path: str, model, input_spec=None, aot=False):
         "state_dict": model.state_dict(),
         "module": cls.__module__,
         "class_name": cls.__qualname__,
-        "init_config": cfg,
+        "init_config": _class_free(cfg) if aot else cfg,
         "input_spec": [
             {"shape": list(s.shape), "dtype": str(s.dtype)}
             for s in (input_spec or [])
         ],
     }
+    if aot:
+        if not input_spec:
+            raise ValueError(
+                "save_inference_model(aot=True) needs input_spec to fix "
+                "the exported program's signature")
+        payload["aot"] = _export_aot(model, input_spec)
     _save(payload, path + ".pdmodel")
+
+
+def _class_free(cfg):
+    """A dataclass config as ``{"__dataclass__": class path, "fields":
+    {...}}``: an AOT payload unpickles without importing the model's
+    module (the config's class lives there)."""
+    import dataclasses
+    if cfg is None or not dataclasses.is_dataclass(cfg) or \
+            isinstance(cfg, type):
+        return cfg
+    cls = type(cfg)
+    return {"__dataclass__": f"{cls.__module__}.{cls.__qualname__}",
+            "fields": {f.name: getattr(cfg, f.name)
+                       for f in dataclasses.fields(cfg)}}
+
+
+def _config_of(cfg):
+    """The config object of a payload's ``init_config``."""
+    if isinstance(cfg, dict) and "__dataclass__" in cfg:
+        module, _, name = cfg["__dataclass__"].rpartition(".")
+        return getattr(importlib.import_module(module), name)(
+            **cfg["fields"])
+    return cfg
 
 
 def _model_class(payload):
@@ -114,7 +223,7 @@ def _model_class(payload):
     cls = importlib.import_module(payload["module"])
     for part in payload["class_name"].split("."):
         cls = getattr(cls, part)
-    return cls, cfg, sd
+    return cls, _config_of(cfg), sd
 
 
 def _construct(cls, cfg, device: torch.device):
@@ -124,14 +233,15 @@ def _construct(cls, cfg, device: torch.device):
     return cls(*args).to(device)
 
 
-def load_inference_model(path: str, device=None):
+def load_inference_model(path: str, device=None, _payload=None):
     """Rebuild the module from a ``save_inference_model`` artifact of
     either package, on ``device`` (default: the card), in eval mode.
     The weights keep the file's dtype (a bf16-saved model serves in
     bf16). Raises ``ValueError`` when the rebuilt module's parameters do
     not match the file — serving random weights is the worst failure."""
     dev = resolve_device(device)
-    payload = load_checkpoint(path + ".pdmodel", device="cpu")
+    payload = _payload if _payload is not None else \
+        load_checkpoint(path + ".pdmodel", device="cpu")
     cls, cfg, sd = _model_class(payload)
     floats = {v.dtype for v in sd.values()
               if isinstance(v, torch.Tensor) and v.is_floating_point()}
@@ -186,18 +296,41 @@ class Config:
 
 class Predictor:
     """Serving wrapper (ref: AnalysisPredictor::Run: inputs in, outputs
-    out): a saved model through a :class:`Config`, or a live module
-    (which stays where it is)."""
+    out): a saved model through a :class:`Config` — its exported program
+    when the artifact carries one (``aot=True``), else the rebuilt module
+    — or a live module (which stays where it is)."""
 
     def __init__(self, model_or_config, device=None):
+        self._aot = None
         if isinstance(model_or_config, Config):
             cfg = model_or_config
             if cfg.model_path is None:
                 raise ValueError(
                     "Config has no model_path; pass Config(path) pointing "
                     "at a save_inference_model artifact")
+            payload = load_checkpoint(cfg.model_path + ".pdmodel",
+                                      device="cpu")
+            aot = payload.get("aot")
+            if aot and aot.get("format") == "torch.export":
+                if cfg._bf16:
+                    raise ValueError(
+                        "enable_bf16() cannot re-cast an AOT artifact "
+                        "(its compiled signature is fixed at export); "
+                        "save with a bf16 model instead")
+                self._init_aot(payload, device or cfg._device)
+                return
+            if aot and f"{payload['module']}.{payload['class_name']}" \
+                    not in _JAX_MODELS:
+                raise ValueError(
+                    f"{cfg.model_path}.pdmodel carries a StableHLO "
+                    f"program (jax.export) for "
+                    f"{payload['module']}.{payload['class_name']}, which "
+                    f"cannot run under torch, and the class has no port "
+                    f"counterpart; re-save it from the port with "
+                    f"save_inference_model(aot=True)")
             model = load_inference_model(cfg.model_path,
-                                         device=device or cfg._device)
+                                         device=device or cfg._device,
+                                         _payload=payload)
             if cfg._bf16:
                 model.to(torch.bfloat16)
         else:
@@ -206,27 +339,59 @@ class Predictor:
         p = next(iter(model.parameters()), None)
         self.device = p.device if p is not None else torch.device("cpu")
 
+    def _init_aot(self, payload, device):
+        from .ops.kernels import flash_attention  # noqa: F401 - its operator
+        aot = payload["aot"]
+        self.device = resolve_device(device)
+        ep = torch.export.load(io.BytesIO(aot["blob"]))
+        if torch.device(aot.get("device", "cpu")).type != self.device.type:
+            from torch.export.passes import move_to_device_pass
+            ep = move_to_device_pass(ep, self.device)
+        sd, extra = payload["state_dict"], aot.get("buffers") or {}
+
+        def leaf(v):
+            return as_torch(v).to(self.device)
+
+        self._params = {k: leaf(sd[k]) for k in aot["param_keys"]}
+        self._buffers = {k: leaf(sd[k] if k in sd else extra[k])
+                         for k in aot["buffer_keys"]}
+        self._aot = ep.module()
+        self.model = None
+        self._input_spec = payload.get("input_spec", [])
+
+    def run_tensors(self, *inputs):
+        """Tensors, torch tensors or arrays -> the list of output torch
+        tensors, on the predictor's device."""
+        args = [(i._t if isinstance(i, Tensor) else i if isinstance(
+            i, torch.Tensor) else torch.as_tensor(np.asarray(i)))
+            .to(self.device) for i in inputs]
+        if self._aot is not None:
+            with torch.no_grad():
+                out = self._aot(self._params, self._buffers, *args)
+        else:
+            mods = list(self.model.modules())
+            modes = [m.training for m in mods]
+            try:
+                for m in mods:
+                    m.training = False
+                with torch.no_grad():
+                    out = self.model(*args)
+            finally:
+                for m, t in zip(mods, modes):
+                    m.training = t
+        outs = out if isinstance(out, (tuple, list)) else [out]
+        return [o._t if isinstance(o, Tensor) else o for o in outs]
+
     def run(self, *inputs):
         """numpy arrays or tensors -> list of numpy outputs."""
-        args = [torch.as_tensor(np.asarray(i) if not isinstance(
-            i, torch.Tensor) else i).to(self.device) for i in inputs]
-        mods = list(self.model.modules())
-        modes = [m.training for m in mods]
-        try:
-            for m in mods:
-                m.training = False
-            with torch.no_grad():
-                out = self.model(*args)
-        finally:
-            for m, t in zip(mods, modes):
-                m.training = t
-        outs = out if isinstance(out, (tuple, list)) else [out]
         return [(o.float() if o.dtype == torch.bfloat16 else o)
-                .detach().cpu().numpy() for o in outs]
+                .detach().cpu().numpy() for o in self.run_tensors(*inputs)]
 
     def get_input_names(self) -> Sequence[str]:
         """The names of the model forward's required positional
-        arguments."""
+        arguments (``input_i`` for an exported program)."""
+        if self._aot is not None:
+            return [f"input_{i}" for i in range(len(self._input_spec))]
         sig = inspect.signature(self.model.forward)
         return [n for n, p in sig.parameters.items()
                 if p.default is inspect.Parameter.empty

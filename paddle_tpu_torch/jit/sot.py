@@ -1,7 +1,49 @@
-"""Whole-step capture of the port: ``CapturedStep`` as CUDA graphs.
+"""SOT dy2static and whole-step capture of the port, on CUDA graphs.
 
-The port of ``paddle_tpu/jit/sot.py`` ``CapturedStep`` (with
-``BucketPolicy`` and ``_count_fallback``), the engine behind
+The port of ``paddle_tpu/jit/sot.py``: ``SOTFunction`` (``sot_compile``,
+``capture``, ``to_static``'s default) and ``CapturedStep``.
+
+**SOTFunction** works at the op-dispatch level, as the JAX one does:
+
+- **Record**: the function runs eagerly while every op of
+  ``core.autograd.apply_op`` is logged into the current segment. A
+  value read into Python (``Tensor.numpy`` / ``item`` / ``bool`` ...)
+  closes the segment and becomes a guard. Everything else that makes a
+  tensor during the call — a torch call outside ``apply_op``, as a plain
+  ``torch.nn.Module`` makes — is seen by a ``TorchFunctionMode``: its
+  outputs are constants when its inputs were (``to_tensor`` of a numpy
+  argument, keyed by its content in the signature), else *tainted*. A
+  tainted tensor reaching an op, a guard or the result makes the
+  recording unreplayable (``"unrecorded"``), as RNG, an in-place
+  mutation or an inner backward do (``"rng"``, ``"mutation"``,
+  ``"backward"``): those calls stay eager, with a counted reason and
+  one warning.
+- **Replay** runs the recorded ops without the user's Python. The
+  first replay of a path runs them op by op; from the second on, a
+  segment that runs without gradients on the card is captured once as
+  a ``torch.cuda.CUDAGraph`` (its inputs copied into static buffers,
+  the parameters read where they live: an in-place update is seen, a
+  moved tensor — ``set_state_dict`` into new storage, a ``.data`` swap —
+  captures it again) and replayed. A replay that needs gradients (grad
+  mode on and an input or parameter that requires one) runs op by op,
+  so that torch.autograd records it: one policy for training through a
+  replay. On the CPU every replay runs op by op. ``stats`` counts each
+  kind: ``op_replays``, ``graph_replays``, ``segment_captures``.
+- **Guards are speculative**: every segment of the path is dispatched,
+  the guard values (and the external tensors a recording read) are
+  packed into one uint8 tensor and read with one device-to-host copy;
+  a miss discards the outputs (segments are pure) and the next
+  candidate path or a new recording serves the call. Graph outputs that
+  the call returns are cloned (the next replay overwrites them); the
+  kernels' launch counters advance through graph replays.
+- The signature covers tensor shapes, dtypes, devices and
+  ``stop_gradient``, numpy arguments' content, the train/eval modes of
+  the modules the function reaches (its ``self``, closure and globals)
+  and ``amp.amp_signature()``; ``FLAGS_sot_cache_size`` bounds the
+  cache (LRU), ``FLAGS_sot_guard_budget`` a path's guard bytes.
+  ``FLAGS_sot_capture=0`` calls the plain function.
+
+**CapturedStep** (with ``BucketPolicy`` and ``_count_fallback``) is the engine behind
 ``hapi.Model.train_batch`` / ``eval_batch`` (strict) and
 ``jit.TrainStep`` (non-strict). Where the JAX package
 compiles a train step (forward, loss, backward, clip, optimizer update)
@@ -81,25 +123,31 @@ Momentum's multi-tensor update) of the step, replayed by one call.
   A capture that fails raises; it never runs eager quietly.
 
 ``FLAGS_sot_capture=0`` is the kill switch of strict mode (every step
-eager, nothing counted).
+eager, nothing counted) and of ``SOTFunction``.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
+import warnings
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..core import autograd as autograd_mod
 from ..core import random as random_mod
+from ..core import tensor as tensor_mod
 from ..core.flags import _registry as _flag_registry
 from ..core.tensor import Tensor, unwrap_tree, wrap_tree
 from ..observability import flight as _flight
 from ..observability import metrics as _om
 from ..ops.kernels import counters as _counters
 
-__all__ = ["BucketPolicy", "CapturedStep"]
+__all__ = ["sot_compile", "SOTFunction", "BucketPolicy", "capture",
+           "CapturedStep"]
 
 _capture_flag = _flag_registry["sot_capture"]
 _capture_cache_flag = _flag_registry["sot_capture_cache"]
@@ -108,10 +156,11 @@ _M = _om.scope("sot")
 _M_captured = _M.counter(
     "captured_steps_total",
     "Steps served by a CapturedStep CUDA graph (the capture's own "
-    "replay included)")
+    "replay included) or by an SOTFunction path replay")
 _M_fallbacks = _M.counter(
     "fallbacks_total",
-    "Steps that ran eager by a gate reason of CapturedStep, by reason")
+    "Steps that ran eager by a gate reason of CapturedStep, and SOT "
+    "recordings that stayed eager, by reason")
 _M_step_compiles = _M.counter(
     "captured_compiles_total", "Whole-step CUDA graphs captured")
 _M_hits = _M.counter(
@@ -165,6 +214,882 @@ class BucketPolicy:
                     t, pads, value=self.pad_value),
                     stop_gradient=out[idx].stop_gradient)
         return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# SOTFunction: record eagerly, guard host reads, replay segments
+# ---------------------------------------------------------------------------
+
+_cache_size_flag = _flag_registry["sot_cache_size"]
+_guard_budget_flag = _flag_registry["sot_guard_budget"]
+
+_M_guard_miss = _M.counter(
+    "guard_misses_total",
+    "SOT replays whose guards missed: the speculated outputs were "
+    "discarded and the next candidate path or a re-record served the "
+    "call")
+_M_retraces = _M.counter(
+    "retraces_total",
+    "SOT calls where every cached path of the signature missed its "
+    "guards and the branch was recorded again")
+_M_seg_compiles = _M.counter(
+    "segment_compiles_total",
+    "SOT path segments captured as CUDA graphs (on a path's second "
+    "replay)")
+
+_MAX_GUARD_BYTES = 256
+
+
+def _fallback_category(why: str) -> str:
+    """Bounded-cardinality label of a fallback reason (the JAX
+    categories and ``"unrecorded"``)."""
+    if "RNG" in why:
+        return "rng"
+    if "mutation" in why:
+        return "mutation"
+    if "backward" in why:
+        return "backward"
+    if "unrecorded" in why:
+        return "unrecorded"
+    if "guard budget" in why:
+        return "guard_budget"
+    if "guard limit" in why or "materialized" in why:
+        return "oversized_guard"
+    return "other"
+
+
+def _content_digest(a) -> tuple:
+    """Shape, dtype and SHA-1 of a numpy argument's bytes, hashed on
+    every call (a numpy array is mutable: a stale digest would replay
+    old constants)."""
+    import hashlib
+    arr = np.ascontiguousarray(a)
+    return (arr.shape, str(arr.dtype), hashlib.sha1(arr.tobytes()).hexdigest())
+
+
+def _raw_bytes(t: torch.Tensor) -> bytes:
+    """A tensor's element bytes in order, as numpy's ``tobytes`` gives
+    them (one device-to-host copy; unseen by a recorder's mode)."""
+    with torch._C.DisableTorchFunction():
+        return _as_bytes(t).cpu().numpy().tobytes()
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    flat = t.detach().reshape(-1).contiguous()
+    return flat.view(torch.uint8) if flat.numel() else \
+        flat.new_empty(0, dtype=torch.uint8)
+
+
+def _tensors_in(v, out, depth=0):
+    """Torch tensors (and Tensors' wrapped ones) inside ``v``: lists,
+    tuples, dicts, a function's closure, defaults and a partial's
+    arguments, a few levels deep."""
+    if depth > 3:
+        return out
+    if isinstance(v, Tensor):
+        out.append(v._t)
+    elif isinstance(v, torch.Tensor):
+        out.append(v)
+    elif isinstance(v, (list, tuple)):
+        for x in v:
+            _tensors_in(x, out, depth + 1)
+    elif isinstance(v, dict):
+        for x in v.values():
+            _tensors_in(x, out, depth + 1)
+    elif isinstance(v, functools.partial):
+        _tensors_in(v.func, out, depth + 1)
+        _tensors_in(v.args, out, depth + 1)
+        _tensors_in(v.keywords, out, depth + 1)
+    elif callable(v) and hasattr(v, "__code__"):
+        for cell in getattr(v, "__closure__", None) or ():
+            try:
+                _tensors_in(cell.cell_contents, out, depth + 1)
+            except ValueError:
+                continue
+        _tensors_in(getattr(v, "__defaults__", None) or (), out, depth + 1)
+        _tensors_in(getattr(v, "__kwdefaults__", None) or {}, out,
+                    depth + 1)
+    return out
+
+
+class _Op:
+    __slots__ = ("fn", "arg_refs", "kwargs", "out_ids", "name")
+
+    def __init__(self, fn, arg_refs, kwargs, out_ids, name=""):
+        self.fn = fn              # the op's function of torch tensors
+        self.arg_refs = arg_refs  # ("id", sid) | ("ext", Tensor) | ("lit", v)
+        self.kwargs = kwargs
+        self.out_ids = out_ids    # sid per output (None: not a tensor)
+        self.name = name
+
+
+class _Segment:
+    __slots__ = ("ops", "input_ids", "ext_tensors", "output_ids", "graph")
+
+    def __init__(self):
+        self.ops: List[_Op] = []
+        self.input_ids: List[int] = []
+        self.ext_tensors: List[Tensor] = []
+        self.output_ids: List[int] = []
+        self.graph = None   # _SegmentGraph on the card, from replay 2
+
+
+class _Guard:
+    __slots__ = ("tensor_id", "kind", "value")
+
+    def __init__(self, tensor_id, kind, value):
+        self.tensor_id = tensor_id
+        self.kind = kind          # "item" | "numpy"
+        self.value = value        # the tensor's bytes
+
+
+class _Recording:
+    """One straight-line trace: segments alternating with guards, plus
+    the provenance of the return value."""
+
+    __slots__ = ("segments", "guards", "ext_guards", "result_spec",
+                 "replayable", "why_not")
+
+    def __init__(self):
+        self.segments: List[_Segment] = []
+        self.guards: List[_Guard] = []
+        # (Tensor, bytes): tensors from outside the trace whose value
+        # steered Python, checked again at every replay
+        self.ext_guards: List[Tuple[Tensor, bytes]] = []
+        self.result_spec = None
+        self.replayable = True
+        self.why_not = ""
+
+
+# torch functions that draw from torch's own generators, and those that
+# read a tensor's value into Python
+_RANDOM_FUNCS = {
+    "rand", "randn", "randint", "randperm", "rand_like", "randn_like",
+    "randint_like", "normal", "bernoulli", "multinomial", "poisson",
+    "uniform_", "normal_", "bernoulli_", "exponential_", "cauchy_",
+    "geometric_", "log_normal_", "random_"}
+_HOST_READS = {"item", "tolist", "numpy", "__bool__", "__int__", "__float__",
+               "__index__", "__array__"}
+_NOT_MUTATIONS = {"requires_grad_", "retain_grad", "share_memory_",
+                  "record_stream"}
+
+
+class _Recorder:
+    """The hooks of one eagerly executed call: ops through ``apply_op``
+    are logged, host reads become guards, and everything else that makes
+    a tensor (a torch call outside ``apply_op``, seen through a
+    ``TorchFunctionMode``) is marked: its outputs are *tainted* when one
+    of its tensor inputs came from the trace, *constants* when all came
+    from Python values. A recording that hands a tainted tensor to an op,
+    a guard or its result cannot replay (``"unrecorded"``): the replay
+    would return a stale tensor."""
+
+    def __init__(self):
+        self.rec = _Recording()
+        self.cur = _Segment()
+        self.next_id = 0
+        self.tensor_ids: Dict[int, int] = {}   # id(Tensor) -> sid
+        self.raw_ids: Dict[int, int] = {}      # id(torch tensor) -> sid
+        self.keepalive: List[Any] = []         # ids stay valid
+        self.produced_in_cur: set = set()
+        self.tainted: set = set()              # ids of torch tensors
+        self.consts: set = set()
+
+    # -- ids ----------------------------------------------------------------
+    def tag(self, t) -> int:
+        sid = self.next_id
+        self.next_id += 1
+        raw = t._t if isinstance(t, Tensor) else t
+        if isinstance(t, Tensor):
+            self.tensor_ids[id(t)] = sid
+        self.raw_ids[id(raw)] = sid
+        self.keepalive.append(t)
+        self.keepalive.append(raw)
+        return sid
+
+    def _sid(self, t: Tensor):
+        sid = self.tensor_ids.get(id(t))
+        return self.raw_ids.get(id(t._t)) if sid is None else sid
+
+    def fail(self, why: str) -> None:
+        # the JAX recorder keeps the last reason; an unrecorded
+        # computation never hides another one
+        if "unrecorded" in why and not self.rec.replayable:
+            return
+        self.rec.replayable = False
+        self.rec.why_not = why
+
+    def _unrecorded(self, what: str) -> None:
+        self.fail(f"unrecorded computation: {what} came from a torch call "
+                  f"outside the recorded ops")
+
+    def ref_of(self, a):
+        if isinstance(a, Tensor):
+            sid = self._sid(a)
+            if sid is not None:
+                return ("id", sid)
+            if id(a._t) in self.tainted:
+                self._unrecorded("an op's input")
+            return ("ext", a)          # a parameter or captured tensor
+        if isinstance(a, torch.Tensor):
+            sid = self.raw_ids.get(id(a))
+            if sid is not None:
+                return ("id", sid)
+            if id(a) in self.tainted:
+                self._unrecorded("an op's input")
+        return ("lit", a)
+
+    def _check_closure(self, fn, kwargs) -> None:
+        for t in _tensors_in(fn, []) + _tensors_in(kwargs, []):
+            if id(t) in self.raw_ids or id(t) in self.tainted:
+                self._unrecorded("a tensor an op's function holds")
+                return
+
+    # -- hooks --------------------------------------------------------------
+    def on_op(self, fn, args, kwargs, outs, name):
+        arg_refs = [self.ref_of(a) for a in args]
+        self._check_closure(fn, kwargs)
+        out_ids = []
+        for o in outs:
+            if isinstance(o, (Tensor, torch.Tensor)):
+                sid = self.tag(o)
+                self.produced_in_cur.add(sid)
+                out_ids.append(sid)
+            else:
+                out_ids.append(None)
+        self.cur.ops.append(_Op(fn, arg_refs, dict(kwargs), out_ids, name))
+
+    def on_torch_call(self, func, args, kwargs, out) -> None:
+        name = getattr(func, "__name__", "")
+        if name == "backward":
+            self.on_backward()
+        if name in _RANDOM_FUNCS:
+            self.on_rng()
+        ins = _tensors_in(args, []) + _tensors_in(kwargs, [])
+        if name in _HOST_READS and ins:
+            self._host_read(ins[0], name)
+        known = [t for t in ins if id(t) not in self.consts]
+        inplace = name not in _NOT_MUTATIONS and (
+            (name.endswith("_") and not name.startswith("__"))
+            or name == "__setitem__" or "out" in kwargs)
+        if inplace and ins and id(ins[0]) not in self.consts and \
+                id(ins[0]) not in self.tainted:
+            self.on_mutation(ins[0])
+        outs = _tensors_in(out, [])
+        mark = self.tainted if known else self.consts
+        for o in outs:
+            if id(o) in self.raw_ids:
+                continue        # an op's output handed back as it is
+            mark.add(id(o))
+            self.keepalive.append(o)
+
+    def _host_read(self, raw: torch.Tensor, name: str) -> None:
+        """A torch tensor's value read into Python by a torch call: a
+        guard when the trace made it, unrecorded when it is tainted."""
+        if id(raw) in self.raw_ids:
+            self.on_materialize(raw, "item" if name == "item" else "numpy")
+        elif id(raw) in self.tainted:
+            self._unrecorded("a host read")
+
+    def on_materialize(self, t, kind: str):
+        raw = t._t if isinstance(t, Tensor) else t
+        nbytes = raw.numel() * raw.element_size()
+        if nbytes > _MAX_GUARD_BYTES:
+            self.fail(f"materialized a {nbytes}-byte tensor into Python "
+                      f"(> {_MAX_GUARD_BYTES}B guard limit)")
+            return
+        value = _raw_bytes(raw)
+        sid = self._sid(t) if isinstance(t, Tensor) else \
+            self.raw_ids.get(id(raw))
+        if sid is None:
+            if id(raw) in self.tainted:
+                self._unrecorded("a host read")
+                return
+            # a tensor from outside the trace steered Python: guard on it
+            self.rec.ext_guards.append((t, value))
+            return
+        extra = [sid] if sid in self.produced_in_cur else []
+        self._close_segment(extra_outputs=extra)
+        self.rec.guards.append(_Guard(sid, kind, value))
+
+    def on_mutation(self, t):
+        self.fail("in-place tensor mutation during trace")
+
+    def on_rng(self):
+        self.fail("RNG consumed during trace (e.g. dropout)")
+
+    def on_backward(self):
+        self.fail("autograd backward ran during trace")
+
+    def _close_segment(self, extra_outputs=()):
+        seg = self.cur
+        for sid in extra_outputs:
+            if sid not in seg.output_ids:
+                seg.output_ids.append(sid)
+        self.rec.segments.append(seg)
+        self.cur = _Segment()
+        self.produced_in_cur = set()
+
+    # -- finish -------------------------------------------------------------
+    def finish(self, result) -> _Recording:
+        def result_refs(r):
+            if isinstance(r, Tensor):
+                return self.ref_of(r)
+            if isinstance(r, torch.Tensor):
+                sid = self.raw_ids.get(id(r))
+                if sid is not None:
+                    return ("raw", sid)
+                if id(r) in self.tainted:
+                    self._unrecorded("the result")
+                return ("lit", r)
+            if isinstance(r, (list, tuple)):
+                return (type(r).__name__, [result_refs(v) for v in r])
+            if isinstance(r, dict):
+                return ("dict", {k: result_refs(v) for k, v in r.items()})
+            return ("lit", r)
+
+        self._close_segment()
+        self.rec.result_spec = result_refs(result)
+        produced_by = {}
+        for si, seg in enumerate(self.rec.segments):
+            for op in seg.ops:
+                for oid in op.out_ids:
+                    if oid is not None:
+                        produced_by[oid] = si
+        needed_after: Dict[int, set] = {}
+
+        def note_need(sid, at_seg):
+            src = produced_by.get(sid)
+            if src is not None and src != at_seg:
+                needed_after.setdefault(src, set()).add(sid)
+
+        for si, seg in enumerate(self.rec.segments):
+            for op in seg.ops:
+                for kind, v in op.arg_refs:
+                    if kind == "id":
+                        note_need(v, si)
+
+        def walk_result(spec):
+            kind = spec[0]
+            if kind in ("id", "raw"):
+                note_need(spec[1], -1)
+            elif kind in ("list", "tuple"):
+                for v in spec[1]:
+                    walk_result(v)
+            elif kind == "dict":
+                for v in spec[1].values():
+                    walk_result(v)
+
+        walk_result(self.rec.result_spec)
+        for g in self.rec.guards:
+            note_need(g.tensor_id, -1)
+        for si, seg in enumerate(self.rec.segments):
+            seg.output_ids = sorted(set(seg.output_ids)
+                                    | needed_after.get(si, set()))
+            ins, exts, seen_ext = [], [], set()
+            local = {oid for op in seg.ops for oid in op.out_ids}
+            for op in seg.ops:
+                for kind, v in op.arg_refs:
+                    if kind == "id" and v not in local and v not in ins:
+                        ins.append(v)
+                    elif kind == "ext" and id(v) not in seen_ext:
+                        seen_ext.add(id(v))
+                        exts.append(v)
+            seg.input_ids = ins
+            seg.ext_tensors = exts
+        return self.rec
+
+
+class _TaintMode(torch.overrides.TorchFunctionMode):
+    """Shows the recorder every torch call made outside ``apply_op``."""
+
+    def __init__(self, recorder: _Recorder):
+        super().__init__()
+        self.recorder = recorder
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if autograd_mod._op_depth == 0:
+            self.recorder.on_torch_call(func, args, kwargs, out)
+        return out
+
+
+class _RecorderSession:
+    def __init__(self, recorder: _Recorder):
+        self.recorder = recorder
+        self.mode = _TaintMode(recorder)
+
+    def __enter__(self):
+        r = self.recorder
+        if autograd_mod._op_recorder is not None:
+            raise RuntimeError("SOT recording cannot nest")
+        autograd_mod._op_recorder = r.on_op
+        tensor_mod._materialize_hook = r.on_materialize
+        tensor_mod._mutation_hook = r.on_mutation
+        random_mod._key_observer = r.on_rng
+        autograd_mod._backward_observer = r.on_backward
+        self.mode.__enter__()
+        return r
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+        autograd_mod._op_recorder = None
+        tensor_mod._materialize_hook = None
+        tensor_mod._mutation_hook = None
+        random_mod._key_observer = None
+        autograd_mod._backward_observer = None
+        return False
+
+
+def _unwrap(t):
+    return t._t if isinstance(t, Tensor) else t
+
+
+def _fetch_bytes(vals: List[torch.Tensor]) -> bytes:
+    """The bytes of ``vals`` in order, packed on each device into one
+    uint8 tensor and read with one device-to-host copy a device."""
+    parts = [_as_bytes(v) for v in vals]
+    by_dev: Dict[torch.device, List[int]] = {}
+    for i, p in enumerate(parts):
+        by_dev.setdefault(p.device, []).append(i)
+    out: List[bytes] = [b""] * len(parts)
+    for idx in by_dev.values():
+        sel = [parts[i] for i in idx]
+        host = (torch.cat(sel) if len(sel) > 1 else sel[0]).cpu().numpy() \
+            .tobytes()
+        off = 0
+        for i in idx:
+            n = parts[i].numel()
+            out[i] = host[off:off + n]
+            off += n
+    return b"".join(out)
+
+
+def _run_ops(ops: List[_Op], env: Dict[int, torch.Tensor]) -> None:
+    """Run recorded ops on torch tensors, writing their outputs into
+    ``env`` (autograd records them as it records any op)."""
+    for op in ops:
+        call = []
+        for kind, v in op.arg_refs:
+            if kind == "id":
+                call.append(env[v])
+            elif kind == "ext":
+                call.append(v._t)
+            else:
+                call.append(v)
+        res = op.fn(*call, **op.kwargs)
+        res = tuple(res) if isinstance(res, (tuple, list)) else (res,)
+        for oid, r in zip(op.out_ids, res):
+            if oid is not None:
+                env[oid] = r
+
+
+_side_streams: Dict[torch.device, Any] = {}
+
+
+def _side_stream(dev: torch.device):
+    s = _side_streams.get(dev)
+    if s is None:
+        s = _side_streams[dev] = torch.cuda.Stream(dev)
+    return s
+
+
+@contextlib.contextmanager
+def _on_side_stream(dev: torch.device):
+    """Run on ``dev``'s SOT stream, joined to the current stream before
+    and after: a segment's op-by-op replay warms the stream its graph is
+    captured on (cuBLAS workspaces, cuDNN plans)."""
+    cur = torch.cuda.current_stream(dev)
+    side = _side_stream(dev)
+    side.wait_stream(cur)
+    try:
+        with torch.cuda.stream(side):
+            yield
+    finally:
+        cur.wait_stream(side)
+
+
+class _SegmentGraph:
+    """A segment captured as one CUDA graph: static copies of its inputs,
+    its outputs (which the next replay overwrites), the addresses of the
+    external tensors it reads and the launch counts it replays."""
+    __slots__ = ("graph", "inputs", "outputs", "ptrs", "counts")
+
+
+def _ext_ptrs(seg: _Segment) -> tuple:
+    return tuple((t._t.data_ptr(), t._t.dtype, tuple(t._t.shape))
+                 for t in seg.ext_tensors)
+
+
+class _CompiledPath:
+    """One guard path of one signature. The first replay runs its
+    segments op by op; from the second on, a segment that runs without
+    gradients on the card replays as a CUDA graph, captured once (again
+    when an external tensor it reads moved). Guards are speculative:
+    every segment is dispatched, then the guard values (and those of the
+    external guards) are packed into one uint8 tensor and read with one
+    device-to-host copy; a miss discards the outputs (segments are pure:
+    nothing to undo)."""
+
+    def __init__(self, rec: _Recording, input_ids: List[int],
+                 name: str = ""):
+        self.rec = rec
+        self.input_ids = input_ids
+        self.name = name
+        self.replays = 0
+        self._guard_bytes = b"".join(v for _, v in rec.ext_guards) + \
+            b"".join(g.value for g in rec.guards)
+
+    def _graphable(self, seg: _Segment, env, dev) -> bool:
+        if dev is None or dev.type != "cuda" or self.replays < 1 \
+                or seg.graph is False:
+            return False
+        if torch.is_grad_enabled():
+            ins = [env[i] for i in seg.input_ids] + \
+                [t._t for t in seg.ext_tensors]
+            if any(t.requires_grad for t in ins):
+                return False
+        return True
+
+    def _capture(self, seg: _Segment, env, dev, stats) -> _SegmentGraph:
+        from ..ops.kernels import counters as counters_mod
+        g = _SegmentGraph()
+        g.inputs = [torch.empty_like(env[i]).copy_(env[i])
+                    for i in seg.input_ids]
+        local = dict(zip(seg.input_ids, g.inputs))
+        g.graph = torch.cuda.CUDAGraph()
+        before = counters_mod.snapshot()
+        t0 = time.perf_counter()
+        try:
+            with torch.no_grad(), torch.cuda.graph(
+                    g.graph, stream=_side_stream(dev)):
+                _run_ops(seg.ops, local)
+        finally:
+            g.counts = counters_mod.delta(before, counters_mod.snapshot())
+            counters_mod.restore(before)
+        stats["capture_seconds"] += time.perf_counter() - t0
+        g.outputs = [local[o] for o in seg.output_ids]
+        g.ptrs = _ext_ptrs(seg)
+        stats["segment_captures"] += 1
+        _M_seg_compiles.inc()
+        _flight.record("sot", "segment_compile", fn=self.name,
+                       ops=len(seg.ops))
+        return g
+
+    def _run_graph(self, seg: _Segment, env, dev, stats) -> None:
+        from ..ops.kernels import counters as counters_mod
+        g = seg.graph
+        if g is None or g.ptrs != _ext_ptrs(seg):
+            try:
+                seg.graph = g = self._capture(seg, env, dev, stats)
+            except Exception as e:  # noqa: BLE001 - counted and warned
+                seg.graph = False
+                stats["capture_failures"] += 1
+                warnings.warn(
+                    f"to_static({self.name}): a segment of {len(seg.ops)} "
+                    f"ops could not be captured as a CUDA graph "
+                    f"({type(e).__name__}: {e}); it replays op by op",
+                    RuntimeWarning)
+                with _on_side_stream(dev):
+                    _run_ops(seg.ops, env)
+                return False
+        for buf, i in zip(g.inputs, seg.input_ids):
+            buf.copy_(env[i], non_blocking=True)
+        g.graph.replay()
+        counters_mod.advance(g.counts)
+        for o, t in zip(seg.output_ids, g.outputs):
+            env[o] = t
+        return True
+
+    def replay(self, inputs: List[torch.Tensor], stats, dev):
+        """``(ok, result)``; ok is False on a guard miss."""
+        rec = self.rec
+        env: Dict[int, torch.Tensor] = dict(zip(self.input_ids, inputs))
+        owned = set()           # sids a graph will overwrite: cloned out
+        graphs = ops = 0
+        try:
+            for seg in rec.segments:
+                if not seg.ops:
+                    continue
+                if self._graphable(seg, env, dev) and \
+                        self._run_graph(seg, env, dev, stats):
+                    owned.update(seg.output_ids)
+                    graphs += 1
+                elif dev is not None and dev.type == "cuda":
+                    with _on_side_stream(dev):
+                        _run_ops(seg.ops, env)
+                    ops += 1
+                else:
+                    _run_ops(seg.ops, env)
+                    ops += 1
+            vals = [_unwrap(t) for t, _ in rec.ext_guards] + \
+                [env[g.tensor_id] for g in rec.guards]
+            if vals:
+                stats["guard_fetches"] += 1
+                if _fetch_bytes(vals) != self._guard_bytes:
+                    stats["guard_misses"] += 1
+                    _M_guard_miss.inc()
+                    _flight.record("sot", "guard_miss", fn=self.name)
+                    return False, None
+        except Exception as e:  # noqa: BLE001 - degrade, but loudly
+            if isinstance(e, torch.cuda.OutOfMemoryError):
+                raise
+            warnings.warn(
+                f"SOT replay fell back to recording on an unexpected "
+                f"{type(e).__name__}: {e}", RuntimeWarning)
+            return False, None
+        self.replays += 1
+        stats["graph_replays" if graphs and not ops else "op_replays"] += 1
+        _M_captured.inc()
+        return True, self._build_result(env, owned)
+
+    def _build_result(self, env, owned):
+        def build(spec):
+            kind = spec[0]
+            if kind in ("id", "raw"):
+                t = env[spec[1]]
+                if spec[1] in owned:
+                    t = t.clone()
+                return Tensor(t) if kind == "id" else t
+            if kind == "ext":
+                return spec[1]
+            if kind in ("list", "tuple"):
+                vals = [build(v) for v in spec[1]]
+                return tuple(vals) if kind == "tuple" else vals
+            if kind == "dict":
+                return {k: build(v) for k, v in spec[1].items()}
+            return spec[1]
+        return build(self.rec.result_spec)
+
+
+class SOTFunction:
+    """``paddle.jit.to_static`` with graph breaks (see the module
+    docstring): record, guard, replay. ``stats`` counts what ran:
+    ``records``, ``op_replays`` and ``graph_replays`` (path replays whose
+    segments ran op by op / all as CUDA graphs), ``segment_captures``,
+    ``guard_fetches`` (one a guarded replay), ``guard_misses``,
+    ``retraces``, ``eager_calls`` and ``fallbacks`` by category."""
+
+    def __init__(self, fn: Callable, bucket_policy: Optional[BucketPolicy]
+                 = None, name: Optional[str] = None, input_spec=None):
+        self._fn = fn
+        self._bucket = bucket_policy
+        self.input_spec = input_spec
+        self._name = name or getattr(fn, "__name__", "fn")
+        self._cache: "OrderedDict[Tuple, Any]" = OrderedDict()
+        self._warned = set()
+        self._fallback_reasons: Dict[str, int] = {}
+        self.stats: Dict[str, Any] = {
+            "records": 0, "op_replays": 0, "graph_replays": 0,
+            "segment_captures": 0, "capture_failures": 0,
+            "capture_seconds": 0.0,
+            "guard_fetches": 0, "guard_misses": 0, "retraces": 0,
+            "eager_calls": 0, "fallbacks": {}}
+        # modules whose train/eval modes steer the trace: the bound self,
+        # those in the closure and the module globals the code names
+        self._layers: List[torch.nn.Module] = []
+
+        def note(v):
+            if isinstance(v, torch.nn.Module):
+                if all(v is not m for m in self._layers):
+                    self._layers.append(v)
+            elif isinstance(v, (list, tuple)):
+                for x in v:
+                    if isinstance(x, torch.nn.Module):
+                        note(x)
+            elif isinstance(v, dict):
+                for x in v.values():
+                    if isinstance(x, torch.nn.Module):
+                        note(x)
+
+        note(getattr(fn, "__self__", None))
+        for cell in getattr(fn, "__closure__", None) or ():
+            try:
+                note(cell.cell_contents)
+            except ValueError:
+                continue
+        code = getattr(fn, "__code__", None)
+        gl = getattr(fn, "__globals__", None)
+        if code is not None and gl is not None:
+            for nm in code.co_names:
+                note(gl.get(nm))
+
+    # -- signature ----------------------------------------------------------
+    @staticmethod
+    def _arg_key(a):
+        if isinstance(a, Tensor):
+            return ("T", tuple(a._t.shape), str(a._t.dtype), str(a._t.device),
+                    not a.stop_gradient)
+        if isinstance(a, torch.Tensor):
+            return ("R", tuple(a.shape), str(a.dtype), str(a.device),
+                    a.requires_grad)
+        if isinstance(a, np.ndarray):
+            # a raw array is a constant of the trace: key on its content
+            return ("A", *_content_digest(a))
+        return ("L", repr(a))
+
+    def _signature(self, args, kwargs):
+        from ..amp.auto_cast import amp_signature
+        parts = [self._arg_key(a) for a in args]
+        for k in sorted(kwargs):
+            parts.append((k, self._arg_key(kwargs[k])))
+        modes = tuple(m.training for lyr in self._layers
+                      for m in lyr.modules())
+        parts.append(("mode", modes) + amp_signature())
+        return tuple(parts)
+
+    def _cache_put(self, key, value):
+        self._cache[key] = value
+        self._cache.move_to_end(key)
+        limit = max(int(_cache_size_flag.value or 64), 1)
+        while len(self._cache) > limit:
+            self._cache.popitem(last=False)
+
+    def cache_size(self):
+        return len(self._cache)
+
+    def capture_metadata(self):
+        """Per recorded path its segments (op names, arity) and guards,
+        and the reasons recordings stayed eager."""
+        paths = []
+        for val in self._cache.values():
+            if val == "eager":
+                paths.append({"kind": "eager"})
+                continue
+            rec = val.rec
+            paths.append({
+                "kind": "compiled",
+                "segments": [
+                    {"n_ops": len(seg.ops),
+                     "ops": [op.name for op in seg.ops],
+                     "inputs": len(seg.input_ids),
+                     "ext_tensors": len(seg.ext_tensors),
+                     "outputs": len(seg.output_ids)}
+                    for seg in rec.segments],
+                "guards": [{"kind": g.kind, "nbytes": len(g.value)}
+                           for g in rec.guards],
+                "ext_guards": len(rec.ext_guards),
+            })
+        return {"name": self._name, "cache_entries": len(self._cache),
+                "paths": paths,
+                "fallback_reasons": dict(self._fallback_reasons)}
+
+    @staticmethod
+    def _tensor_args(args, kwargs):
+        vals = list(args) + [kwargs[k] for k in sorted(kwargs)]
+        return [a for a in vals if isinstance(a, (Tensor, torch.Tensor))]
+
+    # -- record -------------------------------------------------------------
+    def _record(self, sig, args, kwargs):
+        rec_obj = _Recorder()
+        tensor_args = self._tensor_args(args, kwargs)
+        input_ids = [rec_obj.tag(t) for t in tensor_args]
+        with _RecorderSession(rec_obj):
+            result = self._fn(*args, **kwargs)
+        rec = rec_obj.finish(result)
+        self.stats["records"] += 1
+        if rec.replayable:
+            budget = max(int(_guard_budget_flag.value or 0), 0)
+            total = sum(len(g.value) for g in rec.guards) + \
+                sum(len(v) for _, v in rec.ext_guards)
+            if budget and total > budget:
+                rec.replayable = False
+                rec.why_not = (
+                    f"guard budget exceeded ({total}B of guard values > "
+                    f"FLAGS_sot_guard_budget={budget}B)")
+        guard_path = tuple(g.value for g in rec.guards)
+        if rec.replayable:
+            self._cache_put((sig, guard_path),
+                            _CompiledPath(rec, input_ids, self._name))
+            return result
+        self._cache_put((sig, "eager"), "eager")
+        reason = rec.why_not
+        cat = _fallback_category(reason)
+        _count_fallback(cat, self._name)
+        fb = self.stats["fallbacks"]
+        fb[cat] = fb.get(cat, 0) + 1
+        if reason not in self._fallback_reasons and \
+                len(self._fallback_reasons) >= 16:
+            reason = "<other>"
+        self._fallback_reasons[reason] = \
+            self._fallback_reasons.get(reason, 0) + 1
+        if self._name not in self._warned:
+            self._warned.add(self._name)
+            warnings.warn(
+                f"to_static({self._name}): trace is not replayable "
+                f"({rec.why_not}); running eagerly (graph-break fallback)",
+                stacklevel=3)
+        return result
+
+    # -- call ---------------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        # under an outer recording: the plain function, so that the outer
+        # recorder sees every op; under torch.export's trace likewise
+        if autograd_mod._op_recorder is not None or \
+                torch.compiler.is_exporting() or \
+                torch.compiler.is_compiling():
+            return self._fn(*args, **kwargs)
+        if not _capture_flag.value:
+            return self._fn(*args, **kwargs)
+        if self._bucket is not None:
+            args = self._bucket.apply(args)
+        sig = self._signature(args, kwargs)
+        tensor_args = self._tensor_args(args, kwargs)
+        raws = [t._t if isinstance(t, Tensor) else t for t in tensor_args]
+        dev = raws[0].device if raws else None
+        candidates = [(k, v) for k, v in reversed(self._cache.items())
+                      if k[0] == sig and v != "eager"]
+        for key, path in candidates:
+            if dev is None:
+                dev = _path_device(path)
+            ok, result = path.replay(raws, self.stats, dev)
+            if ok:
+                self._cache.move_to_end(key)
+                return result
+        if candidates:
+            self.stats["retraces"] += 1
+            _M_retraces.inc()
+            _flight.record("sot", "retrace", fn=self._name,
+                           candidates=len(candidates))
+        if self._cache.get((sig, "eager")) == "eager":
+            self._cache.move_to_end((sig, "eager"))
+            self.stats["eager_calls"] += 1
+            return self._fn(*args, **kwargs)
+        return self._record(sig, args, kwargs)
+
+
+def _path_device(path: _CompiledPath) -> Optional[torch.device]:
+    """A path without tensor inputs runs where its external tensors
+    are."""
+    for seg in path.rec.segments:
+        for t in seg.ext_tensors:
+            return t._t.device
+    return None
+
+
+def sot_compile(fn=None, bucket_policy: Optional[BucketPolicy] = None):
+    """Decorator form: ``@sot_compile`` or ``sot_compile(fn,
+    bucket_policy=...)``."""
+    def deco(f):
+        return SOTFunction(f, bucket_policy)
+    if fn is not None:
+        return deco(fn)
+    return deco
+
+
+def capture(fn=None, bucket_policy: Optional[BucketPolicy] = None,
+            name: Optional[str] = None):
+    """``@sot.capture``: record once, replay the recorded segments with
+    their guards checked in one fetch, fall back to eager with a counted
+    reason on what cannot replay (RNG, mutation, an inner backward, an
+    unrecorded computation). ``FLAGS_sot_capture=0`` calls the plain
+    function."""
+    def deco(f):
+        return SOTFunction(f, bucket_policy, name=name)
+    if fn is not None:
+        return deco(fn)
+    return deco
 
 
 _SEEN_STEP = object()  # first-sighting marker: signature noted, ran eager

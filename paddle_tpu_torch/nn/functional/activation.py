@@ -221,7 +221,10 @@ def _inplace(fn):
 
     @functools.wraps(fn)
     def wrapper(x, *args, **kwargs):
+        from ...core import tensor as tensor_mod
         from ...core.tensor import Tensor
+        if isinstance(x, Tensor) and tensor_mod._mutation_hook is not None:
+            tensor_mod._mutation_hook(x)
         out = fn(x, *args, **kwargs)
         if isinstance(x, Tensor):
             x._t = out._t

@@ -165,8 +165,17 @@ class Layer(nn.Module):
         return Parameter(data, stop_gradient=not trainable, name=pname)
 
     # -- iteration -----------------------------------------------------------
-    def named_parameters(self, prefix="", include_sublayers=True
+    def named_parameters(self, prefix="", include_sublayers=True,
+                         remove_duplicate=None, recurse=None
                          ) -> Iterator[Tuple[str, Parameter]]:
+        """Names and Parameters; called with torch's ``recurse`` or
+        ``remove_duplicate`` (as ``torch.func.functional_call`` and
+        torch's ``parameters()`` do) it is torch's."""
+        if remove_duplicate is not None or recurse is not None:
+            yield from super().named_parameters(
+                prefix=prefix, recurse=include_sublayers if recurse is None
+                else recurse, remove_duplicate=remove_duplicate is not False)
+            return
         for name, p in super().named_parameters(prefix=prefix,
                                                 recurse=include_sublayers):
             yield name, wrap_leaf(p)
@@ -175,7 +184,13 @@ class Layer(nn.Module):
         return [p for _, p in self.named_parameters(
             include_sublayers=include_sublayers)]
 
-    def named_buffers(self, prefix="", include_sublayers=True):
+    def named_buffers(self, prefix="", include_sublayers=True,
+                      remove_duplicate=None, recurse=None):
+        if remove_duplicate is not None or recurse is not None:
+            yield from super().named_buffers(
+                prefix=prefix, recurse=include_sublayers if recurse is None
+                else recurse, remove_duplicate=remove_duplicate is not False)
+            return
         for name, b in super().named_buffers(prefix=prefix,
                                              recurse=include_sublayers):
             yield name, wrap_leaf(b)

@@ -17,6 +17,7 @@ from typing import List
 import torch
 
 from ..core import random as random_mod
+from ..core import tensor as tensor_mod
 from ..core.tensor import Tensor
 
 __all__: List[str] = []  # populated by _install()
@@ -56,6 +57,8 @@ def _functional(name):
 
 
 def _put(x: Tensor, out: torch.Tensor) -> Tensor:
+    if tensor_mod._mutation_hook is not None:
+        tensor_mod._mutation_hook(x)
     t = x._t
     if t.is_leaf and not out.requires_grad and out.shape == t.shape \
             and out.dtype == t.dtype:

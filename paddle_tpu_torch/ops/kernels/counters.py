@@ -3,7 +3,9 @@
 Each kernel wrapper adds to its own counters where it launches
 (``.launches`` and its design's ``.tma_launches``, ``.split_launches``
 ...). A CUDA graph replay runs no Python, so the whole-step capture
-(``jit/sot.py``) takes :func:`snapshot` before and after a capture,
+(``jit/sot.py``: ``CapturedStep`` and ``SOTFunction``'s segment
+graphs; ``jit/api.py`` ``StaticFunction``) takes :func:`snapshot`
+before and after a capture,
 puts the counters back (:func:`restore`: capturing launches nothing)
 and adds the difference (:func:`delta`) on every replay
 (:func:`advance`): the counts then read as if each step had launched

@@ -29,8 +29,13 @@ There is no fallback: a CUDA call the chosen kernel refuses raises:
   :func:`flash_attention_bwd_dkv_reference`.
 
 :func:`flash_attention_bwd_reference` is the whole plain backward
-(Δ = rowsum(dO∘O) in f32, then both parts). :class:`FlashAttention` is
-the ``torch.autograd.Function``: forward saves ``(q, k, v, out, lse)``
+(Δ = rowsum(dO∘O) in f32, then both parts). :func:`flash_fwd_op` is the
+forward as the ``torch.library`` operator ``paddle_tpu_torch::flash_fwd``
+(a fake kernel gives its output shapes), registered when this module is
+imported: ``torch.export`` keeps it in an exported program (it cannot
+trace a ``ctypes`` call), and a process that loads the program imports
+this module first. :class:`FlashAttention` is
+the ``torch.autograd.Function``: forward runs that operator, saves ``(q, k, v, out, lse)``
 (and the segment ids and the dropout key), backward computes Δ outside
 the kernels and launches dQ and dK/dV, which regenerate the forward's
 keep mask from the same key. :func:`flash_attention` and
@@ -79,7 +84,7 @@ import torch
 from . import build as _build
 
 __all__ = ["FlashAttention", "flash_attention", "flash_attention_segmented",
-           "flash_attention_fwd", "flash_attention_bwd", "takes_tma",
+           "flash_attention_fwd", "flash_fwd_op", "flash_attention_bwd", "takes_tma",
            "SegmentPlan", "segment_windows",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_fwd_reference", "flash_attention_bwd_reference",
@@ -630,9 +635,10 @@ class SegmentPlan:
     and largest id (both designs), and the TMA kernels' windows
     (:func:`segment_windows`), built at a kernel's first call and kept."""
 
-    def __init__(self, ids: torch.Tensor):
+    def __init__(self, ids: torch.Tensor,
+                 ranges: Optional[torch.Tensor] = None):
         self.ids = ids
-        self.ranges = _seg_ranges(ids)
+        self.ranges = _seg_ranges(ids) if ranges is None else ranges
         self._windows: Dict[Tuple[int, int, bool, bool], torch.Tensor] = {}
 
     def window(self, kernel: str, d: int, causal: bool) -> torch.Tensor:
@@ -842,21 +848,55 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: Optional[float], dropout_p: float,
+                 key: Optional[torch.Tensor], seg: Optional[torch.Tensor],
+                 seg_ranges: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as the operator ``paddle_tpu_torch::flash_fwd``: ``(q,
+    k, v, causal, scale, dropout_p, key or None, segment ids or None,
+    their chunk ranges or None) -> (out, lse)``, ``out`` contiguous. On
+    CUDA tensors it launches what :func:`flash_attention_fwd` launches
+    (the TMA kernels where :func:`takes_tma` says, the first design
+    otherwise; the counters advance), on CPU tensors it runs the plain
+    walk. Eager calls, CUDA graph captures and programs exported with
+    ``torch.export`` all reach the kernels through it: an exported
+    program holds the operator, never a ``ctypes`` call, and a process
+    that loads one registers it by importing this module."""
+    plan = None if seg is None else SegmentPlan(seg, seg_ranges) \
+        if q.device.type == "cuda" else seg
+    out, lse = flash_attention_fwd(q, k, v, causal, scale, dropout_p, key,
+                                   plan)
+    return out.contiguous(), lse
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, dropout_p, key, seg,
+                    seg_ranges):
+    B, L, H, _ = _as4(q).shape
+    lse = q.new_empty((B, H, L), dtype=torch.float32)
+    return q.new_empty(q.shape), _lse_shape(q, lse)
+
+
 class FlashAttention(torch.autograd.Function):
     """``torch.autograd.Function`` in place of the JAX ``custom_vjp``:
-    forward saves ``(q, k, v, out, lse)``, the segment ids and the
-    dropout key tensor, and keeps, on CUDA tensors, the ids'
-    :class:`SegmentPlan` (chunk ranges and windows, built once a step);
-    backward runs :func:`flash_attention_bwd`, whose kernels regenerate
-    the forward's keep mask from the same key and reuse the plan."""
+    forward runs the ``paddle_tpu_torch::flash_fwd`` operator
+    (:func:`flash_fwd_op`), saves ``(q, k, v, out, lse)``, the segment
+    ids and the dropout key tensor, and keeps, on CUDA tensors, the ids'
+    :class:`SegmentPlan` (chunk ranges and windows, built once a step,
+    its ranges handed to the operator); backward runs
+    :func:`flash_attention_bwd`, whose kernels regenerate the forward's
+    keep mask from the same key and reuse the plan."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = False,
                 scale: Optional[float] = None, dropout_p: float = 0.0,
                 seed=None, seg: Optional[torch.Tensor] = None):
         plan = _plan(seg) if q.device.type == "cuda" else None
-        out, lse = flash_attention_fwd(q, k, v, causal, scale, dropout_p,
-                                       seed, seg if plan is None else plan)
+        out, lse = flash_fwd_op(q, k, v, bool(causal), scale,
+                                float(dropout_p), seed, seg,
+                                None if plan is None else plan.ranges)
         ctx.save_for_backward(q, k, v, out, lse, seg, seed)
         ctx.causal, ctx.scale = causal, scale
         ctx.dropout_p, ctx.plan = dropout_p, plan

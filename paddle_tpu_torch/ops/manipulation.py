@@ -47,6 +47,9 @@ def reshape(x, shape, name=None):
 
 
 def reshape_(x, shape, name=None):
+    from ..core import tensor as tensor_mod
+    if tensor_mod._mutation_hook is not None:
+        tensor_mod._mutation_hook(x)
     x._t = torch.reshape(x._t, _shape_arg(shape))
     return x
 

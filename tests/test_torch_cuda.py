@@ -23,7 +23,10 @@ masks every replay, a reseed between replays restarting the stream
 without a new capture), and the vision slice (conv, pooling and batch
 norm on the card against the same calls on the CPU, batch norm with no
 host read, a tiny NHWC ResNet through ``TrainStep`` with Momentum:
-replays against its eager loop). Each skips (with its reason)
+replays against its eager loop), and dy2static and the inference
+artifact (the ``flash_fwd`` operator against the wrapper, an exported
+tiny GPT through K1a/K1b, ``to_static`` replaying CUDA graphs with one
+guard fetch, ``full_graph=True`` as one graph). Each skips (with its reason)
 where there is no CUDA device; the decision is made inside the
 fixture, never at import. This file imports no JAX, so on a machine
 without it run it as
@@ -1693,3 +1696,159 @@ def _replay_strictly_xy(step, x, y, n):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return [float(v) for v in out]
+
+
+# -- dy2static and the inference artifact -------------------------------------
+
+def _tiny_gpt(paddle, head_dim):
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    paddle.seed(0)
+    model = GPTForCausalLM(GPTConfig.tiny(
+        hidden_size=2 * head_dim, num_attention_heads=2,
+        max_position_embeddings=256))
+    model.bfloat16()
+    model.eval()
+    ids = paddle.to_tensor(np.random.default_rng(2).integers(
+        0, 128, (2, 256)))
+    return model, ids
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_flash_operator_launches_what_the_wrapper_does(cuda, causal,
+                                                       head_dim):
+    """``paddle_tpu_torch::flash_fwd`` on the card: bit-equal to the
+    wrapper (the TMA design, counted once a call) and within the bf16
+    limits of the plain walk."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn((2, 256, 3 * 2 * head_dim), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = (x.view(2, 256, 2, head_dim)
+               for x in qkv.split(2 * head_dim, dim=-1))
+    before = tfa.flash_attention_fwd.tma_launches
+    out, lse = torch.ops.paddle_tpu_torch.flash_fwd(
+        q, k, v, causal, None, 0.0, None, None, None)
+    assert tfa.flash_attention_fwd.tma_launches == before + 1
+    w_out, w_lse = tfa.flash_attention_fwd(q, k, v, causal)
+    assert torch.equal(out, w_out) and torch.equal(lse, w_lse)
+    ref, ref_lse = tfa.flash_attention_fwd_reference(q, k, v, causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_exported_gpt_launches_the_flash_kernel(cuda, head_dim, tmp_path):
+    """A tiny bf16 GPT saved with ``aot=True`` and served by its exported
+    program: K1a (D 64) / K1b (D 128) launched once a layer, counted,
+    and the logits bit-equal to the eager forward's."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device
+    from paddle_tpu_torch.inference import save_inference_model
+    from paddle_tpu_torch.jit import InputSpec, TranslatedLayer
+    prev = device._current
+    try:
+        paddle.set_device("gpu")
+        model, ids = _tiny_gpt(paddle, head_dim)
+        with paddle.no_grad():
+            want = model(ids)._t
+        path = str(tmp_path / "gpt")
+        save_inference_model(path, model, input_spec=[
+            InputSpec([2, 256], "int64")], aot=True)
+        tl = TranslatedLayer.load(path)
+        before = tfa.flash_attention_fwd.tma_launches
+        got = tl(ids)._t
+        assert tfa.flash_attention_fwd.tma_launches == before + 2
+        assert got.device.type == "cuda"
+        assert torch.equal(got, want)
+    finally:
+        device._current = prev
+
+
+def test_to_static_replays_cuda_graphs(cuda):
+    """SOT on the card: record, one op-by-op replay, then CUDA-graph
+    replays (K1b counted through them), bit-equal to eager; a replay
+    that needs gradients stays op by op and differentiable."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device
+    prev = device._current
+    try:
+        paddle.set_device("gpu")
+        model, ids = _tiny_gpt(paddle, 128)
+        with paddle.no_grad():
+            want = model(ids)._t
+        paddle.jit.to_static(model)
+        before = tfa.flash_attention_fwd.launches
+        with paddle.no_grad():
+            outs = [model(ids)._t for _ in range(5)]
+        assert tfa.flash_attention_fwd.launches == before + 2 * 5
+        st = model.forward.stats
+        assert (st["records"], st["op_replays"], st["graph_replays"]) == \
+            (1, 1, 3)
+        assert st["segment_captures"] == 1 and not st["fallbacks"]
+        assert all(torch.equal(o, want) for o in outs)
+        # outputs are the caller's: a later replay does not overwrite them
+        assert outs[2].data_ptr() != outs[3].data_ptr()
+        out = model(ids)                       # with gradients
+        assert model.forward.stats["op_replays"] == 2
+        out.astype("float32").mean().backward()
+        assert model.blocks[0].attn.qkv_proj.weight.grad is not None
+    finally:
+        device._current = prev
+
+
+def test_to_static_guards_take_one_fetch(cuda):
+    """A branch on a device value: both paths replay as graphs, a miss
+    is counted, and each guarded replay reads one packed tensor."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device
+    prev = device._current
+    try:
+        paddle.set_device("gpu")
+
+        @paddle.jit.to_static
+        def f(x):
+            y = paddle.tanh(x) * 2
+            if y.sum() > 0:
+                return y + 1
+            return y - 1
+
+        xs = [paddle.to_tensor(np.full((64, 64), s, np.float32))
+              for s in (1.0, -1.0)]
+        with paddle.no_grad():
+            for i in range(8):
+                x = xs[i % 2]
+                want = (np.tanh(x.numpy()) * 2 + (1 if i % 2 == 0 else -1))
+                np.testing.assert_allclose(f(x).numpy(), want, rtol=1e-6)
+        st = f.stats
+        assert st["records"] == 2 and st["guard_misses"] >= 1
+        assert st["graph_replays"] >= 1 and st["segment_captures"] >= 2
+        assert st["guard_fetches"] == st["op_replays"] + \
+            st["graph_replays"] + st["guard_misses"]
+    finally:
+        device._current = prev
+
+
+def test_full_graph_static_function_is_one_graph(cuda):
+    """``to_static(full_graph=True)`` on the card: eager first, then one
+    graph replayed, bit-equal; a parameter rebound to new storage makes
+    a new capture."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device
+    prev = device._current
+    try:
+        paddle.set_device("gpu")
+        model, ids = _tiny_gpt(paddle, 128)
+        with paddle.no_grad():
+            want = model(ids)._t
+        st = paddle.jit.to_static(model, full_graph=True)
+        outs = [st(ids)._t for _ in range(4)]
+        assert all(torch.equal(o, want) for o in outs)
+        assert (st.stats["eager_calls"], st.stats["captures"],
+                st.stats["replays"]) == (1, 1, 3)
+        w = model.lm_head.weight
+        w._t.data = w._t.data.clone() * 0
+        out = st(ids)._t
+        assert st.stats["captures"] == 2 and float(out.abs().max()) == 0.0
+    finally:
+        device._current = prev

@@ -266,7 +266,7 @@ def test_flags_keep_the_jax_names_and_defaults(monkeypatch):
              "serving_fleet_restart_backoff", "serving_fleet_max_restarts",
              "serving_fleet_retry_after", "executable_cache_dir",
              "warmup_bundle", "executable_cache_gc_days", "sot_capture",
-             "sot_capture_cache"}
+             "sot_capture_cache", "sot_cache_size", "sot_guard_budget"}
     assert set(tflags._registry) == names
     for n in names:
         assert tflags._registry[n].default == jflags._registry[n].default
