@@ -997,7 +997,29 @@ def phase_kernel_time(k3_rows):
     verify["decode_kernel_ms"] = rows["decode_bf16"]["kernel_ms"]
     verify["vs_decode"] = verify["kernel_ms"] / verify["decode_kernel_ms"]
     k3_rows["spec_verify_t5"]["decode_ms"] = verify["decode_kernel_ms"]
-    return {"card": nvidia_smi_line(), "rows": rows}
+    return {"card": nvidia_smi_line(), "rows": rows,
+            "k3_dispatch_host_us": k3_dispatch()}
+
+
+def k3_dispatch(calls: int = 200):
+    """Host microseconds to issue one K3 call at the decode geometry
+    (the tile count a device tensor, as the engines pass it), in turns:
+    through the ``paddle_tpu_torch::paged_attention`` operator as the
+    wrapper calls it, and the launch path alone (``_launch``: the checks
+    and the ctypes call, no dispatcher)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    case = decode_case()
+    q, kp, vp, tables, pos = case["args"]
+    nt = torch.full((1,), 128, dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, tables, pos, nt, None, None, 16, 1)
+    ways = {"operator": lambda: pa.paged_attention_op(*args),
+            "direct": lambda: pa._launch(*args)}
+    out = {k: [] for k in ways}
+    for _ in range(2):
+        for k, fn in ways.items():
+            out[k].append(host_us(fn, calls))
+    return {k: min(v) for k, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1023,17 +1045,24 @@ def check_budget(reqs, vocab):
             raise AssertionError(f"{r['trace_id']}: token out of vocab")
 
 
-def profile_decode(eng, rng, vocab, ctx=1000, steps=10):
+def profile_decode(eng, rng, vocab, ctx=1000, steps=10, tries=3):
     """Where a full decode step's time goes: all slots active at ``ctx``
-    tokens of history, host wall time per step (synchronized), and the
+    tokens of history, host wall time per step (synchronized), the
     device time per step by kernel from torch.profiler (CUDA activity
-    only, so every event is device work)."""
+    only, so every event is device work; the window opens after a
+    warm-up step) and the step's device-to-host copies. As in
+    ``profile_spec``, a profile counts only when its device memcpy
+    records match the runtime's memcpy calls one for one (an eager step
+    makes ~5,000 records a step and the profiler can drop some at a
+    window's ends); one that does not is taken again, at most ``tries``
+    times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from paddle_tpu_torch.ops.kernels.paged_attention import \
         paged_attention_kernel as pak
     for s in range(eng.max_slots):
-        eng.prefill(s, rng.integers(0, vocab, ctx), budget=2 * steps + 4)
+        eng.prefill(s, rng.integers(0, vocab, ctx),
+                    budget=(tries + 1) * (steps + 1) + 4)
     for _ in range(3):
         eng.step()
     torch.cuda.synchronize()
@@ -1044,16 +1073,29 @@ def profile_decode(eng, rng, vocab, ctx=1000, steps=10):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     per_step = (pak.launches - before) / steps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-    by_kernel = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us:
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=steps,
+                                       repeat=1)) as prof:
+            for i in range(steps + 1):
+                eng.step()
+                torch.cuda.synchronize()
+                if i == steps:
+                    time.sleep(0.05)
+                prof.step()
+        by_kernel, d2h, copies, calls = {}, 0, 0, 0
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            if ev.key.startswith("Memcpy "):
+                copies += ev.count
+                d2h += ev.count if "DtoH" in ev.key else 0
+            elif ev.key.startswith("cudaMemcpy"):
+                calls += ev.count
+            elif us:
+                by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
+        if calls and copies == calls:
+            break
     for s in range(eng.max_slots):
         eng.release(s)
     device_ms = sum(by_kernel.values()) / 1e3 / steps
@@ -1067,6 +1109,9 @@ def profile_decode(eng, rng, vocab, ctx=1000, steps=10):
     return {"slots": eng.max_slots, "context": ctx, "steps": steps,
             "step_wall_ms": wall_ms,
             "launches_per_decode_step": per_step,
+            "device_to_host_copies_per_step": d2h / steps,
+            "memcpy_records_per_step": copies / steps,
+            "profiles_taken": attempt,
             "device_ms_per_step": device_ms or None,
             "attention_ms_per_step": attn_ms or None,
             "gemm_ms_per_step": gemm_ms or None,
@@ -1118,7 +1163,136 @@ def serve_numbers(reqs, wall):
             "ttft_max_s": max(ttft)}
 
 
+def group_stats(eng):
+    """An engine's CUDA graphs (``capture_jit`` programs): graphs,
+    captures and their seconds, replays by program, the K3 launches the
+    replays made, fallbacks, failed captures and the shared pool's
+    MiB."""
+    st = eng._graphs.stats()
+    st["pool_mib"] = eng._graphs.pool_bytes() / 2 ** 20
+    return st
+
+
+def graph_stats(eng):
+    out = {"target": group_stats(eng)}
+    if eng._draft is not None:
+        out["draft"] = group_stats(eng._draft)
+    return out
+
+
+def check_graphs(what, stats, programs):
+    """Every program in ``programs`` replayed its graph (in some group of
+    ``stats``), and no call of any program fell back or lost its
+    capture."""
+    bad = [f"{who}: {st['fallbacks']} fallbacks, {st['capture_failures']} "
+           f"failed captures" for who, st in stats.items()
+           if st["fallbacks"] or st["capture_failures"]]
+    replays = {}
+    for st in stats.values():
+        for name, v in st["by_program"].items():
+            replays[name] = replays.get(name, 0) + v["replays"]
+    bad += [f"{p} replayed no graph" for p in programs
+            if replays.get(p, 0) < 1]
+    if bad:
+        raise AssertionError(f"{what}: " + "; ".join(bad))
+    return replays
+
+
+def k3_replayed(stats, attr, programs=None):
+    """K3's launches, by counter ``attr`` (``launches``,
+    ``split_launches``, ``mma_launches``), that the graph replays of
+    ``programs`` (every program when None) made: each replay adds what
+    its capture counted, summed over the groups of ``stats``
+    (:func:`graph_stats`)."""
+    key = f"paged_attention_kernel.{attr}"
+    return sum(v["replayed"].get(key, 0) for st in stats.values()
+               for name, v in st["by_program"].items()
+               if programs is None or name in programs)
+
+
+def set_in_replays(k3, row, n):
+    """A K3 row's launches made inside graph replays: at least one, and
+    no more than the row's launches."""
+    if not 0 < n <= k3[row]["launches"]:
+        raise AssertionError(
+            f"K3 {row}: {n} launches in graph replays for "
+            f"{k3[row]['launches']} launches in all")
+    k3[row]["launches_in_replays"] = n
+
+
+def serve_run(model, prompts, budgets, capture):
+    """The serve phase's engine (8 slots x 2048) and requests, with
+    ``FLAGS_sot_capture`` at ``capture``: the run's numbers, K3 counts by
+    path (gated), the decode profile at 8 x 1000 tokens, and the
+    engine."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.ops.kernels.paged_attention import \
+        paged_attention_kernel as pak
+    from paddle_tpu_torch.serving import (GenerationServer,
+                                          PagedLlamaDecodeEngine)
+    V = model.config.vocab_size
+    set_flags({"FLAGS_sot_capture": capture})
+    try:
+        eng = PagedLlamaDecodeEngine(model, max_slots=8, max_seq=2048)
+        hits0 = eng._kv.prefix_hits
+        srv = GenerationServer(eng)
+        pak.launches = pak.split_launches = pak.mma_launches = 0  # start
+        reqs, wall = serve_requests(srv, prompts, budgets)
+        got = (pak.launches, pak.split_launches,  # ... and are read here
+               pak.mma_launches)
+        in_run = {"target": eng._graphs.stats()}   # with the counts
+        if not srv.shutdown(drain=True, timeout=60):
+            raise RuntimeError("server did not drain")
+        check_budget(reqs, V)
+        steps = srv.steps_run
+        chunks, mma_chunks = serve_chunks(eng, reqs)
+        what = "the captured bf16 engine" if capture else "the eager one"
+        check_serve_launches(what, eng.n_layers, steps, chunks, mma_chunks,
+                             *got)
+        if eng._kv.prefix_hits - hits0 < 1 \
+                or reqs[5]["prefix_hit_tokens"] < 256:
+            raise AssertionError("the shared prefix did not hit the radix "
+                                 "tree")
+        run = {"streams": [list(r["out"]) for r in reqs], "steps": steps,
+               "chunks": chunks, "mma_chunks": mma_chunks, "launches": got,
+               "replayed_launches": in_run["target"]["replayed_launches"],
+               "replays_in_run": {k: v["replays"] for k, v in
+                                  in_run["target"]["by_program"].items()},
+               "k3_in_replays": {a: k3_replayed(in_run, a) for a in (
+                   "launches", "split_launches", "mma_launches")},
+               **serve_numbers(reqs, wall)}
+        if capture:
+            # two block-aligned full-prefix hits: the copy-on-write
+            # program runs op by op and captures, then replays
+            for slot in (0, 1):
+                eng.prefill(slot, prompts[0][:256], budget=2)
+                eng.release(slot)
+        run["decode_profile"] = profile_decode(
+            eng, np.random.default_rng(SEED + 3), V)
+        run["graphs"] = graph_stats(eng)
+        prof = run["decode_profile"]
+        d2h = prof["device_to_host_copies_per_step"]
+        if d2h != 1:
+            raise AssertionError(
+                f"{what}: a decode step made {d2h} device-to-host copies "
+                f"in the last of {prof['profiles_taken']} profiles "
+                f"({prof['memcpy_records_per_step']} memcpy records a "
+                f"step), expected 1")
+        return run, eng
+    finally:
+        set_flags({"FLAGS_sot_capture": True})
+
+
 def phase_serve(state, k3):
+    """Llama-2 7B widths, 32 layers, bf16, 8 slots x 2048: the 12
+    requests once on the engine's CUDA graphs (the main path) and once
+    with every program op by op (``FLAGS_sot_capture=0``), each run's
+    numbers beside the other's; the captured streams must equal the
+    eager ones or part at near-ties of the plain logits. Then the
+    int8-KV engine (4 layers)."""
+    import numpy as np
     import torch
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops.kernels.paged_attention import \
@@ -1133,51 +1307,81 @@ def phase_serve(state, k3):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     state["model"] = model
-    eng = PagedLlamaDecodeEngine(model, max_slots=8, max_seq=2048)
     V = cfg.vocab_size
     prompts, budgets, rng = serve_workload(V)
-    hits0 = eng._kv.prefix_hits
-    srv = GenerationServer(eng)
-    pak.launches = pak.split_launches = pak.mma_launches = 0  # counts start
-    reqs, wall = serve_requests(srv, prompts, budgets)
-    launches = pak.launches                # ... and are read here
-    split_launches, mma_launches = pak.split_launches, pak.mma_launches
-    if not srv.shutdown(drain=True, timeout=60):
-        raise RuntimeError("server did not drain")
-    check_budget(reqs, V)
-    steps = srv.steps_run
-    chunks, mma_chunks = serve_chunks(eng, reqs)
-    check_serve_launches("the bf16 engine", eng.n_layers, steps, chunks,
-                         mma_chunks, launches, split_launches, mma_launches)
-    if eng._kv.prefix_hits - hits0 < 1 \
-            or reqs[5]["prefix_hit_tokens"] < 256:
-        raise AssertionError("the shared prefix did not hit the radix "
-                             "tree")
-    numbers = serve_numbers(reqs, wall)
+    # the process's first use of the serving kernels (~10 s on the first
+    # prompt chunk in development runs) lands on a throwaway engine, so
+    # that neither run of the comparison pays it
+    t0 = time.perf_counter()
+    warm = PagedLlamaDecodeEngine(model, max_slots=8, max_seq=2048)
+    for p in (prompts[1][:100], np.asarray(prompts[2])):
+        warm.generate(p, 4)
+    del warm
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    cap, eng = serve_run(model, prompts, budgets, capture=True)
+    replays = check_graphs("the captured serve run", cap["graphs"],
+                           ("serving.paged_decode", "serving.paged_prefill",
+                            "serving.prefix_cow"))
+    launches, split_launches, mma_launches = cap["launches"]
+    steps, chunks = cap["steps"], cap["chunks"]
     state["serve"] = {"prompts": prompts, "budgets": budgets,
-                      "streams": [list(r["out"]) for r in reqs],
-                      "steps": steps, "chunks": chunks, **numbers}
+                      "streams": cap["streams"], "steps": steps,
+                      "chunks": chunks,
+                      **{k: cap[k] for k in (
+                          "decode_tokens_per_s", "ttft_median_s",
+                          "ttft_max_s", "wall_s")}}
     state["launches"] = launches
-    # each row's count as the wrapper counted it, by path: the decode
-    # steps ran the CUDA-core kernel, the prefill chunks the tensor cores
+    # each row's count as the wrapper counted it, by path (graph replays
+    # included): the decode steps ran the CUDA-core kernel, the prefill
+    # chunks the tensor cores
     k3["decode_bf16"]["launches"] = split_launches - mma_launches
     k3["prefill_chunk"]["launches"] = mma_launches
+    # ... and of those, the launches that graph replays made (what each
+    # replay's capture counted, by path)
+    rep = cap["k3_in_replays"]
+    set_in_replays(k3, "decode_bf16",
+                   rep["split_launches"] - rep["mma_launches"])
+    set_in_replays(k3, "prefill_chunk", rep["mma_launches"])
     state["layers"] = eng.n_layers
+    del eng
+    torch.cuda.empty_cache()
+    eager, eng = serve_run(model, prompts, budgets, capture=False)
     out = {"card": nvidia_smi_line(), "model": "llama2-7b-width",
            "layers": eng.n_layers,
            "hidden": cfg.hidden_size, "dtype": "bfloat16",
-           "init_seconds": init_s, "requests": len(reqs),
+           "init_seconds": init_s, "first_use_seconds": warm_s,
+           "requests": len(prompts),
            "prompt_lengths": [len(p) for p in prompts],
-           "budgets": budgets, "prefix_hit_tokens":
-               [r["prefix_hit_tokens"] for r in reqs],
-           **numbers, "steps": steps, "prefill_chunks": chunks,
+           "budgets": budgets, **{k: v for k, v in cap.items()
+                                  if k not in ("streams", "launches")},
+           "replays_by_program": replays,
            "kernel_launches": launches,
            "split_launches": split_launches,
            "mma_launches": mma_launches,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
-    out["decode_profile"] = profile_decode(eng, rng, V)
-    del eng, srv
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "eager": {k: v for k, v in eager.items()
+                     if k not in ("streams", "graphs")}}
+    del eng
     torch.cuda.empty_cache()
+    # the captured streams against the eager ones: where one parts, the
+    # plain logits there must be a near-tie
+    eng1 = PagedLlamaDecodeEngine(model, max_slots=1, max_seq=2048)
+    parted = []
+    for i, (want, got_s) in enumerate(zip(eager["streams"], cap["streams"])):
+        j = next((j for j, (a, b) in enumerate(zip(want, got_s))
+                  if a != b), None)
+        if j is not None:
+            parted.append({"request": i, **near_tie(
+                eng1, prompts[i], want, j, got_s[j])})
+    del eng1
+    torch.cuda.empty_cache()
+    out["streams_equal_eager"] = len(prompts) - len(parted)
+    out["streams_parted_at_near_ties"] = parted
+    if not all(p["ok"] for p in parted):
+        emit({"phase": "serve", "failed": parted})
+        raise AssertionError("a captured stream parted from the eager one "
+                             "where the plain logits are no near-tie")
     # the int8-KV dtype path: 4 layers of the same weights
     eng8 = PagedLlamaDecodeEngine(model, max_slots=2, max_seq=1024,
                                   kv_quant="int8", num_layers=4)
@@ -1194,16 +1398,23 @@ def phase_serve(state, k3):
     chunks8, mma_chunks8 = serve_chunks(eng8, reqs8)
     check_serve_launches("the int8-KV engine", eng8.n_layers, steps8,
                          chunks8, mma_chunks8, n8, split8, mma8)
+    g8 = graph_stats(eng8)
+    check_graphs("the int8-KV engine", g8, ("serving.paged_decode",))
     k3["decode_int8"]["launches"] = split8 - mma8
+    set_in_replays(k3, "decode_int8",
+                   k3_replayed(g8, "split_launches")
+                   - k3_replayed(g8, "mma_launches"))
     out["int8_kv"] = {"layers": 4, "requests": 2, "steps": steps8,
                       "prefill_chunks": chunks8, "kernel_launches": n8,
-                      "split_launches": split8, "mma_launches": mma8}
+                      "split_launches": split8, "mma_launches": mma8,
+                      "graphs": g8}
     return out
 
 
 def serve_chunks(eng, reqs):
     """The prefill chunks a serve run ran, and of those the ones whose
-    rows ``split_plan`` sends to the tensor cores."""
+    rows (the chunk's bucket: its program pads it) ``split_plan`` sends
+    to the tensor cores."""
     import torch
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     kvh, mb = eng.cfg.num_key_value_heads, eng._kv.block_tables.shape[1]
@@ -1213,7 +1424,8 @@ def serve_chunks(eng, reqs):
         left = len(r["prompt"]) - r["prefix_hit_tokens"]
         while left > 0:
             c = min(eng.prefill_chunk_len, left)
-            g = pa.split_plan(c, eng.n_rep, 1, kvh, eng.head_dim,
+            b = min(eng._bucket(c), eng.prefill_chunk_len)
+            g = pa.split_plan(b, eng.n_rep, 1, kvh, eng.head_dim,
                               eng.block_size, mb, sms)[0]
             chunks, mma = chunks + 1, mma + int(g == pa._MMA_GROUP)
             left -= c
@@ -1350,7 +1562,8 @@ class HostReads:
 
 def count_chunks(eng):
     """Record the rows of every prefill chunk ``eng`` runs (its own
-    calls and, for a draft, the target's mirrored ones)."""
+    calls and, for a draft, the target's mirrored ones): the chunk's
+    bucket, the rows its program gives K3."""
     rows = []
     orig = eng.prefill_chunk
 
@@ -1358,7 +1571,8 @@ def count_chunks(eng):
         st = eng._prefill_state[slot]
         limit = eng.prefill_chunk_len if eng._chunk_cap is None \
             else max(8, min(eng.prefill_chunk_len, eng._chunk_cap))
-        rows.append(min(limit, len(st["ids"]) - st["next"]))
+        c = min(limit, len(st["ids"]) - st["next"])
+        rows.append(min(eng._bucket(c), eng.prefill_chunk_len))
         return orig(slot)
 
     eng.prefill_chunk = chunk
@@ -1556,8 +1770,9 @@ def phase_serve_spec(state, k3):
     torch.cuda.synchronize()
     draft_mem = torch.cuda.memory_allocated() - mem0
     eng.attach_draft(draft, spec_tokens=SPEC_K)
+    # the draft's pool stores: its blocks and their sink block
     pool_bytes = sum(t.numel() * t.element_size()
-                     for ts in draft.kvs.values() for t in ts)
+                     for ts in draft._kv_store.values() for t in ts)
     if not shared_weights(eng, draft) or draft.n_layers != 16 \
             or not 0 <= draft_mem - pool_bytes < 2 ** 20:
         raise AssertionError(
@@ -1589,7 +1804,14 @@ def phase_serve_spec(state, k3):
             f"steps: each must make exactly one")
     eng._kv.check_invariants()
     draft._kv.check_invariants()
+    graphs = graph_stats(eng)
+    replays = check_graphs("the speculative engine", graphs, (
+        "serving.spec_draft", "serving.spec_verify",
+        "serving.paged_prefill"))
     k3["spec_verify_t5"]["launches"] = paths["verify_launches"]
+    set_in_replays(k3, "spec_verify_t5",
+                   k3_replayed({"target": graphs["target"]}, "launches",
+                               ("serving.spec_verify",)))
     out = {"card": nvidia_smi_line(), "target_layers": eng.n_layers,
            "draft_layers": draft.n_layers, "spec_tokens": SPEC_K,
            "draft_weights_shared": True, "draft_extra_bytes": draft_mem,
@@ -1604,7 +1826,8 @@ def phase_serve_spec(state, k3):
            "tokens_per_verify_window": tally["committed"]
            / max(tally["windows"], 1),
            "host_reads_in_spec_steps": reads.count,
-           "kernel_launches": got[0], "mma_launches": got[2], **paths}
+           "kernel_launches": got[0], "mma_launches": got[2], **paths,
+           "graphs": graphs, "replays_by_program": replays}
     out["spec_profile"] = profile_spec(eng, np.random.default_rng(SEED + 2),
                                        V)
     del srv, eng, draft
@@ -1689,6 +1912,9 @@ def phase_serve_spec_full_accept(state):
                                 srv.steps_run - spec_steps, got)
     eng._kv.check_invariants()
     draft._kv.check_invariants()
+    graphs = graph_stats(eng)
+    replays = check_graphs("the full-accept engine", graphs, (
+        "serving.spec_draft", "serving.spec_verify"))
     acceptance = accepted / max(proposed, 1)
     explained = (accepted + sum(r["forfeit"] for r in rejections
                                 if r["ok"])) / max(proposed, 1)
@@ -1702,7 +1928,8 @@ def phase_serve_spec_full_accept(state):
            "rejections_near_tie": sum(r["ok"] for r in rejections),
            "worst_rejection_gap": max((r["gap"] for r in rejections),
                                       default=None),
-           **serve_numbers(reqs, wall), **paths}
+           **serve_numbers(reqs, wall), **paths,
+           "graphs": graphs, "replays_by_program": replays}
     del srv, eng, draft
     torch.cuda.empty_cache()
     forfeited = sum(r["forfeit"] for r in rejections)
@@ -1723,7 +1950,10 @@ def phase_hot_swap(state):
     two swaps mid-stream — to a copy of the same weights (installed at a
     step boundary; the streams must equal the unswapped run's) and to a
     state dict with one leaf of another shape (rejected: the counter
-    rises, the copies stay installed, the streams go on)."""
+    rises, the copies stay installed, the streams go on). Then a swap to
+    other weights on an engine whose graphs hold the first weights: its
+    next requests must give a fresh engine's streams on the new weights
+    (a graph still reading the old tensors would give the old ones)."""
     import torch
     from paddle_tpu_torch.observability import metrics as om
     from paddle_tpu_torch.serving import (GenerationServer,
@@ -1785,14 +2015,63 @@ def phase_hot_swap(state):
            and eng.params["emb"].data_ptr()
            == copy["llama.embed_tokens.weight"].data_ptr(),
            "streams_equal_unswapped": streams_equal}
-    del srv, eng, copy, bad
+    del srv, eng, bad
     torch.cuda.empty_cache()
+    # a swap to DIFFERENT weights under graphs: the engine's graphs hold
+    # the old weights' addresses, so its next calls must capture anew;
+    # the streams after the swap must equal a fresh engine's on the new
+    # weights (and differ from the old weights' streams)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    other = {k: (v.float() + 0.5 * v.float().std() * torch.randn(
+        v.shape, generator=g, device=v.device)).to(v.dtype)
+        for k, v in copy.items()}
+    del copy
+    eng = PagedLlamaDecodeEngine(model, **geo)
+    srv = GenerationServer(eng)
+    serve_requests(srv, prompts[:2], budgets[:2])
+    before = eng._graphs.stats()
+    swap_s = srv.swap_weights(other, timeout=60)["seconds"]
+    after, _ = serve_requests(srv, prompts[2:], budgets[2:])
+    if not srv.shutdown(drain=True, timeout=60):
+        raise RuntimeError("the second hot_swap server did not drain")
+    st = graph_stats(eng)
+    del srv, eng
+    fresh_eng = PagedLlamaDecodeEngine(model, **geo)
+    fresh_eng.swap_weights(other)          # before its first program call
+    fresh_srv = GenerationServer(fresh_eng)
+    fresh, _ = serve_requests(fresh_srv, prompts[2:], budgets[2:])
+    if not fresh_srv.shutdown(drain=True, timeout=60):
+        raise RuntimeError("the fresh hot_swap server did not drain")
+    del fresh_srv, fresh_eng, other
+    torch.cuda.empty_cache()
+    out["swap_to_other_weights"] = {
+        "swap_seconds": swap_s,
+        "captures_before_swap": before["captures"],
+        "captures_after_swap": st["target"]["captures"]
+        - before["captures"],
+        "graphs": st,
+        "streams_equal_fresh_engine": [
+            list(a["out"]) == list(b["out"]) for a, b in zip(after, fresh)],
+        "streams_differ_from_old_weights": [
+            list(a["out"]) != list(b["out"])
+            for a, b in zip(after, ref[2:])]}
+    sw = out["swap_to_other_weights"]
+    try:
+        check_graphs("the swapped engine", st, ("serving.paged_decode",))
+        graphs_ok = True
+    except AssertionError as e:
+        sw["graphs_failed"] = str(e)
+        graphs_ok = False
     if not (all(streams_equal) and res["in_flight"] >= 1 and rejected == 1
             and in_flight >= 1 and out["copies_installed"]
-            and out["weight_swaps"] == 1):
+            and out["weight_swaps"] == 1
+            and all(sw["streams_equal_fresh_engine"])
+            and any(sw["streams_differ_from_old_weights"])
+            and sw["captures_after_swap"] > 0 and graphs_ok):
         emit({"phase": "hot_swap", "failed": out})
-        raise AssertionError("hot swap: streams, swap counts or the "
-                             "installed weights are not as required")
+        raise AssertionError("hot swap: streams, swap counts, the "
+                             "installed weights or the graphs after a "
+                             "swap are not as required")
     return out
 
 
@@ -1980,6 +2259,7 @@ def phase_serve_supervised(state):
            "steps_committed": steps_committed,
            "kernel_launches": got[0], "split_launches": got[1],
            "mma_launches": got[2], "expected_launches": list(want),
+           "graphs": graph_stats(eng),
            "supervisor_dumps": len(sup_dumps),
            "supervisor_dump_events": sorted(dumped),
            "crash_dumps": len(crash_dumps),
@@ -2030,12 +2310,190 @@ def phase_serve_supervised(state):
         and abs(mem_after - calls["mem_before_kill"]) < pool_bytes,
         "streams equal or parted at near-ties": all(p["ok"]
                                                     for p in parted),
+        "the restarted loops replayed the graphs, none re-captured":
+        out["graphs"]["target"]["captures"]
+        == out["graphs"]["target"]["graphs"],
     }
+    try:
+        out["replays_by_program"] = check_graphs(
+            "the supervised engine", out["graphs"],
+            ("serving.paged_decode", "serving.paged_prefill"))
+    except AssertionError as e:
+        checks["graphs: " + str(e)] = False
     out["failed_gates"] = [k for k, ok in checks.items() if not ok]
     if out["failed_gates"]:
         emit({"phase": "serve_supervised", "failed": out})
         raise AssertionError("serve_supervised: " +
                              "; ".join(out["failed_gates"]))
+    return out
+
+
+def phase_serve_export(state):
+    """``export_decode`` of the paged engine at the serve phase's widths
+    and depth (32 layers, 8 slots x 2048, three slots prefilled): the
+    export's seconds and the program's bytes (gated below 1 % of the
+    weights: weights and pools are inputs), the program loaded from its
+    bytes, one step through it (K3 through the operator, once a layer)
+    against the live step: tokens and pool writes equal."""
+    import io
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from paddle_tpu_torch.ops.kernels.paged_attention import \
+        paged_attention_kernel as pak
+    from paddle_tpu_torch.serving import PagedLlamaDecodeEngine
+    model = state["model"]
+    V = model.config.vocab_size
+    eng = PagedLlamaDecodeEngine(model, max_slots=8, max_seq=2048)
+    rng = np.random.default_rng(SEED + 5)
+    for slot, n in ((0, 300), (3, 64), (5, 700)):
+        eng.prefill(slot, rng.integers(0, V, n), budget=8)
+    eng._extend_tables()        # the step's tables, mapped before it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = eng.export_decode()
+    export_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in {id(t): t for t in pytree.tree_leaves(
+                           eng.params)}.values())
+    t0 = time.perf_counter()
+    ep = torch.export.load(io.BytesIO(blob))
+    load_s = time.perf_counter() - t0
+    k3_nodes = sum(1 for n in ep.graph.nodes if n.op == "call_function"
+                   and "paddle_tpu_torch.paged_attention" in str(n.target))
+    args = list(eng._export_args())
+    args[1] = pytree.tree_map(lambda t: t.clone(), args[1])
+    before = pak.launches
+    t0 = time.perf_counter()
+    nxt = ep.module()(*args)
+    torch.cuda.synchronize()
+    program_step_s = time.perf_counter() - t0
+    launched = pak.launches - before
+    want = eng.step()
+    got = nxt.cpu().numpy()
+    pool_diff = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(pytree.tree_leaves(args[1]),
+                                    pytree.tree_leaves(eng._kv_store)))
+    out = {"card": nvidia_smi_line(), "layers": eng.n_layers,
+           "slots": eng.max_slots, "max_seq": eng.max_seq,
+           "export_seconds": export_s, "load_seconds": load_s,
+           "program_bytes": len(blob), "weight_bytes": weight_bytes,
+           "program_share_of_weights": len(blob) / weight_bytes,
+           "k3_operator_nodes": k3_nodes, "k3_launches_one_step": launched,
+           "program_step_seconds": program_step_s,
+           "tokens_equal_live": got.tolist() == want.tolist(),
+           "pool_max_abs_diff": pool_diff,
+           "state_dict_entries": len(ep.state_dict),
+           "constants": len(ep.constants)}
+    del ep, args, eng, nxt
+    torch.cuda.empty_cache()
+    checks = {"program < 1 % of the weights": len(blob) < 0.01 * weight_bytes,
+              "no weights in the program": out["state_dict_entries"] == 0
+              and out["constants"] == 0,
+              "K3 as the operator, once a layer": k3_nodes == launched
+              == out["layers"],
+              "tokens equal the live step": out["tokens_equal_live"],
+              "pool writes equal the live step": pool_diff == 0.0}
+    out["failed_gates"] = [k for k, ok in checks.items() if not ok]
+    if out["failed_gates"]:
+        emit({"phase": "serve_export", "failed": out})
+        raise AssertionError("serve_export: " +
+                             "; ".join(out["failed_gates"]))
+    return out
+
+
+def plain_s8(qh, w_q, budget=2 ** 28):
+    """The plain int32 product ``qh [M, K] x w_q[N, K]^T``: integer
+    multiply and sum, as many output columns at a time as keep the
+    products within ``budget`` bytes."""
+    import torch
+    a = qh.to(torch.int32)
+    cols = max(1, budget // (4 * a.shape[0] * a.shape[1]))
+    return torch.cat([(a[:, None, :] * w_q[i:i + cols].to(torch.int32)[
+        None]).sum(dim=-1, dtype=torch.int32)
+        for i in range(0, w_q.shape[0], cols)], dim=1)
+
+
+def phase_serve_int8(state):
+    """``int8=True`` at the serve phase's widths, 4 layers (as the
+    int8-KV engine), 8 slots: the s8 accumulators of every projection
+    of layer 0 and of the head (``_s8_matmul``, ``torch._int_mm`` with
+    the row padding) against the plain int32 product on the card, for a
+    decode batch (8 rows) and a prefill bucket (64 rows); then four of
+    the serve phase's prompts through ``GenerationServer`` one after
+    another, twice on fresh engines: the streams must be equal (the
+    dynamic per-tensor activation scales see the same batches)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.kernels.paged_attention import \
+        paged_attention_kernel as pak
+    from paddle_tpu_torch.serving import (GenerationServer,
+                                          PagedLlamaDecodeEngine,
+                                          _s8_matmul)
+    model, plain = state["model"], state["serve"]
+    geo = dict(max_slots=8, max_seq=2048, num_layers=4, int8=True)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = PagedLlamaDecodeEngine(model, **geo)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    int8_bytes = torch.cuda.memory_allocated() - mem0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    acc_checks = []
+    lp = eng.params["layers"][0]
+    for name, w in list(lp.items()) + [("head", eng.params["head"])]:
+        if not isinstance(w, tuple):
+            continue
+        for rows in (8, 64):
+            qh = torch.randint(-127, 128, (rows, w[0].shape[1]),
+                               generator=g, device="cuda",
+                               dtype=torch.int8)
+            got = _s8_matmul(qh, w[0])
+            acc_checks.append({"weight": name, "rows": rows,
+                               "equal": bool(torch.equal(
+                                   got, plain_s8(qh, w[0])))})
+    prompts = plain["prompts"][:4]
+    budgets = [32] * 4
+    runs = []
+    for run in range(2):
+        if run:
+            eng = PagedLlamaDecodeEngine(model, **geo)
+        srv = GenerationServer(eng)
+        pak.launches = 0
+        t0 = time.perf_counter()
+        streams = [srv.generate(p, n, timeout=300)
+                   for p, n in zip(prompts, budgets)]
+        wall = time.perf_counter() - t0
+        if not srv.shutdown(drain=True, timeout=60):
+            raise RuntimeError("int8 server did not drain")
+        runs.append({"streams": streams, "wall_s": wall,
+                     "steps": srv.steps_run, "k3_launches": pak.launches,
+                     "graphs": graph_stats(eng)})
+        del srv, eng
+        torch.cuda.empty_cache()
+    out = {"card": nvidia_smi_line(), "layers": 4, "slots": 8,
+           "quantize_seconds": quantize_s, "engine_bytes": int8_bytes,
+           "accumulators": acc_checks,
+           "runs": [{k: v for k, v in r.items() if k != "streams"}
+                    for r in runs],
+           "tokens": sum(len(x) for x in runs[0]["streams"]),
+           "streams_stable": runs[0]["streams"] == runs[1]["streams"]}
+    checks = {"s8 accumulators equal the plain int32 product": all(
+        c["equal"] for c in acc_checks) and len(acc_checks) == 16,
+              "streams stable across two runs": out["streams_stable"],
+              "exact budgets": all(len(x) == n for x, n in zip(
+                  runs[0]["streams"], budgets))}
+    try:
+        out["replays_by_program"] = check_graphs(
+            "the int8 engine", runs[1]["graphs"],
+            ("serving.paged_decode", "serving.paged_prefill"))
+    except AssertionError as e:
+        checks["graphs: " + str(e)] = False
+    out["failed_gates"] = [k for k, ok in checks.items() if not ok]
+    if out["failed_gates"]:
+        emit({"phase": "serve_int8", "failed": out})
+        raise AssertionError("serve_int8: " + "; ".join(out["failed_gates"]))
     return out
 
 
@@ -2355,7 +2813,9 @@ def phase_fleet(state, k3, device="cuda", widths=None, layers=FLEET_LAYERS,
             extra_s = time.perf_counter() - t0
         finally:
             cli.close()
-        k3s = [h.call({"op": "stats"})["k3"] for h in router.replicas]
+        replies = [h.call({"op": "stats"}) for h in router.replicas]
+        k3s = [r["k3"] for r in replies]
+        graphs = [r.get("graphs") or {} for r in replies]
         stats = router.stats()
         terminal = {r["trace_id"]: sum(
             1 for e in evs if e.get("trace_id") == r["trace_id"]
@@ -2380,7 +2840,7 @@ def phase_fleet(state, k3, device="cuda", widths=None, layers=FLEET_LAYERS,
                                         - dead[0]["ts_us"]) / 1e6
         if dead and back else None,
         "kill_to_next_token_seconds": resume,
-        "router": stats, "replica_k3": k3s,
+        "router": stats, "replica_k3": k3s, "replica_graphs": graphs,
         "extra_request_seconds": extra_s,
         **numbers,
         "serve": state.get("serve_summary")})
@@ -2425,6 +2885,9 @@ def phase_fleet(state, k3, device="cuda", widths=None, layers=FLEET_LAYERS,
                               == k["layers"] * k["engine_calls"] > 0
                               for k in k3s),
         "replicas exited": all(p.poll() is not None for p in procs),
+        "every replica served from graphs, no fallback": not kernel or all(
+            g.get("replays", 0) > 0 and g.get("fallbacks", 1) == 0
+            and g.get("capture_failures", 1) == 0 for g in graphs),
     }
     out["parted_extra"] = parted_extra
     out["failed_gates"] = [k for k, ok in checks.items() if not ok]
@@ -7096,13 +7559,21 @@ def paged_split_occupancy():
 
 
 def phase_build():
+    import importlib
+    import threading
     from paddle_tpu_torch.ops.kernels import build
+    # the first call of K1's custom operator and the first torch.export
+    # import torch._dynamo, several seconds of host: it runs beside nvcc
+    importer = threading.Thread(target=importlib.import_module,
+                                args=("torch._dynamo",), daemon=True)
+    importer.start()
     out = {name: {"nvcc_seconds": b.seconds,
                   "ptxas": [ln.strip() for ln in b.log.splitlines()
                             if "registers" in ln or "spill" in ln
                             or "Compiling entry" in ln
                             or "Performance Loss" in ln]}
            for name, b in build.build_all(verbose=True).items()}
+    importer.join()
     # the TMA flash kernels are sized to the registers a thread has: a
     # spill, or wgmmas that ptxas serialises ("Potential Performance
     # Loss"), is a fault of the design
@@ -7321,6 +7792,8 @@ def main() -> int:
         ("serve_spec_full_accept",
          lambda: phase_serve_spec_full_accept(state)),
         ("hot_swap", lambda: phase_hot_swap(state)),
+        ("serve_export", lambda: phase_serve_export(state)),
+        ("serve_int8", lambda: phase_serve_int8(state)),
         ("serve_supervised", lambda: phase_serve_supervised(state)),
         ("rollout", lambda: {**phase_rollout(state), **free_serving()}),
         ("fleet", lambda: phase_fleet(state, k3)),

@@ -37,8 +37,9 @@ wrote holds a StableHLO program, which cannot run under torch: it loads
 through the class mapping where ``_JAX_MODELS`` maps its class, and
 raises ``ValueError`` otherwise.
 
-Not ported: ``int8=True`` (the s8 projections; it raises as the port's
-engines do).
+``serve(int8=True)`` runs the generation engine with per-channel int8
+projections (the s8 products of ``serving.LlamaDecodeEngine``), in this
+process or in every fleet replica.
 """
 from __future__ import annotations
 
@@ -595,13 +596,10 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8866,
     processes, which share this process's ``FLAGS_executable_cache_dir``
     and ``warm_bundle`` (so a resurrected replica runs no ``nvcc``).
     ``device`` (default: the card) is where the predictor, the engine
-    and the replicas run. ``int8=True`` raises: the s8 projections are
-    not ported."""
+    and the replicas run. ``int8=True`` runs the engine's projections as
+    s8 x s8 -> s32 products over per-channel int8 weights."""
     from .core.flags import flag_value
     from .jit import warmup as _warmup
-    if int8:
-        raise NotImplementedError(
-            "serve(int8=True): the s8 projections are not ported")
     _warmup.ensure_executable_cache()
     predictor = Predictor(Config(model_path), device=device)
     gen_server = None
@@ -660,6 +658,7 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8866,
                           "path": os.path.abspath(model_path)},
                 "device": str(predictor.device.type),
                 "max_slots": max_slots, "max_seq": max_seq,
+                "int8": bool(int8),
                 "eos_id": eos_id, "warm_bundle": warm_bundle,
                 "supervised": True})
         elif generate:
@@ -667,7 +666,7 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8866,
             # the predictor's module serves both routes: one weight set
             engine = PagedLlamaDecodeEngine(
                 predictor.model, max_slots=max_slots, max_seq=max_seq,
-                eos_id=eos_id, device=predictor.device)
+                int8=int8, eos_id=eos_id, device=predictor.device)
             if speculative:
                 engine.attach_draft(
                     engine.make_draft(num_layers=spec_draft_layers),

@@ -129,6 +129,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import time
 import warnings
 from collections import OrderedDict
@@ -147,7 +148,8 @@ from ..observability import metrics as _om
 from ..ops.kernels import counters as _counters
 
 __all__ = ["sot_compile", "SOTFunction", "BucketPolicy", "capture",
-           "CapturedStep"]
+           "CapturedStep", "capture_jit", "CapturedProgram",
+           "CaptureGroup"]
 
 _capture_flag = _flag_registry["sot_capture"]
 _capture_cache_flag = _flag_registry["sot_capture_cache"]
@@ -1583,6 +1585,347 @@ class CapturedStep:
             if isinstance(e, _Graph):
                 out[e.kind] = out.get(e.kind, 0) + 1
         return out
+
+
+# ---------------------------------------------------------------------------
+# capture_jit: a whole-step function (the serving bodies) as CUDA graphs
+# ---------------------------------------------------------------------------
+
+class CaptureGroup:
+    """The CUDA graphs of one owner (a serving engine): one capture
+    stream, one memory pool their graphs share, and the
+    :func:`capture_jit` programs that capture into it. Graphs of one
+    group replay one after another on the caller's stream, never at the
+    same time, and a program clones the outputs it returns, so a later
+    graph reusing an earlier one's freed scratch in the shared pool
+    cannot reach what a caller holds."""
+
+    def __init__(self):
+        self.programs: List["CapturedProgram"] = []
+        self._stream = None
+        self._pool = None
+
+    def stream(self, dev: torch.device):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        return self._stream
+
+    def pool(self):
+        """The shared pool: a new handle when no graph of the old one is
+        alive (a pool whose last graph went cannot take a capture)."""
+        if self._pool is None or not self.graphs():
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def graphs(self) -> int:
+        return sum(len(p._graphs) for p in self.programs)
+
+    def pool_bytes(self) -> int:
+        """Bytes the caching allocator holds in the group's pool (0
+        without a live graph)."""
+        if self._pool is None or not self.graphs():
+            return 0
+        want = tuple(self._pool)
+        return sum(seg.get("total_size", 0)
+                   for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id") or ()) == want)
+
+    def stats(self) -> Dict[str, Any]:
+        """Totals (``replayed_launches``: the kernel launches the replays
+        made, by the counters' ``.launches``) and, by program name, the
+        replays, captures and what the replays added to each counter
+        (``replayed``: ``"wrapper.attribute" -> n``)."""
+        out: Dict[str, Any] = {"graphs": self.graphs(), "captures": 0,
+                               "replays": 0, "eager": 0, "fallbacks": 0,
+                               "capture_failures": 0,
+                               "capture_seconds": 0.0,
+                               "replayed_launches": 0, "by_program": {}}
+        for p in self.programs:
+            for k in ("captures", "replays", "eager", "fallbacks",
+                      "capture_failures", "capture_seconds"):
+                out[k] += p.stats[k]
+            mine = out["by_program"].setdefault(
+                p.name, {"replays": 0, "captures": 0, "replayed": {}})
+            mine["replays"] += p.stats["replays"]
+            mine["captures"] += p.stats["captures"]
+            for k, n in p.stats["replayed"].items():
+                mine["replayed"][k] = mine["replayed"].get(k, 0) + n
+                if k.endswith(".launches"):
+                    out["replayed_launches"] += n
+        return out
+
+
+class _ProgramGraph:
+    """One captured signature: the graph, its static input buffers, the
+    addresses of the tensors it uses in place, how to rebuild its
+    outputs and the launch counts a replay adds (by counter, and by
+    ``"wrapper.attribute"``)."""
+    __slots__ = ("graph", "static", "ptrs", "outs", "out_tree", "counts",
+                 "named")
+
+
+def _leaf_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+
+
+class CapturedProgram:
+    """The callable :func:`capture_jit` returns; see there."""
+
+    def __init__(self, fn: Callable, donate_argnums=(), name=None,
+                 warm=None, group=None):
+        self._fn = fn
+        self.name = name or getattr(fn, "__name__", "fn")
+        self._warm = warm
+        self._inplace = set(donate_argnums)
+        self._group = group if group is not None else CaptureGroup()
+        self._group.programs.append(self)
+        self._graphs: Dict[tuple, _ProgramGraph] = {}
+        self._seen: set = set()     # signatures whose first call ran
+        self._noted: set = set()    # ... and whose first call succeeded
+        self.stats: Dict[str, Any] = {
+            "calls": 0, "replays": 0, "captures": 0, "eager": 0,
+            "fallbacks": 0, "capture_failures": 0, "capture_seconds": 0.0,
+            "replayed": {}}
+
+    # -- arguments ---------------------------------------------------------
+    def _flatten(self, args):
+        """Leaves of ``args`` with, for each, whether it is used in
+        place (a tensor of a donated argument), and the tree."""
+        from torch.utils import _pytree as pytree
+        leaves: List[Any] = []
+        inplace: List[bool] = []
+        specs = []
+        for i, a in enumerate(args):
+            ls, spec = pytree.tree_flatten(a)
+            leaves += ls
+            inplace += [i in self._inplace] * len(ls)
+            specs.append(spec)
+        return leaves, inplace, tuple(specs)
+
+    @staticmethod
+    def _device(leaves, inplace) -> torch.device:
+        for pick in (True, False):
+            for x, ip in zip(leaves, inplace):
+                if ip == pick and isinstance(x, torch.Tensor):
+                    if pick or x.device.type == "cuda":
+                        return x.device
+        return torch.device("cpu")
+
+    def _signature(self, leaves, inplace, tree):
+        sig: List[Any] = [tree]
+        ptrs = []
+        for x, ip in zip(leaves, inplace):
+            if ip:
+                if not isinstance(x, torch.Tensor):
+                    raise TypeError(f"capture_jit({self.name}): a donated "
+                                    f"argument holds a "
+                                    f"{type(x).__name__}, not a tensor")
+                sig.append((x.shape, x.dtype, x.device))
+                ptrs.append(x.data_ptr())
+            else:
+                t = _leaf_tensor(x)
+                sig.append((t.shape, t.dtype))
+        return tuple(sig), tuple(ptrs)
+
+    @staticmethod
+    def _unflatten(vals, tree) -> list:
+        """The arguments back from their leaves and per-argument trees."""
+        from torch.utils import _pytree as pytree
+        out, i = [], 0
+        for spec in tree:
+            out.append(pytree.tree_unflatten(vals[i:i + spec.num_leaves],
+                                             spec))
+            i += spec.num_leaves
+        return out
+
+    def _eager_args(self, leaves, inplace, tree, dev):
+        vals = [x if ip else _leaf_tensor(x).to(dev, non_blocking=True)
+                for x, ip in zip(leaves, inplace)]
+        return self._unflatten(vals, tree)
+
+    # -- accounting --------------------------------------------------------
+    def _first_success(self, sig, args, captured: bool) -> None:
+        """A signature's first successful call: the ``capture_compile``
+        flight event where it captured, and the warm-bundle note
+        (``warm`` called on the arguments when it is callable)."""
+        if sig in self._noted:
+            return
+        self._noted.add(sig)
+        if captured:
+            _flight.record("sot", "capture_compile", fn=self.name)
+        if self._warm is not None:
+            from .warmup import note_program
+            meta = self._warm(*args) if callable(self._warm) \
+                else self._warm
+            note_program("serving", self.name, {"meta": dict(meta)})
+
+    # -- capture -----------------------------------------------------------
+    def _capture(self, leaves, inplace, tree, ptrs, dev) -> _ProgramGraph:
+        from torch.utils import _pytree as pytree
+        group = self._group
+        stream = group.stream(dev)
+        pool = group.pool()
+        e = _ProgramGraph()
+        e.static = [torch.empty_like(_leaf_tensor(x), device=dev)
+                    for x, ip in zip(leaves, inplace) if not ip]
+        it = iter(e.static)
+        vals = [x if ip else next(it) for x, ip in zip(leaves, inplace)]
+        targs = self._unflatten(vals, tree)
+        donated = {id(x): j for j, (x, ip)
+                   in enumerate(zip(leaves, inplace)) if ip}
+        e.graph = torch.cuda.CUDAGraph()
+        before = _counters.snapshot()
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(dev)
+        stream.wait_stream(cur)
+        # a graph that the collector frees during the capture would
+        # release its pool there, which the capture forbids: collect
+        # first, and not during it
+        gc.collect()
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.no_grad(), torch.cuda.stream(stream):
+                e.graph.capture_begin(pool=pool,
+                                      capture_error_mode="thread_local")
+                try:
+                    out = self._fn(*targs)
+                finally:
+                    e.graph.capture_end()
+        finally:
+            if gc_was_on:
+                gc.enable()
+            e.counts = _counters.delta(before, _counters.snapshot())
+            _counters.restore(before)
+            cur.wait_stream(stream)
+        e.named = tuple((f"{fn.__name__}.{attr}", n)
+                        for (fn, attr), n in e.counts.items())
+        out_leaves, e.out_tree = pytree.tree_flatten(out)
+        # an output that IS an argument used in place (a pool the body
+        # returns) is handed back as the caller's tensor; the rest are
+        # the graph's buffers, cloned on every return
+        e.outs = [("arg", donated[id(o)]) if id(o) in donated
+                  else ("own", o) for o in out_leaves]
+        e.ptrs = ptrs
+        self.stats["capture_seconds"] += time.perf_counter() - t0
+        self.stats["captures"] += 1
+        _M_step_compiles.inc()
+        return e
+
+    def _replay(self, e: _ProgramGraph, leaves, inplace):
+        from torch.utils import _pytree as pytree
+        it = iter(e.static)
+        for x, ip in zip(leaves, inplace):
+            if not ip:
+                next(it).copy_(_leaf_tensor(x), non_blocking=True)
+        e.graph.replay()
+        _counters.advance(e.counts)
+        self.stats["replays"] += 1
+        rep = self.stats["replayed"]
+        for k, n in e.named:
+            rep[k] = rep.get(k, 0) + n
+        outs = [leaves[v] if kind == "arg"
+                else (v.clone() if isinstance(v, torch.Tensor) else v)
+                for kind, v in e.outs]
+        return pytree.tree_unflatten(outs, e.out_tree)
+
+    def __call__(self, *args):
+        leaves, inplace, tree = self._flatten(args)
+        dev = self._device(leaves, inplace)
+        if not _capture_flag.value:
+            # the kill switch: the body runs op by op, nothing counted
+            return self._fn(*self._eager_args(leaves, inplace, tree, dev))
+        self.stats["calls"] += 1
+        sig, ptrs = self._signature(leaves, inplace, tree)
+        if dev.type != "cuda":
+            out = self._fn(*self._eager_args(leaves, inplace, tree, dev))
+            if sig in self._seen:
+                self.stats["fallbacks"] += 1
+                _count_fallback("device", self.name)
+            else:
+                self._seen.add(sig)
+                self.stats["eager"] += 1
+            self._first_success(sig, args, False)
+            return out
+        _M_captured.inc()
+        e = self._graphs.get(sig)
+        if e is not None and e.ptrs == ptrs:
+            return self._replay(e, leaves, inplace)
+        out = None
+        if sig not in self._seen:
+            # first sighting: run op by op on the capture stream (kernel
+            # libraries, cuBLAS workspaces and the K3 tickets of that
+            # stream come up outside the graph), then capture
+            self._seen.add(sig)
+            self.stats["eager"] += 1
+            stream = self._group.stream(dev)
+            cur = torch.cuda.current_stream(dev)
+            stream.wait_stream(cur)
+            with torch.cuda.stream(stream):
+                out = self._fn(*self._eager_args(leaves, inplace, tree,
+                                                 dev))
+            cur.wait_stream(stream)
+        self._graphs.pop(sig, None)     # stale addresses: never replayed
+        try:
+            e = self._capture(leaves, inplace, tree, ptrs, dev)
+        except BaseException:
+            # a cut capture is never stored, so never replayed; the
+            # next call of the signature captures again
+            self.stats["capture_failures"] += 1
+            raise
+        self._graphs[sig] = e
+        self._first_success(sig, args, True)
+        if out is None:
+            out = self._replay(e, leaves, inplace)
+        return out
+
+
+def capture_jit(fn, donate_argnums=(), name: Optional[str] = None,
+                warm=None, *, group: Optional[CaptureGroup] = None):
+    """A whole-step function (the serving bodies) as one CUDA graph per
+    input signature — the port's counterpart of the JAX package's
+    ``capture_jit`` (``jax.jit`` + SOT capture accounting).
+
+    - ``fn`` must be a pure device program over its arguments: shapes
+      fixed by the signature, no host read, no host-to-device copy.
+    - The tensors of the arguments in ``donate_argnums`` are used in
+      place, where they live (the caches and pools a body writes, and
+      the weights it reads); their addresses join the signature's
+      entry, and a changed storage captures the signature anew (a stale
+      graph is never replayed). Every other leaf (a tensor, array or
+      scalar: the small per-step inputs) is copied into the graph's
+      static buffer before a replay.
+    - The signature is the argument tree with each leaf's shape and
+      dtype (and device, for the tensors used in place).
+    - On the card, a signature's first call runs ``fn`` op by op on the
+      group's capture stream and then captures it (thread-local capture
+      mode: the server's other threads issue CUDA work beside it); later
+      calls copy the small inputs and replay. The kernel launch
+      counters advance by what the capture recorded
+      (``ops.kernels.counters``). An output that is an argument used in
+      place comes back as that argument; every other output is a clone
+      of the graph's buffer. A capture that fails raises (counted in
+      ``stats["capture_failures"]``); its graph is never stored, so a
+      capture a fault cut never replays, and the signature's next call
+      captures again. It never runs op by op quietly.
+    - Accounting as in the JAX package, where one program stands for
+      one signature: every call on the card counts into
+      ``sot.captured_steps_total``, each signature's first successful
+      capture records the ``sot.capture_compile`` flight event and, with
+      ``warm``, ``jit.warmup.note_program("serving", name, {"meta":
+      warm})`` (``warm`` a dict, or a function of the call's arguments
+      that returns one); each captured graph counts into
+      ``sot.captured_compiles_total``. The replays' launches are kept
+      by counter in ``stats["replayed"]``.
+    - On the CPU ``fn`` runs op by op: the first call of a signature
+      counts as eager, later ones as fallbacks of reason ``"device"``
+      (as ``CapturedStep`` counts them); the warm-bundle note is kept.
+    - ``FLAGS_sot_capture=0`` runs ``fn`` op by op and counts nothing
+      (the JAX kill switch mutes only the accounting: its program is
+      one executable either way).
+    - ``group`` (a :class:`CaptureGroup`) shares one capture stream and
+      one memory pool between the programs of one owner."""
+    return CapturedProgram(fn, donate_argnums, name, warm, group)
 
 
 def _raw(t):

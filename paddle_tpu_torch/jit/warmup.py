@@ -16,9 +16,11 @@ card is ``nvcc``, not an XLA compile, so the two layers are:
   JAX engines' ``serving`` entries, with the same names and geometry
   meta); :func:`export_bundle` writes them as the JAX package's
   versioned JSON manifest, and :func:`prewarm` replays a bundle at boot
-  through ``engine._prewarm_entry``: each entry's kernel libraries are
-  loaded and its program runs once at the entry's shapes, so cuBLAS and
-  the caching allocator are set up before the first admission. A
+  through ``engine._prewarm_entry``: each entry's program takes its
+  first ``capture_jit`` call at the entry's shapes — kernel libraries
+  loaded, the body run once, its CUDA graph captured — so a warm
+  replica serves its first request from graphs. Graphs cannot be
+  written to a file: the bundle keeps the JAX format. A
   missing, truncated, corrupt or newer bundle, a stale entry and an
   entry that fails are counted in ``warmup.failures_total{reason}``;
   pre-warm never fails a boot. ``captured_step`` entries are skipped:

@@ -30,6 +30,16 @@ flat signature ``(q, k_pool, v_pool, tables, positions)``:
   (64-row groups) in ``.mma_launches``. There is no fallback: a CUDA call
   the chosen design cannot take raises. A CPU tensor takes the plain
   walk (and counts nothing).
+- ``paged_attention_op`` — the same dispatch as the ``torch.library``
+  operator ``paddle_tpu_torch::paged_attention`` (with a fake kernel for
+  its output shape), registered when this module is imported. The
+  wrapper calls it, so eager calls, the serving engines' CUDA graphs
+  (whose replays advance the counters through ``counters.py``) and
+  programs exported with ``torch.export`` all reach the kernels through
+  the one operator. It is registered through ``torch.library.Library``
+  (a schema and a CPU and a CUDA kernel), not ``custom_op``, whose first
+  call imports ``torch._dynamo`` (seconds of host in every process
+  that serves).
 
 Contract: row ``(s, t)`` attends every column ``c <= positions[s, t]``
 of its slot's history; query head ``h = kvh * n_rep + r`` attends the
@@ -51,14 +61,15 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from . import build as _build
 
 __all__ = ["paged_attention_reference", "paged_attention_split_reference",
-           "paged_attention_kernel", "takes_split", "split_plan"]
+           "paged_attention_kernel", "paged_attention_op", "takes_split",
+           "split_plan"]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -75,17 +86,21 @@ _PARTIAL_BYTES = 16 << 20
 _lib = None
 _split_lib = None
 _ticket_bufs: Dict[Tuple[int, int], torch.Tensor] = {}
+_retired_tickets: List[torch.Tensor] = []
 _sm_counts: Dict[int, int] = {}
 
 
 def _walk(q, k_pool, v_pool, tables, positions, block_size: int, R: int,
-          n_walk: int, k_scale, v_scale, lo: int = 0,
+          n_walk, k_scale, v_scale, lo: int = 0,
           hi: Optional[int] = None):
     """The walk's online-softmax state ``(m, l, acc)``, f32 ``[S, K, R,
     T]`` (``acc`` with a trailing ``D``), over the history columns
     ``[lo, hi)`` of every slot: the block tiles that meet the range, in
     order, with the columns outside it masked like those past a row's
-    position."""
+    position. ``n_walk`` is ``(tiles, bound)`` from :func:`_n_walk`: a
+    device bound masks the columns at or past ``bound * block_size``
+    (a fully masked tile leaves the state exactly as it was)."""
+    n_walk, bound = n_walk
     S, T, H, D = q.shape
     K = k_pool.shape[2]
     dev = q.device
@@ -113,8 +128,10 @@ def _walk(q, k_pool, v_pool, tables, positions, block_size: int, R: int,
         v_t = torch.nan_to_num(v_t)
         s = torch.einsum("stkrd,sbkd->skrtb", q5, k_t.float()) * inv_sqrt_d
         cols = i * block_size + cols0
-        ok = (cols[None, None, :] <= pos[:, :, None]) \
-            & ((cols >= lo) & (cols < hi))[None, None, :]
+        live = (cols >= lo) & (cols < hi)
+        if bound is not None:
+            live = live & (cols < bound * block_size)
+        ok = (cols[None, None, :] <= pos[:, :, None]) & live[None, None, :]
         okb = ok[:, None, None, :, :]                  # [S, 1, 1, T, bs]
         s = torch.where(okb, s, _NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -135,9 +152,18 @@ def _shape_out(acc, q):
     return acc.permute(0, 3, 1, 2, 4).reshape(S, T, H, D).to(q.dtype)
 
 
-def _n_walk(tables, n_tiles) -> int:
+def _n_walk(tables, n_tiles):
+    """``(tiles to walk, device bound or None)``. Inside a CUDA graph
+    capture a tile count on the card cannot be read on the host: every
+    table column is walked and the bound masks. Elsewhere the count is
+    read and bounds the loop."""
     MB = tables.shape[1]
-    return MB if n_tiles is None else min(int(n_tiles), MB)
+    if n_tiles is None:
+        return MB, None
+    if isinstance(n_tiles, torch.Tensor) and n_tiles.is_cuda \
+            and torch.cuda.is_current_stream_capturing():
+        return MB, n_tiles.reshape(()).long()
+    return min(int(n_tiles), MB), None
 
 
 def _heads(q, k_pool, n_rep) -> int:
@@ -175,7 +201,7 @@ def paged_attention_split_reference(
     n_walk = _n_walk(tables, n_tiles)
     states = [_walk(q, k_pool, v_pool, tables, positions, block_size, R,
                     n_walk, k_scale, v_scale, lo, lo + span)
-              for lo in range(0, max(n_walk, 1) * block_size, span)]
+              for lo in range(0, max(n_walk[0], 1) * block_size, span)]
     m_all = torch.stack([m for m, _, _ in states]).amax(dim=0)
     l_all = torch.zeros_like(m_all)
     acc = torch.zeros_like(states[0][2])
@@ -274,10 +300,14 @@ def _sms(device: torch.device) -> int:
 
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """The int32 tickets of a (device, stream): zeros, and the kernel
-    leaves them zero, so one allocation serves every call."""
+    leaves them zero, so one allocation serves every call. A CUDA graph
+    captured on the stream holds the buffer's address, so a buffer that
+    grows is replaced but never freed."""
     key = (device.index, stream)
     buf = _ticket_bufs.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired_tickets.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _ticket_bufs[key] = buf
     return buf
@@ -366,32 +396,20 @@ def _check(q, k_pool, v_pool, tables, positions, k_scale, v_scale,
     need(all(t.is_contiguous() for t in ts), "all tensors contiguous")
 
 
-def paged_attention_kernel(q, k_pool, v_pool, tables, positions, *,
-                           block_size: int, n_rep: int,
-                           n_tiles: Union[int, torch.Tensor, None] = None,
-                           k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """Launch the Hopper paged-attention kernel on CUDA tensors (the
-    plain walk for CPU tensors). ``n_tiles`` may be an int or a device
-    int32 tensor of one element (what the engines pass, so a captured
-    step keeps its pointer); ``None`` walks every table column."""
-    if q.device.type == "cpu":
-        return paged_attention_reference(
-            q, k_pool, v_pool, tables, positions, block_size=block_size,
-            n_rep=n_rep, n_tiles=n_tiles, k_scale=k_scale, v_scale=v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention_kernel runs on cuda or cpu "
-                         f"tensors, got {q.device}")
-    block_size, n_rep = int(block_size), int(n_rep)
+def _launch(q, k_pool, v_pool, tables, positions, n_tiles, k_scale,
+            v_scale, block_size: int, n_rep: int) -> torch.Tensor:
+    """The kernel path of the operator on checked CUDA tensors
+    (``n_tiles`` a device int32 tensor of one element, or None for every
+    table column): the split design where :func:`takes_split` says, the
+    first design otherwise; advances the counters."""
     _check(q, k_pool, v_pool, tables, positions, k_scale, v_scale,
            block_size, n_rep)
     S, T, H, D = q.shape
     NB, _, K, _ = k_pool.shape
     MB = tables.shape[1]
-    if not isinstance(n_tiles, torch.Tensor):
-        n_tiles = torch.tensor([MB if n_tiles is None else int(n_tiles)],
-                               dtype=torch.int32, device=q.device)
+    if n_tiles is None:
+        # a fill kernel, not a host copy: legal inside a graph capture
+        n_tiles = torch.full((1,), MB, dtype=torch.int32, device=q.device)
     if n_tiles.dtype != torch.int32 or n_tiles.numel() != 1 \
             or n_tiles.device != q.device:
         raise ValueError("paged_attention_kernel: n_tiles must be a "
@@ -422,6 +440,71 @@ def paged_attention_kernel(q, k_pool, v_pool, tables, positions, *,
                 f"q={q.dtype} pools={k_pool.dtype})")
     paged_attention_kernel.launches += 1
     return out
+
+
+def _paged_attention_impl(q, k_pool, v_pool, tables, positions, n_tiles,
+                          k_scale, v_scale, block_size, n_rep):
+    """K3 as the operator ``paddle_tpu_torch::paged_attention``: ``(q,
+    k_pool, v_pool, tables, positions, n_tiles or None, k_scale or None,
+    v_scale or None, block_size, n_rep) -> out`` (``q``'s shape, dtype
+    and device). On CUDA tensors it launches what :func:`_launch`
+    launches (no fallback; the counters advance), on CPU tensors it runs
+    the plain walk. Eager calls, CUDA graph captures (the serving
+    engines' ``capture_jit`` programs) and programs exported with
+    ``torch.export`` (``export_decode``) all reach the kernels through
+    it: an exported program holds the operator, and a process that
+    loads one registers it by importing this module."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(
+            q, k_pool, v_pool, tables, positions, block_size=block_size,
+            n_rep=n_rep, n_tiles=n_tiles, k_scale=k_scale, v_scale=v_scale)
+    return _launch(q, k_pool, v_pool, tables, positions, n_tiles, k_scale,
+                   v_scale, int(block_size), int(n_rep))
+
+
+_LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+_LIB.define("paged_attention(Tensor q, Tensor k_pool, Tensor v_pool, "
+            "Tensor tables, Tensor positions, Tensor? n_tiles, "
+            "Tensor? k_scale, Tensor? v_scale, int block_size, "
+            "int n_rep) -> Tensor")
+_LIB.impl("paged_attention", _paged_attention_impl, "CPU")
+_LIB.impl("paged_attention", _paged_attention_impl, "CUDA")
+
+
+@torch.library.register_fake("paddle_tpu_torch::paged_attention", lib=_LIB)
+def _paged_attention_fake(q, k_pool, v_pool, tables, positions, n_tiles,
+                          k_scale, v_scale, block_size, n_rep):
+    return torch.empty_like(q)
+
+
+# the operator's overload: what the wrapper, the graphs and an exported
+# program call
+paged_attention_op = torch.ops.paddle_tpu_torch.paged_attention.default
+
+
+def paged_attention_kernel(q, k_pool, v_pool, tables, positions, *,
+                           block_size: int, n_rep: int,
+                           n_tiles: Union[int, torch.Tensor, None] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Run K3 through its operator (``paged_attention_op``): the
+    Hopper kernel on CUDA tensors, the plain walk on CPU tensors.
+    ``n_tiles`` may be an int or a device int32 tensor of one element
+    (what the engines pass: their programs compute it on the card, so a
+    captured step reads it from device memory); ``None`` walks every
+    table column. An int becomes a one-element tensor made by a fill,
+    never a host copy."""
+    if q.device.type not in ("cpu", "cuda"):
+        # a meta tensor would reach the fake kernel: refuse it here
+        raise ValueError(f"paged_attention_kernel runs on cuda or cpu "
+                         f"tensors, got {q.device}")
+    if n_tiles is not None and not isinstance(n_tiles, torch.Tensor):
+        n_tiles = torch.full((1,), int(n_tiles), dtype=torch.int32,
+                             device=q.device)
+    return paged_attention_op(q, k_pool, v_pool, tables, positions,
+                              n_tiles, k_scale, v_scale, int(block_size),
+                              int(n_rep))
 
 
 paged_attention_kernel.launches = 0        # every launch

@@ -26,10 +26,15 @@ asks for the plain walk by name (the kernel's oracle), and
 ``FLAGS_paged_attention_kernel=0`` on a card engine raises rather than
 switching silently. On the CPU both take the plain walk.
 
-Host orchestration mirrors the JAX package: slot positions, block
-tables, write targets and the walk's tile count are host values, so
-each step moves a few small index tensors to the card and reads back
-one token per slot.
+Each step is the JAX package's pure bodies over persistent device
+buffers (``_decode_impl``, ``_prefill_impl`` over power-of-two buckets,
+``_decode_collect_impl``, ``_propose_impl``, ``_spec_verify_impl``,
+``_cow_impl``), each run through ``jit.sot.capture_jit`` under the JAX
+program names: one CUDA graph per signature on the card, replayed with
+the small per-step inputs (token ids, positions, block tables, the
+active mask) copied into its static buffers; the tile counts and the
+K/V write plan are made on the card, and the host reads the tokens
+once a step. ``FLAGS_sot_capture=0`` runs the same bodies op by op.
 
 The paged engine also decodes **speculatively** (``attach_draft``): a
 cheap draft — typically ``make_draft``'s truncated-layer view, which
@@ -52,15 +57,19 @@ retires a replaced loop thread (``_epoch``, ``_fenced``), a heartbeat
 (``_beat``, ``_idle``), ``_start_loop`` for a restart, and the fault
 site ``serving.decode`` before each decode or speculative step.
 
-Warm bundles (``jit.warmup``): each engine records every program the
-first time it runs it — the JAX engines' ``serving`` entries, under the
-same names and with the same geometry meta — and ``_prewarm_entry``
-replays an entry at boot: the kernel libraries its program launches
-are loaded and the program runs once at the entry's shapes on an idle
-engine, writing nothing to the pools.
+Warm bundles (``jit.warmup``): each program records itself the first
+time it runs — the JAX engines' ``serving`` entries, under the same
+names and with the same geometry meta — and ``_prewarm_entry`` replays
+an entry at boot: its program's first call loads the kernel libraries,
+runs once at the entry's shapes on an idle engine (writing nothing to
+the pools) and captures the graph, so a warm replica serves its first
+request from graphs. Graphs cannot be saved to a file: the bundle keeps
+its format.
 
-Left for later slices: ``export_decode``, the ``int8=True`` s8
-projections and CUDA graphs for the step.
+``export_decode`` serializes the decode step as a ``torch.export``
+program (weights and caches as inputs, K3 as the operator
+``paddle_tpu_torch::paged_attention``), and ``int8=True`` serves with
+per-channel int8 projections (s8 x s8 -> s32 products).
 """
 from __future__ import annotations
 
@@ -78,7 +87,7 @@ import torch.nn.functional as F
 from . import serving_cache as _sc
 from .analysis.locks import make_lock
 from .core.device import resolve_device
-from .jit import warmup as _warmup
+from .jit import sot as _sot
 from .observability import flight as _flight
 from .observability import metrics as _om
 from .utils import fault_injection as _fi
@@ -165,17 +174,53 @@ _REQ_SEQ = itertools.count(1)
 ATTENTION_IMPLS = ("kernel", "reference")
 
 
+def _quantize_w(w_t):
+    """Per-output-channel symmetric int8 of an ``[out, in]`` weight, on
+    the weight's device: ``(codes int8 [out, in], step f32 [out])``, the
+    JAX package's ``_quantize_w`` (f32 throughout, round half to even,
+    so the codes and steps are bit-equal)."""
+    w = w_t.float()
+    step = torch.clamp(w.abs().amax(dim=1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(w / step[:, None]), -127, 127)
+    return q.to(torch.int8), step
+
+
+# torch._int_mm needs more than 16 rows on CUDA (and row counts that
+# cuBLASLt's int8 kernels take): smaller activations are padded
+_INT_MM_MIN_ROWS = 24
+
+
+def _s8_matmul(qh: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """``qh [M, K] int8 @ w_q[N, K]^T -> int32 [M, N]``, exact: the s8
+    product the JAX package computes with ``dot_general(...,
+    preferred_element_type=int32)`` outside any Pallas kernel, here one
+    ``torch._int_mm`` (cuBLASLt on the card). Rows are zero-padded to
+    ``_INT_MM_MIN_ROWS`` below it and cut off again."""
+    M = qh.shape[0]
+    if M < _INT_MM_MIN_ROWS:
+        qh = F.pad(qh, (0, 0, 0, _INT_MM_MIN_ROWS - M))
+    return torch._int_mm(qh, w_q.t())[:M]
+
+
 class LlamaDecodeEngine:
     """Decode engine for a ``LlamaForCausalLM`` over a dense cache.
 
     Host-side state per slot: position, active flag, last token.
     Device-side: the weights (views of the model's tensors when dtype
-    and device already match — no second copy) and the K/V caches,
-    updated in place.
+    and device already match — no second copy; with ``int8=True`` the
+    projections and the head as per-channel int8 codes and steps) and
+    the K/V caches, updated in place.
 
-    ``device`` defaults to ``cuda`` (raises without it unless
-    ``device="cpu"``); ``attention_impl`` is ``"kernel"`` (the seam's
-    default path) or ``"reference"`` (the plain walk, by name).
+    The step is the JAX package's pure bodies (``_decode_impl``,
+    ``_prefill_impl`` over power-of-two prompt buckets,
+    ``_decode_collect_impl``) over persistent device buffers, each run
+    through ``jit.sot.capture_jit`` under the JAX program names: one
+    CUDA graph per signature on the card, sharing the engine's
+    ``CaptureGroup`` (``_graphs``); the host reads the tokens after the
+    replay. The positional order is the JAX engine's; ``device``
+    defaults to ``cuda`` (raises without it unless ``device="cpu"``);
+    ``attention_impl`` is ``"kernel"`` (the seam's default path) or
+    ``"reference"`` (the plain walk, by name).
 
     ``num_layers`` below the model's depth builds the TRUNCATED-LAYER
     view (first N decoder layers + the full norm and head);
@@ -188,15 +233,16 @@ class LlamaDecodeEngine:
     _decode_name = "serving.decode"
 
     def __init__(self, model, max_slots: int = 4, max_seq: int = 256,
-                 eos_id: Optional[int] = None,
-                 num_layers: Optional[int] = None, device=None,
-                 attention_impl: str = "kernel",
-                 share_params: Optional[Dict[str, object]] = None):
+                 int8: bool = False, eos_id: Optional[int] = None,
+                 num_layers: Optional[int] = None,
+                 share_params: Optional[Dict[str, object]] = None,
+                 device=None, attention_impl: str = "kernel"):
         cfg = model.config
         self.cfg = cfg
         self.max_slots = int(max_slots)
         self.max_seq = int(max_seq)
         self.eos_id = eos_id
+        self.int8 = bool(int8)
         self.n_layers = int(num_layers or cfg.num_hidden_layers)
         if not 1 <= self.n_layers <= cfg.num_hidden_layers:
             raise ValueError(
@@ -226,9 +272,6 @@ class LlamaDecodeEngine:
             self.params = p
         else:
             self.params = self._build_params(model.state_dict())
-        d2 = self.head_dim // 2
-        self._inv_freq = 1.0 / (cfg.rope_theta ** (torch.arange(
-            0, d2, dtype=torch.float32, device=self.device) / d2))
 
         S = self.max_slots
         self.pos = np.zeros(S, np.int32)          # next cache index
@@ -236,7 +279,7 @@ class LlamaDecodeEngine:
         self.last_ids = np.zeros((S, 1), np.int32)
         # logits behind the latest greedy tokens: [S, V] after step(),
         # [S, k+1, V] after spec_step(), [V] after a prompt's final
-        # prefill (a view, not a copy)
+        # prefill
         self.last_logits: Optional[torch.Tensor] = None
         self._attend_tile = next(
             ts for ts in (128, 64, 32, 16, 8, 4, 2, 1)
@@ -248,16 +291,26 @@ class LlamaDecodeEngine:
         # plain steps, _chunk_cap bounds the prefill chunk length
         self._spec_suppressed = False
         self._chunk_cap: Optional[int] = None
-        # (name, meta) of the programs already recorded for warm bundles
-        self._warm_noted: set = set()
+        # the CUDA graphs of this engine's programs: one capture stream,
+        # one shared memory pool
+        self._graphs = _sot.CaptureGroup()
+        self._collect_bufs: Dict[int, torch.Tensor] = {}
         self._init_cache()
+
+    def _program(self, fn, name, warm=None, donate=(0, 1)):
+        """``fn`` through ``capture_jit`` in this engine's group, the
+        arguments in ``donate`` (the weights and caches: argument 0 and
+        1 unless said otherwise) used in place."""
+        return _sot.capture_jit(fn, donate_argnums=donate, name=name,
+                                warm=warm, group=self._graphs)
 
     def _build_params(self, sd) -> Dict[str, object]:
         """Device weights from the model's state dict: the port's
         projections are already ``[out, in]`` (``torch.nn.Linear``), the
         layout ``_mm`` contracts, so nothing is transposed here — and a
         tensor already in the engine's dtype and device is shared, not
-        copied."""
+        copied. With ``int8`` the seven projections of every layer and
+        the head are quantized on the card (``_quantize_w``)."""
         cfg = self.cfg
 
         def get(name):
@@ -282,17 +335,26 @@ class LlamaDecodeEngine:
                 lp[nm] = get(pre + "self_attn." + nm + ".weight")
             for nm in ("gate_proj", "up_proj", "down_proj"):
                 lp[nm] = get(pre + "mlp." + nm + ".weight")
+            if self.int8:
+                for nm in ("q_proj", "k_proj", "v_proj", "o_proj",
+                           "gate_proj", "up_proj", "down_proj"):
+                    lp[nm] = _quantize_w(lp[nm])
             layers.append(lp)
         p["layers"] = layers
+        if self.int8:
+            p["head"] = _quantize_w(p["head"])
         return p
 
     @staticmethod
-    def _leaf_specs(p) -> Dict[str, tuple]:
-        """leaf name -> (shape, dtype, device) of a weight tree."""
+    def _leaf_specs(p) -> Dict[str, object]:
+        """leaf name -> (shape, dtype, device) of a weight tree (int8
+        ``(codes, steps)`` pairs spec both halves)."""
         def spec(v):
+            if isinstance(v, tuple):
+                return tuple(spec(x) for x in v)
             return (tuple(v.shape), str(v.dtype), str(v.device))
 
-        out: Dict[str, tuple] = {}
+        out: Dict[str, object] = {}
         for k, v in p.items():
             if k == "layers":
                 for i, lp in enumerate(v):
@@ -318,7 +380,14 @@ class LlamaDecodeEngine:
         KV blocks are untouched, so in-flight requests continue on the
         new weights. An attached weight-sharing draft (``make_draft``)
         is re-pointed at the new tensors in the same swap; an
-        independent draft keeps its own weights."""
+        independent draft keeps its own weights.
+
+        The new tree is BOUND, not copied into the live tensors (a
+        caller may retain the old tree to swap back: the rollout's
+        rollback does): every program's graph holds the old weights'
+        addresses, so its next call captures it anew on the new ones
+        (``capture_jit`` never replays a graph whose donated tensors
+        moved)."""
         new_p = prepared if prepared is not None \
             else self._build_params(dict(state_dict))
         old_spec, new_spec = (self._leaf_specs(self.params),
@@ -358,26 +427,19 @@ class LlamaDecodeEngine:
         return sorted(k for k, v in geo.items()
                       if k in meta and meta[k] != v)
 
-    def _note_warm(self, name: str, meta: Dict[str, object]) -> None:
-        """Record a program in the warm bundle the first time this engine
-        runs it (the JAX engines record at their first compile)."""
-        key = (name, tuple(sorted(meta.items())))
-        if key not in self._warm_noted:
-            self._warm_noted.add(key)
-            _warmup.note_program("serving", name, {"meta": dict(meta)})
-
     def _check_idle(self) -> None:
         if self.active.any():
             raise ValueError("pre-warm needs an idle engine: its programs "
                              "run on the live pools")
 
     def _prewarm_entry(self, entry):
-        """Replay one recorded ``serving`` entry: load the kernel
-        libraries of its program and run it once at its shapes. Returns
-        False for an entry this engine does not run and ``"stale"`` for
-        one recorded against another geometry. The dense engine replays
-        its decode step; the rows it writes (row 0 of each slot) are
-        zeroed again."""
+        """Replay one recorded ``serving`` entry: its program's first
+        call at the entry's shapes (kernel libraries loaded, the body
+        run once on the capture stream, its CUDA graph captured), so the
+        first request replays the graph. Returns False for an entry this
+        engine does not run and ``"stale"`` for one recorded against
+        another geometry. The dense engine replays its decode step; the
+        rows it writes (row 0 of each slot) are zeroed again."""
         meta = entry.get("meta") or {}
         if meta.get("program") != "decode":
             return False
@@ -385,8 +447,8 @@ class LlamaDecodeEngine:
             return "stale"
         self._check_idle()
         S = self.max_slots
-        self._decode_logits(np.zeros((S, 1), np.int32),
-                            np.zeros(S, np.int32))
+        self._decode(self.params, self.k_cache, self.v_cache,
+                     np.zeros((S, 1), np.int32), np.zeros(S, np.int32))
         for kc, vc in zip(self.k_cache, self.v_cache):
             kc[:, 0].zero_()
             vc[:, 0].zero_()
@@ -396,15 +458,18 @@ class LlamaDecodeEngine:
         return True
 
     def reset_state(self) -> None:
-        """Discard ALL slot and cache state: fresh zero caches replace
-        the old ones and the host bookkeeping resets."""
+        """Discard ALL slot and cache state: the caches are zeroed IN
+        PLACE (the port's caches are never donated, so a crash leaves
+        them allocated) and the host bookkeeping resets; the captured
+        graphs stay valid, as they hold the live caches' addresses."""
         self.pos[:] = 0
         self.active[:] = False
         self.last_ids[:] = 0
-        self._alloc_cache()
+        for c in self.k_cache + self.v_cache:
+            c.zero_()
 
     def _alloc_cache(self) -> None:
-        """(Re)allocate the dense per-layer cache tensors as zeros."""
+        """Allocate the dense per-layer cache tensors as zeros."""
         S, L = self.max_slots, self.n_layers
         kvh = self.cfg.num_key_value_heads
         shape = (S, self.max_seq, kvh, self.head_dim)
@@ -414,19 +479,34 @@ class LlamaDecodeEngine:
                         for _ in range(L)]
 
     def _init_cache(self) -> None:
-        """Build the DENSE cache layout (the paged engine overrides)."""
+        """Build the DENSE cache layout and its programs (the paged
+        engine overrides)."""
         self._alloc_cache()
-        nb = self.max_seq // self._attend_tile
-        # the identity block tables of the dense cache viewed as a pool
-        self._dense_tables = torch.arange(
-            self.max_slots * nb, dtype=torch.int32,
-            device=self.device).view(self.max_slots, nb)
+        self._decode = self._program(
+            self._decode_impl, "serving.decode",
+            {"program": "decode", **self._warm_geo()}, donate=(0, 1, 2))
+        self._decode_collect = None
+        # one program for every bucket: a bucket is a signature
+        self._prefill = self._program(self._prefill_impl, "serving.prefill",
+                                      donate=(0, 1, 2))
 
     # -- math ---------------------------------------------------------------
     # Weights are [out, in] and contracted against their LAST dim.
     def _mm(self, h, w):
         """h @ w^T, accumulated in f32 and cast to h's dtype (on the
-        card a bf16 GEMM accumulates in f32 and rounds its output)."""
+        card a bf16 GEMM accumulates in f32 and rounds its output).
+        An int8 weight ``(codes, steps)`` takes the JAX path: dynamic
+        per-tensor activation quantization, the s8 x s8 -> s32 product
+        (:func:`_s8_matmul`) and the per-channel scale epilogue."""
+        if isinstance(w, tuple):
+            w_q, w_step = w
+            hf = h.float()
+            step = torch.clamp(hf.abs().amax(), min=1e-8) / 127.0
+            qh = torch.clamp(torch.round(hf / step), -127, 127).to(
+                torch.int8)
+            acc = _s8_matmul(qh.reshape(-1, qh.shape[-1]), w_q)
+            acc = acc.reshape(tuple(h.shape[:-1]) + (w_q.shape[0],))
+            return (acc.float() * (w_step * step)).to(h.dtype)
         return F.linear(h, w)
 
     def _rms(self, h, w):
@@ -438,8 +518,12 @@ class LlamaDecodeEngine:
     def _rope_cos_sin(self, positions):
         """cos/sin ``[S, T, 1, D/2]`` at per-slot absolute positions
         (positions [S, T]) — computed once per forward and shared by
-        every layer's rotation."""
-        freqs = positions.float()[..., None] * self._inv_freq
+        every layer's rotation (the JAX ``_rope``'s frequencies, made on
+        the card inside the program)."""
+        d2 = self.head_dim // 2
+        inv = 1.0 / (self.cfg.rope_theta ** (torch.arange(
+            0, d2, dtype=torch.float32, device=positions.device) / d2))
+        freqs = positions.float()[..., None] * inv
         return torch.cos(freqs)[:, :, None, :], \
             torch.sin(freqs)[:, :, None, :]
 
@@ -465,9 +549,16 @@ class LlamaDecodeEngine:
         return h + self._mm(gate * self._mm(x, lp["up_proj"]),
                             lp["down_proj"])
 
-    def _head(self, h):
-        return self._mm(self._rms(h, self.params["norm"]),
-                        self.params["head"])
+    def _head(self, params, h):
+        return self._mm(self._rms(h, params["norm"]), params["head"])
+
+    def _dense_tables(self, dev) -> torch.Tensor:
+        """The identity block tables of the dense cache viewed as a pool
+        ``[S, max_seq / tile]`` (made inside the program, as the JAX
+        ``_attend`` makes them)."""
+        nb = self.max_seq // self._attend_tile
+        return torch.arange(self.max_slots * nb, dtype=torch.int32,
+                            device=dev).view(self.max_slots, nb)
 
     def _attend(self, q, kc_l, vc_l, tables, positions, n_tiles):
         """q [S', T, H, D] against the dense cache viewed as an
@@ -481,27 +572,70 @@ class LlamaDecodeEngine:
             positions, block_size=ts, n_rep=self.n_rep, n_tiles=n_tiles,
             use_kernel=self._use_kernel)
 
-    def _forward(self, ids, positions, slots, tables, n_tiles):
-        """ids [S', T] at positions [S', T] of cache rows ``slots`` [S']
-        -> logits [S', T, V]; each layer writes its K/V rows in place."""
-        dev = self.device
-        ids = torch.as_tensor(ids).to(dev, torch.long)
-        pos = torch.as_tensor(positions).to(dev, torch.int32)
-        slots = torch.as_tensor(slots).to(dev, torch.long)
-        nt = torch.tensor([n_tiles], dtype=torch.int32, device=dev)
-        wslots = slots[:, None].expand(pos.shape)
-        wcols = pos.long()
-        cos, sin = self._rope_cos_sin(pos)
-        h = F.embedding(ids, self.params["emb"]).to(self.dtype)
-        for li, lp in enumerate(self.params["layers"]):
-            kc, vc = self.k_cache[li], self.v_cache[li]
+    def _forward(self, params, k_cache, v_cache, ids, positions, slots,
+                 tables, n_tiles):
+        """ids [S', T] at int32 positions [S', T] of cache rows ``slots``
+        [S'] -> logits [S', T, V]; each layer writes its K/V rows in
+        place (every row, as the JAX ``.at[].set`` does)."""
+        wslots = slots.long()[:, None].expand(positions.shape)
+        wcols = positions.long()
+        cos, sin = self._rope_cos_sin(positions)
+        h = F.embedding(ids.long(), params["emb"]).to(self.dtype)
+        for li, lp in enumerate(params["layers"]):
+            kc, vc = k_cache[li], v_cache[li]
             q, k, v = self._qkv(lp, self._rms(h, lp["in_ln"]), cos, sin)
             kc.index_put_((wslots, wcols), k)
             vc.index_put_((wslots, wcols), v)
-            att = self._attend(q, kc, vc, tables, pos, nt)
+            att = self._attend(q, kc, vc, tables, positions, n_tiles)
             h = h + self._mm(att.reshape(h.shape), lp["o_proj"])
             h = self._ffn(lp, h)
-        return self._head(h)
+        return self._head(params, h)
+
+    # -- the programs (pure device bodies: no host read, fixed shapes) ------
+    def _decode_impl(self, params, k_cache, v_cache, last_ids, pos):
+        """One token for every slot: ids [S, 1], pos [S] = cache index
+        to write (inactive slots write row ``pos`` of their own rows,
+        which their next prefill overwrites). The walk is bounded by the
+        longest history, a tile count made on the card. Returns ``(next
+        int32 [S], logits [S, V], k_cache, v_cache)``."""
+        ts = self._attend_tile
+        n_tiles = (pos.max() // ts + 1).to(torch.int32).reshape(1)
+        slots = torch.arange(pos.shape[0], device=pos.device)
+        logits = self._forward(params, k_cache, v_cache, last_ids,
+                               pos[:, None], slots,
+                               self._dense_tables(pos.device),
+                               n_tiles)[:, -1]
+        return logits.argmax(dim=-1).to(torch.int32), logits, k_cache, \
+            v_cache
+
+    def _prefill_impl(self, params, k_cache, v_cache, ids, slot, true_len):
+        """Prompt forward for ONE slot: ids [1, B] (bucket-padded),
+        writes cache rows [0, B) of slot ``slot`` (a device scalar) and
+        returns the greedy token at the last real token ``true_len - 1``
+        with its logits. Rows past ``true_len`` are bucket padding:
+        their outputs are never read and their rows are overwritten by
+        later decode writes before a position mask lets them in."""
+        B = ids.shape[1]
+        dev = ids.device
+        positions = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+        slots = slot.reshape(1).long()
+        tables = self._dense_tables(dev).index_select(0, slots)
+        n_tiles = torch.full((1,), (B - 1) // self._attend_tile + 1,
+                             dtype=torch.int32, device=dev)
+        logits = self._forward(params, k_cache, v_cache, ids, positions,
+                               slots, tables, n_tiles)[0]
+        last = logits.index_select(
+            0, (true_len.long() - 1).reshape(1))[0]
+        return last.argmax().to(torch.int32), last, k_cache, v_cache
+
+    def _decode_collect_impl(self, params, k_cache, v_cache, last_ids,
+                             pos, buf, i):
+        """Decode step + on-device token collection (``buf [S, n]``
+        donated; column ``i``, a device scalar, written in place)."""
+        nxt, _, k_cache, v_cache = self._decode_impl(
+            params, k_cache, v_cache, last_ids, pos)
+        buf.index_copy_(1, i.reshape(1).long(), nxt[:, None].to(buf.dtype))
+        return nxt, k_cache, v_cache, buf
 
     # -- host orchestration -------------------------------------------------
     def _count_pa_path(self, n: int = 1) -> None:
@@ -515,50 +649,64 @@ class LlamaDecodeEngine:
                 f"prompt length {n} not in [1, {self.max_seq - 1}]")
         return prompt_ids
 
+    def _bucket(self, n: int) -> int:
+        """The prefill program bucket of an ``n``-token prompt or chunk:
+        the next power of two from 8, at most max_seq (the JAX
+        engines')."""
+        b = 8
+        while b < n:
+            b *= 2
+        return min(b, self.max_seq)
+
     def prefill(self, slot: int, prompt_ids) -> int:
-        """Load a prompt into ``slot``'s cache rows; returns the first
-        generated token (greedy)."""
+        """Load a prompt into ``slot``'s cache rows through the prefill
+        program at the prompt's bucket (one graph a bucket); returns the
+        first generated token (greedy)."""
         prompt_ids = self._check_prompt(prompt_ids)
         n = int(prompt_ids.shape[0])
-        logits = self._forward(
-            prompt_ids[None, :], np.arange(n, dtype=np.int32)[None, :],
-            [slot], self._dense_tables[slot:slot + 1],
-            (n - 1) // self._attend_tile + 1)
-        self.last_logits = logits[0, -1]
-        first = int(self.last_logits.argmax())
+        b = self._bucket(n)
+        padded = np.zeros((1, b), np.int32)
+        padded[0, :n] = prompt_ids
+        tok, self.last_logits, _, _ = self._prefill(
+            self.params, self.k_cache, self.v_cache, padded,
+            np.int64(slot), np.int32(n))
+        first = int(tok)
         self._count_pa_path()
         self.pos[slot] = n
         self.active[slot] = True
         self.last_ids[slot, 0] = first
         return first
 
-    def _decode_logits(self, ids, pos: np.ndarray) -> torch.Tensor:
-        """Last-position logits [S, V] of one token for every slot at
-        write positions ``pos`` [S] (inactive slots write row 0 of their
-        own cache, which their next prefill overwrites)."""
-        return self._forward(
-            ids, pos[:, None], np.arange(self.max_slots),
-            self._dense_tables,
-            int(pos.max()) // self._attend_tile + 1)[:, -1]
-
-    def step(self) -> np.ndarray:
-        """One decode iteration for ALL slots; returns next token per
-        slot (garbage for inactive slots — callers consult .active)."""
+    def _check_step(self) -> None:
         act = self.pos[self.active]
         if act.size and int(act.max()) >= self.max_seq:
             raise ValueError(
                 f"a decode step would write past the {self.max_seq}-"
                 f"token cache (max pos {int(act.max())})")
-        self.last_logits = self._decode_logits(self.last_ids, self.pos)
-        nxt = self.last_logits.argmax(dim=-1).cpu().numpy()
+
+    def step(self) -> np.ndarray:
+        """One decode iteration for ALL slots; returns next token per
+        slot (garbage for inactive slots — callers consult .active)."""
+        self._check_step()
+        nxt, self.last_logits, _, _ = self._decode(
+            self.params, self.k_cache, self.v_cache, self.last_ids,
+            self.pos)
+        nxt = nxt.cpu().numpy()                       # the one read
         self._count_pa_path()
-        self._note_warm(self._decode_name,
-                        {"program": "decode", **self._warm_geo()})
         for s in range(self.max_slots):
             if self.active[s]:
                 self.pos[s] += 1
                 self.last_ids[s, 0] = nxt[s]
         return nxt
+
+    def _collect_buf(self, n: int) -> torch.Tensor:
+        """The token buffer of an ``n``-step window, kept per ``n`` so
+        the window program's graph writes the same tensor every call."""
+        buf = self._collect_bufs.get(n)
+        if buf is None:
+            buf = self._collect_bufs[n] = torch.zeros(
+                (self.max_slots, n), dtype=torch.int32, device=self.device)
+        return buf
 
     def decode_steps(self, n: int) -> np.ndarray:
         """``n`` chained decode iterations with the tokens kept on the
@@ -569,15 +717,21 @@ class LlamaDecodeEngine:
                 "decode_steps advances EVERY slot; use step() when some "
                 "slots are free (the continuous-batching server path)")
         self._check_window(n)
-        buf = torch.empty((self.max_slots, n), dtype=torch.long,
-                          device=self.device)
+        if self._decode_collect is None:
+            self._decode_collect = self._program(
+                self._decode_collect_impl, "serving.decode_window",
+                donate=(0, 1, 2, 5))
+        buf = self._collect_buf(n)
         ids = torch.as_tensor(self.last_ids).to(self.device)
+        pos = torch.as_tensor(self.pos).to(self.device)
         for i in range(n):
-            nxt = self._decode_logits(ids, self.pos + i).argmax(dim=-1)
-            buf[:, i] = nxt
+            nxt, _, _, _ = self._decode_collect(
+                self.params, self.k_cache, self.v_cache, ids, pos, buf,
+                np.int32(i))
             ids = nxt[:, None]
+            pos = pos + 1
         self._count_pa_path(n)
-        toks = buf.cpu().numpy().astype(np.int32)   # the one fetch
+        toks = buf.cpu().numpy()                      # the one fetch
         self.pos += n
         self.last_ids = toks[:, -1:].copy()
         return toks
@@ -608,6 +762,49 @@ class LlamaDecodeEngine:
         self.release(slot)
         return out
 
+    # -- the exported decode step -------------------------------------------
+    def _export_args(self) -> tuple:
+        dev = self.device
+        return (self.params, self.k_cache, self.v_cache,
+                torch.as_tensor(self.last_ids).to(dev),
+                torch.as_tensor(self.pos).to(dev))
+
+    def export_decode(self) -> bytes:
+        """The decode step as a ``torch.export`` program, serialized to
+        bytes (``torch.export.save``): the port's counterpart of the JAX
+        ``jax.export`` artifact, run by any process that imports
+        ``ops.kernels.paged_attention`` (for its operator) and loads the
+        bytes with ``torch.export.load``. The signature is the live
+        engine's, as in the JAX package: ``(params, k_cache, v_cache,
+        last_ids, pos)`` here — weights and caches are INPUTS, not
+        constants, so the program carries no weight bytes — and the
+        paged engine's ``(params, pools, last_ids, pos, tables,
+        active)``. K3 is the operator ``paddle_tpu_torch::paged_attention``
+        in the graph; the cache writes are in-place nodes on the cache
+        inputs (input mutations, no copy of a cache), so the loaded
+        program's module writes the caches passed to it. It returns the
+        next tokens ``int32 [S]``."""
+        return _export_program(self._decode_impl, self._export_args())
+
+
+def _export_program(body, args) -> bytes:
+    """``body(*args)[0]`` exported with ``torch.export`` at the shapes of
+    ``args`` and saved without example inputs: the program alone."""
+    import io
+
+    from .ops.kernels import paged_attention  # noqa: F401 - its operator
+
+    class _Program(torch.nn.Module):
+        def forward(self, *a):
+            return body(*a)[0]
+
+    with torch.no_grad():
+        ep = torch.export.export(_Program(), tuple(args))
+    ep._example_inputs = None    # the weights stay out of the program
+    blob = io.BytesIO()
+    torch.export.save(ep, blob)
+    return blob.getvalue()
+
 
 class PagedLlamaDecodeEngine(LlamaDecodeEngine):
     """Paged-KV decode engine: the dense engine's math over a
@@ -615,17 +812,33 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
 
     Layout: one shared pool per layer ``[num_blocks, block_size, KVH,
     D]`` (``serving_cache.PagedKVCache``) addressed through per-slot
-    block tables. Admission reserves a request's worst-case block count
-    (prompt + generation budget), prompt blocks are mapped at once, and
-    decode extends one block at a time at step boundaries — extension
-    can never fail mid-stream.
+    block tables. Each pool is the leading ``num_blocks`` blocks of a
+    STORE with one more block, the sink that no table maps: the
+    programs plan their K/V writes on the card (``kv_write_rows``) and
+    send dropped rows (inactive slots, bucket padding, unmapped blocks)
+    there. ``kvs`` holds the pools, ``_kv_store`` the stores the
+    programs take. Admission reserves a request's worst-case block
+    count (prompt + generation budget), prompt blocks are mapped at
+    once, and decode extends one block at a time at step boundaries —
+    extension can never fail mid-stream.
 
     Prefill is CHUNKED: ``begin_request`` allocates, then
     ``prefill_chunk`` runs at most ``FLAGS_serving_prefill_chunk``
-    prompt tokens per call, writing K/V straight into the slot's blocks
-    (a chunk runs at its exact length: eager PyTorch needs no shape
-    buckets). The GenerationServer interleaves one chunk with each
+    prompt tokens per call, padded to the JAX engine's bucket (the next
+    power of two from 8, at most the chunk length) so that a few
+    captured programs serve every chunk, writing K/V straight into the
+    slot's blocks. The GenerationServer interleaves one chunk with each
     decode step.
+
+    Programs, each through ``capture_jit`` under the JAX names: decode
+    (``serving.paged_decode``), prefill (``serving.paged_prefill``: one
+    graph a bucket, each noted in the warm bundle with its bucket), the
+    decode window
+    (``serving.paged_decode_window``), the speculative propose (the
+    draft's ``k`` chained steps in one program, ``serving.spec_draft``)
+    and verify (``serving.spec_verify``), and the copy-on-write
+    (``serving.prefix_cow``). The host block tables reach each program
+    as a small input, copied into its graph's static buffer.
 
     ``kv_quant``: None stores blocks in the model dtype, "bfloat16"
     halves f32 pools, "int8" stores absmax codes + per-(token, head)
@@ -642,14 +855,14 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
     _prefix_metrics = True
 
     def __init__(self, model, max_slots: int = 4, max_seq: int = 256,
-                 eos_id: Optional[int] = None,
+                 int8: bool = False, eos_id: Optional[int] = None,
                  block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  kv_quant: Optional[str] = None,
                  prefill_chunk: Optional[int] = None,
-                 num_layers: Optional[int] = None, device=None,
-                 attention_impl: str = "kernel",
-                 share_params: Optional[Dict[str, object]] = None):
+                 num_layers: Optional[int] = None,
+                 share_params: Optional[Dict[str, object]] = None,
+                 device=None, attention_impl: str = "kernel"):
         from .core.flags import flag_value
         self.block_size = int(block_size or
                               flag_value("serving_block_size"))
@@ -665,25 +878,15 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         self.prefill_chunk_len = int(
             prefill_chunk or flag_value("serving_prefill_chunk"))
         super().__init__(model, max_slots=max_slots, max_seq=max_seq,
-                         eos_id=eos_id, num_layers=num_layers,
-                         device=device, attention_impl=attention_impl,
-                         share_params=share_params)
+                         int8=int8, eos_id=eos_id, num_layers=num_layers,
+                         share_params=share_params, device=device,
+                         attention_impl=attention_impl)
 
     def _warm_geo(self) -> Dict[str, object]:
         return {"layout": "paged", "slots": self.max_slots,
                 "max_seq": self.max_seq, "block_size": self.block_size,
                 "num_blocks": self.num_blocks,
                 "chunk": self.prefill_chunk_len}
-
-    def _bucket(self, n: int) -> int:
-        """The JAX engine's prefill program bucket of an ``n``-token
-        chunk (the next power of two from 8, at most max_seq): only the
-        warm-bundle entries use it here, a chunk runs at its exact
-        length."""
-        b = 8
-        while b < n:
-            b *= 2
-        return min(b, self.max_seq)
 
     def _check_idle(self) -> None:
         if self.active.any() or self._prefill_state \
@@ -699,10 +902,11 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         entry without a draft), ``"stale"`` for one recorded against
         another pool geometry (slots, max_seq, block size, blocks), a
         prefill bucket over the live chunk or another ``spec_k``. The
-        program runs once at the entry's shapes on this idle engine with
-        every write masked off, so its kernel libraries load and cuBLAS
-        and the caching allocator are set up; pools and tables stay as
-        they were."""
+        entry's program takes its first call at the entry's shapes on
+        this idle engine with every write sent to the sink block (its
+        kernel libraries load, cuBLAS comes up, its CUDA graph is
+        captured): pools and tables stay as they were, and the first
+        request replays the graph."""
         meta = entry.get("meta") or {}
         prog = meta.get("program")
         if prog in ("spec_draft", "spec_verify") and self._draft is None:
@@ -724,39 +928,41 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
             return "stale"
         self._check_idle()
         S = self.max_slots
+        ids = np.zeros((S, 1), np.int32)
+        pos = np.zeros(S, np.int32)
         idle = np.zeros(S, bool)
         if prog == "decode":
-            self._forward_paged(np.zeros((S, 1), np.int32),
-                                np.zeros((S, 1), np.int32),
-                                self._kv.block_tables, idle[:, None], 1)
+            self._decode(self.params, self._kv_store, ids, pos,
+                         self._kv.block_tables, idle)
         elif prog == "prefill":
             b = int(meta.get("bucket", 0) or
                     min(self._bucket(1), self.prefill_chunk_len))
-            self._forward_paged(
-                np.zeros((1, b), np.int32),
-                np.arange(b, dtype=np.int32)[None, :],
-                self._kv.block_tables[:1], np.zeros((1, b), bool),
-                (b - 1) // self.block_size + 1)
+            z = np.int32(0)
+            self._prefill(
+                self.params, self._kv_store, np.zeros((1, b), np.int32),
+                self._kv.block_tables[0], z, z, z)
         elif prog == "spec_draft":
-            self._draft._propose(np.zeros((S, 1), np.int32),
-                                 np.zeros(S, np.int32), idle, self._spec_k)
-        else:  # the verify window reads this engine's idle slots: no write
-            self._spec_verify(torch.zeros((S, self._spec_k),
-                                          dtype=torch.long,
-                                          device=self.device))
-            self.last_logits = None
+            draft = self._draft
+            self._spec_propose(draft.params, draft._kv_store, ids, pos,
+                               draft._kv.block_tables, idle)
+        else:  # the verify window over this engine's idle slots
+            self._spec_verify_prog(
+                self.params, self._kv_store, ids,
+                np.zeros((S, self._spec_k), np.int32), pos,
+                self._kv.block_tables, idle)
+        self.last_logits = None
         self._count_pa_path()
         _flight.record("warmup", "serving_program", program=str(prog))
         return True
 
     def _alloc_pools(self) -> Dict[str, list]:
-        """Fresh zeroed block pools (per-layer K/V + int8 scales), at
-        boot and again at ``reset_state``."""
+        """Zeroed block-pool STORES (per-layer K/V + int8 scales), each
+        ``[num_blocks + 1, ...]``: the pool and its sink block."""
         kvh = self.cfg.num_key_value_heads
         pool_dt = {"int8": torch.int8,
                    "bfloat16": torch.bfloat16}.get(self.kv_quant,
                                                    self.dtype)
-        NB, bs, L = self.num_blocks, self.block_size, self.n_layers
+        NB, bs, L = self.num_blocks + 1, self.block_size, self.n_layers
         kw = dict(device=self.device)
         kv = {name: [torch.zeros((NB, bs, kvh, self.head_dim),
                                  dtype=pool_dt, **kw) for _ in range(L)]
@@ -771,15 +977,32 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         self._kv = _sc.PagedKVCache(
             max_slots=self.max_slots, max_seq=self.max_seq,
             block_size=self.block_size, num_blocks=self.num_blocks)
-        self.kvs = self._alloc_pools()
+        self._kv_store = self._alloc_pools()
+        NB = self.num_blocks
+        self.kvs = {name: [t[:NB] for t in stores]
+                    for name, stores in self._kv_store.items()}
+        self._decode = self._program(
+            self._decode_impl, "serving.paged_decode",
+            {"program": "decode", **self._warm_geo()})
+        self._decode_collect = None
+        # one program for every bucket (a bucket is a signature), its
+        # warm meta the bucket of the call
+        self._prefill = self._program(
+            self._prefill_impl, "serving.paged_prefill",
+            lambda params, kv, ids, *rest: {
+                "program": "prefill", "bucket": int(ids.shape[1]),
+                **self._warm_geo()})
+        self._cow = None
         self._prefill_state: Dict[int, dict] = {}
         self.prefix_hit_tokens: Dict[int, int] = {}
 
     def reset_state(self) -> None:
         """Reset over the block pool: every owned slot is released as a
         counted EVICTION, staged prefills are dropped, the radix tree
-        empties (its blocks' content dies with the pools) and the pools
-        are rebuilt as fresh zeros. An attached draft resets with it."""
+        empties (its blocks' content dies with the pools) and the stores
+        are zeroed IN PLACE — the captured graphs hold their addresses
+        and stay valid, so a restarted loop replays them. An attached
+        draft resets with it."""
         for s in range(self.max_slots):
             self._kv.release(s, evicted=True)
         self._kv.reset_prefix_cache()
@@ -788,27 +1011,17 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         self.pos[:] = 0
         self.active[:] = False
         self.last_ids[:] = 0
-        self.kvs = self._alloc_pools()
+        for stores in self._kv_store.values():
+            for t in stores:
+                t.zero_()
         if self._draft is not None:
             self._draft.reset_state()
 
     # -- device side --------------------------------------------------------
-    def _plan_writes(self, positions: np.ndarray, tables: np.ndarray,
-                     wmask: np.ndarray) -> _sc.KVWritePlan:
-        """Host-side (physical block, offset) cells of the rope'd K/V
-        rows at ``positions [S, T]``: rows with ``wmask`` False or an
-        unmapped table entry map to ``num_blocks`` and are dropped."""
-        bidx = np.minimum(positions // self.block_size,
-                          self._kv.max_blocks_per_slot - 1)
-        phys = np.take_along_axis(tables, bidx, axis=1)
-        ok = np.logical_and(wmask, phys >= 0)
-        phys = np.where(ok, phys, self.num_blocks)
-        off = positions % self.block_size
-        return _sc.plan_kv_writes(phys, off, self.num_blocks, self.device)
-
-    def _write_kv(self, kvl, k, v, plan) -> None:
-        """Scatter K/V rows [S, T, KVH, D] into the pools IN PLACE
-        (int8 pools take absmax codes + scales)."""
+    def _write_kv(self, kvl, k, v, rows):
+        """Scatter K/V rows [S, T, KVH, D] into their planned store rows
+        IN PLACE (int8 pools take absmax codes + scales); dropped rows
+        land in the sink block."""
         kf = k.reshape((-1,) + tuple(k.shape[2:]))
         vf = v.reshape((-1,) + tuple(v.shape[2:]))
         if self.kv_quant == "int8":
@@ -816,87 +1029,126 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
             vq, vs = _sc.absmax_quantize(vf)
             for name, vals in (("k", kq), ("v", vq), ("ksc", ks),
                                ("vsc", vs)):
-                _sc.scatter_kv(kvl[name], plan, vals)
+                _sc.write_kv_rows(kvl[name], rows, vals)
         else:
-            _sc.scatter_kv(kvl["k"], plan, kf)
-            _sc.scatter_kv(kvl["v"], plan, vf)
+            _sc.write_kv_rows(kvl["k"], rows, kf)
+            _sc.write_kv_rows(kvl["v"], rows, vf)
+        return kvl
 
-    def _forward_paged(self, ids, positions: np.ndarray,
-                       tables: np.ndarray, wmask: np.ndarray,
-                       n_tiles: int) -> torch.Tensor:
-        """Shared chunked-prefill/decode body: ids [S, T] at host
-        positions [S, T] with host block tables -> logits [S, T, V];
-        pool writes land in place. The tables, positions and tile count
-        move to the card once and serve every layer."""
-        dev = self.device
-        ids = torch.as_tensor(ids).to(dev, torch.long)
-        plan = self._plan_writes(positions, tables, wmask)
-        pos = torch.as_tensor(positions, dtype=torch.int32).to(dev)
-        tab = torch.as_tensor(tables, dtype=torch.int32).to(dev)
-        nt = torch.tensor([n_tiles], dtype=torch.int32, device=dev)
-        cos, sin = self._rope_cos_sin(pos)
-        h = F.embedding(ids, self.params["emb"]).to(self.dtype)
-        for li, lp in enumerate(self.params["layers"]):
-            kvl = {name: pools[li] for name, pools in self.kvs.items()}
+    def _cow_impl(self, kvs, src, dst):
+        """Boundary copy-on-write: clone block ``src`` into ``dst`` (one
+        -element device tensors) across every store (per-layer K/V +
+        int8 scales), in place."""
+        for stores in kvs.values():
+            for t in stores:
+                _sc.copy_block_device(t, src, dst)
+        return kvs
+
+    def _forward_paged(self, params, kv, ids, positions, tables, n_tiles,
+                       wmask):
+        """Shared chunked-prefill/decode body: ids [S, T] at int32
+        positions [S, T] with int32 block tables [S, MB] and the write
+        mask [S, T] -> ``(logits [S, T, V], kv)``; the write plan is
+        made once on the card and serves every layer, the writes land in
+        the stores in place."""
+        NB = self.num_blocks
+        rows = _sc.kv_write_rows(positions, tables, wmask, self.block_size,
+                                 NB)
+        cos, sin = self._rope_cos_sin(positions)
+        h = F.embedding(ids.long(), params["emb"]).to(self.dtype)
+        for li, lp in enumerate(params["layers"]):
+            kvl = {name: stores[li] for name, stores in kv.items()}
             q, k, v = self._qkv(lp, self._rms(h, lp["in_ln"]), cos, sin)
-            self._write_kv(kvl, k, v, plan)
+            self._write_kv(kvl, k, v, rows)
+            quant = "ksc" in kvl
             att = _sc.paged_attention(
-                q, kvl["k"], kvl["v"], tab, pos,
+                q, kvl["k"][:NB], kvl["v"][:NB], tables, positions,
                 block_size=self.block_size, n_rep=self.n_rep,
-                n_tiles=nt, k_scale=kvl.get("ksc"),
-                v_scale=kvl.get("vsc"), use_kernel=self._use_kernel)
+                n_tiles=n_tiles,
+                k_scale=kvl["ksc"][:NB] if quant else None,
+                v_scale=kvl["vsc"][:NB] if quant else None,
+                use_kernel=self._use_kernel)
             h = h + self._mm(att.reshape(h.shape), lp["o_proj"])
             h = self._ffn(lp, h)
-        return self._head(h)
+        return self._head(params, h), kv
 
-    def _decode_logits(self, ids, pos: np.ndarray,
-                       active: Optional[np.ndarray] = None
-                       ) -> torch.Tensor:
-        """One token for every slot at write positions ``pos`` [S];
-        slots not ``active`` (default: this engine's) neither write nor
-        advance. The walk is bounded by the LONGEST history, so short
-        batches pay only their own tiles."""
-        act = self.active if active is None else active
-        return self._forward_paged(
-            ids, pos[:, None], self._kv.block_tables, act[:, None],
-            int(pos.max()) // self.block_size + 1)[:, -1]
+    def _decode_impl(self, params, kv, last_ids, pos, tables, act):
+        """One token for every slot: ids [S, 1], pos [S] = write
+        position, tables [S, max_blocks], act [S] bool (inactive slots
+        neither write nor advance). The block walk is bounded by the
+        LONGEST history, a tile count made on the card. Returns ``(next
+        int32 [S], logits [S, V], kv)``."""
+        n_tiles = (pos.max() // self.block_size + 1).to(
+            torch.int32).reshape(1)
+        logits, kv = self._forward_paged(params, kv, last_ids,
+                                         pos[:, None], tables, n_tiles,
+                                         act[:, None])
+        last = logits[:, -1]
+        return last.argmax(dim=-1).to(torch.int32), last, kv
 
-    def _propose(self, last_ids, pos: np.ndarray, active: np.ndarray,
-                 k: int) -> torch.Tensor:
-        """DRAFT side of a speculative step: ``k`` chained greedy decode
-        steps writing this engine's pool at positions [pos, pos + k).
-        Each step's tokens feed the next on the card; positions and
-        tile counts come from the host's ``pos + i``, so nothing is
-        read back. Returns the proposals [S, k] (on the card)."""
-        ids = torch.as_tensor(last_ids).to(self.device, torch.long)
+    def _prefill_impl(self, params, kv, ids, table_row, start, nvalid,
+                      true_len):
+        """ONE prompt chunk for ONE slot: ids [1, B] (bucket-padded)
+        holds prompt tokens [start, start + nvalid); rows write into the
+        slot's blocks (the padding to the sink) and attend every earlier
+        position. Returns the greedy token at the prompt's LAST position
+        with its logits — meaningful only on the final chunk."""
+        B = ids.shape[1]
+        offs = torch.arange(B, dtype=torch.int32, device=ids.device)
+        positions = (start + offs)[None, :]
+        wmask = (offs < nvalid)[None, :]
+        n_tiles = ((start + nvalid - 1) // self.block_size + 1).to(
+            torch.int32).reshape(1)
+        logits, kv = self._forward_paged(params, kv, ids, positions,
+                                         table_row[None, :], n_tiles, wmask)
+        last = torch.clamp(true_len - 1 - start, 0, B - 1).long()
+        row = logits[0].index_select(0, last.reshape(1))[0]
+        return row.argmax().to(torch.int32), row, kv
+
+    def _decode_collect_impl(self, params, kv, last_ids, pos, buf, i,
+                             tables, act):
+        """Decode step + on-device token collection (``buf [S, n]``
+        donated; column ``i`` written in place)."""
+        nxt, _, kv = self._decode_impl(params, kv, last_ids, pos, tables,
+                                       act)
+        buf.index_copy_(1, i.reshape(1).long(), nxt[:, None].to(buf.dtype))
+        return nxt, kv, buf
+
+    def _propose_impl(self, params, kv, last_ids, pos, tables, act):
+        """DRAFT side of a speculative step: ``_spec_propose_k`` chained
+        greedy decode steps in ONE program (the tokens feed the next
+        step on the card), writing the draft's pool at positions [pos,
+        pos + k). Returns ``(draft tokens int32 [S, k], kv)``."""
+        ids, p = last_ids, pos
         toks = []
-        for i in range(k):
-            nxt = self._decode_logits(ids, pos + i, active).argmax(dim=-1)
+        for _ in range(self._spec_propose_k):
+            nxt, _, kv = self._decode_impl(params, kv, ids, p, tables, act)
             toks.append(nxt)
             ids = nxt[:, None]
-        return torch.stack(toks, dim=1)
+            p = p + 1
+        return torch.stack(toks, dim=1), kv
 
-    def _spec_verify(self, draft_tok: torch.Tensor):
+    def _spec_verify_impl(self, params, kv, last_ids, draft_tok, pos,
+                          tables, act):
         """TARGET side: score the whole window in ONE call — ids
         [S, k+1] = [last_id, d1..dk] at positions [pos, pos+k] —
         writing the target's K/V for every window position. Returns the
-        greedy targets t [S, k+1] (t[:, i] conditions on the prefix
-        through d_i) and the accepted-prefix length n_acc [S] = |leading
-        i with d_{i+1} == t_i|, both computed on the card; the window's
-        logits stay in ``last_logits``."""
-        k = int(draft_tok.shape[1])
-        ids = torch.cat([torch.as_tensor(self.last_ids).to(
-            self.device, torch.long), draft_tok], dim=1)
-        positions = self.pos[:, None] + np.arange(k + 1, dtype=np.int32)
-        wmask = np.broadcast_to(self.active[:, None], positions.shape)
-        logits = self._forward_paged(
-            ids, positions, self._kv.block_tables, wmask,
-            (int(self.pos.max()) + k) // self.block_size + 1)
-        self.last_logits = logits
-        t = logits.argmax(dim=-1)
-        match = (draft_tok == t[:, :k]).long()
-        n_acc = torch.cumprod(match, dim=1).sum(dim=1)
-        return t, n_acc
+        greedy targets t int32 [S, k+1] (t[:, i] conditions on the prefix
+        through d_i), the accepted-prefix length n_acc int32 [S] =
+        |leading i with d_{i+1} == t_i|, the window's logits and kv."""
+        k = draft_tok.shape[1]
+        ids = torch.cat([last_ids.to(draft_tok.dtype), draft_tok], dim=1)
+        positions = pos[:, None] + torch.arange(
+            k + 1, dtype=torch.int32, device=pos.device)[None, :]
+        n_tiles = ((pos.max() + k) // self.block_size + 1).to(
+            torch.int32).reshape(1)
+        wmask = act[:, None].expand(positions.shape)
+        logits, kv = self._forward_paged(params, kv, ids, positions,
+                                         tables, n_tiles, wmask)
+        t = logits.argmax(dim=-1).to(torch.int32)
+        match = (draft_tok == t[:, :k]).to(torch.int32)
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+        return t, n_acc, logits, kv
 
     # -- host orchestration -------------------------------------------------
     def make_draft(self, model=None, num_layers: Optional[int] = None
@@ -924,11 +1176,11 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
             model = SimpleNamespace(config=self.cfg)
         return PagedLlamaDecodeEngine(
             model, max_slots=self.max_slots, max_seq=self.max_seq,
-            eos_id=self.eos_id, block_size=self.block_size,
+            int8=self.int8, eos_id=self.eos_id, block_size=self.block_size,
             num_blocks=self.num_blocks, kv_quant=self.kv_quant,
             prefill_chunk=self.prefill_chunk_len, num_layers=n,
-            device=self.device, attention_impl=self.attention_impl,
-            share_params=self.params)
+            share_params=self.params, device=self.device,
+            attention_impl=self.attention_impl)
 
     def attach_draft(self, draft: "PagedLlamaDecodeEngine",
                      spec_tokens: Optional[int] = None
@@ -961,16 +1213,27 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         self._draft = draft
         draft._prefix_metrics = False
         self._spec_k = k
+        draft._spec_propose_k = k
+        self._spec_propose = draft._program(
+            draft._propose_impl, "serving.spec_draft",
+            {"program": "spec_draft", "k": k,
+             "draft_layers": draft.n_layers, **self._warm_geo()})
+        self._spec_verify_prog = self._program(
+            self._spec_verify_impl, "serving.spec_verify",
+            {"program": "spec_verify", "k": k, **self._warm_geo()})
         return self
 
     def _device_cow(self, slot: int, src: int, dst: int) -> None:
-        """Boundary copy-on-write: clone block ``src`` into ``dst`` in
-        every pool leaf (per-layer K/V + int8 scales), in place."""
-        for pools in self.kvs.values():
-            for pool in pools:
-                _sc.copy_block(pool, src, dst)
-        self._note_warm("serving.prefix_cow",
-                        {"program": "prefix_cow", **self._warm_geo()})
+        """Boundary copy-on-write: block ``src`` -> ``dst`` in every
+        store, through the ``serving.prefix_cow`` program. Issued in
+        order with admission and step bookkeeping, so the clone reads
+        the shared content before any later pool write can touch it."""
+        if self._cow is None:
+            self._cow = self._program(
+                self._cow_impl, "serving.prefix_cow",
+                {"program": "prefix_cow", **self._warm_geo()}, donate=(0,))
+        self._cow(self._kv_store, np.int64(src),
+                  np.int64(dst))
         if self._prefix_metrics:
             _flight.record("serving", "prefix_cow", slot=slot,
                            src=src, dst=dst)
@@ -1033,9 +1296,10 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         return True
 
     def prefill_chunk(self, slot: int) -> Optional[int]:
-        """Run the next prompt chunk for ``slot``. Returns None while
-        prefill is incomplete; on the final chunk, activates the slot
-        and returns the first generated token (greedy)."""
+        """Run the next prompt chunk for ``slot`` through its bucket's
+        program. Returns None while prefill is incomplete; on the final
+        chunk, activates the slot and returns the first generated token
+        (greedy: the one host read of a prefill)."""
         st = self._prefill_state[slot]
         ids, start = st["ids"], st["next"]
         n = int(ids.shape[0])
@@ -1043,16 +1307,14 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         limit = self.prefill_chunk_len if self._chunk_cap is None \
             else max(8, min(self.prefill_chunk_len, self._chunk_cap))
         c = min(limit, n - start)
-        positions = (start + np.arange(c, dtype=np.int32))[None, :]
-        logits = self._forward_paged(
-            ids[None, start:start + c], positions,
-            self._kv.block_tables[slot:slot + 1],
-            np.ones((1, c), bool), (start + c - 1) // self.block_size + 1)
+        b = min(self._bucket(c), self.prefill_chunk_len)
+        padded = np.zeros((1, b), np.int32)
+        padded[0, :c] = ids[start:start + c]
+        tok, logits, _ = self._prefill(
+            self.params, self._kv_store, padded,
+            self._kv.block_tables[slot], np.int32(start), np.int32(c),
+            np.int32(n))
         self._count_pa_path()
-        self._note_warm("serving.paged_prefill", {
-            "program": "prefill",
-            "bucket": min(self._bucket(c), self.prefill_chunk_len),
-            **self._warm_geo()})
         st["next"] = start + c
         # publish every fully-written prompt block into the radix tree
         # as soon as its last token lands
@@ -1064,8 +1326,8 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
             if draft is not None and slot in draft._prefill_state:
                 draft.prefill_chunk(slot)
             return None
-        self.last_logits = logits[0, -1]
-        first = int(self.last_logits.argmax())
+        self.last_logits = logits
+        first = int(tok)
         del self._prefill_state[slot]
         self.pos[slot] = n
         self.active[slot] = True
@@ -1112,6 +1374,7 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         .active). An attached draft runs a mirrored step on the same
         inputs, so its cache has no hole when the next iteration
         speculates again."""
+        self._check_step()
         self._extend_tables()
         draft = self._draft
         if draft is not None:
@@ -1119,13 +1382,18 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
                 if self.active[s]:
                     draft._shared_write_guard(s)
                     draft._kv.ensure_token(s, int(self.pos[s]))
-            draft._decode_logits(self.last_ids, self.pos, self.active)
-            draft._note_warm(draft._decode_name,
-                             {"program": "decode", **draft._warm_geo()})
-        nxt = super().step()
-        if draft is not None:
-            for s in range(self.max_slots):
-                if self.active[s]:
+            draft._decode(draft.params, draft._kv_store, self.last_ids,
+                          self.pos, draft._kv.block_tables, self.active)
+        nxt, self.last_logits, _ = self._decode(
+            self.params, self._kv_store, self.last_ids, self.pos,
+            self._kv.block_tables, self.active)
+        nxt = nxt.cpu().numpy()                       # the one read
+        self._count_pa_path()
+        for s in range(self.max_slots):
+            if self.active[s]:
+                self.pos[s] += 1
+                self.last_ids[s, 0] = nxt[s]
+                if draft is not None:
                     draft.pos[s] = self.pos[s]
                     draft.last_ids[s, 0] = nxt[s]
         return nxt
@@ -1145,12 +1413,20 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         return all(int(self.pos[s]) + k + 1 <= self.max_seq - 1
                    for s in act)
 
+    def _spec_verify(self, draft_tok: torch.Tensor):
+        """The verify program over this engine's live state: ``(t,
+        n_acc)`` on the card, the window's logits in ``last_logits``."""
+        t, n_acc, self.last_logits, _ = self._spec_verify_prog(
+            self.params, self._kv_store, self.last_ids, draft_tok,
+            self.pos, self._kv.block_tables, self.active)
+        return t, n_acc
+
     def spec_step(self):
         """One SPECULATIVE decode iteration for all active slots: the
-        draft proposes ``spec_k`` tokens (chained on the card), the
-        target verifies the window in one call, and ONE host read of
-        ``(t, n_acc)`` closes it — the host-read budget of one plain
-        step, for up to ``spec_k`` committed tokens.
+        draft proposes ``spec_k`` tokens (one program, chained on the
+        card), the target verifies the window in one call, and ONE host
+        read of ``(t, n_acc)`` closes it — the host-read budget of one
+        plain step, for up to ``spec_k`` committed tokens.
 
         Greedy acceptance: with d1..dk the proposals and t0..tk the
         target's greedy tokens, the committed prefix is t[:m], m =
@@ -1174,15 +1450,11 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
                 draft._shared_write_guard(s)
                 self._kv.reserve_through(s, int(self.pos[s]) + k)
                 draft._kv.reserve_through(s, int(self.pos[s]) + k - 1)
-        draft_tok = draft._propose(self.last_ids, self.pos, self.active,
-                                   k)
+        draft_tok, _ = self._spec_propose(
+            draft.params, draft._kv_store, self.last_ids, self.pos,
+            draft._kv.block_tables, self.active)
         t, n_acc = self._spec_verify(draft_tok)
         self._count_pa_path()
-        draft._note_warm("serving.spec_draft", {
-            "program": "spec_draft", "k": k,
-            "draft_layers": draft.n_layers, **self._warm_geo()})
-        self._note_warm("serving.spec_verify", {
-            "program": "spec_verify", "k": k, **self._warm_geo()})
         host = torch.cat([t, n_acc[:, None]], dim=1).cpu().numpy()
         toks = host[:, :k + 1].astype(np.int32)       # the one read
         acc = host[:, k + 1]
@@ -1214,7 +1486,7 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
     def decode_steps(self, n: int) -> np.ndarray:
         """``n`` chained decode iterations, tokens kept on the card and
         ONE host fetch at the end; blocks for the whole window are
-        mapped up front."""
+        mapped up front, so one copy of the tables serves every step."""
         if not self.active.all():
             raise ValueError(
                 "decode_steps advances EVERY slot; use step() when "
@@ -1224,7 +1496,27 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         for s in range(self.max_slots):
             self._shared_write_guard(s)
             self._kv.reserve_through(s, int(self.pos[s]) + n - 1)
-        return super().decode_steps(n)
+        if self._decode_collect is None:
+            self._decode_collect = self._program(
+                self._decode_collect_impl, "serving.paged_decode_window",
+                donate=(0, 1, 4))
+        dev = self.device
+        buf = self._collect_buf(n)
+        ids = torch.as_tensor(self.last_ids).to(dev)
+        pos = torch.as_tensor(self.pos).to(dev)
+        tables = torch.as_tensor(self._kv.block_tables).to(dev)
+        act = torch.as_tensor(self.active).to(dev)
+        for i in range(n):
+            nxt, _, _ = self._decode_collect(
+                self.params, self._kv_store, ids, pos, buf, np.int32(i),
+                tables, act)
+            ids = nxt[:, None]
+            pos = pos + 1
+        self._count_pa_path(n)
+        toks = buf.cpu().numpy()                      # the one fetch
+        self.pos += n
+        self.last_ids = toks[:, -1:].copy()
+        return toks
 
     def generate(self, prompt_ids, max_new_tokens: int = 32,
                  slot: int = 0) -> List[int]:
@@ -1252,6 +1544,14 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         self._kv.release(slot, evicted=evicted)
         if self._draft is not None:
             self._draft.release(slot, evicted=evicted)
+
+    def _export_args(self) -> tuple:
+        dev = self.device
+        return (self.params, self._kv_store,
+                torch.as_tensor(self.last_ids).to(dev),
+                torch.as_tensor(self.pos).to(dev),
+                torch.as_tensor(self._kv.block_tables).to(dev),
+                torch.as_tensor(self.active).to(dev))
 
 
 class GenerationServer:

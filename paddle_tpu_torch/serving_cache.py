@@ -24,12 +24,15 @@ Three pieces live here:
   (``ops.kernels.paged_attention``) or raises; a CPU tensor takes the
   plain walk. The walk runs on the card only when a caller asks for it
   by name (``use_kernel=False``).
-- :func:`write_kv_tokens` / :func:`absmax_quantize` / :func:`copy_block`
-  — the scatter of freshly computed K/V rows into (physical block,
-  offset) cells, optional int8 block storage (symmetric absmax codes
-  with per-(token, head) scales) and the copy-on-write block copy.
-  Where the JAX package donates the pools to a jitted step, these
-  update the pool tensors IN PLACE.
+- :func:`kv_write_rows` / :func:`write_kv_rows` — the engines' write
+  plan on the card (fixed shapes, no host sync; dropped rows land in a
+  sink block past the ``num_blocks`` a table can map) and its scatter;
+  :func:`write_kv_tokens` / :func:`plan_kv_writes` plan on the host for
+  host callers. :func:`absmax_quantize` is the optional int8 block
+  storage (symmetric absmax codes with per-(token, head) scales),
+  :func:`copy_block` / :func:`copy_block_device` the copy-on-write
+  block copy. Where the JAX package donates the pools to a jitted step,
+  these update the pool tensors IN PLACE.
 """
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ from .ops.kernels import paged_attention as _pk
 
 __all__ = ["PagedKVCache", "paged_attention", "write_kv_tokens",
            "absmax_quantize", "use_kernel_default", "copy_block",
-           "KVWritePlan", "plan_kv_writes", "scatter_kv"]
+           "KVWritePlan", "plan_kv_writes", "scatter_kv", "kv_write_rows",
+           "write_kv_rows", "copy_block_device"]
 
 _M = _om.scope("serving")
 _G_blocks_free = _M.gauge(
@@ -698,6 +702,47 @@ def copy_block(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
     return pool
 
 
+def kv_write_rows(positions: torch.Tensor, tables: torch.Tensor,
+                  wmask: torch.Tensor, block_size: int,
+                  num_blocks: int) -> torch.Tensor:
+    """The DEVICE write plan of one step, with fixed shapes and no host
+    sync: the flat row, in a pool STORE ``[num_blocks + 1, block_size,
+    ...]`` viewed as ``[(num_blocks + 1) * block_size, ...]``, of each
+    K/V row at ``positions [S, T]`` — the JAX ``_write_kv`` cells
+    (``take_along_axis`` of the block tables at ``min(pos // bs, MB -
+    1)``, offset ``pos % bs``). Rows with ``wmask`` False or an unmapped
+    (``< 0``) table entry go to row ``num_blocks * block_size``, the
+    first row of the store's SINK block, which no table maps: they land
+    nowhere a walk reads, and never on a cell a live row of the same
+    step writes (clamping would). Returns int64 ``[S * T]``."""
+    bs = int(block_size)
+    bidx = torch.clamp(positions // bs, max=tables.shape[1] - 1).long()
+    phys = torch.take_along_dim(tables, bidx, dim=1).long()
+    ok = wmask & (phys >= 0)
+    rows = torch.where(ok, phys * bs + positions % bs,
+                       int(num_blocks) * bs)
+    return rows.reshape(-1)
+
+
+def write_kv_rows(store: torch.Tensor, rows: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """Write ``vals [N, ...]`` into the flat rows ``rows [N]`` of a pool
+    store (:func:`kv_write_rows`) IN PLACE, cast to its dtype. Returns
+    ``store``."""
+    flat = store.view((-1,) + tuple(store.shape[2:]))
+    flat.index_put_((rows,), vals.to(store.dtype))
+    return store
+
+
+def copy_block_device(store: torch.Tensor, src: torch.Tensor,
+                      dst: torch.Tensor) -> torch.Tensor:
+    """:func:`copy_block` with the block ids as one-element device
+    tensors (what a captured copy-on-write program reads), IN PLACE."""
+    store.index_copy_(0, dst.reshape(1).long(),
+                      store.index_select(0, src.reshape(1).long()))
+    return store
+
+
 class KVWritePlan(NamedTuple):
     """Device index tensors of one step's K/V row writes, with the
     dropped rows already filtered out: ``rows`` selects the written
@@ -710,13 +755,13 @@ class KVWritePlan(NamedTuple):
 
 def plan_kv_writes(phys, off, num_blocks: int,
                    device: torch.device) -> KVWritePlan:
-    """Filter a step's writes ON THE HOST — rows whose ``phys`` is out
-    of range (the engines map invalid rows to ``num_blocks``, as the
-    JAX package does) are dropped — and move the survivors' indices to
-    ``device`` once, so every layer's scatter reuses them and no
-    device-side mask ever forces a host sync. An out-of-range
-    ``index_put_`` would be an IndexError on the CPU and a device-side
-    assert on the card, so the filter comes first."""
+    """Filter writes ON THE HOST — rows whose ``phys`` is out of range
+    (callers map invalid rows to ``num_blocks``, as the JAX package
+    does) are dropped — and move the survivors' indices to ``device``
+    once. For host callers (:func:`write_kv_tokens`); the engines plan
+    on the card (:func:`kv_write_rows`). An out-of-range ``index_put_``
+    would be an IndexError on the CPU and a device-side assert on the
+    card, so the filter comes first."""
     phys = np.asarray(phys, np.int64).reshape(-1)
     off = np.asarray(off, np.int64).reshape(-1)
     keep = np.nonzero((phys >= 0) & (phys < int(num_blocks)))[0]

@@ -462,8 +462,10 @@ class ReplicaServer:
         if op == "health":
             return {"ok": True, "health": health_snapshot(srv)}
         if op == "stats":
+            group = getattr(srv.engine, "_graphs", None)
             return {"ok": True, "stats": srv.stats(),
-                    "k3": _k3_counts(srv)}
+                    "k3": _k3_counts(srv),
+                    "graphs": group.stats() if group is not None else {}}
         if op == "cache_stats":
             from .jit import warmup as _warmup
             return {"ok": True, "cache": _warmup.cache_stats()}
@@ -523,7 +525,7 @@ def replica_main(config: dict, boot_out=None) -> None:
     without a checkpoint; {"kind": "inference_model", "path": p} loads a
     ``.pdmodel``), ``device`` (default ``"cuda"``), engine geometry
     (``max_slots``/``max_seq``/``block_size``/``prefill_chunk``/
-    ``eos_id``; ``int8`` raises, the s8 projections are not ported),
+    ``eos_id``, ``int8`` for the s8 projections),
     ``warm_bundle`` (pre-warm before the first admission), ``prime`` /
     ``prime_tokens`` (one short generation before serving, e.g. before
     ``export_bundle``), ``export_bundle`` (a path), ``supervised``,
@@ -539,10 +541,6 @@ def replica_main(config: dict, boot_out=None) -> None:
     from .jit import warmup as _warmup
     from .serving import GenerationServer, PagedLlamaDecodeEngine
 
-    if config.get("int8"):
-        raise NotImplementedError(
-            "int8=True (s8 projections) is not ported; the paged engine "
-            "stores int8 KV through kv_quant instead")
     _warmup.ensure_executable_cache()
     device = config.get("device", "cuda")
     model = _replica_model(config.get("model") or {}, device)
@@ -554,6 +552,7 @@ def replica_main(config: dict, boot_out=None) -> None:
                                   _flag("serving_block_size"))),
         prefill_chunk=int(config.get("prefill_chunk",
                                      _flag("serving_prefill_chunk"))),
+        int8=bool(config.get("int8", False)),
         eos_id=config.get("eos_id"), device=device)
     prewarm = None
     bundle = config.get("warm_bundle") or None

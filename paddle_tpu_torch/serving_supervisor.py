@@ -7,8 +7,12 @@ The port of ``paddle_tpu.serving_supervisor``:
   ``GenerationServer``'s loop thread for death (an exception, a
   ``KillPoint`` among them) or a stall (alive, heartbeat stale, work
   pending); dumps the flight ring, fences the old loop, resets the
-  engine (fresh zero KV pools) and restarts the loop after a bounded
-  exponential backoff. In-flight requests are recovered: their
+  engine (its KV pools zeroed in place) and restarts the loop after a
+  bounded exponential backoff. The restarted loop replays the engine's
+  CUDA graphs: they hold the pools' addresses, which a reset keeps, and
+  a capture that a fault cut is never stored (``jit.sot.capture_jit``),
+  so no graph of a cut capture can replay. In-flight requests are
+  recovered: their
   committed tokens are host state, so each re-admits through the normal
   prefill with ``prompt + committed`` as its prompt, and a greedy stream
   resumes as it would have gone on. A request active at

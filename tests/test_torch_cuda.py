@@ -26,7 +26,11 @@ host read, a tiny NHWC ResNet through ``TrainStep`` with Momentum:
 replays against its eager loop), and dy2static and the inference
 artifact (the ``flash_fwd`` operator against the wrapper, an exported
 tiny GPT through K1a/K1b, ``to_static`` replaying CUDA graphs with one
-guard fetch, ``full_graph=True`` as one graph). Each skips (with its reason)
+guard fetch, ``full_graph=True`` as one graph), and the serving step as
+CUDA graphs (K3's operator reading its tile count inside a graph,
+``_int_mm``'s row padding, ``capture_jit`` replays and re-captures, the
+captured engines against the same engines op by op, bf16 and int8, and
+the exported decode step on the card). Each skips (with its reason)
 where there is no CUDA device; the decision is made inside the
 fixture, never at import. This file imports no JAX, so on a machine
 without it run it as
@@ -1852,3 +1856,157 @@ def test_full_graph_static_function_is_one_graph(cuda):
         assert st.stats["captures"] == 2 and float(out.abs().max()) == 0.0
     finally:
         device._current = prev
+
+
+# ---------------------------------------------------------------------------
+# the serving step as CUDA graphs (capture_jit), K3 as an operator, int8
+# ---------------------------------------------------------------------------
+
+def test_k3_operator_reads_its_tile_count_inside_a_graph(cuda):
+    """``paddle_tpu_torch::paged_attention`` on the card equals the
+    wrapper's direct launch; captured in a CUDA graph it reads
+    ``n_tiles`` from device memory (a new value written into the same
+    tensor changes the replay's result to the direct call's at that
+    value), and the counters advance only where it launches."""
+    (q, kp, vp, tables, pos), kw = _inputs(cuda, 2, 1, 8, 2, 128, 16, 6,
+                                           torch.bfloat16, False, 3)
+    pos = torch.full_like(pos, 70)     # history past the first 2 tiles
+    nt = torch.full((1,), 6, dtype=torch.int32, device=cuda)
+    args = (q, kp, vp, tables, pos, nt, None, None, 16, 4)
+    want = tpk._launch(*args)
+    got = torch.ops.paddle_tpu_torch.paged_attention(*args)
+    assert torch.equal(got, want)
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpk.paged_attention_op(*args)          # warm the stream
+        before = tpk.paged_attention_kernel.launches
+        with torch.cuda.graph(g, stream=side):
+            out = tpk.paged_attention_op(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    assert tpk.paged_attention_kernel.launches == before + 1
+    for n in (6, 2):
+        nt.fill_(n)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, tpk._launch(*args))
+    assert not torch.equal(out, want)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 40])
+def test_int_mm_padding_is_exact(cuda, rows):
+    """``_s8_matmul`` pads fewer than 24 rows for ``torch._int_mm`` and
+    gives the exact int32 product at every row count."""
+    from paddle_tpu_torch.serving import _s8_matmul
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    a = torch.randint(-127, 128, (rows, 256), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (72, 256), generator=g, device=cuda,
+                      dtype=torch.int8)
+    got = _s8_matmul(a, w)
+    assert got.dtype == torch.int32 and got.shape == (rows, 72)
+    want = (a.double() @ w.double().t()).to(torch.int64)
+    assert torch.equal(got.to(torch.int64), want)
+
+
+def test_capture_jit_replays_and_recaptures_on_a_moved_tensor(cuda):
+    """A program's first call runs op by op and captures; later calls
+    replay with the small inputs copied in; a donated output comes back
+    as the caller's tensor; a donated tensor that moved captures anew and
+    the stale graph never replays."""
+    from paddle_tpu_torch.jit.sot import capture_jit
+
+    def body(w, buf, x):
+        buf.add_(w * x)
+        return (w * x).sum(), buf
+
+    w = torch.arange(4.0, device=cuda)
+    buf = torch.zeros(4, device=cuda)
+    prog = capture_jit(body, donate_argnums=(0, 1), name="t.card")
+    for i in range(3):
+        s, out = prog(w, buf, np.full(4, i + 1, np.float32))
+        assert out is buf and float(s) == 6.0 * (i + 1)
+    assert buf.tolist() == [0.0, 6.0, 12.0, 18.0]
+    assert prog.stats["captures"] == 1 and prog.stats["replays"] == 2
+    w2 = torch.ones(4, device=cuda)
+    s, _ = prog(w2, buf, np.ones(4, np.float32))
+    assert float(s) == 4.0 and prog.stats["captures"] == 2
+    assert prog._group.graphs() == 1 and prog._group.pool_bytes() > 0
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_captured_serving_equals_eager_on_the_card(cuda, int8):
+    """A target with make_draft()'s view through a speculative server,
+    and the dense engine's window: the captured engines' streams equal
+    the same engines run op by op (``FLAGS_sot_capture=0``), every
+    program replayed its graph, nothing fell back, and the K3 launches
+    of the replays count as the eager launches."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.serving import LlamaDecodeEngine
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                           num_key_value_heads=1, dtype="bfloat16",
+                           use_flash_attention=False)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    prompts = [(list(range(1, 40)), 20), (list(range(7, 12)), 9)]
+    runs = {}
+    for mode in ("eager", "captured"):
+        set_flags({"FLAGS_sot_capture": mode == "captured"})
+        try:
+            eng = PagedLlamaDecodeEngine(model, int8=int8, **_SPEC_GEO)
+            eng.attach_draft(eng.make_draft(), spec_tokens=3)
+            before = tpk.paged_attention_kernel.launches
+            srv = GenerationServer(eng)
+            try:
+                streams = [srv.generate(p, n, timeout=120)
+                           for p, n in prompts]
+            finally:
+                assert srv.shutdown(timeout=60)
+            dense = LlamaDecodeEngine(model, 2, 128, int8, device="cuda")
+            dense.prefill(0, prompts[0][0])
+            dense.prefill(1, prompts[1][0])
+            window = dense.decode_steps(5).tolist()
+            runs[mode] = (streams, window,
+                          tpk.paged_attention_kernel.launches - before,
+                          eng._graphs.stats(), eng._draft._graphs.stats(),
+                          dense._graphs.stats())
+        finally:
+            set_flags({"FLAGS_sot_capture": True})
+    assert runs["captured"][:3] == runs["eager"][:3]
+    for st in runs["captured"][3:]:
+        assert st["fallbacks"] == 0 and st["replays"] > 0
+        assert st["captures"] == st["graphs"]
+    by = runs["captured"][3]["by_program"]
+    assert by["serving.spec_verify"]["replays"] > 0
+    assert by["serving.paged_prefill"]["captures"] >= 1
+    assert runs["captured"][4]["by_program"]["serving.spec_draft"][
+        "replays"] > 0
+    # the replays' K3 launches, as their captures counted them, are a
+    # part of the run's launches
+    replayed = sum(v["replayed"].get("paged_attention_kernel.launches", 0)
+                   for st in runs["captured"][3:]
+                   for v in st["by_program"].values())
+    assert 0 < replayed <= runs["captured"][2]
+
+
+def test_export_decode_on_the_card(cuda):
+    """The paged engine's exported decode step, loaded from its bytes,
+    runs K3 on the card through the operator and equals the live
+    step."""
+    import io
+    from torch.utils import _pytree as pytree
+    model = _tiny_llama_on_card()
+    eng = PagedLlamaDecodeEngine(model, **_SPEC_GEO)
+    eng.prefill(0, list(range(1, 40)), budget=8)
+    eng._extend_tables()
+    ep = torch.export.load(io.BytesIO(eng.export_decode()))
+    args = list(eng._export_args())
+    args[1] = pytree.tree_map(lambda t: t.clone(), args[1])
+    before = tpk.paged_attention_kernel.launches
+    nxt = ep.module()(*args)
+    assert tpk.paged_attention_kernel.launches == \
+        before + model.config.num_hidden_layers
+    assert nxt.tolist() == eng.step().tolist()
+    for got, live in zip(pytree.tree_leaves(args[1]),
+                         pytree.tree_leaves(eng._kv_store)):
+        assert torch.equal(got, live)

@@ -6,8 +6,10 @@ the port (save/load round trip, the predictor against the eager forward,
 mismatched files, input names, live modules and their modes, bf16 kept
 through a load, unreconstructable models refused at save). A
 ``.pdmodel`` the JAX package saved for its Llama loads into the port's
-and generates the JAX engine's greedy stream; ``aot=True`` and
-``int8=True`` raise; ``serve`` on an ephemeral port answers ``/run``,
+and generates the JAX engine's greedy stream; ``aot=True`` without an
+input spec raises and ``int8=True`` serves an int8 engine (its streams
+are held to JAX's in test_torch_serving_int8.py); ``serve`` on an
+ephemeral port answers ``/run``,
 ``/generate`` and ``/health``, micro-batches concurrent requests and
 stops its threads.
 """
@@ -143,11 +145,17 @@ def test_aot_and_int8_raise(tmp_path):
     with pytest.raises(ValueError, match="input_spec"):
         tinference.save_inference_model(str(tmp_path / "x"), _model(0),
                                         aot=True)
+    # int8=True is ported: the engine serves s8 projections
     path = str(tmp_path / "m")
     tinference.save_inference_model(path, _model(0))
-    with pytest.raises(NotImplementedError, match="s8"):
-        tinference.serve(path, port=0, block=False, generate=True,
-                         int8=True, device="cpu")
+    srv = tinference.serve(path, port=0, block=False, generate=True,
+                           int8=True, device="cpu")
+    try:
+        eng = srv.gen_server.engine
+        assert eng.int8 and isinstance(eng.params["head"], tuple)
+        assert eng.params["layers"][0]["q_proj"][0].dtype == torch.int8
+    finally:
+        srv.shutdown(timeout=30)
 
 
 # ---------------------------------------------------------------------------
