@@ -6719,15 +6719,17 @@ def bn_shapes(model, x):
     return shapes
 
 
-def bn_yardstick(shapes, dtype, device="cuda"):
+def bn_yardstick(shapes, dtype, device="cuda", data_format="NHWC"):
     """The port's training batch norm (forward + backward) against
-    ``torch.nn.functional.batch_norm`` (cuDNN, on the channels-last NCHW
-    view) on each NHWC shape; device ms summed over the layers."""
+    ``torch.nn.functional.batch_norm`` (cuDNN; for NHWC on the
+    channels-last NCHW view) on each shape; device ms summed over the
+    layers."""
     import torch
     import paddle_tpu_torch.nn.functional as F
+    nhwc = data_format == "NHWC"
     port = cudnn = 0.0
     for shape in shapes:
-        c = shape[-1]
+        c = shape[-1] if nhwc else shape[1]
         x = torch.randn(shape, device=device).to(dtype).requires_grad_()
         g = torch.randn(shape, device=device).to(dtype)
         w = torch.ones(c, device=device, dtype=dtype, requires_grad=True)
@@ -6740,12 +6742,14 @@ def bn_yardstick(shapes, dtype, device="cuda"):
 
         def ours():
             F.batch_norm(x, rm, rv, w, b, training=True,
-                         data_format="NHWC").backward(g)
+                         data_format=data_format).backward(g)
 
         def theirs():
+            xc, gc_ = (x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)) \
+                if nhwc else (x, g)
             torch.nn.functional.batch_norm(
-                x.permute(0, 3, 1, 2), rm32, rv32, w32, b32, training=True,
-                momentum=0.1, eps=1e-5).backward(g.permute(0, 3, 1, 2))
+                xc, rm32, rv32, w32, b32, training=True,
+                momentum=0.1, eps=1e-5).backward(gc_)
         port += time_ms(ours, samples=5, inner=2, warmup=1)
         cudnn += time_ms(theirs, samples=5, inner=2, warmup=1)
     return {"layers": len(shapes), "port_ms_per_step": port,
@@ -7114,6 +7118,519 @@ def phase_resnet_fit():
     if not ok:
         emit({"phase": "resnet_fit", "failed": {"want": want}, **out})
         raise AssertionError("resnet_fit: capture or losses off")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the rest of paddle.vision: MobileNetV2 through the captured TrainStep,
+# the zoo and the detection ops on the card against the CPU
+# ---------------------------------------------------------------------------
+
+# MobileNetV2 at its published ImageNet widths (scale 1.0, 1000
+# classes), the ResNet-50 phase's batch and resolution; the optimizer is
+# the MobileNetV2 paper's initial rate and weight decay (Sandler et al.
+# 2018, section 6.1) on the captured Momentum
+MOBILENET_V2 = dict(batch=128, hw=224, classes=1000, warmup=2, steps=20,
+                    lr=0.045, momentum=0.9, weight_decay=4e-5)
+# every family's default constructor, f32 on the card against the CPU
+# (batch 4, 1000 classes; Inception v3 at 299², LeNet at 1×28×28 with
+# its 10 classes), and a bf16 eval forward at batch 64
+ZOO_PARITY = ("mobilenet_v1", "mobilenet_v3_small", "mobilenet_v3_large",
+              "vgg16", "LeNet", "alexnet", "squeezenet1_1", "densenet121",
+              "shufflenet_v2_x1_0", "googlenet", "inception_v3")
+ZOO_TRAIN = ("mobilenet_v3_large", "shufflenet_v2_x1_0")
+ZOO_TOL = dict(logits=1e-3, loss=1e-4, grad=5e-2)
+ZOO_BATCH, ZOO_TIME_BATCH = 4, 64
+# the detection ops at a detector's sizes: one FPN level of an 800×1088
+# image at stride 4 with 1000 boxes; R-FCN's 10·7·7 position-sensitive
+# channels with 300 boxes; YOLOv3's three heads at 416² (the anchors and
+# masks of its published config), 80 classes, batch 8
+OPS_TOL = dict(out=1e-4, grad=1e-3)
+# roi_align's samples sit at f32 coordinates up to ~272 px, whose
+# rounding (3.05e-5 px) moves an interpolant of slope up to ~8: the
+# port's f32 result is 8.6e-5 from float64 on the CPU at this size and
+# the card's 1.34e-4 from the CPU's, so its outputs are held at 5e-4
+ROI_ALIGN_TOL = dict(out=5e-4, grad=1e-3)
+VISION_OPS = dict(fpn=(256, 200, 272), boxes=1000, ps_boxes=300,
+                  deform=(2, 256, 64, 64), grid=(8, 64, 128, 128),
+                  yolo_batch=8, nms_boxes=2000)
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_HEADS = ((13, 32, [6, 7, 8]), (26, 16, [3, 4, 5]), (52, 8, [0, 1, 2]))
+
+
+def zoo_boxes(rng, n, h, w, spatial_scale=1.0):
+    """``n`` boxes (xyxy, image pixels) inside an ``h × w`` feature map
+    at ``spatial_scale``."""
+    import numpy as np
+    H, W = h / spatial_scale, w / spatial_scale
+    x1 = rng.uniform(0, W * 0.8, n)
+    y1 = rng.uniform(0, H * 0.8, n)
+    bw = rng.uniform(min(8.0, W * 0.1), W * 0.25, n)
+    bh = rng.uniform(min(8.0, H * 0.1), H * 0.25, n)
+    return np.stack([x1, y1, np.minimum(x1 + bw, W - 1),
+                     np.minimum(y1 + bh, H - 1)], 1).astype(np.float32)
+
+
+def worst_excess(got, want, tol):
+    """(max(|got - want| - tol·(1 + |want|)), max |got - want|) on the
+    host in f64: the first <= 0 passes."""
+    a, b = got.detach().double().cpu(), want.detach().double().cpu()
+    d = (a - b).abs()
+    return float((d - tol * (1 + b.abs())).max()), float(d.max())
+
+
+def phase_mobilenet_v2_train(device="cuda"):
+    """MobileNetV2 at ImageNet widths through the port's captured
+    TrainStep, then the same steps through a plain eager loop from the
+    same weights and key stream (``device="cpu"`` rehearses the phase's
+    code at a small size)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    cfg = MOBILENET_V2
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    # the algorithm search runs in the eager first step, never inside
+    # the capture; deterministic algorithms, so that the replays and the
+    # eager loop can be held to each other
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        paddle.set_device("gpu" if device == "cuda" else device)
+        paddle.seed(SEED)
+        model = mobilenet_v2(scale=1.0,
+                             num_classes=cfg["classes"]).bfloat16()
+        n_params = sum(p.numel() for p in model.parameters())
+
+        def make_opt():
+            return paddle.optimizer.Momentum(
+                learning_rate=cfg["lr"], momentum=cfg["momentum"],
+                weight_decay=cfg["weight_decay"],
+                parameters=model.parameters())
+        opt = make_opt()
+        crit = paddle.nn.CrossEntropyLoss()
+        step = TrainStep(model, crit, opt)
+        rng = np.random.default_rng(SEED)
+        b, hw = cfg["batch"], cfg["hw"]
+        x = torch.from_numpy(rng.standard_normal((b, 3, hw, hw)).astype(
+            np.float32) * 0.1).to(device, torch.bfloat16)
+        y = torch.from_numpy(rng.integers(0, cfg["classes"], (b,))).to(
+            device)
+        params0, bufs0, _ = resnet_state(model, opt)
+        rng0 = trandom.get_rng_state()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        mem_start = fresh_peak()
+        t1 = time.perf_counter()
+        losses = [step(x, y) for _ in range(cfg["warmup"])]
+        torch.cuda.synchronize()
+        first_two_s = time.perf_counter() - t1
+        timed, wall, captured = timed_replays(step, (x, y), cfg["steps"])
+        losses += timed
+        capture = check_captured("mobilenet_v2_train", step, captured,
+                                 cfg["steps"])
+        peak = torch.cuda.max_memory_allocated()
+        loss_values = [float(v) for v in losses]
+        if not all(math.isfinite(v) for v in loss_values):
+            raise AssertionError(f"mobilenet_v2_train: non-finite loss "
+                                 f"{loss_values}")
+        cap = resnet_state(model, opt)
+        rng_cap = list(trandom.get_rng_state())
+        still = [k for k in bufs0 if torch.equal(cap[1][k], bufs0[k])]
+        if still:
+            raise AssertionError("mobilenet_v2_train: running statistics "
+                                 f"that did not move: {still[:5]}")
+        prof = profile_train_step(step, (x, y), resnet_group, RESNET_GROUPS,
+                                  named=("conv", "layout", "pooling"))
+        step_ms = wall / cfg["steps"] * 1e3
+        del step
+        # the same steps through a plain eager loop from the same start
+        with torch.no_grad():
+            for k, p in torch_named(model, "parameters"):
+                p.copy_(params0[k])
+            for k, v in torch_named(model, "buffers"):
+                v.copy_(bufs0[k])
+        opt = make_opt()
+        trandom.set_rng_state(rng0)
+        eager = []
+        n = cfg["warmup"] + cfg["steps"]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for _ in range(n):
+            loss = crit(model(x), y).float()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            eager.append(loss.detach())
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t2) / n * 1e3
+        eager = [float(v) for v in eager]
+        vs = compare_states(cap, resnet_state(model, opt))
+        vs["loss_rel_err_max"] = max(abs(a - e) / max(abs(e), 1e-30)
+                                     for a, e in zip(loss_values, eager))
+        vs["losses_bit_equal"] = loss_values == eager
+        vs["rng_state_captured"] = rng_cap
+        vs["rng_state_eager"] = list(trandom.get_rng_state())
+        vs["eager_step_ms_mean_of_22"] = eager_ms
+        vs["eager_imgs_per_s"] = b / eager_ms * 1e3
+        vs["tol"] = {"loss_rtol": RESNET_LOSS_RTOL,
+                     "state_rms": RESNET_STATE_RMS}
+        if vs["loss_rel_err_max"] > RESNET_LOSS_RTOL or max(
+                vs[k] for k in ("params", "stats", "velocities")) > \
+                RESNET_STATE_RMS or rng_cap != vs["rng_state_eager"]:
+            emit({"phase": "mobilenet_v2_train", "failed": vs})
+            raise AssertionError("mobilenet_v2_train: the replays disagree "
+                                 "with the eager loop")
+        shapes = bn_shapes(model, x)
+        yard = bn_yardstick(shapes, torch.bfloat16, device,
+                            data_format="NCHW")
+        conv = prof["named_kernels"]["conv"]
+        depthwise = [k for k in conv if "depthwise" in k[0].lower()
+                     or "dwconv" in k[0].lower()]
+        out = {"card": nvidia_smi_line(), "model": "mobilenet_v2",
+               "source": "paddle_tpu/vision/models/mobilenet.py:95 "
+                         "(scale 1.0, 1000 classes)",
+               "data_format": "NCHW", "dtype": "bfloat16",
+               "params": n_params, "batch": b, "hw": hw,
+               "classes": cfg["classes"],
+               "optimizer": f"Momentum({cfg['lr']}, {cfg['momentum']}, "
+                            f"weight_decay={cfg['weight_decay']})",
+               "dropout": "classifier Dropout(0.2): the hash mask from the "
+                          "device key stream, inside the graph",
+               "cudnn": {"benchmark": True, "deterministic": True,
+                         "allow_tf32": torch.backends.cudnn.allow_tf32},
+               "init_seconds": init_s,
+               "first_two_steps_s": first_two_s,
+               "losses": loss_values, "timed_steps": cfg["steps"],
+               "step_ms": step_ms, "imgs_per_s": b / step_ms * 1e3,
+               "peak_mem_gb": peak / 2 ** 30,
+               "mem_at_start_gb": mem_start / 2 ** 30,
+               "capture": capture, "vs_eager": vs,
+               "profile_one_replay": {k: v for k, v in prof.items()
+                                      if k != "named_kernels"},
+               "device_idle_share_of_timed_step":
+                   1 - prof["device_ms"] / step_ms
+                   if prof["device_ms"] else None,
+               "depthwise_kernels_one_replay": depthwise,
+               "conv_kernels_one_replay": conv,
+               "layout_kernels_one_replay":
+                   prof["named_kernels"]["layout"],
+               "batch_norm_layers": len(shapes),
+               "batch_norm": yard,
+               "batch_norm_share_of_replay_device_ms":
+                   yard["port_ms_per_step"] / prof["device_ms"]
+                   if prof["device_ms"] else None}
+    finally:
+        torch.backends.cudnn.benchmark, \
+            torch.backends.cudnn.deterministic = flags
+    del model, opt, x, y, params0, bufs0, cap
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_model(arch, device, state=None):
+    """The port's ``vision.models.<arch>`` (1000 classes; LeNet its 10)
+    built on ``device``, holding ``state`` (numpy) when given."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as tdevice
+    prev = tdevice._current
+    paddle.set_device("cpu" if device == "cpu" else "gpu")
+    try:
+        kw = {} if arch == "LeNet" else {"num_classes": 1000}
+        model = getattr(paddle.vision.models, arch)(**kw)
+        if state is not None:
+            model.set_state_dict(state)
+        return model
+    finally:
+        tdevice._current = prev
+
+
+def calibrate_batch_norms(model, x):
+    """The running statistics set to ``x``'s batch statistics (one
+    training forward without gradients, every batch norm at momentum
+    0): the eval state of a trained network, whose activations stay near
+    unit scale, where a fresh model's identity statistics let them grow
+    through depth (MobileNetV3-Large's last feature map reaches ~600)."""
+    import torch
+    from paddle_tpu_torch.nn.layers_conv_norm import _BatchNormBase
+    bns = [m for m in model.sublayers() if isinstance(m, _BatchNormBase)]
+    momenta = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 0.0
+    model.train()
+    with torch.no_grad():
+        model(x)
+    for m, mom in zip(bns, momenta):
+        m.momentum = mom
+    model.eval()
+
+
+def zoo_input(arch, batch, rng):
+    import numpy as np
+    import torch
+    c, hw = {"LeNet": (1, 28), "inception_v3": (3, 299)}.get(arch, (3, 224))
+    return torch.from_numpy(rng.standard_normal(
+        (batch, c, hw, hw)).astype(np.float32))
+
+
+def zoo_train_step(arch, device, state, x, y):
+    """The loss and the gradients (on the host) of one training forward
+    and backward, the key stream reseeded first (the same dropout masks
+    on both devices)."""
+    import paddle_tpu_torch as paddle
+    model = zoo_model(arch, device, state)
+    model.train()
+    paddle.seed(SEED)
+    loss = paddle.nn.CrossEntropyLoss()(model(x.to(device)), y.to(device))
+    loss.float().backward()
+    return float(loss.detach()), {k: p.grad.detach().float().cpu()
+                                  for k, p in torch_named(model,
+                                                          "parameters")}
+
+
+def phase_vision_zoo_parity():
+    """Every zoo family's default constructor on the card in f32 (TF32
+    off, cuDNN deterministic) against the same model on the CPU, which
+    the tier-1 tests hold against the JAX package, in eval with its
+    batch norms calibrated on the batch; one training step for two of
+    them; a bf16 eval forward's device ms at batch 64."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rows, failed = {}, []
+    try:
+        for i, arch in enumerate(ZOO_PARITY):
+            t0 = time.perf_counter()
+            paddle.seed(SEED + i)
+            cpu = zoo_model(arch, "cpu")
+            rng = np.random.default_rng(SEED + i)
+            x = zoo_input(arch, ZOO_BATCH, rng)
+            calibrate_batch_norms(cpu, x)
+            state = {k: v.numpy() for k, v in cpu.state_dict().items()}
+            card = zoo_model(arch, "cuda", state)
+            card.eval()
+            with torch.no_grad():
+                want = cpu(x)
+                got = card(x.cuda())
+            # GoogLeNet returns (out, aux1, aux2)
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            excess = [worst_excess(g, w, ZOO_TOL["logits"])
+                      for g, w in zip(got, want)]
+            row = {"outputs": len(got),
+                   "logits_excess_max": max(e[0] for e in excess),
+                   "logits_abs_err_max": max(e[1] for e in excess),
+                   "params": sum(p.numel() for p in cpu.parameters())}
+            if row["logits_excess_max"] > 0:
+                failed.append((arch, "logits", row["logits_excess_max"]))
+            del cpu
+            if arch in ZOO_TRAIN:
+                y = torch.from_numpy(rng.integers(0, 1000, (ZOO_BATCH,)))
+                lc, gcard = zoo_train_step(arch, "cuda", state, x, y)
+                lh, ghost = zoo_train_step(arch, "cpu", state, x, y)
+                # a gradient that is zero by structure (a batch norm's
+                # bias feeding the next batch norm) is rounding on both
+                # sides: gated are the tensors that reach 1e-3 of the
+                # largest
+                top = max(float(g.abs().max()) for g in ghost.values())
+                rels = {k: rel_rms(gcard[k], ghost[k]) for k in ghost
+                        if float(ghost[k].abs().max()) >= 1e-3 * top}
+                row["train"] = {
+                    "loss_card": lc, "loss_cpu": lh,
+                    "loss_rel_err": abs(lc - lh) / max(abs(lh), 1e-30),
+                    "grad_rel_rms_max": max(rels.values()),
+                    "grad_rel_rms_worst": max(rels, key=rels.get),
+                    "grads_gated": len(rels), "grads": len(ghost),
+                    "grad_rel_rms_global": rel_rms(
+                        torch.cat([gcard[k].reshape(-1) for k in ghost]),
+                        torch.cat([v.reshape(-1) for v in ghost.values()]))}
+                if row["train"]["loss_rel_err"] > ZOO_TOL["loss"] or \
+                        row["train"]["grad_rel_rms_max"] > ZOO_TOL["grad"]:
+                    failed.append((arch, "train", row["train"]))
+            card = card.bfloat16()
+            xb = zoo_input(arch, ZOO_TIME_BATCH, rng).cuda().bfloat16()
+
+            def fwd():
+                with torch.no_grad():
+                    card(xb)
+            row["bf16_eval_ms_batch64"] = time_ms(fwd, samples=5, inner=2,
+                                                  warmup=2)
+            row["bf16_eval_imgs_per_s"] = \
+                ZOO_TIME_BATCH / row["bf16_eval_ms_batch64"] * 1e3
+            row["seconds"] = time.perf_counter() - t0
+            rows[arch] = row
+            del card, xb
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out = {"card": nvidia_smi_line(), "batch": ZOO_BATCH,
+           "time_batch": ZOO_TIME_BATCH, "tol": ZOO_TOL,
+           "eval_state": "batch norms calibrated on the batch "
+                         "(calibrate_batch_norms)",
+           "tf32": torch.backends.cudnn.allow_tf32,
+           "grad_gate": "relative RMS per tensor whose CPU gradient "
+                        "reaches 1e-3 of the model's largest",
+           "models": rows}
+    if failed:
+        emit({"phase": "vision_zoo_parity", "failed": failed, **out})
+        raise AssertionError(f"vision_zoo_parity: {failed}")
+    return out
+
+
+def ops_case(name, fn, inputs, diff=(), tol=OPS_TOL):
+    """One device op on the card against the same call on the CPU: the
+    outputs, and with ``diff`` the gradients of Σ out² with respect to
+    those inputs, within ``tol``; the card's device ms of the forward."""
+    import torch
+
+    def run(dev):
+        ins = [t.detach().to(dev).requires_grad_(i in diff)
+               if t.is_floating_point() else t.to(dev)
+               for i, t in enumerate(inputs)]
+        outs = fn(*ins)
+        outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+        if diff:
+            sum(o.float().square().sum() for o in outs).backward()
+        res = [o.detach() for o in outs] + [ins[i].grad for i in diff]
+        return ins, [r.cpu() for r in res]
+    ins, got = run("cuda")
+    _, want = run("cpu")
+    n_out = len(got) - len(diff)
+    row, bad = {"outputs": n_out, "tol": tol}, []
+    for j, (g, w) in enumerate(zip(got, want)):
+        kind = "out" if j < n_out else "grad"
+        ex, err = worst_excess(g, w, tol[kind])
+        key = f"{kind}{j if j < n_out else j - n_out}"
+        row[f"{key}_abs_err_max"] = err
+        if ex > 0:
+            bad.append((name, key, ex))
+    plain = [t.detach() for t in ins]
+    with torch.no_grad():
+        row["card_ms"] = time_ms(lambda: fn(*plain), samples=5, inner=2,
+                                 warmup=1)
+    return row, bad
+
+
+def phase_vision_ops_parity():
+    """The detection ops on the card against the port on the CPU at a
+    detector's sizes; the host ops checked equal, with their host ms."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.vision import ops
+    rng = np.random.default_rng(SEED)
+    rows, failed = {}, []
+    cfg = VISION_OPS
+    c, fh, fw = cfg["fpn"]
+    n, dc, dh, dw = cfg["deform"]
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a))
+
+    feat = t(rng.standard_normal((1, c, fh, fw)).astype(np.float32))
+    boxes = t(zoo_boxes(rng, cfg["boxes"], fh, fw, 0.25))
+    cases = [
+        ("roi_align_7x7", lambda f, b: ops.roi_align(f, b, None, 7, 0.25),
+         [feat, boxes], (0,), ROI_ALIGN_TOL),
+        ("roi_pool_7x7", lambda f, b: ops.roi_pool(f, b, None, 7, 0.25),
+         [feat, boxes], (0,), OPS_TOL),
+        ("psroi_pool_7x7", lambda f, b: ops.psroi_pool(f, b, None, 7, 0.25),
+         [t(rng.standard_normal((1, 490, fh, fw)).astype(np.float32)),
+          boxes[:cfg["ps_boxes"]]], (0,), OPS_TOL),
+        ("deform_conv2d_mask", lambda x, o, w, m: ops.deform_conv2d(
+            x, o, w, padding=1, mask=m),
+         [t(rng.standard_normal((n, dc, dh, dw)).astype(np.float32)),
+          t((rng.standard_normal((n, 18, dh, dw)) * 2).astype(np.float32)),
+          t((rng.standard_normal((dc, dc, 3, 3)) * 0.02).astype(
+              np.float32)),
+          t(rng.uniform(size=(n, 9, dh, dw)).astype(np.float32))],
+         (0, 1, 2, 3), OPS_TOL),
+    ]
+    gn, gc_, gh, gw = cfg["grid"]
+    xs = t(rng.standard_normal((gn, gc_, gh, gw)).astype(np.float32))
+    grid = t(rng.uniform(-1.1, 1.1, (gn, gh, gw, 2)).astype(np.float32))
+    for mode in ("bilinear", "nearest"):
+        for pad in ("zeros", "border", "reflection"):
+            for align in (True, False):
+                cases.append((
+                    f"grid_sample_{mode}_{pad}_{'ac' if align else 'nac'}",
+                    lambda x, g, m=mode, p=pad, a=align: F.grid_sample(
+                        x, g, mode=m, padding_mode=p, align_corners=a),
+                    [xs, grid], (), OPS_TOL))
+    yb = cfg["yolo_batch"]
+    img = t(np.full((yb, 2), 416, np.int32))
+    gt_box = t(np.concatenate([rng.uniform(20, 396, (yb, 50, 2)),
+                               rng.uniform(10, 200, (yb, 50, 2))],
+                              -1).astype(np.float32))
+    gt_box[:, 40:] = 0.0                       # padded ground truths
+    gt_label = t(rng.integers(0, 80, (yb, 50)).astype(np.int32))
+    for size, stride, mask in YOLO_HEADS:
+        head = t((rng.standard_normal((yb, 3 * 85, size, size)) * 0.5)
+                 .astype(np.float32))
+        anchors = [YOLO_ANCHORS[2 * k + j] for k in mask for j in (0, 1)]
+        cases.append((f"yolo_box_{size}", lambda x, s, an=anchors, st=stride:
+                      ops.yolo_box(x, s, an, 80, 0.01, st), [head, img], (),
+                      OPS_TOL))
+        cases.append((f"yolo_loss_{size}", lambda x, gb, gl, m=mask,
+                      st=stride: ops.yolo_loss(x, gb, gl, YOLO_ANCHORS, m,
+                                               80, 0.7, st),
+                      [head, gt_box, gt_label], (), OPS_TOL))
+    for name, fn, inputs, diff, tol in cases:
+        row, bad = ops_case(name, fn, inputs, diff, tol)
+        rows[name] = row
+        failed += bad
+    # the host ops: the same numbers from card and from CPU inputs
+    host = {}
+    nb = t(zoo_boxes(rng, cfg["nms_boxes"], fh, fw))
+    sc = t(rng.uniform(size=cfg["nms_boxes"]).astype(np.float32))
+    t0 = time.perf_counter()
+    keep = ops.nms(nb.cuda(), 0.5, scores=sc.cuda())
+    host["nms_ms"] = (time.perf_counter() - t0) * 1e3
+    host["nms_boxes"] = cfg["nms_boxes"]
+    host["nms_kept"] = int(keep.numel())
+    host["nms_equal"] = torch.equal(keep.cpu(), ops.nms(nb, 0.5, scores=sc))
+    mb = t(np.stack([zoo_boxes(rng, 500, 1, 1) for _ in range(2)]))
+    ms = t(rng.uniform(size=(2, 21, 500)).astype(np.float32))
+    t0 = time.perf_counter()
+    got = ops.matrix_nms(mb.cuda(), ms.cuda(), 0.05, 0.05, 400, 100,
+                         return_index=True)
+    host["matrix_nms_ms"] = (time.perf_counter() - t0) * 1e3
+    want = ops.matrix_nms(mb, ms, 0.05, 0.05, 400, 100, return_index=True)
+    host["matrix_nms_equal"] = all(torch.equal(g.cpu(), w)
+                                   for g, w in zip(got, want))
+    a, h, w = 15, 50, 68
+    scores = t(rng.uniform(size=(1, a, h, w)).astype(np.float32))
+    deltas = t((rng.standard_normal((1, 4 * a, h, w)) * 0.1).astype(
+        np.float32))
+    anchors = t(np.tile(zoo_boxes(rng, a, 800, 1088)[None, None],
+                        (h, w, 1, 1)))
+    var = t(np.ones((h, w, a, 4), np.float32))
+    im = t(np.asarray([[800, 1088]], np.float32))
+    args = (scores, deltas, im, anchors, var)
+    t0 = time.perf_counter()
+    got = ops.generate_proposals(*[v.cuda() for v in args])
+    host["generate_proposals_ms"] = (time.perf_counter() - t0) * 1e3
+    want = ops.generate_proposals(*args)
+    host["generate_proposals_equal"] = all(
+        torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    host["proposals"] = int(got[2].sum())
+    if not all(v for k, v in host.items() if k.endswith("_equal")):
+        failed.append(("host ops", host))
+    out = {"card": nvidia_smi_line(), "sizes": cfg,
+           "tf32": torch.backends.cudnn.allow_tf32, "ops": rows,
+           "host": host}
+    if failed:
+        emit({"phase": "vision_ops_parity", "failed": failed, **out})
+        raise AssertionError(f"vision_ops_parity: {failed}")
     return out
 
 
@@ -7823,6 +8340,9 @@ def main() -> int:
         ("resnet50_train", phase_resnet50_train),
         ("resnet_parity", phase_resnet_parity),
         ("resnet_fit", phase_resnet_fit),
+        ("mobilenet_v2_train", phase_mobilenet_v2_train),
+        ("vision_zoo_parity", phase_vision_zoo_parity),
+        ("vision_ops_parity", phase_vision_ops_parity),
         ("to_static_gpt", lambda: phase_to_static_gpt(flash)),
         ("jit_export", lambda: phase_jit_export(flash)),
     ]

@@ -36,11 +36,11 @@ copies a JAX state dict into any Layer by name through
 ``Layer.set_state_dict``, transposing nothing, and
 :func:`gpt_from_jax` builds the port's ``GPTForCausalLM`` from a JAX
 ``GPTConfig`` and loads the JAX GPT's weights into it;
-:func:`resnet_from_jax` builds a ResNet of ``vision.models`` and loads
-a JAX ResNet's ``state_dict()`` (the batch norms' ``_mean`` /
+:func:`vision_from_jax` builds any model of ``vision.models`` and
+loads a JAX zoo model's ``state_dict()`` (the batch norms' ``_mean`` /
 ``_variance`` buffers included; conv weights are ``[O, I/g, kh, kw]``
-and the ``fc`` Linear ``[in, out]`` in both packages, so nothing is
-transposed).
+and Linear weights ``[in, out]`` in both packages, so nothing is
+transposed); :func:`resnet_from_jax` is that call for a ResNet.
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ __all__ = ["state_dict_from_jax", "load_from_jax",
            "lr_state_from_jax", "grad_scaler_state_from_jax",
            "llama_config_from_jax", "linear_weight_names",
            "load_layer_from_jax", "gpt_config_from_jax", "gpt_from_jax",
-           "resnet_from_jax", "LINEAR_WEIGHTS"]
+           "resnet_from_jax", "vision_from_jax", "LINEAR_WEIGHTS"]
 
 # the Linear layers of the Llama module tree (their ``.weight`` leaves):
 # the default when no port model is given
@@ -264,14 +264,14 @@ def gpt_from_jax(cfg, arrays: Mapping[str, np.ndarray], device=None,
     return load_layer_from_jax(model, arrays)
 
 
-def resnet_from_jax(arch: str, arrays: Mapping[str, np.ndarray],
+def vision_from_jax(arch: str, arrays: Mapping[str, np.ndarray],
                     device=None, **kwargs):
-    """The port's ``vision.models.<arch>(**kwargs)`` (e.g. ``resnet50``,
-    ``num_classes=1000, data_format="NHWC"``), on ``device`` (else the
-    current device), holding the JAX model's ``state_dict()`` arrays.
-    Arrays that are all bf16 (or all f16) — a JAX model after
-    ``bfloat16()`` — make the model that dtype first, buffers included,
-    so they load exactly."""
+    """The port's ``vision.models.<arch>(**kwargs)`` (any model of the
+    zoo: ``resnet50``, ``mobilenet_v2``, ``densenet121``, ``LeNet`` ...,
+    e.g. ``num_classes=1000``), on ``device`` (else the current device),
+    holding the JAX model's ``state_dict()`` arrays. Arrays that are all
+    bf16 (or all f16) — a JAX model after ``bfloat16()`` — make the
+    model that dtype first, buffers included, so they load exactly."""
     from .vision import models
     model = getattr(models, arch)(**kwargs)
     if device is not None:
@@ -281,3 +281,10 @@ def resnet_from_jax(arch: str, arrays: Mapping[str, np.ndarray],
     if len(floats) == 1 and floats <= {torch.bfloat16, torch.float16}:
         model.to(dtype=floats.pop())
     return load_layer_from_jax(model, tensors)
+
+
+def resnet_from_jax(arch: str, arrays: Mapping[str, np.ndarray],
+                    device=None, **kwargs):
+    """:func:`vision_from_jax` for a ResNet (e.g. ``resnet50``,
+    ``num_classes=1000, data_format="NHWC"``)."""
+    return vision_from_jax(arch, arrays, device=device, **kwargs)

@@ -5,7 +5,7 @@ from .layer import Layer, ParamAttr  # noqa: F401
 from .container import (  # noqa: F401
     Sequential, LayerList, ParameterList, LayerDict, ParameterDict,
 )
-from .layers_common import Dropout, Embedding, Flatten, Linear  # noqa: F401
+from .layers_common import *  # noqa: F401,F403
 from .layers_conv_norm import *  # noqa: F401,F403
 from .layers_activation import *  # noqa: F401,F403
 from .layers_loss import *  # noqa: F401,F403

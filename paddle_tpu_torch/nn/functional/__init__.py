@@ -4,12 +4,20 @@ from .activation import *  # noqa: F401,F403
 from .attention import (flash_attention,  # noqa: F401
                         flash_attn_varlen_qkvpacked,
                         scaled_dot_product_attention, sdpa_reference)
-from .common import (alpha_dropout, channel_shuffle,  # noqa: F401
-                     dropout, dropout2d, dropout3d, embedding, fold,
-                     interpolate, label_smooth, linear, one_hot,
-                     pixel_shuffle, pixel_unshuffle, upsample, zeropad2d)
+from .common import (alpha_dropout, bilinear,  # noqa: F401
+                     channel_shuffle, cosine_similarity, dropout,
+                     dropout2d, dropout3d, embedding,
+                     feature_alpha_dropout, fold, interpolate,
+                     label_smooth, linear, normalize, one_hot,
+                     pairwise_distance, pixel_shuffle, pixel_unshuffle,
+                     upsample, zeropad2d)
 from .conv import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .norm import (batch_norm, group_norm, instance_norm,  # noqa: F401
                    layer_norm, local_response_norm, rms_norm)
 from .pooling import *  # noqa: F401,F403
+from .vision import *  # noqa: F401,F403
+from .extension import *  # noqa: F401,F403
+# pad and unfold live with the tensor manipulation ops, as in the JAX
+# package, and are exported here as well
+from ...ops.manipulation import pad, unfold  # noqa: F401,E402

@@ -1,7 +1,8 @@
 """Common functionals of the port: ``linear``, ``embedding``, the
-dropouts and the vision rows (``interpolate`` / ``upsample``,
+dropouts, the vision rows (``interpolate`` / ``upsample``,
 ``pixel_shuffle`` / ``pixel_unshuffle``, ``channel_shuffle``, ``fold``,
-``zeropad2d``).
+``zeropad2d``) and the distances (``cosine_similarity``,
+``normalize``, ``pairwise_distance``) with ``bilinear``.
 
 The port of ``paddle_tpu/nn/functional/common.py``. Plain PyTorch
 code: the JAX package has no Pallas kernel for any of them. Each takes Tensors or torch tensors
@@ -18,8 +19,8 @@ computed from device data, so a CUDA graph that holds the call draws a
 fresh mask on every replay. The ``axis`` and ``downscale_in_infer``
 modes draw a Bernoulli mask on the tensor's device from a generator
 seeded by a host draw (``core.random.device_generator``), and so do
-``dropout2d`` / ``dropout3d`` (axis dropout over batch and channel)
-and ``alpha_dropout``.
+``dropout2d`` / ``dropout3d`` (axis dropout over batch and channel),
+``alpha_dropout`` and ``feature_alpha_dropout`` (one mask a channel).
 
 ``interpolate`` is ``jax.image.resize``, which the JAX function calls:
 nearest takes the source pixel ``floor((i + ½)·in/out)``; linear
@@ -44,7 +45,9 @@ from ...core.autograd import apply_op
 __all__ = ["linear", "embedding", "dropout", "hash_keep_mask", "one_hot",
            "label_smooth", "dropout2d", "dropout3d", "alpha_dropout",
            "interpolate", "upsample", "pixel_shuffle", "pixel_unshuffle",
-           "channel_shuffle", "fold", "zeropad2d"]
+           "channel_shuffle", "fold", "zeropad2d", "cosine_similarity",
+           "normalize", "bilinear", "pairwise_distance",
+           "feature_alpha_dropout"]
 
 _M32 = 0xFFFFFFFF
 
@@ -198,6 +201,68 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
     if not training or p == 0.0:
         return x
     return apply_op(_alpha_dropout, x, p=p, op_name="alpha_dropout")
+
+
+def _feature_alpha_dropout(a, p):
+    g = _random.device_generator(a.device)
+    shape = tuple(a.shape[:2]) + (1,) * (a.dim() - 2)
+    keep = torch.rand(shape, generator=g, device=a.device) < 1.0 - p
+    alpha_p = -_SELU_ALPHA * _SELU_SCALE
+    q = 1.0 - p
+    a_coef = (q + alpha_p ** 2 * q * (1 - q)) ** -0.5
+    b_coef = -a_coef * alpha_p * (1 - q)
+    return (a_coef * torch.where(keep, a, alpha_p) + b_coef).to(a.dtype)
+
+
+def feature_alpha_dropout(x, p=0.5, training=True, name=None):
+    """``alpha_dropout`` with one mask a feature map (batch × channel,
+    broadcast over the spatial axes)."""
+    if not training or p == 0.0:
+        return x
+    if not 0 <= p < 1:
+        raise ValueError(f"p must be in [0, 1), got {p}")
+    return apply_op(_feature_alpha_dropout, x, p=p,
+                    op_name="feature_alpha_dropout")
+
+
+# -- distances and bilinear ---------------------------------------------------
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8, name=None):
+    """``Σ x1·x2 / max(|x1|·|x2|, eps)`` along ``axis``."""
+    def f(a, b):
+        dot = (a * b).sum(axis)
+        na = (a * a).sum(axis).sqrt()
+        nb = (b * b).sum(axis).sqrt()
+        return dot / torch.clamp(na * nb, min=eps)
+    return apply_op(f, x1, x2, op_name="cosine_similarity")
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """``x / max(‖x‖_p, epsilon)`` along ``axis``."""
+    def f(a):
+        n = (a.abs() ** p).sum(axis, keepdim=True) ** (1.0 / p)
+        return a / torch.clamp(n, min=epsilon)
+    return apply_op(f, x, op_name="normalize")
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    """``out[b, o] = Σ x1[b, i] W[o, i, j] x2[b, j] + bias[o]``."""
+    def f(a, b, w, bias=None):
+        out = torch.einsum("bi,oij,bj->bo", a, w, b)
+        return out if bias is None else out + bias
+    return apply_op(f, x1, x2, weight, bias, op_name="bilinear")
+
+
+def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+    """The p-norm of ``x - y + epsilon`` along the last axis."""
+    def f(a, b):
+        d = (a - b + epsilon).abs()
+        if p == float("inf"):
+            return d.amax(-1, keepdim=keepdim)
+        if p == float("-inf"):
+            return d.amin(-1, keepdim=keepdim)
+        return (d ** p).sum(-1, keepdim=keepdim) ** (1.0 / p)
+    return apply_op(f, x, y, op_name="pairwise_distance")
 
 
 # -- resizing (jax.image.resize) ----------------------------------------------

@@ -308,11 +308,29 @@ def where(condition, x=None, y=None, name=None):
     return apply_op(f, condition, x, y)
 
 
+def _pad_index(n: int, before: int, after: int, mode: str) -> torch.Tensor:
+    """The source index of each padded position along one axis, as
+    ``jnp.pad``'s ``reflect`` (mirror without the edge, repeated past
+    one period), ``edge`` and ``wrap`` modes pick it."""
+    i = torch.arange(-before, n + after)
+    if mode == "replicate" or n == 1:
+        return i.clamp(0, n - 1)
+    if mode == "circular":
+        return i.remainder(n)
+    period = 2 * (n - 1)
+    i = i.remainder(period)
+    return torch.where(i >= n, period - i, i)
+
+
 def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
     """``pad`` is [before, after] per dim for every dim, or paddle's
-    [left, right, top, bottom, ...] over the trailing spatial dims."""
+    [left, right, top, bottom, ...] over the trailing spatial dims.
+    ``reflect``, ``replicate`` and ``circular`` pad any axis by any
+    width, as ``jnp.pad``'s ``reflect``, ``edge`` and ``wrap`` do."""
     pd = [_int(p) for p in (pad.tolist() if isinstance(
         pad, (Tensor, torch.Tensor)) else pad)]
+    if mode not in ("constant", "reflect", "replicate", "circular"):
+        raise ValueError(f"pad: unknown mode {mode!r}")
 
     def f(a):
         nd = a.dim()
@@ -325,13 +343,15 @@ def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
                 width = [(0, 0)] + spatial[::-1] + [(0, 0)]
             else:
                 width = [(0, 0)] * (nd - n_spatial) + spatial[::-1]
-        flat = [w for pair in reversed(width) for w in pair]
         if mode == "constant":
+            flat = [w for pair in reversed(width) for w in pair]
             return torch.nn.functional.pad(a, flat, value=value)
-        while flat[-2:] == [0, 0]:      # torch pads trailing dims only
-            flat = flat[:-2]
-        return torch.nn.functional.pad(a, flat, mode=mode)
-    return apply_op(f, x)
+        for axis, (lo, hi) in enumerate(width):
+            if lo or hi:
+                idx = _pad_index(a.shape[axis], lo, hi, mode)
+                a = a.index_select(axis, idx.to(a.device))
+        return a
+    return apply_op(f, x, op_name="pad")
 
 
 def slice(input, axes, starts, ends, name=None):

@@ -13,7 +13,13 @@ import hashlib
 import os
 import os.path as osp
 
-__all__ = ["load_pretrained", "pretrained_path"]
+__all__ = ["load_pretrained", "pretrained_path", "scale_suffix"]
+
+
+def scale_suffix(scale) -> str:
+    """A width multiplier as the published weight names write it:
+    1 / 1.0 -> '1.0', 0.25 -> '0.25'."""
+    return str(float(scale))
 
 
 def _md5(path: str) -> str:

@@ -354,10 +354,10 @@ def test_nhwc_conv2d_layer_keeps_a_channels_last_weight():
 # the op rows the port still lacks after the vision slice (ROADMAP
 # queue 1): a ported row falling back would show here
 UNPORTED_AFTER_VISION = [
-    "bilinear", "cast", "copysign", "cosine_similarity", "deg2rad",
-    "fused_bias_act", "fused_layernorm_residual_dropout", "fused_linear",
-    "fused_rms_norm", "fused_rotary_position_embedding", "is_grad_enabled",
-    "normalize", "pad", "rad2deg", "ring_attention", "sinc", "unfold",
+    "cast", "copysign", "deg2rad", "fused_bias_act",
+    "fused_layernorm_residual_dropout", "fused_linear", "fused_rms_norm",
+    "fused_rotary_position_embedding", "is_grad_enabled", "rad2deg",
+    "ring_attention", "sinc",
 ]
 
 

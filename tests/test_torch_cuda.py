@@ -30,7 +30,10 @@ guard fetch, ``full_graph=True`` as one graph), and the serving step as
 CUDA graphs (K3's operator reading its tile count inside a graph,
 ``_int_mm``'s row padding, ``capture_jit`` replays and re-captures, the
 captured engines against the same engines op by op, bf16 and int8, and
-the exported decode step on the card). Each skips (with its reason)
+the exported decode step on the card), and the rest of
+``paddle.vision`` (a MobileNetV2 ``TrainStep`` with its dropout in the
+graph against its eager loop, ``deform_conv2d`` and ``grid_sample``
+against the CPU). Each skips (with its reason)
 where there is no CUDA device; the decision is made inside the
 fixture, never at import. This file imports no JAX, so on a machine
 without it run it as
@@ -2010,3 +2013,116 @@ def test_export_decode_on_the_card(cuda):
     for got, live in zip(pytree.tree_leaves(args[1]),
                          pytree.tree_leaves(eng._kv_store)):
         assert torch.equal(got, live)
+
+
+# -- the rest of paddle.vision ------------------------------------------------
+
+def test_captured_mobilenet_v2_train_step_matches_its_eager_loop(cuda):
+    """MobileNetV2 (scale 0.5, 10 classes) at 64×64, NCHW, bf16 with
+    ``Momentum`` and L2 decay through ``TrainStep``: its depthwise
+    convolutions and its classifier's hash dropout inside the graph,
+    one eager step, the capture, three replays with no host sync, no
+    fallback; then the same five steps through a plain eager loop from
+    the same weights and the restored key stream (so the dropout masks
+    are the same): losses, parameters, velocities and running
+    statistics bit for bit (cuDNN deterministic)."""
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    torch.backends.cudnn.deterministic = True
+    prev = tdevice._current
+    tdevice.set_device("gpu")
+    try:
+        trandom.seed(0)
+        model = mobilenet_v2(scale=0.5, num_classes=10).bfloat16()
+        start = {k: v.detach().clone()
+                 for k, v in model.state_dict(keep_vars=True,
+                                              prefix="").items()}
+        g = torch.Generator(device=cuda).manual_seed(1)
+        x = (torch.randn(8, 3, 64, 64, device=cuda, generator=g)
+             * 0.1).bfloat16()
+        y = torch.randint(0, 10, (8,), device=cuda, generator=g)
+        crit = CrossEntropyLoss()
+
+        def make_opt():
+            return Momentum(0.045, 0.9, parameters=model.parameters(),
+                            weight_decay=4e-5)
+        opt = make_opt()
+        rng0 = trandom.get_rng_state()
+        step = TrainStep(model, crit, opt)
+        losses = [float(step(x, y)) for _ in range(2)] + \
+            _replay_strictly_xy(step, x, y, 3)
+        st = step.stats
+        assert st["captured_steps"] == 4 and st["fallbacks"] == {}
+        assert step._step.graphs() == {"train": 1}
+        rng_cap = trandom.get_rng_state()
+        got = {k: v.detach().clone() for k, v in model.state_dict(
+            keep_vars=True, prefix="").items()}
+        vel = [s["velocity"].clone() for _, s in sorted(opt._states.items())]
+        with torch.no_grad():
+            for k, v in model.state_dict(keep_vars=True, prefix="").items():
+                v.copy_(start[k])
+        opt = make_opt()
+        trandom.set_rng_state(rng0)
+        eager = []
+        for _ in range(5):
+            loss = crit(model(x), y).float()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            eager.append(float(loss.detach()))
+        assert losses == eager
+        assert trandom.get_rng_state() == rng_cap
+        for k, v in model.state_dict(keep_vars=True, prefix="").items():
+            assert torch.equal(v, got[k]), k
+        assert not torch.equal(got["features.0._norm._mean"],
+                               start["features.0._norm._mean"])
+        for a, (_, s) in zip(vel, sorted(opt._states.items())):
+            assert torch.equal(a, s["velocity"])
+    finally:
+        tdevice._current = prev
+        torch.backends.cudnn.deterministic = False
+
+
+def test_deform_conv2d_and_grid_sample_on_the_card_match_the_cpu(cuda):
+    """``deform_conv2d`` with a mask (forward and the gradients of every
+    input) and ``grid_sample`` in every mode × padding × corner
+    alignment (forward and the input and grid gradients), f32 with TF32
+    off: within 1e-4 · (1 + |ref|) of the same calls on the CPU, the
+    gradients within 1e-3 · (1 + |ref|) (sums in other orders)."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.vision.ops import deform_conv2d
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 8, 12, 12, generator=g)
+    off = torch.randn(2, 18, 12, 12, generator=g) * 2
+    w = torch.randn(6, 8, 3, 3, generator=g) * 0.2
+    m = torch.rand(2, 9, 12, 12, generator=g)
+    xs = torch.randn(2, 4, 9, 11, generator=g)
+    grid = torch.rand(2, 7, 5, 2, generator=g) * 2.4 - 1.2
+
+    def run(dev):
+        ins = [t.detach().to(dev).requires_grad_() for t in (x, off, w, m)]
+        out = deform_conv2d(ins[0], ins[1], ins[2], stride=1, padding=1,
+                            mask=ins[3])
+        out.square().sum().backward()
+        res = [out] + [t.grad for t in ins]
+        for mode in ("bilinear", "nearest"):
+            for pad in ("zeros", "border", "reflection"):
+                for align in (True, False):
+                    a = xs.detach().to(dev).requires_grad_()
+                    gr = grid.detach().to(dev).requires_grad_(
+                        mode == "bilinear")
+                    o = F.grid_sample(a, gr, mode=mode, padding_mode=pad,
+                                      align_corners=align)
+                    o.square().sum().backward()
+                    res += [o, a.grad] + ([gr.grad] if gr.requires_grad
+                                          else [])
+        return [r.detach().cpu() for r in res]
+    got, want = run(cuda), run("cpu")
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = 1e-4 if i == 0 else 1e-3
+        assert ((a - b).abs() <= tol * (1 + b.abs())).all(), (
+            i, float((a - b).abs().max()))

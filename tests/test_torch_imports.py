@@ -390,3 +390,47 @@ def test_importing_the_vision_slice_loads_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+VISION_ZOO_MODULES = (
+    "nn/functional/vision.py", "nn/functional/extension.py",
+    "nn/layers_common.py", "vision/ops.py", "vision/detection_ops.py",
+    "vision/models/lenet.py", "vision/models/alexnet.py",
+    "vision/models/vgg.py", "vision/models/squeezenet.py",
+    "vision/models/mobilenet.py", "vision/models/mobilenetv3.py",
+    "vision/models/densenet.py", "vision/models/shufflenetv2.py",
+    "vision/models/googlenet.py", "vision/models/inceptionv3.py")
+
+
+def test_port_covers_the_vision_zoo_modules():
+    have = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert set(VISION_ZOO_MODULES) <= have, sorted(
+        set(VISION_ZOO_MODULES) - have)
+
+
+def test_importing_the_vision_zoo_loads_no_jax():
+    """The model zoo, ``vision.ops`` and the vision and extension
+    functionals import without JAX, and MobileNetV2 at its published
+    widths builds (on the CPU, by name) with the JAX model's parameter
+    count."""
+    mods = ", ".join("paddle_tpu_torch." + m[:-3].replace("/", ".")
+                     for m in VISION_ZOO_MODULES)
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch as paddle\n"
+        f"import {mods}\n"
+        "paddle.set_device('cpu')\n"
+        "m = paddle.vision.models.mobilenet_v2(scale=1.0, num_classes=1000)\n"
+        "assert sum(p.size for p in m.parameters()) == 3504872\n"
+        "assert paddle.vision.ops.roi_align and paddle.nn.ChannelShuffle "
+        "and paddle.nn.functional.grid_sample\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
