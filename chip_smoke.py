@@ -3269,8 +3269,9 @@ def flash_general(q, k, v, do, lse, delta, causal, dropout_p=0.0,
         if seg is not None else (None, 0, None)
 
     def tail():  # sizes, causal, scale, bf16, the segments, the dropout
-        return (B, L, H, D, int(causal), 1.0 / math.sqrt(D), 1, *segs,
-                key, thresh, inv, torch.cuda.current_stream().cuda_stream)
+        return (B, L, k.shape[1], H, D, int(causal), 1.0 / math.sqrt(D), 1,
+                *segs, key, thresh, inv,
+                torch.cuda.current_stream().cuda_stream)
 
     def check(rc, what):
         if rc:
@@ -8075,6 +8076,952 @@ def paged_split_occupancy():
     return out
 
 
+# ---------------------------------------------------------------------------
+# flash attention over unequal query and key lengths; Transformer-base;
+# the PTB LSTM and its beam search; the op tail on the card
+# ---------------------------------------------------------------------------
+
+# (name, B, Lq, Lk, H, D, causal, dropout_p), each in bf16 and on a
+# smaller f32 copy (B and H cut to 4 at most): the Transformer's
+# cross-attention (with and without dropout), a KV-cache step (Lq 1, at
+# D 128 causal: the diagonal offset), queries outnumbering keys under
+# causal (rows with no allowed key), a chunk against its history
+FLASH_CROSS = (
+    ("transformer_cross", 128, 96, 128, 8, 64, False, 0.0),
+    ("transformer_cross_dropout", 128, 96, 128, 8, 64, False, 0.1),
+    ("cache_step", 64, 1, 200, 8, 64, False, 0.0),
+    ("cache_step_causal_d128", 16, 1, 200, 32, 128, True, 0.0),
+    ("more_queries_causal", 4, 300, 200, 8, 64, True, 0.0),
+    ("more_queries_causal_d128", 4, 300, 200, 8, 128, True, 0.0),
+    ("history_chunk_causal", 4, 512, 2048, 32, 128, True, 0.0),
+    ("history_chunk", 4, 512, 2048, 32, 128, False, 0.0),
+)
+CROSS_KEY = (0x5EED1234, 0x0BADF00D)
+
+
+def cross_inputs(B, Lq, Lk, H, D, dtype, seed):
+    """Seeded q, do [B, Lq, H, D] and k, v [B, Lk, H, D] on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((B, L, H, D), generator=g,
+                               device="cuda").to(dtype)
+                   for L in (Lq, Lk, Lk, Lq))
+    return q, k, v, do
+
+
+def cross_key():
+    import torch
+    return torch.tensor(CROSS_KEY, dtype=torch.int64, device="cuda")
+
+
+def cross_work(B, Lq, Lk, H, D, causal, products, q_tensors, k_tensors,
+               stats, elem_bytes=2):
+    """(flops, bytes) of ``products`` matrix products over the attended
+    pairs (causal: row i sees min(Lk, max(0, i + Lk - Lq + 1)) keys),
+    reading or writing ``q_tensors`` [B, Lq, H, D] and ``k_tensors``
+    [B, Lk, H, D] tensors and ``stats`` f32 [B, H, Lq] arrays once."""
+    if causal:
+        off = Lk - Lq
+        pairs = sum(min(Lk, max(0, i + off + 1)) for i in range(Lq))
+    else:
+        pairs = Lq * Lk
+    flops = products * 2 * B * H * pairs * D
+    nbytes = ((q_tensors * Lq + k_tensors * Lk) * B * H * D * elem_bytes
+              + stats * B * H * Lq * 4)
+    return flops, nbytes
+
+
+def phase_flash_cross_parity(results):
+    """K1a/K2a (with K5) and K1b/K2b at Lq != Lk: each kernel alone
+    against its plain version on the same inputs (the backward kernels on
+    the plain forward's lse and delta), in bf16 and on f32 copies, one
+    launch each through the design expected; the autograd function
+    against autograd through the plain sdpa where rows have no allowed
+    key; the bf16 times at the Transformer geometry against SDPA."""
+    import torch
+    from paddle_tpu_torch.nn.functional import sdpa_reference
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    rows, failed = [], []
+    for i, (case, B, Lq, Lk, H, D, causal, p) in enumerate(FLASH_CROSS):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            b, h = (B, H) if dtype == torch.bfloat16 else (min(B, 4),
+                                                           min(H, 4))
+            q, k, v, do = cross_inputs(b, Lq, Lk, h, D, dtype, 300 + i)
+            kw = {"dropout_p": p, "seed": cross_key()} if p else {}
+            ref = plain_all(q, k, v, do, causal, **kw)
+            delta = fa.attention_delta(ref[0], do)
+            before = flash_counts()
+            got = kernels_all(q, k, v, do, causal, ref[1], delta, **kw)
+            torch.cuda.synchronize()
+            paths = flash_paths(before)
+            ref32 = plain_all(*(x.float() for x in (q, k, v, do)), causal,
+                              **kw)
+            tma = flash_tma_expected(dtype, (b, Lq, h, D), dropout=p > 0)
+            row = {"case": case, "q": [b, Lq, h, D], "k": [b, Lk, h, D],
+                   "causal": causal, "dropout_p": p, "dtype": dname,
+                   "design": "tma_wgmma" if tma else "general_mma_sync",
+                   "launches_and_tma_launches": paths}
+            ok = parity_row(row, got, ref, ref32, dname)
+            row["ok"] = ok = ok and paths == [(1, int(tma))] * 3
+            rows.append(row)
+            if not ok:
+                failed.append(row)
+            if case == "transformer_cross_dropout" and \
+                    dtype == torch.bfloat16:
+                record_errors(results, "_cross", row)
+            del q, k, v, do, ref, ref32, got
+            torch.cuda.empty_cache()
+    # the autograd function (which fills the rows with no allowed key as
+    # the oracle does) against autograd through the plain sdpa
+    auto = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for (Lq, Lk, causal) in ((96, 128, False), (300, 200, True),
+                                 (1, 200, True)):
+            q, k, v, do = cross_inputs(2, Lq, Lk, 8, 64, dtype, 7)
+            before = flash_counts()
+            r = autograd_row(
+                q, k, v, do,
+                lambda a, b_, c, cz=causal: fa.flash_attention(a, b_, c, cz),
+                lambda a, b_, c, cz=causal: sdpa_reference(a, b_, c,
+                                                           causal=cz),
+                dname)
+            paths = flash_paths(before)
+            tma = flash_tma_expected(dtype, q.shape)
+            r.update(q=list(q.shape), k=list(k.shape), causal=causal,
+                     launches_and_tma_launches=paths)
+            r["ok"] &= paths == [(1, int(tma))] * 3
+            auto.append(r)
+            if not r["ok"]:
+                failed.append({"autograd": r})
+    finish_parity("flash_cross_parity", results, ("_cross",), failed)
+    times = {name: cross_timings(*geo) for name, geo in (
+        ("transformer_cross_dropout", (128, 96, 128, 8, 64, False, 0.1)),
+        ("transformer_cross", (128, 96, 128, 8, 64, False, 0.0)),
+        ("history_chunk_causal", (4, 512, 2048, 32, 128, True, 0.0)))}
+    fill_times(results, "_cross", times["transformer_cross_dropout"])
+    return {"card": nvidia_smi_line(), "cases": rows, "autograd": auto,
+            "times": times}
+
+
+def cross_timings(B, Lq, Lk, H, D, causal, p):
+    """Kernel, plain and library times of the three flash functions at
+    one cross-length geometry in bf16, beside their bounds (the work of
+    cross_work; SDPA gets the same values as [B, H, L, D] and the same
+    causal flag and dropout, whose mask is its own)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    q, k, v, do = cross_inputs(B, Lq, Lk, H, D, torch.bfloat16, 11)
+    kw = {"dropout_p": p, "seed": cross_key()} if p else {}
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, None, **kw)
+    delta = fa.attention_delta(out, do)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_kw = {"is_causal": causal, "dropout_p": p}
+    if causal and Lq != Lk:
+        # SDPA's is_causal puts the diagonal at j <= i: the offset one as
+        # a bool mask
+        lib_kw = {"attn_mask": torch.ones(Lq, Lk, dtype=torch.bool,
+                                          device="cuda").tril(Lk - Lq),
+                  "dropout_p": p}
+    rows = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, causal, None, **kw),
+            lambda: fa.flash_attention_fwd_reference(q, k, v, causal, None,
+                                                     **kw),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw),
+            2, 2, 2, 1),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                              causal, None, **kw),
+            lambda: fa.flash_attention_bwd_dq_reference(
+                q, k, v, do, lse, delta, causal, None, **kw),
+            None, 3, 3, 2, 2),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               causal, None, **kw),
+            lambda: fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, causal, None, **kw),
+            None, 4, 2, 4, 2)}
+    table = {}
+    for name, (kern, plain, lib, prods, nq, nk, stats) in rows.items():
+        flops, nbytes = cross_work(B, Lq, Lk, H, D, causal, prods, nq, nk,
+                                   stats)
+        b_ms, b_by = bound(flops, nbytes)
+        r = {"design": "tma_wgmma" if fa.takes_tma(
+                 q, k, v, do, dropout_p=p) else "general_mma_sync",
+             "q": [B, Lq, H, D], "k": [B, Lk, H, D], "causal": causal,
+             "dropout_p": p,
+             "kernel_ms": time_ms(kern, samples=10, inner=5),
+             "general_ms": None,
+             "plain_ms": time_ms(plain, samples=5, inner=1),
+             "library_ms": time_ms(lib, samples=10, inner=5)
+             if lib else None,
+             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+             "bytes": nbytes}
+        r["share_of_bound"] = b_ms / r["kernel_ms"]
+        table[name] = r
+    return table
+
+
+# Transformer-base of "Attention Is All You Need" (Vaswani et al., 2017,
+# Table 3: d_model 512, 8 heads, 6 + 6 layers, d_ff 2048, dropout 0.1,
+# label smoothing 0.1, Adam 0.9 / 0.98 / 1e-9 on the Noam schedule with
+# 4000 warm-up steps) over WMT14 en-de's shared 37,000-token BPE
+# vocabulary; 128 sentence pairs of 128 source and 96 target tokens
+TRANSFORMER_BASE = dict(vocab=37000, d_model=512, heads=8, layers=6,
+                        ffn=2048, dropout=0.1, batch=128, src_len=128,
+                        tgt_len=96, warmup=2, steps=20, smoothing=0.1,
+                        warmup_steps=4000)
+
+
+def sinusoid_positions(n, d):
+    """The fixed sinusoidal position table [n, d] of the paper (sin on
+    the even channels, cos on the odd)."""
+    import torch
+    pos = torch.arange(n, dtype=torch.float64)[:, None]
+    inv = 10000.0 ** (-torch.arange(0, d, 2, dtype=torch.float64) / d)
+    table = torch.zeros(n, d, dtype=torch.float64)
+    table[:, 0::2] = torch.sin(pos * inv)
+    table[:, 1::2] = torch.cos(pos * inv)
+    return table.float()
+
+
+def transformer_mt(cfg, device, dtype):
+    """chip_smoke.py's translation model around the port's
+    ``nn.Transformer``: one embedding shared by source and target, scaled
+    by sqrt(d_model), plus the sinusoidal positions and dropout; the
+    output projection tied to the embedding; the decoder's self-attention
+    under ``generate_square_subsequent_mask``."""
+    import torch
+    import paddle_tpu_torch as paddle
+
+    class TransformerMT(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            d = cfg["d_model"]
+            self.scale = math.sqrt(d)
+            g = torch.Generator(device="cpu").manual_seed(SEED)
+            self.embed = torch.nn.Parameter(
+                (torch.randn(cfg["vocab"], d, generator=g) * d ** -0.5)
+                .to(device, dtype))
+            self.transformer = paddle.nn.Transformer(
+                d, cfg["heads"], cfg["layers"], cfg["layers"], cfg["ffn"],
+                cfg["dropout"], device=device, dtype=dtype)
+            n = max(cfg["src_len"], cfg["tgt_len"])
+            self.register_buffer("pos", sinusoid_positions(n, d).to(
+                device, dtype))
+            self.drop = paddle.nn.Dropout(cfg["dropout"])
+            self.register_buffer(
+                "tgt_mask", paddle.nn.Transformer
+                .generate_square_subsequent_mask(cfg["tgt_len"])._t
+                .to(device))
+
+        def embed_ids(self, ids):
+            e = torch.nn.functional.embedding(ids, self.embed)
+            return self.drop(e * self.scale + self.pos[:ids.shape[1]])
+
+        def forward(self, src, tgt):
+            h = self.transformer(self.embed_ids(src), self.embed_ids(tgt),
+                                 tgt_mask=self.tgt_mask)
+            return h @ self.embed.t()
+
+    torch.manual_seed(SEED)       # torch.nn.Linear's own initialisation
+    return TransformerMT()
+
+
+def transformer_group(kernel: str) -> str:
+    """Transformer-base's kernel groups by name: the flash kernels, GEMMs
+    (the projections, the tied output projection and the masked
+    self-attention's two batched products), the optimizer's multi-tensor
+    kernels, the softmax passes (the masked attention's and the
+    cross-entropy's), and the rest (the Philox keep-mask draws, dropout,
+    layer norms, residual adds, embedding)."""
+    kl = kernel.lower()
+    if "softmax" in kl:
+        return "softmax"
+    return train_group(kernel)
+
+
+def masked_attention_ms(cfg, dtype):
+    """Device ms of the decoder's masked self-attention of one layer
+    (sdpa_reference, forward + backward, with its dropout) and of its
+    keep-mask draw alone, at the phase's geometry."""
+    import torch
+    from paddle_tpu_torch.nn.functional import sdpa_reference
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    B, L, H = cfg["batch"], cfg["tgt_len"], cfg["heads"]
+    D = cfg["d_model"] // H
+    q, k, v, do = cross_inputs(B, L, L, H, D, dtype, 5)
+    mask = (1.0 - torch.ones(L, L, device="cuda").tril()) * -1e9
+    key = cross_key()
+    xs = [x.requires_grad_() for x in (q, k, v)]
+
+    def attn():
+        o = sdpa_reference(*xs, mask=mask, dropout_p=cfg["dropout"],
+                           seed=key)
+        torch.autograd.grad(o, xs, do)
+
+    def draw():
+        fa.flash_dropout_keep_mask(key, B, H, L, cfg["dropout"], Lk=L)
+    return (time_ms(attn, samples=5, inner=2),
+            time_ms(draw, samples=5, inner=2))
+
+
+def seq2seq_state(model, opt):
+    """Copies of the parameters and of Adam's two moments."""
+    params = {k: p.detach().clone()
+              for k, p in torch_named(model, "parameters")}
+    moments = {f"{i}.{m}": s[m].detach().clone()
+               for i, s in sorted(opt._states.items())
+               for m in ("moment1", "moment2") if m in s}
+    return params, moments
+
+
+def compare_seq2seq(got, want):
+    """Worst relative RMS of the parameters and of the moments (None for
+    an optimizer without them), and whether every tensor is bit-equal."""
+    import torch
+    out, equal = {}, True
+    for name, a, b in zip(("params", "moments"), got, want):
+        out[name] = max((rel_rms(a[k], b[k]) for k in b), default=None)
+        equal = equal and all(torch.equal(a[k], b[k]) for k in b)
+    out["bit_equal"] = equal
+    return out
+
+
+def captured_vs_eager(phase, model, make_opt, crit, batch, cfg,
+                      sched=False, after_captured=None):
+    """``cfg["warmup"]`` TrainStep calls, then ``cfg["steps"]`` timed
+    replays (one graph, no fallback), then the same steps through a plain
+    eager loop from the copied weights and the restored key stream, the
+    losses and the parameters and moments held to each other
+    (RESNET_LOSS_RTOL, RESNET_STATE_RMS). With ``sched`` the optimizer's
+    LR scheduler is stepped after every step on both sides;
+    ``after_captured`` is called between the two runs."""
+    import torch
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.jit import TrainStep
+    opt = make_opt()
+    step = TrainStep(model, crit, opt)
+    sched = opt._learning_rate if sched else None
+    params0 = {k: p.detach().clone()
+               for k, p in torch_named(model, "parameters")}
+    rng0 = trandom.get_rng_state()
+    mem_start = fresh_peak()
+    t1 = time.perf_counter()
+    losses = []
+    for _ in range(cfg["warmup"]):
+        losses.append(step(*batch))
+        if sched is not None:
+            sched.step()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    timed, wall, captured = timed_replays(
+        step, batch, cfg["steps"],
+        on_step=sched.step if sched is not None else None)
+    losses += timed
+    capture = check_captured(phase, step, captured, cfg["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    loss_values = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in loss_values):
+        raise AssertionError(f"{phase}: non-finite loss {loss_values}")
+    cap = seq2seq_state(model, opt)
+    rng_cap = list(trandom.get_rng_state())
+    if after_captured is not None:
+        after_captured()
+    out = {"losses": loss_values, "first_steps_s": first_s,
+           "step_ms": wall / cfg["steps"] * 1e3, "capture": capture,
+           "peak_mem_gb": peak / 2 ** 30,
+           "mem_at_start_gb": mem_start / 2 ** 30, "step": step}
+    # the same steps through a plain eager loop from the same start
+    with torch.no_grad():
+        for k, p in torch_named(model, "parameters"):
+            p.copy_(params0[k])
+    opt = make_opt()
+    sched = opt._learning_rate if sched is not None else None
+    trandom.set_rng_state(rng0)
+    eager = []
+    n = cfg["warmup"] + cfg["steps"]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(n):
+        loss = crit(model(*batch[:-1]), batch[-1]).float()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        if sched is not None:
+            sched.step()
+        eager.append(loss.detach())
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t2) / n * 1e3
+    eager = [float(v) for v in eager]
+    vs = compare_seq2seq(cap, seq2seq_state(model, opt))
+    vs["loss_rel_err_max"] = max(abs(a - e) / max(abs(e), 1e-30)
+                                 for a, e in zip(loss_values, eager))
+    vs["losses_bit_equal"] = loss_values == eager
+    vs["rng_state_captured"] = rng_cap
+    vs["rng_state_eager"] = list(trandom.get_rng_state())
+    vs["eager_step_ms_mean"] = eager_ms
+    vs["tol"] = {"loss_rtol": RESNET_LOSS_RTOL,
+                 "state_rms": RESNET_STATE_RMS}
+    if vs["loss_rel_err_max"] > RESNET_LOSS_RTOL or max(
+            vs["params"], vs["moments"] or 0.0) > RESNET_STATE_RMS or \
+            rng_cap != vs["rng_state_eager"]:
+        emit({"phase": phase, "failed": vs})
+        raise AssertionError(f"{phase}: the replays disagree with the "
+                             f"eager loop")
+    out["vs_eager"] = vs
+    return out
+
+
+def phase_transformer_base_train(results):
+    """Transformer-base at the published widths, bf16, through the
+    captured TrainStep (2 warm-up steps, 20 timed replays), then the same
+    22 steps in a plain eager loop; the encoder's self-attention and the
+    cross-attention (Lq 96 against Lk 128) on K1a/K2a with K5, the
+    decoder's masked self-attention on the plain sdpa."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    cfg = TRANSFORMER_BASE
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    t0 = time.perf_counter()
+    model = transformer_mt(cfg, "cuda", torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    B, S, T, V = cfg["batch"], cfg["src_len"], cfg["tgt_len"], cfg["vocab"]
+    src = torch.from_numpy(rng.integers(0, V, (B, S))).cuda()
+    tgt = torch.from_numpy(rng.integers(0, V, (B, T + 1))).cuda()
+    tgt_in, tgt_out = tgt[:, :-1].contiguous(), tgt[:, 1:].contiguous()
+
+    def make_opt():
+        sched = paddle.optimizer.lr.NoamDecay(
+            d_model=cfg["d_model"], warmup_steps=cfg["warmup_steps"])
+        return paddle.optimizer.Adam(
+            learning_rate=sched, beta1=0.9, beta2=0.98, epsilon=1e-9,
+            parameters=list(model.parameters()))
+    crit = paddle.nn.CrossEntropyLoss(label_smoothing=cfg["smoothing"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    wrappers = flash_wrappers()
+    marks = {}
+
+    def counts():
+        return [(w.launches, w.tma_launches, w.dropout_launches)
+                for w in wrappers]
+    marks["start"] = counts()
+    run = captured_vs_eager("transformer_base_train", model, make_opt,
+                            crit, (src, tgt_in, tgt_out), cfg, sched=True,
+                            after_captured=lambda: marks.update(
+                                captured=counts()))
+    step = run.pop("step")
+    # the wrappers count the warm-up steps' launches (eager, then the
+    # capture) and each replay adds what its capture counted; what a
+    # replay launches on the card is read off a profiled replay: 6 encoder
+    # self-attentions and 6 cross-attentions, each on the TMA design
+    wrapper = [tuple(a - b for a, b in zip(x, y))
+               for x, y in zip(marks["captured"], marks["start"])]
+    per_step = 2 * cfg["layers"]
+    prof = profile_train_step(
+        step, (src, tgt_in, tgt_out), transformer_group,
+        ("flash_fwd", "flash_dq", "flash_dkv", "gemm", "softmax",
+         "optimizer", "other"), named=("flash_fwd", "flash_dq",
+                                       "flash_dkv"))
+    one_replay = {g: prof["group_launches"][g]
+                  for g in ("flash_fwd", "flash_dq", "flash_dkv")}
+    not_tma = [k for g in one_replay for k in prof["named_kernels"][g]
+               if "tma" not in k[0]]
+    if any(n != per_step for n in one_replay.values()) or not_tma or \
+            any(w[0] == 0 or w[1] != w[0] or w[2] != w[0] for w in wrapper):
+        raise AssertionError(
+            f"transformer_base_train: a replay launched {one_replay} flash "
+            f"kernels (not {per_step} each on the TMA design: {not_tma}); "
+            f"the wrappers counted (launches, TMA, dropout) {wrapper}")
+    for (name, g), w in zip((("flash_attention_fwd_cross", "flash_fwd"),
+                             ("flash_attention_bwd_dq_cross", "flash_dq"),
+                             ("flash_attention_bwd_dkv_cross", "flash_dkv")),
+                            wrapper):
+        results[name].update(launches=w[0], tma_launches=w[1],
+                             launches_in_replays=one_replay[g]
+                             * cfg["steps"])
+    want = (cfg["warmup"] + cfg["steps"]) * per_step
+    if any(w[0] != want for w in wrapper):
+        raise AssertionError(f"transformer_base_train: the wrappers counted "
+                             f"{wrapper} launches, not {want} each")
+    masked_ms, draw_ms = masked_attention_ms(cfg, torch.bfloat16)
+    tokens = B * (S + T)
+    step_ms = run["step_ms"]
+    out = {"card": nvidia_smi_line(),
+           "model": "Transformer-base (Vaswani et al. 2017, Table 3)",
+           "config": dict(cfg), "params": n_params, "dtype": "bfloat16",
+           "init_seconds": init_s, **run,
+           "tokens_per_step": tokens,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "eager_tokens_per_s":
+               tokens / run["vs_eager"]["eager_step_ms_mean"] * 1e3,
+           "flash_wrapper_launches_tma_dropout": wrapper,
+           "flash_launches_one_replay": one_replay,
+           "flash_launches_timed_replays": {g: n * cfg["steps"] for g, n
+                                            in one_replay.items()},
+           "profile_one_replay": prof,
+           "device_idle_share_of_timed_step":
+               1 - prof["device_ms"] / step_ms if prof["device_ms"]
+               else None,
+           "masked_self_attention_ms_per_layer": masked_ms,
+           "keep_mask_draw_ms_per_layer": draw_ms,
+           "masked_self_attention_share_of_replay":
+               masked_ms * cfg["layers"] / prof["device_ms"]
+               if prof["device_ms"] else None}
+    del step, model
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# the "large" PTB LSTM of Zaremba, Sutskever and Vinyals (2014): 2 layers
+# of 1500, dropout 0.65, 35 unrolled steps at batch 20, SGD at lr 1 with
+# the gradient's global norm clipped at 10, a 10,000-word vocabulary;
+# its beam search: beam 4, up to 32 steps, tokens 0 (start) and 1 (end)
+PTB_LSTM = dict(vocab=10000, hidden=1500, layers=2, dropout=0.65,
+                batch=20, unroll=35, lr=1.0, clip=10.0, warmup=2,
+                steps=20, beam=4, max_step=32, start=0, end=1)
+BEAM_TOL = 1e-4
+
+
+def lstm_lm(cfg):
+    """chip_smoke.py's word-level language model around the port's
+    ``nn.LSTM``: an embedding, dropout on its output and on the LSTM's,
+    and the output projection (f32, the current device)."""
+    import torch
+    import paddle_tpu_torch as paddle
+
+    class LSTMLM(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            V, H = cfg["vocab"], cfg["hidden"]
+            self.embed = paddle.nn.Embedding(V, H)
+            self.drop = paddle.nn.Dropout(cfg["dropout"])
+            self.lstm = paddle.nn.LSTM(H, H, num_layers=cfg["layers"],
+                                       dropout=cfg["dropout"])
+            self.proj = paddle.nn.Linear(H, V)
+
+        def forward(self, ids):
+            out, _ = self.lstm(self.drop(self.embed(ids)))
+            return self.proj(self.drop(out))
+
+    del torch
+    return LSTMLM()
+
+
+def beam_parity(got, ref):
+    """The card's beam search against the CPU's: per batch row the ids
+    of every step equal, and the scores within BEAM_TOL·(1 + |ref|); a
+    row whose two runs part at a step where their top scores still agree
+    within that tolerance (a near-tie: other candidates of equal score)
+    is compared up to that step and counted."""
+    import torch
+    (ids_g, sc_g, tok_g, par_g), (ids_c, sc_c, tok_c, par_c) = got, ref
+    parted, worst, ok = [], 0.0, True
+    for b in range(ids_c.shape[0]):
+        same = (tok_g[:, b] == tok_c[:, b]).all(-1) & \
+            (par_g[:, b] == par_c[:, b]).all(-1)
+        steps = int(same.long().cumprod(0).sum())
+        upto = min(steps + 1, sc_c.shape[0])
+        err = ((sc_g[:upto, b] - sc_c[:upto, b]).abs()
+               / (BEAM_TOL * (1 + sc_c[:upto, b].abs()))).max()
+        worst = max(worst, float(err))
+        if steps < sc_c.shape[0]:
+            parted.append([b, steps])
+        elif not torch.equal(ids_g[b], ids_c[b]):
+            ok = False
+    return ok and worst <= 1.0, worst, parted
+
+
+def run_beam(cfg, cell, embed, proj, device):
+    """dynamic_decode of a BeamSearchDecoder over ``cell`` from zero
+    states at batch ``cfg["batch"]``: (final ids, per-step scores, tokens
+    and parents), on the host, and the decode's wall ms."""
+    import torch
+    import paddle_tpu_torch as paddle
+    dec = paddle.nn.BeamSearchDecoder(cell, cfg["start"], cfg["end"],
+                                      cfg["beam"], embedding_fn=embed,
+                                      output_fn=proj)
+    ref = torch.zeros(cfg["batch"], cfg["hidden"], device=device)
+    inits = cell.get_initial_states(ref)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, states = paddle.nn.dynamic_decode(dec, inits,
+                                           max_step_num=cfg["max_step"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    del states
+    return out._t.cpu(), ms
+
+
+def port_clone(layer, make):
+    """``make()`` built on the CPU holding ``layer``'s tensors."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as tdevice
+    prev = tdevice._current
+    paddle.set_device("cpu")
+    try:
+        twin = make()
+    finally:
+        tdevice._current = prev
+    state = {k: v.detach().cpu()
+             for k, v in torch.nn.Module.state_dict(layer).items()}
+    torch.nn.Module.load_state_dict(twin, state)
+    return twin
+
+
+def phase_lstm_lm_beam(results):
+    """The PTB LSTM through the captured TrainStep (2 warm-up steps, 20
+    timed replays) against the eager loop, in f32 without TF32; then
+    beam search with an LSTMCell of the same width over its embedding and
+    projection on the card, against the same decode on the CPU."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import decode as tdecode
+    cfg = PTB_LSTM
+    record_beam_steps()
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    t0 = time.perf_counter()
+    model = lstm_lm(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    B, T, V = cfg["batch"], cfg["unroll"], cfg["vocab"]
+    ids = torch.from_numpy(rng.integers(0, V, (B, T + 1))).cuda()
+    x, y = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+    def make_opt():
+        return paddle.optimizer.SGD(
+            learning_rate=cfg["lr"], parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(cfg["clip"]))
+    crit = paddle.nn.CrossEntropyLoss()
+    init_s = time.perf_counter() - t0
+    run = captured_vs_eager("lstm_lm_beam", model, make_opt, crit, (x, y),
+                            cfg)
+    step = run.pop("step")
+    prof = profile_train_step(step, (x, y), train_group,
+                              ("gemm", "optimizer", "other",
+                               "flash_fwd", "flash_dq", "flash_dkv"))
+    del step
+    # beam search: the card, then the CPU on copies of the same weights
+    cell = paddle.nn.LSTMCell(cfg["hidden"], cfg["hidden"])
+    model.eval()
+    got_ids, ms = run_beam(cfg, cell, model.embed, model.proj, "cuda")
+    steps_gpu = _last_steps(tdecode)
+    cpu_cell = port_clone(cell, lambda: paddle.nn.LSTMCell(cfg["hidden"],
+                                                           cfg["hidden"]))
+    cpu_embed = port_clone(model.embed, lambda: paddle.nn.Embedding(
+        V, cfg["hidden"]))
+    cpu_proj = port_clone(model.proj, lambda: paddle.nn.Linear(
+        cfg["hidden"], V))
+    from paddle_tpu_torch.core import device as tdevice
+    prev = tdevice._current
+    paddle.set_device("cpu")
+    try:
+        ref_ids, cpu_ms = run_beam(cfg, cpu_cell, cpu_embed, cpu_proj,
+                                   "cpu")
+        steps_cpu = _last_steps(tdecode)
+    finally:
+        tdevice._current = prev
+    ok, worst, parted = beam_parity((got_ids, *steps_gpu),
+                                    (ref_ids, *steps_cpu))
+    beam = {"batch": B, "beam": cfg["beam"], "max_step_num":
+            cfg["max_step"], "steps": int(steps_cpu[0].shape[0]),
+            "ids_shape": list(ref_ids.shape), "decode_ms": ms,
+            "cpu_decode_ms": cpu_ms, "score_tol_used": worst,
+            "rows_parted_at_near_ties": parted, "ok": ok}
+    if not ok:
+        emit({"phase": "lstm_lm_beam", "failed": beam})
+        raise AssertionError("lstm_lm_beam: the card's beam search "
+                             "disagrees with the CPU's")
+    tokens = B * T
+    out = {"card": nvidia_smi_line(),
+           "model": "PTB large LSTM (Zaremba et al. 2014)",
+           "config": dict(cfg), "params": n_params, "dtype": "float32",
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "init_seconds": init_s, **run,
+           "tokens_per_s": tokens / run["step_ms"] * 1e3,
+           "eager_tokens_per_s":
+               tokens / run["vs_eager"]["eager_step_ms_mean"] * 1e3,
+           "profile_one_replay": prof,
+           "device_idle_share_of_timed_step":
+               1 - prof["device_ms"] / run["step_ms"] if prof["device_ms"]
+               else None,
+           "beam_search": beam}
+    del model, cell
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _last_steps(tdecode):
+    """The per-step scores, tokens and parents of the last
+    dynamic_decode, on the host (recorded by record_beam_steps)."""
+    return [t.cpu() for t in tdecode.BeamSearchDecoder._chip_last]
+
+
+def record_beam_steps():
+    """Wrap BeamSearchDecoder.finalize to keep each decode's stacked
+    per-step outputs (scores, tokens, parents) for beam_parity."""
+    from paddle_tpu_torch.nn import decode as tdecode
+    cls = tdecode.BeamSearchDecoder
+    if getattr(cls.finalize, "_chip", False):
+        return
+    inner = cls.finalize
+
+    def finalize(self, outputs, final_states, sequence_lengths):
+        cls._chip_last = (outputs.scores, outputs.predicted_ids,
+                          outputs.parent_ids)
+        return inner(self, outputs, final_states, sequence_lengths)
+    finalize._chip = True
+    cls.finalize = finalize
+
+
+# the functions this slice ported, once each on the card in f32 (TF32
+# off) against the port on the CPU at small sizes: within
+# OP_TAIL_TOL·(1 + |ref|) elementwise; the decompositions through what
+# they reconstruct
+OP_TAIL_TOL = 1e-4
+
+
+def op_tail_cases(P, rng):
+    """(group, name, thunk) for each function; a thunk returns a tensor
+    or a tuple of them, built from numpy made by ``rng`` (the same on
+    both devices) with the port ``P`` on its current device."""
+    import numpy as np
+    f32 = np.float32
+    T = P.to_tensor
+
+    def r(*shape, lo=None, hi=None):
+        if lo is not None:
+            return rng.uniform(lo, hi, shape).astype(f32)
+        return rng.standard_normal(shape).astype(f32)
+    A = r(6, 6) + 6 * np.eye(6, dtype=f32)
+    spd = (A @ A.T).astype(f32)
+    L = np.linalg.cholesky(spd).astype(f32)
+    h, tau = np.linalg.qr(r(6, 4), mode="raw")
+    h, tau = h.T.astype(f32), tau.astype(f32)     # LAPACK's layout
+    M = r(8, 5)
+    x, y = r(4, 7), r(4, 7)
+    ints = rng.integers(-3, 4, (16, 16)).astype(f32)
+    lin = P.linalg
+    F = P.nn.functional
+    IF = P.incubate.nn.functional
+    cases = [
+        ("linalg", "inv", lambda: lin.inv(T(A))),
+        ("linalg", "lu", lambda: _product(lin.lu_unpack(*lin.lu(T(A))))),
+        ("linalg", "cond", lambda: lin.cond(T(A))),
+        ("linalg", "matrix_exp", lambda: lin.matrix_exp(T(A / 8))),
+        ("linalg", "matrix_norm", lambda: (lin.matrix_norm(T(M)),
+                                           lin.matrix_norm(T(M), p=2),
+                                           lin.matrix_norm(T(M), p=1))),
+        ("linalg", "vector_norm", lambda: (lin.vector_norm(T(M), p=3,
+                                                           axis=1),
+                                           lin.vector_norm(T(M)))),
+        ("linalg", "ormqr", lambda: lin.ormqr(T(h), T(tau), T(r(6, 3)))),
+        ("linalg", "cholesky_inverse", lambda: lin.cholesky_inverse(T(L))),
+        ("linalg", "svd_lowrank", lambda: (lambda u, s, v: (u * s) @ v.t())(
+            *lin.svd_lowrank(T(M), q=5))),
+        ("linalg", "pca_lowrank", lambda: (lambda u, s, v: (u * s) @ v.t())(
+            *lin.pca_lowrank(T(M), q=5))),
+        ("linalg", "fp8_fp8_half_gemm_fused", lambda: lin
+         .fp8_fp8_half_gemm_fused(T(ints), T(ints), transpose_y=True,
+                                  output_dtype="float32")),
+        ("loss", "hsigmoid_loss", lambda: F.hsigmoid_loss(
+            T(r(5, 8)), T(rng.integers(0, 6, (5,))), 6, T(r(5, 8)),
+            T(r(5, 1)))),
+        ("loss", "rnnt_loss", lambda: F.rnnt_loss(
+            T(r(2, 6, 4, 5)), T(rng.integers(1, 5, (2, 3)).astype(
+                np.int32)), T(np.array([6, 5], np.int32)),
+            T(np.array([3, 2], np.int32)), reduction="none")),
+        ("loss", "margin_cross_entropy", lambda: F.margin_cross_entropy(
+            T(r(5, 7, lo=-0.9, hi=0.9)), T(rng.integers(0, 7, (5,))),
+            return_softmax=True, reduction="none")),
+        ("loss", "adaptive_log_softmax_with_loss",
+         lambda: F.adaptive_log_softmax_with_loss(
+             T(r(6, 8)), T(rng.integers(0, 12, (6,))), T(r(8, 6)),
+             [[T(r(8, 4)), T(r(4, 4))], [T(r(8, 2)), T(r(2, 4))]],
+             [4, 8])),
+        ("attention", "flashmask_attention_causal", lambda: F
+         .flashmask_attention(T(r(2, 16, 2, 32)), T(r(2, 16, 2, 32)),
+                              T(r(2, 16, 2, 32)),
+                              T(rng.integers(8, 17, (2, 1, 16, 1))),
+                              causal=True)),
+        ("attention", "flashmask_attention_bidirectional", lambda: F
+         .flashmask_attention(T(r(2, 16, 2, 32)), T(r(2, 16, 2, 32)),
+                              T(r(2, 16, 2, 32)), T(np.concatenate(
+                                  [rng.integers(10, 17, (2, 1, 16, 1)),
+                                   rng.integers(0, 4, (2, 1, 16, 1))], -1)),
+                              causal=False)),
+        ("attention", "flash_attn_qkvpacked", lambda: F.flash_attn_qkvpacked(
+            T(r(2, 16, 3, 2, 64)), causal=True)[0]),
+        ("fused", "fused_linear", lambda: IF.fused_linear(
+            T(x), T(r(7, 3)), T(r(3)))),
+        ("fused", "fused_rms_norm", lambda: IF.fused_rms_norm(
+            T(x), T(r(7)), T(r(7)))),
+        ("fused", "fused_layer_norm", lambda: IF.fused_layer_norm(
+            T(x), T(r(7)), T(r(7)))),
+        ("fused", "fused_bias_act", lambda: (IF.fused_bias_act(
+            T(x), T(r(7))), IF.fused_bias_act(T(r(4, 8)), None,
+                                              "swiglu"))),
+        ("fused", "swiglu", lambda: IF.swiglu(T(x), T(y))),
+        ("fused", "fused_rotary_position_embedding",
+         lambda: IF.fused_rotary_position_embedding(
+             T(r(2, 5, 2, 8)), T(r(2, 5, 2, 8)))[:2]),
+        ("fused", "fused_layernorm_residual_dropout",
+         lambda: IF.fused_layernorm_residual_dropout(
+             T(x), T(y), T(r(7)), T(r(7)), p=0.0)),
+    ]
+    pos = np.abs(r(4, 7)) + 0.5
+    cases += [("extra_math", name, fn) for name, fn in (
+        ("sinc", lambda: P.sinc(T(x))),
+        ("copysign", lambda: P.copysign(T(x), T(y))),
+        ("deg2rad", lambda: P.deg2rad(T(x))),
+        ("rad2deg", lambda: P.rad2deg(T(x))),
+        ("logit", lambda: P.logit(T(r(4, 7, lo=0.05, hi=0.95)))),
+        ("logcumsumexp", lambda: P.logcumsumexp(T(x), axis=1)),
+        ("heaviside", lambda: P.heaviside(T(x), T(y))),
+        ("gammaln", lambda: P.gammaln(T(pos))),
+        ("gammainc", lambda: P.gammainc(T(pos), T(pos + 0.3))),
+        ("gammaincc", lambda: P.gammaincc(T(pos), T(pos + 0.3))),
+        ("multigammaln", lambda: P.multigammaln(T(pos + 2), 3)),
+        ("polygamma", lambda: P.polygamma(T(pos), 1)),
+        ("i0e", lambda: P.i0e(T(x))),
+        ("i1", lambda: P.i1(T(x))),
+        ("trapezoid", lambda: P.trapezoid(T(x), axis=1)),
+        ("cumulative_trapezoid", lambda: P.cumulative_trapezoid(T(x))),
+        ("quantile", lambda: P.quantile(T(x), [0.25, 0.5], axis=1)),
+        ("nanmedian", lambda: P.nanmedian(T(x), axis=0)),
+        ("renorm", lambda: P.renorm(T(x), 2.0, 0, 1.0)),
+        ("cdist", lambda: P.cdist(T(x), T(y))),
+        ("pdist", lambda: P.pdist(T(x))),
+        ("addmm", lambda: P.addmm(T(r(4, 4)), T(x), T(y.T.copy()), 0.5,
+                                  2.0)),
+        ("diag_embed", lambda: P.diag_embed(T(x), 1)),
+        ("vander", lambda: P.vander(T(r(5)), 4)),
+        ("block_diag", lambda: P.block_diag([T(x), T(r(2, 2))])),
+        ("cartesian_prod", lambda: P.cartesian_prod([T(r(3)), T(r(2))])),
+        ("combinations", lambda: P.combinations(T(r(5)), 3)),
+        ("bucketize", lambda: P.bucketize(T(x), T(np.sort(r(6))))),
+        ("take", lambda: P.take(T(x), T(rng.integers(0, 28, (3, 3))))),
+        ("index_fill", lambda: P.index_fill(T(x), T(np.array([0, 2])), 0,
+                                            -1.0)),
+        ("masked_scatter", lambda: P.masked_scatter(T(x), T(x > 0),
+                                                    T(r(28)))),
+        ("diagonal_scatter", lambda: P.diagonal_scatter(T(r(5, 5)),
+                                                        T(r(4)), 1)),
+        ("slice_scatter", lambda: P.slice_scatter(T(x), T(r(4, 3)), [1],
+                                                  [0], [6], [2])),
+        ("histogram", lambda: P.histogram(T(x), bins=5, min=-2, max=2)),
+        ("unique_consecutive", lambda: P.unique_consecutive(
+            T(np.array([1, 1, 2, 2, 3, 1, 1], np.float32)),
+            return_counts=True)),
+        ("nan_to_num", lambda: P.nan_to_num(T(np.array(
+            [np.nan, np.inf, -np.inf, 1.0], np.float32)))),
+        ("frexp", lambda: P.frexp(T(x))[0]),
+        ("ldexp", lambda: P.ldexp(T(x), T(np.array([1, 2, 3, 4, 5, 6, 7],
+                                                    np.int32)))),
+        ("polar", lambda: P.as_real(P.polar(T(pos), T(x)))),
+        ("hstack", lambda: P.hstack([T(x), T(y)])),
+        ("tensor_split", lambda: tuple(P.tensor_split(T(x), 3, axis=1))),
+        ("reduce_as", lambda: P.reduce_as(T(x), T(r(1, 7)))),
+    )]
+    # the RNN layers with sequence_length, bidirect, 2 layers
+    for cls in ("SimpleRNN", "LSTM", "GRU"):
+        cases.append(("rnn", cls, lambda c=cls: _rnn_case(P, c)))
+    return cases
+
+
+def _product(mats):
+    """The product of a sequence of matrices (P L U)."""
+    out = mats[0]
+    for m in mats[1:]:
+        out = out @ m
+    return out
+
+
+_RNN_STATES = {}
+
+
+def _rnn_case(P, cls):
+    """The outputs and final states of ``P.nn.<cls>`` (6 -> 8, 2 layers,
+    bidirect) over a seeded batch with sequence lengths, from the same
+    weights on every device (kept the first time)."""
+    import numpy as np
+    import torch
+    layer = getattr(P.nn, cls)(6, 8, num_layers=2, direction="bidirect")
+    if cls not in _RNN_STATES:
+        _RNN_STATES[cls] = {k: v.detach().cpu() for k, v in
+                            torch.nn.Module.state_dict(layer).items()}
+    torch.nn.Module.load_state_dict(layer, _RNN_STATES[cls])
+    g = np.random.default_rng(3)
+    x = P.to_tensor(g.standard_normal((3, 5, 6)).astype(np.float32))
+    out, st = layer(x, sequence_length=P.to_tensor(np.array([5, 2, 4])))
+    return (out, *(st if isinstance(st, tuple) else (st,)))
+
+
+def _flat(v):
+    import torch
+    if isinstance(v, (tuple, list)):
+        return [t for x in v for t in _flat(x)]
+    t = v._t if hasattr(v, "_t") else v
+    return [t.detach().cpu().double()] if isinstance(t, torch.Tensor) \
+        else []
+
+
+def phase_op_tail_parity():
+    """Every case of op_tail_cases on the card against the CPU; the worst
+    error of each group, as a share of OP_TAIL_TOL·(1 + |ref|)."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as tdevice
+    prev = tdevice._current
+    results = {}
+    for dev in ("gpu", "cpu"):
+        paddle.set_device(dev)
+        paddle.seed(SEED)
+        cases = op_tail_cases(paddle, np.random.default_rng(SEED))
+        for group, name, fn in cases:
+            results.setdefault(name, {"group": group})[dev] = _flat(fn())
+    tdevice._current = prev
+    worst, failed = {}, []
+    for name, r in results.items():
+        used = 0.0
+        for a, b in zip(r["gpu"], r["cpu"], strict=True):
+            if a.shape != b.shape:
+                used = float("inf")
+                break
+            err = ((a - b).abs() / (OP_TAIL_TOL * (1 + b.abs())))
+            err = err[~(a.isnan() & b.isnan())]
+            used = max(used, float(err.max()) if err.numel() else 0.0)
+        g = r["group"]
+        if used > worst.get(g, (0.0, ""))[0] or g not in worst:
+            worst[g] = (used, name)
+        if not used <= 1.0:
+            failed.append([name, used])
+    out = {"card": nvidia_smi_line(), "tol": OP_TAIL_TOL,
+           "functions": len(results),
+           "worst_share_of_tol_by_group": worst, "failed": failed}
+    if failed:
+        emit({"phase": "op_tail_parity", "failed": out})
+        raise AssertionError(f"op_tail_parity: {len(failed)} functions "
+                             f"disagree with the CPU")
+    return out
+
+
 def phase_build():
     import importlib
     import threading
@@ -8240,7 +9187,18 @@ def main() -> int:
              "flash_attention_tma.cu"),
             ("flash_attention_bwd_dkv_segmented_d128", 791,
              "_flash_bwd_pallas_seg :768 (_bwd_dkv_kernel, segmented=True)",
-             "flash_attention_tma.cu"))}
+             "flash_attention_tma.cu"),
+            # Transformer-base's cross-attention: 96 queries against 128
+            # keys, with K5's dropout
+            ("flash_attention_fwd_cross", 380,
+             "_flash_fwd_pallas (_fwd_kernel :99, dropout_p > 0), "
+             "Lq != Lk", "flash_attention_tma.cu"),
+            ("flash_attention_bwd_dq_cross", 414,
+             "_flash_bwd_pallas (_bwd_dq_kernel :208, dropout_p > 0), "
+             "Lq != Lk", "flash_attention_tma.cu"),
+            ("flash_attention_bwd_dkv_cross", 432,
+             "_flash_bwd_pallas (_bwd_dkv_kernel :278, dropout_p > 0), "
+             "Lq != Lk", "flash_attention_tma.cu"))}
     # K6 (forward, and dlhs on the transposed weights) and K7
     for name, line, body in (
             ("grouped_matmul_fwd", 180, "_gmm_kernel via _gmm_fwd_impl"),
@@ -8343,6 +9301,11 @@ def main() -> int:
         ("mobilenet_v2_train", phase_mobilenet_v2_train),
         ("vision_zoo_parity", phase_vision_zoo_parity),
         ("vision_ops_parity", phase_vision_ops_parity),
+        ("flash_cross_parity", lambda: phase_flash_cross_parity(flash)),
+        ("transformer_base_train",
+         lambda: phase_transformer_base_train(flash)),
+        ("lstm_lm_beam", lambda: phase_lstm_lm_beam(flash)),
+        ("op_tail_parity", phase_op_tail_parity),
         ("to_static_gpt", lambda: phase_to_static_gpt(flash)),
         ("jit_export", lambda: phase_jit_export(flash)),
     ]

@@ -12,7 +12,8 @@ Run from the root of a checkout on a machine with a Hopper card:
 ``flash_attention_tma.cu`` (e.g. ``git show HEAD~1:paddle_tpu_torch/ops/
 kernels/csrc/flash_attention_tma.cu``, written to a file beforehand): it
 is built as the variant ``parent`` and its instances without segments
-are timed beside the shipped ones, in turns.
+are timed beside the shipped ones, in turns, their outputs compared bit
+for bit with the shipped ones' on the same inputs.
 
 Each variant is an edited copy of ``csrc/flash_attention_tma.cu``:
 
@@ -50,8 +51,10 @@ share of chip_smoke.py's bf16 limit), then its C entries timed
 (chip_smoke.time_ms: CUDA events around calls queued behind a device
 sleep, median of 10 samples of 5 calls), in two passes, the second in
 reverse order: without segments at BERT's attention (B 24, L 512, H 12,
-D 64, bidirectional) with and without dropout 0.1 and at ERNIE-MoE's
-(B 8, L 2048, H 12, D 64, causal); with segments at the varlen geometry
+D 64, bidirectional) with and without dropout 0.1, at ERNIE-MoE's
+(B 8, L 2048, H 12, D 64, causal) and at the Llama training geometry
+(B 4, L 2048, H 32, D 128, causal: the D-128 kernels, which the D-64
+variants leave as they are); with segments at the varlen geometry
 (12,288 packed tokens in chip_smoke.py's sequences of 32-512, H 12,
 D 64), full and causal. Then the first design (mma.sync) and PyTorch's
 SDPA forward on the same inputs. Prints one JSON line per variant and
@@ -112,10 +115,10 @@ TRACE = [
     ("  // out = acc / (1 - p) / max(l, 1e-30): one division a row\n",
      "  TRACE(3);\n"
      "  // out = acc / (1 - p) / max(l, 1e-30): one division a row\n"),
-    ("      if (row[r] < L) lp[row[r]] = m[r] * kLn2 + logf(lm[r]);\n  }\n"
-     "}\n",
-     "      if (row[r] < L) lp[row[r]] = m[r] * kLn2 + logf(lm[r]);\n  }\n"
-     "  TRACE(4);\n}\n"),
+    ("        lp[row[r]] = l[r] > 0.f ? m[r] * kLn2 + logf(lm[r]) : "
+     "kNegInf;\n  }\n}\n",
+     "        lp[row[r]] = l[r] > 0.f ? m[r] * kLn2 + logf(lm[r]) : "
+     "kNegInf;\n  }\n  TRACE(4);\n}\n"),
 ]
 TRACE_ENTRY = """
 extern "C" int flash_trace(void* dst, int n, int clear) {
@@ -131,7 +134,8 @@ VARIANTS = {"shipped": [], "exp2f": [EXP], "head_order": [ORDER],
 SEG_VARIANTS = ("shipped", "scan", "ids_global", "mask_all")
 GEOMETRIES = {"bert": ((24, 512, 12, 64), False, 0.0),
               "bert_dropout": ((24, 512, 12, 64), False, 0.1),
-              "moe": ((8, 2048, 12, 64), True, 0.0)}
+              "moe": ((8, 2048, 12, 64), True, 0.0),
+              "llama": ((4, 2048, 32, 128), True, 0.0)}
 SEG_GEOMETRIES = {"varlen": False, "varlen_causal": True}
 SEED = 0x5EED0123456789AB
 
@@ -152,22 +156,24 @@ def variant_source(src: str, subs, tail: str = "") -> str:
     return src + tail
 
 
-def bind(path, segments=True, key_ptr=True):
+def bind(path, segments=True, key_ptr=True, key_len=True):
     """A variant's library with its three entries' argument types (a
     source from before the segment instances has no segment arguments;
     one from before the key in device memory takes the Philox key's two
-    words by value)."""
+    words by value; one from before unequal lengths has no key length
+    after the query length)."""
     lib = ctypes.CDLL(str(path))
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     seg = [p, ctypes.c_longlong, p, p] if segments else []
     key = [p] if key_ptr else [u, u]
-    tail = [p, i, i, i, i, i, ctypes.c_float] + seg + key + \
-        [u, ctypes.c_float, p]
+    tail = [p] + [i] * (6 if key_len else 5) + [ctypes.c_float] + seg + \
+        key + [u, ctypes.c_float, p]
     lib.flash_attention_tma_forward.argtypes = [p] * 5 + tail
     lib.flash_attention_tma_backward_dq.argtypes = [p] * 7 + tail
     lib.flash_attention_tma_backward_dkv.argtypes = [p] * 8 + tail
     lib.segments = segments
     lib.key_ptr = key_ptr
+    lib.key_len = key_len
     return lib
 
 
@@ -200,7 +206,8 @@ def calls(lib, q, k, v, do, lse, delta, causal, p, plan=None,
                     win = plan.window(kernel, D, causal)
                 seg = (plan.ids.data_ptr(), plan.ids.stride(0),
                        plan.ranges.data_ptr(), win.data_ptr())
-        return (B, L, H, D, int(causal), 1 / math.sqrt(D), *seg, *key,
+        lens = (L, k.shape[1]) if lib.key_len else (L,)
+        return (B, *lens, H, D, int(causal), 1 / math.sqrt(D), *seg, *key,
                 thresh, inv, torch.cuda.current_stream().cuda_stream)
 
     def check(rc):
@@ -329,7 +336,8 @@ def main() -> int:
             continue
         libs[name] = bind(out / f"libflash_{name}.so",
                           segments="Seg sg" in sources[name],
-                          key_ptr="const long long* key" in sources[name])
+                          key_ptr="const long long* key" in sources[name],
+                          key_len="int Lk" in sources[name])
         inst = cs.ptxas_instances([ln for ln in log.splitlines()
                                    if "registers" in ln or "spill" in ln
                                    or "Compiling entry" in ln])
@@ -347,10 +355,17 @@ def main() -> int:
                      kw)
     plain = [n for n in libs if n not in ("trace", "ids_global",
                                           "mask_all")]
+    firsts = {}      # the shipped and parent libraries' outputs, once each
     for name in plain + list(reversed(plain)):
         r = res[name]
         for g, (q, k, v, do, lse, delta, causal, p, kw) in inputs.items():
             fns, outs = calls(libs[name], q, k, v, do, lse, delta, causal, p)
+            if name in ("shipped", "parent") and \
+                    (name, g) not in firsts:
+                for fn in fns.values():
+                    fn()
+                torch.cuda.synchronize()
+                firsts[(name, g)] = [o.clone() for o in outs]
             if g.startswith("bert") and g not in r["checks"]:
                 for fn in fns.values():
                     fn()
@@ -361,7 +376,14 @@ def main() -> int:
                 r["times"].setdefault(f"{g}.{kn}", []).append(
                     round(cs.time_ms(fn, samples=10, inner=5), 4))
         print(json.dumps({name: r}), flush=True)
-    del inputs
+    if "parent" in res:
+        res["parent"]["bit_equal_to_shipped"] = {
+            g: all(torch.equal(a, b) for a, b in zip(
+                firsts[("parent", g)], firsts[("shipped", g)]))
+            for g in inputs}
+        print(json.dumps({"parent_bit_equal": res["parent"][
+            "bit_equal_to_shipped"]}), flush=True)
+    del inputs, firsts
     # with segments: the window against a scan, the ids' path, the edge
     # rule, and the trace of the forward
     lens = cs.varlen_lengths()

@@ -100,9 +100,12 @@ The high-level trainer:
 ``import paddle_tpu_torch as paddle`` gives the names of the JAX
 package's top level that are ported: the dtypes, ``Tensor``,
 ``Parameter``, ``to_tensor``, the grad modes and ``grad``, the flags,
-``seed``, the devices, the op surface, ``nn``, ``optimizer``, ``amp``,
-``io``, ``metric``, ``callbacks``, ``vision``, ``Model``, ``summary``
-and ``flops``.
+``seed``, the devices, the op surface (``ops.extra_math`` included),
+``nn``, ``optimizer``, ``amp``, ``io``, ``metric``, ``callbacks``,
+``linalg``, ``vision``, ``Model``, ``summary``, ``flops`` and the JAX
+top-level tail (``finfo``, ``iinfo``, the static-mode switches, the
+places, ``rank``, ``shape``, ``binomial`` ...). What is left is pinned
+by ``tests/test_torch_surface.py``.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (the eager core: ``set_device("cpu")``); without CUDA
@@ -110,6 +113,8 @@ and without that it raises. Importing this package imports no JAX and
 nothing of serving: ``paddle_tpu_torch.save`` / ``load`` bind
 ``framework.io``'s on first use.
 """
+
+import torch  # noqa: E402
 
 from .core.dtype import (  # noqa: F401
     bool_, bool_ as bool8, uint8, int8, int16, int32, int64, float16,
@@ -154,16 +159,192 @@ def create_parameter(shape, dtype="float32", name=None, attr=None,
                           current_device()), name=name)
 
 
+from . import linalg  # noqa: F401,E402
+from .core.autograd import apply_op  # noqa: F401,E402
+from .core.dtype import convert_dtype  # noqa: F401,E402
+from .nn import ParamAttr  # noqa: F401,E402
+
+# the subpackages the JAX package imports at its top level and the port
+# has, imported on first use: a process that serves an exported program
+# imports no model class (jit.load -> TranslatedLayer)
+_LAZY = ("vision", "models", "incubate", "inference", "framework",
+         "regularizer", "utils", "observability")
+
+
 def __getattr__(name):
     if name in ("save", "load"):
         from .framework import io
         return getattr(io, name)
-    if name == "vision":
-        # imported on first use: a process that serves an exported
-        # program imports no model class (jit.load -> TranslatedLayer)
+    if name in _LAZY:
         import importlib
-        return importlib.import_module(".vision", __name__)
+        return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+# -- the JAX package's top-level tail (paddle_tpu/__init__.py) ---------------
+
+def disable_static(place=None):
+    """Back to eager mode, which is the port's only mode."""
+
+
+def enable_static():
+    """Static-graph mode (``Program`` / ``Executor``) is ROADMAP item 15:
+    it raises until then."""
+    raise NotImplementedError(
+        "paddle_tpu_torch has no static-graph mode yet (ROADMAP queue 1, "
+        "item 15); jit.to_static captures programs in eager code")
+
+
+def in_dynamic_mode():
+    return True
+
+
+def iinfo(dtype):
+    """Integer type info (``bits``, ``min``, ``max``, ``dtype``)."""
+    return torch.iinfo(convert_dtype(dtype))
+
+
+def finfo(dtype):
+    """Float type info (``bits``, ``eps``, ``min``, ``max``, ``tiny``,
+    ``resolution``, ``dtype``)."""
+    return torch.finfo(convert_dtype(dtype))
+
+
+dtype = torch.dtype
+float8_e4m3fn = torch.float8_e4m3fn
+float8_e5m2 = torch.float8_e5m2
+
+
+class CUDAPinnedPlace(Place):
+    def __init__(self):
+        super().__init__("gpu_pinned", 0)
+
+
+class LazyGuard:
+    """Deferred parameter creation: a no-op context, parameters are made
+    where they are declared."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def rank(x):
+    """The number of dimensions, a 0-D int64 Tensor."""
+    from .core.tensor import as_torch
+    t = as_torch(x)
+    return Tensor(torch.tensor(t.dim(), dtype=torch.int64, device=t.device))
+
+
+def shape(x):
+    """The shape, an int64 Tensor."""
+    from .core.tensor import as_torch
+    t = as_torch(x)
+    return Tensor(torch.tensor(list(t.shape), dtype=torch.int64,
+                               device=t.device))
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None):
+    """Print options of tensors (and of numpy, which the Tensor repr
+    uses)."""
+    import numpy as np
+    kw = {k: v for k, v in (("precision", precision),
+                            ("threshold", threshold),
+                            ("edgeitems", edgeitems),
+                            ("linewidth", linewidth)) if v is not None}
+    torch.set_printoptions(sci_mode=sci_mode, **kw)
+    if sci_mode is not None:
+        kw["suppress"] = not sci_mode
+    np.set_printoptions(**kw)
+
+
+def is_compiled_with_cinn():
+    return False
+
+
+def is_compiled_with_rocm():
+    return False
+
+
+def is_compiled_with_xpu():
+    return False
+
+
+def disable_signal_handler():
+    return None
+
+
+def check_shape(x):
+    return None
+
+
+def batch(reader, batch_size, drop_last=False):
+    """The legacy reader decorator: lists of ``batch_size`` items."""
+    def batched():
+        buf = []
+        for item in reader():
+            buf.append(item)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+    return batched
+
+
+def get_cuda_rng_state():
+    """The port's generator state (one stream serves every device)."""
+    return get_rng_state()
+
+
+def set_cuda_rng_state(state):
+    return set_rng_state(state)
+
+
+def binomial(count, prob, name=None):
+    """Binomial draws with per-element counts and probabilities, int64,
+    from a generator seeded by a host draw of the port's generator."""
+    from .core import random as _random
+
+    def f(n, p):
+        g = _random.generator_for(n.device)
+        return torch.binomial(n.float(), p.float(), generator=g).long()
+    return apply_op(f, count, prob, op_name="binomial")
+
+
+def addmm_(input, x, y, beta=1.0, alpha=1.0, name=None):
+    out = addmm(input, x, y, beta=beta, alpha=alpha)  # noqa: F405
+    input._assign(out._t)
+    return input
+
+
+def where_(condition, x, y, name=None):
+    """``where(condition, x, y)`` written into x."""
+    out = where(condition, x, y)  # noqa: F405
+    x._assign(out._t)
+    return x
+
+
+def tolist(x):
+    return x.tolist()
+
+
+def _toplevel_inplace(name):
+    def f(x, *args, **kwargs):
+        return getattr(x, name)(*args, **kwargs)
+    f.__name__ = name
+    return f
+
+
+# the random in-place fills, at the top level as in the JAX package
+normal_ = _toplevel_inplace("normal_")
+log_normal_ = _toplevel_inplace("log_normal_")
+bernoulli_ = _toplevel_inplace("bernoulli_")
+cauchy_ = _toplevel_inplace("cauchy_")
+geometric_ = _toplevel_inplace("geometric_")
 
 
 # paddle.bool: assigned last so the module body above keeps the builtin

@@ -105,6 +105,9 @@ def _wrap(out, Tensor):
 _op_recorder = None
 _backward_observer = None
 _op_depth = 0
+# eager dispatches per op name since process start (ops.op_registry's
+# dispatch_counts)
+_dispatches: dict = {}
 
 
 def apply_op(fn: Callable, *args, op_name: Optional[str] = None, **kwargs):
@@ -115,6 +118,8 @@ def apply_op(fn: Callable, *args, op_name: Optional[str] = None, **kwargs):
     ``amp.auto_cast`` the positional tensors are cast per the regime
     for ``op_name`` (else ``fn.__name__``)."""
     Tensor = _Tensor or _tensor_cls()
+    name = op_name or getattr(fn, "__name__", "op")
+    _dispatches[name] = _dispatches.get(name, 0) + 1
     wrapped = False
     raw = []
     for a in args:
@@ -124,8 +129,7 @@ def apply_op(fn: Callable, *args, op_name: Optional[str] = None, **kwargs):
         else:
             raw.append(a)
     if _amp_state.enabled:
-        raw = _maybe_cast_inputs(op_name or getattr(fn, "__name__", "op"),
-                                 raw)
+        raw = _maybe_cast_inputs(name, raw)
     if _op_recorder is not None:
         return _apply_recorded(fn, args, raw, kwargs, op_name, wrapped,
                                Tensor)

@@ -4,18 +4,20 @@
 oracle ``_sdpa_xla`` (``paddle_tpu/ops/pallas/flash_attention.py``);
 its dropout draws the flash kernels' Philox keep mask from the same
 seed, so a masked call and a kernel call with one seed drop the same
-pairs. :func:`scaled_dot_product_attention`, :func:`flash_attention`
-and :func:`flash_attn_varlen_qkvpacked` are the paddle entries
+pairs. :func:`scaled_dot_product_attention`, :func:`flash_attention`,
+:func:`flash_attn_qkvpacked`, :func:`flash_attn_varlen_qkvpacked` and
+:func:`flashmask_attention` are the paddle entries
 (``paddle_tpu/nn/functional/attention.py``): a call without a mask goes
-to the flash-attention kernels (``ops.kernels.flash_attention``, their
-plain versions on the CPU) with a key drawn on the inputs' device from
-the port's key stream (``core.random.next_key``: no host read, so a CUDA
-graph that holds the call drops afresh on every replay) when it drops;
-a call with a mask goes to
-:func:`sdpa_reference`, as the JAX code routes them; packed varlen
-sequences go to the segment-masked kernels. The three entries take
-Tensors or torch tensors (``core.autograd.apply_op``) and return the
-same kind.
+to the flash-attention kernels whatever the query and key lengths
+(``ops.kernels.flash_attention``, their plain versions on the CPU) with
+a key drawn on the inputs' device from the port's key stream
+(``core.random.next_key``: no host read, so a CUDA graph that holds the
+call drops afresh on every replay) when it drops; a call with a mask
+goes to :func:`sdpa_reference`, as the JAX code routes them (FlashMask's
+column encoding becomes such a mask, as in JAX); packed qkv is read as
+strided views; packed varlen sequences go to the segment-masked
+kernels. The entries take Tensors or torch tensors
+(``core.autograd.apply_op``) and return the same kind.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from ...ops.kernels.flash_attention import (flash_attention_segmented,
                                             flash_dropout_keep_mask)
 
 __all__ = ["sdpa_reference", "scaled_dot_product_attention",
-           "flash_attention", "flash_attn_varlen_qkvpacked"]
+           "flash_attention", "flash_attn_qkvpacked",
+           "flash_attn_varlen_qkvpacked", "flashmask_attention"]
 
 _NEG_INF = -1e30
 
@@ -109,6 +112,18 @@ def flash_attention(query, key, value, dropout: float = 0.0,
     return out, None
 
 
+def flash_attn_qkvpacked(qkv, dropout: float = 0.0, causal: bool = False,
+                         return_softmax: bool = False,
+                         fixed_seed_offset=None, rng_name: str = "",
+                         training: bool = True, name=None):
+    """Packed ``qkv [B, L, 3, H, D]``: q, k and v are its strided views,
+    read in place by the flash kernels. Returns ``(out, None)``."""
+    q, k, v = apply_op(lambda p: (p[:, :, 0], p[:, :, 1], p[:, :, 2]), qkv,
+                       op_name="qkv_unpack")
+    return flash_attention(q, k, v, dropout=dropout, causal=causal,
+                           return_softmax=return_softmax, training=training)
+
+
 def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
                                 max_seqlen_q=None, max_seqlen_k=None,
                                 scale=None, dropout: float = 0.0,
@@ -150,3 +165,64 @@ def _varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k, scale, causal):
     out = flash_attention_segmented(q[None], k[None], v[None],
                                     seg[None].to(torch.int32), causal, scale)
     return out[0]
+
+
+def _flashmask(rows, cols, se, causal: bool, window_size):
+    """The pairs FlashMask's column encoding ``se [B, H|1, Lk, C]`` masks
+    (True = masked), ``[B, H|1, Lq, Lk]``: causal C = 1 masks rows >=
+    LTS, C = 2 rows in [LTS, LTE); bidirectional C = 2 rows >= LTS or <
+    UTE, C = 4 rows in [LTS, LTE) or [UTS, UTE); a sliding window
+    (left, right) masks keys outside [i - left, i + right]."""
+    c = se.shape[-1]
+    col = [se[..., i][:, :, None, :] for i in range(c)]
+    if causal:
+        if c == 1:
+            masked = rows >= col[0]
+        elif c == 2:
+            masked = (rows >= col[0]) & (rows < col[1])
+        else:
+            raise ValueError(
+                f"causal flashmask expects 1 or 2 columns, got {c}")
+    elif c == 2:
+        masked = (rows >= col[0]) | (rows < col[1])
+    elif c == 4:
+        masked = ((rows >= col[0]) & (rows < col[1])) | \
+            ((rows >= col[2]) & (rows < col[3]))
+    else:
+        raise ValueError(
+            f"non-causal flashmask expects 2 or 4 columns, got {c}")
+    if window_size is not None:
+        left, right = (window_size if isinstance(window_size, (tuple, list))
+                       else (window_size, window_size))
+        masked = masked | (cols < rows - int(left)) | \
+            (cols > rows + int(right))
+    return masked
+
+
+def flashmask_attention(query, key, value, startend_row_indices,
+                        dropout: float = 0.0, causal: bool = False,
+                        window_size=None, return_softmax_lse: bool = False,
+                        return_seed_offset: bool = False,
+                        fixed_seed_offset=None, rng_name: str = "",
+                        training: bool = True, name=None):
+    """FlashMask: attention under a column-wise sparse mask,
+    ``startend_row_indices [B, H|1, Lk, C]`` (:func:`_flashmask`),
+    expanded to an additive mask (-1e30 where masked) for
+    :func:`sdpa_reference`, as the JAX entry does. ``dropout`` is
+    accepted and unused, as there; the lse and seed extras are
+    ``None``."""
+    def f(q, k, v, se):
+        lq, lk = q.shape[1], k.shape[1]
+        rows = torch.arange(lq, device=q.device).reshape(1, 1, lq, 1)
+        cols = torch.arange(lk, device=q.device).reshape(1, 1, 1, lk)
+        masked = _flashmask(rows, cols, se.to(torch.int32), causal,
+                            window_size)
+        mask = torch.where(masked, _NEG_INF, 0.0).to(torch.float32)
+        return sdpa_reference(q, k, v, causal=causal, mask=mask)
+
+    out = apply_op(f, query, key, value, startend_row_indices,
+                   op_name="flashmask_attention")
+    if return_softmax_lse or return_seed_offset:
+        return (out, *([None] * (int(return_softmax_lse) +
+                                 int(return_seed_offset))))
+    return out

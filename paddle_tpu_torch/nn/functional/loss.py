@@ -1,13 +1,17 @@
 """Loss functionals of the port.
 
-The port of ``paddle_tpu/nn/functional/loss.py``: every loss there but
-the four with structure of their own (``hsigmoid_loss``,
-``rnnt_loss``, ``margin_cross_entropy``,
-``adaptive_log_softmax_with_loss``), each through
-``core.autograd.apply_op`` under the JAX package's op name, with the
-JAX package's arithmetic (its clamps, its ``mean`` / ``sum`` /
-``batchmean`` reductions). ``ctc_loss`` is the JAX package's forward
-algorithm in log space, a loop over the time steps.
+The port of ``paddle_tpu/nn/functional/loss.py``: every loss there,
+each through ``core.autograd.apply_op`` under the JAX package's op
+name, with the JAX package's arithmetic (its clamps, its ``mean`` /
+``sum`` / ``batchmean`` reductions). ``ctc_loss`` is the JAX package's
+forward algorithm in log space, a loop over the time steps;
+``rnnt_loss`` its transducer forward variables, a loop over the frames
+with a running log-sum-exp along the labels (``torch.logcumsumexp`` in
+place of the JAX associative scan); ``hsigmoid_loss`` its bit coding of
+the default tree (or a custom ``path_table`` / ``path_code``);
+``margin_cross_entropy`` its one-rank form (class-sharded logits across
+a group of ranks wait for the port's collectives);
+``adaptive_log_softmax_with_loss`` its masked head-and-tails form.
 
 ``cross_entropy`` is routed as the JAX version routes it: a hard-label mean over 2-D or 3-D
 logits with a vocabulary of at least 4096, no class weights and no
@@ -34,7 +38,9 @@ __all__ = ["cross_entropy", "softmax_with_cross_entropy", "mse_loss",
            "soft_margin_loss", "multi_label_soft_margin_loss",
            "multi_margin_loss", "poisson_nll_loss", "gaussian_nll_loss",
            "square_error_cost", "log_loss", "dice_loss", "npair_loss",
-           "sigmoid_focal_loss", "triplet_margin_with_distance_loss"]
+           "sigmoid_focal_loss", "triplet_margin_with_distance_loss",
+           "hsigmoid_loss", "rnnt_loss", "margin_cross_entropy",
+           "adaptive_log_softmax_with_loss"]
 
 _FUSED_MIN_VOCAB = 4096
 
@@ -442,3 +448,160 @@ def triplet_margin_with_distance_loss(input, positive, negative,
         lambda a, b: _reduce(torch.clamp(a - b + margin, min=0.0),
                              reduction),
         dp, dn, op_name="triplet_margin_with_distance_loss")
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """Hierarchical sigmoid loss ``[N, 1]`` over the complete binary tree
+    (class c's path: nodes ``((c + num_classes) >> (j + 1)) - 1``, bits
+    ``((c + num_classes) >> j) & 1``) or a custom tree
+    (``path_table`` / ``path_code``, negative entries ending a path)."""
+    if num_classes < 2:
+        raise ValueError(f"Expected num_classes >= 2 (got {num_classes})")
+    if (path_table is None) != (path_code is None):
+        raise ValueError(
+            "path_table and path_code must be given together (custom tree)")
+
+    def f(x, lbl, w, *rest):
+        b = rest[0] if bias is not None else None
+        if path_table is None:
+            c = lbl.reshape(-1).long() + num_classes
+            max_len = int(math.floor(math.log2(2 * num_classes - 1)))
+            js = torch.arange(max_len, device=x.device)
+            nodes = (c[:, None] >> (js[None, :] + 1)) - 1
+            bits = (c[:, None] >> js[None, :]) & 1
+        else:
+            nodes, bits = rest[-2].long(), rest[-1].long()
+        valid = nodes >= 0
+        nodes = nodes.clamp(min=0)
+        pre = torch.einsum("nld,nd->nl", w[nodes], x)
+        if b is not None:
+            pre = pre + b.reshape(-1)[nodes]
+        pre = pre.clamp(-40.0, 40.0)
+        per = torch.logaddexp(torch.zeros_like(pre), pre) - \
+            bits.to(pre.dtype) * pre
+        per = torch.where(valid, per, torch.zeros_like(per))
+        return per.sum(dim=1, keepdim=True)
+
+    args = [a for a in (bias, path_table, path_code) if a is not None]
+    return apply_op(f, input, label, weight, *args, op_name="hsigmoid_loss")
+
+
+def rnnt_loss(input, label, input_lengths, label_lengths, blank=0,
+              fastemit_lambda=0.001, reduction="mean", name=None):
+    """RNN-Transducer loss of logits ``[B, T, U + 1, V]`` (log-softmaxed
+    here) against labels ``[B, U]``, FastEmit's ``log(1 + lambda)`` on
+    every label emission: the forward variables row by row over the
+    frames."""
+    def f(acts, lbl, tlen, ulen):
+        logp = torch.log_softmax(acts.float(), dim=-1)
+        B, T, U1, V = logp.shape
+        U = U1 - 1
+        blank_lp = logp[..., blank]                          # [B, T, U+1]
+        emit_lp = torch.gather(
+            logp[:, :, :U, :], -1,
+            lbl.long()[:, None, :, None].expand(B, T, U, 1))[..., 0]
+        if fastemit_lambda:
+            emit_lp = emit_lp + math.log1p(fastemit_lambda)
+        zero = logp.new_zeros((B, 1))
+        alpha = torch.cat([zero, emit_lp[:, 0].cumsum(dim=1)], dim=1)
+        alphas = [alpha]
+        for t in range(1, T):
+            # alpha[t, u] = logsumexp over k <= u of
+            #   alpha[t-1, k] + blank[t-1, k] + sum emit[t, k..u-1]
+            csum = torch.cat([zero, emit_lp[:, t].cumsum(dim=1)], dim=1)
+            alpha = torch.logcumsumexp(
+                alpha + blank_lp[:, t - 1] - csum, dim=1) + csum
+            alphas.append(alpha)
+        alphas = torch.stack(alphas, dim=1)                 # [B, T, U+1]
+        t_idx = (tlen.long() - 1)[:, None, None].expand(B, 1, U1)
+        u_idx = ulen.long()[:, None]
+        a_fin = torch.gather(torch.gather(alphas, 1, t_idx)[:, 0], 1,
+                             u_idx)[:, 0]
+        b_fin = torch.gather(torch.gather(blank_lp, 1, t_idx)[:, 0], 1,
+                             u_idx)[:, 0]
+        nll = -(a_fin + b_fin)
+        if reduction == "mean":
+            return nll.sum() / B
+        if reduction == "sum":
+            return nll.sum()
+        return nll
+
+    return apply_op(f, input, label, input_lengths, label_lengths,
+                    op_name="rnnt_loss")
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean"):
+    """ArcFace-family margin softmax cross-entropy: the true class's
+    logit becomes ``cos(m1 θ + m2) - m3``, every logit is scaled by
+    ``scale``. One rank: logits sharded by class over a group of more
+    than one rank raise (the cross-rank softmax waits for the port's
+    collectives, ROADMAP queue 1, distributed)."""
+    nranks = getattr(group, "nranks", 1) if group not in (None, True,
+                                                          False) else 1
+    if nranks > 1:
+        raise NotImplementedError(
+            "margin_cross_entropy over class-sharded logits (a group of "
+            f"{nranks} ranks) needs the port's collectives, which are not "
+            "ported yet (ROADMAP queue 1, distributed)")
+
+    def f(lg, lb):
+        lb = lb.reshape(lb.shape[0]) if lb.dim() > 1 else lb
+        onehot = TF.one_hot(lb.long(), lg.shape[-1]).to(lg.dtype)
+        cos_t = lg.clamp(-1.0, 1.0)
+        modified = torch.cos(margin1 * torch.arccos(cos_t) + margin2) - \
+            margin3
+        out = torch.where(onehot > 0, modified, cos_t) * scale
+        lsm = torch.log_softmax(out, dim=-1)
+        loss = -(onehot * lsm).sum(dim=-1, keepdim=True)
+        if reduction == "mean":
+            loss = loss.mean()
+        elif reduction == "sum":
+            loss = loss.sum()
+        return loss, torch.exp(lsm)
+
+    loss, sm = apply_op(f, logits, label, op_name="margin_ce")
+    return (loss, sm) if return_softmax else loss
+
+
+def adaptive_log_softmax_with_loss(input, label, head_weight, tail_weights,
+                                   cutoffs, head_bias=None, name=None):
+    """Adaptive softmax (Grave et al. 2017): the head covers the classes
+    below ``cutoffs[0]`` and one slot per tail cluster; a tail's classes
+    take their cluster's head log-probability plus the tail's. ->
+    ``(per-sample log-probability of the label, mean NLL)``."""
+    def f(x, y, hw, *rest):
+        if x.dim() == 1:
+            x, y = x[None], y.reshape(1)
+        hb = rest[0] if head_bias is not None else None
+        tails = rest[1:] if head_bias is not None else rest
+        shortlist = cutoffs[0]
+        head_logits = x @ hw
+        if hb is not None:
+            head_logits = head_logits + hb
+        head_lp = torch.log_softmax(head_logits, dim=-1)
+        y = y.long()
+        out = torch.gather(head_lp, 1, y.clamp(max=shortlist - 1)[:, None]
+                           )[:, 0]
+        bounds = [0] + list(cutoffs)
+        for i in range(len(tails) // 2):
+            w1, w2 = tails[2 * i], tails[2 * i + 1]
+            lo = bounds[i + 1]
+            hi = bounds[i + 2] if i + 2 < len(bounds) else lo + w2.shape[-1]
+            mask = (y >= lo) & (y < hi)
+            rel = (y - lo).clamp(0, w2.shape[-1] - 1)
+            tail_lp = torch.log_softmax((x @ w1) @ w2, dim=-1)
+            cluster_lp = head_lp[:, shortlist + i] + torch.gather(
+                tail_lp, 1, rel[:, None])[:, 0]
+            out = torch.where(mask, cluster_lp, out)
+        return out, -out.mean()
+
+    args = [head_weight]
+    if head_bias is not None:
+        args.append(head_bias)
+    args += [w for pair in tail_weights for w in pair]
+    return apply_op(f, input, label, *args,
+                    op_name="adaptive_log_softmax_with_loss")

@@ -320,6 +320,19 @@ class Layer(nn.Module):
         return self._name_scope
 
 
+class HookRemoveHelper:
+    """A handle that removes hook ``hook_id`` from the ``hooks`` dict
+    (the JAX package's handle; the port's own hooks return torch's
+    ``RemovableHandle``, which has the same ``remove()``)."""
+
+    def __init__(self, hooks: dict, hook_id: int):
+        self._hooks = hooks
+        self._hook_id = hook_id
+
+    def remove(self):
+        self._hooks.pop(self._hook_id, None)
+
+
 class ParamAttr:
     """A parameter's name, initializer and trainability (the paddle
     ``ParamAttr``); ``learning_rate``, ``regularizer`` and

@@ -1,9 +1,10 @@
 """Operators of the port: the paddle op surface and Tensor patching.
 
 The counterpart of ``paddle_tpu.ops``: the creation, math,
-manipulation and linear-algebra ops (Tensors in and out, through
-``core.autograd.apply_op``), attached to :class:`~..core.tensor.Tensor`
-as methods and operators as the JAX package attaches them, the
+manipulation, linear-algebra and long-tail (``extra_math``) ops
+(Tensors in and out, through ``core.autograd.apply_op``), attached to
+:class:`~..core.tensor.Tensor` as methods and operators as the JAX
+package attaches them, the
 in-place ``op_`` variants, and the op table (``op_registry``). The
 hand-written Hopper kernels and their wrappers live in ``ops.kernels``;
 the chunked fused cross-entropy in ``ops.fused_ce``.
@@ -16,12 +17,9 @@ from .creation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
+from .extra_math import *  # noqa: F401,F403
 
-from . import creation, linalg, manipulation, math as math_ops
-
-
-def cast(x, dtype):
-    return x.astype(dtype)
+from . import creation, extra_math, linalg, manipulation, math as math_ops
 
 
 def increment(x, value=1.0, name=None):

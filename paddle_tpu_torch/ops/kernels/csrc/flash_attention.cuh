@@ -14,6 +14,12 @@
 // flash_attention_fwd_reference and the two backward parts) are the
 // oracles; they follow the same roundings and draw the same keep mask.
 //
+// Queries and keys may differ in length (L and Lk: cross-attention, a KV
+// cache step, a chunk against its history); causal puts the diagonal at
+// j = i + Lk - L, as the JAX oracle _sdpa_xla does. A causal row with no
+// allowed key (i < L - Lk) is written as zeros with lse -1e30; the autograd
+// entry fills it (ops/kernels/flash_attention.py). Segments need Lk = L.
+//
 // This header is compiled once per (dtype, head dim) by the four
 // flash_attention_<dtype>_d<D>.cu files, so the four builds run in
 // parallel; each library exports the same three C entry points and takes
@@ -325,7 +331,7 @@ struct Geo {
 template <typename T, int D, bool kCausal, bool kDrop, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(View q, View k, View v, View o, float* __restrict__ lse,
-                     int L, int H, float scale, Mask mk) {
+                     int L, int Lk, int H, float scale, Mask mk) {
   constexpr int LD = Geo<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -361,7 +367,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-  const int kv_end = kCausal ? min(L, q0 + kBM) : L;
+  // causal: row i sees keys j <= i + off (off = Lk - L: a cache step or
+  // a chunk against its history); a row with none keeps zeros
+  const int off = Lk - L;
+  const int kv_end = kCausal ? max(0, min(Lk, q0 + kBM + off)) : Lk;
   const int n_tiles = (kv_end + kBN - 1) / kBN;
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBN;
@@ -371,8 +380,8 @@ __global__ void __launch_bounds__(kThreads)
       if (hi < q_lo || lo > q_hi) continue;
     }
     __syncthreads();  // the previous tile is consumed
-    load_tile<T, kBN, D, LD>(sK, kp, k.sl, k0, L);
-    load_tile<T, kBN, D, LD>(sV, vp, v.sl, k0, L);
+    load_tile<T, kBN, D, LD>(sK, kp, k.sl, k0, Lk);
+    load_tile<T, kBN, D, LD>(sV, vp, v.sl, k0, Lk);
     if (seg_on) load_seg<kBN>(sSeg, segb, k0, L);
     __syncthreads();
     const uint32_t keep =
@@ -403,7 +412,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * t + (e & 1), col = k0 + c;
-        const bool ok = col < L && (!kCausal || col <= row[e >> 1]) &&
+        const bool ok = col < Lk && (!kCausal || col <= row[e >> 1] + off) &&
                         (!seg_on || sSeg[c] == seg_row[e >> 1]);
         s[n][e] = ok ? s[n][e] * scale : kNegInf;
         m_new[e >> 1] = fmaxf(m_new[e >> 1], s[n][e]);
@@ -419,7 +428,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * t + (e & 1), col = k0 + c;
-        const bool ok = col < L && (!kCausal || col <= row[e >> 1]) &&
+        const bool ok = col < Lk && (!kCausal || col <= row[e >> 1] + off) &&
                         (!seg_on || sSeg[c] == seg_row[e >> 1]);
         // re-masked: a row whose columns are all masked so far has
         // s == m_new == -1e30 and exp() == 1
@@ -478,7 +487,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(View q, View k, View v, View dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, View dq, int L,
-                        int H, float scale, Mask mk) {
+                        int Lk, int H, float scale, Mask mk) {
   constexpr int LD = Geo<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -522,7 +531,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const int kv_end = kCausal ? min(L, q0 + kBM) : L;
+  // causal: row i sees keys j <= i + off (off = Lk - L: a cache step or
+  // a chunk against its history); a row with none keeps zeros
+  const int off = Lk - L;
+  const int kv_end = kCausal ? max(0, min(Lk, q0 + kBM + off)) : Lk;
   const int n_tiles = (kv_end + kBN - 1) / kBN;
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBN;
@@ -532,8 +544,8 @@ __global__ void __launch_bounds__(kThreads)
       if (hi < q_lo || lo > q_hi) continue;
     }
     __syncthreads();
-    load_tile<T, kBN, D, LD>(sK, kp, k.sl, k0, L);
-    load_tile<T, kBN, D, LD>(sV, vp, v.sl, k0, L);
+    load_tile<T, kBN, D, LD>(sK, kp, k.sl, k0, Lk);
+    load_tile<T, kBN, D, LD>(sV, vp, v.sl, k0, Lk);
     if (seg_on) load_seg<kBN>(sSeg, segb, k0, L);
     __syncthreads();
     const uint32_t keep =
@@ -565,7 +577,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * t + (e & 1), col = k0 + c;
-        const bool ok = col < L && (!kCausal || col <= row[e >> 1]) &&
+        const bool ok = col < Lk && (!kCausal || col <= row[e >> 1] + off) &&
                         (!seg_on || sSeg[c] == seg_row[e >> 1]);
         const float p = ok ? expf(scale * s[n][e] - lse_r[e >> 1]) : 0.f;
         float d = dp[n][e];
@@ -605,7 +617,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(View q, View k, View v, View dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, View dk, View dv,
-                         int L, int H, float scale, Mask mk) {
+                         int L, int Lk, int H, float scale, Mask mk) {
   constexpr int LD = Geo<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);
@@ -623,8 +635,8 @@ __global__ void __launch_bounds__(kThreads)
   const T* qp = base<const T>(q, b, h);
   const T* op = base<const T>(dout, b, h);
   const long long rbase = static_cast<long long>(bh) * L;
-  load_tile<T, kBM, D, LD>(sK, base<const T>(k, b, h), k.sl, k0, L);
-  load_tile<T, kBM, D, LD>(sV, base<const T>(v, b, h), v.sl, k0, L);
+  load_tile<T, kBM, D, LD>(sK, base<const T>(k, b, h), k.sl, k0, Lk);
+  load_tile<T, kBM, D, LD>(sV, base<const T>(v, b, h), v.sl, k0, Lk);
 
   const bool seg_on = kSeg && mk.seg != nullptr;
   const bool drop_on = kDrop && mk.thresh != 0u;
@@ -644,8 +656,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
-  // causal: only the query tiles at or after this key block contribute
-  const int i0 = kCausal ? k0 / kBQ : 0;
+  // causal: only the query tiles at or after this key block (less the
+  // offset Lk - L of the diagonal) contribute
+  const int off = Lk - L;
+  const int i0 = kCausal ? max(k0 - off, 0) / kBQ : 0;
   const int n_q = (L + kBQ - 1) / kBQ;
   for (int i = i0; i < n_q; ++i) {
     const int q0 = i * kBQ;
@@ -691,7 +705,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * t + (e & 1);  // query column in the tile
         const bool ok = q0 + c < L &&
-                        (!kCausal || q0 + c >= row[e >> 1]) &&
+                        (!kCausal || q0 + c + off >= row[e >> 1]) &&
                         (!seg_on || sSeg[c] == seg_row[e >> 1]);
         const float p = ok ? expf(scale * s[n][e] - sL[c]) : 0.f;
         float pd = p, d = dp[n][e];
@@ -729,7 +743,7 @@ __global__ void __launch_bounds__(kThreads)
   T* dvp = base<T>(dv, b, h);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (row[i] >= L) continue;
+    if (row[i] >= Lk) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       store_pair(dkp + row[i] * dk.sl + n * 8 + 2 * t, dk_acc[n][2 * i],
@@ -746,7 +760,7 @@ struct Args {
   const float* lse_in;
   const float* delta;
   float* lse_out;
-  int B, L, H;
+  int B, L, Lk, H;
   float scale;
   Mask mask;
   cudaStream_t stream;
@@ -769,8 +783,8 @@ int launch_fwd(const Args& a) {
   const dim3 grid((a.L + kBM - 1) / kBM, a.H, a.B);
   kern<<<grid, kThreads, smem, a.stream>>>(a.views[0], a.views[1],
                                            a.views[2], a.views[3],
-                                           a.lse_out, a.L, a.H, a.scale,
-                                           a.mask);
+                                           a.lse_out, a.L, a.Lk, a.H,
+                                           a.scale, a.mask);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -785,7 +799,7 @@ int launch_dq(const Args& a) {
   const dim3 grid((a.L + kBM - 1) / kBM, a.H, a.B);
   kern<<<grid, kThreads, smem, a.stream>>>(
       a.views[0], a.views[1], a.views[2], a.views[3], a.lse_in, a.delta,
-      a.views[4], a.L, a.H, a.scale, a.mask);
+      a.views[4], a.L, a.Lk, a.H, a.scale, a.mask);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -796,10 +810,10 @@ int launch_dkv(const Args& a) {
                       2 * kBQ * sizeof(float) + kBQ * sizeof(int);
   auto kern = flash_bwd_dkv_kernel<T, D, C, kDrop, kSeg>;
   if (int rc = prepare(kern, smem)) return rc;
-  const dim3 grid((a.L + kBM - 1) / kBM, a.H, a.B);
+  const dim3 grid((a.Lk + kBM - 1) / kBM, a.H, a.B);
   kern<<<grid, kThreads, smem, a.stream>>>(
       a.views[0], a.views[1], a.views[2], a.views[3], a.lse_in, a.delta,
-      a.views[4], a.views[5], a.L, a.H, a.scale, a.mask);
+      a.views[4], a.views[5], a.L, a.Lk, a.H, a.scale, a.mask);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -849,8 +863,8 @@ constexpr int dtype_code<__nv_bfloat16>() {
 
 int dispatch(int which, void* const* ptrs, int n_views,
              const long long* strides, const float* lse_in,
-             const float* delta, float* lse_out, int B, int L, int H, int D,
-             int causal, float scale, int dtype, const int* seg,
+             const float* delta, float* lse_out, int B, int L, int Lk, int H,
+             int D, int causal, float scale, int dtype, const int* seg,
              long long seg_sb, const int* seg_rng, const long long* key,
              uint32_t thresh, float inv_keep, void* stream) {
   using T = FLASH_DTYPE;
@@ -858,8 +872,10 @@ int dispatch(int which, void* const* ptrs, int n_views,
   // this library holds one (dtype, head dim): anything else is refused
   if (dtype != dtype_code<T>() || D != kD)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0 || L <= 0 || H <= 0) return 0;
-  if ((seg == nullptr) != (seg_rng == nullptr) ||
+  if (B <= 0 || L <= 0 || Lk <= 0 || H <= 0) return 0;
+  // segment ids index queries and keys alike: one length
+  if ((seg != nullptr && Lk != L) ||
+      (seg == nullptr) != (seg_rng == nullptr) ||
       (thresh != 0u && key == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   View views[6];
@@ -867,7 +883,7 @@ int dispatch(int which, void* const* ptrs, int n_views,
     views[i] = View{ptrs[i], strides[3 * i], strides[3 * i + 1],
                     strides[3 * i + 2]};
   const Mask mask{seg, seg_sb, seg_rng, key, thresh, inv_keep};
-  const Args a{views, lse_in, delta, lse_out, B, L, H, scale, mask,
+  const Args a{views, lse_in, delta, lse_out, B, L, Lk, H, scale, mask,
                static_cast<cudaStream_t>(stream)};
   return causal ? launch_flags<T, kD, true>(which, a)
                 : launch_flags<T, kD, false>(which, a);
@@ -876,9 +892,11 @@ int dispatch(int which, void* const* ptrs, int n_views,
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Tensors are [B, L, H, D] views
+// (k, v, dk, dv [B, Lk, H, D]: keys may outnumber or trail the queries)
 // with a contiguous head dim, 16-byte-aligned rows and their own element
 // strides (batch, seq, head) in `strides`, three per view in argument
-// order; lse and delta are contiguous f32 [B, H, L]. The caller allocates
+// order; lse and delta are contiguous f32 [B, H, L]. Causal, query row i
+// sees the keys j <= i + Lk - L. The caller allocates
 // the outputs. `seg` ([B, L] int32, batch stride seg_sb) and `seg_rng`
 // ([B, ceil(L / 32), 2] int32) are both null without segments; `thresh`
 // is 0 without dropout (`key` is then not read), else the keep threshold
@@ -888,36 +906,36 @@ int dispatch(int which, void* const* ptrs, int n_views,
 // dim this library does not hold).
 extern "C" int flash_attention_forward(
     void* q, void* k, void* v, void* out, float* lse,
-    const long long* strides, int B, int L, int H, int D, int causal,
-    float scale, int dtype, const int* seg, long long seg_sb,
+    const long long* strides, int B, int L, int Lk, int H, int D,
+    int causal, float scale, int dtype, const int* seg, long long seg_sb,
     const int* seg_rng, const long long* key, uint32_t thresh,
     float inv_keep, void* stream) {
   void* ptrs[4] = {q, k, v, out};
-  return dispatch(kFwd, ptrs, 4, strides, nullptr, nullptr, lse, B, L, H, D,
-                  causal, scale, dtype, seg, seg_sb, seg_rng, key, thresh,
-                  inv_keep, stream);
+  return dispatch(kFwd, ptrs, 4, strides, nullptr, nullptr, lse, B, L, Lk,
+                  H, D, causal, scale, dtype, seg, seg_sb, seg_rng, key,
+                  thresh, inv_keep, stream);
 }
 
 extern "C" int flash_attention_backward_dq(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dq, const long long* strides, int B, int L,
-    int H, int D, int causal, float scale, int dtype, const int* seg,
+    int Lk, int H, int D, int causal, float scale, int dtype, const int* seg,
     long long seg_sb, const int* seg_rng, const long long* key,
     uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[5] = {q, k, v, dout, dq};
-  return dispatch(kDq, ptrs, 5, strides, lse, delta, nullptr, B, L, H, D,
-                  causal, scale, dtype, seg, seg_sb, seg_rng, key, thresh,
+  return dispatch(kDq, ptrs, 5, strides, lse, delta, nullptr, B, L, Lk, H,
+                  D, causal, scale, dtype, seg, seg_sb, seg_rng, key, thresh,
                   inv_keep, stream);
 }
 
 extern "C" int flash_attention_backward_dkv(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dk, void* dv, const long long* strides, int B,
-    int L, int H, int D, int causal, float scale, int dtype, const int* seg,
-    long long seg_sb, const int* seg_rng, const long long* key,
-    uint32_t thresh, float inv_keep, void* stream) {
+    int L, int Lk, int H, int D, int causal, float scale, int dtype,
+    const int* seg, long long seg_sb, const int* seg_rng,
+    const long long* key, uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[6] = {q, k, v, dout, dk, dv};
-  return dispatch(kDkv, ptrs, 6, strides, lse, delta, nullptr, B, L, H, D,
-                  causal, scale, dtype, seg, seg_sb, seg_rng, key, thresh,
+  return dispatch(kDkv, ptrs, 6, strides, lse, delta, nullptr, B, L, Lk, H,
+                  D, causal, scale, dtype, seg, seg_sb, seg_rng, key, thresh,
                   inv_keep, stream);
 }

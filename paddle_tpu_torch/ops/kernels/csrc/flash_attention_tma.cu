@@ -30,6 +30,11 @@
 //            bf16), accumulated in registers and written once: no atomics,
 //            so the result is deterministic, as in the TPU recipe.
 //
+// Keys may outnumber or trail the queries (Lk != L: cross-attention, a KV
+// cache step, a chunk against its history): K and V maps, the KV loop and
+// the dK/dV grid run over Lk, and the causal diagonal is j = i + Lk - L, as
+// in the first design (a row with no allowed key keeps zeros).
+//
 // Without dropout keep is all ones and the division by 1 - p is skipped
 // (its own instance). The keep mask is philox.cuh's, the first design's
 // bits: Philox4x32-10 on (col >> 2, row, b * H + h, 0) over absolute rows
@@ -450,8 +455,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v, View o,
-                         float* __restrict__ lse, int L, int H, float scale,
-                         Seg sg) {
+                         float* __restrict__ lse, int L, int Lk, int H,
+                         float scale, Seg sg) {
   using S = FwdSmem<D, kSeg>;
   // full[s]: the copies' arrival (and with segments every producer lane's)
   const S sm = make_smem<S>(kSeg ? 1 + 32 : 1);
@@ -459,7 +464,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int blk = static_cast<int>(kCausal ? gridDim.x - 1 - blockIdx.x
                                            : blockIdx.x);
   const int q0 = blk * kRows;
-  const int kv_end = kCausal ? min(L, q0 + kRows) : L;
+  const int off = Lk - L;  // causal: row i sees the keys j <= i + off
+  const int kv_end = kCausal ? max(0, min(Lk, q0 + kRows + off)) : Lk;
   int2 win = make_int2(0, (kv_end + kFwdKV - 1) / kFwdKV);
   if constexpr (kSeg) win = seg_window(sg, b, blk, win.y);
 
@@ -493,6 +499,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int r0 = q0 + 64 * wg;  // this warpgroup's first row
     const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+    // causal: the last key of its first row and of each of its rows,
+    // shifted once here so that the tile loop does what it does at Lk = L
+    const int d0 = r0 + off, diag[2] = {row[0] + off, row[1] + off};
     const uint32_t qa = sm.once() + wg * 64 * 128;  // its rows of Q
     constexpr uint32_t kQPanel = kRows * 128, kKVPanel = kFwdKV * 128;
     const float sl2 = scale * kLog2e;  // logits in base-2 units
@@ -521,9 +530,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int k0 = j * kFwdKV + half * kFwdHalf;
         // causal: every key of the half is after all of this warpgroup's
         // rows (the upper half of the diagonal stage for warpgroup 0)
-        bool skip = kCausal && k0 > r0 + 63;
+        bool skip = kCausal && k0 > d0 + 63;
         // a half on the diagonal or the ragged edge is masked
-        bool edge = (kCausal && k0 + kFwdHalf - 1 > r0) || k0 + kFwdHalf > L;
+        bool edge = (kCausal && k0 + kFwdHalf - 1 > d0) || k0 + kFwdHalf > Lk;
         // the half's ids; a half of other segments only is skipped, one
         // not all of this warpgroup's segment is masked
         const int* hid = nullptr;
@@ -558,8 +567,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           float x = s[i] * sl2;
           if (edge) {
             const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-            const bool ok = col < L &&
-                            (!kCausal || col <= row[(i >> 1) & 1]) &&
+            const bool ok = col < Lk &&
+                            (!kCausal || col <= diag[(i >> 1) & 1]) &&
                             ((sok >> i) & 1u);
             x = ok ? x : kNegInf;
           }
@@ -580,7 +589,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             // re-masked: a row whose columns are all masked so far has
             // s == m == -1e30 and exp2() == 1
             const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-            const bool ok = col < L && (!kCausal || col <= row[r]) &&
+            const bool ok = col < Lk && (!kCausal || col <= diag[r]) &&
                             ((sok >> i) & 1u);
             pv = ok ? pv : 0.f;
           }
@@ -614,9 +623,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     store_rows<D>(o, b, h, row, L, acc, lm);
     if (t == 0) {
       float* lp = lse + static_cast<long long>(b * H + h) * L;
+      // a row with no allowed key (causal, i < L - Lk) keeps -1e30
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        if (row[r] < L) lp[row[r]] = m[r] * kLn2 + logf(lm[r]);
+        if (row[r] < L)
+          lp[row[r]] = l[r] > 0.f ? m[r] * kLn2 + logf(lm[r]) : kNegInf;
     }
   }
 }
@@ -638,14 +649,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const __grid_constant__ CUtensorMap map_do,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta, View dq, int L,
-                            int H, float scale, Seg sg) {
+                            int Lk, int H, float scale, Seg sg) {
   using S = DqSmem<D, kSeg>;
   const S sm = make_smem<S>(kSeg ? 1 + 32 : 1);
   const int h = blockIdx.y, b = blockIdx.z;
   const int blk = static_cast<int>(kCausal ? gridDim.x - 1 - blockIdx.x
                                            : blockIdx.x);
   const int q0 = blk * kRows;
-  const int kv_end = kCausal ? min(L, q0 + kRows) : L;
+  const int off = Lk - L;  // causal: row i sees the keys j <= i + off
+  const int kv_end = kCausal ? max(0, min(Lk, q0 + kRows + off)) : Lk;
   int2 win = make_int2(0, (kv_end + kDqKV - 1) / kDqKV);
   if constexpr (kSeg) win = seg_window(sg, b, blk, win.y);
 
@@ -681,6 +693,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int r0 = q0 + 64 * wg;
     const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+    // causal: the last keys, shifted once (the forward's d0, diag)
+    const int d0 = r0 + off, diag[2] = {row[0] + off, row[1] + off};
     const long long rbase = static_cast<long long>(b * H + h) * L;
     const float sl2 = scale * kLog2e;  // exp(x) = exp2(x log2 e)
     float lse2[2], dl_r[2];
@@ -712,7 +726,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(sm.full(p.stage), p.phase);
       // causal: no key of the tile is at or before any of this
       // warpgroup's rows; segments: none is of its rows' segments
-      bool skip = kCausal && k0 > r0 + 63, seg_edge = false;
+      bool skip = kCausal && k0 > d0 + 63, seg_edge = false;
       if constexpr (kSeg) {
         const int2 tr = stage_range<kDqKV>(sm.ids_ptr(p.stage));
         skip = skip || disjoint(tr, wr);
@@ -735,8 +749,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait<0>();
         fence_operand(s);
         fence_operand(dp);
-        const bool edge = seg_edge || (kCausal && k0 + kDqKV - 1 > r0) ||
-                          k0 + kDqKV > L;
+        const bool edge = seg_edge || (kCausal && k0 + kDqKV - 1 > d0) ||
+                          k0 + kDqKV > Lk;
         uint32_t sok = kFull;  // the pairs of this segment (bit i)
         if constexpr (kSeg)
           if (edge) sok = seg_bits<kDqKV>(sm.ids_ptr(p.stage), sr);
@@ -746,7 +760,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           float pv = exp2f(s[i] * sl2 - lse2[r]);
           if (edge) {
             const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-            const bool ok = col < L && (!kCausal || col <= row[r]) &&
+            const bool ok = col < Lk && (!kCausal || col <= diag[r]) &&
                             ((sok >> i) & 1u);
             pv = ok ? pv : 0.f;
           }
@@ -808,7 +822,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const __grid_constant__ CUtensorMap map_do,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta, View dk,
-                             View dv, int L, int H, float scale, Seg sg) {
+                             View dv, int L, int Lk, int H, float scale,
+                             Seg sg) {
   using S = DkvSmem<D, kSeg>;
   constexpr int kStats = 2 * tile_bytes<D>(kDkvQ);  // lse, then delta
   const S sm = make_smem<S>(1 + 32);  // the copies' arrival, every lane's
@@ -816,7 +831,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   // causal: the first key blocks see the most queries and go first
   const int k0 = static_cast<int>(blockIdx.x) * kDkvKeys;
   const int n_q = (L + kDkvQ - 1) / kDkvQ;
-  int2 win = make_int2(kCausal ? k0 / kDkvQ : 0, n_q);
+  // causal: key j is seen by the queries i >= j - off
+  const int off = Lk - L;
+  int2 win = make_int2(kCausal ? max(k0 - off, 0) / kDkvQ : 0, n_q);
   if constexpr (kSeg) {
     const int2 w = seg_window(sg, b, blockIdx.x, n_q);
     win = make_int2(max(win.x, w.x), w.y);
@@ -873,6 +890,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int tid = threadIdx.x & 127;
     const int key[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
+    // causal: the first query of the block's last key and of each of this
+    // thread's keys, shifted once (the tile loop is as at Lk = L)
+    const int e0 = k0 + kDkvKeys - 1 - off;
+    const int first_q[2] = {key[0] - off, key[1] - off};
     // warpgroup 0: S^T from K; warpgroup 1: dP^T from V
     const uint32_t a_rows = sm.once() + wg * tile_bytes<D>(kDkvKeys);
     constexpr uint32_t kKPanel = kDkvKeys * 128, kQPanel = kDkvQ * 128;
@@ -916,7 +937,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (wg == 0) {
         const float* sl = stats;  // lse
         // on the diagonal or the ragged edge, or not one segment
-        bool edge = (kCausal && q0 < k0 + kDkvKeys - 1) || q0 + kDkvQ > L;
+        bool edge = (kCausal && q0 < e0) || q0 + kDkvQ > L;
         uint32_t sok = kFull;  // the pairs of this segment (bit i4)
         if constexpr (kSeg) {
           const int* ids = sm.ids_ptr(p.stage);
@@ -932,7 +953,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int i4 = 4 * jn + e, cq = q0 + c + (e & 1);
             float pv = exp2f(x[i4] * sl2 - ((e & 1) ? lq.y : lq.x) * kLog2e);
             if (edge) {
-              const bool ok = cq < L && (!kCausal || cq >= key[e >> 1]) &&
+              const bool ok = cq < L && (!kCausal || cq >= first_q[e >> 1]) &&
                               ((sok >> i4) & 1u);
               pv = ok ? pv : 0.f;
             }
@@ -975,7 +996,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float one[2] = {1.f, 1.f};
     View out = dv;
     if (wg == 1) out = dk;
-    store_rows<D>(out, b, h, key, L, acc, one);
+    store_rows<D>(out, b, h, key, Lk, acc, one);
   }
 }
 
@@ -1113,18 +1134,18 @@ __device__ __forceinline__ int3 block_of() {
 
 // The allowed pairs of a 64-column tile from column k0 whose rows are
 // queries: bit i for accumulator element i (column k0 + 8 (i >> 2) + 2 t +
-// (i & 1), row row[(i >> 1) & 1]) iff the column is inside L and, causal,
-// at or before the row.
+// (i & 1), row (i >> 1) & 1) iff the column is inside Lk and, causal, at
+// or before the row's last key diag[(i >> 1) & 1] (its index + Lk - L).
 template <bool kCausal>
-__device__ __forceinline__ uint32_t mask_bits(int k0, const int (&row)[2],
-                                              int L) {
+__device__ __forceinline__ uint32_t mask_bits(int k0, const int (&diag)[2],
+                                              int Lk) {
   const int t = threadIdx.x & 3;
   uint32_t ok = 0;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-    ok |= static_cast<uint32_t>(col < L &&
-                                (!kCausal || col <= row[(i >> 1) & 1]))
+    ok |= static_cast<uint32_t>(col < Lk &&
+                                (!kCausal || col <= diag[(i >> 1) & 1]))
           << i;
   }
   return ok;
@@ -1132,8 +1153,9 @@ __device__ __forceinline__ uint32_t mask_bits(int k0, const int (&row)[2],
 
 // The same for a tile of N queries from q0 whose rows are keys (dK/dV's
 // transposed scores; N / 2 elements a thread): column q0 + 8 (i >> 2) +
-// 2 t + (i & 1), row key[(i >> 1) & 1], allowed iff the query is inside L
-// and, causal, at or after the key.
+// 2 t + (i & 1), row (i >> 1) & 1, allowed iff the query is inside L and,
+// causal, at or after the key's first query key[(i >> 1) & 1] (its index
+// less Lk - L).
 template <bool kCausal, int N>
 __device__ __forceinline__ uint32_t mask_bits_keys(int q0,
                                                    const int (&key)[2],
@@ -1184,7 +1206,7 @@ __global__ void __launch_bounds__(k64Threads, 2)
     flash_fwd64_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v, View o,
-                           float* __restrict__ lse, int L, int H,
+                           float* __restrict__ lse, int L, int Lk, int H,
                            float scale, Drop dr, Seg sg) {
   constexpr int D = 64;
   using S = Fwd64Smem<kSeg>;
@@ -1194,7 +1216,8 @@ __global__ void __launch_bounds__(k64Threads, 2)
   const int h = at.y, b = at.z;
   const int blk = kCausal ? static_cast<int>(gridDim.x) - 1 - at.x : at.x;
   const int q0 = blk * kRows;
-  const int kv_end = kCausal ? min(L, q0 + kRows) : L;
+  const int off = Lk - L;  // causal: row i sees the keys j <= i + off
+  const int kv_end = kCausal ? max(0, min(Lk, q0 + kRows + off)) : Lk;
   int2 win = make_int2(0, (kv_end + k64Keys - 1) / k64Keys);
   if constexpr (kSeg) win = seg_window(sg, b, blk, win.y);
   if (threadIdx.x < (kSeg ? 32 : 1)) {  // the first copies
@@ -1210,6 +1233,9 @@ __global__ void __launch_bounds__(k64Threads, 2)
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = q0 + 64 * wg;  // this warpgroup's first row
   const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  // causal: the last key of its first row and of each of its rows,
+  // shifted once so that the tile loop does what it does at Lk = L
+  const int d0 = r0 + off, diag[2] = {row[0] + off, row[1] + off};
   const int bh = b * H + h;
   const uint32_t qa = sm.once() + wg * 64 * 128;  // its rows of Q
   constexpr uint32_t kQPanel = kRows * 128, kKVPanel = k64Keys * 128;
@@ -1238,7 +1264,7 @@ __global__ void __launch_bounds__(k64Threads, 2)
     // causal: skip a tile every key of which is after all of this
     // warpgroup's rows. Segments: skip a tile of other segments only,
     // mask one that is not all this warpgroup's one segment.
-    bool skip = kCausal && k0 > r0 + 63, seg_edge = false;
+    bool skip = kCausal && k0 > d0 + 63, seg_edge = false;
     if constexpr (kSeg) {
       const int2 tr = stage_range<k64Keys>(sm.ids_ptr(p.stage));
       skip = skip || disjoint(tr, wr);
@@ -1246,8 +1272,8 @@ __global__ void __launch_bounds__(k64Threads, 2)
     }
     if (!skip) {
       // a tile on the diagonal or the ragged edge is masked
-      const bool edge = seg_edge || (kCausal && k0 + k64Keys - 1 > r0) ||
-                        k0 + k64Keys > L;
+      const bool edge = seg_edge || (kCausal && k0 + k64Keys - 1 > d0) ||
+                        k0 + k64Keys > Lk;
       const uint32_t kt = sm.stage(p.stage);
       const uint32_t vt = kt + tile_bytes<D>(k64Keys);
       // the keep bits of s[i] (bit i), drawn while the scores are dead
@@ -1269,7 +1295,7 @@ __global__ void __launch_bounds__(k64Threads, 2)
       // around the masking
       uint32_t ok = kFull;
       if (edge) {
-        ok = mask_bits<kCausal>(k0, row, L);
+        ok = mask_bits<kCausal>(k0, diag, Lk);
         if constexpr (kSeg) ok &= seg_bits<k64Keys>(sm.ids_ptr(p.stage), sr);
 #pragma unroll
         for (int i = 0; i < k64Keys / 2; ++i)
@@ -1338,9 +1364,11 @@ __global__ void __launch_bounds__(k64Threads, 2)
   store_rows<D>(o, b, h, row, L, acc, one);
   if (t == 0) {
     float* lp = lse + static_cast<long long>(bh) * L;
+    // a row with no allowed key (causal, i < L - Lk) keeps -1e30
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      if (row[r] < L) lp[row[r]] = m[r] * kLn2 + logf(lm[r]);
+      if (row[r] < L)
+        lp[row[r]] = l[r] > 0.f ? m[r] * kLn2 + logf(lm[r]) : kNegInf;
   }
 }
 
@@ -1357,7 +1385,8 @@ __global__ void __launch_bounds__(k64Threads, 2)
                               const __grid_constant__ CUtensorMap map_do,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta, View dq,
-                              int L, int H, float scale, Drop dr, Seg sg) {
+                              int L, int Lk, int H, float scale, Drop dr,
+                              Seg sg) {
   constexpr int D = 64;
   using S = Dq64Smem<kSeg>;
   const S sm = make_smem64<S>(kSeg ? 1 + 32 : 1);
@@ -1365,7 +1394,8 @@ __global__ void __launch_bounds__(k64Threads, 2)
   const int h = at.y, b = at.z;
   const int blk = kCausal ? static_cast<int>(gridDim.x) - 1 - at.x : at.x;
   const int q0 = blk * kRows;
-  const int kv_end = kCausal ? min(L, q0 + kRows) : L;
+  const int off = Lk - L;  // causal: row i sees the keys j <= i + off
+  const int kv_end = kCausal ? max(0, min(Lk, q0 + kRows + off)) : Lk;
   int2 win = make_int2(0, (kv_end + k64Keys - 1) / k64Keys);
   if constexpr (kSeg) win = seg_window(sg, b, blk, win.y);
   if (threadIdx.x < (kSeg ? 32 : 1)) {  // the first copies
@@ -1383,6 +1413,9 @@ __global__ void __launch_bounds__(k64Threads, 2)
   const int lane = threadIdx.x & 31, g = lane >> 2;
   const int r0 = q0 + 64 * wg;
   const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  // causal: the last key of its first row and of each of its rows,
+  // shifted once so that the tile loop does what it does at Lk = L
+  const int d0 = r0 + off, diag[2] = {row[0] + off, row[1] + off};
   const int bh = b * H + h;
   const long long rbase = static_cast<long long>(bh) * L;
   const float sl2 = scale * kLog2e;  // exp(x) = exp2(x log2 e)
@@ -1417,7 +1450,7 @@ __global__ void __launch_bounds__(k64Threads, 2)
     mbar_wait(sm.full(p.stage), p.phase);
     // causal: no key of the tile is at or before any of this
     // warpgroup's rows; segments: none is of its rows' segments
-    bool skip = kCausal && k0 > r0 + 63, seg_edge = false;
+    bool skip = kCausal && k0 > d0 + 63, seg_edge = false;
     if constexpr (kSeg) {
       const int2 tr = stage_range<k64Keys>(sm.ids_ptr(p.stage));
       skip = skip || disjoint(tr, wr);
@@ -1447,9 +1480,9 @@ __global__ void __launch_bounds__(k64Threads, 2)
       for (int i = 0; i < k64Keys / 2; ++i)
         s[i] = fast_exp2(fmaf(s[i], sl2, nlse2[(i >> 1) & 1]));  // P
       // on the diagonal, the ragged edge or not one segment: re-masked
-      if (seg_edge || (kCausal && k0 + k64Keys - 1 > r0) ||
-          k0 + k64Keys > L) {
-        uint32_t ok = mask_bits<kCausal>(k0, row, L);
+      if (seg_edge || (kCausal && k0 + k64Keys - 1 > d0) ||
+          k0 + k64Keys > Lk) {
+        uint32_t ok = mask_bits<kCausal>(k0, diag, Lk);
         if constexpr (kSeg) ok &= seg_bits<k64Keys>(sm.ids_ptr(p.stage), sr);
 #pragma unroll
         for (int i = 0; i < k64Keys / 2; ++i)
@@ -1535,8 +1568,8 @@ __global__ void __launch_bounds__(k64Threads, 2)
                                const __grid_constant__ CUtensorMap map_do,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta, View dk,
-                               View dv, int L, int H, float scale, Drop dr,
-                               Seg sg) {
+                               View dv, int L, int Lk, int H, float scale,
+                               Drop dr, Seg sg) {
   constexpr int D = 64;
   constexpr int kStats = 2 * tile_bytes<D>(kDkv64Q);  // lse, then delta
   using S = Dkv64Smem<kSeg>;
@@ -1547,7 +1580,9 @@ __global__ void __launch_bounds__(k64Threads, 2)
   const int h = at.y, b = at.z;
   const int k0 = at.x * kDkv64Keys;
   const int n_q = (L + kDkv64Q - 1) / kDkv64Q;
-  int2 win = make_int2(kCausal ? k0 / kDkv64Q : 0, n_q);
+  // causal: key j is seen by the queries i >= j - off
+  const int off = Lk - L;
+  int2 win = make_int2(kCausal ? max(k0 - off, 0) / kDkv64Q : 0, n_q);
   if constexpr (kSeg) {
     const int2 w = seg_window(sg, b, at.x, n_q);
     win = make_int2(max(win.x, w.x), w.y);
@@ -1571,6 +1606,10 @@ __global__ void __launch_bounds__(k64Threads, 2)
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int kw = k0 + 64 * wg;  // this warpgroup's first key
   const int key[2] = {kw + 16 * warp + g, kw + 16 * warp + g + 8};
+  // causal: the first query of each of its keys (the skip and edge tests
+  // below add the offset in the loop: one more register held across it
+  // spilled the causal dropout instance)
+  const int first_q[2] = {key[0] - off, key[1] - off};
   const uint32_t ka = sm.once() + wg * 64 * 128;  // its rows of K
   const uint32_t va = ka + tile_bytes<D>(kDkv64Keys);  // ... and of V
   constexpr uint32_t kKPanel = kDkv64Keys * 128, kQPanel = kDkv64Q * 128;
@@ -1608,7 +1647,7 @@ __global__ void __launch_bounds__(k64Threads, 2)
     // causal: every query of the tile is before all of this warpgroup's
     // keys (the first tile for warpgroup 1); segments: none is of its
     // keys' segments
-    bool skip = kCausal && q0 + kDkv64Q - 1 < kw, seg_edge = false;
+    bool skip = kCausal && q0 + kDkv64Q - 1 + off < kw, seg_edge = false;
     if constexpr (kSeg) {
       const int2 tr = stage_range<kDkv64Q>(sm.ids_ptr(p.stage));
       skip = skip || disjoint(tr, wr);
@@ -1642,8 +1681,8 @@ __global__ void __launch_bounds__(k64Threads, 2)
           x[4 * jn + e] = fast_exp2(fmaf(x[4 * jn + e], sl2, nl[e & 1]));
       }
       // on the diagonal, the ragged edge or not one segment: re-masked
-      if (seg_edge || (kCausal && q0 < kw + 63) || q0 + kDkv64Q > L) {
-        uint32_t ok = mask_bits_keys<kCausal, kDkv64Q>(q0, key, L);
+      if (seg_edge || (kCausal && q0 + off < kw + 63) || q0 + kDkv64Q > L) {
+        uint32_t ok = mask_bits_keys<kCausal, kDkv64Q>(q0, first_q, L);
         if constexpr (kSeg) ok &= seg_bits<kDkv64Q>(sm.ids_ptr(p.stage), sk);
 #pragma unroll
         for (int i = 0; i < kDkv64Q / 2; ++i)
@@ -1693,8 +1732,8 @@ __global__ void __launch_bounds__(k64Threads, 2)
                        i + k64Stages, h, b, L, rbase, sg);
   }
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(dk, b, h, key, L, dk_acc, one);
-  store_rows<D>(dv, b, h, key, L, dv_acc, one);
+  store_rows<D>(dk, b, h, key, Lk, dk_acc, one);
+  store_rows<D>(dv, b, h, key, Lk, dv_acc, one);
 }
 
 // -- launch ------------------------------------------------------------------
@@ -1717,10 +1756,11 @@ View view(void* p, const long long* st) { return View{p, st[0], st[1], st[2]}; }
 // aligned bases and (batch, seq, head) strides multiples of 8 elements. n
 // views, three strides each.
 bool takes(void* const* ptrs, int n, const long long* strides, int B, int L,
-           int H, int D, uint32_t thresh, bool seg) {
+           int Lk, int H, int D, uint32_t thresh, bool seg) {
   if ((D != 64 && D != 128) || (thresh != 0u && (D != 64 || seg)) ||
-      B <= 0 || L <= 0 || H <= 0 || B > 65535 || H > 65535 ||
-      static_cast<long long>(B) * H * L > 0x7fffffffLL)
+      (seg && Lk != L) || B <= 0 || L <= 0 || Lk <= 0 || H <= 0 ||
+      B > 65535 || H > 65535 ||
+      static_cast<long long>(B) * H * max(L, Lk) > 0x7fffffffLL)
     return false;
   for (int i = 0; i < n; ++i) {
     if (!aligned16(ptrs[i])) return false;
@@ -1736,14 +1776,14 @@ struct Call {
   View views[2];
 };
 
-// Encodes the tensor maps of the first n_maps views (box heights rows[i])
-// and wraps the next n_views as output views; false when the encoder
-// refuses a map.
+// Encodes the tensor maps of the first n_maps views (lengths lens[i], box
+// heights rows[i]) and wraps the next n_views as output views; false when
+// the encoder refuses a map.
 bool prepare(Call* c, void* const* ptrs, int n_maps, int n_views,
-             const long long* strides, int B, int L, int H, int D,
+             const long long* strides, int B, const int* lens, int H, int D,
              const int* rows) {
   for (int i = 0; i < n_maps; ++i)
-    if (!bhld_map(&c->maps[i], ptrs[i], strides + 3 * i, B, L, H, D,
+    if (!bhld_map(&c->maps[i], ptrs[i], strides + 3 * i, B, lens[i], H, D,
                   rows[i]))
       return false;
   for (int i = 0; i < n_views; ++i)
@@ -1821,10 +1861,11 @@ Kernel dkv_kernel(int D, bool causal, bool drop, bool seg) {
           seg ? Dkv64Smem<true>::kBytes : Dkv64Smem<false>::kBytes};
 }
 
-// Launches kernel k on a grid (blocks of `rows` rows, H, B), so that the
-// blocks of one head run together and share its K and V (Q and dO)
-// through L2. args points to each argument in order: the D-64 kernels end
-// with (Drop, Seg), the D-128 ones with the Seg alone and ignore the last.
+// Launches kernel k on a grid (blocks of `rows` of the L rows a kernel owns
+// — queries, or keys for dK/dV —, H, B), so that the blocks of one head run
+// together and share its K and V (Q and dO) through L2. args points to each
+// argument in order: the D-64 kernels end with (Drop, Seg), the D-128 ones
+// with the Seg alone and ignore the last.
 int launch_kernel(const Kernel& k, int rows, int L, int H, int B,
                   cudaStream_t stream, void** args) {
   const cudaError_t rc = cudaFuncSetAttribute(
@@ -1871,9 +1912,10 @@ bool make_seg(Seg* sg, const int* seg, long long seg_sb, const int* seg_rng,
 // Plain C entry points, bound with ctypes; the arguments of the first
 // design's entries (flash_attention.cuh) without dtype, with each CTA's
 // window of tiles after the segment ranges. Tensors are bf16 [B, L, H, D]
-// views with D = 64 or 128 contiguous and their own element strides
-// (batch, seq, head) in `strides`, three per view in argument order; lse
-// and delta are contiguous f32 [B, H, L]. The caller allocates the
+// views (k, v, dk, dv [B, Lk, H, D]; causal, query i sees the keys
+// j <= i + Lk - L) with D = 64 or 128 contiguous and their own element
+// strides (batch, seq, head) in `strides`, three per view in argument
+// order; lse and delta are contiguous f32 [B, H, L]. The caller allocates the
 // outputs. `seg` ([B, L] int32, batch stride seg_sb), `seg_rng`
 // ([B, ceil(L / 32), 2] int32: min and max id of every 32-row chunk) and
 // `win` ([B, blocks, 2] int32: the first tile and one past the last of
@@ -1888,25 +1930,25 @@ bool make_seg(Seg* sg, const int* seg, long long seg_sb, const int* seg_rng,
 // a map.
 extern "C" int flash_attention_tma_forward(
     void* q, void* k, void* v, void* out, float* lse,
-    const long long* strides, int B, int L, int H, int D, int causal,
-    float scale, const int* seg, long long seg_sb, const int* seg_rng,
-    const int* win, const long long* key, uint32_t thresh, float inv_keep,
-    void* stream) {
+    const long long* strides, int B, int L, int Lk, int H, int D,
+    int causal, float scale, const int* seg, long long seg_sb,
+    const int* seg_rng, const int* win, const long long* key,
+    uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[4] = {q, k, v, out};
   Seg sg;
   if (!make_seg(&sg, seg, seg_sb, seg_rng, win) ||
       (thresh != 0u && key == nullptr) ||
-      !takes(ptrs, 4, strides, B, L, H, D, thresh, seg != nullptr))
+      !takes(ptrs, 4, strides, B, L, Lk, H, D, thresh, seg != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int2 t = tiles_of(0, D);
-  const int rows[3] = {t.x, t.y, t.y};
+  const int rows[3] = {t.x, t.y, t.y}, lens[3] = {L, Lk, Lk};
   Call c;
-  if (!prepare(&c, ptrs, 3, 1, strides, B, L, H, D, rows))
+  if (!prepare(&c, ptrs, 3, 1, strides, B, lens, H, D, rows))
     return kEncodeFailed;
   Drop dr{key, thresh, inv_keep};
   void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2], &c.views[0],
-                  &lse,       &L,         &H,         &scale,
-                  last(D, &dr, &sg), &sg};
+                  &lse,       &L,         &Lk,        &H,
+                  &scale,     last(D, &dr, &sg), &sg};
   return launch_kernel(fwd_kernel(D, causal, thresh != 0u, seg != nullptr),
                        t.x, L, H, B, static_cast<cudaStream_t>(stream),
                        args);
@@ -1915,24 +1957,25 @@ extern "C" int flash_attention_tma_forward(
 extern "C" int flash_attention_tma_backward_dq(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dq, const long long* strides, int B, int L,
-    int H, int D, int causal, float scale, const int* seg, long long seg_sb,
-    const int* seg_rng, const int* win, const long long* key,
-    uint32_t thresh, float inv_keep, void* stream) {
+    int Lk, int H, int D, int causal, float scale, const int* seg,
+    long long seg_sb, const int* seg_rng, const int* win,
+    const long long* key, uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[5] = {q, k, v, dout, dq};
   Seg sg;
   if (!make_seg(&sg, seg, seg_sb, seg_rng, win) ||
       (thresh != 0u && key == nullptr) ||
-      !takes(ptrs, 5, strides, B, L, H, D, thresh, seg != nullptr))
+      !takes(ptrs, 5, strides, B, L, Lk, H, D, thresh, seg != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int2 t = tiles_of(1, D);
-  const int rows[4] = {t.x, t.y, t.y, t.x};
+  const int rows[4] = {t.x, t.y, t.y, t.x}, lens[4] = {L, Lk, Lk, L};
   Call c;
-  if (!prepare(&c, ptrs, 4, 1, strides, B, L, H, D, rows))
+  if (!prepare(&c, ptrs, 4, 1, strides, B, lens, H, D, rows))
     return kEncodeFailed;
   Drop dr{key, thresh, inv_keep};
-  void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2], &c.maps[3],
+  void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2],  &c.maps[3],
                   &lse,       &delta,     &c.views[0], &L,
-                  &H,         &scale,     last(D, &dr, &sg), &sg};
+                  &Lk,        &H,         &scale,      last(D, &dr, &sg),
+                  &sg};
   return launch_kernel(dq_kernel(D, causal, thresh != 0u, seg != nullptr),
                        t.x, L, H, B, static_cast<cudaStream_t>(stream),
                        args);
@@ -1941,27 +1984,27 @@ extern "C" int flash_attention_tma_backward_dq(
 extern "C" int flash_attention_tma_backward_dkv(
     void* q, void* k, void* v, void* dout, const float* lse,
     const float* delta, void* dk, void* dv, const long long* strides, int B,
-    int L, int H, int D, int causal, float scale, const int* seg,
+    int L, int Lk, int H, int D, int causal, float scale, const int* seg,
     long long seg_sb, const int* seg_rng, const int* win,
     const long long* key, uint32_t thresh, float inv_keep, void* stream) {
   void* ptrs[6] = {q, k, v, dout, dk, dv};
   Seg sg;
   if (!make_seg(&sg, seg, seg_sb, seg_rng, win) ||
       (thresh != 0u && key == nullptr) ||
-      !takes(ptrs, 6, strides, B, L, H, D, thresh, seg != nullptr))
+      !takes(ptrs, 6, strides, B, L, Lk, H, D, thresh, seg != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int2 t = tiles_of(2, D);
-  const int rows[4] = {t.y, t.x, t.x, t.y};
+  const int rows[4] = {t.y, t.x, t.x, t.y}, lens[4] = {L, Lk, Lk, L};
   Call c;
-  if (!prepare(&c, ptrs, 4, 2, strides, B, L, H, D, rows))
+  if (!prepare(&c, ptrs, 4, 2, strides, B, lens, H, D, rows))
     return kEncodeFailed;
   Drop dr{key, thresh, inv_keep};
   void* args[] = {&c.maps[0], &c.maps[1], &c.maps[2],  &c.maps[3],
                   &lse,       &delta,     &c.views[0], &c.views[1],
-                  &L,         &H,         &scale,      last(D, &dr, &sg),
-                  &sg};
+                  &L,         &Lk,        &H,          &scale,
+                  last(D, &dr, &sg), &sg};
   return launch_kernel(dkv_kernel(D, causal, thresh != 0u, seg != nullptr),
-                       t.x, L, H, B, static_cast<cudaStream_t>(stream),
+                       t.x, Lk, H, B, static_cast<cudaStream_t>(stream),
                        args);
 }
 

@@ -41,6 +41,16 @@ the kernels and launches dQ and dK/dV, which regenerate the forward's
 keep mask from the same key. :func:`flash_attention` and
 :func:`flash_attention_segmented` are the public entries.
 
+Lengths: k and v (and dK, dV) may differ from q (and out, dO, dQ) in
+the sequence dimension alone, ``Lk`` keys against ``L`` queries
+(cross-attention, a KV-cache step, a chunk against its history). Causal
+puts the diagonal where the JAX oracle ``_sdpa_xla`` does: query row i
+sees the keys j <= i + Lk - L. A causal row with no allowed key (i < L -
+Lk) is written as zeros by the kernels and their plain versions (lse
+-1e30); :class:`FlashAttention` then gives it ``_sdpa_xla``'s answer, the
+(kept) mean of V's rows, and its gradient (:func:`_empty_rows`).
+Segments need ``Lk = L``.
+
 Numerics (the TPU kernels'): every product accumulates in f32 over
 operands in the input dtype (the plain versions multiply f32 copies of
 those operands, which is the same arithmetic up to summation order);
@@ -265,24 +275,28 @@ def _dropout_args(dropout_p: float, seed) -> Tuple[int, float]:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _ok(rows: torch.Tensor, cols: torch.Tensor, L: int, causal: bool,
-        seg: Optional[torch.Tensor]) -> torch.Tensor:
+def _ok(rows: torch.Tensor, cols: torch.Tensor, Lk: int, causal: bool,
+        seg: Optional[torch.Tensor], off: int = 0) -> torch.Tensor:
     """Allowed pairs, broadcastable to ``[B, H, len(rows), len(cols)]``:
-    columns inside L, at or before the row when causal, in the row's
-    segment."""
-    ok = (cols < L)[None, :].expand(rows.numel(), -1)
+    columns inside Lk, at or before the row's diagonal (its index +
+    ``off``, ``Lk - L``) when causal, in the row's segment."""
+    ok = (cols < Lk)[None, :].expand(rows.numel(), -1)
     if causal:
-        ok = ok & (cols[None, :] <= rows[:, None])
+        ok = ok & (cols[None, :] <= rows[:, None] + off)
     ok = ok[None, None]
     if seg is not None:
-        sc = seg[:, cols.clamp(max=L - 1)]
+        sc = seg[:, cols.clamp(max=Lk - 1)]
         ok = ok & (seg[:, rows, None] == sc[:, None, :])[:, None]
     return ok
 
 
-def _check_seg(seg: Optional[torch.Tensor], B: int, L: int, device):
+def _check_seg(seg: Optional[torch.Tensor], B: int, L: int, device,
+               Lk: Optional[int] = None):
     if seg is None:
         return
+    if Lk is not None and Lk != L:
+        raise ValueError(f"segment ids index queries and keys alike: "
+                         f"{L} queries against {Lk} keys")
     if seg.dtype != torch.int32 or tuple(seg.shape) != (B, L) \
             or seg.device != device:
         raise ValueError(f"seg must be int32 [B, L] = [{B}, {L}] on "
@@ -301,7 +315,8 @@ def flash_attention_fwd_reference(q, k, v, causal: bool = False,
     ``(out, lse)``."""
     q4, k4, v4 = _as4(q), _as4(k), _as4(v)
     B, L, H, D = q4.shape
-    _check_seg(seg, B, L, q.device)
+    Lk = k4.shape[1]
+    _check_seg(seg, B, L, q.device, Lk)
     thresh, inv = _dropout_args(dropout_p, seed)
     s = _scale(D, scale)
     qf = _rows(q4)
@@ -310,11 +325,11 @@ def flash_attention_fwd_reference(q, k, v, causal: bool = False,
     m = torch.full((B, H, L), _NEG_INF, dtype=acc_t, device=q.device)
     l = torch.zeros((B, H, L), dtype=acc_t, device=q.device)
     acc = torch.zeros((B, H, L, D), dtype=acc_t, device=q.device)
-    for k0 in range(0, L, _BLOCK):
+    for k0 in range(0, Lk, _BLOCK):
         kb = _rows(k4[:, k0:k0 + _BLOCK])
         vb = _rows(v4[:, k0:k0 + _BLOCK])
         cols = torch.arange(k0, k0 + kb.shape[2], device=q.device)
-        ok = _ok(rows, cols, L, causal, seg)
+        ok = _ok(rows, cols, Lk, causal, seg, Lk - L)
         logits = torch.where(ok, (qf @ kb.transpose(-1, -2)) * s, _NEG_INF)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         # re-masked: a row whose columns are all masked so far has
@@ -346,22 +361,24 @@ def _bwd_tiles(q, k, v, do, lse, delta, causal, scale, dropout_p, seed,
                seg):
     """Yield, per KV tile, ``(kb, p_d, ds)`` with
     P = exp(scale·QKᵀ − lse) (masked), the dropped P_d = keep∘P/(1−p)
-    and dS = P∘(keep∘dO Vᵀ/(1−p) − Δ)·scale, f32 ``[B, H, L, 64]`` — the
+    and dS = P∘(keep∘dO Vᵀ/(1−p) − Δ)·scale, f32 ``[B, H, L, 64]`` (the
+    last tile narrower when 64 does not divide Lk) — the
     algebra of the TPU backward kernels."""
     q4, k4, v4, do4 = _as4(q), _as4(k), _as4(v), _as4(do)
     B, L, H, D = q4.shape
-    _check_seg(seg, B, L, q.device)
+    Lk = k4.shape[1]
+    _check_seg(seg, B, L, q.device, Lk)
     thresh, inv = _dropout_args(dropout_p, seed)
     s = _scale(D, scale)
     qf, dof = _rows(q4), _rows(do4)
     lse4 = _lse4(q, lse).to(qf.dtype)[..., None]
     dl4 = _lse4(q, delta).to(qf.dtype)[..., None]
     rows = torch.arange(L, device=q.device)
-    for k0 in range(0, L, _BLOCK):
+    for k0 in range(0, Lk, _BLOCK):
         kb = _rows(k4[:, k0:k0 + _BLOCK])
         vb = _rows(v4[:, k0:k0 + _BLOCK])
         cols = torch.arange(k0, k0 + kb.shape[2], device=q.device)
-        ok = _ok(rows, cols, L, causal, seg)
+        ok = _ok(rows, cols, Lk, causal, seg, Lk - L)
         p = torch.where(ok, torch.exp(s * (qf @ kb.transpose(-1, -2))
                                       - lse4), 0.0)
         dp = dof @ vb.transpose(-1, -2)
@@ -438,7 +455,7 @@ def _kernel_lib(dtype: torch.dtype, d: int) -> ctypes.CDLL:
     if lib is None:
         lib = _build.load(f"flash_attention_{_DTYPE_NAMES[dtype]}_d{d}")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        tail = [p, i, i, i, i, i, ctypes.c_float, i,
+        tail = [p, i, i, i, i, i, i, ctypes.c_float, i,
                 p, ctypes.c_longlong, p, p, u, ctypes.c_float, p]
         lib.flash_attention_forward.argtypes = [p] * 5 + tail
         lib.flash_attention_backward_dq.argtypes = [p] * 7 + tail
@@ -458,8 +475,8 @@ def _kernel_lib_tma() -> ctypes.CDLL:
     if _tma_lib is None:
         lib = _build.load("flash_attention_tma")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        tail = [p, i, i, i, i, i, ctypes.c_float, p, ctypes.c_longlong, p,
-                p, p, u, ctypes.c_float, p]
+        tail = [p, i, i, i, i, i, i, ctypes.c_float, p, ctypes.c_longlong,
+                p, p, p, u, ctypes.c_float, p]
         lib.flash_attention_tma_forward.argtypes = [p] * 5 + tail
         lib.flash_attention_tma_backward_dq.argtypes = [p] * 7 + tail
         lib.flash_attention_tma_backward_dkv.argtypes = [p] * 8 + tail
@@ -494,11 +511,13 @@ def takes_tma(q, k, v, do=None, *, dropout_p: float = 0.0,
     """Whether the TMA / ``wgmma`` kernels take a call, from the operands'
     dtype, shapes, alignment and strides alone (nothing is launched).
 
-    They take ``q``, ``k``, ``v`` (and the backward's ``do``) in bf16 of
-    one shape, ``[B, L, H, D]`` or ``[BH, L, D]``, with head dim 64 or 128
+    They take ``q``, ``k``, ``v`` (and the backward's ``do``) in bf16,
+    ``[B, L, H, D]`` or ``[BH, L, D]``, ``k`` and ``v`` of one shape that
+    differs from q's (and ``do``'s) in L alone, with head dim 64 or 128
     contiguous; with dropout at head dim 64 only, or with segments
     (``seg`` int32 ``[B, L]`` with contiguous rows, or its
-    :class:`SegmentPlan`) without dropout: each flag set has its own
+    :class:`SegmentPlan`, keys as many as queries) without dropout: each
+    flag set has its own
     instance, and no public entry combines the two (the varlen entry
     takes no dropout); every base 16-byte aligned and every (batch, seq,
     head) stride a multiple of 8 elements (16 bytes), so that a TMA
@@ -507,30 +526,42 @@ def takes_tma(q, k, v, do=None, *, dropout_p: float = 0.0,
     ``[total, 3, H, D]`` is); and sizes inside the grid's and the
     kernels' 32-bit ranges."""
     ts = [t for t in (q, k, v, do) if t is not None]
-    if any(t.dtype != torch.bfloat16 or t.shape != q.shape for t in ts):
+    if any(t.dtype != torch.bfloat16 for t in ts) or not _lengths_only(
+            q, k, v, do):
         return False
     if q.dim() not in (3, 4) or q.shape[-1] not in _TMA_HEAD_DIMS \
-            or q.numel() == 0:
+            or q.numel() == 0 or k.numel() == 0:
         return False
     if dropout_p > 0.0 and q.shape[-1] != _TMA_DROPOUT_HEAD_DIM:
         return False
     B, L, H, _ = _as4(q).shape
+    Lk = k.shape[1]
     ids = _ids(seg)
     if ids is not None and (dropout_p > 0.0 or ids.dtype != torch.int32
-                            or tuple(ids.shape) != (B, L)
+                            or tuple(ids.shape) != (B, L) or Lk != L
                             or ids.stride(1) != 1 or ids.device != q.device):
         return False
-    if B > 65535 or H > 65535 or B * H * L > _INT32_MAX:
+    if B > 65535 or H > 65535 or B * H * max(L, Lk) > _INT32_MAX:
         return False
     return all(_as4(t).stride(3) == 1 and t.data_ptr() % 16 == 0
                and all(x % 8 == 0 for x in _as4(t).stride()[:3])
                for t in ts)
 
 
+def _lengths_only(q, k, v, do=None) -> bool:
+    """Whether ``k`` and ``v`` share one shape that differs from ``q``'s
+    in the sequence dimension alone, and ``do`` (if given) is shaped like
+    ``q``."""
+    return (k.shape == v.shape and k.dim() == q.dim()
+            and k.shape[:1] == q.shape[:1] and k.shape[2:] == q.shape[2:]
+            and (do is None or do.shape == q.shape))
+
+
 def _check(name: str, q, tensors, f32s=(), seg=None
-           ) -> Tuple[int, int, int, int]:
-    """Device, dtype, shape, stride and alignment checks of a launch;
-    returns ``(B, L, H, D)``."""
+           ) -> Tuple[int, int, int, int, int]:
+    """Device, dtype, shape, stride and alignment checks of a launch
+    (``tensors`` is q, k, v and the backward's dO); returns ``(B, L, Lk,
+    H, D)``."""
     def need(cond, msg):
         if not cond:
             raise ValueError(f"{name}: {msg}")
@@ -540,11 +571,21 @@ def _check(name: str, q, tensors, f32s=(), seg=None
     q4 = _as4(q)
     B, L, H, D = q4.shape
     need(D in _HEAD_DIMS, f"head dim {D} not in {_HEAD_DIMS}")
+    k = tensors[1]
+    need(_lengths_only(*tensors),
+         f"shapes differ beyond the sequence length: q "
+         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+         f"{tuple(tensors[2].shape)}" + (
+             f", do {tuple(tensors[3].shape)}" if len(tensors) > 3 else ""))
+    Lk = k.shape[1]
+    need(Lk > 0, "no keys")
+    need(seg is None or Lk == L,
+         f"segment ids index queries and keys alike: {L} queries against "
+         f"{Lk} keys")
+    need(B * H * Lk <= _INT32_MAX, f"{B * H * Lk} key rows overflow int32")
     vec = 16 // q.element_size()
     for t in tensors:
         need(t.dtype == q.dtype, f"dtypes differ: {t.dtype} vs {q.dtype}")
-        need(t.shape == q.shape, f"shapes differ: {tuple(t.shape)} vs "
-                                 f"{tuple(q.shape)}")
         need(t.device == q.device, "all tensors on one device")
         t4 = _as4(t)
         need(t4.stride(3) == 1, "the head dim must be contiguous")
@@ -562,7 +603,7 @@ def _check(name: str, q, tensors, f32s=(), seg=None
              and seg.device == q.device and seg.stride(1) == 1,
              f"seg must be int32 [B, L] = [{B}, {L}] with contiguous "
              f"rows on {q.device}, got {seg.dtype} {tuple(seg.shape)}")
-    return B, L, H, D
+    return B, L, Lk, H, D
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -667,11 +708,11 @@ def _ids(seg: Segments) -> Optional[torch.Tensor]:
 
 def _launch(wrapper, fn, name, args, shape, causal, scale, dtype, device,
             dropout_p, seed, seg: Optional[SegmentPlan]):
-    B, L, H, D = shape
+    B, L, Lk, H, D = shape
     thresh, inv = _dropout_args(dropout_p, seed)
     key = _key_ptr(seed, device, name) if thresh else None
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, B, L, H, D, int(bool(causal)), scale,
+    rc = fn(*args, B, L, Lk, H, D, int(bool(causal)), scale,
             _DTYPE_CODES[dtype],
             seg.ids.data_ptr() if seg is not None else None,
             seg.ids.stride(0) if seg is not None else 0,
@@ -679,7 +720,7 @@ def _launch(wrapper, fn, name, args, shape, causal, scale, dtype, device,
             key, thresh, inv, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError "
-                           f"{rc} (B={B} L={L} H={H} D={D} {dtype} "
+                           f"{rc} (B={B} L={L} Lk={Lk} H={H} D={D} {dtype} "
                            f"causal={bool(causal)} dropout_p={dropout_p} "
                            f"segments={seg is not None})")
     wrapper.launches += 1
@@ -693,12 +734,12 @@ def _launch_tma(wrapper, fn, name, kernel, args, shape, causal, scale,
     C entry re-checks and returns an error, which raises here. p = 0
     takes the instance without dropout; segments take theirs, with the
     windows of ``kernel`` ("fwd", "dq", "dkv")."""
-    B, L, H, D = shape
+    B, L, Lk, H, D = shape
     thresh, inv = _dropout_args(dropout_p, seed)
     key = _key_ptr(seed, device, name) if thresh else None
     win = seg.window(kernel, D, causal) if seg is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, B, L, H, D, int(bool(causal)), scale,
+    rc = fn(*args, B, L, Lk, H, D, int(bool(causal)), scale,
             seg.ids.data_ptr() if seg is not None else None,
             seg.ids.stride(0) if seg is not None else 0,
             seg.ranges.data_ptr() if seg is not None else None,
@@ -707,7 +748,8 @@ def _launch_tma(wrapper, fn, name, kernel, args, shape, causal, scale,
     if rc != 0:
         what = "cuTensorMapEncodeTiled refused a tensor map" if rc == -1 \
             else f"kernel launch failed with cudaError {rc}"
-        raise RuntimeError(f"{name}: TMA {what} (B={B} L={L} H={H} D={D} "
+        raise RuntimeError(f"{name}: TMA {what} (B={B} L={L} Lk={Lk} H={H} "
+                           f"D={D} "
                            f"causal={bool(causal)} dropout_p={dropout_p} "
                            f"segments={seg is not None})")
     wrapper.launches += 1
@@ -738,9 +780,9 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
                                              dropout_p, seed, _ids(seg))
     shape = _check(name, q, (q, k, v), seg=_ids(seg))
     seg = _plan(seg)
-    s = _scale(shape[3], scale)
+    s = _scale(shape[4], scale)
     out = torch.empty_like(q)
-    lse = torch.empty((shape[0], shape[2], shape[1]), dtype=torch.float32,
+    lse = torch.empty((shape[0], shape[3], shape[1]), dtype=torch.float32,
                       device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _strides(q, k, v, out))
@@ -751,7 +793,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
                     seed, seg)
     else:
         _launch(flash_attention_fwd,
-                _kernel_lib(q.dtype, shape[3]).flash_attention_forward, name,
+                _kernel_lib(q.dtype, shape[4]).flash_attention_forward, name,
                 args, shape, causal, s, q.dtype, q.device, dropout_p, seed,
                 seg)
     return out, _lse_shape(q, lse)
@@ -772,7 +814,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                                                 seed, _ids(seg))
     shape = _check(name, q, (q, k, v, do), (lse, delta), seg=_ids(seg))
     seg = _plan(seg)
-    s = _scale(shape[3], scale)
+    s = _scale(shape[4], scale)
     dq = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -784,7 +826,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                     seg)
     else:
         _launch(flash_attention_bwd_dq,
-                _kernel_lib(q.dtype, shape[3]).flash_attention_backward_dq,
+                _kernel_lib(q.dtype, shape[4]).flash_attention_backward_dq,
                 name, args, shape, causal, s, q.dtype, q.device, dropout_p,
                 seed, seg)
     return dq
@@ -805,7 +847,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                                                  seed, _ids(seg))
     shape = _check(name, q, (q, k, v, do), (lse, delta), seg=_ids(seg))
     seg = _plan(seg)
-    s = _scale(shape[3], scale)
+    s = _scale(shape[4], scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -817,7 +859,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                     seg)
     else:
         _launch(flash_attention_bwd_dkv,
-                _kernel_lib(q.dtype, shape[3]).flash_attention_backward_dkv,
+                _kernel_lib(q.dtype, shape[4]).flash_attention_backward_dkv,
                 name, args, shape, causal, s, q.dtype, q.device, dropout_p,
                 seed, seg)
     return dk, dv
@@ -879,10 +921,35 @@ def _flash_fwd_fake(q, k, v, causal, scale, dropout_p, key, seg,
     return q.new_empty(q.shape), _lse_shape(q, lse)
 
 
+def _n_empty(q, k, causal: bool) -> int:
+    """The causal rows with no allowed key: the first ``L - Lk`` when
+    queries outnumber keys, else none."""
+    return max(q.shape[1] - k.shape[1], 0) if causal else 0
+
+
+def _empty_rows(q, k, n: int, dropout_p: float, seed) -> torch.Tensor:
+    """``_sdpa_xla``'s probabilities of the ``n`` rows with no allowed key,
+    ``[B, H, n, Lk]`` in the accumulation dtype: its logits there are all
+    -1e30, so each key gets 1/Lk (the kept ones 1/(Lk (1 - p)) under
+    dropout, with the kernels' keep mask). The kernels leave those rows
+    zero; :class:`FlashAttention` adds ``P V`` to the output and ``Pᵀ dO``
+    to dV (their logits are constants: dQ and dK get nothing)."""
+    B, _, H, _ = _as4(q).shape
+    Lk = k.shape[1]
+    thresh, inv = _dropout_args(dropout_p, seed)
+    p = torch.full((B, H, n, Lk), 1.0 / Lk, dtype=_acc(q), device=q.device)
+    if thresh:
+        rows = torch.arange(n, device=q.device)
+        p = torch.where(_keep_tile(seed, B, H, rows, 0, Lk, thresh),
+                        p * inv, 0.0)
+    return p
+
+
 class FlashAttention(torch.autograd.Function):
     """``torch.autograd.Function`` in place of the JAX ``custom_vjp``:
     forward runs the ``paddle_tpu_torch::flash_fwd`` operator
-    (:func:`flash_fwd_op`), saves ``(q, k, v, out, lse)``, the segment
+    (:func:`flash_fwd_op`) and fills the causal rows with no allowed key
+    (:func:`_empty_rows`), saves ``(q, k, v, out, lse)``, the segment
     ids and the dropout key tensor, and keeps, on CUDA tensors, the ids'
     :class:`SegmentPlan` (chunk ranges and windows, built once a step,
     its ranges handed to the operator); backward runs
@@ -897,6 +964,11 @@ class FlashAttention(torch.autograd.Function):
         out, lse = flash_fwd_op(q, k, v, bool(causal), scale,
                                 float(dropout_p), seed, seg,
                                 None if plan is None else plan.ranges)
+        n = _n_empty(q, k, causal)
+        if n:
+            pe = _empty_rows(q, k, n, dropout_p, seed)
+            _as4(out)[:, :n] = (pe @ _rows(_as4(v))).permute(0, 2, 1, 3) \
+                .to(out.dtype)
         ctx.save_for_backward(q, k, v, out, lse, seg, seed)
         ctx.causal, ctx.scale = causal, scale
         ctx.dropout_p, ctx.plan = dropout_p, plan
@@ -910,6 +982,12 @@ class FlashAttention(torch.autograd.Function):
             seg = ctx.plan
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
                                          ctx.scale, ctx.dropout_p, key, seg)
+        n = _n_empty(q, k, ctx.causal)
+        if n:
+            pe = _empty_rows(q, k, n, ctx.dropout_p, key)
+            dof = _rows(_as4(do)[:, :n])
+            dv = (_rows(_as4(dv)) + pe.transpose(-1, -2) @ dof) \
+                .permute(0, 2, 1, 3).to(v.dtype).reshape(v.shape)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -917,12 +995,13 @@ def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, dropout_p: float = 0.0,
                     seed=None):
     """Flash attention in the ``[B, L, H, D]`` layout (``scale=None`` is
-    1/√D), differentiable. ``dropout_p`` drops attention probabilities
-    inside the kernels with the keep mask of ``seed``, a key tensor from
-    ``core.random`` (``next_key(q.device)``: int64 ``[2]`` on the
-    inputs' device, read by the kernels from device memory), regenerated
-    in the backward from the same key; it needs a seed and must be below
-    1."""
+    1/√D), differentiable; k and v may hold more or fewer rows than q
+    (causal: row i sees the keys j <= i + Lk - L). ``dropout_p`` drops
+    attention probabilities inside the kernels with the keep mask of
+    ``seed``, a key tensor from ``core.random`` (``next_key(q.device)``:
+    int64 ``[2]`` on the inputs' device, read by the kernels from device
+    memory), regenerated in the backward from the same key; it needs a
+    seed and must be below 1."""
     _dropout_args(dropout_p, seed)
     return FlashAttention.apply(q, k, v, causal, scale, float(dropout_p),
                                 seed if dropout_p > 0.0 else None, None)

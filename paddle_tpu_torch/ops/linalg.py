@@ -1,6 +1,12 @@
-"""Linear-algebra ops of the port: the products, ``einsum`` and the
-decompositions of ``paddle_tpu.ops.linalg`` up to its long-tail
-section (``inv``, ``vector_norm`` and the rest wait).
+"""Linear-algebra ops of the port: the products, ``einsum``, the
+decompositions and the long-tail surface of ``paddle_tpu.ops.linalg``
+(``inv``, ``lu`` / ``lu_unpack``, ``cond``, ``matrix_exp``, the vector and
+matrix norms, ``ormqr``, ``cholesky_inverse``, the randomized
+``svd_lowrank`` / ``pca_lowrank`` of Halko, Martinsson and Tropp, and
+``fp8_fp8_half_gemm_fused``, which upcasts its fp8 operands to bf16 and
+multiplies them, as the JAX function does; no fp8 kernel is written).
+The decompositions are ``torch.linalg``'s (cuSOLVER on the card, LAPACK
+on the CPU); ``paddle_tpu_torch.linalg`` re-exports this module.
 
 ``matmul`` is ``torch.matmul`` (the JAX package computes it outside
 any Pallas kernel); bf16 inputs reduce in f32 on the card.
@@ -18,7 +24,10 @@ __all__ = ["matmul", "mm", "bmm", "dot", "inner", "outer", "cross", "t",
            "lstsq", "qr", "svd", "eig", "eigh", "eigvals", "eigvalsh", "det",
            "slogdet", "matrix_rank", "matrix_power", "multi_dot", "trace",
            "diagonal", "kron", "mv", "corrcoef", "cov",
-           "householder_product"]
+           "householder_product", "inv", "cholesky_inverse",
+           "vector_norm", "matrix_norm", "cond", "matrix_exp", "lu",
+           "lu_unpack", "ormqr", "svd_lowrank", "pca_lowrank",
+           "fp8_fp8_half_gemm_fused"]
 
 
 def _matmul(a, b, transpose_x=False, transpose_y=False):
@@ -255,3 +264,153 @@ def cov(x, rowvar=True, ddof=True, fweights=None, aweights=None, name=None):
 
 def householder_product(x, tau, name=None):
     return apply_op(torch.linalg.householder_product, x, tau)
+
+
+# -- the long-tail linalg surface ---------------------------------------------
+
+def inv(x, name=None):
+    """Alias of :func:`inverse`."""
+    return inverse(x, name=name)
+
+
+def cholesky_inverse(x, upper=False, name=None):
+    """``A⁻¹`` from A's Cholesky factor."""
+    return apply_op(lambda L: torch.cholesky_inverse(L, upper=upper), x,
+                    op_name="cholesky_inverse")
+
+
+def vector_norm(x, p=2.0, axis=None, keepdim=False, name=None):
+    """The p-norm of the input (or of the given axes taken together as
+    one vector), in f32."""
+    dims = tuple(axis) if isinstance(axis, (list, tuple)) \
+        else None if axis is None else (int(axis),)
+    return apply_op(lambda a: torch.linalg.vector_norm(
+        a.float(), ord=p, dim=dims, keepdim=keepdim), x,
+        op_name="vector_norm")
+
+
+def matrix_norm(x, p="fro", axis=(-2, -1), keepdim=False, name=None):
+    """fro / nuc / ±1 / ±2 / ±inf over the two matrix axes, in f32."""
+    return apply_op(lambda a: torch.linalg.matrix_norm(
+        a.float(), ord=p, dim=tuple(axis), keepdim=keepdim), x,
+        op_name="matrix_norm")
+
+
+def cond(x, p=None, name=None):
+    """The condition number, in f32."""
+    return apply_op(lambda a: torch.linalg.cond(a.float(), p=p), x,
+                    op_name="cond")
+
+
+def matrix_exp(x, name=None):
+    return apply_op(torch.linalg.matrix_exp, x, op_name="matrix_exp")
+
+
+def lu(x, pivot=True, get_infos=False, name=None):
+    """Compact LU in f32: ``(LU, pivots[, infos])``, L unit lower and U
+    packed in one matrix, pivots 1-based row swaps (LAPACK's)."""
+    if not pivot:
+        raise NotImplementedError(
+            "lu(pivot=False) is unsupported, as in the JAX package")
+
+    def f(a):
+        lu_mat, piv, info = torch.linalg.lu_factor_ex(a.float())
+        piv = piv.to(torch.int32)
+        return (lu_mat, piv, info.to(torch.int32)) if get_infos \
+            else (lu_mat, piv)
+    return apply_op(f, x, op_name="lu")
+
+
+def lu_unpack(x, y, unpack_ludata=True, unpack_pivots=True, name=None):
+    """:func:`lu`'s compact result as ``(P, L, U)``, ``A = P L U``
+    (``None`` for a part not asked for)."""
+    def f(lu_mat, piv):
+        P, L, U = torch.lu_unpack(lu_mat, piv.to(torch.int32),
+                                  unpack_data=unpack_ludata,
+                                  unpack_pivots=unpack_pivots)
+        return P, L, U
+    P, L, U = apply_op(f, x, y, op_name="lu_unpack")
+    return (P if unpack_pivots else None,
+            L if unpack_ludata else None,
+            U if unpack_ludata else None)
+
+
+def ormqr(x, tau, y, left=True, transpose=False, name=None):
+    """``op(Q) y`` (or ``y op(Q)``) for the full Q of the Householder
+    factorization ``(x, tau)``."""
+    return apply_op(lambda h, t, m: torch.ormqr(h, t, m, left=left,
+                                                transpose=transpose),
+                    x, tau, y, op_name="ormqr")
+
+
+def _lowrank_q(a, q_size: int, niter: int, omega):
+    """Randomized range finder: Q spans about the top ``q_size``
+    columns of ``a`` after ``niter`` power iterations."""
+    q, _ = torch.linalg.qr(a @ omega)
+    for _ in range(niter):
+        z, _ = torch.linalg.qr(a.transpose(-1, -2) @ q)
+        q, _ = torch.linalg.qr(a @ z)
+    return q
+
+
+def svd_lowrank(x, q=6, niter=2, M=None, name=None):
+    """Randomized truncated SVD of ``x`` (less ``M``): ``(U, S, V)``,
+    with V (not Vᵀ). The Gaussian test matrix comes from a generator
+    seeded by a host draw of the port's generator."""
+    from ..core import random as random_mod
+    a0 = as_torch(x)
+    k = min(q, *a0.shape[-2:])
+    omega = torch.randn(a0.shape[:-2] + (a0.shape[-1], k),
+                        dtype=torch.float32, device=a0.device,
+                        generator=random_mod.generator_for(a0.device))
+
+    def f(a, *rest):
+        a = a.float()
+        if rest:
+            a = a - rest[0]
+        qmat = _lowrank_q(a, k, niter, omega)
+        u_b, s, vh = torch.linalg.svd(qmat.transpose(-1, -2) @ a,
+                                      full_matrices=False)
+        return qmat @ u_b, s, vh.transpose(-1, -2)
+
+    args = [x] + ([M] if M is not None else [])
+    return apply_op(f, *args, op_name="svd_lowrank")
+
+
+def pca_lowrank(x, q=None, center=True, niter=2, name=None):
+    """Randomized PCA: :func:`svd_lowrank` of the (centred) data."""
+    m, n = as_torch(x).shape[-2:]
+    q = min(6, m, n) if q is None else q
+    if center:
+        x = apply_op(lambda a: a.float() - a.float().mean(-2, keepdim=True),
+                     x, op_name="pca_center")
+    return svd_lowrank(x, q=q, niter=niter)
+
+
+def fp8_fp8_half_gemm_fused(x, y, transpose_x=False, transpose_y=False,
+                            bias=None, scale=1.0, output_dtype="bfloat16",
+                            act="identity", name=None):
+    """``act(x y · scale + bias)`` with x and y (fp8 or any float)
+    upcast to bf16, in ``output_dtype``: the JAX function's contract.
+    It launches no fp8 kernel."""
+    from ..core.dtype import convert_dtype
+    if act not in ("identity", "gelu", "relu"):
+        raise ValueError(f"unknown act {act!r}")
+
+    def f(a, b, *maybe_bias):
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        if transpose_x:
+            a16 = a16.transpose(-1, -2)
+        if transpose_y:
+            b16 = b16.transpose(-1, -2)
+        out = torch.matmul(a16, b16) * torch.tensor(
+            scale, dtype=torch.bfloat16, device=a16.device)
+        if maybe_bias:
+            out = out + maybe_bias[0].to(out.dtype)
+        if act == "gelu":
+            out = torch.nn.functional.gelu(out)
+        elif act == "relu":
+            out = torch.relu(out)
+        return out.to(convert_dtype(output_dtype))
+    args = (x, y) + ((bias,) if bias is not None else ())
+    return apply_op(f, *args, op_name="fp8_gemm")

@@ -18,7 +18,7 @@ from ..core.autograd import apply_op
 from ..core.dtype import convert_dtype
 from ..core.tensor import Tensor, as_torch
 
-__all__ = ["reshape", "reshape_", "transpose", "moveaxis", "swapaxes",
+__all__ = ["cast", "reshape", "reshape_", "transpose", "moveaxis", "swapaxes",
            "concat", "stack", "split", "chunk", "unbind", "squeeze",
            "unsqueeze", "flatten", "expand", "broadcast_to", "expand_as",
            "broadcast_tensors", "tile", "repeat_interleave", "flip", "roll",
@@ -29,6 +29,11 @@ __all__ = ["reshape", "reshape_", "transpose", "moveaxis", "swapaxes",
            "as_strided", "view", "numel", "shard_index", "diff",
            "atleast_1d", "atleast_2d", "atleast_3d", "tensordot", "unfold"]
 
+
+
+def cast(x, dtype):
+    """``x`` in ``dtype`` (``Tensor.astype``)."""
+    return x.astype(dtype)
 
 def _shape_arg(shape):
     if isinstance(shape, (Tensor, torch.Tensor)):

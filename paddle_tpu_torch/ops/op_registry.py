@@ -6,8 +6,9 @@ C++ mirror: :data:`OP_TABLE` maps each op name to its descriptor
 A row's ``module`` is under ``paddle_tpu_torch.ops`` when it is a bare
 name (``math``) and under ``paddle_tpu_torch`` when dotted
 (``nn.functional``). :func:`resolve` finds an op's function in the
-port, and :func:`unported` lists the rows whose module or function the
-port does not have yet (they are queued, not dropped).
+port, :func:`unported` lists the rows whose module or function the
+port does not have yet (they are queued, not dropped), and
+:func:`dispatch_counts` the eager dispatches per op name.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import re
 from typing import Callable, Dict, List, Optional
 
 __all__ = ["OP_TABLE", "get_op_info", "list_ops", "num_ops", "resolve",
-           "unported"]
+           "unported", "dispatch_counts"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -118,6 +119,13 @@ def resolve(name: str) -> Optional[Callable]:
 def unported() -> List[str]:
     """The op names whose module or function the port lacks."""
     return sorted(n for n in OP_TABLE if resolve(n) is None)
+
+
+def dispatch_counts() -> Dict[str, int]:
+    """Eager dispatches per op name since process start, as
+    ``core.autograd.apply_op`` counts them."""
+    from ..core.autograd import _dispatches
+    return dict(_dispatches)
 
 
 _register_all()

@@ -200,11 +200,17 @@ model_urls = {
 }
 
 
+def load_pretrained(model, arch, urls=None):
+    """Install published weights (``_utils.load_pretrained``; this file's
+    table by default)."""
+    from ._utils import load_pretrained as _lp
+    return _lp(model, arch, model_urls if urls is None else urls)
+
+
 def _resnet(block, depth, pretrained=False, arch=None, **kwargs):
     model = ResNet(block, depth, **kwargs)
     if pretrained:
-        from ._utils import load_pretrained
-        load_pretrained(model, arch or f"resnet{depth}", model_urls)
+        load_pretrained(model, arch or f"resnet{depth}")
     return model
 
 

@@ -351,14 +351,10 @@ def test_nhwc_conv2d_layer_keeps_a_channels_last_weight():
         memory_format=torch.channels_last)
 
 
-# the op rows the port still lacks after the vision slice (ROADMAP
-# queue 1): a ported row falling back would show here
-UNPORTED_AFTER_VISION = [
-    "cast", "copysign", "deg2rad", "fused_bias_act",
-    "fused_layernorm_residual_dropout", "fused_linear", "fused_rms_norm",
-    "fused_rotary_position_embedding", "is_grad_enabled", "rad2deg",
-    "ring_attention", "sinc",
-]
+# the op rows the port still lacks after the vision slice and the op
+# surface's tail (ROADMAP queue 1): ring_attention, with the distributed
+# package; a ported row falling back would show here
+UNPORTED_AFTER_VISION = ["ring_attention"]
 
 
 def test_unported_lists_exactly_the_rows_left():

@@ -615,6 +615,76 @@ def test_flash_autograd_on_the_tma_kernels_matches_autograd_through_sdpa(
         assert rel <= 2e-2, rel
 
 
+def _cross_inputs(dev, B, Lq, Lk, H, D, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, L, H, D), generator=g, device=dev).to(dtype)
+            for L in (Lq, Lk, Lk, Lq)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("geo", [(3, 96, 128, 4, 64, False, 0.0),
+                                 (3, 96, 128, 4, 64, False, 0.1),
+                                 (4, 1, 200, 2, 128, True, 0.0),
+                                 (2, 300, 200, 2, 64, True, 0.0),
+                                 (2, 130, 70, 2, 128, True, 0.0),
+                                 (1, 77, 300, 3, 128, False, 0.0)],
+                         ids=["cross", "cross-dropout", "cache-step",
+                              "more-queries-causal", "more-queries-d128",
+                              "history"])
+def test_flash_kernels_at_unequal_lengths_match_their_plain_versions(
+        cuda, geo, dtype, tol):
+    """Lq != Lk through the design takes_tma picks (bf16: the TMA kernels,
+    f32: the first design), one launch each, against the plain versions
+    (the backward kernels on the plain forward's lse and delta)."""
+    B, Lq, Lk, H, D, causal, p = geo
+    q, k, v, do = _cross_inputs(cuda, B, Lq, Lk, H, D, dtype, 3)
+    kw = {"dropout_p": p, "seed": _key(cuda, 0x300000007)} if p else {}
+    out, lse = tfa.flash_attention_fwd_reference(q, k, v, causal, None,
+                                                 **kw)
+    delta = tfa.attention_delta(out, do)
+    ws = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+          tfa.flash_attention_bwd_dkv)
+    before = [(w.launches, w.tma_launches) for w in ws]
+    got = (*tfa.flash_attention_fwd(q, k, v, causal, None, **kw),
+           tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
+                                      None, **kw),
+           *tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                        None, **kw))
+    torch.cuda.synchronize()
+    tma = int(tfa.takes_tma(q, k, v, do, dropout_p=p))
+    assert tma == int(dtype == torch.bfloat16 and (not p or D == 64))
+    assert [(w.launches - a, w.tma_launches - b)
+            for w, (a, b) in zip(ws, before)] == [(1, tma)] * 3
+    ref = (out, lse,
+           tfa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                causal, None, **kw),
+           *tfa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                  causal, None, **kw))
+    _check_all(got, ref, tol)
+
+
+@pytest.mark.parametrize("Lq,Lk,causal", [(96, 128, False),
+                                          (300, 200, True), (1, 50, True)])
+def test_flash_autograd_at_unequal_lengths_matches_the_sdpa(cuda, Lq, Lk,
+                                                           causal):
+    """FlashAttention (the rows with no allowed key filled with V's mean)
+    against autograd through sdpa_reference, f32 on the first design:
+    out and each gradient within 1e-5 relative RMS."""
+    from paddle_tpu_torch.nn.functional import sdpa_reference
+    q, k, v, do = _cross_inputs(cuda, 2, Lq, Lk, 2, 64, torch.float32, 9)
+    outs = []
+    for fn in (lambda a, b, c: tfa.flash_attention(a, b, c, causal),
+               lambda a, b, c: sdpa_reference(a, b, c, causal=causal)):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*xs)
+        outs.append([o.detach()] + list(torch.autograd.grad(o, xs, do)))
+    for a, b in zip(*outs):
+        rel = float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+        assert rel <= 1e-5, rel
+
+
 def test_flash_tma_entries_refuse_and_the_wrappers_raise(cuda, monkeypatch):
     """The TMA entries re-check what takes_tma decided and return an
     error; a wrapper whose TMA launch is refused raises, counts nothing
@@ -631,17 +701,19 @@ def test_flash_tma_entries_refuse_and_the_wrappers_raise(cuda, monkeypatch):
     for D in (32, 96, 130):     # head dims these kernels do not take
         assert lib.flash_attention_tma_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 2, D, 1,
-            0.1, *no_seg, *no_drop, stream) != 0
+            lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 64, 2, D,
+            1, 0.1, *no_seg, *no_drop, stream) != 0
     # dropout (thresh != 0) at D 128
     assert lib.flash_attention_tma_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 2, 128, 1, 0.1,
+        lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 64, 2, 128, 1,
+        0.1,
         *no_seg, *drop, stream) != 0
     misaligned = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)[1:]
     assert lib.flash_attention_tma_forward(
         misaligned.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 2, 128, 1, 0.1,
+        lse.data_ptr(), tfa._strides(q, k, v, out), 1, 64, 64, 2, 128, 1,
+        0.1,
         *no_seg, *no_drop, stream) != 0
     # segments with dropout (no instance), and ids without their windows
     plan = tfa.SegmentPlan(torch.zeros(1, 64, dtype=torch.int32,
@@ -655,8 +727,8 @@ def test_flash_tma_entries_refuse_and_the_wrappers_raise(cuda, monkeypatch):
                     (no_seg, (None,) + drop[1:])):
         assert lib.flash_attention_tma_forward(
             q64.data_ptr(), k64.data_ptr(), v64.data_ptr(), o64.data_ptr(),
-            lse.data_ptr(), tfa._strides(q64, k64, v64, o64), 1, 64, 2, 64,
-            1, 0.125, *seg, *dr, stream) != 0
+            lse.data_ptr(), tfa._strides(q64, k64, v64, o64), 1, 64, 64, 2,
+            64, 1, 0.125, *seg, *dr, stream) != 0
 
     class Refusing:
         def __getattr__(self, name):

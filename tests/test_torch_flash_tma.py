@@ -121,6 +121,16 @@ ACCEPTED = {
     "segments": (lambda: _three(lambda seed: _bf16(B, L, H, D, seed=seed)),
                  {"seg": _seg()}),
     "varlen_qkvpacked": (_varlen_views, {"seg": _seg(B * L, 1)}),
+    # keys longer or shorter than the queries: cross-attention, a KV-cache
+    # step, a chunk against its history
+    "cross_lengths": (lambda: [_bf16(B, L, H, D), _bf16(B, 2 * L, H, D),
+                               _bf16(B, 2 * L, H, D)], {}),
+    "d64_cache_step_dropout": (lambda: [_bf16(B, 1, H, 64),
+                                        _bf16(B, L + 3, H, 64),
+                                        _bf16(B, L + 3, H, 64)],
+                               {"dropout_p": 0.1}),
+    "d64_more_queries": (lambda: [_bf16(B, L + 5, H, 64), _bf16(B, 7, H, 64),
+                                  _bf16(B, 7, H, 64)], {}),
 }
 
 # the views the models build, captured with pytest's monkeypatch
@@ -161,8 +171,15 @@ REFUSED = {
         lambda seed: _bf16(B, L, H, D, seed=seed))[1:], {}),
     "stride_not_16_bytes": (lambda: _three(
         lambda seed: _bf16(B, L, H, D + 4, seed=seed)[..., :D]), {}),
+    # k and v of two lengths (q may differ from them in L alone)
     "shapes_differ": (lambda: [_bf16(B, L, H, D), _bf16(B, L + 1, H, D),
-                               _bf16(B, L + 1, H, D)], {}),
+                               _bf16(B, L + 2, H, D)], {}),
+    "heads_differ": (lambda: [_bf16(B, L, H, D), _bf16(B, L, 2 * H, D),
+                              _bf16(B, L, 2 * H, D)], {}),
+    "segments_cross_lengths": (lambda: [_bf16(B, L, H, D),
+                                        _bf16(B, L + 64, H, D),
+                                        _bf16(B, L + 64, H, D)],
+                               {"seg": _seg()}),
     "empty": (lambda: _three(lambda seed: _bf16(B, 0, H, D, seed=seed)), {}),
 }
 

@@ -19,7 +19,6 @@ Then the op tables: the same names on both sides, the two kernel rows
 pointing at the port's kernels, and every JAX function of the five
 files present in the port.
 """
-import inspect
 
 import numpy as np
 import pytest
@@ -524,19 +523,17 @@ def test_kernel_rows_point_at_the_port_kernels():
 def test_unported_rows_are_listed_not_dropped():
     from paddle_tpu_torch.ops import op_registry as treg
     missing = set(treg.unported())
-    assert {"sinc", "ring_attention", "fused_rms_norm"} <= missing
+    assert {"ring_attention"} <= missing
     for name in ("matmul", "add", "reshape", "arange", "gelu", "linear",
                  "layer_norm", "cross_entropy", "fused_softmax_ce_mean",
-                 "grouped_matmul", "einsum", "topk"):
+                 "grouped_matmul", "einsum", "topk", "sinc",
+                 "fused_rms_norm"):
         assert name not in missing, name
     assert missing < set(treg.OP_TABLE)
 
 
-JAX_LINALG_TAIL = 273   # paddle_tpu/ops/linalg.py: the long-tail section
-
-
 @pytest.mark.parametrize("module", ["creation", "math", "manipulation",
-                                    "linalg"])
+                                    "linalg", "extra_math"])
 def test_port_has_every_jax_function(module):
     import importlib
     jmod = importlib.import_module(f"paddle_tpu.ops.{module}")
@@ -545,9 +542,6 @@ def test_port_has_every_jax_function(module):
     for name, fn in vars(jmod).items():
         if name.startswith("_") or not callable(fn) or \
                 getattr(fn, "__module__", None) != jmod.__name__:
-            continue
-        if module == "linalg" and \
-                inspect.getsourcelines(fn)[1] >= JAX_LINALG_TAIL:
             continue
         names.append(name)
     if module == "creation":
