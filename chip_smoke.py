@@ -485,7 +485,50 @@ Phases, each printing one JSON line with its seconds:
                       within the bf16 gate of the parent's eager logits,
                       the GPT program under 1 % of its payload's bytes;
                       save seconds, payload and blob bytes, the child's
-                      load and forward seconds.
+                      load and forward seconds;
+40. ``llama_recompute_train`` Llama-2 7B widths at 8 layers, bf16, 4 x
+                      2048, AdamW through the captured TrainStep (2
+                      warm-up steps, 5 replays) with and without
+                      ``LlamaConfig.recompute`` from the same weights and
+                      ids; gates: one graph, no fallback, K1b 16 / 8 a
+                      replay (all TMA), K2b 8 / 8, losses and parameters
+                      of the two within the train gates; step ms,
+                      tokens/s, peak memory above the start both ways;
+41. ``llama_generate`` ``LlamaForCausalLM.generate``: f32 (TF32 off), 2
+                      layers, batch 4, 128-token prompts, 32 new ids
+                      equal to the teacher-forced argmax (and, reported,
+                      the paged engine's); bf16, 4 layers, 512-token
+                      prompts, 64 new ids: K1b once a layer in the
+                      prefill (TMA) and none in the decode steps, each id
+                      that parts from the teacher-forced argmax a near-tie
+                      (NEAR_TIE of the top logit) over 2 weight seeds x 3
+                      prompt seeds, and two planted decode faults (RoPE
+                      one position too far; steps that miss the ids
+                      generated before them) parting beyond it; prefill
+                      ms, decode ms a token, tokens/s;
+42. ``fused_encoder_train`` 12 ``FusedTransformerEncoderLayer`` at
+                      BERT-base widths (post-norm, GELU, dropout 0.1), a
+                      30,522-id embedding and head, bf16, 24 x 512, FFN
+                      weights pruned 2:4 and ``asp.decorate(AdamW)``,
+                      through the captured TrainStep and then eager from
+                      the same weights and key stream; gates: one graph,
+                      no fallback, K1a / K2a with K5 12 a replay (TMA),
+                      the BERT gates, 2:4 kept; step ms, tokens/s, peak,
+                      the device split;
+43. ``autograd_core_parity`` f32: PyLayer and jacobian / hessian / vjp /
+                      jvp on the card against the CPU, a PyLayer in a
+                      captured 2-layer GPT step against its eager loop,
+                      ``FLAGS_check_nan_inf`` at stride 8 over a planted
+                      inf (the op named, one fetch a stride), and a
+                      capture and a replay with the flag on and flags
+                      queued from before (nothing fetched in the capture,
+                      the queue kept for the flush after);
+44. ``warm_bundle_boot`` GPT at 13B widths, 1 layer, through
+                      ``Model.fit`` with the warm bundle exported; a
+                      child process pre-warms a fresh model from it
+                      (parameters, optimizer state, step count and key
+                      stream unchanged) and its first fit step is a
+                      graph replay; boot seconds against a cold step.
 
 Then the ``nvidia-smi`` name/power line, the ``{"kernels": [...]}`` line
 (K3 on the split design at decode with bf16 and with int8 pools, at
@@ -501,7 +544,9 @@ design's time where the TMA design took it, and O1 and O2 at the train
 phase's parameters with their launches from the amp_scaler and train
 phases and ``fit_launches`` from gpt_fit's captured run; K1b's row also
 has ``to_static_launches``, ``full_graph_launches`` and
-``jit_export_child_launches`` from the last two phases and
+``jit_export_child_launches`` from to_static_gpt and jit_export,
+``recompute_launches`` and ``generate_launches`` from
+llama_recompute_train and llama_generate, and
 ``op_host_us`` / ``op_dispatch_us``, the host cost of the same forward
 through the ``paddle_tpu_torch::flash_fwd`` operator)
 and, last,
@@ -3568,7 +3613,10 @@ def fresh_peak():
 
 
 def param_copies(model):
-    return [p.detach().clone() for p in model.parameters()]
+    """Copies of the model's parameters (the torch tensors: a paddle
+    Layer's ``parameters()`` gives its Parameter wrappers)."""
+    import torch
+    return [p.detach().clone() for p in torch.nn.Module.parameters(model)]
 
 
 def timed_replays(step, batch, n, on_step=None):
@@ -3618,7 +3666,7 @@ def eager_reference(model, start, make_opt, loss_fn, batch, warmup, steps):
     import torch
     from paddle_tpu_torch.core import random as trandom
     with torch.no_grad():
-        for p, s0 in zip(model.parameters(), start):
+        for p, s0 in zip(torch.nn.Module.parameters(model), start):
             p.copy_(s0)
     opt = make_opt()
     model.train()
@@ -3651,16 +3699,18 @@ def eager_reference(model, start, make_opt, loss_fn, batch, warmup, steps):
 
 
 def capture_vs_eager(phase, cap_losses, cap_params, cap_state, model, eager,
-                     tokens, steps):
-    """Captured losses and final parameters against the eager loop's;
-    bit-equality reported; the stream's state after both runs equal."""
+                     tokens, steps, loss_rtol=CAPTURE_LOSS_RTOL,
+                     param_rms=CAPTURE_PARAM_RMS):
+    """Captured losses and final parameters against the eager loop's
+    (within ``loss_rtol`` and ``param_rms``); bit-equality reported; the
+    stream's state after both runs equal."""
     import torch
     rel = [abs(a - b) / max(abs(b), 1e-30)
            for a, b in zip(cap_losses, eager["losses"])]
     num = den = 0.0
     worst = 0.0
     equal = True
-    for a, b in zip(cap_params, model.parameters()):
+    for a, b in zip(cap_params, torch.nn.Module.parameters(model)):
         b = b.detach()
         d = (a.float() - b.float()).square().sum()
         r = b.float().square().sum()
@@ -3673,16 +3723,16 @@ def capture_vs_eager(phase, cap_losses, cap_params, cap_state, model, eager,
            "eager_tokens_per_s": tokens * steps / eager["wall_s"],
            "eager_peak_mem_gb": eager["peak_mem_gb"],
            "eager_mem_at_start_gb": eager["mem_at_start_gb"],
-           "loss_rel_err_max": max(rel), "loss_rtol": CAPTURE_LOSS_RTOL,
+           "loss_rel_err_max": max(rel), "loss_rtol": loss_rtol,
            "param_rel_rms": math.sqrt(num / max(den, 1e-30)),
            "param_rel_rms_worst_tensor": worst,
-           "param_rms_tol": CAPTURE_PARAM_RMS,
+           "param_rms_tol": param_rms,
            "losses_bit_equal": cap_losses == eager["losses"],
            "params_bit_equal": equal,
            "rng_state_captured": list(cap_state),
            "rng_state_eager": eager["rng_state"]}
-    out["ok"] = (out["loss_rel_err_max"] <= CAPTURE_LOSS_RTOL
-                 and out["param_rel_rms"] <= CAPTURE_PARAM_RMS
+    out["ok"] = (out["loss_rel_err_max"] <= loss_rtol
+                 and out["param_rel_rms"] <= param_rms
                  and out["rng_state_captured"] == out["rng_state_eager"])
     if not out["ok"]:
         emit({"phase": phase, "failed": out})
@@ -8262,6 +8312,20 @@ def cross_timings(B, Lq, Lk, H, D, causal, p):
              "bytes": nbytes}
         r["share_of_bound"] = b_ms / r["kernel_ms"]
         table[name] = r
+    # SDPA's backward at the same geometry: its forward + backward through
+    # torch.autograd.grad, less its forward (one library call computes dQ
+    # and dK/dV together)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    dot = do.transpose(1, 2).contiguous()
+
+    def lib_both():
+        o = F.scaled_dot_product_attention(qg, kg, vg, **lib_kw)
+        torch.autograd.grad(o, (qg, kg, vg), dot)
+    both = time_ms(lib_both, samples=10, inner=5)
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        table[name]["library_fwd_bwd_ms"] = both
+        table[name]["library_bwd_ms"] = \
+            both - table["flash_attention_fwd"]["library_ms"]
     return table
 
 
@@ -9022,6 +9086,955 @@ def phase_op_tail_parity():
     return out
 
 
+# ---------------------------------------------------------------------------
+# recompute, generate, the fused encoder, the autograd core, warm bundles
+# ---------------------------------------------------------------------------
+
+# Llama-2 7B widths at 8 layers through the captured TrainStep, with
+# LlamaConfig.recompute and without, from the same weights and ids
+RECOMPUTE = dict(layers=8, warmup=2, steps=5)
+# greedy generate: f32 at 2 layers (teacher-forced parity), bf16 at
+# TRAIN's depth and batch (the rates)
+GENERATE = dict(f32_layers=2, batch=4, f32_prompt=128, f32_new=32,
+                bf16_layers=4, bf16_prompt=512, bf16_new=64,
+                # bf16: the timed run's weights and prompts, then these
+                # (weight seed, prompt seed) pairs, each run gated alike
+                weight_seeds=(SEED, SEED + 7), prompt_seeds=(1, 2, 3))
+# a parted id is a near-tie when the teacher-forced top-two logits lie
+# within this share of the top one, about two bf16 ulps of a logit: the
+# flash prefill and the plain sdpa of the decode steps part at gaps up
+# to 2.2 x 2^-8 on these random weights. The phase shows the limit
+# rejects a wrong decode: planted faults (RoPE one position too far;
+# decode steps that miss the ids generated before them) must part
+# beyond it. The count of parted ids beyond 2^-8 is reported beside it.
+NEAR_TIE = 2.0 ** -6
+# 12 FusedTransformerEncoderLayers at BERT-base widths (post-norm, GELU,
+# dropout 0.1 everywhere), a 30,522 x 768 embedding and an untied output
+# projection, BERT's batch
+FUSED = dict(vocab=30522, d=768, heads=12, ffn=3072, layers=12,
+             dropout=0.1, batch=24, seq=512, warmup=2, steps=5, lr=1e-4)
+# the autograd core on the card against the CPU, f32
+AUTOGRAD_TOL = 1e-5        # |card - cpu| <= tol (1 + |cpu|)
+PYLAYER_GPT = dict(vocab_size=512, hidden_size=256, num_attention_heads=4,
+                   intermediate_size=1024, max_position_embeddings=128)
+NAN_STRIDE = 8
+# GPT at 13B widths and 1 layer through Model.fit: a warm bundle recorded,
+# then a child process pre-warmed from it
+WARM = dict(layers=1, batch=4, steps=3)
+
+
+def recompute_run(model, start, ids, recompute):
+    """The captured TrainStep over RECOMPUTE's steps from ``start`` (the
+    parameters put back in place, a fresh AdamW, the key stream reseeded)
+    with ``model.config.recompute`` set as asked; the timed replays'
+    flash launches, peak memory above the run's start, step ms, losses
+    and final parameters."""
+    import torch
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    with torch.no_grad():
+        for p, s0 in zip(model.parameters(), start):
+            p.copy_(s0)
+    model.config.recompute = recompute
+    opt = AdamW(learning_rate=TRAIN["lr"],
+                parameters=model.named_parameters(), multi_precision=False)
+    step = TrainStep(model, LlamaPretrainingCriterion(), opt)
+    trandom.seed(SEED)
+    base = fresh_peak()
+    losses = [step(ids, ids) for _ in range(RECOMPUTE["warmup"])]
+    torch.cuda.synchronize()
+    for kern in kernels:
+        kern.launches = kern.tma_launches = 0
+    timed, wall, captured = timed_replays(step, (ids, ids),
+                                          RECOMPUTE["steps"])
+    launches = [kern.launches for kern in kernels]
+    tma = [kern.tma_launches for kern in kernels]
+    phase = "llama_recompute_train" + (" (recompute)" if recompute else "")
+    capture = check_captured(phase, step, captured, RECOMPUTE["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    out = {"recompute": recompute,
+           "losses": [float(x) for x in losses + timed],
+           "step_ms": wall / RECOMPUTE["steps"] * 1e3,
+           "tokens_per_s": tokens * RECOMPUTE["steps"] / wall,
+           "flash_launches": dict(zip(("fwd", "dq", "dkv"), launches)),
+           "flash_tma_launches": dict(zip(("fwd", "dq", "dkv"), tma)),
+           "peak_mem_gb": peak / 2 ** 30,
+           "mem_at_start_gb": base / 2 ** 30,
+           "peak_above_start_gb": (peak - base) / 2 ** 30,
+           "capture": capture}
+    params = param_copies(model)
+    del step, opt, timed, losses
+    torch.cuda.empty_cache()
+    return out, params
+
+
+def phase_llama_recompute_train(results):
+    """Llama-2 7B widths at 8 layers, bf16, 4 x 2048 tokens, AdamW through
+    the captured TrainStep (2 warm-up steps, 5 timed replays), once with
+    LlamaConfig.recompute and once without, from the same copied weights
+    and ids. Gates: one graph and no fallback in both; K1b forward 16 a
+    replay with recompute (the forward and the recompute), 8 without, all
+    on the TMA design; K2b dQ and dK/dV 8 a replay; losses within
+    TRAIN_LOSS_RTOL and final parameters within TRAIN_GRAD_RMS of each
+    other."""
+    import torch
+    t0 = time.perf_counter()
+    model = train_model(RECOMPUTE["layers"])
+    cfg = model.config
+    ids = train_ids(cfg.vocab_size)
+    start = param_copies(model)
+    init_s = time.perf_counter() - t0
+    rc, p_rc = recompute_run(model, start, ids, True)
+    plain, p_plain = recompute_run(model, start, ids, False)
+    model.config.recompute = False
+    steps, layers = RECOMPUTE["steps"], RECOMPUTE["layers"]
+    want = {True: {"fwd": 2 * layers * steps, "dq": layers * steps,
+                   "dkv": layers * steps},
+            False: {"fwd": layers * steps, "dq": layers * steps,
+                    "dkv": layers * steps}}
+    problems = []
+    for run in (rc, plain):
+        w = want[run["recompute"]]
+        if run["flash_launches"] != w or run["flash_tma_launches"] != w:
+            problems.append(f"recompute={run['recompute']}: flash launches "
+                            f"{run['flash_launches']}, TMA "
+                            f"{run['flash_tma_launches']} != {w}")
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(rc["losses"], plain["losses"]))
+    num = den = 0.0
+    equal = True
+    for a, b in zip(p_rc, p_plain):
+        num += float((a.float() - b.float()).square().sum())
+        den += float(b.float().square().sum())
+        equal = equal and torch.equal(a, b)
+    param_rms = math.sqrt(num / max(den, 1e-30))
+    if loss_rel > TRAIN_LOSS_RTOL or param_rms > TRAIN_GRAD_RMS:
+        problems.append(f"recompute vs plain: loss rel {loss_rel}, "
+                        f"parameter rel RMS {param_rms}")
+    if not all(map(math.isfinite, rc["losses"])):
+        problems.append(f"non-finite loss: {rc['losses']}")
+    out = {"card": nvidia_smi_line(), "model": "llama2-7b-width",
+           "layers": layers, "hidden": cfg.hidden_size,
+           "intermediate": cfg.intermediate_size, "dtype": "bfloat16",
+           "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+           "optimizer": f"AdamW(lr={TRAIN['lr']}, multi_precision=False)",
+           "reduced": ["depth 32 -> 8 layers",
+                       "random weights from a seed (no checkpoint in the "
+                       "repo)"],
+           "init_seconds": init_s, "recompute": rc, "plain": plain,
+           "memory_saving_gb": plain["peak_above_start_gb"]
+           - rc["peak_above_start_gb"],
+           "step_ms_ratio": rc["step_ms"] / plain["step_ms"],
+           "loss_rel_err_max": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+           "param_rel_rms": param_rms, "param_rms_tol": TRAIN_GRAD_RMS,
+           "losses_bit_equal": rc["losses"] == plain["losses"],
+           "params_bit_equal": equal}
+    if problems:
+        emit({"phase": "llama_recompute_train", "failed": out})
+        raise AssertionError("llama_recompute_train: " + "; ".join(problems))
+    for name, key in (("flash_attention_fwd", "fwd"),
+                      ("flash_attention_bwd_dq", "dq"),
+                      ("flash_attention_bwd_dkv", "dkv")):
+        results[name]["recompute_launches"] = rc["flash_launches"][key]
+    del model, start, p_rc, p_plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def generate_model(layers, dtype, seed=SEED):
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(num_hidden_layers=layers, dtype=dtype,
+                      max_position_embeddings=TRAIN["seq"])
+    model = LlamaForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    model.eval()
+    return model
+
+
+def prompt_ids(vocab, batch, n, seed=SEED):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, (batch, n))).to("cuda")
+
+
+def planted_fault_generate(model, prompt, n_new, fault):
+    """Greedy decoding through the cache path with a planted fault, the
+    negative control of the near-tie limit: ``"rope_offset+1"`` gives
+    each decode step a position one too far; ``"stale_cache"`` gives
+    each step the prompt's caches only (it misses the ids generated
+    before it)."""
+    import torch
+    if fault not in ("rope_offset+1", "stale_cache"):
+        raise ValueError(fault)
+    n = model.config.num_hidden_layers
+    ids = prompt
+    with torch.no_grad():
+        logits, caches = model(ids, caches=[(None, None)] * n)
+        prompt_caches = caches
+        for _ in range(n_new):
+            nxt = logits[:, -1, :].argmax(dim=-1)[:, None]
+            pos = ids.shape[1]
+            ids = torch.cat([ids, nxt.to(ids.dtype)], dim=1)
+            if fault == "rope_offset+1":
+                logits, caches = model(nxt, caches=caches,
+                                       position_offset=pos + 1)
+            else:
+                logits, _ = model(nxt, caches=prompt_caches,
+                                  position_offset=pos)
+    return ids
+
+
+def parted_positions(model, ids, n_prompt):
+    """Each generated position against the argmax of one cache-free
+    forward over the final ids (teacher-forced), its logits the f32
+    product of the forward's final hidden state and the output weights
+    (no rounding to the model's dtype at the end): the positions that
+    part, those among them that are not near-ties (top-two logits within
+    NEAR_TIE of the top one), and each parted position's gap as a share
+    of its top logit."""
+    import torch
+    with torch.no_grad():
+        h = model.llama(ids)[:, n_prompt - 1:-1]
+        w = model.llama.embed_tokens.weight \
+            if model.config.tie_word_embeddings else model.lm_head.weight
+        logits = h.float() @ w.float().t()
+    tf = logits.argmax(-1)
+    gen = ids[:, n_prompt:]
+    parted = (tf != gen).nonzero().tolist()
+    top2 = logits.topk(2, dim=-1).values
+    gaps = {f"{b},{t}": float(top2[b, t, 0] - top2[b, t, 1])
+            / abs(float(top2[b, t, 0])) for b, t in parted}
+    not_ties = [[b, t] for b, t in parted if gaps[f"{b},{t}"] > NEAR_TIE]
+    return parted, not_ties, gaps
+
+
+def phase_llama_generate(results):
+    """LlamaForCausalLM.generate at Llama-2 7B widths. f32 (TF32 off), 2
+    layers, batch 4, prompts of 128 seeded ids, 32 new tokens: the ids
+    equal the teacher-forced argmax of one cache-free forward, and
+    against the paged engine's greedy ids from the same model (reported).
+    bf16, 4 layers, batch 4, prompt 512, 64 new tokens: K1b launched
+    once a layer, all on the TMA design (the prefill; the decode steps
+    take the plain sdpa, as the JAX model routes them), the rates, and
+    each parted position a near-tie of the teacher-forced logits."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import PagedLlamaDecodeEngine
+    g = GENERATE
+    problems = []
+    # f32 parity
+    model = generate_model(g["f32_layers"], "float32")
+    prompt = prompt_ids(model.config.vocab_size, g["batch"], g["f32_prompt"])
+    t0 = time.perf_counter()
+    ids = model.generate(prompt, g["f32_new"])
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    parted, _, _ = parted_positions(model, ids, g["f32_prompt"])
+    if parted:
+        problems.append(f"f32: generated ids part from the teacher-forced "
+                        f"argmax at {parted}")
+    eng = PagedLlamaDecodeEngine(model, max_slots=1,
+                                 max_seq=g["f32_prompt"] + g["f32_new"] + 16,
+                                 block_size=16, prefill_chunk=64)
+    paged = [eng.generate(np.asarray(p), g["f32_new"])
+             for p in prompt.cpu().numpy()]
+    gen = ids[:, g["f32_prompt"]:].cpu().numpy().tolist()
+    paged_parted = [[b, t] for b in range(g["batch"])
+                    for t in range(g["f32_new"]) if paged[b][t] != gen[b][t]]
+    f32 = {"layers": g["f32_layers"], "batch": g["batch"],
+           "prompt": g["f32_prompt"], "new_tokens": g["f32_new"],
+           "seconds": f32_s, "teacher_forced_parted": parted,
+           "paged_engine_equal": not paged_parted,
+           "paged_engine_first_parted": paged_parted[:4]}
+    del model, eng, ids, prompt
+    torch.cuda.empty_cache()
+    # bf16 at TRAIN's depth and batch
+    model = generate_model(g["bf16_layers"], "bfloat16")
+    prompt = prompt_ids(model.config.vocab_size, g["batch"],
+                        g["bf16_prompt"], SEED + g["prompt_seeds"][0])
+    model.generate(prompt, 2)                  # warm: kernels, cuBLAS
+    n = model.config.num_hidden_layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model(prompt, caches=[(None, None)] * n)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    ids = model.generate(prompt, g["bf16_new"])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = flash_fit_counts()
+    want = {"fwd": (n, n), "bwd_dq": (0, 0), "bwd_dkv": (0, 0)}
+    if counts != want:
+        problems.append(f"bf16: flash launches (launches, TMA) {counts} "
+                        f"!= {want}: the prefill once a layer on the TMA "
+                        f"design, nothing in the decode steps")
+    parted, not_ties, gaps = parted_positions(model, ids, g["bf16_prompt"])
+    if not_ties:
+        problems.append(f"bf16: ids part from the teacher-forced argmax "
+                        f"away from a near-tie at {not_ties}")
+    decode_s = total_s - prefill_s
+    # the near-tie limit against more seeds, and against planted faults
+    # that it must reject
+    faults = {}
+    for fault in ("rope_offset+1", "stale_cache"):
+        fids = planted_fault_generate(model, prompt, g["bf16_new"], fault)
+        f_parted, f_not_ties, f_gaps = parted_positions(
+            model, fids, g["bf16_prompt"])
+        faults[fault] = {"parted": len(f_parted),
+                         "beyond_near_tie": len(f_not_ties),
+                         "largest_gap": max(f_gaps.values(), default=0.0)}
+        if not f_not_ties:
+            problems.append(f"bf16: the planted fault {fault} parts only "
+                            f"at near-ties: {faults[fault]}")
+    seeds = [{"weight_seed": SEED, "prompt_seed": SEED + g["prompt_seeds"][0],
+              "parted": len(parted),
+              "largest_gap": max(gaps.values(), default=0.0)}]
+    for wseed in g["weight_seeds"]:
+        if wseed != SEED:
+            del model
+            torch.cuda.empty_cache()
+            model = generate_model(g["bf16_layers"], "bfloat16", wseed)
+        for pseed in g["prompt_seeds"]:
+            if wseed == SEED and pseed == g["prompt_seeds"][0]:
+                continue
+            p = prompt_ids(model.config.vocab_size, g["batch"],
+                           g["bf16_prompt"], SEED + pseed)
+            s_parted, s_not_ties, s_gaps = parted_positions(
+                model, model.generate(p, g["bf16_new"]), g["bf16_prompt"])
+            seeds.append({"weight_seed": wseed, "prompt_seed": SEED + pseed,
+                          "parted": len(s_parted),
+                          "largest_gap": max(s_gaps.values(), default=0.0),
+                          "beyond_2^-8": sum(v > 2.0 ** -8
+                                             for v in s_gaps.values())})
+            if s_not_ties:
+                problems.append(f"bf16, weight seed {wseed}, prompt seed "
+                                f"{SEED + pseed}: ids part away from a "
+                                f"near-tie at {s_not_ties}")
+    new = g["batch"] * g["bf16_new"]
+    bf16 = {"layers": n, "batch": g["batch"], "prompt": g["bf16_prompt"],
+            "new_tokens": g["bf16_new"], "flash_launches": counts,
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_token": decode_s / g["bf16_new"] * 1e3,
+            "decode_tokens_per_s": new / decode_s,
+            "tokens_per_s": new / total_s, "generate_s": total_s,
+            "teacher_forced_parted": parted, "parted_gap_share": gaps,
+            "parted_not_near_ties": not_ties, "near_tie": NEAR_TIE,
+            "parted_beyond_2^-8": sum(v > 2.0 ** -8 for v in gaps.values()),
+            "seeds": seeds,
+            "largest_clean_gap": max(r["largest_gap"] for r in seeds),
+            "planted_faults": faults,
+            "smallest_fault_gap": min(f["largest_gap"]
+                                      for f in faults.values())}
+    results["flash_attention_fwd"]["generate_launches"] = counts["fwd"][0]
+    out = {"card": nvidia_smi_line(), "model": "llama2-7b-width",
+           "f32": f32, "bf16": bf16,
+           "reduced": ["depth 32 -> 2 (f32) and 4 (bf16) layers",
+                       "random weights from a seed"]}
+    del model, ids, prompt
+    torch.cuda.empty_cache()
+    if problems:
+        emit({"phase": "llama_generate", "failed": out})
+        raise AssertionError("llama_generate: " + "; ".join(problems))
+    return out
+
+
+def fused_encoder_model():
+    """12 FusedTransformerEncoderLayers between a token embedding and an
+    untied output projection, bf16, on the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    f = FUSED
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+
+    class FusedEncoderLM(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = paddle.nn.Embedding(f["vocab"], f["d"])
+            self.layers = paddle.nn.LayerList([
+                FusedTransformerEncoderLayer(
+                    f["d"], f["heads"], f["ffn"], dropout_rate=f["dropout"],
+                    activation="gelu") for _ in range(f["layers"])])
+            self.head = paddle.nn.Linear(f["d"], f["vocab"])
+
+        def forward(self, ids):
+            h = self.embed(ids)
+            for layer in self.layers:
+                h = layer(h)
+            return self.head(h)
+    model = FusedEncoderLM()
+    model.bfloat16()
+    return model
+
+
+def fused_group(kernel: str) -> str:
+    """The fused encoder's kernel groups; "dropout" is the hash mask's
+    int64 element-wise passes (named by their ``long`` operands)."""
+    kl = kernel.lower()
+    if "multi_tensor" in kl:
+        return "optimizer"
+    if "flash" in kl:
+        return "flash"
+    if any(tag in kl for tag in ("gemm", "cutlass", "nvjet", "sm90")):
+        return "gemm"
+    if "index" not in kl and ("<long" in kl or "long>" in kl
+                              or "bitwise" in kl or "shift" in kl):
+        return "dropout"
+    return "other"
+
+
+def phase_fused_encoder_train(results):
+    """FUSED through the captured TrainStep (AdamW, CrossEntropyLoss on
+    [B, L, V] logits, 2 warm-up steps, 5 timed replays) with the 24 FFN
+    Linears pruned 2:4 (incubate.asp.prune_model) and the optimizer
+    asp.decorate'd; then the same steps through the eager loop from the
+    copied weights and the same key stream. Gates: one graph, no
+    fallback; K1a forward, K2a dQ and dK/dV each 12 a replay with K5's
+    dropout, all on the TMA design; losses and parameters within
+    BERT_LOSS_RTOL / BERT_GRAD_RMS of the eager run; every pruned weight
+    2:4 sparse after the replays and after the eager run."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    f = FUSED
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    t0 = time.perf_counter()
+    model = fused_encoder_model()
+    n_params = sum(p.numel() for p in torch.nn.Module.parameters(model))
+    masks = {}
+    for i, layer in enumerate(model.layers):
+        for k, m in asp.prune_model(layer.ffn).items():
+            masks[f"layers.{i}.ffn.{k}"] = m
+    pruned = dict(torch.nn.Module.named_parameters(model))
+    pruned = {k: pruned[k] for k in masks}
+
+    def make_opt():
+        return asp.decorate(AdamW(
+            learning_rate=f["lr"],
+            parameters=torch.nn.Module.parameters(model),
+            multi_precision=False))
+    opt = make_opt()
+    crit = paddle.nn.CrossEntropyLoss()
+    step = TrainStep(model, crit, opt)
+    ids = prompt_ids(f["vocab"], f["batch"], f["seq"])
+    start = param_copies(model)
+    trandom.seed(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mem_start = fresh_peak()
+    losses = [step(ids, ids) for _ in range(f["warmup"])]
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = w.dropout_launches = w.segmented_launches = 0
+        w.tma_launches = 0
+    timed, wall, captured = timed_replays(step, (ids, ids), f["steps"])
+    losses += timed
+    launches = [w.launches for w in wrappers]
+    dropped = [w.dropout_launches for w in wrappers]
+    tma = [w.tma_launches for w in wrappers]
+    capture = check_captured("fused_encoder_train", step, captured,
+                             f["steps"])
+    expected = f["layers"] * f["steps"]
+    problems = []
+    if launches != [expected] * 3 or dropped != [expected] * 3 \
+            or tma != [expected] * 3:
+        problems.append(f"flash launches (fwd, dq, dkv) {launches}, with "
+                        f"dropout {dropped}, TMA {tma}: each should be "
+                        f"{f['layers']} x {f['steps']}")
+    sparse_replays = all(asp.check_sparsity(p) for p in pruned.values())
+    kept_zero = all(bool((p[masks[k] == 0] == 0).all())
+                    for k, p in pruned.items())
+    loss_values = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    tokens = f["batch"] * f["seq"]
+    tok_s = tokens * f["steps"] / wall
+    cap_params, cap_state = param_copies(model), trandom.get_rng_state()
+    prof = profile_train_step(step, (ids, ids), classify=fused_group,
+                              groups=("gemm", "flash", "dropout",
+                                      "optimizer", "other"))
+    del step, opt
+    torch.cuda.empty_cache()
+    eager = eager_reference(model, start, make_opt, crit, (ids, ids),
+                            f["warmup"], f["steps"])
+    sparse_eager = all(asp.check_sparsity(p) for p in pruned.values())
+    vs = capture_vs_eager("fused_encoder_train", loss_values, cap_params,
+                          cap_state, model, eager, tokens, f["steps"],
+                          loss_rtol=BERT_LOSS_RTOL, param_rms=BERT_GRAD_RMS)
+    if not (sparse_replays and sparse_eager and kept_zero):
+        problems.append(f"2:4 sparsity lost: after the replays "
+                        f"{sparse_replays}, pruned entries zero "
+                        f"{kept_zero}, after the eager run {sparse_eager}")
+    if len(masks) != 2 * f["layers"]:
+        problems.append(f"{len(masks)} pruned weights, not "
+                        f"{2 * f['layers']}")
+    if not (all(map(math.isfinite, loss_values))
+            and loss_values[-1] < loss_values[0]):
+        problems.append(f"losses not finite and falling: {loss_values}")
+    out = {"card": nvidia_smi_line(),
+           "model": "12 FusedTransformerEncoderLayer(768, 12, 3072, "
+                    "dropout 0.1, gelu), post-norm; embedding and head "
+                    "30,522 x 768, untied",
+           "params": n_params, "dtype": "bfloat16",
+           "batch": f["batch"], "seq": f["seq"],
+           "optimizer": f"asp.decorate(AdamW(lr={f['lr']}, "
+                        f"multi_precision=False))",
+           "pruned_weights": len(masks), "reduced": ["random weights from "
+                                                     "a seed"],
+           "init_seconds": init_s, "losses": loss_values,
+           "step_ms": wall / f["steps"] * 1e3, "tokens_per_s": tok_s,
+           "flash_launches": dict(zip(("fwd", "dq", "dkv"), launches)),
+           "flash_dropout_launches": dict(zip(("fwd", "dq", "dkv"),
+                                              dropped)),
+           "flash_tma_launches": dict(zip(("fwd", "dq", "dkv"), tma)),
+           "peak_mem_gb": peak / 2 ** 30,
+           "mem_at_start_gb": mem_start / 2 ** 30, "capture": capture,
+           "sparse_after_replays": sparse_replays,
+           "sparse_after_eager": sparse_eager, "vs_eager": vs,
+           "profile_one_step": prof,
+           "device_idle_share_of_timed_step":
+               1 - prof["device_ms"] / (wall / f["steps"] * 1e3)
+               if prof["device_ms"] else None}
+    if problems:
+        emit({"phase": "fused_encoder_train", "failed": out})
+        raise AssertionError("fused_encoder_train: " + "; ".join(problems))
+    for name, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkv"), dropped):
+        results[name + "_dropout"]["fused_encoder_launches"] = n
+    del model, start, cap_params, pruned, masks
+    torch.cuda.empty_cache()
+    return out
+
+
+def pylayer_classes():
+    """Cube and AddMul (the JAX package's PyLayer cases) and SoftCap
+    (30 tanh(x / 30) with a hand-written backward, on torch tensors)."""
+    import torch
+    from paddle_tpu_torch.autograd import PyLayer
+
+    class Cube(PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return x * x * x
+
+        @staticmethod
+        def backward(ctx, dy):
+            (x,) = ctx.saved_tensor()
+            return dy * 3 * x * x
+
+    class AddMul(PyLayer):
+        @staticmethod
+        def forward(ctx, a, b):
+            ctx.save_for_backward(a, b)
+            return a + b, a * b
+
+        @staticmethod
+        def backward(ctx, da, dm):
+            a, b = ctx.saved_tensor()
+            return da + dm * b, da + dm * a
+
+    class SoftCap(PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            y = torch.tanh(x / 30.0)
+            ctx.save_for_backward(y)
+            return y * 30.0
+
+        @staticmethod
+        def backward(ctx, dy):
+            (y,) = ctx.saved_tensor()
+            return dy * (1 - y * y)
+    return Cube, AddMul, SoftCap
+
+
+def autograd_cases(paddle, rng):
+    """(name, function) pairs of the autograd core, each giving Tensors
+    on the current device."""
+    import numpy as np
+    Cube, AddMul, _ = pylayer_classes()
+    A = paddle.autograd
+    xa = rng.standard_normal(16).astype(np.float32)
+    xb = rng.standard_normal(16).astype(np.float32)
+    xv = rng.standard_normal(16).astype(np.float32)
+
+    def t(a, grad=False):
+        return paddle.to_tensor(a, stop_gradient=not grad)
+
+    def cube():
+        x = t(xa, True)
+        y = Cube.apply(x)
+        (y * t(xv)).sum().backward()
+        return [y, x.grad]
+
+    def add_mul():
+        a, b = t(xa, True), t(xb, True)
+        s, m = AddMul.apply(a, b)
+        (s + m * t(xv)).sum().backward()
+        return [s, m, a.grad, b.grad]
+
+    def two(a, b):
+        return paddle.sin(a) * b + a * a
+    return [
+        ("pylayer_cube", cube), ("pylayer_add_mul", add_mul),
+        ("jacobian", lambda: [A.jacobian(two, (t(xa), t(xb)))]),
+        ("hessian", lambda: [A.hessian(
+            lambda a: (paddle.sin(a) * a).sum(), t(xa))]),
+        ("vjp", lambda: list(A.vjp(two, (t(xa), t(xb)), t(xv)))),
+        ("jvp", lambda: list(A.jvp(two, (t(xa), t(xb)),
+                                   (t(xv), t(xb))))),
+    ]
+
+
+def _flat_tensors(v):
+    if isinstance(v, (tuple, list)):
+        return [x for item in v for x in _flat_tensors(item)]
+    return [v._t.detach().float().cpu()]
+
+
+def pylayer_gpt():
+    """A 2-layer GPT at PYLAYER_GPT's widths, f32, whose logits pass
+    through SoftCap, on the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    _, _, SoftCap = pylayer_classes()
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+
+    class Capped(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.gpt = GPTForCausalLM(GPTConfig(num_hidden_layers=2,
+                                                **PYLAYER_GPT))
+
+        def forward(self, ids):
+            return SoftCap.apply(self.gpt(ids))
+    return Capped()
+
+
+def nan_planted_forward(paddle, x, w):
+    """An eager forward whose 9th float output (a log of zeros) is -inf;
+    returns the number of ops run."""
+    n = 0
+
+    def op(v):
+        nonlocal n
+        n += 1
+        return v
+    h = op(paddle.matmul(x, w))
+    h = op(paddle.nn.functional.relu(h))
+    h = op(h * 2.0)
+    h = op(h + 1.0)
+    h = op(paddle.tanh(h))
+    h = op(h - 0.5)
+    h = op(paddle.exp(h))
+    z = op(h - h)
+    z = op(paddle.log(z))
+    for _ in range(15):
+        h = op(h * 1.5)
+    return n
+
+
+def phase_autograd_core_parity():
+    """The autograd core on the card, f32 (TF32 off): PyLayer (Cube,
+    AddMul) and jacobian / hessian / vjp / jvp against the same calls on
+    the CPU within AUTOGRAD_TOL·(1 + |cpu|); a PyLayer inside a captured
+    TrainStep of a 2-layer GPT, replays against the eager loop;
+    FLAGS_check_nan_inf at stride NAN_STRIDE over an eager forward with a
+    planted inf (the error names the op, one host fetch a stride of
+    queued outputs); a capture and a replay with the flag on and flags
+    queued from before (nothing raised, nothing fetched, the queue kept
+    for the first flush after, which fetches it once)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import autograd as tag
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    prev = tdevice._current
+    problems = []
+    got = {}
+    for dev in ("gpu", "cpu"):
+        paddle.set_device(dev)
+        paddle.seed(SEED)
+        for name, fn in autograd_cases(paddle, np.random.default_rng(SEED)):
+            got.setdefault(name, {})[dev] = _flat_tensors(fn())
+    paddle.set_device("gpu")
+    parity = {}
+    for name, r in got.items():
+        worst, equal = 0.0, True
+        for a, b in zip(r["gpu"], r["cpu"], strict=True):
+            worst = max(worst, float(((a - b).abs()
+                                      / (AUTOGRAD_TOL * (1 + b.abs())))
+                                     .max()))
+            equal = equal and torch.equal(a, b)
+        parity[name] = {"share_of_tol": worst, "bit_equal": equal}
+        if not worst <= 1.0:
+            problems.append(f"{name}: {worst} of the tolerance")
+    # a PyLayer in a captured TrainStep
+    model = pylayer_gpt()
+    crit = paddle.nn.CrossEntropyLoss()
+
+    def make_opt():
+        return AdamW(learning_rate=1e-3,
+                     parameters=torch.nn.Module.parameters(model))
+    ids = prompt_ids(PYLAYER_GPT["vocab_size"], 4,
+                     PYLAYER_GPT["max_position_embeddings"])
+    start = param_copies(model)
+    opt = make_opt()
+    step = TrainStep(model, crit, opt)
+    trandom.seed(SEED)
+    nodes0 = tag._dispatches.get("SoftCap", 0)
+    losses = [step(ids, ids) for _ in range(2)]
+    timed, _, captured = timed_replays(step, (ids, ids), 3)
+    capture = check_captured("autograd_core_parity", step, captured, 3)
+    nodes = tag._dispatches.get("SoftCap", 0) - nodes0
+    cap_losses = [float(x) for x in losses + timed]
+    cap_params, cap_state = param_copies(model), trandom.get_rng_state()
+    del step, opt
+    eager = eager_reference(model, start, make_opt, crit, (ids, ids), 2, 3)
+    vs = capture_vs_eager("autograd_core_parity", cap_losses, cap_params,
+                          cap_state, model, eager, ids.numel(), 3)
+    # the NaN scan at stride NAN_STRIDE
+    rng = np.random.default_rng(SEED)
+    x = paddle.to_tensor(rng.standard_normal((64, 64)).astype(np.float32))
+    w = paddle.to_tensor(rng.standard_normal((64, 64)).astype(np.float32))
+    paddle.set_flags({"FLAGS_check_nan_inf": True,
+                      "FLAGS_check_nan_inf_stride": NAN_STRIDE})
+    nan = {}
+    try:
+        f0 = tag._nan_fetches
+        calls = []
+        try:
+            calls.append(nan_planted_forward(paddle, x, w))
+            nan["raised"] = None
+        except FloatingPointError as e:
+            nan["raised"] = str(e)
+        nan["host_fetches"] = tag._nan_fetches - f0
+        # ops run up to the raise: the one whose flush found the inf is
+        # the NAN_STRIDE-th of its stride
+        nan["queued_outputs"] = NAN_STRIDE * nan["host_fetches"]
+        # a capture and replays with the flag on
+        paddle.seed(SEED)
+        model2 = pylayer_gpt()
+        step2 = TrainStep(model2, crit, AdamW(
+            learning_rate=1e-3,
+            parameters=torch.nn.Module.parameters(model2)))
+        step2(ids, ids)                      # the eager first sighting
+        # the capture meets flags still queued (fewer than a stride): its
+        # backward's flush keeps them for the first flush after it
+        while not tag._nan_pending:
+            x + 1.0
+        f1, p1 = tag._nan_fetches, len(tag._nan_pending)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step2(ids, ids)                  # capture and replay
+            step2(ids, ids)                  # replay
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        nan["queued_at_capture"] = p1
+        nan["captured_fetches"] = tag._nan_fetches - f1
+        nan["captured_queued"] = len(tag._nan_pending) - p1
+        nan["captured_steps"] = step2.stats["captured_steps"]
+        tag.flush_nan_checks()
+        nan["fetches_of_the_flush_after"] = \
+            tag._nan_fetches - f1 - nan["captured_fetches"]
+        del step2, model2
+    finally:
+        tag._nan_pending.clear()
+        paddle.set_flags({"FLAGS_check_nan_inf": False,
+                          "FLAGS_check_nan_inf_stride": 1})
+        tdevice._current = prev
+    if not (nan["raised"] or "").startswith("Operator log output 0"):
+        problems.append(f"the NaN check named {nan['raised']!r}, not the "
+                        f"planted log")
+    if nan["host_fetches"] != 2:
+        problems.append(f"{nan['host_fetches']} host fetches for the 16 "
+                        f"queued outputs up to the planted one's stride, "
+                        f"not 16 / {NAN_STRIDE}")
+    if nan["captured_fetches"] or nan["captured_queued"] \
+            or nan["captured_steps"] != 2 \
+            or not 0 < nan["queued_at_capture"] < NAN_STRIDE \
+            or nan["fetches_of_the_flush_after"] != 1:
+        problems.append(f"a capture with the flag on and flags queued: "
+                        f"{nan}")
+    out = {"card": nvidia_smi_line(), "dtype": "float32",
+           "tol": AUTOGRAD_TOL, "parity": parity,
+           "pylayer_train_step": {"gpt_widths": PYLAYER_GPT, "layers": 2,
+                                  "capture": capture,
+                                  "pylayer_nodes_recorded": nodes,
+                                  "vs_eager": vs},
+           "nan_check": {"stride": NAN_STRIDE, **nan}}
+    del model, start, cap_params
+    torch.cuda.empty_cache()
+    if problems:
+        emit({"phase": "autograd_core_parity", "failed": out})
+        raise AssertionError("autograd_core_parity: " + "; ".join(problems))
+    return out
+
+
+WARM_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+paddle.set_device("gpu")
+paddle.seed(cs.SEED)
+net = GPTForCausalLM(GPTConfig(num_hidden_layers=cs.WARM["layers"],
+                               **cs.GPT_WIDTHS))
+opt = paddle.optimizer.AdamW(cs.FIT["lr"], parameters=net.parameters(),
+                             grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+raw = list(torch.nn.Module.parameters(net))
+before = [p.detach().clone() for p in raw]
+rng = paddle.get_rng_state()
+model = paddle.Model(net)
+torch.cuda.synchronize()
+t = time.perf_counter()
+model.prepare(opt, cs.fit_loss(cs.GPT_WIDTHS["vocab_size"]),
+              amp_configs="O1", warm_bundle=sys.argv[2])
+torch.cuda.synchronize()
+boot_s = time.perf_counter() - t
+core = opt
+states_init = all(
+    all(torch.equal(v, core._init_state(core._parameter_list[i])[k])
+        for k, v in st.items()) for i, st in core._states.items())
+after = dict(model._captured.stats)
+out = {"import_and_build_s": t - t0, "prewarm_s": boot_s,
+       "params_bit_equal": all(torch.equal(a, b)
+                               for a, b in zip(raw, before)),
+       "states": len(core._states), "states_at_init": states_init,
+       "global_step": core._global_step,
+       "rng_equal": paddle.get_rng_state() == rng,
+       "stats_after_prewarm": {k: v for k, v in after.items()},
+       "graphs_after_prewarm": model._captured.graphs()}
+data = paddle.io.DataLoader(
+    cs.fit_dataset(cs.GPT_WIDTHS["vocab_size"],
+                   cs.WARM["batch"] * cs.WARM["steps"], cs.SEED),
+    batch_size=cs.WARM["batch"], num_workers=0)
+clock = cs.step_clock()
+model.fit(data, epochs=1, verbose=0, callbacks=[clock])
+torch.cuda.synchronize()
+st = model._captured.stats
+out.update(step_ms=clock.step_ms(),
+           losses=[float(v) for v in clock.losses],
+           captured_steps=st["captured_steps"] - after["captured_steps"],
+           eager_steps=st["eager_steps"] - after["eager_steps"],
+           compiles=st["compiles"] - after["compiles"],
+           fallbacks=dict(st["fallbacks"]),
+           seconds=time.perf_counter() - t0)
+print(json.dumps(out))
+"""
+
+
+def phase_warm_bundle_boot():
+    """GPT at 13B widths, 1 layer, AMP O1 with a global-norm clip, through
+    Model.fit (WARM's steps: the first sighting eager, the second
+    captured, then replays) with the warm bundle recorded and exported;
+    then a child process builds the same model and runs
+    Model.prepare(warm_bundle=path). Gates: the child's parameters bit
+    for bit and its optimizer states at their initial values after the
+    pre-warm, step count and key stream unchanged; its fit steps (the
+    parent's batches) graph replays from the first, with no eager first
+    sighting and no capture; its first loss within FIT_LOSS_RTOL of the
+    parent's eager first step."""
+    import shutil
+    import tempfile
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import warmup
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    vocab = GPT_WIDTHS["vocab_size"]
+    root = tempfile.mkdtemp(prefix="warm-bundle-")
+    try:
+        paddle.set_device("gpu")
+        paddle.seed(SEED)
+        net = GPTForCausalLM(GPTConfig(num_hidden_layers=WARM["layers"],
+                                       **GPT_WIDTHS))
+        opt = paddle.optimizer.AdamW(
+            FIT["lr"], parameters=net.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+        model = paddle.Model(net).prepare(opt, fit_loss(vocab),
+                                          amp_configs="O1")
+        warmup.clear_recorded()
+        data = paddle.io.DataLoader(
+            fit_dataset(vocab, WARM["batch"] * WARM["steps"], SEED),
+            batch_size=WARM["batch"], num_workers=0)
+        clock = step_clock()
+        model.fit(data, epochs=1, verbose=0, callbacks=[clock])
+        torch.cuda.synchronize()
+        parent = {"step_ms": clock.step_ms(),
+                  "losses": [float(v) for v in clock.losses],
+                  "stats": {k: v for k, v in model._captured.stats.items()}}
+        path = warmup.export_bundle(os.path.join(root, "warm_bundle.json"))
+        entries = warmup.load_bundle(path)["entries"]
+        warmup.clear_recorded()
+        del model, opt, net, data, clock
+        fresh_peak()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", WARM_CHILD, str(ROOT), path],
+            capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"warm_bundle_boot: the child failed "
+                                 f"({proc.returncode}): "
+                                 f"{proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    problems = []
+    if [e.get("build") for e in entries] != ["train"]:
+        problems.append(f"the bundle's entries {entries}")
+    for key, want in (("params_bit_equal", True), ("states_at_init", True),
+                      ("global_step", 0), ("rng_equal", True),
+                      ("captured_steps", WARM["steps"]),
+                      ("eager_steps", 0),
+                      ("compiles", 0), ("fallbacks", {})):
+        if child[key] != want:
+            problems.append(f"child {key} {child[key]!r} != {want!r}")
+    rel = abs(child["losses"][0] - parent["losses"][0]) / \
+        abs(parent["losses"][0])
+    if rel > FIT_LOSS_RTOL:
+        problems.append(f"the child's first loss {child['losses'][0]} "
+                        f"against the parent's {parent['losses'][0]}")
+    out = {"card": nvidia_smi_line(),
+           "model": f"GPT 13B widths, {WARM['layers']} layer, AMP O1, "
+                    f"AdamW + global-norm clip",
+           "batch": WARM["batch"], "seq": FIT["seq"], "parent": parent,
+           "bundle_entries": len(entries), "child": child,
+           "child_wall_s": child_s,
+           "cold_first_steps_ms": parent["step_ms"][:2],
+           "warm_first_step_ms": child["step_ms"][0],
+           "first_loss_rel_err": rel}
+    if problems:
+        emit({"phase": "warm_bundle_boot", "failed": out})
+        raise AssertionError("warm_bundle_boot: " + "; ".join(problems))
+    return out
+
+
 def phase_build():
     import importlib
     import threading
@@ -9308,6 +10321,12 @@ def main() -> int:
         ("op_tail_parity", phase_op_tail_parity),
         ("to_static_gpt", lambda: phase_to_static_gpt(flash)),
         ("jit_export", lambda: phase_jit_export(flash)),
+        ("llama_recompute_train",
+         lambda: phase_llama_recompute_train(flash)),
+        ("llama_generate", lambda: phase_llama_generate(flash)),
+        ("fused_encoder_train", lambda: phase_fused_encoder_train(flash)),
+        ("autograd_core_parity", phase_autograd_core_parity),
+        ("warm_bundle_boot", phase_warm_bundle_boot),
     ]
     t_all = time.perf_counter()
     for name, fn in phases:

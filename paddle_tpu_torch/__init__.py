@@ -97,12 +97,22 @@ The high-level trainer:
 - ``vision`` — the ResNet family (``vision.models``), the numpy
   transforms and the synthetic datasets.
 
+The autograd core's rest and the incubating modules:
+
+- ``autograd`` — ``PyLayer``, ``saved_tensors_hooks``, ``jacobian`` /
+  ``hessian`` / ``vjp`` / ``jvp``; ``core.autograd``'s per-op NaN/Inf
+  scan (``FLAGS_check_nan_inf``);
+- ``incubate`` — the fused transformer layers, ASP, ``LookAhead``,
+  ``ModelAverage`` and the long tail; ``geometric`` — segment
+  reductions, message passing, reindexing and neighbour sampling.
+
 ``import paddle_tpu_torch as paddle`` gives the names of the JAX
 package's top level that are ported: the dtypes, ``Tensor``,
 ``Parameter``, ``to_tensor``, the grad modes and ``grad``, the flags,
 ``seed``, the devices, the op surface (``ops.extra_math`` included),
-``nn``, ``optimizer``, ``amp``, ``io``, ``metric``, ``callbacks``,
-``linalg``, ``vision``, ``Model``, ``summary``, ``flops`` and the JAX
+``nn``, ``autograd``, ``optimizer``, ``amp``, ``io``, ``metric``,
+``callbacks``, ``linalg``, ``vision``, ``Model``, ``summary``, ``flops``
+and the JAX
 top-level tail (``finfo``, ``iinfo``, the static-mode switches, the
 places, ``rank``, ``shape``, ``binomial`` ...). What is left is pinned
 by ``tests/test_torch_surface.py``.
@@ -143,6 +153,7 @@ from . import io  # noqa: F401,E402
 from . import metric  # noqa: F401,E402
 from . import callbacks  # noqa: F401,E402
 from . import jit  # noqa: F401,E402
+from . import autograd  # noqa: F401,E402
 from . import static  # noqa: F401,E402
 from .hapi import Model, summary, flops  # noqa: F401,E402
 
@@ -168,7 +179,7 @@ from .nn import ParamAttr  # noqa: F401,E402
 # has, imported on first use: a process that serves an exported program
 # imports no model class (jit.load -> TranslatedLayer)
 _LAZY = ("vision", "models", "incubate", "inference", "framework",
-         "regularizer", "utils", "observability")
+         "regularizer", "utils", "observability", "geometric")
 
 
 def __getattr__(name):

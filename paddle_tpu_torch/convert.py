@@ -205,15 +205,15 @@ _LLAMA_FIELDS = ("vocab_size", "hidden_size", "intermediate_size",
                  "num_hidden_layers", "num_attention_heads",
                  "num_key_value_heads", "max_position_embeddings",
                  "rms_norm_eps", "rope_theta", "use_flash_attention",
-                 "tie_word_embeddings", "dtype")
-_LLAMA_UNPORTED = ("sequence_parallel", "recompute", "cp_mesh")
+                 "tie_word_embeddings", "dtype", "recompute")
+_LLAMA_UNPORTED = ("sequence_parallel", "cp_mesh")
 
 
 def llama_config_from_jax(cfg):
     """A JAX ``LlamaConfig`` -> the port's ``LlamaConfig``: the fields
-    the port has are kept; a config that turns on sequence parallelism,
-    recompute or a context-parallel mesh raises ``ValueError`` (the port
-    has none of them)."""
+    the port has are kept (``recompute`` among them); a config that turns
+    on sequence parallelism or a context-parallel mesh raises
+    ``ValueError`` (the port has neither yet)."""
     from .models.llama import LlamaConfig
     d = dict(cfg) if isinstance(cfg, Mapping) else dict(vars(cfg))
     on = [k for k in _LLAMA_UNPORTED if d.get(k)]

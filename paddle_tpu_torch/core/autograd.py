@@ -8,6 +8,25 @@ the port has none: every op runs on the wrapped ``torch.Tensor``s, so
 with paddle's rules on top (a gradient to an input that does not
 require one is "unused"; ``allow_unused`` turns the error into None).
 Tensor hooks, ``retain_grads`` and ``create_graph`` are torch's too.
+:class:`GradNode` keeps the JAX class's constructor and fields for what
+records a node of its own (``autograd.PyLayer``: a
+``torch.autograd.Function`` whose backward calls the node's
+``vjp_fn``); its name joins the dispatch counts.
+
+Per-op checks after ``fn``, all behind one module-level bool that
+``set_flags`` keeps up to date (the JAX module's flags): ``FLAGS_check_nan_inf`` computes ``any(~isfinite)`` of each
+float output on the device and raises ``FloatingPointError`` naming the
+op and output — at once with ``FLAGS_check_nan_inf_stride`` 1, else the
+flags queue and :func:`flush_nan_checks` fetches them in one transfer
+when the queue holds ``stride`` of them (and before each
+:func:`backward` / :func:`grad`). ``FLAGS_benchmark`` synchronizes the
+device after each op; ``FLAGS_retain_grad_for_all_tensor`` makes each
+differentiable output ``retain_grad()``. A host fetch or a synchronize
+is illegal inside a CUDA graph capture, so the NaN scan and the
+synchronize skip ops that run while the current stream captures (the
+JAX module skips tracers), and :func:`flush_nan_checks` keeps its
+queue for the first call after the capture; the NaN scan also skips
+ops a SOT recorder sees.
 
 :func:`apply_op` dispatches each op as it comes (no lazy fusion): it
 unwraps Tensor arguments, casts them per the AMP regime when
@@ -32,8 +51,11 @@ from typing import Callable, Optional
 
 import torch
 
+from .flags import _registry as _flag_registry
+from .flags import _watch as _watch_flags
+
 __all__ = ["no_grad", "enable_grad", "is_grad_enabled", "set_grad_enabled",
-           "apply_op", "backward", "grad"]
+           "GradNode", "apply_op", "backward", "grad", "flush_nan_checks"]
 
 
 def is_grad_enabled() -> bool:
@@ -93,6 +115,118 @@ def _tensor_cls():
     return _Tensor
 
 
+class GradNode:
+    """One recorded node: its vjp closure, its differentiable input
+    Tensors, the ``(shape, dtype)`` of its outputs and its name — the
+    JAX class's fields. (The JAX node's ``fn`` / ``datas`` / ``kwargs``
+    / ``diff_idx`` serve its own tape's grad-of-grad; torch's autograd
+    does that here.)"""
+
+    __slots__ = ("vjp_fn", "inputs", "out_avals", "name", "__weakref__")
+
+    def __init__(self, vjp_fn, inputs, out_avals, name):
+        self.vjp_fn = vjp_fn
+        self.inputs = inputs
+        self.out_avals = out_avals
+        self.name = name
+
+    def __repr__(self):
+        return f"GradNode({self.name})"
+
+
+def count_dispatch(name: str) -> None:
+    """One more dispatch of ``name`` in the op table's counts."""
+    _dispatches[name] = _dispatches.get(name, 0) + 1
+
+
+# -- per-op checks ------------------------------------------------------------
+
+_nan_flag = _flag_registry["check_nan_inf"]
+_stride_flag = _flag_registry["check_nan_inf_stride"]
+_bench_flag = _flag_registry["benchmark"]
+_retain_all_flag = _flag_registry["retain_grad_for_all_tensor"]
+# any of the three on: the one test an op pays for the per-op checks
+_checks_on = False
+
+
+def _update_checks_on() -> None:
+    global _checks_on
+    _checks_on = bool(_nan_flag.value or _bench_flag.value
+                      or _retain_all_flag.value)
+
+
+_watch_flags(("check_nan_inf", "benchmark", "retain_grad_for_all_tensor"),
+             _update_checks_on)
+
+# queued device flags: (op name, output index, 0-d bool tensor); the
+# host reads them in one transfer (flush_nan_checks)
+_nan_pending: list = []
+# host fetches the NaN check has made (one a flush, one an op at stride 1)
+_nan_fetches = 0
+
+
+def _nan_error(name: str, i: int) -> FloatingPointError:
+    return FloatingPointError(
+        f"Operator {name} output {i} contains NaN or Inf "
+        f"(FLAGS_check_nan_inf is set)")
+
+
+def flush_nan_checks() -> None:
+    """Fetch every queued NaN flag in one transfer and raise naming the
+    first offending op; the queue is empty after. While a CUDA stream
+    captures (or torch.compile traces) it fetches nothing and keeps the
+    queue: a host fetch would invalidate the capture."""
+    global _nan_pending, _nan_fetches
+    if not _nan_pending or _capturing(_nan_pending[0][2]):
+        return
+    pending, _nan_pending = _nan_pending, []
+    dev = pending[0][2].device
+    flags = torch.stack([f.to(dev) for _, _, f in pending]).cpu()
+    _nan_fetches += 1
+    if bool(flags.any()):
+        name, i, _ = pending[int(flags.to(torch.uint8).argmax())]
+        raise _nan_error(name, i)
+
+
+def _capturing(t: torch.Tensor) -> bool:
+    return ((t.is_cuda or torch.cuda.is_initialized())
+            and torch.cuda.is_current_stream_capturing()) or \
+        torch.compiler.is_compiling()
+
+
+def _post_op(name: str, out) -> None:
+    """The flagged per-op checks on ``fn``'s result (see the module
+    docstring)."""
+    global _nan_fetches
+    outs = [o for o in (out if isinstance(out, (tuple, list)) else (out,))
+            if isinstance(o, torch.Tensor)]
+    if not outs or _capturing(outs[0]):
+        return
+    if _retain_all_flag.value:
+        for o in outs:
+            if o.requires_grad and not o.is_leaf:
+                o.retain_grad()
+    if _nan_flag.value and _op_recorder is None:
+        stride = max(int(_stride_flag.value or 1), 1)
+        for i, o in enumerate(outs):
+            if not (o.is_floating_point() or o.is_complex()):
+                continue
+            flag = torch.isfinite(o.detach()).logical_not().any()
+            if stride <= 1:
+                _nan_fetches += 1
+                if bool(flag):
+                    raise _nan_error(name, i)
+            else:
+                _nan_pending.append((name, i, flag))
+        if len(_nan_pending) >= stride:
+            flush_nan_checks()
+    if _bench_flag.value:
+        for o in outs:
+            if o.is_cuda:
+                torch.cuda.synchronize(o.device)
+                break
+
+
 def _wrap(out, Tensor):
     if isinstance(out, torch.Tensor):
         return Tensor(out)
@@ -134,6 +268,8 @@ def apply_op(fn: Callable, *args, op_name: Optional[str] = None, **kwargs):
         return _apply_recorded(fn, args, raw, kwargs, op_name, wrapped,
                                Tensor)
     out = fn(*raw, **kwargs)
+    if _checks_on:
+        _post_op(name, out)
     return _wrap(out, Tensor) if wrapped else out
 
 
@@ -149,6 +285,8 @@ def _apply_recorded(fn, args, raw, kwargs, op_name, wrapped, Tensor):
         out = fn(*raw, **kwargs)
     finally:
         _op_depth -= 1
+    if _checks_on:
+        _post_op(op_name or getattr(fn, "__name__", "op"), out)
     rec = _op_recorder
     if _op_depth or rec is None:
         return _wrap(out, Tensor) if wrapped else out
@@ -172,6 +310,7 @@ def backward(tensors, grad_tensors=None, retain_graph=False):
     ``tensors`` into the ``.grad`` of the leaves; a root that is not a
     single element needs its gradient."""
     from .tensor import as_torch
+    flush_nan_checks()  # the forward's queued flags first
     if _backward_observer is not None:
         _backward_observer()
     roots = [t._t for t in _as_list(tensors)]
@@ -202,6 +341,7 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
     An input the outputs do not depend on (or that does not require a
     gradient) raises unless ``allow_unused``, which gives None."""
     from .tensor import Tensor, as_torch
+    flush_nan_checks()
     if _backward_observer is not None:
         _backward_observer()
     outs = [t._t for t in _as_list(outputs)]

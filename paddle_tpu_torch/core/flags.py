@@ -32,6 +32,9 @@ class _FlagInfo:
 
 
 _registry: Dict[str, _FlagInfo] = {}
+# flag name -> callbacks that set_flags runs after changing it (a hot
+# path keeps one module-level summary of several flags this way)
+_watchers: Dict[str, list] = {}
 
 
 def define_flag(name: str, default: Any, help: str = "") -> None:
@@ -65,15 +68,45 @@ def get_flags(flags):
 
 
 def set_flags(flags: Dict[str, Any]) -> None:
+    called = []
     for f, v in flags.items():
-        info = _registry[_key(f)]
+        key = _key(f)
+        info = _registry[key]
         info.value = info.parser(v) if isinstance(v, str) else v
+        called += [w for w in _watchers.get(key, ()) if w not in called]
+    for w in called:
+        w()
+
+
+def _watch(names, fn: Callable[[], None]) -> None:
+    """Run ``fn`` now and after every ``set_flags`` that sets one of
+    ``names``."""
+    for n in names:
+        _watchers.setdefault(n, []).append(fn)
+    fn()
 
 
 def flag_value(name: str):
     return _registry[name].value
 
 
+define_flag("check_nan_inf", False,
+            "Scan op outputs for NaN/Inf in eager mode: after each op "
+            "core.autograd.apply_op computes any(~isfinite) of every "
+            "float output on the device; skipped while a CUDA stream "
+            "captures and while a SOT recorder runs")
+define_flag("check_nan_inf_stride", 1,
+            "Ops' float outputs between host fetches of the batched "
+            "NaN-check flags. 1 (default) = a synchronous raise per op; "
+            ">1 queues the device flags and fetches them in one "
+            "transfer (core.autograd.flush_nan_checks; backward and grad "
+            "drain the queue first)")
+define_flag("benchmark", False,
+            "Synchronize after each op for timing (not inside a CUDA "
+            "graph capture)")
+define_flag("retain_grad_for_all_tensor", False,
+            "Keep .grad on non-leaf tensors: every differentiable op "
+            "output calls retain_grad()")
 define_flag("serving_block_size", 16,
             "Tokens per KV block in the paged serving cache "
             "(serving.PagedLlamaDecodeEngine): the block pool is "

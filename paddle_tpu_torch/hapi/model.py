@@ -16,8 +16,12 @@ loss comes back as a lazy device Tensor; ``fit`` reads the epoch's
 losses on the host once, at the epoch's end (one transfer).
 ``FLAGS_sot_capture=0`` runs every step eager.
 
-``prepare(warm_bundle=...)`` (the JAX package's pre-warm of captured
-steps from a warm bundle) is not ported yet and raises.
+``prepare(warm_bundle=...)`` (a manifest path or a loaded dict;
+default ``FLAGS_warmup_bundle``) pre-warms the captured steps a bundle
+recorded (``jit.warmup.prewarm``): each signature's first sighting and
+its capture run at ``prepare``, on zero batches, and the model, the
+optimizer, the GradScaler and the key streams are put back after, so
+the first ``train_batch`` of a recorded signature is a graph replay.
 """
 from __future__ import annotations
 
@@ -32,11 +36,6 @@ from ..core.tensor import Tensor
 from .callbacks import config_callbacks
 
 __all__ = ["Model", "summary", "flops"]
-
-_WARM_BUNDLE = ("prepare(warm_bundle=...) is not ported yet: the captured "
-                "steps of a warm bundle wait for ROADMAP queue 1 item 12 "
-                "(the captured_step bundle entries)")
-
 
 def _to_tensor(x):
     if isinstance(x, Tensor):
@@ -113,15 +112,19 @@ class Model:
         ``use_dynamic_loss_scaling``) or a ``scaler``; the forward and
         loss then run under ``amp.auto_cast``, and backward and update
         through the GradScaler when there is one (f16 always makes
-        one)."""
-        if warm_bundle is not None:
-            raise NotImplementedError(_WARM_BUNDLE)
+        one). ``warm_bundle``: see the module docstring."""
         self._optimizer = optimizer
         self._loss = loss
         ms = metrics or []
         self._metrics = list(ms) if isinstance(ms, (list, tuple)) else [ms]
         self._captured = None  # a new loss or optimizer: old graphs out
         self._amp, self._scaler = self._parse_amp(amp_configs)
+        from ..core.flags import flag_value
+        bundle = warm_bundle if warm_bundle is not None \
+            else (flag_value("warmup_bundle") or None)
+        if bundle:
+            from ..jit import warmup
+            warmup.prewarm(bundle, captured=self._capture_engine())
         return self
 
     @staticmethod
@@ -175,7 +178,19 @@ class Model:
             self._captured = CapturedStep(
                 self.network, self._loss, self._optimizer,
                 mean_reduce=True, name="hapi.step")
+            self._captured.step_runner = self._prewarm_step
+            self._captured.scaler = self._scaler \
+                if self._amp is not None else None
         return self._captured
+
+    def _prewarm_step(self, kind, ins, lbls):
+        """A prewarm's step (``CapturedStep.step_runner``): the batch through
+        this model's own train or eval step (no metric updated)."""
+        if kind == "eval":
+            self.network.eval()
+            self._eval_step(ins, lbls)
+        else:
+            self.train_batch(ins, lbls)
 
     def _loss_of(self, out, lbl):
         loss = out
@@ -226,6 +241,17 @@ class Model:
         self.network.eval()
         ins = [_to_tensor(i) for i in _as_list(inputs)]
         lbl = [_to_tensor(v) for v in _as_list(labels) if v is not None]
+        out, loss = self._eval_step(ins, lbl)
+        outs = {}
+        if loss is not None:
+            outs["loss"] = loss
+        if labels is not None:
+            for m in self._metrics:
+                m.update(m.compute(out, lbl[0]))
+        return outs
+
+    def _eval_step(self, ins, lbl):
+        """One eval forward (and loss, with labels): ``(out, loss)``."""
         out = loss = None
         engine = self._capture_engine()
         with self._amp_ctx():
@@ -235,16 +261,10 @@ class Model:
             else:
                 with torch.no_grad():
                     out = self.network(*ins)
-                    if self._loss is not None and labels is not None:
+                    if self._loss is not None and lbl:
                         loss = self._loss_of(out, lbl)
                 engine.eager_done()
-        outs = {}
-        if loss is not None:
-            outs["loss"] = loss
-        if labels is not None:
-            for m in self._metrics:
-                m.update(m.compute(out, lbl[0]))
-        return outs
+        return out, loss
 
     def predict_batch(self, inputs):
         self.network.eval()

@@ -350,7 +350,12 @@ def ignore_module(modules):
 
 
 class TrainStep:
-    def __init__(self, model: torch.nn.Module, loss_fn, optimizer):
+    def __init__(self, model: torch.nn.Module, loss_fn, optimizer,
+                 warm_bundle=None):
+        """``warm_bundle`` (a manifest path or a loaded bundle dict):
+        its ``captured_step`` entries are pre-warmed now
+        (``jit.warmup.prewarm``), so the first call of a recorded
+        signature replays a graph."""
         from .sot import CapturedStep
         self.model = model
         self.loss_fn = loss_fn
@@ -358,6 +363,10 @@ class TrainStep:
         self._step = CapturedStep(model, loss_fn, optimizer,
                                   cast_loss_f32=True, strict=False,
                                   name="train_step")
+        self._step.step_runner = self._drive
+        if warm_bundle is not None:
+            from . import warmup
+            warmup.prewarm(warm_bundle, captured=self)
 
     @property
     def stats(self):
@@ -384,6 +393,13 @@ class TrainStep:
                 loss = self._eager(ins, lbls)
             self._step.eager_done()
         return loss
+
+    def _drive(self, kind, ins, lbls):
+        """A prewarm's step (``CapturedStep.step_runner``): this step's own
+        call."""
+        if kind != "train":
+            raise ValueError(f"TrainStep runs train steps, not {kind!r}")
+        self(*ins, *lbls)
 
     def _eager(self, ins, lbls):
         loss = self.loss_fn(self.model(*ins), *lbls)

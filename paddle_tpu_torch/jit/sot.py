@@ -122,6 +122,27 @@ Momentum's multi-tensor update) of the step, replayed by one call.
   (hash dropout, the flash kernels' dropout) are legal inside a graph.
   A capture that fails raises; it never runs eager quietly.
 
+- **Warm bundles** — the second sighting of a signature (where the
+  JAX step compiles) records a ``captured_step`` entry through
+  ``jit.warmup.note_program``: its build (``train``, ``eval`` or
+  ``train_scaled``), ``n_ins``, the batch's shapes and dtypes, the
+  scaler's statics and the signature (``warmup.sig_to_json``). A CUDA
+  graph cannot be written to a file, so :meth:`CapturedStep.prewarm`
+  runs the entry's first sighting and its capture at boot, through the
+  owner's own step (``step_runner``, which ``hapi.Model`` and ``jit.TrainStep``
+  set), on a zero batch of the recorded shapes, and then puts back, in
+  place and bit for bit, everything those two steps moved: parameters
+  and buffers, optimizer states (a state the prewarm created goes back
+  to its initial values), step counts, the device lr and the LR
+  scheduler, the owner's GradScaler, the key streams and the layers'
+  modes. The first real step is then a replay of a model that never
+  moved. On the CPU the two steps run eager (the second counted
+  ``"device"``), and are put back all the same.
+- **Wrapped optimizers** — an optimizer whose class sets
+  ``_capture_inner`` (``incubate.asp``'s ``decorate``: its step is the
+  inner step plus in-place mask products, device ops) is captured with
+  the inner optimizer's state and its own ``step()``.
+
 ``FLAGS_sot_capture=0`` is the kill switch of strict mode (every step
 eager, nothing counted) and of ``SOTFunction``.
 """
@@ -130,8 +151,10 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import inspect
 import time
 import warnings
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -1126,6 +1149,14 @@ def _param_statics(opt, params) -> Optional[tuple]:
         return None
 
 
+def _core_optimizer(opt):
+    """The optimizer whose state a train graph holds: the inner one of
+    a wrapper that declares ``_capture_inner``."""
+    while getattr(type(opt), "_capture_inner", False):
+        opt = opt._optimizer
+    return opt
+
+
 def _fusable(opt) -> bool:
     """Whether ``optimizer.step()`` runs as the fused kernels (lr read
     from device memory), the only update a graph may replay."""
@@ -1173,6 +1204,13 @@ class CapturedStep:
         # caller is running eagerly, and the draws at its end
         self._sighting = None
         self._sighting_end = None
+        # the signatures recorded for a warm bundle
+        self._noted: set = set()
+        # the owner's step runner ``(kind, inputs, labels)`` a prewarm
+        # drives (see ``step_runner``), and the owner's GradScaler, which a
+        # prewarm puts back
+        self._step_runner = None
+        self.scaler = None
         self.stats: Dict[str, Any] = {
             "captured_steps": 0, "compiles": 0, "cache_hits": 0,
             "eager_steps": 0, "fallbacks": {}, "capture_seconds": 0.0}
@@ -1198,9 +1236,9 @@ class CapturedStep:
                 len(self._params):
             return "network_changed"
         if train:
-            opt = self.optimizer
-            if opt is None:
+            if self.optimizer is None:
                 return "no_optimizer"
+            opt = self._opt
             from ..utils.clip_grad import clip_spec
             if not _fusable(opt):
                 return "optimizer"
@@ -1216,6 +1254,27 @@ class CapturedStep:
                    for p in self._params.values()):
                 return "pending_grads"
         return None
+
+    @property
+    def step_runner(self) -> Optional[Callable]:
+        """The owner's step runner a prewarm drives. A bound method is
+        held weakly: its owner holds this engine, and a reference cycle
+        would leave the engine's graphs to the cyclic collector, which
+        may run inside another engine's capture, where freeing a graph
+        is illegal."""
+        d = self._step_runner
+        return d() if isinstance(d, weakref.WeakMethod) else d
+
+    @step_runner.setter
+    def step_runner(self, fn: Optional[Callable]) -> None:
+        self._step_runner = weakref.WeakMethod(fn) if inspect.ismethod(fn) \
+            else fn
+
+    @property
+    def _opt(self):
+        """The optimizer whose state the graphs hold (see
+        :func:`_core_optimizer`)."""
+        return _core_optimizer(self.optimizer)
 
     def _fallback(self, reason: str) -> None:
         self.stats["fallbacks"][reason] = \
@@ -1242,11 +1301,12 @@ class CapturedStep:
             parts.append((tuple(a.shape), str(a.dtype), str(a.device), w))
         if kind in ("train", "train_scaled"):
             from ..utils.clip_grad import clip_spec
-            opt = self.optimizer
+            opt = self._opt
             statics = _param_statics(opt, [self._params[k] for k in tkeys])
             if statics is None:
                 return None
-            parts.append((type(opt).__qualname__, _hyper_key(opt), statics,
+            parts.append((type(self.optimizer).__qualname__,
+                          _hyper_key(opt), statics,
                           clip_spec(opt._grad_clip, exact=True)))
         if scaler_statics is not None:
             parts.append(("scaler",) + tuple(scaler_statics))
@@ -1300,7 +1360,7 @@ class CapturedStep:
         ptrs += [g.prepare(dev).data_ptr()
                  for g in (random_mod.default_generator(),) + tuple(gens)]
         if kind != "eval":
-            opt = self.optimizer
+            opt = self._opt
             for k in tkeys:
                 st = opt._state_for(opt._index[id(self._params[k])])
                 ptrs += [v.data_ptr() for v in st.values()]
@@ -1360,7 +1420,7 @@ class CapturedStep:
         """Record one step of ``kind`` into a new graph over static
         copies of ``arrays`` (nothing runs: the caller replays)."""
         from ..optimizer.fused_step import _lr_device
-        opt = self.optimizer
+        opt = self._opt
         dev = self._device()
         pool = self._pool_handle()
         e = _Graph()
@@ -1409,14 +1469,14 @@ class CapturedStep:
                             if isinstance(loss, Tensor) else loss.float()
                     if scaler is not None:
                         scaler.scale(loss).backward()
-                        scaler.step(opt)
+                        scaler.step(self.optimizer)
                         e.found = scaler._found_tensor()
                         scaler.update()
                     else:
                         loss.backward()
                         if not self._strict:
                             self._zero_unreached(tkeys)
-                        opt.step()
+                        self.optimizer.step()
                 e.loss_wrapped = isinstance(loss, Tensor)
                 e.loss = None if loss is None else _raw(loss).detach()
         finally:
@@ -1471,7 +1531,7 @@ class CapturedStep:
     def _replay(self, e: _Graph, arrays, scaler=None):
         if e.kind != "eval":
             from ..optimizer.fused_step import _lr_device
-            _lr_device(self.optimizer, self._device())
+            _lr_device(self._opt, self._device())
         for buf, a in zip(e.inputs, arrays):
             buf.copy_(a, non_blocking=True)
         e.graph.replay()
@@ -1480,7 +1540,7 @@ class CapturedStep:
             gen._advance(dev, n)
         _counters.advance(e.counts)
         if e.kind != "eval":
-            self.optimizer._global_step += e.gsteps
+            self._opt._global_step += e.gsteps
         if scaler is not None:
             scaler.absorb_captured(scaler.capture_carry(), e.found.clone())
         self.stats["captured_steps"] += 1
@@ -1530,6 +1590,9 @@ class CapturedStep:
                 reason = "param_static"
         if reason is None:
             entry = self._cache.get(sig)
+            if entry is _SEEN_STEP:
+                # the second sighting, where the JAX step compiles
+                self._note(kind, sig, arrays, len(inputs), statics)
             if entry is None:
                 self._cache[sig] = _SEEN_STEP
                 self._trim()
@@ -1545,6 +1608,21 @@ class CapturedStep:
             self._fallback(reason)
             return None
         return sig, arrays, wrapped, tkeys
+
+    def _note(self, kind: str, sig, arrays, n_ins: int, statics) -> None:
+        """Record ``sig`` once as a warm bundle's ``captured_step``
+        entry (the JAX package's fields)."""
+        if sig in self._noted:
+            return
+        self._noted.add(sig)
+        from .warmup import note_program, sig_to_json
+        note_program("captured_step", self._name, {
+            "build": kind, "n_ins": n_ins,
+            # the JAX bundle's dtype strings: float32, int64, bfloat16
+            "batch": [[list(a.shape), str(a.dtype).replace("torch.", "")]
+                      for a in arrays],
+            "scaler": list(statics) if statics else None,
+            "sig": sig_to_json(sig)})
 
     def step(self, inputs, labels=(), scaler=None):
         """One train step over ``inputs`` / ``labels`` (Tensors, torch
@@ -1577,6 +1655,105 @@ class CapturedStep:
         if any(e.wrapped):
             out = wrap_tree(out)
         return out, (None if e.loss is None else Tensor(e.loss.clone()))
+
+    # -- boot pre-warm -----------------------------------------------------
+    def prewarm(self, entry) -> None:
+        """Boot pre-warm from one warm bundle ``captured_step`` entry:
+        the signature's first sighting and its capture, run now through
+        ``step_runner`` on a zero batch of the recorded shapes and dtypes
+        (Tensors where the recorded signature had them), then every
+        piece of state the two steps moved put back in place (see the
+        module docstring), so the first real step of that signature is
+        a replay. Raises ``ValueError`` for an unknown build or without
+        a ``step_runner``; ``warmup.prewarm`` counts it and goes on."""
+        from .warmup import sig_from_json
+        kind = entry.get("build")
+        if kind not in ("train", "eval", "train_scaled"):
+            raise ValueError(f"unknown captured_step build {kind!r}")
+        n_ins = int(entry.get("n_ins", 1))
+        batch = entry.get("batch", [])
+        sig = entry.get("sig")
+        wrapped = [False] * len(batch)
+        if sig is not None:
+            # the signature's parts after the first five are
+            # (shape, dtype, device, wrapped) of each batch array
+            per = sig_from_json(sig)[5:5 + len(batch)]
+            wrapped = [bool(p[3]) for p in per]
+        dev = self._device()
+        vals = []
+        for (shape, dtype), w in zip(batch, wrapped):
+            t = torch.zeros(tuple(shape), dtype=getattr(torch, dtype),
+                            device=dev)
+            vals.append(Tensor(t) if w else t)
+        ins, lbls = vals[:n_ins], vals[n_ins:]
+        drive = self.step_runner
+        if drive is None:
+            raise ValueError(f"CapturedStep({self._name}) has no step runner: "
+                             f"its owner's step runs a prewarm")
+        restore = self._snapshot()
+        try:
+            for _ in range(2):     # the first sighting, then the capture
+                drive(kind, ins, lbls)
+        finally:
+            restore()
+        _flight.record("warmup", "captured_step", fn=self._name, kind=kind)
+
+    def _snapshot(self) -> Callable[[], None]:
+        """Copies of the state a step moves; the function returned puts
+        them back in place (addresses kept: a graph holds them)."""
+        from ..core import random as rnd
+        leaves = list(self._params.values()) + list(self._buffers.values())
+        saved = [t.detach().clone() for t in leaves]
+        modes = [lyr.training for lyr in self._sublayers]
+        rng = rnd.get_rng_state()
+        draws = rnd._draws
+        opt = self._opt if self.optimizer is not None else None
+        opt_saved = None
+        if opt is not None:
+            lr_dev = getattr(opt, "_fused_lr_dev", None)
+            sched = opt._learning_rate
+            opt_saved = (
+                {i: {k: v.detach().clone() for k, v in st.items()}
+                 for i, st in opt._states.items()},
+                opt._global_step,
+                None if lr_dev is None else
+                (lr_dev, lr_dev.clone(), opt._fused_lr_host),
+                sched.state_dict() if hasattr(sched, "state_dict") else None)
+        scaler = self.scaler
+        sc_saved = None
+        if scaler is not None:
+            sc_saved = ([t.clone() for t in scaler.capture_carry()],
+                        scaler._found_inf, set(scaler._unscaled_opts))
+
+        @torch.no_grad()
+        def restore():
+            for t, s0 in zip(leaves, saved):
+                t.copy_(s0)
+                t.grad = None
+            for lyr, m in zip(self._sublayers, modes):
+                lyr.training = m
+            rnd.set_rng_state(rng)
+            rnd._draws = draws
+            if opt_saved is not None:
+                states, gstep, lr, sched_state = opt_saved
+                for i, st in opt._states.items():
+                    want = states.get(i)
+                    if want is None:   # made by the prewarm: back to init
+                        want = opt._init_state(opt._parameter_list[i])
+                    for k, v in st.items():
+                        v.copy_(want[k])
+                opt._global_step = gstep
+                if lr is not None:
+                    lr[0].copy_(lr[1])
+                    opt._fused_lr_host = lr[2]
+                if sched_state is not None:
+                    opt._learning_rate.set_state_dict(sched_state)
+            if sc_saved is not None:
+                for t, s0 in zip(scaler.capture_carry(), sc_saved[0]):
+                    t.copy_(s0)
+                scaler._found_inf = sc_saved[1]
+                scaler._unscaled_opts = sc_saved[2]
+        return restore
 
     def graphs(self) -> Dict[str, int]:
         """Live captured graphs by kind."""

@@ -23,8 +23,14 @@ card is ``nvcc``, not an XLA compile, so the two layers are:
   written to a file: the bundle keeps the JAX format. A
   missing, truncated, corrupt or newer bundle, a stale entry and an
   entry that fails are counted in ``warmup.failures_total{reason}``;
-  pre-warm never fails a boot. ``captured_step`` entries are skipped:
-  the port has no ``CapturedStep`` yet.
+  pre-warm never fails a boot. ``jit.sot.CapturedStep`` records
+  ``captured_step`` entries (the JAX fields; the signature through
+  :func:`sig_to_json`), and :func:`prewarm` replays them into a
+  ``CapturedStep`` or ``jit.TrainStep`` (``captured=``) by
+  ``CapturedStep.prewarm``: the signature's first sighting and its
+  capture run at boot, the model's state put back after, so the first
+  real step is a graph replay (``Model.prepare(warm_bundle=)`` and
+  ``TrainStep(warm_bundle=)`` call it).
 
 Fault-injection site: ``warmup.write`` (the bundle writer, the same
 truncated-write contract as ``checkpoint.write``).
@@ -46,9 +52,9 @@ from ..observability import metrics as _om
 from ..utils import fault_injection as _fi
 
 __all__ = ["ensure_executable_cache", "cache_stats", "cache_dir",
-           "count_cache", "note_program", "recorded", "clear_recorded",
-           "export_bundle", "load_bundle", "prewarm", "gc_cache_dir",
-           "BUNDLE_VERSION"]
+           "count_cache", "sig_to_json", "sig_from_json", "note_program",
+           "recorded", "clear_recorded", "export_bundle", "load_bundle",
+           "prewarm", "gc_cache_dir", "BUNDLE_VERSION"]
 
 define_flag(
     "executable_cache_dir", "",
@@ -60,7 +66,8 @@ define_flag(
 define_flag(
     "warmup_bundle", "",
     "Default warm-bundle manifest path for boot pre-warm: consumers "
-    "that take warm_bundle= (inference.serve, warmup.prewarm) fall "
+    "that take warm_bundle= (Model.prepare, TrainStep, "
+    "inference.serve, warmup.prewarm) fall "
     "back to this path when none is passed. Empty (default) = no "
     "automatic pre-warm")
 define_flag(
@@ -194,6 +201,24 @@ def cache_stats() -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# signature <-> JSON: CapturedStep signatures are nested tuples of
+# hashable scalars; JSON keeps them as nested lists, and a deep
+# list -> tuple conversion gives the exact tuple back
+# ---------------------------------------------------------------------------
+
+def sig_to_json(sig):
+    if isinstance(sig, tuple):
+        return [sig_to_json(v) for v in sig]
+    return sig
+
+
+def sig_from_json(obj):
+    if isinstance(obj, list):
+        return tuple(sig_from_json(v) for v in obj)
+    return obj
+
+
+# ---------------------------------------------------------------------------
 # recording: which programs did this run build?
 # ---------------------------------------------------------------------------
 
@@ -205,8 +230,9 @@ _rec_lock = make_lock("jit.warmup.recorded")
 
 def note_program(kind: str, name: str, entry: Dict[str, Any]) -> None:
     """Record one program's replayable signature (the serving engines
-    call this the first time they run each program). An entry that is
-    not JSON-serializable drops its ``sig`` first, then is skipped."""
+    the first time they run each program, ``CapturedStep`` at a
+    signature's second sighting). An entry that is not
+    JSON-serializable drops its ``sig`` first, then is skipped."""
     entry = dict(entry)
     entry["kind"] = kind
     entry["name"] = name
@@ -325,28 +351,44 @@ def load_bundle(path: Optional[str] = None) -> Optional[Dict[str, Any]]:
 # boot pre-warm
 # ---------------------------------------------------------------------------
 
-def prewarm(bundle=None, engine=None) -> Dict[str, int]:
-    """Replay a warm bundle's ``serving`` entries into ``engine`` at
-    boot (``engine._prewarm_entry``), before its first request.
+def prewarm(bundle=None, captured=None, engine=None) -> Dict[str, int]:
+    """Replay a warm bundle at boot: its ``captured_step`` entries into
+    ``captured`` (a ``CapturedStep`` or a ``jit.TrainStep``:
+    ``CapturedStep.prewarm``), its ``serving`` entries into ``engine``
+    (``engine._prewarm_entry``), before the first step or request.
 
     ``bundle``: a loaded bundle dict, a manifest path, or None (the
     ``FLAGS_warmup_bundle`` / cache-dir default). Entries without a
-    target (``captured_step``; ``serving`` without an engine; programs
-    the engine does not run) are skipped; a stale entry (recorded
-    against another geometry) and an entry whose program raises are
-    counted and pre-warm goes on — this function never raises for
-    bundle content."""
+    target (no ``captured`` / ``engine``; programs the engine does not
+    run) are skipped; a stale entry (recorded against another geometry)
+    and an entry that raises (an unknown build among them) are counted
+    and pre-warm goes on — this function never raises for bundle
+    content."""
     if bundle is None or isinstance(bundle, str):
         bundle = load_bundle(bundle)
     out = {"programs": 0, "failures": 0, "skipped": 0}
     if not bundle:
         return out
     ensure_executable_cache()
+    step_target = getattr(captured, "_step", captured)
     for entry in bundle.get("entries", []):
         if not isinstance(entry, dict):
             out["skipped"] += 1
             continue
-        if entry.get("kind") != "serving" or engine is None:
+        kind = entry.get("kind")
+        if kind == "captured_step" and step_target is not None:
+            try:
+                step_target.prewarm(entry)
+            except Exception as e:  # noqa: BLE001 — a cold first step
+                out["failures"] += 1
+                _M_failures.inc(reason="program")
+                _flight.record("warmup", "program_failed",
+                               fn=str(entry.get("name", "")),
+                               error=type(e).__name__)
+                continue
+            out["programs"] += 1
+            continue
+        if kind != "serving" or engine is None:
             out["skipped"] += 1
             continue
         try:

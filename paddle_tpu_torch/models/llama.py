@@ -17,8 +17,30 @@ plain versions on the CPU. A mask, or the flag off, takes the plain
 model routes them. :class:`LlamaPretrainingCriterion` is the causal-LM
 loss over the chunked fused cross-entropy (``ops.fused_ce``).
 
-Not ported yet: sequence parallel, recompute, the ring-attention
-context-parallel path and ``generate`` with per-layer caches.
+``LlamaConfig.recompute`` runs each decoder block under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` when no
+caches are passed: the counterpart of the JAX model's ``_remat_layer``
+(``jax.checkpoint``), so the backward runs each block's forward again
+(the flash forward included) instead of keeping its activations. The
+RNG stash is off (``preserve_rng_state=False``): torch's stash reads
+the host generator, which does not belong in a CUDA graph capture, and
+Llama's blocks draw no random numbers. A recomputed block that held one
+of the port's random ops would need its key stream put back to the
+position of the first run before the recompute.
+
+The cache path is the JAX model's: ``forward(ids, caches=[(k, v), ...],
+position_offset=n)`` returns ``(logits, new_caches)``, each layer's
+keys and values concatenated after its cache (kept before the GQA
+repeat); RoPE starts at ``position_offset``. A call with empty caches
+and no mask takes the flash entry (the prefill); a call with a cache,
+or with a mask, takes :func:`sdpa_reference` with the causal diagonal
+offset by the cached length, as the JAX model's ``_sdpa_xla``.
+:meth:`LlamaForCausalLM.generate` is greedy decoding over those caches
+(a parity check of the model, not the serving path).
+
+Not ported yet (ROADMAP item 13): sequence parallel and the
+ring-attention context-parallel path; a config that sets
+``sequence_parallel`` or ``cp_mesh`` raises.
 """
 from __future__ import annotations
 
@@ -28,6 +50,7 @@ from typing import Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..nn.functional.attention import sdpa_reference
@@ -53,8 +76,21 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     use_flash_attention: bool = True
+    sequence_parallel: bool = False
     tie_word_embeddings: bool = False
     dtype: str = "float32"
+    # recompute each decoder block in backward (torch.utils.checkpoint)
+    recompute: bool = False
+    cp_mesh: object = None
+
+    def __post_init__(self):
+        on = [k for k in ("sequence_parallel", "cp_mesh")
+              if getattr(self, k)]
+        if on:
+            raise NotImplementedError(
+                f"LlamaConfig: {', '.join(on)} (sequence parallelism and "
+                f"the ring-attention context-parallel path) wait for "
+                f"ROADMAP queue 1 item 13")
 
     @staticmethod
     def tiny(**kw):
@@ -114,10 +150,11 @@ class RMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    """GQA attention with RoPE: flash attention without a mask (when
-    the config asks for it), the plain sdpa otherwise. K/V heads are
-    repeated before the call, as in the JAX model, so the kernels see
-    as many K/V heads as query heads."""
+    """GQA attention with RoPE: flash attention without a mask or a
+    cache (when the config asks for it), the plain sdpa otherwise. K/V
+    heads are repeated before the call, as in the JAX model, so the
+    kernels see as many K/V heads as query heads; a cache holds them
+    before the repeat."""
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
@@ -133,7 +170,10 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(self.hidden_size, kv_out, **kw)
         self.o_proj = nn.Linear(self.hidden_size, self.hidden_size, **kw)
 
-    def forward(self, h, attention_mask=None, position_offset=0):
+    def forward(self, h, attention_mask=None, cache=None, position_offset=0):
+        """``cache``: None, or ``(k, v)`` of the positions before these
+        (``(None, None)`` for none yet): then the result is ``(out,
+        (new_k, new_v))``."""
         b, l, _ = h.shape
         q = self.q_proj(h).view(b, l, self.num_heads, self.head_dim)
         k = self.k_proj(h).view(b, l, self.num_kv_heads, self.head_dim)
@@ -142,15 +182,25 @@ class LlamaAttention(nn.Module):
                                  h.device, position_offset)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
+        cached = cache is not None and cache[0] is not None
+        if cached:
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+        new_k, new_v = k, v
         rep = self.num_heads // self.num_kv_heads
         if rep > 1:
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        if attention_mask is None and self.config.use_flash_attention:
+        if not cached and attention_mask is None and \
+                self.config.use_flash_attention:
             out = flash_attention(q, k, v, causal=True)
         else:
+            # decode (Lq < Lk) and the masked path: the JAX _sdpa_xla
             out = sdpa_reference(q, k, v, causal=True, mask=attention_mask)
-        return self.o_proj(out.reshape(b, l, self.hidden_size))
+        out = self.o_proj(out.reshape(b, l, self.hidden_size))
+        if cache is not None:
+            return out, (new_k, new_v)
+        return out
 
 
 class LlamaMLP(nn.Module):
@@ -181,10 +231,16 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(
             config.hidden_size, config.rms_norm_eps, device, dtype)
 
-    def forward(self, h, attention_mask=None, position_offset=0):
-        h = h + self.self_attn(self.input_layernorm(h), attention_mask,
-                               position_offset)
-        return h + self.mlp(self.post_attention_layernorm(h))
+    def forward(self, h, attention_mask=None, cache=None, position_offset=0):
+        a = self.self_attn(self.input_layernorm(h), attention_mask, cache,
+                           position_offset)
+        if cache is not None:
+            a, new_cache = a
+        h = h + a
+        h = h + self.mlp(self.post_attention_layernorm(h))
+        if cache is not None:
+            return h, new_cache
+        return h
 
 
 class LlamaModel(nn.Module):
@@ -200,11 +256,28 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device, dtype)
 
-    def forward(self, input_ids, attention_mask=None, position_offset=0):
+    def forward(self, input_ids, attention_mask=None, caches=None,
+                position_offset=0):
+        """``caches``: None, or one ``(k, v)`` a layer (``(None, None)``
+        for an empty one): then the result is ``(h, new_caches)``."""
         h = self.embed_tokens(input_ids)
-        for layer in self.layers:
-            h = layer(h, attention_mask, position_offset)
-        return self.norm(h)
+        new_caches = [] if caches is not None else None
+        remat = self.config.recompute and caches is None and \
+            torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            if caches is not None:
+                h, c = layer(h, attention_mask, caches[i], position_offset)
+                new_caches.append(c)
+            elif remat:
+                h = checkpoint(layer, h, attention_mask, None,
+                               position_offset, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                h = layer(h, attention_mask, None, position_offset)
+        h = self.norm(h)
+        if caches is not None:
+            return h, new_caches
+        return h
 
 
 class LlamaForCausalLM(nn.Module):
@@ -246,10 +319,32 @@ class LlamaForCausalLM(nn.Module):
             return h @ self.llama.embed_tokens.weight.t()
         return self.lm_head(h)
 
-    def forward(self, input_ids, attention_mask=None, position_offset=0):
-        """input_ids [B, L] -> logits [B, L, V]."""
-        return self._logits(self.llama(input_ids, attention_mask,
-                                       position_offset))
+    def forward(self, input_ids, attention_mask=None, caches=None,
+                position_offset=0):
+        """input_ids [B, L] -> logits [B, L, V]; with ``caches``,
+        ``(logits, new_caches)``."""
+        out = self.llama(input_ids, attention_mask, caches, position_offset)
+        if caches is not None:
+            h, new_caches = out
+            return self._logits(h), new_caches
+        return self._logits(out)
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32):
+        """Greedy decoding with per-layer KV caches: a prefill over
+        ``input_ids [B, L]``, then one token a step. Returns the ids
+        ``[B, L + max_new_tokens]`` (the model's parity check, not the
+        serving path)."""
+        ids = input_ids
+        caches = [(None, None)] * self.config.num_hidden_layers
+        logits, caches = self.forward(ids, caches=caches)
+        for _ in range(max_new_tokens):
+            next_id = logits[:, -1, :].argmax(dim=-1)[:, None]
+            offset = caches[0][0].shape[1]
+            ids = torch.cat([ids, next_id.to(ids.dtype)], dim=1)
+            logits, caches = self.forward(next_id, caches=caches,
+                                          position_offset=offset)
+        return ids
 
 
 class LlamaPretrainingCriterion(nn.Module):

@@ -6,8 +6,10 @@ into, with its views: *collectors* (callbacks polled only at
 ``snapshot()`` / ``render_prometheus()`` time), ``snapshot()`` (one
 nested JSON-able dict) and ``render_prometheus()`` (Prometheus text
 exposition v0.0.4). For the same instruments and increments both views
-equal the JAX package's. Not ported: the ``FLAGS_metrics`` kill switch
-(instruments always record) and pull gauges. Stdlib only.
+equal the JAX package's. ``FLAGS_metrics`` (default on) is the kill
+switch: with it off every instrument mutation is one cached flag read
+and a return. ``Gauge.set_function`` installs a pull gauge, read only
+at ``snapshot()`` / ``render_prometheus()`` time. Stdlib only.
 """
 from __future__ import annotations
 
@@ -17,10 +19,13 @@ from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..analysis.locks import make_lock
+from ..core.flags import _registry as _flag_registry
+from ..core.flags import define_flag
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "Scope",
-    "default_registry", "counter", "gauge", "histogram", "scope",
+    "default_registry", "enabled", "flag_info", "counter", "gauge",
+    "histogram", "scope",
     "register_collector", "snapshot", "render_prometheus",
     "DEFAULT_BUCKETS",
 ]
@@ -28,6 +33,25 @@ __all__ = [
 # Fixed log-spaced buckets: half-decade steps over 1us .. 100s.
 DEFAULT_BUCKETS: Tuple[float, ...] = tuple(
     round(10.0 ** (e / 2.0), 12) for e in range(-12, 5))
+
+define_flag("metrics", True,
+            "Process-wide telemetry registry (observability.metrics): "
+            "counters, gauges and histograms of the serving, capture, "
+            "checkpoint and optimizer planes. Default on. FLAGS_metrics=0 "
+            "is the kill switch: every instrument mutation becomes one "
+            "cached flag read and a return")
+_metrics_flag = _flag_registry["metrics"]
+
+
+def enabled() -> bool:
+    """The value of ``FLAGS_metrics``."""
+    return bool(_metrics_flag.value)
+
+
+def flag_info():
+    """The live ``FLAGS_metrics`` registry entry (its identity is
+    stable): a hot path keeps it and branches on ``.value``."""
+    return _metrics_flag
 
 
 def _label_key(labels: Dict[str, Any]) -> Tuple[Tuple[str, Any], ...]:
@@ -74,6 +98,8 @@ class Counter(_Instrument):
         self._v = 0
 
     def inc(self, n: float = 1, **labels) -> None:
+        if not _metrics_flag.value:
+            return
         if not labels:
             self._v += n
             return
@@ -107,16 +133,30 @@ class Counter(_Instrument):
 
 
 class Gauge(_Instrument):
-    """Point-in-time value."""
+    """Point-in-time value; ``set_function`` installs a pull callback
+    read only at snapshot and exposition time (queue depths, cache
+    sizes: no hot-path cost). A pull callback that raises reads 0, as in
+    the JAX package, and is counted: ``pull_errors`` and
+    ``last_pull_error`` say how often and why."""
 
     kind = "gauge"
 
+    def __init__(self, name: str, help: str = ""):
+        super().__init__(name, help)
+        self._fn: Optional[Callable[[], float]] = None
+        self.pull_errors = 0
+        self.last_pull_error: Optional[BaseException] = None
+
     def set(self, v: float, **labels) -> None:
+        if not _metrics_flag.value:
+            return
         key = _label_key(labels) if labels else ()
         with self._lock:
             self._cells[key] = v
 
     def inc(self, n: float = 1, **labels) -> None:
+        if not _metrics_flag.value:
+            return
         key = _label_key(labels) if labels else ()
         with self._lock:
             self._cells[key] = self._cells.get(key, 0) + n
@@ -124,10 +164,26 @@ class Gauge(_Instrument):
     def dec(self, n: float = 1, **labels) -> None:
         self.inc(-n, **labels)
 
+    def set_function(self, fn: Callable[[], float]) -> None:
+        self._fn = fn
+
     def value(self, **labels):
+        if self._fn is not None and not labels:
+            try:
+                return self._fn()
+            except Exception as e:  # noqa: BLE001 — counted, reads 0
+                self.pull_errors += 1
+                self.last_pull_error = e
+                return 0
         key = _label_key(labels) if labels else ()
         with self._lock:
             return self._cells.get(key, 0)
+
+    def series(self) -> Dict[Tuple, Any]:
+        out = super().series()
+        if self._fn is not None and () not in out:
+            out[()] = self.value()
+        return out
 
 
 class _HistCell:
@@ -152,6 +208,8 @@ class Histogram(_Instrument):
             sorted(buckets)) if buckets else DEFAULT_BUCKETS
 
     def observe(self, v: float, **labels) -> None:
+        if not _metrics_flag.value:
+            return
         v = float(v)
         key = _label_key(labels) if labels else ()
         i = bisect.bisect_left(self.buckets, v)

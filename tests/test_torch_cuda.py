@@ -2198,3 +2198,182 @@ def test_deform_conv2d_and_grid_sample_on_the_card_match_the_cpu(cuda):
         tol = 1e-4 if i == 0 else 1e-3
         assert ((a - b).abs() <= tol * (1 + b.abs())).all(), (
             i, float((a - b).abs().max()))
+
+
+# -- recompute, ASP under capture, warm bundles -------------------------------
+
+def _llama_recompute_losses(cuda, recompute):
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                           num_key_value_heads=2, intermediate_size=512,
+                           dtype="bfloat16", recompute=recompute)
+    model = LlamaForCausalLM(cfg, device=cuda,
+                             generator=torch.Generator(device=cuda)
+                             .manual_seed(0))
+    opt = AdamW(learning_rate=1e-3, parameters=model.named_parameters())
+    step = TrainStep(model, LlamaPretrainingCriterion(), opt)
+    ids = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda,
+                        generator=torch.Generator(device=cuda)
+                        .manual_seed(1))
+    losses = [float(step(ids, ids)) for _ in range(2)]
+    tfa.flash_attention_fwd.launches = 0
+    tfa.flash_attention_fwd.tma_launches = 0
+    losses += _replay_strictly_xy(step, ids, ids, 2)
+    assert step._step.graphs() == {"train": 1}
+    assert step.stats["fallbacks"] == {}
+    fwd = (tfa.flash_attention_fwd.launches,
+           tfa.flash_attention_fwd.tma_launches)
+    return losses, fwd, [p.detach().clone() for p in model.parameters()]
+
+
+def test_recompute_replays_the_flash_forward_twice_a_layer(cuda):
+    """A tiny bf16 Llama (D 128) through the captured TrainStep with and
+    without ``recompute``: K1b's forward twice a layer a replay with it
+    (all TMA), once without; losses and parameters bit-equal."""
+    rc, fwd_rc, p_rc = _llama_recompute_losses(cuda, True)
+    plain, fwd_plain, p_plain = _llama_recompute_losses(cuda, False)
+    assert fwd_rc == (8, 8) and fwd_plain == (4, 4)
+    assert rc == plain
+    for a, b in zip(p_rc, p_plain):
+        assert torch.equal(a, b)
+
+
+def test_asp_masks_hold_inside_a_captured_step(cuda):
+    """Two FusedTransformerEncoderLayers (D 64, dropout 0.1) with their
+    FFN weights pruned 2:4 and an ``asp.decorate``d AdamW through the
+    captured TrainStep: one graph, no fallback, the pruned entries still
+    zero after the replays."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    prev = tdevice._current
+    tdevice.set_device("gpu")
+    try:
+        paddle.seed(0)
+        model = paddle.nn.Sequential(
+            FusedTransformerEncoderLayer(128, 2, 256, dropout_rate=0.1),
+            FusedTransformerEncoderLayer(128, 2, 256, dropout_rate=0.1))
+        model.bfloat16()
+        masks = {}
+        for i in range(2):
+            for k, m in asp.prune_model(model[i].ffn).items():
+                masks[f"{i}.ffn.{k}"] = m
+        assert len(masks) == 4
+        params = dict(torch.nn.Module.named_parameters(model))
+        opt = asp.decorate(AdamW(
+            learning_rate=1e-2, parameters=torch.nn.Module.parameters(model)))
+        step = TrainStep(model, lambda out, y: ((out - y) ** 2).mean(), opt)
+        g = torch.Generator(device=cuda).manual_seed(2)
+        x = torch.randn(4, 64, 128, device=cuda, generator=g).bfloat16()
+        y = torch.randn(4, 64, 128, device=cuda, generator=g).bfloat16()
+        for _ in range(2):
+            step(x, y)
+        _replay_strictly_xy(step, x, y, 3)
+        assert step._step.graphs() == {"train": 1}
+        assert step.stats["fallbacks"] == {}
+        for k, m in masks.items():
+            p = params[k]
+            assert bool((p[m == 0] == 0).all()), k
+            assert asp.check_sparsity(p), k
+    finally:
+        tdevice._current = prev
+
+
+def test_nan_flags_queued_before_a_capture_are_kept_through_it(cuda):
+    """``FLAGS_check_nan_inf`` at stride 8 with two flags queued when a
+    TrainStep with a paddle-Tensor loss captures: the flush of the
+    loss's ``backward`` inside the capture fetches nothing and keeps the
+    queue, the capture holds (no fallback), the replays make no host
+    sync, and the first flush after fetches the queue once."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import autograd as tag
+    from paddle_tpu_torch.core import device as tdevice
+    prev = tdevice._current
+    tdevice.set_device("gpu")
+    paddle.set_flags({"FLAGS_check_nan_inf": True,
+                      "FLAGS_check_nan_inf_stride": 8})
+    try:
+        paddle.seed(0)
+        net = paddle.nn.Sequential(paddle.nn.Linear(64, 128),
+                                   paddle.nn.ReLU(), paddle.nn.Linear(128, 8))
+        opt = paddle.optimizer.AdamW(learning_rate=1e-2,
+                                     parameters=net.parameters())
+        step = TrainStep(net, paddle.nn.MSELoss(), opt)
+        g = np.random.default_rng(0)
+        x = paddle.to_tensor(g.standard_normal((16, 64)).astype(np.float32))
+        y = paddle.to_tensor(g.standard_normal((16, 8)).astype(np.float32))
+        step(x, y)                                  # the eager sighting
+        tag.flush_nan_checks()
+        x + 1.0
+        x * 2.0
+        assert len(tag._nan_pending) == 2
+        f0 = tag._nan_fetches
+        step(x, y)                                  # capture and replay
+        _replay_strictly_xy(step, x, y, 2)
+        assert step.stats["captured_steps"] == 3
+        assert step.stats["fallbacks"] == {}
+        assert len(tag._nan_pending) == 2 and tag._nan_fetches == f0
+        tag.flush_nan_checks()
+        assert not tag._nan_pending and tag._nan_fetches == f0 + 1
+    finally:
+        tag._nan_pending.clear()
+        paddle.set_flags({"FLAGS_check_nan_inf": False,
+                          "FLAGS_check_nan_inf_stride": 1})
+        tdevice._current = prev
+
+
+def test_warm_bundle_makes_the_first_step_a_replay(cuda, tmp_path):
+    """A ``Model`` on the card records its train signature, exports the
+    bundle; a fresh model pre-warmed from it is unchanged by the
+    pre-warm, its first ``train_batch`` is a replay (no eager sighting),
+    and its losses equal the cold model's bit for bit; the NaN scan with
+    its flag on fetches nothing in the replays."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import autograd as tag
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.jit import warmup
+    prev = tdevice._current
+    tdevice.set_device("gpu")
+
+    def make():
+        paddle.seed(0)
+        net = paddle.nn.Sequential(paddle.nn.Linear(64, 128),
+                                   paddle.nn.ReLU(), paddle.nn.Linear(128, 8))
+        opt = paddle.optimizer.AdamW(learning_rate=1e-2,
+                                     parameters=net.parameters())
+        return net, opt
+    g = np.random.default_rng(0)
+    x = g.standard_normal((16, 64)).astype(np.float32)
+    y = g.standard_normal((16, 8)).astype(np.float32)
+    try:
+        warmup.clear_recorded()
+        net, opt = make()
+        cold = paddle.Model(net).prepare(opt, paddle.nn.MSELoss())
+        cold_losses = [float(cold.train_batch([x], [y])[0])
+                       for _ in range(3)]
+        path = warmup.export_bundle(str(tmp_path / "b.json"))
+        warmup.clear_recorded()
+        net2, opt2 = make()
+        before = [p.detach().clone()
+                  for p in torch.nn.Module.parameters(net2)]
+        warm = paddle.Model(net2).prepare(opt2, paddle.nn.MSELoss(),
+                                          warm_bundle=path)
+        for a, b in zip(torch.nn.Module.parameters(net2), before):
+            assert torch.equal(a, b)
+        st = dict(warm._captured.stats)
+        assert st["eager_steps"] == 1 and warm._captured.graphs() == \
+            {"train": 1}
+        paddle.set_flags({"FLAGS_check_nan_inf": True})
+        f0 = tag._nan_fetches
+        try:
+            losses = [float(warm.train_batch([x], [y])[0])
+                      for _ in range(3)]
+        finally:
+            paddle.set_flags({"FLAGS_check_nan_inf": False})
+        assert tag._nan_fetches == f0
+        assert warm._captured.stats["eager_steps"] == 1
+        assert warm._captured.stats["captured_steps"] == \
+            st["captured_steps"] + 3
+        assert losses == cold_losses
+    finally:
+        tdevice._current = prev

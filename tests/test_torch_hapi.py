@@ -172,9 +172,3 @@ def test_amp_config_parsing_matches_jax():
         assert (t_sc is None) == (j_sc is None)
         if t_sc is not None:
             assert float(t_sc._scale) == float(j_sc._scale)
-
-
-def test_warm_bundle_is_not_ported_and_says_so():
-    net = tpaddle.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpaddle.Model(net).prepare(warm_bundle="bundle.json")

@@ -89,8 +89,9 @@ def test_importing_the_port_loads_no_jax():
     serving, Llama, BERT, ERNIE-MoE and GPT training stacks, the
     grouped matmul op, the optimizer plane, the fleet, the inference
     front end and the high-level trainer (``Model``, ``io``, ``metric``,
-    ``amp``, ``callbacks``, the whole-step capture) — and chip_smoke —
-    without pulling in JAX or the JAX package."""
+    ``amp``, ``callbacks``, the whole-step capture), ``autograd``,
+    ``geometric`` and ``incubate`` — and chip_smoke — without pulling in
+    JAX or the JAX package."""
     code = (
         "import paddle_tpu_torch as paddle\n"
         "assert callable(paddle.to_tensor) and callable(paddle.matmul)\n"
@@ -118,7 +119,9 @@ def test_importing_the_port_loads_no_jax():
         "paddle_tpu_torch.utils.backoff, paddle_tpu_torch.jit.warmup, "
         "paddle_tpu_torch.serving_fleet, paddle_tpu_torch.inference, "
         "paddle_tpu_torch.jit.sot, paddle_tpu_torch.hapi, "
-        "paddle_tpu_torch.observability.timeline\n"
+        "paddle_tpu_torch.observability.timeline, "
+        "paddle_tpu_torch.autograd, paddle_tpu_torch.geometric, "
+        "paddle_tpu_torch.incubate\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -266,7 +269,9 @@ def test_flags_keep_the_jax_names_and_defaults(monkeypatch):
              "serving_fleet_restart_backoff", "serving_fleet_max_restarts",
              "serving_fleet_retry_after", "executable_cache_dir",
              "warmup_bundle", "executable_cache_gc_days", "sot_capture",
-             "sot_capture_cache", "sot_cache_size", "sot_guard_budget"}
+             "sot_capture_cache", "sot_cache_size", "sot_guard_budget",
+             "check_nan_inf", "check_nan_inf_stride", "benchmark",
+             "retain_grad_for_all_tensor", "metrics"}
     assert set(tflags._registry) == names
     for n in names:
         assert tflags._registry[n].default == jflags._registry[n].default
@@ -280,7 +285,7 @@ def test_flags_keep_the_jax_names_and_defaults(monkeypatch):
     finally:
         tflags.set_flags({"serving_block_size": 16})
     with pytest.raises(ValueError, match="Unknown flag"):
-        tflags.set_flags({"FLAGS_metrics": 0})
+        tflags.set_flags({"FLAGS_eager_fusion": 0})
 
 
 def test_paged_attention_flag_off_raises_on_a_cuda_engine(monkeypatch):

@@ -206,9 +206,11 @@ def test_jax_pdmodel_loads_and_generates(jax_llama, tmp_path, rng, bf16):
 
 def test_jax_files_the_port_cannot_load_raise(jax_llama, tmp_path):
     """A JAX config with a feature the port lacks, and a JAX class with
-    no port counterpart, raise rather than load something else."""
-    with pytest.raises(ValueError, match="recompute"):
-        llama_config_from_jax({**CFG, "recompute": True})
+    no port counterpart, raise rather than load something else;
+    ``recompute`` carries across."""
+    with pytest.raises(ValueError, match="sequence_parallel"):
+        llama_config_from_jax({**CFG, "sequence_parallel": True})
+    assert llama_config_from_jax({**CFG, "recompute": True}).recompute
     assert llama_config_from_jax({**CFG, "cp_mesh": None,
                                   "sequence_parallel": False}) \
         == LlamaConfig(**CFG)

@@ -26,9 +26,9 @@ JAX_ONLY = {"jax", "jnp", "np", "functools", "annotations", "random_mod",
 LEFT = {
     "": {
         "DataParallel": 13, "distributed": 13, "parallel": 15,
-        "autograd": 4, "fusion": 14, "device": 15, "fft": 15,
+        "fusion": 14, "device": 15, "fft": 15,
         "signal": 15, "sparse": 15, "audio": 15, "text": 15,
-        "quantization": 15, "geometric": 15, "distribution": 15,
+        "quantization": 15, "distribution": 15,
         "hub": 15, "onnx": 15,
     },
     "nn": {},
@@ -62,4 +62,4 @@ def test_the_surface_left_is_pinned(path):
 
 def test_the_items_named_are_queued():
     assert {i for left in LEFT.values() for i in left.values()} <= \
-        {4, 13, 14, 15}
+        {13, 14, 15}
