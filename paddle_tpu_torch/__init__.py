@@ -122,9 +122,18 @@ Every entry point runs on ``cuda`` unless the caller passes
 and without that it raises. Importing this package imports no JAX and
 nothing of serving: ``paddle_tpu_torch.save`` / ``load`` bind
 ``framework.io``'s on first use.
+
+What a step keeps inside its graph, and how a user sees it:
+``profiler`` (``paddle.profiler``: the native host tracer, the card's
+CUPTI plane, one merged chrome trace), ``device`` (``paddle.device``:
+streams, events, the allocator's memory counters), ``analysis``
+(lint, the host-sync auditor, the capture planner; ``python -m
+paddle_tpu_torch.analysis``) and ``utils.helpers`` (``run_check``).
 """
 
 import torch  # noqa: E402
+
+__version__ = "0.1.0"
 
 from .core.dtype import (  # noqa: F401
     bool_, bool_ as bool8, uint8, int8, int16, int32, int64, float16,
@@ -179,7 +188,8 @@ from .nn import ParamAttr  # noqa: F401,E402
 # has, imported on first use: a process that serves an exported program
 # imports no model class (jit.load -> TranslatedLayer)
 _LAZY = ("vision", "models", "incubate", "inference", "framework",
-         "regularizer", "utils", "observability", "geometric")
+         "regularizer", "utils", "observability", "geometric",
+         "profiler", "device", "analysis")
 
 
 def __getattr__(name):

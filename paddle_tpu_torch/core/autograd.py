@@ -51,6 +51,7 @@ from typing import Callable, Optional
 
 import torch
 
+from . import memory as _memory
 from .flags import _registry as _flag_registry
 from .flags import _watch as _watch_flags
 
@@ -181,7 +182,8 @@ def flush_nan_checks() -> None:
         return
     pending, _nan_pending = _nan_pending, []
     dev = pending[0][2].device
-    flags = torch.stack([f.to(dev) for _, _, f in pending]).cpu()
+    # the check's one fetch a stride: it reports on the host by contract
+    flags = torch.stack([f.to(dev) for _, _, f in pending]).cpu()  # lint-allow: PTL001
     _nan_fetches += 1
     if bool(flags.any()):
         name, i, _ = pending[int(flags.to(torch.uint8).argmax())]
@@ -229,10 +231,12 @@ def _post_op(name: str, out) -> None:
 
 def _wrap(out, Tensor):
     if isinstance(out, torch.Tensor):
+        if out.is_cpu:
+            _memory.track(out)
         return Tensor(out)
     if isinstance(out, (tuple, list)):
-        return tuple(Tensor(o) if isinstance(o, torch.Tensor) else o
-                     for o in out)
+        return tuple(_wrap(o, Tensor) if isinstance(o, torch.Tensor)
+                     else o for o in out)
     return out
 
 

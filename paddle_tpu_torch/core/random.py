@@ -35,13 +35,36 @@ same ``(seed, counter)`` gives the same key on any device and on the
 host, so a step captured in a graph and the same step run eager from
 the same ``paddle.seed`` draw the same masks.
 
-**Host draws.** The random ops that still take a host seed — the eager
-core's creation and in-place ops, the initializers, Bernoulli and axis
-dropout, ``rrelu`` and ``gumbel_softmax``, the ``io`` samplers — get a
-``torch.Generator`` seeded with the next key of the default generator,
-computed on the host (:func:`generator_for`, :func:`device_generator`).
-:func:`draws` counts those draws only: a graph would freeze their seed,
-so ``jit/sot.py`` keeps a step that made one out of capture (``"rng"``).
+**Device draws.** The random ops draw from a key like the dropouts:
+:func:`bits` hashes each element's row-major index ``i`` under the two
+words ``(w0, w1)`` of one key (two keyed rounds of ``fmix32``, each a
+bijection of ``i`` for ``i < 2³²``)::
+
+    a = fmix32(i * 0x9E3779B1 + w0)     bits = fmix32((a ^ w1) * 0x85EBCA77)
+
+with in-place int32 device ops (products wrap mod 2³²), in chunks of
+2²⁴ elements. :func:`uniform`,
+:func:`normal` (Box–Muller over the indices ``[0, n)`` and ``[n, 2n)``),
+:func:`bernoulli` / :func:`keep_mask`, :func:`randint`,
+:func:`permutation` (an argsort of the distinct bits, as
+``jax.random.permutation`` sorts random keys), :func:`multinomial`,
+:func:`exponential` and :func:`gumbel` build on it. Each call takes one
+key (``next_key(device)``, or the ``key=`` it is given), so a value is
+a function of the ``(seed, counter)`` stream alone: ``get_rng_state`` /
+``set_rng_state`` replay it, the same draw on the card and on the CPU
+gives the same bits, and a CUDA graph that holds the call draws afresh
+on every replay.
+
+**Host draws.** What still takes a host seed — the rejection samplers
+(``standard_gamma``, ``poisson``, ``binomial``) and the ``io`` samplers
+— gets a ``torch.Generator`` seeded with the next key of the default
+generator, computed on the host (:func:`generator_for`,
+:func:`device_generator`); draws whose values shape host-side work
+(fractional pooling's windows, ``class_center_sample``'s negatives)
+take that key as a CPU tensor (:func:`host_key`) into the device draws
+above. :func:`draws` counts those draws only: a
+graph would freeze their seed, so ``jit/sot.py`` keeps a step that made
+one out of capture (``"rng"``).
 
 The JAX and the port's streams differ (a JAX key is not a port key);
 tests that need the same random numbers on both sides pass them
@@ -49,6 +72,7 @@ explicitly.
 """
 from __future__ import annotations
 
+import math
 import os
 import threading
 import weakref
@@ -59,7 +83,9 @@ import torch
 __all__ = ["Generator", "TracedKeyStream", "key_stream", "next_key",
            "seed", "seed_epoch", "default_generator", "derive_seed",
            "get_rng_state", "set_rng_state", "RNGStatesTracker",
-           "device_generator", "generator_for", "draws"]
+           "device_generator", "generator_for", "draws", "host_key", "bits",
+           "uniform", "normal", "bernoulli", "keep_mask", "randint",
+           "permutation", "multinomial", "exponential", "gumbel"]
 
 _M32 = 0xFFFFFFFF
 _M64 = 0xFFFFFFFFFFFFFFFF
@@ -374,6 +400,215 @@ class RNGStatesTracker:
         return self.rng_state(name).next_key(device)
 
 
+# -- device draws -------------------------------------------------------------
+
+_CHUNK = 1 << 24
+_ROUND2 = 0x85EBCA77
+
+
+def _key_for(key, device) -> torch.Tensor:
+    """``key``, else a fresh key of the stream on ``device``."""
+    return next_key(device) if key is None else key
+
+
+def _s32(c: int) -> int:
+    """A 32-bit constant as the int32 with its bits."""
+    return c - (1 << 32) if c >= 1 << 31 else c
+
+
+_MUL = tuple(_s32(c) for c in (_FOLD[0], 0x85EBCA6B, 0xC2B2AE35, _ROUND2))
+
+
+def _fmix32_(h: torch.Tensor) -> torch.Tensor:
+    """``_fmix32`` in place on int32 words (products wrap mod 2³²; a
+    right shift is arithmetic, so the shifted-in bits are masked)."""
+    h.bitwise_xor_((h >> 16) & 0xFFFF)
+    h.mul_(_MUL[1])
+    h.bitwise_xor_((h >> 13) & 0x7FFFF)
+    h.mul_(_MUL[2])
+    return h.bitwise_xor_((h >> 16) & 0xFFFF)
+
+
+def _words(key: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """The words of the indices ``[start, start + n)`` under ``key``, as
+    int32 holding the 32 bits, on ``key``'s device."""
+    if start + n > 1 << 32:
+        raise ValueError(f"core.random: {start + n} draws from one key "
+                         f"(at most 2^32)")
+    k = key - ((key >> 31) << 32)        # each word's bits, signed
+    w0, w1 = k[0].to(torch.int32), k[1].to(torch.int32)
+
+    def chunk(lo, hi):
+        if start + hi <= 1 << 31:
+            h = torch.arange(start + lo, start + hi, dtype=torch.int32,
+                             device=key.device)
+        else:
+            h = torch.arange(start + lo, start + hi, dtype=torch.int64,
+                             device=key.device)
+            h = (h - ((h >> 31) << 32)).to(torch.int32)
+        _fmix32_(h.mul_(_MUL[0]).add_(w0))
+        return _fmix32_(h.bitwise_xor_(w1).mul_(_MUL[3]))
+    if n <= _CHUNK:
+        return chunk(0, n)
+    out = torch.empty(n, dtype=torch.int32, device=key.device)
+    for lo in range(0, n, _CHUNK):
+        out[lo:lo + _CHUNK] = chunk(lo, min(n, lo + _CHUNK))
+    return out
+
+
+def _index_bits(key: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """The words of :func:`_words` as int64 in [0, 2³²)."""
+    return _words(key, start, n).to(torch.int64) & _M32
+
+
+def _top24(key, start, n) -> torch.Tensor:
+    """The words' top 24 bits, int32 in [0, 2²⁴)."""
+    return (_words(key, start, n) >> 8) & 0xFFFFFF
+
+
+def _shape_of(shape) -> Tuple[int, ...]:
+    if isinstance(shape, int):
+        return (int(shape),)
+    return tuple(int(s) for s in shape)
+
+
+def bits(shape, key=None, device=None) -> torch.Tensor:
+    """Uniform 32-bit words (int64 in [0, 2³²)) of ``shape`` from one
+    key (``next_key(device)`` unless ``key`` is given)."""
+    shape = _shape_of(shape)
+    key = _key_for(key, device)
+    return _index_bits(key, 0, math.prod(shape)).view(shape)
+
+
+def _unit(key, start, n, dtype, open_low=False) -> torch.Tensor:
+    """``n`` uniforms in [0, 1) (in (0, 1) with ``open_low``) from the
+    indices ``[start, start + n)``: 24 bits for f32 and narrower, all
+    32 for f64."""
+    if dtype == torch.float64:
+        u = _index_bits(key, start, n).to(torch.float64)
+        return (u + 0.5 if open_low else u) * 2.0 ** -32
+    u = _top24(key, start, n).to(torch.float32)
+    return (u + 0.5 if open_low else u) * 2.0 ** -24
+
+
+def _compute_dtype(dtype) -> torch.dtype:
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def uniform(shape, low=0.0, high=1.0, dtype=torch.float32, device=None,
+            key=None) -> torch.Tensor:
+    """Uniforms in ``[low, high)`` of ``shape`` and ``dtype``."""
+    shape = _shape_of(shape)
+    key = _key_for(key, device)
+    u = _unit(key, 0, math.prod(shape), _compute_dtype(dtype))
+    return (u * (high - low) + low).to(dtype).view(shape)
+
+
+def normal(shape, mean=0.0, std=1.0, dtype=torch.float32, device=None,
+           key=None) -> torch.Tensor:
+    """Normals of ``shape``: Box–Muller, ``sqrt(-2 ln(1 - u1)) ·
+    cos(2π u2)`` with ``u1`` from the indices ``[0, n)`` and ``u2`` from
+    ``[n, 2n)``."""
+    shape = _shape_of(shape)
+    key = _key_for(key, device)
+    n = math.prod(shape)
+    cd = _compute_dtype(dtype)
+    r = torch.sqrt(-2.0 * torch.log1p(-_unit(key, 0, n, cd)))
+    z = r * torch.cos((2.0 * math.pi) * _unit(key, n, n, cd))
+    return (z * std + mean).to(dtype).view(shape)
+
+
+def keep_mask(shape, keep_prob: float, device=None,
+              key=None) -> torch.Tensor:
+    """A bool mask of ``shape``, each element True with probability
+    ``keep_prob`` to 2⁻²⁴ (the words' top 24 bits below
+    ``floor(keep_prob · 2²⁴)``: the ``uniform`` draw below
+    ``keep_prob``)."""
+    shape = _shape_of(shape)
+    key = _key_for(key, device)
+    thresh = min(int(keep_prob * 2 ** 24), 2 ** 24)
+    return (_top24(key, 0, math.prod(shape)) < thresh).view(shape)
+
+
+def bernoulli(p: torch.Tensor, key=None) -> torch.Tensor:
+    """A bool tensor of ``p``'s shape, True with probability ``p``."""
+    key = _key_for(key, p.device)
+    cd = _compute_dtype(p.dtype)
+    return _unit(key, 0, p.numel(), cd).view(p.shape) < p.to(cd)
+
+
+def randint(low: int, high: int, shape, dtype=torch.int64, device=None,
+            key=None) -> torch.Tensor:
+    """Integers in ``[low, high)``: ``low + (bits · r) >> 32`` for a
+    range ``r <= 2³¹``, else two words modulo ``r``."""
+    shape = _shape_of(shape)
+    r = int(high) - int(low)
+    if r <= 0:
+        raise ValueError(f"randint: high {high} must exceed low {low}")
+    key = _key_for(key, device)
+    n = math.prod(shape)
+    if r <= 1 << 31:
+        v = (_index_bits(key, 0, n) * r) >> 32
+    else:
+        v = (((_index_bits(key, 0, n) & 0x3FFFFFFF) << 32)
+             | _index_bits(key, n, n)) % r
+    return (v + int(low)).to(dtype).view(shape)
+
+
+def permutation(n: int, dtype=torch.int64, device=None,
+                key=None) -> torch.Tensor:
+    """A permutation of ``range(n)``: the argsort of ``n`` distinct
+    words (the hash is a bijection of the index)."""
+    key = _key_for(key, device)
+    return torch.argsort(_words(key, 0, int(n))).to(dtype)
+
+
+def exponential(shape, lam=1.0, dtype=torch.float32, device=None,
+                key=None) -> torch.Tensor:
+    """Exponential draws of rate ``lam``: ``-ln(1 - u) / lam``."""
+    shape = _shape_of(shape)
+    key = _key_for(key, device)
+    cd = _compute_dtype(dtype)
+    u = _unit(key, 0, math.prod(shape), cd)
+    return (-torch.log1p(-u) / lam).to(dtype).view(shape)
+
+
+def gumbel(shape, dtype=torch.float32, device=None,
+           key=None) -> torch.Tensor:
+    """Standard Gumbel draws: ``-ln(-ln u)`` with ``u`` in (0, 1)."""
+    shape = _shape_of(shape)
+    key = _key_for(key, device)
+    cd = _compute_dtype(dtype)
+    u = _unit(key, 0, math.prod(shape), cd, open_low=True)
+    return (-torch.log(-torch.log(u))).to(dtype).view(shape)
+
+
+def multinomial(probs: torch.Tensor, num_samples: int = 1,
+                replacement: bool = False, key=None) -> torch.Tensor:
+    """Category ids (int64) drawn from the rows of ``probs`` (``[K]``
+    or ``[N, K]``, unnormalised weights). With replacement: the inverse
+    CDF of one uniform a sample; without: the Gumbel top-k of
+    ``ln p``, as ``jax.random.categorical`` draws."""
+    key = _key_for(key, probs.device)
+    p = probs.to(_compute_dtype(probs.dtype))
+    k = p.shape[-1]
+    rows = p.reshape(-1, k)
+    if replacement:
+        cdf = torch.cumsum(rows, -1)
+        cdf = cdf / cdf[:, -1:]
+        u = _unit(key, 0, rows.shape[0] * num_samples, p.dtype)
+        idx = torch.searchsorted(cdf, u.view(rows.shape[0], num_samples),
+                                 right=True).clamp_(max=k - 1)
+    else:
+        if num_samples > k:
+            raise ValueError(f"multinomial: {num_samples} samples without "
+                             f"replacement from {k} categories")
+        u = _unit(key, 0, rows.numel(), p.dtype, open_low=True)
+        g = -torch.log(-torch.log(u)).view(rows.shape)
+        idx = torch.topk(torch.log(rows) + g, num_samples, -1).indices
+    return idx.view(p.shape[:-1] + (num_samples,))
+
+
 # -- host draws ---------------------------------------------------------------
 
 _draws = 0
@@ -394,9 +629,18 @@ def _host_seed() -> int:
     return lo | hi << 32
 
 
+def host_key() -> torch.Tensor:
+    """The next key of the default generator as a CPU tensor, counted
+    as a host draw: for the draws whose values shape host-side work
+    (fractional pooling's windows, sampled class centres), which a
+    graph would freeze."""
+    s = _host_seed()
+    return torch.tensor([s & _M32, s >> 32], dtype=torch.int64)
+
+
 def device_generator(device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded by a host draw:
-    Bernoulli masks are drawn where they are used."""
+    """A ``torch.Generator`` on ``device`` seeded by a host draw (the
+    rejection samplers' and the ``io`` samplers' generator)."""
     return torch.Generator(device=device).manual_seed(_host_seed())
 
 

@@ -42,6 +42,13 @@ __all__ = ["Tensor", "Parameter", "to_tensor", "unwrap", "wrap",
 _materialize_hook = None
 _mutation_hook = None
 
+# the host-sync auditor's seam (analysis.auditor), as in the JAX module:
+# _sync_hook(tensor, kind) on every read of a value to the host —
+# ``numpy``, ``item``, ``tolist``, ``__array__`` — apart from the
+# recorder's, so a SOT recording and an audit can watch one step. None
+# outside an audit: one module-global test a read.
+_sync_hook = None
+
 
 def unwrap_tree(x):
     if isinstance(x, Tensor):
@@ -85,6 +92,12 @@ def as_torch(value, device=None, dtype=None) -> torch.Tensor:
         t = _numpy_to_torch(a)
         if dtype is None and a.dtype == np.float64:
             dtype = dtype_mod.get_default_dtype()
+        if t.dim() == 0 and device is not None and \
+                torch.device(device).type == "cuda":
+            # a Python scalar goes to the card as a fill, not as a copy
+            # from pageable memory (which a CUDA graph capture refuses)
+            return torch.full((), t.item(), dtype=dtype or t.dtype,
+                              device=device)
     if device is not None or dtype is not None:
         t = t.to(device=device, dtype=dtype)
     return t
@@ -188,6 +201,11 @@ class Tensor:
     def numpy(self):
         """The values as numpy (bf16 comes back as float32: numpy has no
         bfloat16 of its own)."""
+        if _sync_hook is not None:
+            _sync_hook(self, "numpy")
+        return self._numpy()
+
+    def _numpy(self):
         if _materialize_hook is not None:
             _materialize_hook(self, "numpy")
             # the hook's recorder has seen the read: the conversion is
@@ -197,8 +215,10 @@ class Tensor:
         return _to_numpy(self._t)
 
     def item(self, *args):
+        if _sync_hook is not None:
+            _sync_hook(self, "item")
         if args:
-            return self.numpy().item(*args)
+            return self._numpy().item(*args)
         if _materialize_hook is not None:
             _materialize_hook(self, "item")
             with torch._C.DisableTorchFunction():
@@ -206,10 +226,14 @@ class Tensor:
         return self._t.item()
 
     def tolist(self):
-        return self.numpy().tolist()
+        if _sync_hook is not None:
+            _sync_hook(self, "tolist")
+        return self._numpy().tolist()
 
     def __array__(self, dtype=None, copy=None):
-        a = self.numpy()
+        if _sync_hook is not None:
+            _sync_hook(self, "__array__")
+        a = self._numpy()
         return a.astype(dtype) if dtype is not None else a
 
     def __float__(self):
@@ -437,6 +461,9 @@ def to_tensor(data, dtype=None, place=None, stop_gradient: bool = True):
         if d is None and a.dtype == np.float64:
             d = dtype_mod.get_default_dtype()
         t = _numpy_to_torch(a).to(device=dev, dtype=d)
+    if t.is_cpu:
+        from . import memory
+        memory.track(t)
     return Tensor(t, stop_gradient=stop_gradient)
 
 

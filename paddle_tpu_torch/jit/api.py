@@ -17,7 +17,8 @@ key stream over a key drawn from the device generator for each call
 (``core.random.next_key``, the JAX function's ``next_key()`` passed into
 its program): in a graph, that key is copied into the graph's static key
 buffer before each replay. A signature whose first call made a host draw
-(``core.random.draws``) runs eager, counted ``"rng"``; on the CPU every
+(``core.random.draws``: the rejection samplers, fractional pooling,
+``class_center_sample``) runs eager, counted ``"rng"``; on the CPU every
 call runs eager, counted ``"device"``. A graph's outputs are cloned out
 (the next replay overwrites them); parameters and buffers are read where
 they live (an in-place update is seen; a moved tensor captures again).
@@ -258,6 +259,8 @@ class StaticFunction:
             counters_mod.restore(before)
         self.stats["capture_seconds"] += time.perf_counter() - t0
         self.stats["captures"] += 1
+        from .sot import _note_break
+        _note_break("capture", "static", "static_function")
         e.ptrs = self._ptrs()
         return e
 

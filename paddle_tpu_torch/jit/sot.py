@@ -116,10 +116,13 @@ Momentum's multi-tensor update) of the step, replayed by one call.
   the CPU is never captured (decided where the card would capture: the
   first sighting runs eager as on the card, later ones fall back) — and
   ``"rng"`` — a signature whose first sighting made a host draw
-  (``core.random.draws``: the generators of Bernoulli and axis
-  dropout, ``rrelu``, the initializers) is never captured, because its
-  seed is a Python int a graph would freeze. Draws from the key streams
-  (hash dropout, the flash kernels' dropout) are legal inside a graph.
+  (``core.random.draws``: the rejection samplers ``standard_gamma``,
+  ``poisson`` and ``binomial``, fractional pooling's windows,
+  ``class_center_sample``) is never captured, because its seed is a
+  Python int a graph would freeze. Draws from the key streams (every
+  dropout, the random creation and in-place ops, ``rrelu``,
+  ``gumbel_softmax``, the initializers, the flash kernels' dropout) are
+  legal inside a graph.
   A capture that fails raises; it never runs eager quietly.
 
 - **Warm bundles** — the second sighting of a signature (where the
@@ -193,9 +196,24 @@ _M_hits = _M.counter(
     "CapturedStep executions served by an already captured graph")
 
 
+# the capture auditor's seam (analysis.auditor), as the JAX package's
+# fusion flush observer: _break_observer(event, reason, name) on a step
+# or recording that falls back to eager ("fallback", by reason), an SOT
+# guard miss ("guard_miss") and a CUDA graph captured ("capture", by
+# kind: "train" / "eval" steps, "segment", "program", "static"). None
+# outside an audit.
+_break_observer = None
+
+
+def _note_break(event: str, reason: str, name: str = "") -> None:
+    if _break_observer is not None:
+        _break_observer(event, reason, name)
+
+
 def _count_fallback(reason: str, name: str = "") -> None:
     _M_fallbacks.inc(reason=reason)
     _flight.record("sot", "fallback", reason=reason, fn=name)
+    _note_break("fallback", reason, name)
 
 
 class BucketPolicy:
@@ -296,7 +314,8 @@ def _raw_bytes(t: torch.Tensor) -> bytes:
     """A tensor's element bytes in order, as numpy's ``tobytes`` gives
     them (one device-to-host copy; unseen by a recorder's mode)."""
     with torch._C.DisableTorchFunction():
-        return _as_bytes(t).cpu().numpy().tobytes()
+        # a guard's read, or a constant's content hash at recording
+        return _as_bytes(t).cpu().numpy().tobytes()  # lint-allow: PTL001
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
@@ -681,8 +700,10 @@ def _fetch_bytes(vals: List[torch.Tensor]) -> bytes:
     out: List[bytes] = [b""] * len(parts)
     for idx in by_dev.values():
         sel = [parts[i] for i in idx]
-        host = (torch.cat(sel) if len(sel) > 1 else sel[0]).cpu().numpy() \
-            .tobytes()
+        packed = torch.cat(sel) if len(sel) > 1 else sel[0]
+        # the guard's one packed fetch a replay: the host read the
+        # recording saw
+        host = packed.cpu().numpy().tobytes()  # lint-allow: PTL001
         off = 0
         for i in idx:
             n = parts[i].numel()
@@ -798,6 +819,7 @@ class _CompiledPath:
         g.ptrs = _ext_ptrs(seg)
         stats["segment_captures"] += 1
         _M_seg_compiles.inc()
+        _note_break("capture", "segment", self.name)
         _flight.record("sot", "segment_compile", fn=self.name,
                        ops=len(seg.ops))
         return g
@@ -855,6 +877,7 @@ class _CompiledPath:
                 if _fetch_bytes(vals) != self._guard_bytes:
                     stats["guard_misses"] += 1
                     _M_guard_miss.inc()
+                    _note_break("guard_miss", "guard", self.name)
                     _flight.record("sot", "guard_miss", fn=self.name)
                     return False, None
         except Exception as e:  # noqa: BLE001 - degrade, but loudly
@@ -1513,6 +1536,7 @@ class CapturedStep:
         e.ptrs = self._leaf_ptrs(kind, tkeys, scaler, self._gens(e))
         self.stats["compiles"] += 1
         _M_step_compiles.inc()
+        _note_break("capture", kind, self._name)
         _flight.record("sot", "capture_compile", fn=self._name, kind=kind)
         return e
 
@@ -1987,6 +2011,7 @@ class CapturedProgram:
         self.stats["capture_seconds"] += time.perf_counter() - t0
         self.stats["captures"] += 1
         _M_step_compiles.inc()
+        _note_break("capture", "program", self.name)
         return e
 
     def _replay(self, e: _ProgramGraph, leaves, inplace):

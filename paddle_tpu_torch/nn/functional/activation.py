@@ -9,9 +9,10 @@ tensors and returns the same kind. ``gelu`` is the erf form by default
 ``approximate=True``.
 
 ``gumbel_softmax`` and ``rrelu`` (in training) draw their noise on the
-tensor's device from a generator seeded by the port's generator
-(``core.random.generator_for``), not from a JAX key: their values
-differ from the JAX package's, their laws do not. The in-place forms
+tensor's device from a key of the port's key stream
+(``core.random.gumbel`` / ``uniform``), not from a JAX key: their
+values differ from the JAX package's, their laws do not, and a CUDA
+graph that holds them draws afresh on every replay. The in-place forms
 (``relu_`` ...) write the result into the Tensor they are given, as
 ``ops.inplace`` does.
 """
@@ -175,11 +176,7 @@ def log_softmax(x, axis=-1, dtype=None, name=None):
 
 def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
     def f(a):
-        g = _random.generator_for(a.device)
-        u = torch.rand(a.shape, generator=g, device=a.device,
-                       dtype=torch.float32)
-        noise = -torch.log((-torch.log(u.clamp(min=1e-20))).clamp(
-            min=1e-20))
+        noise = _random.gumbel(a.shape, device=a.device)
         y = torch.softmax((a + noise.to(a.dtype)) / temperature, axis)
         if hard:
             idx = y.argmax(axis, keepdim=True)
@@ -208,10 +205,8 @@ def rrelu(x, lower=1.0 / 8.0, upper=1.0 / 3.0, training=True, name=None):
         return leaky_relu(x, (lower + upper) / 2.0)
 
     def f(a):
-        g = _random.generator_for(a.device)
-        slope = torch.rand(a.shape, generator=g, device=a.device,
-                           dtype=torch.float32)
-        slope = (lower + (upper - lower) * slope).to(a.dtype)
+        slope = _random.uniform(a.shape, lower, upper,
+                                device=a.device).to(a.dtype)
         return torch.where(a >= 0, a, slope * a)
     return apply_op(f, x, op_name="rrelu")
 

@@ -17,10 +17,11 @@ device, ``core.random.derive_seed`` of a fresh key of the port's key
 stream (as the JAX function derives it from a JAX key): the mask is
 computed from device data, so a CUDA graph that holds the call draws a
 fresh mask on every replay. The ``axis`` and ``downscale_in_infer``
-modes draw a Bernoulli mask on the tensor's device from a generator
-seeded by a host draw (``core.random.device_generator``), and so do
-``dropout2d`` / ``dropout3d`` (axis dropout over batch and channel),
-``alpha_dropout`` and ``feature_alpha_dropout`` (one mask a channel).
+modes draw a Bernoulli mask on the tensor's device from a fresh key of
+the same stream (``core.random.keep_mask``), and so do ``dropout2d`` /
+``dropout3d`` (axis dropout over batch and channel), ``alpha_dropout``
+and ``feature_alpha_dropout`` (one mask a channel): no host draw, so a
+graph that holds any of them draws afresh on every replay.
 
 ``interpolate`` is ``jax.image.resize``, which the JAX function calls:
 nearest takes the source pixel ``floor((i + ½)·in/out)``; linear
@@ -162,8 +163,7 @@ def _dropout(x: torch.Tensor, p: float, axis, training: bool,
         axes = axis if isinstance(axis, (list, tuple)) else [axis]
         axes = [a % x.dim() for a in axes]
         shape = [s if i in axes else 1 for i, s in enumerate(shape)]
-    g = _random.device_generator(x.device)
-    keep = torch.rand(shape, generator=g, device=x.device) < 1.0 - p
+    keep = _random.keep_mask(shape, 1.0 - p, x.device)
     if mode == "upscale_in_train":
         return torch.where(keep, x / _scale_value(p, x.dtype),
                            0.0).to(x.dtype)
@@ -186,8 +186,7 @@ _SELU_SCALE = 1.0507009873554805
 
 
 def _alpha_dropout(a, p):
-    g = _random.device_generator(a.device)
-    keep = torch.rand(a.shape, generator=g, device=a.device) < 1.0 - p
+    keep = _random.keep_mask(a.shape, 1.0 - p, a.device)
     alpha_p = -_SELU_ALPHA * _SELU_SCALE
     q = 1.0 - p
     a_coef = (q + alpha_p ** 2 * q * p) ** -0.5
@@ -204,9 +203,8 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
 
 
 def _feature_alpha_dropout(a, p):
-    g = _random.device_generator(a.device)
     shape = tuple(a.shape[:2]) + (1,) * (a.dim() - 2)
-    keep = torch.rand(shape, generator=g, device=a.device) < 1.0 - p
+    keep = _random.keep_mask(shape, 1.0 - p, a.device)
     alpha_p = -_SELU_ALPHA * _SELU_SCALE
     q = 1.0 - p
     a_coef = (q + alpha_p ** 2 * q * (1 - q)) ** -0.5

@@ -101,15 +101,16 @@ def class_center_sample(label, num_classes, num_samples, group=None):
     lab = lab_t.detach().cpu().numpy()
     local_pos = np.unique(lab)
     local_pos = local_pos[(local_pos >= 0) & (local_pos < num_classes)]
-    gen = _random.generator_for("cpu")
-    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
-    rng = np.random.default_rng(seed)
     if len(local_pos) >= num_samples:
         sampled = np.sort(local_pos)
     else:
+        # the negatives: a prefix of a permutation of the pool drawn
+        # from a host key of the port's key stream (a counted host draw:
+        # the sampled set is host data)
         neg_pool = np.setdiff1d(np.arange(num_classes), local_pos)
-        extra = rng.choice(neg_pool, size=num_samples - len(local_pos),
-                           replace=False)
+        order = _random.permutation(len(neg_pool),
+                                    key=_random.host_key()).numpy()
+        extra = neg_pool[order[:num_samples - len(local_pos)]]
         sampled = np.sort(np.concatenate([local_pos, extra]))
     lut = {int(c): i for i, c in enumerate(sampled)}
     remapped = np.asarray([lut.get(int(v), -1) for v in lab.reshape(-1)],

@@ -23,9 +23,9 @@ NHWC makes no NCHW copy. Semantics kept from the JAX functions:
   each axis;
 - ``return_mask`` gives each maximum's flat spatial index (channel-first
   layouts only, as in the JAX package), ``max_unpool`` scatters by it;
-- fractional max pooling with ``random_u=None`` draws ``u`` on the host
-  from the port's generator (``core.random.generator_for``), as every
-  host-seeded random op does.
+- fractional max pooling with ``random_u=None`` draws ``u`` from a host
+  key of the port's key stream (``core.random.host_key``, a counted
+  host draw: the windows are host-static).
 
 Where torch's own padding cannot express a configuration (an
 asymmetric pad, a pad over half the window, ``ceil_mode``), the input
@@ -405,9 +405,10 @@ def _fractional_starts(n_in, n_out, u):
 
 
 def _fractional_draw() -> float:
-    """The host draw of ``u`` in (0, 1) from the port's generator."""
-    g = _random.generator_for("cpu")
-    u = float(torch.rand((), generator=g, dtype=torch.float64))
+    """``u`` in (0, 1) from a host key of the port's key stream: the
+    windows are host-static, so the draw is a counted host draw."""
+    u = float(_random.uniform((), dtype=torch.float64,
+                              key=_random.host_key()))
     return float(np.clip(u, 1e-6, 1.0 - 1e-6))
 
 

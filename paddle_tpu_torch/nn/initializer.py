@@ -1,8 +1,9 @@
 """Weight initializers of the port (``paddle_tpu.nn.initializer``).
 
 The same distributions as the JAX package's, drawn in f32 from the
-port's generator (``core.random.generator_for``) on the target device
-and cast to the parameter dtype. An initializer is called as
+port's key stream on the target device (``core.random``: one key a
+parameter, device ops, no host draw) and cast to the parameter
+dtype. An initializer is called as
 ``init(shape, dtype, device=None)``; ``device`` defaults to the current
 device.
 """
@@ -22,9 +23,8 @@ __all__ = ["Initializer", "Constant", "Normal", "TruncatedNormal",
            "KaimingUniform", "Assign", "Orthogonal", "calculate_gain"]
 
 
-def _f32(shape, device):
-    dev = current_device() if device is None else torch.device(device)
-    return torch.empty(tuple(shape), dtype=torch.float32, device=dev)
+def _dev(device):
+    return current_device() if device is None else torch.device(device)
 
 
 class Initializer:
@@ -47,9 +47,8 @@ class Normal(Initializer):
         self.mean, self.std = mean, std
 
     def __call__(self, shape, dtype, device=None):
-        z = _f32(shape, device)
-        g = random_mod.generator_for(z.device)
-        return z.normal_(self.mean, self.std, generator=g).to(
+        return random_mod.normal(tuple(shape), self.mean, self.std,
+                                 device=_dev(device)).to(
             convert_dtype(dtype))
 
 
@@ -61,11 +60,9 @@ class TruncatedNormal(Initializer):
         self.mean, self.std, self.a, self.b = mean, std, a, b
 
     def __call__(self, shape, dtype, device=None):
-        z = _f32(shape, device)
-        g = random_mod.generator_for(z.device)
         lo, hi = (0.5 * (1 + math.erf(v / math.sqrt(2)))
                   for v in (self.a, self.b))
-        u = z.uniform_(lo, hi, generator=g)
+        u = random_mod.uniform(tuple(shape), lo, hi, device=_dev(device))
         t = torch.special.ndtri(u).clamp_(self.a, self.b)
         return (t * self.std + self.mean).to(convert_dtype(dtype))
 
@@ -75,9 +72,8 @@ class Uniform(Initializer):
         self.low, self.high = low, high
 
     def __call__(self, shape, dtype, device=None):
-        z = _f32(shape, device)
-        g = random_mod.generator_for(z.device)
-        return z.uniform_(self.low, self.high, generator=g).to(
+        return random_mod.uniform(tuple(shape), self.low, self.high,
+                                  device=_dev(device)).to(
             convert_dtype(dtype))
 
 

@@ -23,9 +23,12 @@ header line, then one event per line) in ``FLAGS_flight_dump_dir``.
 Triggers: an explicit ``dump()``, the supervisor's loop deaths, and
 the unhandled-exception hooks and optional signal handlers of
 :func:`install_crash_hooks`. Every dump counts into
-``observability.dumps_total{trigger=...}``. The JAX module also merges
-the host tracer's chrome trace beside a dump; the port has no tracer
-yet, so a dump is the JSONL file alone.
+``observability.dumps_total{trigger=...}``. Beside a dump, best
+effort, goes the merged chrome trace ``<dump>.trace.json``
+(``profiler.export_chrome_tracing``: the host spans when the native
+tracer is loaded — a dump never builds it —, the last device profile,
+the timeline's counters and these events as instants), named in the
+header's ``chrome_trace``.
 
 Reading a dump: ``python -m paddle_tpu_torch.observability --flight
 [path]``.
@@ -222,6 +225,12 @@ def dump(path: Optional[str] = None, trigger: str = "explicit",
         "capacity": _ring.maxlen, "thread_names":
             {str(k): v for k, v in names.items()},
     }
+    try:
+        from ..profiler import export_chrome_tracing
+        header["chrome_trace"] = os.path.basename(
+            export_chrome_tracing(path + ".trace.json", build=False))
+    except Exception:  # noqa: BLE001 — best effort: the dump comes first
+        pass
     with open(path, "w") as f:
         f.write(json.dumps(header, default=str) + "\n")
         for ev in items:

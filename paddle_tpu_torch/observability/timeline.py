@@ -9,9 +9,9 @@ memory (:meth:`StepTimer.chrome_events`, :func:`chrome_events`). Phase
 durations also feed the process registry (``step.phase_seconds
 {phase=...}``, ``step.step_seconds``, ``step.steps_total``).
 
-The port has no profiler yet, so nothing merges these events into a
-trace file (the JAX package's ``export_chrome_tracing`` does). The
-clock is ``time.perf_counter`` (host time: a phase around a launch
+``profiler.export_chrome_tracing`` merges them into its trace file
+beside the host spans. The clock is ``time.perf_counter`` (monotonic
+µs, the native tracer's clock; host time: a phase around a launch
 measures its issue, not the device's work).
 """
 from __future__ import annotations

@@ -2,9 +2,11 @@
 
 New tensors are made on the current device (``core.device``); the
 ``*_like`` ops on their argument's. Random ops draw from the port's
-generator (``core.random.generator_for``): the values differ from the
-JAX package's threefry streams, the shapes, dtypes, ranges and the
-determinism under ``seed`` do not.
+key stream on the device (``core.random``: one key a call, no host
+draw, so a CUDA graph that holds them draws afresh on every replay);
+``uniform`` with a nonzero ``seed`` keeps a ``torch.Generator`` of its
+own. The values differ from the JAX package's threefry streams, the
+shapes, dtypes, ranges and the determinism under ``seed`` do not.
 """
 from __future__ import annotations
 
@@ -148,26 +150,23 @@ def clone(x, name=None):
 
 # -- random creation ---------------------------------------------------------
 
-def _gen(dev, seed=0):
-    if seed:
-        return torch.Generator(device=dev).manual_seed(int(seed))
-    return random_mod.generator_for(dev)
-
-
 def rand(shape, dtype=None, name=None):
     return uniform(shape, dtype, min=0.0, max=1.0)
 
 
 def uniform(shape, dtype=None, min=-1.0, max=1.0, seed=0, name=None):
     dev = current_device()
-    t = torch.empty(_shape(shape), dtype=_dt(dtype), device=dev)
-    return Tensor(t.uniform_(min, max, generator=_gen(dev, seed)))
+    if seed:
+        t = torch.empty(_shape(shape), dtype=_dt(dtype), device=dev)
+        g = torch.Generator(device=dev).manual_seed(int(seed))
+        return Tensor(t.uniform_(min, max, generator=g))
+    return Tensor(random_mod.uniform(_shape(shape), min, max, _dt(dtype),
+                                     dev))
 
 
 def randn(shape, dtype=None, name=None):
-    dev = current_device()
-    return Tensor(torch.randn(_shape(shape), dtype=_dt(dtype), device=dev,
-                              generator=_gen(dev)))
+    return Tensor(random_mod.normal(_shape(shape), dtype=_dt(dtype),
+                                    device=current_device()))
 
 
 def normal(mean=0.0, std=1.0, shape=None, name=None):
@@ -175,36 +174,32 @@ def normal(mean=0.0, std=1.0, shape=None, name=None):
         m, s = as_torch(mean), as_torch(std)
         dev = (m if isinstance(mean, Tensor) else s).device
         shp = torch.broadcast_shapes(m.shape, s.shape)
-        z = torch.randn(shp, device=dev, generator=_gen(dev))
+        z = random_mod.normal(shp, device=dev)
         return Tensor(z * s + m)
-    dev = current_device()
-    z = torch.randn(_shape(shape), dtype=get_default_dtype(), device=dev,
-                    generator=_gen(dev))
+    z = random_mod.normal(_shape(shape), dtype=get_default_dtype(),
+                          device=current_device())
     return Tensor(z * std + mean)
 
 
 def randint(low=0, high=None, shape=(1,), dtype=None, name=None):
     if high is None:
         low, high = 0, low
-    dev = current_device()
-    return Tensor(torch.randint(low, high, _shape(shape),
-                                dtype=convert_dtype(dtype) or torch.int64,
-                                device=dev, generator=_gen(dev)))
+    return Tensor(random_mod.randint(low, high, _shape(shape),
+                                     convert_dtype(dtype) or torch.int64,
+                                     current_device()))
 
 
 def randperm(n, dtype=None, name=None):
-    dev = current_device()
-    return Tensor(torch.randperm(n, dtype=convert_dtype(dtype) or torch.int64,
-                                 device=dev, generator=_gen(dev)))
+    return Tensor(random_mod.permutation(
+        n, convert_dtype(dtype) or torch.int64, current_device()))
 
 
 def multinomial(x, num_samples=1, replacement=False, name=None):
     t = as_torch(x)
-    return Tensor(torch.multinomial(t.float(), num_samples, replacement,
-                                    generator=_gen(t.device)))
+    return Tensor(random_mod.multinomial(t.float(), num_samples,
+                                         replacement))
 
 
 def bernoulli(x, name=None):
     t = as_torch(x)
-    u = torch.rand(t.shape, device=t.device, generator=_gen(t.device))
-    return Tensor((u < t).to(t.dtype))
+    return Tensor(random_mod.bernoulli(t).to(t.dtype))

@@ -8,11 +8,12 @@ JAX package's op name with the JAX arithmetic (its clamps and epsilons:
 ``take``'s clipped indices, ``nanmedian`` as the mean of the two middle
 values). The ops the JAX package runs on the host with numpy
 (``histogram``, ``histogram_bin_edges``, ``histogramdd``, the index
-tables) read the tensor to the host here too; the random ops
-(``standard_normal``, ``standard_gamma``, ``poisson``, ``log_normal``,
-``randint_like``) draw from a ``torch.Generator`` seeded by a host draw
-of the port's generator (``core.random.generator_for``, counted), on the
-current device.
+tables) read the tensor to the host here too; ``standard_normal``,
+``log_normal`` and ``randint_like`` draw from the port's key stream on
+the device (``core.random``); the rejection samplers ``standard_gamma``
+and ``poisson`` draw from a ``torch.Generator`` seeded by a host draw
+of the port's generator (``core.random.generator_for``, counted: a step
+that makes one is not captured).
 """
 from __future__ import annotations
 
@@ -331,10 +332,9 @@ def polar(abs, angle, name=None):
 # --------------------------- random ------------------------------------------
 
 def standard_normal(shape, dtype="float32", name=None):
-    dev = current_device()
-    return Tensor(torch.randn(tuple(shape), dtype=convert_dtype(dtype),
-                              device=dev,
-                              generator=random_mod.generator_for(dev)))
+    return Tensor(random_mod.normal(tuple(shape),
+                                    dtype=convert_dtype(dtype),
+                                    device=current_device()))
 
 
 def standard_gamma(x, name=None):
@@ -352,9 +352,8 @@ def poisson(x, name=None):
 
 
 def log_normal(mean=1.0, std=2.0, shape=None, dtype="float32", name=None):
-    dev = current_device()
-    z = torch.randn(tuple(shape or ()), dtype=convert_dtype(dtype),
-                    device=dev, generator=random_mod.generator_for(dev))
+    z = random_mod.normal(tuple(shape or ()), dtype=convert_dtype(dtype),
+                          device=current_device())
     return Tensor(torch.exp(mean + std * z))
 
 
@@ -362,8 +361,7 @@ def randint_like(x, low=0, high=None, dtype=None, name=None):
     if high is None:
         low, high = 0, low
     a = _d(x)
-    out = torch.randint(low, high, a.shape, device=a.device,
-                        generator=random_mod.generator_for(a.device))
+    out = random_mod.randint(low, high, a.shape, device=a.device)
     return Tensor(out.to(convert_dtype(dtype) if dtype else a.dtype))
 
 

@@ -6,7 +6,10 @@ written in place under ``no_grad`` when the result keeps its shape and
 dtype and records no gradient; otherwise the Tensor is rebound to the
 result (a non-leaf keeps its gradient history through it). The
 top-level ``paddle.op_(x, ...)`` forms call the method. The random
-fills (``normal_``, ``uniform_``, ...) draw from the port's generator.
+fills (``normal_``, ``uniform_``, ...) draw from the port's key stream
+on the tensor's device (``core.random``): no host draw, so a CUDA graph
+that holds one draws afresh on every replay; ``uniform_`` with a
+nonzero ``seed`` keeps a stream of its own, as ``paddle.uniform``.
 """
 from __future__ import annotations
 
@@ -90,34 +93,51 @@ def _make_inplace(fname):
 def _random_fill(name, draw):
     def fill(self, *args, **kwargs):
         t = self._t
-        g = random_mod.generator_for(t.device)
         with torch.no_grad():
-            val = draw(torch.empty(t.shape, dtype=torch.float32,
-                                   device=t.device), g, *args, **kwargs)
+            val = draw(tuple(t.shape), t.device, *args, **kwargs)
         return _put(self, val.to(t.dtype))
     fill.__name__ = name
     return fill
 
 
-def _geometric(z, g, probs):
-    # the continuous form: log(u) / log1p(-probs)
-    return torch.log(z.uniform_(1e-7, 1.0, generator=g)) / math.log1p(-probs)
+def _geometric(shape, dev, probs):
+    # the continuous form: log(u) / log1p(-probs), u in (0, 1)
+    u = random_mod.uniform(shape, 2.0 ** -25, 1.0, device=dev)
+    return torch.log(u) / math.log1p(-probs)
 
 
-# draw(z, generator, *args): z is an f32 scratch tensor of the shape
+def _bernoulli(shape, dev, p=0.5):
+    if isinstance(p, torch.Tensor) or hasattr(p, "_t"):
+        p = tensor_mod.as_torch(p).to(dev).expand(shape)
+        return random_mod.bernoulli(p).float()
+    return random_mod.keep_mask(shape, float(p), dev).float()
+
+
+def _cauchy(shape, dev, loc=0, scale=1):
+    u = random_mod.uniform(shape, device=dev)
+    return loc + scale * torch.tan(math.pi * (u - 0.5))
+
+
+def _uniform(shape, dev, min=-1.0, max=1.0, seed=0):
+    if seed:
+        g = torch.Generator(device=dev).manual_seed(int(seed))
+        return torch.empty(shape, device=dev).uniform_(min, max,
+                                                       generator=g)
+    return random_mod.uniform(shape, min, max, device=dev)
+
+
+# draw(shape, device, *args): an f32 tensor of the shape on the device
 _RANDOM_FILLS = {
-    "normal_": lambda z, g, mean=0.0, std=1.0: z.normal_(mean, std,
-                                                         generator=g),
-    "bernoulli_": lambda z, g, p=0.5: z.bernoulli_(p, generator=g),
-    "cauchy_": lambda z, g, loc=0, scale=1: z.cauchy_(loc, scale,
-                                                      generator=g),
+    "normal_": lambda shape, dev, mean=0.0, std=1.0: random_mod.normal(
+        shape, mean, std, device=dev),
+    "bernoulli_": _bernoulli,
+    "cauchy_": _cauchy,
     "geometric_": _geometric,
-    "log_normal_": lambda z, g, mean=1.0, std=2.0: torch.exp(
-        z.normal_(mean, std, generator=g)),
-    "uniform_": lambda z, g, min=-1.0, max=1.0, seed=0: z.uniform_(
-        min, max, generator=g),
-    "exponential_": lambda z, g, lam=1.0: z.exponential_(
-        1.0, generator=g) / lam,
+    "log_normal_": lambda shape, dev, mean=1.0, std=2.0: torch.exp(
+        random_mod.normal(shape, mean, std, device=dev)),
+    "uniform_": _uniform,
+    "exponential_": lambda shape, dev, lam=1.0: random_mod.exponential(
+        shape, lam, device=dev),
 }
 
 

@@ -355,14 +355,13 @@ def _lowrank_q(a, q_size: int, niter: int, omega):
 
 def svd_lowrank(x, q=6, niter=2, M=None, name=None):
     """Randomized truncated SVD of ``x`` (less ``M``): ``(U, S, V)``,
-    with V (not Vᵀ). The Gaussian test matrix comes from a generator
-    seeded by a host draw of the port's generator."""
+    with V (not Vᵀ). The Gaussian test matrix comes from a key of the
+    port's key stream on ``x``'s device."""
     from ..core import random as random_mod
     a0 = as_torch(x)
     k = min(q, *a0.shape[-2:])
-    omega = torch.randn(a0.shape[:-2] + (a0.shape[-1], k),
-                        dtype=torch.float32, device=a0.device,
-                        generator=random_mod.generator_for(a0.device))
+    omega = random_mod.normal(a0.shape[:-2] + (a0.shape[-1], k),
+                              device=a0.device)
 
     def f(a, *rest):
         a = a.float()

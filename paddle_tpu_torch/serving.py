@@ -691,7 +691,7 @@ class LlamaDecodeEngine:
         nxt, self.last_logits, _, _ = self._decode(
             self.params, self.k_cache, self.v_cache, self.last_ids,
             self.pos)
-        nxt = nxt.cpu().numpy()                       # the one read
+        nxt = nxt.cpu().numpy()  # lint-allow: PTL001 the step's one read
         self._count_pa_path()
         for s in range(self.max_slots):
             if self.active[s]:
@@ -731,7 +731,7 @@ class LlamaDecodeEngine:
             ids = nxt[:, None]
             pos = pos + 1
         self._count_pa_path(n)
-        toks = buf.cpu().numpy()                      # the one fetch
+        toks = buf.cpu().numpy()  # lint-allow: PTL001 the window's one fetch
         self.pos += n
         self.last_ids = toks[:, -1:].copy()
         return toks
@@ -1387,7 +1387,7 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
         nxt, self.last_logits, _ = self._decode(
             self.params, self._kv_store, self.last_ids, self.pos,
             self._kv.block_tables, self.active)
-        nxt = nxt.cpu().numpy()                       # the one read
+        nxt = nxt.cpu().numpy()  # lint-allow: PTL001 the step's one read
         self._count_pa_path()
         for s in range(self.max_slots):
             if self.active[s]:
@@ -1455,8 +1455,9 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
             draft._kv.block_tables, self.active)
         t, n_acc = self._spec_verify(draft_tok)
         self._count_pa_path()
-        host = torch.cat([t, n_acc[:, None]], dim=1).cpu().numpy()
-        toks = host[:, :k + 1].astype(np.int32)       # the one read
+        # the speculative step's one read, for up to k + 1 tokens
+        host = torch.cat([t, n_acc[:, None]], dim=1).cpu().numpy()  # lint-allow: PTL001
+        toks = host[:, :k + 1].astype(np.int32)
         acc = host[:, k + 1]
         counts = np.minimum(acc + 1, k).astype(np.int32)
         proposed = accepted = rolled = 0
@@ -1513,7 +1514,7 @@ class PagedLlamaDecodeEngine(LlamaDecodeEngine):
             ids = nxt[:, None]
             pos = pos + 1
         self._count_pa_path(n)
-        toks = buf.cpu().numpy()                      # the one fetch
+        toks = buf.cpu().numpy()  # lint-allow: PTL001 the window's one fetch
         self.pos += n
         self.last_ids = toks[:, -1:].copy()
         return toks

@@ -785,10 +785,12 @@ def write_kv_tokens(pool: torch.Tensor, phys, off,
     invalid rows to ``num_blocks``) are dropped, so padded prefill rows
     and inactive decode slots never touch a real block. ``phys``/``off``
     are host indices (numpy or CPU tensors). Returns ``pool``."""
+    # host indices given as tensors: a CPU tensor's copy, or the caller's
+    # one read of indices it kept on the card
     if isinstance(phys, torch.Tensor):
-        phys = phys.cpu().numpy()
+        phys = phys.cpu().numpy()  # lint-allow: PTL001
     if isinstance(off, torch.Tensor):
-        off = off.cpu().numpy()
+        off = off.cpu().numpy()  # lint-allow: PTL001
     plan = plan_kv_writes(phys, off, pool.shape[0], pool.device)
     return scatter_kv(pool, plan, vals)
 

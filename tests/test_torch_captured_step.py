@@ -9,8 +9,9 @@ overridden GradScaler step) is built in both packages: both gates give
 the same reason string. A clean setup passes both gates; on the CPU the
 port then runs the first sighting eager and counts ``"device"`` where
 the card would capture; a model whose first sighting made a host draw
-from the port's generator (axis dropout) is counted under ``"rng"``,
-one that drew only device keys (hash dropout) is not. The signature
+from the port's generator (a rejection sampler, ``paddle.poisson``) is
+counted under ``"rng"``, one that drew only device keys (hash and axis
+dropout) is not. The signature
 keys on the batch, the modes, the trainable set, the optimizer's
 statics, the clip, the scaler and the AMP regime, as the JAX one does.
 """
@@ -147,18 +148,27 @@ def test_cpu_runs_first_sighting_eager_then_counts_device():
 
 
 def test_a_first_sighting_that_drew_is_counted_rng():
-    """Axis dropout seeds a Bernoulli generator on the host: its
-    signature is counted ``"rng"``. Hash dropout draws its key from the
-    device stream, which a graph may hold: its steps go on to
-    ``"device"`` here, where the card would capture them."""
-    hashed = _net(tpaddle, dropout=0.5)
-    opt = _opt(tpaddle, hashed)
-    eng = _engine(tpaddle, hashed, opt)
-    for _ in range(3):
-        _train_batch(eng, hashed, opt, _batch(tpaddle))
-    assert eng.stats["eager_steps"] == 1
-    assert eng.stats["fallbacks"] == {"device": 2}
-    net = _net(tpaddle, dropout=0.5, axis=1)
+    """A rejection sampler (``paddle.poisson``) seeds a generator on the
+    host: its signature is counted ``"rng"``. Hash and axis dropout draw
+    their keys from the device stream, which a graph may hold: their
+    steps go on to ``"device"`` here, where the card would capture
+    them."""
+    for kw in ({}, {"axis": 1}):
+        keyed = _net(tpaddle, dropout=0.5, **kw)
+        opt = _opt(tpaddle, keyed)
+        eng = _engine(tpaddle, keyed, opt)
+        for _ in range(3):
+            _train_batch(eng, keyed, opt, _batch(tpaddle))
+        assert eng.stats["eager_steps"] == 1, kw
+        assert eng.stats["fallbacks"] == {"device": 2}, kw
+    net = _net(tpaddle)
+    inner = net.forward
+
+    def forward(x):   # Poisson noise (times zero) in training
+        if net.training:
+            x = x + 0.0 * tpaddle.poisson(tpaddle.ones_like(x))
+        return inner(x)
+    net.forward = forward
     opt = _opt(tpaddle, net)
     eng = _engine(tpaddle, net, opt)
     batch = _batch(tpaddle)

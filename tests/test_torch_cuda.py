@@ -2377,3 +2377,126 @@ def test_warm_bundle_makes_the_first_step_a_replay(cuda, tmp_path):
         assert losses == cold_losses
     finally:
         tdevice._current = prev
+
+
+def test_device_draws_on_the_card_equal_the_cpus(cuda):
+    """One key's bits are the same words on the card and on the CPU;
+    its uniforms equal, its normals within 1e-6 of the CPU's (relative
+    to max(1, |z|))."""
+    from paddle_tpu_torch.core import random as trandom
+    key = torch.tensor([0x243F6A88, 0x85A308D3], dtype=torch.int64)
+    shape = (257, 1031)
+    assert torch.equal(trandom.bits(shape, key=key.to(cuda)).cpu(),
+                       trandom.bits(shape, key=key))
+    assert torch.equal(trandom.uniform(shape, key=key.to(cuda)).cpu(),
+                       trandom.uniform(shape, key=key))
+    zc = trandom.normal(shape, key=key.to(cuda)).cpu()
+    zh = trandom.normal(shape, key=key)
+    assert float(((zc - zh).abs() / zh.abs().clamp(min=1)).max()) <= 1e-6
+    assert torch.equal(trandom.permutation(4099, key=key.to(cuda)).cpu(),
+                       trandom.permutation(4099, key=key))
+
+
+def test_bernoulli_and_random_ops_are_captured_in_a_train_step(cuda):
+    """Axis, downscale and alpha dropout, ``rrelu``, ``gumbel_softmax``
+    and a random creation op inside a captured TrainStep: one graph, no
+    fallback (no "rng"), fresh draws every replay, no host draw."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.core import random as trandom
+    F = paddle.nn.functional
+    prev = tdevice._current
+    tdevice.set_device("gpu")
+    try:
+        paddle.seed(0)
+
+        class Net(paddle.nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.fc1 = paddle.nn.Linear(16, 32)
+                self.fc2 = paddle.nn.Linear(32, 16)
+
+            def forward(self, x):
+                h = self.fc1(x)
+                h = F.dropout(h, 0.2, axis=1)
+                h = F.dropout(h, 0.2, mode="downscale_in_infer")
+                h = F.alpha_dropout(F.rrelu(h), 0.1)
+                h = h + 1e-3 * paddle.rand(h.shape)
+                h = h * F.gumbel_softmax(h, 0.5)
+                return self.fc2(h)
+        net = Net()
+        opt = AdamW(learning_rate=1e-3, parameters=net.parameters())
+        step = TrainStep(net, lambda out, y: ((out - y) ** 2).mean(), opt)
+        g = torch.Generator(device=cuda).manual_seed(3)
+        x = paddle.Tensor(torch.randn(8, 16, device=cuda, generator=g))
+        y = paddle.Tensor(torch.randn(8, 16, device=cuda, generator=g))
+        for _ in range(2):
+            step(x, y)
+        d0 = trandom.draws()
+        losses = [float(step(x, y)) for _ in range(3)]
+        assert trandom.draws() == d0
+        assert step._step.graphs() == {"train": 1}
+        assert step.stats["fallbacks"] == {}
+        assert len(set(losses)) == 3          # fresh masks each replay
+    finally:
+        tdevice._current = prev
+
+
+def test_the_profiler_reads_the_card_and_the_memory_counters_agree(
+        cuda, tmp_path):
+    """``Profiler(targets=[GPUTrace])`` around a matmul: its device
+    plane names the GEMM and the merged trace holds it beside the host
+    step spans; ``paddle.device.cuda``'s counters are torch's."""
+    import json
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import profiler
+    a = torch.randn(512, 512, device=cuda)
+    prof = profiler.Profiler(targets=[profiler.ProfilerTarget.GPUTrace])
+    prof.start()
+    for _ in range(2):
+        (a @ a).sum()
+        prof.step()
+    prof.stop()
+    rows = prof.device_events()
+    assert rows and all(e["pid"] == 1 for e in rows)
+    path = prof.export(str(tmp_path / "t.json"))
+    with open(path) as f:
+        ev = json.load(f)["traceEvents"]
+    assert sum(1 for e in ev if e.get("name", "").startswith(
+        "ProfileStep#")) == 2
+    assert sum(1 for e in ev if e.get("pid") == 1 and e.get("ph") == "X") \
+        == len(rows)
+    torch.cuda.reset_peak_memory_stats()
+    b = torch.empty(1 << 20, device=cuda)
+    assert paddle.device.cuda.max_memory_allocated() == \
+        torch.cuda.max_memory_allocated()
+    assert paddle.device.cuda.memory_allocated() == \
+        torch.cuda.memory_allocated()
+    del b
+    paddle.device.cuda.reset_peak_memory_stats()
+    assert paddle.device.cuda.max_memory_allocated() == \
+        torch.cuda.max_memory_allocated()
+
+
+def test_the_auditor_names_raw_torch_syncs_on_the_card(cuda):
+    """A raw torch read (``.item()`` on a CUDA tensor) is a PTA001 at
+    its line, from ``set_sync_debug_mode``'s warning; a Tensor read is
+    counted once, by its hook."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import analysis
+    a = torch.ones(4, device=cuda)
+    t = paddle.Tensor(torch.ones(4, device=cuda))
+
+    def step():
+        x = (a * 2).sum().item()
+        y = float(t.sum())
+        return x + y
+    rep = analysis.audit(step, warmup=1)
+    sites = rep.sync_sites()
+    seen = [(e["origin"], e["kind"], e.get("detail", "")[:60])
+            for e in rep.syncs]
+    assert len(rep.syncs) == 2, seen
+    assert all(s.startswith("tests/test_torch_cuda.py:") for s in sites)
+    kinds = sorted(e["kind"] for e in rep.syncs)
+    assert kinds == ["item", "torch"]
+    assert torch.cuda.get_sync_debug_mode() == 0

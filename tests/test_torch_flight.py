@@ -176,7 +176,10 @@ def test_dump_lines_equal_the_jax_dump_of_the_same_ring(dump_dir):
         t_lines, j_lines = ft.read().splitlines(), fj.read().splitlines()
     assert t_lines[1:] == j_lines[1:] and len(t_lines) == 4
     th, jh = json.loads(t_lines[0]), json.loads(j_lines[0])
-    assert set(th) == set(jh) - {"chrome_trace"}
+    # both name the chrome trace written beside the dump (the JAX one
+    # only when its native tracer built)
+    assert set(th) - {"chrome_trace"} == set(jh) - {"chrome_trace"}
+    assert th["chrome_trace"] == "port.jsonl.trace.json"
     for k in ("kind", "version", "trigger", "events", "capacity"):
         assert th[k] == jh[k], k
     jflight.clear()

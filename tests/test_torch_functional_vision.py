@@ -323,11 +323,13 @@ def test_feature_alpha_dropout_keeps_one_mask_a_channel():
     with pytest.raises(ValueError):
         tpaddle.nn.functional.feature_alpha_dropout(tpaddle.to_tensor(x),
                                                     1.0)
-    # the mask is a counted host draw, like alpha_dropout's
+    # the mask is one key of the key stream, like alpha_dropout's: no
+    # host draw
     from paddle_tpu_torch.core import random as trandom
-    before = trandom.draws()
+    before, (s, n) = trandom.draws(), trandom.get_rng_state()
     tpaddle.nn.functional.feature_alpha_dropout(tpaddle.to_tensor(x), 0.3)
-    assert trandom.draws() == before + 1
+    assert trandom.draws() == before
+    assert trandom.get_rng_state() == (s, n + 1)
 
 
 @pytest.mark.parametrize("cls,shape,axes", [

@@ -29,6 +29,17 @@ from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
 from test_torch_moe import _jax_value_and_grads
 from test_torch_tensor import port_on_cpu  # noqa: F401
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_fusion_off():
+    """The JAX side traces with its lazy fusion off: a ``jax.jit`` trace
+    with it on leaves state that breaks later traces in the process
+    (``test_semi_auto.py``, ``test_pipeline_tied.py``)."""
+    prev = jpaddle.get_flags("FLAGS_eager_fusion")
+    jpaddle.set_flags({"FLAGS_eager_fusion": False})
+    yield
+    jpaddle.set_flags(prev)
+
 LR = 1e-3
 LOSS_RTOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4

@@ -90,8 +90,9 @@ def test_importing_the_port_loads_no_jax():
     grouped matmul op, the optimizer plane, the fleet, the inference
     front end and the high-level trainer (``Model``, ``io``, ``metric``,
     ``amp``, ``callbacks``, the whole-step capture), ``autograd``,
-    ``geometric`` and ``incubate`` — and chip_smoke — without pulling in
-    JAX or the JAX package."""
+    ``geometric``, ``incubate``, ``profiler``, ``device``, ``analysis``
+    and ``utils.helpers`` — and chip_smoke — without pulling in JAX or
+    the JAX package."""
     code = (
         "import paddle_tpu_torch as paddle\n"
         "assert callable(paddle.to_tensor) and callable(paddle.matmul)\n"
@@ -121,7 +122,12 @@ def test_importing_the_port_loads_no_jax():
         "paddle_tpu_torch.jit.sot, paddle_tpu_torch.hapi, "
         "paddle_tpu_torch.observability.timeline, "
         "paddle_tpu_torch.autograd, paddle_tpu_torch.geometric, "
-        "paddle_tpu_torch.incubate\n"
+        "paddle_tpu_torch.incubate, paddle_tpu_torch.profiler, "
+        "paddle_tpu_torch.device.cuda, paddle_tpu_torch.core.memory, "
+        "paddle_tpu_torch.analysis.planner, "
+        "paddle_tpu_torch.analysis.auditor, "
+        "paddle_tpu_torch.analysis.__main__, "
+        "paddle_tpu_torch.utils.helpers\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"

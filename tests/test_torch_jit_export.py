@@ -37,6 +37,17 @@ from paddle_tpu_torch.jit import InputSpec, TranslatedLayer
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from test_torch_tensor import port_on_cpu  # noqa: F401
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_fusion_off():
+    """The JAX side traces with its lazy fusion off: a ``jax.jit`` trace
+    with it on leaves state that breaks later traces in the process
+    (``test_semi_auto.py``, ``test_pipeline_tied.py``)."""
+    prev = jpaddle.get_flags("FLAGS_eager_fusion")
+    jpaddle.set_flags({"FLAGS_eager_fusion": False})
+    yield
+    jpaddle.set_flags(prev)
+
 ATOL = RTOL = 1e-5
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

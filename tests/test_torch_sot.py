@@ -9,11 +9,14 @@ parameter name, the same calls. The observations compared: every result
 how often the user's Python ran, ``cache_size()`` and the fallback
 categories of the recordings that stayed eager. On the CPU the port
 replays every path op by op (CUDA graphs are the card's: those run in
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``). The JAX package's
-capture-planner case (``analysis.capture_plan``) and its NaN-check flags
-have no port counterpart: the NaN case runs without them. The last test
-is the port's own: a computation ``apply_op`` never saw (a plain torch
-module) must not replay.
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``). The speculative
+case runs once more with the NaN-check flags (``FLAGS_check_nan_inf``
+at strides 1 and 4): no flag of a discarded speculation may be left in
+the queue, and the flush must not raise. The capture planner
+(``analysis.capture_plan``) attaches an SOT function's segment
+metadata on both sides. The last tests are the port's own: a
+computation ``apply_op`` never saw (a plain torch module) must not
+replay.
 """
 import warnings
 
@@ -538,12 +541,68 @@ def case_speculative_wrong_path(S):
             "cache": f.cache_size()}
 
 
+def case_speculative_nan_flags(S):
+    """The speculative case under the NaN check: stride 1 raises at once,
+    stride 4 queues; a discarded wrong-path speculation leaves no flag
+    in the queue and the flush does not raise."""
+    import importlib
+    ag = importlib.import_module(S.P.__name__ + ".core.autograd")
+    out = {"values": [], "leaked": []}
+    for stride in (1, 4):
+        S.P.set_flags({"FLAGS_check_nan_inf": True,
+                       "FLAGS_check_nan_inf_stride": stride})
+        try:
+            @S.sot.sot_compile
+            def f(x):
+                if bool((x.min() > 0).numpy()):
+                    return S.P.log(x)
+                return x * 2.0
+
+            pos = S.t(np.array([1.0, 2.0], np.float32))
+            neg = S.t(np.array([-1.0, 2.0], np.float32))
+            out["values"] += [f(pos), f(pos), f(neg), f(neg)]
+            out["leaked"].append(any(np.asarray(fl).any()
+                                     for _, _, fl in ag._nan_pending))
+            ag.flush_nan_checks()
+        finally:
+            S.P.set_flags({"FLAGS_check_nan_inf": False,
+                           "FLAGS_check_nan_inf_stride": 1})
+    return out
+
+
 @pytest.mark.parametrize("case", [
     case_train_eval_modes, case_eager_branch_keeps_sibling,
     case_mutated_numpy_arg, case_global_layer_mode, case_amp_custom_lists,
-    case_speculative_wrong_path], ids=lambda c: c.__name__[5:])
+    case_speculative_wrong_path, case_speculative_nan_flags],
+    ids=lambda c: c.__name__[5:])
 def test_modes_and_signatures(case):
-    _same(case)
+    j, t = _same(case)
+    if "leaked" in t:
+        assert t["leaked"] == [False, False]
+
+
+def case_planner_metadata(S):
+    import importlib
+    analysis = importlib.import_module(S.P.__name__ + ".analysis")
+
+    def f(x):
+        return x * 2 + 1
+
+    sf = S.SOT(f)
+    sf(S.t(np.ones((4,), np.float32)))
+    plan = analysis.capture_plan(sf, dynamic=False)
+    return {"entries": plan.sot["cache_entries"],
+            "rendered": "sot:" in plan.render(),
+            "consistent": plan.consistent(),
+            "breaks": [(b["reason"], b["classification"])
+                       for b in plan.breaks]}
+
+
+def test_planner_attaches_sot_metadata():
+    """``analysis.capture_plan`` reads ``SOTFunction.capture_metadata``:
+    one cache entry, rendered, nothing unaccounted, on both sides."""
+    j, t = _same(case_planner_metadata)
+    assert t["entries"] == 1 and t["rendered"] and t["consistent"]
 
 
 def test_amp_replay_reproduces_autocast():

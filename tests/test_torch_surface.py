@@ -26,7 +26,7 @@ JAX_ONLY = {"jax", "jnp", "np", "functools", "annotations", "random_mod",
 LEFT = {
     "": {
         "DataParallel": 13, "distributed": 13, "parallel": 15,
-        "fusion": 14, "device": 15, "fft": 15,
+        "fusion": 14, "fft": 15,
         "signal": 15, "sparse": 15, "audio": 15, "text": 15,
         "quantization": 15, "distribution": 15,
         "hub": 15, "onnx": 15,

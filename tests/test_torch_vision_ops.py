@@ -24,6 +24,17 @@ import paddle_tpu as jpaddle
 import paddle_tpu_torch as tpaddle
 from test_torch_tensor import port_on_cpu  # noqa: F401
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_fusion_off():
+    """The JAX side traces with its lazy fusion off: a ``jax.jit`` trace
+    with it on leaves state that breaks later traces in the process
+    (``test_semi_auto.py``, ``test_pipeline_tied.py``)."""
+    prev = jpaddle.get_flags("FLAGS_eager_fusion")
+    jpaddle.set_flags({"FLAGS_eager_fusion": False})
+    yield
+    jpaddle.set_flags(prev)
+
 TOL = 1e-4
 _R = np.random.default_rng(21)
 

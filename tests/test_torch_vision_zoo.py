@@ -1,11 +1,12 @@
 """The port's vision model zoo against the JAX package's, on the CPU.
 
-Every family beyond ResNet at a small size: a port model is built from
-a seed (its initializers' laws), its running statistics drawn to be
-nontrivial, its ``state_dict()`` loaded into the JAX model (built with
-zero parameters: the JAX initializers are not what is tested and each
-compiles its draw per shape), and the JAX model's ``state_dict()``
-carried back through ``convert.vision_from_jax``. The same seeded numpy
+Every family beyond ResNet at a small size: the JAX model is built
+with zero parameters (the JAX initializers are not what is tested and
+each compiles its draw per shape) and given weights drawn with numpy
+from a seed by the port's initializers' laws, running statistics drawn
+to be nontrivial (``torch_reference_weights``), and its
+``state_dict()`` is carried over to the port through
+``convert.vision_from_jax``. The same seeded numpy
 images go through both in eval mode (the JAX side jitted through
 ``functionalize``): logits within 1e-4 · (1 + |ref|) (f32 on both sides,
 sums in other orders). MobileNetV2 and ShuffleNetV2 also take one
@@ -15,8 +16,9 @@ loss within 1e-4 · (1 + |ref|), every gradient within 1e-3 · (1 + |ref|)
 and 1e-3 in relative RMS, the running statistics after it within
 1e-3 · (1 + |ref|) — the gradients against JAX with the batch norms on
 their running statistics, and with batch statistics against the port's
-float64 run (see that test). The zoo's ``__all__`` is the JAX one, and
-``pretrained=True`` finds no file and downloads nothing.
+float64 run on the same linear pieces (see that test). The zoo's
+``__all__`` is the JAX one, and ``pretrained=True`` finds no file and
+downloads nothing.
 """
 import jax
 import jax.numpy as jnp
@@ -29,13 +31,27 @@ from paddle_tpu.core.tensor import Parameter as JParameter
 from paddle_tpu.jit.api import functionalize
 from paddle_tpu_torch.convert import vision_from_jax
 from test_torch_tensor import port_on_cpu  # noqa: F401
+from torch_kinks import MAX_FLIPS, follow_slopes, record_jax_slopes
+from torch_reference_weights import law_arrays
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_fusion_off():
+    """The JAX side traces with its lazy fusion off: a ``jax.jit`` trace
+    with it on leaves state that breaks later traces in the process
+    (``test_semi_auto.py``, ``test_pipeline_tied.py``)."""
+    prev = jpaddle.get_flags("FLAGS_eager_fusion")
+    jpaddle.set_flags({"FLAGS_eager_fusion": False})
+    yield
+    jpaddle.set_flags(prev)
 
 OUT_TOL = 1e-4
 GRAD_TOL = 1e-3
-# the f32 port's gradients against its own float64 run, through ~20
-# batch norms of 6–48 channels: rounding alone reaches 1.2e-3 in
-# relative RMS on ShuffleNetV2 x0.25's narrowest stage
-F64_RMS = 2e-3
+# the f32 port's gradients against its own float64 run on the same
+# linear pieces, through ~20 batch norms of 6–48 channels: at most
+# 3.6e-5 in relative RMS over seeds 0–15 of both TRAIN models (and
+# 0.19 of GRAD_TOL · (1 + |ref|) elementwise)
+F64_RMS = 2e-4
 
 # (arch, constructor kwargs, input shape): sizes that keep each file's
 # run short and still reach every layer kind (AlexNet's and VGG's
@@ -70,21 +86,11 @@ def _zero_parameter(self, shape, attr=None, dtype=None, is_bias=False,
 
 def _pair(arch, kwargs, seed=3):
     """(JAX model, port model) holding the same weights."""
-    tpaddle.seed(seed)
-    seeded = getattr(tpaddle.vision.models, arch)(**kwargs)
-    rng = np.random.default_rng(seed)
-    arrays = {}
-    for k, v in seeded.state_dict().items():
-        a = v.numpy()
-        if k.endswith("_mean"):
-            a = (rng.standard_normal(a.shape) * 0.1).astype(np.float32)
-        elif k.endswith("_variance"):
-            a = rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
-        arrays[k] = a
-    del seeded
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jpaddle.nn.Layer, "create_parameter", _zero_parameter)
         jm = getattr(jpaddle.vision.models, arch)(**kwargs)
+    arrays = law_arrays({k: v.shape for k, v in jm.state_dict().items()},
+                        seed)
     jm.set_state_dict(arrays)
     jarrays = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
     assert set(jarrays) == set(arrays)
@@ -145,23 +151,17 @@ def _freeze_batch_norms(model):
             layer.eval()
 
 
-def _grads_close(got, want, what, per_element=True, rms=GRAD_TOL):
+def _grads_close(got, want, what, rms=GRAD_TOL):
     """The relative RMS within ``rms`` for each tensor whose reference
     reaches 1e-3 of the model's largest gradient (a batch norm's bias
     that feeds the next batch norm through a convolution has an exact
     gradient of zero, and some scales are that small by structure: their
     relative error is rounding); every element within GRAD_TOL ·
-    (1 + |ref|), or, with ``per_element`` False, GRAD_TOL · (1 + the
-    tensor's largest |ref|)."""
+    (1 + |ref|)."""
     assert set(got) == set(want)
     top = max(float(np.abs(g).max()) for g in want.values())
     for k, g in want.items():
-        if per_element:
-            _close(got[k], g, f"{what} {k}", GRAD_TOL)
-        else:
-            err = float(np.abs(got[k] - g).max())
-            assert err <= GRAD_TOL * (1 + float(np.abs(g).max())), (
-                what, k, err)
+        _close(got[k], g, f"{what} {k}", GRAD_TOL)
         if np.abs(g).max() >= 1e-3 * top:
             assert _rel_rms(got[k], g) <= rms, (what, k,
                                                _rel_rms(got[k], g))
@@ -169,7 +169,6 @@ def _grads_close(got, want, what, per_element=True, rms=GRAD_TOL):
 
 TRAIN = [("mobilenet_v2", dict(scale=0.25, num_classes=10)),
          ("shufflenet_v2_x0_25", dict(num_classes=10))]
-
 
 def _train_pair(arch, kwargs, frozen):
     jm, tm, arrays = _pair(arch, kwargs, seed=5)
@@ -183,15 +182,22 @@ def _train_pair(arch, kwargs, frozen):
     x = _image((8, 3, 64, 64), seed=1)
     y = np.random.default_rng(2).integers(0, 10, (8,)).astype(np.int64)
     ce = jpaddle.nn.CrossEntropyLoss()
+    slopes, hooks = record_jax_slopes(jm)
     apply, params, buffers = functionalize(jm, lambda a, b: ce(jm(a), b))
     (jloss, jbuf), jgrads = jax.jit(jax.value_and_grad(
         lambda p: apply(p, buffers, x, y), has_aux=True))(params)
+    for h in hooks:
+        h.remove()
+    flips = []
+    unwrap = follow_slopes(tm, slopes, flips)
     loss = tpaddle.nn.CrossEntropyLoss()(tm(tpaddle.to_tensor(x)),
                                          tpaddle.to_tensor(y))
+    unwrap()
+    assert len(flips) == len(slopes) and sum(flips) <= MAX_FLIPS, flips
     loss.backward()
     _close(float(loss), float(jloss), f"{arch} loss", OUT_TOL)
     grads = {k: p.grad.numpy() for k, p in tm.named_parameters()}
-    return tm, arrays, (x, y), grads, jgrads, jbuf
+    return tm, arrays, (x, y), grads, jgrads, jbuf, slopes
 
 
 @pytest.mark.parametrize("arch,kwargs", TRAIN, ids=[t[0] for t in TRAIN])
@@ -199,8 +205,10 @@ def test_train_backward_with_frozen_statistics_matches_jax(arch, kwargs):
     """Training mode with the batch norms on their running statistics:
     every backward of the network but batch norm's batch-statistics one
     (convolutions, depthwise convolutions, the channel split, concat and
-    shuffle, the activations, pooling, the classifier) against JAX."""
-    *_, grads, jgrads, _ = _train_pair(arch, kwargs, frozen=True)
+    shuffle, the activations, pooling, the classifier) against JAX, the
+    port taking the ReLU pieces JAX's program took where its own
+    differ (``torch_kinks``)."""
+    *_, grads, jgrads, _, _ = _train_pair(arch, kwargs, frozen=True)
     _grads_close(grads, {k: np.asarray(v) for k, v in jgrads.items()},
                  arch)
 
@@ -208,31 +216,35 @@ def test_train_backward_with_frozen_statistics_matches_jax(arch, kwargs):
 @pytest.mark.parametrize("arch,kwargs", TRAIN, ids=[t[0] for t in TRAIN])
 def test_train_forward_backward_matches_jax(arch, kwargs):
     """Full training mode: the loss and the running statistics against
-    JAX; the gradients against the same port model run in float64. The
-    JAX package's f32 batch-norm training path is the less exact side
-    here (its gradients part from that float64 run by 1.3e-2 for
-    MobileNetV2 and 1.6e-1 for ShuffleNetV2 in relative RMS, the port's
-    by < 1e-3), so it cannot serve as the gradients' reference at this
-    tolerance; the frozen-statistics test above holds every other
-    backward against it. f32 rounding through 17–20 batch norms leaves
-    the port's own gradients up to 1.2e-3 from float64 in relative RMS
-    (F64_RMS), and a few elements of small magnitude past
-    1e-3 · (1 + |ref|), so the elementwise bound is taken against each
-    tensor's scale."""
+    JAX; the gradients against the same port model run in float64 on
+    the same linear pieces (``torch_kinks``). An activation input within
+    rounding of a ReLU's or ReLU6's kink can fall on the other piece in
+    another precision; one such element, at a 2×2 stage with 8 images,
+    moves batch-norm gradients upstream by ~10 % (ShuffleNetV2 x0.25 at
+    3 of 16 seeds, one or two elements at |x| ~1e-6). So both port runs
+    take the pieces JAX's program took where their own differ (at most
+    MAX_FLIPS each), and what is left is rounding: F64_RMS in relative
+    RMS, GRAD_TOL · (1 + |ref|) elementwise. The JAX package's f32
+    gradients are not the reference here; the frozen-statistics test
+    above holds every other backward against them."""
     import torch
-    tm, arrays, (x, y), grads, _, jbuf = _train_pair(arch, kwargs,
-                                                     frozen=False)
+    tm, arrays, (x, y), grads, _, jbuf, slopes = _train_pair(
+        arch, kwargs, frozen=False)
     tsd = tm.state_dict()
     for k, v in jbuf.items():
         _close(tsd[k].numpy(), np.asarray(v), k, GRAD_TOL)
     t64 = vision_from_jax(arch, arrays, **kwargs).double()
     _no_dropout(t64, tpaddle.nn.Dropout)
     t64.train()
+    flips = []
+    unwrap = follow_slopes(t64, slopes, flips)
     torch.nn.functional.cross_entropy(
         t64(torch.from_numpy(x).double()), torch.from_numpy(y)).backward()
+    unwrap()
+    assert len(flips) == len(slopes) and sum(flips) <= MAX_FLIPS, flips
     _grads_close(grads, {k: p.grad.numpy()
                          for k, p in t64.named_parameters()}, arch,
-                 per_element=False, rms=F64_RMS)
+                 rms=F64_RMS)
 
 
 def test_zoo_all_is_the_jax_all():
